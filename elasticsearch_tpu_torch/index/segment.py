@@ -1,0 +1,252 @@
+"""Columnar inverted-index segments.
+
+Port copy of elasticsearch_tpu/index/segment.py, trimmed to this slice:
+`FieldIndex`, `Segment` and the Python path of `SegmentBuilder` for text,
+keyword and numeric fields (with multi-fields). Left out: the native C++
+accumulator, token positions, nested blocks, vectors, geo points,
+completion and percolator fields.
+
+A Segment is an immutable columnar snapshot of a batch of documents, all
+plain numpy: per inverted field a term dictionary plus CSR postings (doc
+ids + term frequencies), SmallFloat norm bytes and the BM25 collection
+statistics; per numeric field a dense float64 doc-values column (NaN =
+missing); the stored `_source` documents for the fetch phase.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+
+from ..utils import smallfloat
+from .mapping import Mappings, coerce_numeric
+
+
+@dataclass
+class FieldIndex:
+    """Immutable inverted index for one field within one segment."""
+
+    name: str
+    terms: dict[str, int]  # term -> term id (dense, 0..T-1, lexicographic)
+    df: np.ndarray  # int32[T] document frequency per term
+    offsets: np.ndarray  # int64[T+1] CSR offsets into doc_ids/tfs
+    doc_ids: np.ndarray  # int32[P] local doc ids, ascending within a term
+    tfs: np.ndarray  # float32[P] term frequency of (term, doc)
+    norm_bytes: np.ndarray  # uint8[N] SmallFloat-encoded field length
+    doc_count: int  # docs with >= 1 posting (BM25 docCount)
+    sum_total_tf: int  # total terms across docs (BM25 sumTotalTermFreq)
+    has_norms: bool = True  # keyword fields disable norms
+    # bool[N]: the doc supplied a value for this field (exists semantics),
+    # even if it analyzed to zero tokens.
+    present: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=bool))
+
+    @property
+    def avgdl(self) -> float:
+        if self.doc_count == 0:
+            return 1.0
+        return self.sum_total_tf / self.doc_count
+
+    def postings(self, term: str) -> tuple[np.ndarray, np.ndarray]:
+        """(doc_ids, tfs) for a term; empty arrays if absent."""
+        tid = self.terms.get(term)
+        if tid is None:
+            return (
+                np.empty(0, dtype=np.int32),
+                np.empty(0, dtype=np.float32),
+            )
+        lo, hi = int(self.offsets[tid]), int(self.offsets[tid + 1])
+        return self.doc_ids[lo:hi], self.tfs[lo:hi]
+
+
+@dataclass
+class Segment:
+    """An immutable batch of indexed documents."""
+
+    num_docs: int
+    fields: dict[str, FieldIndex]
+    doc_values: dict[str, np.ndarray]  # field -> float64[N] (NaN missing)
+    vectors: dict[str, np.ndarray]  # always empty in this slice
+    sources: list[dict[str, Any]]  # stored _source per local doc
+    ids: list[str]  # external _id per local doc
+    versions: np.ndarray | None = None  # int64[N]; None = all 1
+    seqnos: np.ndarray | None = None  # int64[N]; None = all -1
+
+    def doc_version(self, local: int) -> int:
+        return int(self.versions[local]) if self.versions is not None else 1
+
+    def doc_seqno(self, local: int) -> int:
+        return int(self.seqnos[local]) if self.seqnos is not None else -1
+
+
+def _iter_field_values(value: Any) -> list[Any]:
+    if isinstance(value, list):
+        return value
+    return [value]
+
+
+class SegmentBuilder:
+    """Accumulates documents and freezes them into a Segment (the in-memory
+    IndexWriter buffer of the write path)."""
+
+    def __init__(self, mappings: Mappings):
+        self.mappings = mappings
+        self._sources: list[dict[str, Any]] = []
+        self._ids: list[str] = []
+        self._versions: list[int] = []
+        self._seqnos: list[int] = []
+        # field -> term -> doc -> tf
+        self._inverted: dict[str, dict[str, dict[int, int]]] = {}
+        self._lengths: dict[str, dict[int, int]] = {}  # field -> doc -> len
+        self._present: dict[str, set[int]] = {}  # field -> docs with a value
+        self._numeric: dict[str, dict[int, float]] = {}
+
+    @property
+    def num_docs(self) -> int:
+        return len(self._sources)
+
+    def _stage_field(self, field_name, fm, value, staged_postings, staged_numeric):
+        """Stage one (field, value) pair: raises on mapper errors, touches
+        no builder state."""
+        if fm.is_inverted:
+            analyzer = self.mappings.analysis.get(fm.analyzer)
+            total_len = 0
+            tf: dict[str, int] = {}
+            for v in _iter_field_values(value):
+                if isinstance(v, (dict, list)):
+                    raise ValueError(
+                        f"failed to parse field [{field_name}] of type "
+                        f"[{fm.type}]: found a structured value"
+                    )
+                if fm.ignore_above and len(str(v)) > fm.ignore_above:
+                    continue
+                tokens = analyzer.analyze(str(v))
+                total_len += len(tokens)
+                for tok in tokens:
+                    tf[tok] = tf.get(tok, 0) + 1
+            staged_postings.append((field_name, tf, total_len))
+        elif fm.is_numeric:
+            v0 = _iter_field_values(value)[0]  # multi-valued: first value
+            try:
+                staged_numeric.append((field_name, coerce_numeric(fm.type, v0)))
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"failed to parse field [{field_name}] of type "
+                    f"[{fm.type}]: [{v0!r}]"
+                ) from None
+
+    def _stage_doc(self, source: dict[str, Any]):
+        staged_postings: list[tuple[str, dict[str, int], int]] = []
+        staged_numeric: list[tuple[str, float]] = []
+        staged_mappings: dict[str, Any] = {}
+        for name, value in source.items():
+            if value is None:
+                continue
+            if isinstance(value, list) and not value:
+                continue  # empty arrays index nothing
+            fm = self.mappings.resolve_dynamic(name, value, staged_mappings)
+            if fm is None:
+                continue
+            # Multi-fields: the same value indexes under the parent AND
+            # every "<name>.<sub>" sub-field with its own mapping.
+            targets = [(name, fm)] + [
+                (f"{name}.{sub}", sub_fm) for sub, sub_fm in fm.fields.items()
+            ]
+            for target_name, target_fm in targets:
+                self._stage_field(
+                    target_name, target_fm, value, staged_postings,
+                    staged_numeric,
+                )
+        return staged_postings, staged_numeric, staged_mappings
+
+    def add(
+        self,
+        source: dict[str, Any],
+        doc_id: str | None = None,
+        version: int = 1,
+        seqno: int = -1,
+    ) -> int:
+        """Index one document; returns its local doc id. Atomic: everything
+        that can fail runs in a staging pass that touches no state."""
+        staged_postings, staged_numeric, staged_mappings = self._stage_doc(source)
+        local = len(self._sources)
+        for fname, fm in staged_mappings.items():
+            self.mappings.fields.setdefault(fname, fm)
+        self._sources.append(source)
+        self._ids.append(doc_id if doc_id is not None else str(local))
+        self._versions.append(int(version))
+        self._seqnos.append(int(seqno))
+        for field_name, tf, total_len in staged_postings:
+            self._present.setdefault(field_name, set()).add(local)
+            postings = self._inverted.setdefault(field_name, {})
+            for tok, count in tf.items():
+                postings.setdefault(tok, {})[local] = count
+            # Docs analyzing to zero tokens do not count toward
+            # docCount/sumTotalTermFreq (Lucene Terms.getDocCount).
+            if total_len > 0:
+                self._lengths.setdefault(field_name, {})[local] = total_len
+        for field_name, v in staged_numeric:
+            self._numeric.setdefault(field_name, {})[local] = v
+        return local
+
+    def build(self) -> Segment:
+        n = len(self._sources)
+        fields: dict[str, FieldIndex] = {}
+        for fname in sorted(self._inverted):
+            postings = self._inverted[fname]
+            terms = {t: i for i, t in enumerate(sorted(postings))}
+            df = np.zeros(len(terms), dtype=np.int32)
+            offsets = np.zeros(len(terms) + 1, dtype=np.int64)
+            for term, tid in terms.items():
+                df[tid] = len(postings[term])
+            offsets[1:] = np.cumsum(df)
+            total = int(offsets[-1])
+            doc_ids = np.empty(total, dtype=np.int32)
+            tfs = np.empty(total, dtype=np.float32)
+            for term, tid in terms.items():
+                lo = int(offsets[tid])
+                by_doc = postings[term]
+                docs_sorted = sorted(by_doc)
+                doc_ids[lo : lo + len(docs_sorted)] = docs_sorted
+                tfs[lo : lo + len(docs_sorted)] = [by_doc[d] for d in docs_sorted]
+            lengths = self._lengths.get(fname, {})
+            norm_bytes = np.zeros(n, dtype=np.uint8)
+            if lengths:
+                docs_with = np.fromiter(lengths.keys(), dtype=np.int64)
+                lens = np.fromiter(lengths.values(), dtype=np.int64)
+                norm_bytes[docs_with] = smallfloat.encode_lengths(lens)
+            present = np.zeros(n, dtype=bool)
+            present_docs = self._present.get(fname)
+            if present_docs:
+                present[np.fromiter(present_docs, dtype=np.int64)] = True
+            fm = self.mappings.get(fname)
+            fields[fname] = FieldIndex(
+                name=fname,
+                terms=terms,
+                df=df,
+                offsets=offsets,
+                doc_ids=doc_ids,
+                tfs=tfs,
+                norm_bytes=norm_bytes,
+                doc_count=len(lengths),
+                sum_total_tf=int(sum(lengths.values())),
+                has_norms=fm.norms if fm is not None else True,
+                present=present,
+            )
+        doc_values: dict[str, np.ndarray] = {}
+        for fname, by_doc in self._numeric.items():
+            col = np.full(n, np.nan, dtype=np.float64)
+            for doc, v in by_doc.items():
+                col[doc] = v
+            doc_values[fname] = col
+        return Segment(
+            num_docs=n,
+            fields=fields,
+            doc_values=doc_values,
+            vectors={},
+            sources=list(self._sources),
+            ids=list(self._ids),
+            versions=np.asarray(self._versions, dtype=np.int64),
+            seqnos=np.asarray(self._seqnos, dtype=np.int64),
+        )

@@ -1,0 +1,282 @@
+"""Device-resident tiled index layout, as torch tensors.
+
+Port of elasticsearch_tpu/index/tiles.py, trimmed to this slice:
+`TILE`, `_pad_to_tile`, `DeviceField`, `DeviceSegment`, `compute_tn`,
+`pack_field`, `pack_segment` and `device_nbytes`, plus
+`device_segment_from_numpy` to attach planes packed elsewhere. Left out:
+positional and keyword-ordinal planes, vectors, nested blocks, sharded
+padding (`min_tiles`, `pad_docs_to`), `pack_segment_delta`, `repack_tn`
+and the packed multi-tenant planes.
+
+A field's postings live on the device as flat CSR arrays padded to a tile
+multiple plus one all-sentinel tile, viewed as [NT, 256]:
+
+    doc_ids : int32[NT, 256]   local doc ids (sentinel = num_docs)
+    tfs     : float32[NT, 256] term frequencies (0 for padding)
+    tn      : float32[NT, 256] precomputed impact tf * normInverse
+    norm_bytes : uint8[N + 1]  SmallFloat norms, one sentinel slot
+    present : bool[N]          doc has a value for the field
+
+The same dtypes and layout as the JAX package, so a plan compiled by
+either side addresses either side's planes. The host-side planning
+attributes (terms, df, offsets, tile_max, tile_doc_lo/hi, tn_avgdl/k1/b)
+stay numpy.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..device import DEFAULT_DEVICE, resolve_device
+from .segment import FieldIndex, Segment
+
+TILE = 256  # postings per tile
+
+
+def _pad_to_tile(arr: np.ndarray, pad_value, tile: int = TILE) -> np.ndarray:
+    """Pad to a tile multiple PLUS one extra all-padding sentinel tile (the
+    target of padding slots in plan worklists: its positions lie past every
+    real posting, so the [start, end) mask never selects it)."""
+    p = len(arr)
+    p_pad = ((p + tile - 1) // tile) * tile + tile
+    out = np.full(p_pad, pad_value, dtype=arr.dtype)
+    out[:p] = arr
+    return out
+
+
+@dataclass
+class DeviceField:
+    """One field's postings resident on the device (plus the host-side
+    term dictionary and planning data)."""
+
+    name: str
+    terms: dict[str, int]
+    df: np.ndarray  # int32[T]
+    offsets: np.ndarray  # int64[T+1]
+    doc_count: int
+    sum_total_tf: int
+    has_norms: bool
+    doc_ids: torch.Tensor  # int32[NT, TILE]
+    tfs: torch.Tensor  # float32[NT, TILE]
+    norm_bytes: torch.Tensor  # uint8[N + 1]
+    present: torch.Tensor  # bool[N]
+    tn: torch.Tensor  # float32[NT, TILE], valid for (tn_avgdl, tn_k1, tn_b)
+    tn_avgdl: float
+    tn_k1: float
+    tn_b: float
+    tile_max: np.ndarray | None = None  # f32[NT] per-tile max impact
+    tile_doc_lo: np.ndarray | None = None  # per-tile min doc id
+    tile_doc_hi: np.ndarray | None = None  # per-tile max doc id
+
+    @property
+    def pad_tile(self) -> int:
+        """Tile id of the all-sentinel padding tile (always the last)."""
+        return self.doc_ids.shape[0] - 1
+
+    @property
+    def avgdl(self) -> float:
+        if self.doc_count == 0:
+            return 1.0
+        return self.sum_total_tf / self.doc_count
+
+    def term_span(self, term: str) -> tuple[int, int]:
+        """[start, end) posting positions for a term; (0, 0) if absent."""
+        tid = self.terms.get(term)
+        if tid is None:
+            return (0, 0)
+        return int(self.offsets[tid]), int(self.offsets[tid + 1])
+
+    def term_df(self, term: str) -> int:
+        tid = self.terms.get(term)
+        if tid is None:
+            return 0
+        return int(self.df[tid])
+
+
+@dataclass
+class DeviceSegment:
+    """A Segment uploaded to the device (the refreshed, searchable form).
+    `live` is the deletion mask: True = visible."""
+
+    num_docs: int
+    fields: dict[str, DeviceField]
+    doc_values: dict[str, torch.Tensor]  # float32[N], NaN = missing
+    live: torch.Tensor  # bool[N]
+    sources: list[dict[str, Any]]
+    ids: list[str]
+    device: torch.device
+
+
+def compute_tn(field: FieldIndex, avgdl: float, k1: float, b: float) -> np.ndarray:
+    """Per-posting impact tn = tf * normInverse(normByte) in fp32 — the
+    oracle's (and Lucene's) exact product."""
+    from ..ops.bm25 import BM25Params, norm_inverse_cache
+
+    cache = norm_inverse_cache(avgdl, BM25Params(k1=k1, b=b))
+    if not field.has_norms:
+        cache = np.full(256, cache[1], dtype=np.float32)
+    ninv = cache[field.norm_bytes[field.doc_ids]]
+    return (field.tfs.astype(np.float32) * ninv).astype(np.float32)
+
+
+def _fit_bool(present: np.ndarray, norm_bytes: np.ndarray, num_docs: int) -> np.ndarray:
+    src = present if len(present) else norm_bytes > 0
+    out = np.zeros(num_docs, dtype=bool)
+    out[: len(src)] = src[:num_docs]
+    return out
+
+
+def _put(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    arr = np.ascontiguousarray(x)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
+
+
+def pack_field(
+    field: FieldIndex,
+    num_docs: int,
+    device=DEFAULT_DEVICE,
+    avgdl: float | None = None,
+    k1: float = 1.2,
+    b: float = 0.75,
+) -> DeviceField:
+    """Pack one FieldIndex into tiled device tensors."""
+    device = resolve_device(device)
+    if avgdl is None:
+        avgdl = field.avgdl
+    doc_ids = _pad_to_tile(field.doc_ids.astype(np.int32), np.int32(num_docs))
+    tfs = _pad_to_tile(field.tfs.astype(np.float32), np.float32(0.0))
+    tn = _pad_to_tile(compute_tn(field, avgdl, k1, b), np.float32(0.0))
+    norm_ext = np.zeros(num_docs + 1, dtype=np.uint8)
+    norm_ext[: len(field.norm_bytes)] = field.norm_bytes
+    doc_tiles = doc_ids.reshape(-1, TILE)
+    return DeviceField(
+        name=field.name,
+        terms=field.terms,
+        df=field.df,
+        offsets=field.offsets,
+        doc_count=field.doc_count,
+        sum_total_tf=field.sum_total_tf,
+        has_norms=field.has_norms,
+        doc_ids=_put(doc_tiles, device),
+        tfs=_put(tfs.reshape(-1, TILE), device),
+        norm_bytes=_put(norm_ext, device),
+        present=_put(_fit_bool(field.present, field.norm_bytes, num_docs), device),
+        tn=_put(tn.reshape(-1, TILE), device),
+        tn_avgdl=float(avgdl),
+        tn_k1=k1,
+        tn_b=b,
+        tile_max=tn.reshape(-1, TILE).max(axis=1),
+        tile_doc_lo=doc_tiles.min(axis=1),
+        tile_doc_hi=doc_tiles.max(axis=1),
+    )
+
+
+def pack_segment(
+    segment: Segment,
+    device=DEFAULT_DEVICE,
+    deleted: np.ndarray | None = None,
+    field_avgdl: dict[str, float] | None = None,
+    k1: float = 1.2,
+    b: float = 0.75,
+) -> DeviceSegment:
+    """Upload a whole Segment to the device (the refresh step).
+    `field_avgdl` supplies the statistics scope of the precomputed
+    impacts (default: each field's own)."""
+    device = resolve_device(device)
+    n = segment.num_docs
+    avgdls = field_avgdl or {}
+    fields = {
+        name: pack_field(f, n, device, avgdls.get(name), k1, b)
+        for name, f in segment.fields.items()
+    }
+    doc_values = {}
+    for name, col in segment.doc_values.items():
+        padded = np.full(n, np.nan, dtype=np.float32)
+        padded[: len(col)] = col.astype(np.float32)
+        doc_values[name] = _put(padded, device)
+    live = np.ones(n, dtype=bool)
+    if deleted is not None and len(deleted):
+        live[deleted] = False
+    return DeviceSegment(
+        num_docs=n,
+        fields=fields,
+        doc_values=doc_values,
+        live=_put(live, device),
+        sources=segment.sources,
+        ids=segment.ids,
+        device=device,
+    )
+
+
+def device_nbytes(seg: DeviceSegment) -> int:
+    """Device bytes held by a packed segment."""
+    total = seg.live.nbytes
+    for f in seg.fields.values():
+        total += f.doc_ids.nbytes + f.tfs.nbytes + f.tn.nbytes
+        total += f.norm_bytes.nbytes + f.present.nbytes
+    for col in seg.doc_values.values():
+        total += col.nbytes
+    return int(total)
+
+
+# Host planning attributes a DeviceField carries beside its planes.
+FIELD_META_KEYS = (
+    "terms", "df", "offsets", "doc_count", "sum_total_tf", "has_norms",
+    "tn_avgdl", "tn_k1", "tn_b", "tile_max", "tile_doc_lo", "tile_doc_hi",
+)
+
+
+def field_meta(dfield) -> dict[str, Any]:
+    """The host planning attributes of any device field (duck-typed)."""
+    return {key: getattr(dfield, key, None) for key in FIELD_META_KEYS}
+
+
+def device_segment_from_numpy(
+    planes: dict,
+    fields_meta: dict[str, dict[str, Any]],
+    sources: list | None = None,
+    ids: list | None = None,
+    device=DEFAULT_DEVICE,
+) -> DeviceSegment:
+    """Build a DeviceSegment from numpy planes packed elsewhere.
+
+    `planes` is a segment-tree view as numpy: {"fields": {name: (doc_ids,
+    tn, tfs, norm_bytes, present)}, "doc_values": {name: f32[N]}, "live":
+    bool[N]} (the JAX package's `segment_tree(dev)` leaves after
+    np.asarray). `fields_meta` maps each field to its host planning
+    attributes (`field_meta`)."""
+    device = resolve_device(device)
+    live = np.asarray(planes["live"], dtype=bool)
+    n = int(live.shape[0])
+    fields = {}
+    for name, leaves in planes["fields"].items():
+        doc_ids, tn, tfs, norm_bytes, present = (np.asarray(x) for x in leaves)
+        meta = fields_meta[name]
+        fields[name] = DeviceField(
+            name=name,
+            doc_ids=_put(doc_ids.astype(np.int32), device),
+            tn=_put(tn.astype(np.float32), device),
+            tfs=_put(tfs.astype(np.float32), device),
+            norm_bytes=_put(norm_bytes.astype(np.uint8), device),
+            present=_put(present.astype(bool), device),
+            **meta,
+        )
+    doc_values = {
+        name: _put(np.asarray(col, dtype=np.float32), device)
+        for name, col in planes.get("doc_values", {}).items()
+    }
+    return DeviceSegment(
+        num_docs=n,
+        fields=fields,
+        doc_values=doc_values,
+        live=_put(live, device),
+        sources=list(sources) if sources is not None else [None] * n,
+        ids=list(ids) if ids is not None else [str(i) for i in range(n)],
+        device=device,
+    )

@@ -1,0 +1,558 @@
+"""Query compiler: DSL tree -> static-shaped device plan.
+
+Port copy of elasticsearch_tpu/query/compile.py, trimmed to this slice:
+`FieldStats`, `aggregate_field_stats`, `_terms_arrays`, `make_bool_spec`,
+`select_lead_clause` and `Compiler` for match, term, terms, range, exists,
+match_all, match_none, constant_score and bool. Left out: nested, phrase,
+span, multi-term expansion, function/script score, percolate, ids,
+filter-cache keys and the sharded spec equalization (`unify_specs`).
+
+Everything data-dependent happens here, on the host, at plan time:
+analysis of match text, term-dictionary lookups -> posting spans ->
+covering tile ids, fp32 BM25 weights (ops/bm25), the norm-inverse cache,
+and pow-2 shape bucketing. The output is (spec, arrays): `spec` a hashable
+nested tuple, `arrays` a pytree of small numpy arrays; specs and arrays
+equal the reference compiler's element for element
+(ops/bm25_device.plan_to_torch moves them to the device).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field as dc_field
+from typing import Any
+
+import numpy as np
+
+from ..index.mapping import Mappings, coerce_numeric
+from ..index.tiles import TILE, DeviceField
+from ..ops.bm25 import BM25Params, norm_inverse_cache, term_weight
+from .dsl import (
+    BoolQuery,
+    ConstantScoreQuery,
+    ExistsQuery,
+    MatchAllQuery,
+    MatchNoneQuery,
+    MatchQuery,
+    Query,
+    RangeQuery,
+    TermQuery,
+    TermsQuery,
+)
+
+@dataclass
+class FieldStats:
+    """BM25 statistics for one field, possibly globally aggregated (DFS)."""
+
+    doc_count: int
+    avgdl: float
+    df: dict[str, int] = dc_field(default_factory=dict)  # per-term overrides
+
+
+
+def aggregate_field_stats(segments) -> dict[str, FieldStats]:
+    """Reader-level statistics across segments: deleted docs still count
+    (Lucene statistics ignore liveDocs until segments merge) and
+    avgdl = sumTotalTermFreq / docCount."""
+    stats: dict[str, FieldStats] = {}
+    totals: dict[str, list[int]] = {}
+    dfs: dict[str, dict[str, int]] = {}
+    for seg in segments:
+        for name, fld in seg.fields.items():
+            tot = totals.setdefault(name, [0, 0])
+            tot[0] += fld.doc_count
+            tot[1] += fld.sum_total_tf
+            fdfs = dfs.setdefault(name, {})
+            for term, tid in fld.terms.items():
+                fdfs[term] = fdfs.get(term, 0) + int(fld.df[tid])
+    for name, (doc_count, sum_tf) in totals.items():
+        stats[name] = FieldStats(
+            doc_count=doc_count,
+            avgdl=(sum_tf / doc_count) if doc_count else 1.0,
+            df=dfs[name],
+        )
+    return stats
+
+
+@dataclass
+class CompiledQuery:
+    spec: tuple
+    arrays: Any  # pytree of numpy arrays, shape-matched to spec
+
+
+def _pow2(n: int, minimum: int = 1) -> int:
+    n = max(n, minimum)
+    return 1 << (n - 1).bit_length()
+
+
+def _f32_range_bounds(gte, gt, lte, lt) -> tuple[np.float32, np.float32]:
+    """Inclusive f32 [lo, hi] for a range over an f32-quantized column.
+
+    Stored-value semantics: doc values live on device as round-to-nearest
+    float32, so inclusive bounds quantize the same way (a doc whose value
+    equals the bound quantizes to the same f32 and matches). Open bounds
+    exclude the quantized endpoint via one-ulp nextafter. Monotonicity of
+    the quantizer keeps order semantics; only within-ulp collisions are
+    ambiguous, which is inherent to f32 storage.
+    """
+    lo = np.float32(-np.inf)
+    hi = np.float32(np.inf)
+    if gte is not None:
+        lo = np.float32(gte)
+    if gt is not None:
+        lo = max(lo, np.nextafter(np.float32(gt), np.float32(np.inf)))
+    if lte is not None:
+        hi = np.float32(lte)
+    if lt is not None:
+        hi = min(hi, np.nextafter(np.float32(lt), np.float32(-np.inf)))
+    return np.float32(lo), np.float32(hi)
+
+
+def _terms_arrays(
+    dfield: DeviceField,
+    terms: list[str],
+    boost: float,
+    params: BM25Params,
+    stats: FieldStats | None,
+    scored: bool,
+    nt_floor: int = 1,
+    doc_range: tuple[int, int] | None = None,
+) -> tuple[tuple, dict]:
+    """Lower a term disjunction to a flat tile worklist.
+
+    One worklist entry per posting tile any term touches, each carrying its
+    term's [start, end) span and fp32 weight. The bucket (pow-2 total tile
+    count, floored by `nt_floor` for sharded/batched uniformity) is the only
+    shape dimension, so compiled-kernel reuse across queries is maximal.
+
+    `doc_range` is the conjunction pushdown (set while lowering the must
+    clauses of a bool whose single-span constant filters bound the doc-id
+    range any match can come from): tiles whose per-tile doc-id bounds
+    (index/tiles.py `tile_doc_lo/hi`) cannot intersect the range are
+    dropped at plan time. Exact — a dropped tile only holds docs the
+    filter conjunction rejects anyway, so top-k, scores AND totals are
+    unchanged; only dead gather/sort work disappears.
+    """
+    doc_count = stats.doc_count if stats else dfield.doc_count
+    avgdl = stats.avgdl if stats else dfield.avgdl
+    # Fast path: the segment's precomputed per-posting impacts are valid iff
+    # they were built with the same statistics scope and k1/b.
+    use_tn = scored and (
+        float(avgdl) == dfield.tn_avgdl
+        and params.k1 == dfield.tn_k1
+        and params.b == dfield.tn_b
+    )
+
+    tile_max = getattr(dfield, "tile_max", None)  # f32[num_tiles] max impact
+    tile_doc_lo = getattr(dfield, "tile_doc_lo", None)
+    tile_doc_hi = getattr(dfield, "tile_doc_hi", None)
+    prune_range = (
+        doc_range is not None
+        and tile_doc_lo is not None
+        and tile_doc_hi is not None
+    )
+    f32max = float(np.finfo(np.float32).max)
+    entries: list[tuple[int, int, int, float, float]] = []
+    term_ubs: list[float] = []  # per term-occurrence global upper bound
+    entry_term: list[int] = []  # entry -> term occurrence index
+    # Per-term planning rows (full spans, independent of tile pruning):
+    # the lead-driven conjunction kernel binary-searches candidates against
+    # each term's whole span, and the selectivity sum drives lead choice.
+    term_rows: list[tuple[int, int, float]] = []  # (start, end, weight)
+    sel_df = 0
+    for term in terms:
+        s, e = dfield.term_span(term)
+        df = (
+            stats.df.get(term, dfield.term_df(term))
+            if stats
+            else dfield.term_df(term)
+        )
+        sel_df += max(0, int(df))
+        w = 0.0
+        if scored and df > 0 and doc_count > 0:
+            w = term_weight(df, doc_count, boost, params)
+        term_rows.append((s, e, w))
+        if e <= s:
+            continue
+        first, last = s // TILE, (e - 1) // TILE
+        term_tm = 0.0
+        for tile in range(first, last + 1):
+            if prune_range and (
+                int(tile_doc_lo[tile]) > doc_range[1]
+                or int(tile_doc_hi[tile]) < doc_range[0]
+            ):
+                continue
+            # Block-max analog (reference: Lucene block-max WAND configured
+            # at search/query/TopDocsCollectorContext.java:68): upper-bound
+            # this term's contribution to any doc in this tile from the
+            # pack-time per-tile max impact. The whole-tile max >= the
+            # span-restricted max, so the bound stays valid at
+            # term-boundary tiles.
+            if tile_max is not None and use_tn:
+                tm = float(tile_max[tile])
+                ub = w - w / (1.0 + tm) if w > 0 else 0.0
+                term_tm = max(term_tm, tm)
+            else:
+                ub = f32max
+            entries.append((tile, s, e, w, ub))
+            entry_term.append(len(term_ubs))
+        if tile_max is not None and use_tn:
+            term_ubs.append(w - w / (1.0 + term_tm) if w > 0 else 0.0)
+        else:
+            term_ubs.append(f32max)
+
+    nt = _pow2(len(entries), nt_floor)
+    tile_ids = np.full(nt, dfield.pad_tile, dtype=np.int32)
+    starts = np.zeros(nt, dtype=np.int32)
+    ends = np.zeros(nt, dtype=np.int32)
+    weights = np.zeros(nt, dtype=np.float32)
+    ubs = np.zeros(nt, dtype=np.float32)
+    ub_other = np.zeros(nt, dtype=np.float32)
+    total_ub = min(float(sum(term_ubs)), f32max)
+    for i, (tile, s, e, w, ub) in enumerate(entries):
+        tile_ids[i] = tile
+        starts[i] = s
+        ends[i] = e
+        weights[i] = w
+        ubs[i] = np.float32(min(ub, f32max))
+        ub_other[i] = np.float32(
+            min(max(total_ub - term_ubs[entry_term[i]], 0.0), f32max)
+        )
+
+    kind = ("terms" if use_tn else "terms_gather") if scored else "terms_const"
+    if scored:
+        # T_pad bounds candidates per doc (= total term occurrences; each
+        # occurrence yields at most one posting per doc), pow-2 bucketed —
+        # the sparse kernel's run-fold length (ops/bm25_device.py).
+        spec = (kind, dfield.name, nt, _pow2(len(terms)))
+    elif len(terms) == 1:
+        # Single-term constant filter: the spec's trailing 1 marks that
+        # the whole worklist is ONE contiguous posting span, so the
+        # sparse-bool kernel can test candidate membership with a binary
+        # search over the span instead of a dense bitmap scatter (the
+        # scatter costs ~NT*TILE updates — the dominant term for high-df
+        # filters like BASELINE config 3's).
+        spec = (kind, dfield.name, nt, 1)
+    else:
+        spec = (kind, dfield.name, nt)
+    arrays = {"tile_ids": tile_ids, "starts": starts, "ends": ends}
+    # Statistics-scope selectivity (summed df): drives the bool lead-clause
+    # choice at plan time (Lucene ConjunctionDISI cost ordering); inert as
+    # a kernel input.
+    arrays["sel_df"] = np.float32(min(float(sel_df), f32max))
+    if not scored and len(terms) == 1:
+        span = dfield.term_span(terms[0])
+        arrays["span_start"] = np.int32(span[0])
+        arrays["span_end"] = np.int32(span[1])
+    if scored:
+        arrays["weights"] = weights
+        arrays["ub"] = ubs
+        arrays["ub_other"] = ub_other
+        t_pad = _pow2(len(terms))
+        term_starts = np.zeros(t_pad, dtype=np.int32)
+        term_ends = np.zeros(t_pad, dtype=np.int32)
+        term_weights = np.zeros(t_pad, dtype=np.float32)
+        for i, (ts, te, tw) in enumerate(term_rows):
+            term_starts[i] = ts
+            term_ends[i] = te
+            term_weights[i] = tw
+        arrays["term_starts"] = term_starts
+        arrays["term_ends"] = term_ends
+        arrays["term_weights"] = term_weights
+        if not use_tn:
+            cache = norm_inverse_cache(avgdl if doc_count else 1.0, params)
+            if not dfield.has_norms:
+                # Norms-disabled fields (keyword) score every doc with norm
+                # byte 1 (LeafSimScorer substitutes norm 1 when absent).
+                cache = np.full(256, cache[1], dtype=np.float32)
+            arrays["cache"] = cache
+    else:
+        arrays["boost"] = np.float32(boost)
+    return spec, arrays
+
+
+# The canonical bool-spec layout, the same arity-7 tuple as the
+# reference's. Construction goes through `make_bool_spec` only;
+# ops/bm25_device.py destructures it.
+BOOL_SPEC_FIELDS = (
+    "kind",  # the literal "bool"
+    "must",  # tuple of child specs, scored, all required
+    "should",  # tuple of child specs, scored, optional (msm applies)
+    "filter",  # tuple of child specs, required, never scored
+    "must_not",  # tuple of child specs, excluded, never scored
+    "msm",  # minimum_should_match (int; -1 = default rule)
+    "lead",  # lead filter-clause index for sparse folds (-1 = must-led)
+)
+BOOL_SPEC_ARITY = len(BOOL_SPEC_FIELDS)
+
+
+def make_bool_spec(must, should, filter_, must_not, msm, lead) -> tuple:
+    """The one construction site of the arity-7 bool spec tuple."""
+    return (
+        "bool",
+        tuple(must),
+        tuple(should),
+        tuple(filter_),
+        tuple(must_not),
+        int(msm),
+        int(lead),
+    )
+
+
+def select_lead_clause(groups) -> int:
+    """Static lead-clause choice for a lowered bool's sparse execution.
+
+    The analog of Lucene's ConjunctionDISI lead-iterator cost ordering:
+    when a bool is the sparse conjunction shape (one scored terms must,
+    constant-term filters/exclusions, no shoulds), candidate generation
+    should be driven by the MOST SELECTIVE clause. Returns the index of a
+    single-span constant filter whose df undercuts the must disjunction's
+    summed df (the kernel then folds candidates from that filter's
+    postings and verifies/scores the must terms by binary search), or -1
+    for the default must-driven fold. Selectivity comes from the
+    statistics scope the compiler scores with, so sharded compiles agree.
+    """
+    must_g, should_g, filter_g, must_not_g = groups
+    if len(must_g) != 1 or should_g or not filter_g:
+        return -1
+    mspec, marr = must_g[0]
+    from ..ops.bm25_device import SPARSE_TPAD_MAX
+
+    if mspec[0] != "terms" or mspec[3] > SPARSE_TPAD_MAX:
+        return -1
+    for cspec, _ in list(filter_g) + list(must_not_g):
+        if cspec[0] != "terms_const":
+            return -1
+    best, best_df = -1, float(marr.get("sel_df", np.float32(np.inf)))
+    for i, (fspec, farr) in enumerate(filter_g):
+        if not (len(fspec) == 4 and fspec[3] == 1):
+            continue  # only single-span filters support lead-driven folds
+        df = float(farr.get("sel_df", np.float32(np.inf)))
+        if df < best_df:
+            best, best_df = i, df
+    return best
+
+
+class Compiler:
+    """Compiles Query trees against one segment's fields and statistics."""
+
+    def __init__(
+        self,
+        fields: dict[str, DeviceField],
+        doc_values: dict[str, Any],
+        mappings: Mappings,
+        params: BM25Params = BM25Params(),
+        stats: dict[str, FieldStats] | None = None,
+        nt_floor: int = 1,
+    ):
+        self.fields = fields
+        self.doc_values = doc_values
+        self.mappings = mappings
+        self.params = params
+        self.stats = stats or {}
+        # Minimum worklist bucket (uniform shapes across a batch).
+        self.nt_floor = nt_floor
+        # Conjunction pushdown state: the doc-id range single-span filters
+        # bound while a bool's must clauses lower (see _bool).
+        self._doc_range: tuple[int, int] | None = None
+
+    def compile(self, query: Query) -> CompiledQuery:
+        spec, arrays = self._node(query, scoring=True)
+        return CompiledQuery(spec=spec, arrays=arrays)
+
+    # `scoring=False` is filter context (Lucene needsScores=false): term
+    # nodes compile to matched-only worklists.
+
+    def _node(self, q: Query, scoring: bool) -> tuple[tuple, Any]:
+        if isinstance(q, MatchQuery):
+            return self._match(q, scoring)
+        if isinstance(q, TermQuery):
+            return self._term(q, scoring)
+        if isinstance(q, TermsQuery):
+            return self._terms(q)
+        if isinstance(q, RangeQuery):
+            return self._range(q)
+        if isinstance(q, ExistsQuery):
+            return self._exists(q)
+        if isinstance(q, MatchAllQuery):
+            return ("match_all",), {"boost": np.float32(q.boost)}
+        if isinstance(q, MatchNoneQuery):
+            return ("match_none",), {}
+        if isinstance(q, ConstantScoreQuery):
+            child_spec, child_arrays = self._node(q.filter, scoring=False)
+            return ("const", child_spec), {
+                "boost": np.float32(q.boost),
+                "child": child_arrays,
+            }
+        if isinstance(q, BoolQuery):
+            return self._bool(q, scoring)
+        raise ValueError(f"cannot compile query type {type(q).__name__}")
+
+    def _field_or_none(self, name: str) -> DeviceField | None:
+        return self.fields.get(name)
+
+    def _match(self, q: MatchQuery, scoring: bool) -> tuple[tuple, Any]:
+        dfield = self._field_or_none(q.field_name)
+        if dfield is None:
+            return ("match_none",), {}
+        if q.analyzer:
+            analyzer = self.mappings.analysis.get(q.analyzer)
+        else:
+            analyzer = self.mappings.analyzer_for(q.field_name, search=True)
+        terms = analyzer.analyze(q.query)
+        if not terms:
+            return ("match_none",), {}
+        stats = self.stats.get(q.field_name)
+        if q.operator == "and" and len(terms) > 1:
+            children = [
+                self._terms_spec(dfield, [t], q.boost, stats, scoring)
+                for t in terms
+            ]
+            return self._bool_from_parts(must=children, boost=1.0)
+        if q.minimum_should_match > 1 and len(terms) > 1:
+            children = [
+                self._terms_spec(dfield, [t], q.boost, stats, scoring)
+                for t in terms
+            ]
+            return self._bool_from_parts(
+                should=children, msm=q.minimum_should_match, boost=1.0
+            )
+        return self._terms_spec(dfield, terms, q.boost, stats, scoring)
+
+    def _terms_spec(self, dfield, terms, boost, stats, scored=True):
+        return _terms_arrays(
+            dfield, terms, boost, self.params, stats, scored, self.nt_floor,
+            doc_range=self._doc_range,
+        )
+
+    def _term(self, q: TermQuery, scoring: bool = True) -> tuple[tuple, Any]:
+        fm = self.mappings.get(q.field_name)
+        if fm is not None and fm.is_numeric:
+            # Numeric term query = point range [v, v], constant score.
+            v = coerce_numeric(fm.type, q.value)
+            return self._range(RangeQuery(q.field_name, gte=v, lte=v, boost=q.boost))
+        dfield = self._field_or_none(q.field_name)
+        if dfield is None:
+            return ("match_none",), {}
+        stats = self.stats.get(q.field_name)
+        return self._terms_spec(dfield, [str(q.value)], q.boost, stats, scoring)
+
+    def _terms(self, q: TermsQuery) -> tuple[tuple, Any]:
+        # ES `terms` is constant-score (Lucene TermInSetQuery): boost per hit.
+        if not q.values:
+            return ("match_none",), {}
+        fm = self.mappings.get(q.field_name)
+        if fm is not None and fm.is_numeric:
+            # Disjunction of point ranges; one constant boost per doc.
+            children = [
+                self._range(
+                    RangeQuery(
+                        q.field_name,
+                        gte=coerce_numeric(fm.type, v),
+                        lte=coerce_numeric(fm.type, v),
+                    )
+                )
+                for v in q.values
+            ]
+            inner_spec, inner_arrays = self._assemble_bool(
+                [[], children, [], []], msm=-1, boost=1.0
+            )
+            return ("const", inner_spec), {
+                "boost": np.float32(q.boost),
+                "child": inner_arrays,
+            }
+        dfield = self._field_or_none(q.field_name)
+        if dfield is None:
+            return ("match_none",), {}
+        stats = self.stats.get(q.field_name)
+        terms = [str(v) for v in q.values]
+        return self._terms_spec(dfield, terms, q.boost, stats, scored=False)
+
+    def _range(self, q: RangeQuery) -> tuple[tuple, Any]:
+        if q.field_name not in self.doc_values:
+            return ("match_none",), {}
+        fm = self.mappings.get(q.field_name)
+        ftype = fm.type if fm is not None else "double"
+        bounds = [
+            None if b is None else coerce_numeric(ftype, b)
+            for b in (q.gte, q.gt, q.lte, q.lt)
+        ]
+        lo, hi = _f32_range_bounds(*bounds)
+        return ("range", q.field_name), {
+            "lo": lo,
+            "hi": hi,
+            "boost": np.float32(q.boost),
+        }
+
+    def _exists(self, q: ExistsQuery) -> tuple[tuple, Any]:
+        if q.field_name in self.fields:
+            return ("exists", q.field_name, "inverted"), {
+                "boost": np.float32(q.boost)
+            }
+        if q.field_name in self.doc_values:
+            return ("exists", q.field_name, "numeric"), {
+                "boost": np.float32(q.boost)
+            }
+        return ("match_none",), {}
+
+    def _bool(self, q: BoolQuery, scoring: bool) -> tuple[tuple, Any]:
+        # Filters lower FIRST: single-span constant filters bound the
+        # doc-id range any conjunction match can come from, and that range
+        # pushes down into the must worklists (plan-time tile intersection
+        # pruning — exact, see _terms_arrays).
+        filter_g = [self._node(c, scoring=False) for c in q.filter]
+        must_not_g = [self._node(c, scoring=False) for c in q.must_not]
+        outer = self._doc_range
+        rng = self._filters_doc_range(filter_g)
+        if rng is not None and outer is not None:
+            rng = (max(rng[0], outer[0]), min(rng[1], outer[1]))
+        elif rng is None:
+            rng = outer
+        self._doc_range = rng
+        try:
+            must_g = [self._node(c, scoring) for c in q.must]
+        finally:
+            self._doc_range = outer
+        should_g = [self._node(c, scoring) for c in q.should]
+        groups = [must_g, should_g, filter_g, must_not_g]
+        return self._assemble_bool(groups, q.minimum_should_match, q.boost)
+
+    def _filters_doc_range(self, filter_g) -> tuple[int, int] | None:
+        """Conservative [lo, hi] doc-id range covering every doc the
+        single-span constant filters can accept (None = unbounded). Bounds
+        come from the covering tiles' pack-time doc-id extrema, so they
+        are wide but always sound; an absent filter term yields the empty
+        range (the conjunction cannot match)."""
+        rng: tuple[int, int] | None = None
+        for fspec, farr in filter_g:
+            if not (
+                fspec
+                and fspec[0] == "terms_const"
+                and len(fspec) == 4
+                and fspec[3] == 1
+            ):
+                continue
+            dfield = self.fields.get(fspec[1])
+            lo_b = getattr(dfield, "tile_doc_lo", None)
+            hi_b = getattr(dfield, "tile_doc_hi", None)
+            s, e = int(farr["span_start"]), int(farr["span_end"])
+            if e <= s:
+                return (0, -1)  # empty filter: empty conjunction
+            if lo_b is None or hi_b is None:
+                continue
+            lo, hi = int(lo_b[s // TILE]), int(hi_b[(e - 1) // TILE])
+            rng = (lo, hi) if rng is None else (max(rng[0], lo), min(rng[1], hi))
+        return rng
+
+    def _bool_from_parts(self, must=(), should=(), msm=-1, boost=1.0):
+        groups = [list(must), list(should), [], []]
+        return self._assemble_bool(groups, msm, boost)
+
+    @staticmethod
+    def _assemble_bool(groups, msm, boost):
+        specs = tuple(tuple(s for s, _ in g) for g in groups)
+        children = tuple(a for g in groups for _, a in g)
+        spec = make_bool_spec(
+            *specs, msm=msm, lead=select_lead_clause(groups)
+        )
+        arrays = {"boost": np.float32(boost), "children": children}
+        return spec, arrays
