@@ -4,26 +4,44 @@
     python3 chip_smoke.py            # needs one CUDA card and the repo
 
 Phases, each of which must pass (any failure exits non-zero and prints no
-result line):
+result line). Launch counters are zeroed just before each main-path phase
+and read just after it.
 
-  1. build    the four CUDA kernels (csrc/*.cu -> one sm_90a library)
-  2. corpus   the MS MARCO-sized Zipf corpus (8,841,823 passages, the
-              repo's own generator) attached to an index through the port
-              engine, packed on the card
-  3. main     the port's REST server on loopback serves `_search` over HTTP:
-              `match` queries of 4 terms (BASELINE config 2's shape),
-              bool(should) and bool(must match + filter term) queries, plus
-              a bulk-indexed small index; launch counters are zeroed just
-              before and read just after
-  4. check    match hits against the port's numpy oracle (ops/bm25
-              search_field), bool hits against the port's plain PyTorch
-              path on the same card tensors: 0 mismatches in ids, order,
-              fp32 score bits and totals
-  5. kernels  each kernel against its plain version on the card at the
-              main path's shapes (exact), timed beside its memory bound,
-              the plain version and one library call as a yardstick
-  6. results  `_search` p50/p99 and QPS, device execute p50 (CUDA events),
-              peak device memory
+  1. build       the four CUDA kernels (csrc/*.cu -> one sm_90a library)
+  2. corpus      the MS MARCO-sized Zipf corpus (8,841,823 passages, the
+                 repo's own generator) installed in a one-shard index
+  3. main        the REST server on loopback serves 64 sequential `_search`
+                 requests: `match` of 4 terms (BASELINE config 2's shape),
+                 bool(should) and bool(must match + filter term); one
+                 untimed warm-up request per shape first; plus a
+                 bulk-indexed small index
+  4. check       match hits against the port's numpy oracle (ops/bm25),
+                 bool hits against the plain PyTorch path on the same card
+                 tensors: 0 mismatches in ids, order, fp32 bits and totals
+  5. concurrent  each of the same 64 requests four times over (the copies
+                 side by side), from 16 client threads: the micro-batcher
+                 coalesces them; every answer equals its sequential answer
+  6. kernels     K1-K4 at Q = 1 and K2b/K4b (the batched sparse fold and
+                 span search) at the concurrent phase's mean batch, each
+                 against its plain version on the card (exact), timed
+                 beside its byte bound, the plain version and one library
+                 call
+  7. sharded     BASELINE config 3's deployment: 8 shards of the Zipf
+                 generator (seed 100 + shard, 1,105,228 / 1,105,227 docs,
+                 8,841,823 in all), one segment each, in an 8-shard index
+  8. sharded sequential  32 bool(must 2-term match + filter head term) and
+                 32 `match` of 4 terms over HTTP one at a time; match hits
+                 against the numpy oracle per shard with the coordinator's
+                 global statistics merged by (score desc, shard, rank);
+                 every answer against the plain path on the card
+  9. sharded concurrent  256 requests of that mix from 16 client threads;
+                 every answer equals its sequential answer; QPS, p50/p99,
+                 the batcher's stats and device ms per batched launch
+ 10. routed      500 documents `_bulk`-indexed into an 8-shard index, half
+                 on auto ids; `_shards` counts and hits against the oracle
+                 over all documents
+ 11. batched kernels  K1b/K3b at the sharded concurrent phase's mean batch
+ 12. results     latencies, QPS, device times, peak device memory
 
 The last lines are the card (nvidia-smi name, power limit), one JSON
 object with the kernel table, and {"ok": true, "device": {...}}.
@@ -32,22 +50,32 @@ object with the kernel table, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from dataclasses import replace
 from pathlib import Path
 
 N_DOCS = 8_841_823  # MS MARCO passage ranking collection size
+N_SHARDS = 8
 SEED = 13
 TOP_K = 10
 N_MATCH = 32
 N_SHOULD = 16
 N_MUST_FILTER = 16
+N_CFG3 = 32  # sharded bool(must 2-term match + filter term) requests
+N_CFG3_MATCH = 32  # sharded match requests of 4 terms
+N_CLIENTS = 16
+N_CONCURRENT = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
+DEVICE = "cuda"
 REPO = Path(__file__).resolve().parent
+KERNELS = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate")
+SOURCES = {name: f"elasticsearch_tpu_torch/csrc/{name}.cu" for name in KERNELS}
 
 
 class SmokeFailure(Exception):
@@ -95,11 +123,12 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route bm25_device through the plain PyTorch versions of K1-K4 (on
-    whatever device the tensors are) — the reference run of phase 4."""
+    """Route bm25_device through the plain PyTorch versions of K1-K4, solo
+    and batched (on whatever device the tensors are) — the reference runs
+    of the check phases."""
     from elasticsearch_tpu_torch.ops import kernels as kern
 
-    names = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate")
+    names = [n + s for n in KERNELS for s in ("", "_batch")]
     saved = {n: getattr(kern, n) for n in names}
     try:
         for n in names:
@@ -108,6 +137,23 @@ def plain_kernels():
     finally:
         for n, fn in saved.items():
             setattr(kern, n, fn)
+
+
+@contextlib.contextmanager
+def counted(phase: str, totals: dict):
+    """Zero the launch counts, run a main-path phase, read them after."""
+    from elasticsearch_tpu_torch.ops import kernels as kern
+
+    import torch
+
+    torch.cuda.synchronize()
+    kern.reset_launches()
+    yield
+    torch.cuda.synchronize()
+    counts = dict(kern.LAUNCHES)
+    for name, c in counts.items():
+        totals[name] = totals.get(name, 0) + c
+    log(f"  launches in {phase}: {counts}")
 
 
 def http(base: str, method: str, path: str, body=None, raw: str | None = None):
@@ -122,6 +168,156 @@ def http(base: str, method: str, path: str, body=None, raw: str | None = None):
         return json.loads(resp.read())
 
 
+def without_took(out: dict) -> dict:
+    return {k: v for k, v in out.items() if k != "took"}
+
+
+def serve(node):
+    from elasticsearch_tpu_torch.rest.server import RestServer
+
+    server = RestServer(node).serve("127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def sequential(base: str, index: str, bodies):
+    latencies, responses = [], []
+    t_all = time.monotonic()
+    for body in bodies:
+        t0 = time.monotonic()
+        responses.append(http(base, "POST", f"/{index}/_search", body))
+        latencies.append((time.monotonic() - t0) * 1e3)
+    return latencies, responses, time.monotonic() - t_all
+
+
+def concurrent(base: str, index: str, bodies, n_clients: int):
+    """Send `bodies` from n_clients threads; returns (latencies in body
+    order, responses in body order, wall seconds)."""
+    latencies = [0.0] * len(bodies)
+    responses: list = [None] * len(bodies)
+    errors: list = []
+    barrier = threading.Barrier(n_clients)
+
+    def client(c):
+        barrier.wait()
+        for i in range(c, len(bodies), n_clients):
+            try:
+                t0 = time.monotonic()
+                responses[i] = http(base, "POST", f"/{index}/_search", bodies[i])
+                latencies[i] = (time.monotonic() - t0) * 1e3
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    if errors:
+        raise SmokeFailure(f"concurrent requests failed: {errors[:3]}")
+    return latencies, responses, wall
+
+
+def score_bits(scores):
+    import numpy as np
+
+    return np.asarray(scores, np.float32).view(np.int32)
+
+
+def same_hits(out: dict, ids, scores, total: int) -> bool:
+    import numpy as np
+
+    hits = out["hits"]["hits"]
+    return (
+        [h["_id"] for h in hits] == list(ids)
+        and np.array_equal(score_bits([h["_score"] for h in hits]),
+                           score_bits(scores))
+        and out["hits"]["total"]["value"] == min(total, 10_000)
+    )
+
+
+def shard_oracle(shards, terms, stats, k):
+    """The numpy oracle per shard (with the coordinator's global
+    statistics), merged by (score desc, shard, rank): (ids, scores,
+    total) over every document of the index."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.ops import bm25
+
+    merged, total = [], 0
+    for s, seg in enumerate(shards):
+        fld = seg.fields["body"]
+        matched = np.zeros(seg.num_docs, dtype=bool)
+        scores = bm25.score_terms_dense(
+            fld, terms, seg.num_docs, matched=matched, stats=stats
+        )
+        top_s, top_i = bm25.top_k(scores, k, matched)
+        total += int(matched.sum())
+        for rank, (sc, d) in enumerate(zip(top_s, top_i)):
+            merged.append((-float(sc), s, rank, seg.ids[int(d)], sc))
+    merged.sort(key=lambda t: (t[0], t[1], t[2]))
+    page = merged[:k]
+    return [t[3] for t in page], [t[4] for t in page], total
+
+
+class LaunchTimer:
+    """CUDA events around every batched execution (bm25_device.
+    execute_batch_auto) while installed: device ms per batched launch."""
+
+    def __init__(self):
+        from elasticsearch_tpu_torch.ops import bm25_device
+
+        self.mod = bm25_device
+        self.real = bm25_device.execute_batch_auto
+        self.events: list = []
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        import torch
+
+        def timed(seg, spec, arrays, k, q=None):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            out = self.real(seg, spec, arrays, k, q=q)
+            ev1.record()
+            with self.lock:
+                self.events.append((int(out[2].shape[0]), ev0, ev1))
+            return out
+
+        self.mod.execute_batch_auto = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        self.mod.execute_batch_auto = self.real
+        torch.cuda.synchronize()
+
+    def summary(self) -> dict:
+        rows = [(q, a.elapsed_time(b)) for q, a, b in self.events]
+        batched = [ms for q, ms in rows if q > 1]
+        return {
+            "launches": len(rows),
+            "batched_launches": len(batched),
+            "device_ms_per_launch_mean": (
+                sum(ms for _q, ms in rows) / len(rows) if rows else 0.0
+            ),
+            "device_ms_per_batched_launch_mean": (
+                sum(batched) / len(batched) if batched else 0.0
+            ),
+            "device_ms_per_batched_launch_p50": (
+                percentile(batched, 50) if batched else 0.0
+            ),
+            "rows_per_launch_mean": (
+                sum(q for q, _ms in rows) / len(rows) if rows else 0.0
+            ),
+        }
+
+
 def run() -> dict:
     import numpy as np
     import torch
@@ -131,15 +327,16 @@ def run() -> dict:
     from elasticsearch_tpu_torch.ops import bm25, bm25_device
     from elasticsearch_tpu_torch.ops import kernels as kern
     from elasticsearch_tpu_torch.query.dsl import parse_query
-    from elasticsearch_tpu_torch.rest.server import RestServer
     from elasticsearch_tpu_torch.utils.corpus import (
         build_zipf_segment,
         pick_query_terms,
     )
 
     card = card_line()
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t_run = time.monotonic()
+    launches: dict = {}
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.monotonic()
@@ -152,9 +349,9 @@ def run() -> dict:
 
     # -- 2. corpus ----------------------------------------------------------
     t0 = time.monotonic()
-    mappings, segment = build_zipf_segment(N_DOCS, seed=SEED)
+    _mappings, segment = build_zipf_segment(N_DOCS, seed=SEED)
     gen_s = time.monotonic() - t0
-    node = Node(device="cuda")
+    node = Node(device=DEVICE)
     node.create_index("msmarco", {"mappings": {"properties": {"body": {"type": "text"}}}})
     svc = node.indices["msmarco"]
     t1 = time.monotonic()
@@ -192,12 +389,10 @@ def run() -> dict:
             "must": [{"match": {"body": f"{t[0]} {t[1]} {t[2]}"}}],
             "filter": [{"term": {"body": filt}}],
         }}, "size": TOP_K})
+    shape_of = (["match"] * N_MATCH + ["bool_should"] * N_SHOULD
+                + ["bool_must_filter"] * N_MUST_FILTER)
 
-    rest = RestServer(node)
-    server = rest.serve("127.0.0.1", 0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{server.server_address[1]}"
+    server, base = serve(node)
     try:
         banner = http(base, "GET", "/")
         http(base, "PUT", "/docs", {"mappings": {"properties": {
@@ -209,8 +404,7 @@ def run() -> dict:
             + "\n"
             for i, t in enumerate(small_terms)
         )
-        out = http(base, "POST", "/docs/_bulk", raw=bulk)
-        if out["errors"]:
+        if http(base, "POST", "/docs/_bulk", raw=bulk)["errors"]:
             raise SmokeFailure("bulk indexing reported errors")
         http(base, "POST", "/docs/_refresh")
         small_bodies = [
@@ -218,29 +412,22 @@ def run() -> dict:
             {"query": {"bool": {"must": [{"match": {"body": small_terms[5][0]}}],
                                 "filter": [{"term": {"tag": "even"}}]}}},
         ]
-        # warm-up outside the counted window (first launches of each
-        # kernel, allocator growth): one query of each shape
+        # One untimed warm-up request per shape (first kernel launches,
+        # allocator growth), timed on its own.
+        first_ms = {}
         for i in (0, N_MATCH, N_MATCH + N_SHOULD, N_MATCH + N_SHOULD + 1):
-            http(base, "POST", "/msmarco/_search", bodies[i])
-        torch.cuda.synchronize()
-        kern.reset_launches()
-        latencies, responses = [], []
-        t_all = time.monotonic()
-        for body in bodies:
             t0 = time.monotonic()
-            responses.append(http(base, "POST", "/msmarco/_search", body))
-            latencies.append((time.monotonic() - t0) * 1e3)
-        wall_s = time.monotonic() - t_all
-        small_out = [http(base, "POST", "/docs/_search", b) for b in small_bodies]
-        launches = dict(kern.LAUNCHES)
+            http(base, "POST", "/msmarco/_search", bodies[i])
+            first_ms[f"{shape_of[i]}#{i}"] = (time.monotonic() - t0) * 1e3
+        log(f"  first request of each shape (untimed warm-up), ms: {json.dumps(first_ms)}")
+        with counted("main", launches):
+            latencies, responses, wall_s = sequential(base, "msmarco", bodies)
+            small_out = [http(base, "POST", "/docs/_search", b) for b in small_bodies]
     finally:
         server.shutdown()
         server.server_close()
     log(f"phase main: ok {len(bodies)} _search over HTTP on {banner['version']['number']}, "
-        f"{wall_s:.2f} s; launches {launches} [{card}]")
-    missing = [n for n, c in launches.items() if c <= 0]
-    if missing:
-        raise SmokeFailure(f"kernels never launched on the main path: {missing}")
+        f"{wall_s:.2f} s [{card}]")
     for out in small_out:
         if out["hits"]["total"]["value"] < 1:
             raise SmokeFailure("small index returned no hits")
@@ -253,22 +440,14 @@ def run() -> dict:
         matched = np.zeros(N_DOCS, dtype=bool)
         for term in terms:
             matched[fld.postings(term)[0]] = True
-        hits = out["hits"]["hits"]
-        got_ids = [h["_id"] for h in hits]
-        want_ids = [segment.ids[int(d)] for d in o_i]
-        got_bits = np.asarray([h["_score"] for h in hits], np.float32).view(np.int32)
-        if (
-            got_ids != want_ids
-            or not np.array_equal(got_bits, np.asarray(o_s, np.float32).view(np.int32))
-            or out["hits"]["total"]["value"] != min(int(matched.sum()), 10_000)
-        ):
+        if not same_hits(out, [segment.ids[int(d)] for d in o_i], o_s,
+                         int(matched.sum())):
             mismatches += 1
             log(f"  MISMATCH match {terms}")
     seg_tree = bm25_device.segment_tree(handle.device)
     compiler = svc.engine.compiler_for(handle)
-    bool_bodies = bodies[N_MATCH:]
     plans = []
-    for body in bool_bodies:
+    for body in bodies[N_MATCH:]:
         c = compiler.compile(parse_query(body["query"]))
         plans.append((c.spec, bm25_device.plan_to_torch(c.spec, c.arrays, dev)))
     with plain_kernels():
@@ -276,13 +455,7 @@ def run() -> dict:
             s, i, t = bm25_device.execute_auto(seg_tree, spec, plan, TOP_K)
             s, i, t = s.cpu().numpy(), i.cpu().numpy(), int(t.cpu())
             n = min(TOP_K, t, len(i))
-            hits = out["hits"]["hits"]
-            got_bits = np.asarray([h["_score"] for h in hits], np.float32).view(np.int32)
-            if (
-                [h["_id"] for h in hits] != [segment.ids[int(d)] for d in i[:n]]
-                or not np.array_equal(got_bits, s[:n].view(np.int32))
-                or out["hits"]["total"]["value"] != min(t, 10_000)
-            ):
+            if not same_hits(out, [segment.ids[int(d)] for d in i[:n]], s[:n], t):
                 mismatches += 1
                 log(f"  MISMATCH bool {spec[0]} {spec[1:]}")
     log(f"phase check: {'ok' if mismatches == 0 else 'FAILED'} {mismatches} hit "
@@ -291,11 +464,44 @@ def run() -> dict:
     if mismatches:
         raise SmokeFailure(f"{mismatches} hit mismatches")
 
-    # -- 5. kernels at main-path shapes -----------------------------------
-    rows = kernel_rows(seg_tree, compiler, bodies, launches, dev)
+    # -- 5. concurrent (one shard) ----------------------------------------
+    # Each request four times, the copies side by side (a burst of one
+    # popular query from four clients), the bursts in random order: only
+    # equal compiled specs share a bool query's launch.
+    node.exec_batcher.close()
+    node.exec_batcher = type(node.exec_batcher)()  # fresh counters
+    server, base = serve(node)
+    order = np.repeat(np.random.default_rng(SEED + 2).permutation(len(bodies)), 4)
+    conc_bodies = [bodies[int(j)] for j in order]
+    try:
+        with counted("concurrent", launches):
+            c_lat, c_resp, c_wall = concurrent(base, "msmarco", conc_bodies, N_CLIENTS)
+    finally:
+        server.shutdown()
+        server.server_close()
+    single_stats = node.exec_batcher.stats()
+    bad = sum(
+        without_took(c_resp[n]) != without_took(responses[int(j)])
+        for n, j in enumerate(order)
+    )
+    single_conc = {
+        "requests": len(conc_bodies),
+        "qps": len(conc_bodies) / c_wall,
+        "p50_ms": percentile(c_lat, 50),
+        "p99_ms": percentile(c_lat, 99),
+        "mismatches_vs_sequential": bad,
+        "batcher": single_stats,
+    }
+    log(f"phase concurrent: {'ok' if bad == 0 else 'FAILED'} {json.dumps(single_conc)} [{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} concurrent answers differ from sequential")
+
+    # -- 6. kernels at main-path shapes (one shard) -----------------------
+    q_single = max(2, round(single_stats["occupancy_mean"]))
+    rows = kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q_single)
     log(f"phase kernels: ok 0 mismatches over {len(rows)} kernels [{card}]")
 
-    # -- 6. results -------------------------------------------------------
+    # -- 12a. results of the one-shard phases -----------------------------
     exec_ms, plan_ms = [], []
     for body in bodies:
         t0 = time.perf_counter()
@@ -310,34 +516,343 @@ def run() -> dict:
         ev1.record()
         torch.cuda.synchronize()
         exec_ms.append(ev0.elapsed_time(ev1))
+    slowest = sorted(range(len(bodies)), key=lambda i: -latencies[i])[:3]
+    log("  slowest sequential requests: " + json.dumps([
+        {"shape": shape_of[i], "ms": latencies[i], "host_plan_ms": plan_ms[i],
+         "device_ms": exec_ms[i]} for i in slowest
+    ]))
     groups = {
-        "match": latencies[:N_MATCH],
-        "bool_should": latencies[N_MATCH:N_MATCH + N_SHOULD],
-        "bool_must_filter": latencies[N_MATCH + N_SHOULD:],
+        "match": slice(0, N_MATCH),
+        "bool_should": slice(N_MATCH, N_MATCH + N_SHOULD),
+        "bool_must_filter": slice(N_MATCH + N_SHOULD, len(bodies)),
     }
-    result = {
+    single = {
         "search_p50_ms": percentile(latencies, 50),
         "search_p99_ms": percentile(latencies, 99),
         "qps_sequential": len(bodies) / wall_s,
         "device_execute_p50_ms": percentile(exec_ms, 50),
         "host_plan_p50_ms": percentile(plan_ms, 50),
-        "per_shape_device_p50_ms": {
-            "match": percentile(exec_ms[:N_MATCH], 50),
-            "bool_should": percentile(exec_ms[N_MATCH:N_MATCH + N_SHOULD], 50),
-            "bool_must_filter": percentile(exec_ms[N_MATCH + N_SHOULD:], 50),
-        },
-        "per_shape_p50_ms": {k: percentile(v, 50) for k, v in groups.items()},
-        "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+        "per_shape_device_p50_ms": {k: percentile(exec_ms[s], 50) for k, s in groups.items()},
+        "per_shape_host_plan_p50_ms": {k: percentile(plan_ms[s], 50) for k, s in groups.items()},
+        "per_shape_p50_ms": {k: percentile(latencies[s], 50) for k, s in groups.items()},
+        "first_request_ms": first_ms,
+        "concurrent": single_conc,
         "docs": N_DOCS,
     }
-    log(f"phase results: {json.dumps(result)} [{card}]")
-    return {"card": card, "kernels": rows, "result": result}
+    log(f"phase results (one shard): {json.dumps(single)} [{card}]")
+
+    # Free the one-shard corpus before the sharded one.
+    node.close()
+    del node, svc, handle, segment, fld, seg_tree, compiler, plans, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    sharded = run_sharded(card, dev, launches, rows)
+    missing = [name for name in kern.LAUNCHES if launches.get(name, 0) <= 0]
+    if missing:
+        raise SmokeFailure(f"kernels never launched on the main path: {missing}")
+    log(f"  launches over all main-path phases: {json.dumps(launches)}")
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    log(f"phase results: whole run {time.monotonic() - t_run:.1f} s [{card}]")
+    return {"card": card, "kernels": rows,
+            "result": {"one_shard": single, "sharded": sharded}}
 
 
-def kernel_rows(seg_tree, compiler, bodies, launches, dev):
-    """Each kernel against its plain version on the card at shapes the
-    main path gave it (exact), timed by CUDA events beside its byte bound,
-    the plain version and one PyTorch call as a yardstick."""
+def run_sharded(card, dev, launches, rows) -> dict:
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.index.tiles import device_nbytes
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.search.service import SearchRequest
+    from elasticsearch_tpu_torch.utils.corpus import build_zipf_segment
+
+    # -- 7. sharded corpus (BASELINE config 3's layout) --------------------
+    shard_docs = [N_DOCS // N_SHARDS + (1 if s < N_DOCS % N_SHARDS else 0)
+                  for s in range(N_SHARDS)]
+    t0 = time.monotonic()
+    shards = []
+    for s, n in enumerate(shard_docs):
+        _m, seg = build_zipf_segment(n, vocab_size=30_000, seed=100 + s)
+        # Unique _ids across shards (the generator numbers docs from 0).
+        shards.append(replace(seg, ids=[f"s{s}d{i}" for i in range(n)]))
+    gen_s = time.monotonic() - t0
+    node = Node(device=DEVICE)
+    node.create_index("cfg3", {
+        "settings": {"index": {"number_of_shards": N_SHARDS}},
+        "mappings": {"properties": {"body": {"type": "text"}}},
+    })
+    svc = node.indices["cfg3"]
+    t1 = time.monotonic()
+    handles = [e._install_segment(seg) for e, seg in zip(svc.engines, shards)]
+    torch.cuda.synchronize()
+    pack_s = time.monotonic() - t1
+    postings = sum(len(seg.fields["body"].doc_ids) for seg in shards)
+    nbytes = sum(device_nbytes(h.device) for h in handles)
+    log(f"phase sharded corpus: ok {N_SHARDS} shards, {sum(shard_docs)} docs "
+        f"({shard_docs[0]} / {shard_docs[-1]} a shard), {postings} postings; "
+        f"generate {gen_s:.1f} s, pack+upload {pack_s:.1f} s, device bytes "
+        f"{nbytes} [{card}]")
+
+    # -- 8. sharded sequential ---------------------------------------------
+    fld0 = shards[0].fields["body"]
+    by_df = sorted(fld0.terms, key=lambda t: -fld0.df[fld0.terms[t]])
+    head = by_df[: len(by_df) // 100]
+    mid = by_df[len(by_df) // 100 : len(by_df) // 4]
+    rng = np.random.default_rng(7)
+    bodies, match_terms = [], []
+    for _ in range(N_CFG3):  # bench.py cfg3's shape
+        m1, m2 = rng.choice(mid, 2, replace=False)
+        bodies.append({"query": {"bool": {
+            "must": [{"match": {"body": f"{m1} {m2}"}}],
+            "filter": [{"term": {"body": str(rng.choice(head))}}],
+        }}, "size": TOP_K})
+    for _ in range(N_CFG3_MATCH):
+        terms = [str(rng.choice(head))] + [str(t) for t in rng.choice(mid, 3, replace=False)]
+        match_terms.append(terms)
+        bodies.append({"query": {"match": {"body": " ".join(terms)}}, "size": TOP_K})
+    server, base = serve(node)
+    try:
+        for i in (0, N_CFG3):  # one untimed warm-up request per shape
+            http(base, "POST", "/cfg3/_search", bodies[i])
+        with counted("sharded sequential", launches):
+            latencies, responses, wall_s = sequential(base, "cfg3", bodies)
+    finally:
+        server.shutdown()
+        server.server_close()
+    seq_stats = node.exec_batcher.stats()
+    log(f"phase sharded sequential: ok {len(bodies)} _search over HTTP, "
+        f"{wall_s:.2f} s [{card}]")
+
+    mismatches = 0
+    t0 = time.monotonic()
+    stats = svc.search.global_stats()["body"]
+    for terms, out in zip(match_terms, responses[N_CFG3:]):
+        ids, scores, total = shard_oracle(shards, terms, stats, TOP_K)
+        if not same_hits(out, ids, scores, total):
+            mismatches += 1
+            log(f"  MISMATCH sharded match {terms}")
+    with plain_kernels():
+        for body, out in zip(bodies, responses):
+            want = svc.search.search(SearchRequest.from_json(body)).to_json("cfg3")
+            if without_took(want) != without_took(out):
+                mismatches += 1
+                log(f"  MISMATCH sharded plain {body}")
+    for out in responses:
+        if out["_shards"] != {"total": 8, "successful": 8, "skipped": 0, "failed": 0}:
+            mismatches += 1
+            log(f"  MISMATCH _shards {out['_shards']}")
+    log(f"phase sharded check: {'ok' if mismatches == 0 else 'FAILED'} "
+        f"{mismatches} mismatches over {len(bodies)} queries "
+        f"({time.monotonic() - t0:.1f} s) [{card}]")
+    if mismatches:
+        raise SmokeFailure(f"{mismatches} sharded mismatches")
+
+    # -- 9. sharded concurrent ---------------------------------------------
+    node.exec_batcher.close()
+    node.exec_batcher = type(node.exec_batcher)()  # defaults, fresh counters
+    order = np.random.default_rng(SEED + 3).permutation(N_CONCURRENT)
+    conc_bodies = [bodies[int(j) % len(bodies)] for j in order]
+    server, base = serve(node)
+    try:
+        with counted("sharded concurrent", launches), LaunchTimer() as timer:
+            c_lat, c_resp, c_wall = concurrent(base, "cfg3", conc_bodies, N_CLIENTS)
+    finally:
+        server.shutdown()
+        server.server_close()
+    batcher = node.exec_batcher.stats()
+    bad = sum(
+        without_took(c_resp[n]) != without_took(responses[int(j) % len(bodies)])
+        for n, j in enumerate(order)
+    )
+    conc = {
+        "requests": N_CONCURRENT,
+        "clients": N_CLIENTS,
+        "qps": N_CONCURRENT / c_wall,
+        "p50_ms": percentile(c_lat, 50),
+        "p99_ms": percentile(c_lat, 99),
+        "mismatches_vs_sequential": bad,
+        "batcher": batcher,
+        "device": timer.summary(),
+    }
+    log(f"phase sharded concurrent: {'ok' if bad == 0 else 'FAILED'} {json.dumps(conc)} [{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} sharded concurrent answers differ from sequential")
+    if batcher["occupancy_mean"] < 2:
+        raise SmokeFailure(f"mean batch occupancy {batcher['occupancy_mean']} < 2")
+
+    # -- 10. routed small index ----------------------------------------------
+    routed_mismatches = run_routed(node, fld0, card, launches)
+
+    # -- 11. batched kernels at the sharded path's shapes -----------------
+    q_batch = max(2, round(batcher["occupancy_mean"]))
+    rows.extend(kernel_rows_sharded(svc, handles, bodies, dev, q_batch))
+    log(f"phase batched kernels: ok 0 mismatches, Q = {q_batch} [{card}]")
+
+    result = {
+        "docs": sum(shard_docs),
+        "shards": N_SHARDS,
+        "search_p50_ms": percentile(latencies, 50),
+        "search_p99_ms": percentile(latencies, 99),
+        "per_shape_p50_ms": {
+            "bool_must_filter": percentile(latencies[:N_CFG3], 50),
+            "match": percentile(latencies[N_CFG3:], 50),
+        },
+        "qps_sequential": len(bodies) / wall_s,
+        "sequential_batcher": seq_stats,
+        "concurrent": conc,
+        "routed_mismatches": routed_mismatches,
+        "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+    }
+    log(f"phase results (sharded): {json.dumps(result)} [{card}]")
+    node.close()
+    return result
+
+
+def run_routed(node, fld0, card, launches) -> int:
+    """500 documents through `_bulk` into an 8-shard index, half on auto
+    ids: `_shards` counts and hits against the oracle over every doc."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.parallel.routing import shard_for_id
+    from elasticsearch_tpu_torch.utils.corpus import zipf_probs
+
+    rng = np.random.default_rng(SEED + 4)
+    vocab = sorted(fld0.terms, key=lambda t: -fld0.df[fld0.terms[t]])[:400]
+    probs = zipf_probs(len(vocab))
+    docs = [" ".join(rng.choice(vocab, int(rng.integers(4, 30)), p=probs))
+            for _ in range(500)]
+    lines = []
+    for i, text in enumerate(docs):
+        meta = {"_id": f"r{i}"} if i % 2 == 0 else {}
+        lines += [json.dumps({"index": meta}), json.dumps({"body": text})]
+    server, base = serve(node)
+    bad = 0
+    try:
+        http(base, "PUT", "/routed", {
+            "settings": {"index": {"number_of_shards": N_SHARDS}},
+            "mappings": {"properties": {"body": {"type": "text"}}},
+        })
+        out = http(base, "POST", "/routed/_bulk", raw="\n".join(lines) + "\n")
+        refreshed = http(base, "POST", "/routed/_refresh")
+        items = [it["index"] for it in out["items"]]
+        bad += out["errors"] or any(
+            it["_shards"] != {"total": 1, "successful": 1, "failed": 0}
+            or it["status"] != 201 for it in items
+        )
+        bad += refreshed != {"_shards": {"total": 8, "successful": 8, "failed": 0}}
+        svc = node.indices["routed"]
+        for it in items:  # every doc on its murmur3 shard
+            bad += it["_id"] not in svc.engines[shard_for_id(it["_id"], N_SHARDS)]._live_ids
+        if any(len(e.segments) != 1 for e in svc.engines):
+            raise SmokeFailure("a routed shard does not hold exactly one segment")
+        shards = [e.segments[0].segment for e in svc.engines]
+        stats = svc.search.global_stats()["body"]
+        queries = [[str(t) for t in rng.choice(vocab[:200], 3, replace=False)]
+                   for _ in range(16)]
+        with counted("routed", launches):
+            outs = [http(base, "POST", "/routed/_search",
+                         {"query": {"match": {"body": " ".join(q)}}, "size": TOP_K})
+                    for q in queries]
+        for q, res in zip(queries, outs):
+            ids, scores, total = shard_oracle(shards, q, stats, TOP_K)
+            if not same_hits(res, ids, scores, total) or res["_shards"] != {
+                "total": 8, "successful": 8, "skipped": 0, "failed": 0,
+            }:
+                bad += 1
+                log(f"  MISMATCH routed {q}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    auto = sum(1 for it in items if it["_id"].startswith("_auto_"))
+    per_shard = [e.num_docs for e in node.indices["routed"].engines]
+    log(f"phase routed: {'ok' if bad == 0 else 'FAILED'} {bad} mismatches; "
+        f"500 docs ({auto} auto ids), per shard {per_shard}, 16 queries [{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} routed-index mismatches")
+    return bad
+
+
+# ---------------------------------------------------------------------------
+# Kernel rows
+# ---------------------------------------------------------------------------
+
+
+def _same(got, want, name):
+    import torch
+
+    for g, w in zip(got, want):
+        if g is None and w is None:
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise SmokeFailure(f"{name}: shape/dtype differ from the plain version")
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            raise SmokeFailure(f"{name}: differs from the plain version")
+
+
+def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes, reps=20):
+    """Hold a kernel to its plain version (exact) and time both, its byte
+    bound and one library call."""
+    import torch
+
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    _same(got, want, name)
+    base = name[:-6] if name.endswith("_batch") else name
+    r = {
+        "name": name,
+        "route": "cuda",
+        "source": SOURCES[base],
+        "replaces": replaces,
+        "rows": q,
+        "launches": 0,  # filled from the main-path counts
+        "mismatches": 0,
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(fn, reps),
+        "plain_ms": cuda_ms(plain, 1),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": cuda_ms(library, reps),
+        "library_call": library_call,
+        "bound_bytes": int(nbytes),
+    }
+    log(f"  kernel {json.dumps(r)}")
+    rows.append(r)
+
+
+def _worklist(a, lane):
+    """(tile ids as int64, valid [..., NT, 256] mask, real postings)."""
+    import torch
+
+    tid = a["tile_ids"].to(torch.int64)
+    pos = tid[..., None] * 256 + lane
+    valid = (pos >= a["starts"].to(torch.int64)[..., None]) & (
+        pos < a["ends"].to(torch.int64)[..., None])
+    return tid, valid
+
+
+def _stacked_plan(compiler, bodies, dev):
+    """Compile bodies of one shape, equalize them to one spec as the
+    batched query phase does, stack on the host, upload once."""
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.query.compile import pad_arrays_to_spec, unify_specs
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    cs = [compiler.compile(parse_query(b["query"])) for b in bodies]
+    spec = unify_specs([c.spec for c in cs])
+    arrays = bm25_device.stack_plans(
+        [pad_arrays_to_spec(c.spec, spec, c.arrays) for c in cs]
+    )
+    return spec, bm25_device.plan_to_torch(spec, arrays, dev)
+
+
+def kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q):
+    """K1-K4 at Q = 1 (one-shard sequential shapes) and K2b/K4b at Q rows
+    (the one-shard concurrent phase's mean batch)."""
     import torch
 
     from elasticsearch_tpu_torch.ops import bm25_device
@@ -354,94 +869,54 @@ def kernel_rows(seg_tree, compiler, bodies, launches, dev):
         c = compiler.compile(parse_query(body["query"]))
         return c.spec, bm25_device.plan_to_torch(c.spec, c.arrays, dev)
 
-    def worklist(a):
-        """(tile ids as int64, valid [NT, 256] mask, real entries)."""
-        tid = a["tile_ids"].to(torch.int64)
-        pos = tid[:, None] * 256 + lane
-        valid = (pos >= a["starts"].to(torch.int64)[:, None]) & (
-            pos < a["ends"].to(torch.int64)[:, None])
-        n_real = int(a["_groups"][-1][1]) if len(a["_groups"]) else 0
-        return tid, valid, n_real
-
-    def same(got, want, name):
-        for g, w in zip(got, want):
-            if g is None and w is None:
-                continue
-            if g.shape != w.shape or g.dtype != w.dtype:
-                raise SmokeFailure(f"{name}: shape/dtype differ from the plain version")
-            if g.dtype == torch.float32:
-                g, w = g.view(torch.int32), w.view(torch.int32)
-            if not torch.equal(g, w):
-                raise SmokeFailure(f"{name}: differs from the plain version")
-
-    def row(name, source, replaces, fn, plain, library, nbytes, reps=20):
-        got, want = fn(), plain()
-        torch.cuda.synchronize()
-        same(got, want, name)
-        r = {
-            "name": name,
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": launches[name],
-            "mismatches": 0,
-            "max_abs_err": 0.0,
-            "ms": cuda_ms(fn, reps),
-            "plain_ms": cuda_ms(plain, 2),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": cuda_ms(library, reps),
-            "bound_bytes": int(nbytes),
-        }
-        log(f"  kernel {json.dumps(r)}")
-        rows.append(r)
-
     # K1: the first child of the first bool(should) query (dense path).
     _spec, sa = plan(bodies[N_MATCH])
     a = sa["children"][0]
-    tid, valid, n_real = worklist(a)
+    tid, valid = _worklist(a, lane)
+    n_real = int(a["_groups"][-1][1]) if len(a["_groups"]) else 0
     args = (doc_tiles, tn, norm_bytes, a["tile_ids"], a["starts"], a["ends"],
             a["weights"], num_docs, a["_groups"])
     w = a["weights"][:, None]
     idx = doc_tiles[tid][valid].to(torch.int64)
     contrib = (w - w / (1.0 + tn[tid]))[valid]
-    row("terms_scatter", "elasticsearch_tpu_torch/csrc/terms_scatter.cu",
-        "elasticsearch_tpu/ops/bm25_device.py:436",
-        lambda: kern.terms_scatter(*args), lambda: kern.terms_scatter_plain(*args),
-        lambda: torch.zeros(num_docs + 1, device=dev).index_add_(0, idx, contrib),
-        # postings read (doc id + impact), worklist read, both planes written
-        int(valid.sum()) * 8 + n_real * 16 + (num_docs + 1) * 5)
+    _row(rows, "terms_scatter", "elasticsearch_tpu/ops/bm25_device.py:436", 1,
+         lambda: kern.terms_scatter(*args), lambda: kern.terms_scatter_plain(*args),
+         lambda: torch.zeros(num_docs + 1, device=dev).index_add_(0, idx, contrib),
+         "index_add_",
+         # postings read (doc id + impact), worklist read, both planes written
+         int(valid.sum()) * 8 + n_real * 16 + (num_docs + 1) * 5)
 
     # K2 and K3: the first cfg2 match query (sparse path).
     spec, a = plan(bodies[0])
-    tid, valid, n_real = worklist(a)
+    tid, valid = _worklist(a, lane)
+    n_real = int(a["_groups"][-1][1]) if len(a["_groups"]) else 0
     args = (doc_tiles, tn, a["tile_ids"], a["starts"], a["ends"], a["weights"],
             live, num_docs, spec[3])
     docs_s, run_sum, elig = kern.sparse_fold(*args)
     p = docs_s.shape[0]
     cand_keys = torch.where(valid, doc_tiles[tid], num_docs).reshape(-1)
-    row("sparse_fold", "elasticsearch_tpu_torch/csrc/sparse_fold.cu",
-        "elasticsearch_tpu/ops/bm25_device.py:977",
-        lambda: kern.sparse_fold(*args), lambda: kern.sparse_fold_plain(*args),
-        lambda: torch.sort(cand_keys, stable=True),
-        # tiles and worklist read; docs_s, run_sum, eligible written; live read
-        n_real * 256 * 8 + n_real * 16 + p * 10)
+    _row(rows, "sparse_fold", "elasticsearch_tpu/ops/bm25_device.py:977", 1,
+         lambda: kern.sparse_fold(*args), lambda: kern.sparse_fold_plain(*args),
+         lambda: torch.sort(cand_keys, stable=True), "torch.sort(stable=True)",
+         # tiles and worklist read; docs_s, run_sum, eligible written
+         n_real * 256 * 8 + n_real * 16 + p * 9)
     key = torch.where(elig, run_sum, float("-inf"))
-    row("masked_topk", "elasticsearch_tpu_torch/csrc/masked_topk.cu",
-        "elasticsearch_tpu/ops/bm25_device.py:1031",
-        lambda: kern.masked_topk(key, elig, TOP_K),
-        lambda: kern.masked_topk_plain(key, elig, TOP_K),
-        lambda: torch.topk(key, TOP_K),
-        p * 5 + TOP_K * 8 + 4)
+    _row(rows, "masked_topk", "elasticsearch_tpu/ops/bm25_device.py:1031", 1,
+         lambda: kern.masked_topk(key, elig, TOP_K),
+         lambda: kern.masked_topk_plain(key, elig, TOP_K),
+         lambda: torch.topk(key, TOP_K), "torch.topk",
+         p * 5 + TOP_K * 8 + 4)
 
     # K4: a filter-led conjunction's candidates in its first must span.
+    lead_bodies = []
     for body in bodies[N_MATCH + N_SHOULD:]:
         spec, la = plan(body)
         if spec[6] >= 0:
-            break
-    else:
+            lead_bodies.append(body)
+    if not lead_bodies:
         raise SmokeFailure("no filter-led conjunction among the queries")
-    tid, valid, _ = worklist(la["children"][1 + spec[6]])
+    spec, la = plan(lead_bodies[0])
+    tid, valid = _worklist(la["children"][1 + spec[6]], lane)
     cands = torch.clamp(torch.where(valid, doc_tiles[tid], num_docs).reshape(-1),
                         max=num_docs - 1)
     m = la["children"][0]
@@ -449,14 +924,100 @@ def kernel_rows(seg_tree, compiler, bodies, launches, dev):
     args = (flat, m["term_starts"], m["term_ends"], 0, cands)
     s0, e0 = int(m["term_starts"][0]), int(m["term_ends"][0])
     span = flat[s0:e0]
-    row("span_locate", "elasticsearch_tpu_torch/csrc/span_locate.cu",
-        "elasticsearch_tpu/ops/bm25_device.py:949",
-        lambda: kern.span_locate(*args), lambda: kern.span_locate_plain(*args),
-        lambda: torch.searchsorted(span, cands),
-        # candidates and the span read once; pos and found written
-        cands.shape[0] * 9 + (e0 - s0) * 4)
+    _row(rows, "span_locate", "elasticsearch_tpu/ops/bm25_device.py:949", 1,
+         lambda: kern.span_locate(*args), lambda: kern.span_locate_plain(*args),
+         lambda: torch.searchsorted(span, cands), "torch.searchsorted",
+         # candidates and the span read once; pos and found written
+         cands.shape[0] * 9 + (e0 - s0) * 4)
+
+    # K2b: Q cfg2 match queries, equalized and stacked as a batch is.
+    spec, a = _stacked_plan(compiler, bodies[:q], dev)
+    tid, valid = _worklist(a, lane)
+    n_real = int(valid.any(dim=-1).sum())
+    args = (doc_tiles, tn, a["tile_ids"], a["starts"], a["ends"], a["weights"],
+            live, num_docs, spec[3])
+    docs_s, _run_sum, _elig = kern.sparse_fold_batch(*args)
+    p_all = docs_s.numel()
+    cand_keys = torch.where(valid, doc_tiles[tid], num_docs).reshape(q, -1)
+    _row(rows, "sparse_fold_batch", "elasticsearch_tpu/ops/bm25_device.py:1050", q,
+         lambda: kern.sparse_fold_batch(*args),
+         lambda: kern.sparse_fold_batch_plain(*args),
+         lambda: torch.sort(cand_keys, dim=1, stable=True),
+         "torch.sort(stable=True) over [Q, P]",
+         n_real * 256 * 8 + n_real * 16 + p_all * 9)
+
+    # K4b: Q filter-led conjunctions' candidates against their first must
+    # term's span (each row its own span).
+    lead_q = (lead_bodies * q)[:q]
+    spec, la = _stacked_plan(compiler, lead_q, dev)
+    tid, valid = _worklist(la["children"][1 + spec[6]], lane)
+    cands = torch.clamp(
+        torch.where(valid, doc_tiles[tid], num_docs).reshape(q, -1),
+        max=num_docs - 1,
+    )
+    m = la["children"][0]
+    args = (flat, m["term_starts"], m["term_ends"], 0, cands)
+    spans = [flat[int(m["term_starts"][r, 0]):int(m["term_ends"][r, 0])]
+             for r in range(q)]
+    _row(rows, "span_locate_batch", "elasticsearch_tpu/ops/bm25_device.py:1050", q,
+         lambda: kern.span_locate_batch(*args),
+         lambda: kern.span_locate_batch_plain(*args),
+         lambda: [torch.searchsorted(spans[r], cands[r]) for r in range(q)],
+         "torch.searchsorted per row",
+         cands.numel() * 9 + sum(s.numel() for s in spans) * 4)
     return rows
 
+
+def kernel_rows_sharded(svc, handles, bodies, dev, q):
+    """K1b (gather mode: the coordinator compiles with global statistics)
+    and K3b at the sharded concurrent phase's mean batch, on shard 0."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.ops import kernels as kern
+
+    handle = handles[0]
+    seg_tree = bm25_device.segment_tree(handle.device)
+    num_docs = seg_tree["live"].shape[0]
+    doc_tiles, _tn, tfs, norm_bytes, _present = seg_tree["fields"]["body"]
+    compiler = svc.engines[0].compiler_for(handle, svc.search.global_stats())
+    lane = torch.arange(256, device=dev, dtype=torch.int64)
+    rows = []
+    match_bodies = bodies[N_CFG3 : N_CFG3 + q]
+    spec, a = _stacked_plan(compiler, match_bodies, dev)
+    if spec[0] != "terms_gather":
+        raise SmokeFailure(f"sharded match compiled to {spec[0]}, not terms_gather")
+    tid, valid = _worklist(a, lane)
+    n_real = int(valid.any(dim=-1).sum())
+    args = (doc_tiles, tfs, norm_bytes, a["tile_ids"], a["starts"], a["ends"],
+            a["weights"], num_docs, a["_groups"])
+    kwargs = {"cache": a["cache"]}
+    # index_add_ yardstick: the same contributions into the flattened
+    # [Q * (N + 1)] plane.
+    row_of = torch.arange(q, device=dev)[:, None, None].expand_as(valid)
+    docs = doc_tiles[tid]
+    flat_idx = (row_of * (num_docs + 1) + docs)[valid].to(torch.int64)
+    w = a["weights"][..., None]
+    x = tfs[tid] * a["cache"][torch.arange(q, device=dev)[:, None, None],
+                              norm_bytes[docs.to(torch.int64)].to(torch.int64)]
+    contrib = (w - w / (1.0 + x))[valid]
+    _row(rows, "terms_scatter_batch", "elasticsearch_tpu/ops/bm25_device.py:1261", q,
+         lambda: kern.terms_scatter_batch(*args, **kwargs),
+         lambda: kern.terms_scatter_batch_plain(*args, **kwargs),
+         lambda: torch.zeros(q * (num_docs + 1), device=dev).index_add_(
+             0, flat_idx, contrib),
+         "index_add_ over [Q * (N + 1)]",
+         # postings (doc id, tf, norm byte) read, worklists read, planes written
+         int(valid.sum()) * 9 + n_real * 16 + q * (num_docs + 1) * 5)
+    scores, matched = kern.terms_scatter_batch(*args, **kwargs)
+    elig = (matched[:, :num_docs] & seg_tree["live"]).contiguous()
+    key = torch.where(elig, scores[:, :num_docs], float("-inf")).contiguous()
+    _row(rows, "masked_topk_batch", "elasticsearch_tpu/ops/bm25_device.py:1261", q,
+         lambda: kern.masked_topk_batch(key, elig, TOP_K),
+         lambda: kern.masked_topk_batch_plain(key, elig, TOP_K),
+         lambda: torch.topk(key, TOP_K, dim=1), "torch.topk over [Q, M]",
+         key.numel() * 5 + q * (TOP_K * 8 + 4))
+    return rows
 
 
 def main() -> int:

@@ -1,24 +1,32 @@
-// K1 terms_scatter: worklist tile gather + BM25 impact + ordered scatter.
+// K1 terms_scatter: worklist tile gather + BM25 impact + ordered scatter,
+// for Q worklists (rows) at once.
 //
 // Replaces: elasticsearch_tpu/ops/bm25_device.py `_gather_tiles` (:418),
 // `_eval_terms` (:449), `_eval_terms_gather` (:458), `_scatter_scored`
-// (:436) and, in matched-only mode, `_terms_matched` (:667).
+// (:436) and, in matched-only mode, `_terms_matched` (:667) — solo, and
+// under the vmap of `execute_batch` (:1261), whose rows are Q queries of
+// one spec. A solo query is the row count Q = 1.
 //
 // Bound on an H100: bytes. Each valid posting reads its doc id (4 B) and
 // impact (4 B) once and read-modify-writes one score (4 B + 4 B) and one
 // matched byte; there is ~1 fp32 division per 20 bytes, far below the
 // card's compute roofline.
 //
-// Design: one block of 256 threads per worklist entry (one posting tile),
-// so the tile read is one fully coalesced 1 KB load per plane. The
-// reference's dense result equals the oracle's left fold in query-term
-// order bit for bit, and float atomics would add in an undefined order.
-// So the worklist is split on the host into GROUPS: consecutive entries of
-// one term occurrence (same [start, end) span, strictly increasing tile
-// ids). Inside a group every doc appears at most once, so a plain
+// Design: one block of 256 threads per (worklist entry, row), so the tile
+// read is one fully coalesced 1 KB load per plane. The reference's dense
+// result equals the oracle's left fold in query-term order bit for bit,
+// and float atomics would add in an undefined order. So each row's
+// worklist is split on the host into GROUPS: consecutive entries of one
+// term occurrence (same [start, end) span, strictly increasing tile ids).
+// Inside a group every doc appears at most once, so a plain
 // read-modify-write is race-free; groups are launched in order on one
 // stream, which gives exactly the reference's per-doc accumulation order.
-// The matched bitmap is order-free and needs no grouping.
+// Rows have different group counts and lengths: launch g runs group g of
+// every row (grid.y = row), is as wide as the longest group g of any row,
+// and a block past its row's group (or a row without a group g) returns.
+// Rows write disjoint [num_docs + 1] planes, so they never race. A single
+// row takes its group bounds as launch arguments, so a solo query uploads
+// nothing. The matched bitmap is order-free and needs no grouping.
 #include "common.cuh"
 
 __global__ void terms_scatter_kernel(
@@ -30,33 +38,58 @@ __global__ void terms_scatter_kernel(
     const int32_t* __restrict__ starts,
     const int32_t* __restrict__ ends,
     const float* __restrict__ weights,
+    const int32_t* __restrict__ bounds,
+    int n_groups,
+    int g,
     int e0,
+    int e1,
+    int nt,
+    int64_t n1,
     float* __restrict__ scores,
     uint8_t* __restrict__ matched,
     int matched_only) {
-    const int e = e0 + blockIdx.x;
-    const int64_t pos = (int64_t)tile_ids[e] * ESK_TILE + threadIdx.x;
-    if (pos < (int64_t)starts[e] || pos >= (int64_t)ends[e]) {
+    const int q = blockIdx.y;
+    int e = blockIdx.x;
+    if (!matched_only) {
+        if (bounds != nullptr) {
+            const int32_t* b = bounds + ((int64_t)q * n_groups + g) * 2;
+            e0 = b[0];
+            e1 = b[1];
+        }
+        e += e0;
+        if (e >= e1) {
+            return;
+        }
+    }
+    const int64_t row_e = (int64_t)q * nt + e;
+    const int64_t pos = (int64_t)tile_ids[row_e] * ESK_TILE + threadIdx.x;
+    if (pos < (int64_t)starts[row_e] || pos >= (int64_t)ends[row_e]) {
         return;
     }
     const int32_t doc = doc_tiles[pos];
-    matched[doc] = 1;
+    matched[(int64_t)q * n1 + doc] = 1;
     if (matched_only) {
         return;
     }
-    const float w = weights[e];
+    const float w = weights[row_e];
     float x = vals[pos];
     if (cache != nullptr) {
         // Custom-params path: tf * normInverse[normByte], never an FMA.
-        x = __fmul_rn(x, cache[norm_bytes[doc]]);
+        x = __fmul_rn(x, cache[q * 256 + norm_bytes[doc]]);
     }
     const float contrib = __fsub_rn(w, __fdiv_rn(w, __fadd_rn(1.0f, x)));
-    scores[doc] = __fadd_rn(scores[doc], contrib);
+    float* s = scores + (int64_t)q * n1 + doc;
+    *s = __fadd_rn(*s, contrib);
 }
 
-// groups: host array of 2 * n_groups ints, [e0, e1) per group, in order.
-// With matched_only the groups are ignored and all entries [0, n_entries)
-// run in one launch.
+// Rows q in [0, n_rows), worklists tile_ids/starts/ends/weights [n_rows,
+// nt], cache [n_rows, 256] or null, outputs scores/matched [n_rows, n1].
+// groups: host int32 [n_rows, n_groups, 2], each row's group g as [e0, e1)
+// (empty [0, 0) past the row's last group); bounds: the same on the
+// device, needed (and read) only when n_rows > 1. group_len: host int32
+// [n_groups], the longest group g of any row (null for one row: its own
+// group lengths). With matched_only the groups are ignored and every
+// entry of every row runs in one launch.
 extern "C" int esk_terms_scatter(
     const void* doc_tiles,
     const void* vals,
@@ -67,36 +100,45 @@ extern "C" int esk_terms_scatter(
     const void* ends,
     const void* weights,
     const int* groups,
+    const void* bounds,
+    const int* group_len,
     int n_groups,
-    int n_entries,
+    int n_rows,
+    int nt,
+    long long n1,
     void* scores,
     void* matched,
     int matched_only,
     void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (matched_only) {
-        if (n_entries > 0) {
-            terms_scatter_kernel<<<n_entries, ESK_TILE, 0, s>>>(
-                (const int32_t*)doc_tiles, (const float*)vals,
-                (const uint8_t*)norm_bytes, (const float*)cache,
-                (const int32_t*)tile_ids, (const int32_t*)starts,
-                (const int32_t*)ends, (const float*)weights, 0,
-                (float*)scores, (uint8_t*)matched, 1);
-            ESK_RETURN_IF_ERROR();
-        }
+    if (n_rows <= 0 || nt <= 0) {
         return 0;
     }
-    for (int g = 0; g < n_groups; ++g) {
-        const int e0 = groups[2 * g];
-        const int e1 = groups[2 * g + 1];
-        if (e1 <= e0) {
-            continue;
-        }
-        terms_scatter_kernel<<<e1 - e0, ESK_TILE, 0, s>>>(
+    if (matched_only) {
+        terms_scatter_kernel<<<dim3(nt, n_rows), ESK_TILE, 0, s>>>(
             (const int32_t*)doc_tiles, (const float*)vals,
             (const uint8_t*)norm_bytes, (const float*)cache,
             (const int32_t*)tile_ids, (const int32_t*)starts,
-            (const int32_t*)ends, (const float*)weights, e0,
+            (const int32_t*)ends, (const float*)weights,
+            nullptr, n_groups, 0, 0, 0, nt, (int64_t)n1,
+            (float*)scores, (uint8_t*)matched, 1);
+        ESK_RETURN_IF_ERROR();
+        return 0;
+    }
+    const int32_t* dev_bounds = n_rows > 1 ? (const int32_t*)bounds : nullptr;
+    for (int g = 0; g < n_groups; ++g) {
+        const int len = group_len != nullptr
+                            ? group_len[g]
+                            : groups[2 * g + 1] - groups[2 * g];
+        if (len <= 0) {
+            continue;
+        }
+        terms_scatter_kernel<<<dim3(len, n_rows), ESK_TILE, 0, s>>>(
+            (const int32_t*)doc_tiles, (const float*)vals,
+            (const uint8_t*)norm_bytes, (const float*)cache,
+            (const int32_t*)tile_ids, (const int32_t*)starts,
+            (const int32_t*)ends, (const float*)weights, dev_bounds,
+            n_groups, g, groups[2 * g], groups[2 * g + 1], nt, (int64_t)n1,
             (float*)scores, (uint8_t*)matched, 0);
         ESK_RETURN_IF_ERROR();
     }

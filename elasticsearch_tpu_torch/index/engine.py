@@ -2,7 +2,8 @@
 
 Port of elasticsearch_tpu/index/engine.py, trimmed to this slice: `index`,
 `delete`, `refresh`, the device live mask, `_install_segment` (attach a
-prebuilt segment), `field_stats` and `compiler_for`. Left out: the
+prebuilt segment), `field_stats`, `compiler_for`, the refresh
+`generation` and the live-doc count `num_docs`. Left out: the
 translog and store (no durability), merges, the HBM breaker, CAS writes,
 replication and cold-tier demotion; see ROADMAP queue A.
 """
@@ -81,6 +82,9 @@ class Engine:
         self.primary_term = 1
         self._versions: dict[str, int] = {}
         self._stats_cache: dict[str, FieldStats] | None = None
+        # Monotonic refresh generation: bumps whenever the searchable view
+        # changes (the coordinator's statistics cache keys on it).
+        self.generation = 0
 
     # ------------------------------------------------------------- write path
 
@@ -158,6 +162,8 @@ class Engine:
                 if handle.live_dirty:
                     handle.sync_live()
                     changed = True
+            if changed:
+                self.generation += 1
             if self._buffer.num_docs == 0:
                 return changed
             if self._buffer_deleted:
@@ -199,6 +205,7 @@ class Engine:
             self._buffer = SegmentBuilder(self.mappings)
             self._buffer_ids = {}
             self._stats_cache = None
+            self.generation += 1
             return True
 
     def _install_segment(
@@ -231,7 +238,13 @@ class Engine:
             if segment.seqnos is not None and len(segment.seqnos):
                 self._seqno = max(self._seqno, int(segment.seqnos.max()))
             self._stats_cache = None
+            self.generation += 1
             return handle
+
+    @property
+    def num_docs(self) -> int:
+        """Live (searchable) docs, excluding the unrefreshed buffer."""
+        return sum(int(h.live_host.sum()) for h in self.segments)
 
     def field_stats(self) -> dict[str, FieldStats]:
         """Shard-level BM25 statistics aggregated across segments (cached

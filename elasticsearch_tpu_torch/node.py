@@ -1,27 +1,38 @@
-"""A single-shard node: index management, writes and `_search`.
+"""A node on one device: index management, writes and `_search`.
 
-Port of elasticsearch_tpu/node.py, trimmed to this slice: `create_index`,
-`index_doc`, `delete_doc`, `bulk`, `refresh` and `search` over one shard
-per index on one device. Left out: replication and clusters, aliases and
-templates, ingest pipelines, scroll and async search, the QoS and
-micro-batching front, tasks, metrics and tracing, snapshots, and every
-other API of the reference node (ROADMAP queue A).
+Port of elasticsearch_tpu/node.py, trimmed to this slice: `create_index`
+(with `number_of_shards`), `index_doc`, `delete_doc`, `bulk`, `refresh`
+and `search` over indices of N shards on one device. Documents route to
+shards by murmur3 over their _id (parallel/routing.py); ids the node
+generates (`_auto_N`) come from one per-index counter. A multi-shard
+index searches through the ShardedSearchCoordinator. Plain searches ride
+the exec micro-batcher (exec/batcher.py; ESTPU_EXEC_BATCHER=0 opts out),
+which coalesces concurrent same-shape searches of an index into one
+batched launch per (shard, spec group). Left out: replication and
+clusters, aliases and templates, ingest pipelines, scroll and async
+search, QoS lanes, the SPMD mesh view, kNN, tasks, metrics and tracing,
+snapshots, and every other API of the reference node (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 from .analysis.analyzers import AnalysisRegistry
 from .device import DEFAULT_DEVICE, resolve_device
+from .exec.batcher import BatcherRejected, MicroBatcher
+from .exec.planner import ast_signature
 from .index.engine import Engine, VersionConflictError
 from .index.mapping import Mappings
 from .ops.bm25 import BM25Params
+from .parallel.routing import shard_for_id
+from .search.coordinator import SearchPhaseFailedError, ShardedSearchCoordinator
 from .search.service import SearchRequest, SearchService
 
 _INDEX_NAME_RE = re.compile(r"^[a-z0-9][a-z0-9_\-.]*$")
@@ -30,11 +41,18 @@ _INDEX_NAME_RE = re.compile(r"^[a-z0-9][a-z0-9_\-.]*$")
 class ApiError(Exception):
     """An error with an HTTP status, rendered ES-style by the REST layer."""
 
-    def __init__(self, status: int, err_type: str, reason: str):
+    def __init__(
+        self,
+        status: int,
+        err_type: str,
+        reason: str,
+        retry_after_s: int | None = None,
+    ):
         super().__init__(reason)
         self.status = status
         self.err_type = err_type
         self.reason = reason
+        self.retry_after_s = retry_after_s  # Retry-After header on a 429
 
 
 def index_not_found(name: str) -> ApiError:
@@ -43,14 +61,53 @@ def index_not_found(name: str) -> ApiError:
 
 @dataclass
 class IndexService:
+    """One index: mappings + N shard engines + its search entry.
+
+    Documents route to shards by ES-compatible murmur3 over _id
+    (OperationRouting.java:245 via parallel/routing.py); a multi-shard
+    index searches through the ShardedSearchCoordinator."""
+
     name: str
     mappings: Mappings
-    engine: Engine
-    search: SearchService
+    engines: list[Engine]
+    search: SearchService | ShardedSearchCoordinator
+    _auto_counter: int = -1  # seeded lazily from the shard engines
+    _auto_lock: threading.Lock = field(default_factory=threading.Lock)
+
+    @property
+    def engine(self) -> Engine:
+        """The sole engine of a 1-shard index."""
+        if len(self.engines) != 1:
+            raise ValueError(
+                f"index [{self.name}] has {len(self.engines)} shards; "
+                f"use route()/engines"
+            )
+        return self.engines[0]
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.engines)
+
+    def route(self, doc_id: str) -> Engine:
+        """Shard engine owning doc_id (murmur3 routing, ES-compatible)."""
+        if len(self.engines) == 1:
+            return self.engines[0]
+        return self.engines[shard_for_id(doc_id, len(self.engines))]
+
+    def next_auto_id(self) -> str:
+        """Node-generated _id for id-less writes to a multi-shard index
+        (the id must exist before routing), safe across concurrent REST
+        threads."""
+        with self._auto_lock:
+            if self._auto_counter < 0:
+                self._auto_counter = max(e._auto_id for e in self.engines)
+            doc_id = f"_auto_{self._auto_counter}"
+            self._auto_counter += 1
+            return doc_id
 
 
 class Node:
-    """One node serving single-shard indices from one device."""
+    """One node serving N-shard indices from one device."""
 
     def __init__(
         self,
@@ -63,6 +120,18 @@ class Node:
         self.cluster_name = cluster_name
         self.indices: dict[str, IndexService] = {}
         self._lock = threading.Lock()
+        # Continuous micro-batching of concurrent plain searches
+        # (ESTPU_EXEC_BATCH_WAIT_MS sets its window, default 4 ms).
+        self.exec_batcher = (
+            MicroBatcher()
+            if os.environ.get("ESTPU_EXEC_BATCHER", "1") != "0"
+            else None
+        )
+
+    def close(self) -> None:
+        """Stop the micro-batcher's scheduler thread."""
+        if self.exec_batcher is not None:
+            self.exec_batcher.close()
 
     # ------------------------------------------------------------- indices
 
@@ -82,16 +151,26 @@ class Node:
                 )
             settings = body.get("settings") or {}
             index_settings = settings.get("index", {})
-            n_shards = int(
-                index_settings.get(
-                    "number_of_shards", settings.get("number_of_shards", 1)
+            try:
+                n_shards = int(
+                    index_settings.get(
+                        "number_of_shards",
+                        settings.get(
+                            "index.number_of_shards",
+                            settings.get("number_of_shards", 1),
+                        ),
+                    )
                 )
-            )
-            if n_shards != 1:
+            except (TypeError, ValueError):
                 raise ApiError(
                     400, "illegal_argument_exception",
-                    "this node serves single-shard indices only "
-                    f"(number_of_shards={n_shards})",
+                    "index.number_of_shards must be an integer",
+                ) from None
+            if n_shards < 1 or n_shards > 1024:
+                raise ApiError(
+                    400, "illegal_argument_exception",
+                    f"index.number_of_shards must be in [1, 1024], got "
+                    f"{n_shards}",
                 )
             params = BM25Params()
             sim = index_settings.get("similarity", {}).get("default", {})
@@ -109,12 +188,19 @@ class Node:
                 )
             except ValueError as e:
                 raise ApiError(400, "mapper_parsing_exception", str(e)) from None
-            engine = Engine(mappings, params=params, device=self.device)
+            engines = [
+                Engine(mappings, params=params, device=self.device)
+                for _ in range(n_shards)
+            ]
             self.indices[name] = IndexService(
                 name=name,
                 mappings=mappings,
-                engine=engine,
-                search=SearchService(engine),
+                engines=engines,
+                search=(
+                    SearchService(engines[0])
+                    if n_shards == 1
+                    else ShardedSearchCoordinator(engines, name)
+                ),
             )
         return {"acknowledged": True, "shards_acknowledged": True, "index": name}
 
@@ -147,8 +233,12 @@ class Node:
                 "failed to parse: the document must be a JSON object",
             )
         svc = self.get_index(index, auto_create=True)
+        if doc_id is None and svc.n_shards > 1:
+            # Multi-shard: the id must exist before routing.
+            doc_id = svc.next_auto_id()
+        engine = svc.engines[0] if doc_id is None else svc.route(doc_id)
         try:
-            result = svc.engine.index(source, doc_id, op_type=op_type)
+            result = engine.index(source, doc_id, op_type=op_type)
         except VersionConflictError as e:
             raise ApiError(409, "version_conflict_engine_exception", str(e)) from None
         except ValueError as e:
@@ -163,13 +253,14 @@ class Node:
             "_shards": {"total": 1, "successful": 1, "failed": 0},
         }
         if refresh:
-            svc.engine.refresh()
+            engine.refresh()
             out["forced_refresh"] = True
         return out
 
     def delete_doc(self, index: str, doc_id: str, refresh: bool = False) -> dict:
         svc = self.get_index(index)
-        result = svc.engine.delete(doc_id)
+        engine = svc.route(doc_id)
+        result = engine.delete(doc_id)
         out = {
             "_index": index,
             "_id": doc_id,
@@ -180,7 +271,7 @@ class Node:
             "_shards": {"total": 1, "successful": 1, "failed": 0},
         }
         if refresh:
-            svc.engine.refresh()
+            engine.refresh()
             out["forced_refresh"] = True
         return out
 
@@ -251,7 +342,8 @@ class Node:
         if refresh:
             for index in touched:
                 if index in self.indices:
-                    self.indices[index].engine.refresh()
+                    for engine in self.indices[index].engines:
+                        engine.refresh()
         return {
             "took": int((time.monotonic() - t0) * 1000),
             "errors": errors,
@@ -260,8 +352,10 @@ class Node:
 
     def refresh(self, index: str) -> dict:
         svc = self.get_index(index)
-        svc.engine.refresh()
-        return {"_shards": {"total": 1, "successful": 1, "failed": 0}}
+        for engine in svc.engines:
+            engine.refresh()
+        n = svc.n_shards
+        return {"_shards": {"total": n, "successful": n, "failed": 0}}
 
     # -------------------------------------------------------------- search
 
@@ -272,9 +366,36 @@ class Node:
         except (ValueError, KeyError, TypeError) as e:
             raise ApiError(400, "parsing_exception", str(e)) from None
         try:
-            response = svc.search.search(request)
+            if self._batchable(request):
+                response = self.exec_batcher.execute(
+                    svc.search,
+                    request,
+                    group_key=(svc.name, ast_signature(request.query)),
+                )
+            else:
+                response = svc.search.search(request)
         except ValueError as e:
             raise ApiError(
                 400, "search_phase_execution_exception", str(e)
             ) from None
+        except BatcherRejected as e:
+            raise ApiError(
+                429, "es_rejected_execution_exception", str(e),
+                retry_after_s=e.retry_after_s,
+            ) from None
+        except SearchPhaseFailedError as e:
+            # Every shard failed: the honest status is 503, never a
+            # silently-partial 200.
+            raise ApiError(
+                503, "search_phase_execution_exception", str(e)
+            ) from None
         return response.to_json(index)
+
+    def _batchable(self, request: SearchRequest) -> bool:
+        """May this search ride the exec micro-batcher? Plain score-sorted
+        query phases that ask for at least one hit (every search the port
+        serves is score-sorted)."""
+        return (
+            self.exec_batcher is not None
+            and max(0, request.from_) + max(0, request.size) > 0
+        )

@@ -12,6 +12,11 @@ plain PyTorch versions.
     K4 span_locate    csrc/span_locate.cu    binary search in a sorted
                       posting span (_span_locate / _span_member)
 
+Every kernel takes a leading row axis Q: the `*_batch` wrappers run Q
+queries of one plan in one launch (the JAX package's vmapped
+execute_batch / execute_batch_sparse), and the solo wrappers are the same
+launch with Q = 1.
+
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface, loaded with ctypes. The build runs on the first launch
 (or `ensure_built()`), into `_build/<sources hash>/` beside the package,
@@ -20,9 +25,14 @@ nvcc process, all started together, then one link.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything its kernel does not take. For tensors on the CPU it runs the
-plain version below it; for CUDA tensors it launches the kernel (on the
-current stream, without synchronising) or raises — there is no fallback.
-`LAUNCHES` counts kernel launches per wrapper (plain runs do not count).
+plain version below it (for a batch, the solo plain version row by row);
+for CUDA tensors it launches the kernel (on the current stream, without
+synchronising) or raises — there is no fallback. `LAUNCHES` counts kernel
+launches: under the kernel's name for one row, under `<name>_batch` for
+more (plain runs do not count). Launches from several threads (the REST
+handlers and the micro-batcher) share the one library and the caller's
+current stream; the library loads once under `_lib_lock` and the counts
+move under `_count_lock`.
 """
 
 from __future__ import annotations
@@ -58,22 +68,32 @@ NVCC_FLAGS = (
 # Largest shared-memory chunk K3 sorts per block (16384 u64 = 128 KB).
 TOPK_MAX_CHUNK = 16384
 
+KERNELS = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate")
+
 LAUNCHES: dict[str, int] = {
-    "terms_scatter": 0,
-    "sparse_fold": 0,
-    "masked_topk": 0,
-    "span_locate": 0,
+    name + suffix: 0 for name in KERNELS for suffix in ("", "_batch")
 }
+
+# Pairs one K2 launch sorts at most (16 B of scratch each): larger batches
+# run as several launches over consecutive rows, with identical results.
+SPARSE_FOLD_MAX_PAIRS = 1 << 28
 
 BUILD_INFO: dict[str, object] = {}
 
 _lib = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str, n_rows: int) -> None:
+    with _count_lock:
+        LAUNCHES[name if n_rows == 1 else name + "_batch"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -158,14 +178,10 @@ def build_library() -> Path:
 
 def _bind(lib) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.esk_terms_scatter.argtypes = [
-        P, P, P, P, P, P, P, P, P, I, I, P, P, I, P,
-    ]
-    lib.esk_sparse_fold.argtypes = [
-        P, P, P, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P, P,
-    ]
-    lib.esk_masked_topk.argtypes = [P, P, I, I, I, P, P, P, P, P, P]
-    lib.esk_span_locate.argtypes = [P, L, P, P, I, P, I, I, P, P, P]
+    lib.esk_terms_scatter.argtypes = [P] * 11 + [I, I, I, L, P, P, I, P]
+    lib.esk_sparse_fold.argtypes = [P] * 6 + [I] * 5 + [P] * 10
+    lib.esk_masked_topk.argtypes = [P, P, I, I, I, I] + [P] * 6
+    lib.esk_span_locate.argtypes = [P, L, P, P, I, I, P, I, I, I, P, P, P]
     for fn in (
         lib.esk_terms_scatter,
         lib.esk_sparse_fold,
@@ -187,8 +203,11 @@ def ensure_built():
     return _lib
 
 
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor | None, offset: int = 0):
+    """Device address of t's first element (plus `offset` elements)."""
+    if t is None:
+        return None
+    return ctypes.c_void_p(t.data_ptr() + offset * t.element_size())
 
 
 def _stream(device: torch.device):
@@ -253,6 +272,15 @@ def key_bits(num_docs: int) -> int:
     return max(1, int(num_docs + 1).bit_length())
 
 
+
+
+def _check_rows(name: str, t: torch.Tensor, n_rows: int, width: int) -> None:
+    if tuple(t.shape) != (n_rows, width):
+        raise ValueError(
+            f"{name} must be [{n_rows}, {width}], got {tuple(t.shape)}"
+        )
+
+
 # ---------------------------------------------------------------------------
 # Worklist groups (K1 ordering)
 # ---------------------------------------------------------------------------
@@ -282,6 +310,21 @@ def term_groups(tile_ids, starts, ends) -> np.ndarray:
     breaks = np.append(np.flatnonzero(~cont), n)
     tails = breaks[np.searchsorted(breaks, heads, side="right")]
     return np.stack([heads, tails], axis=1).astype(np.int32)
+
+
+def batch_groups(tile_ids, starts, ends) -> np.ndarray:
+    """int32[Q, G, 2]: term_groups of each row of [Q, nt] worklists, padded
+    to the largest group count with empty [0, 0) groups."""
+    tile_ids = np.asarray(tile_ids)
+    rows = [
+        term_groups(tile_ids[q], np.asarray(starts)[q], np.asarray(ends)[q])
+        for q in range(tile_ids.shape[0])
+    ]
+    out = np.zeros((len(rows), max([len(g) for g in rows] + [0]), 2),
+                   dtype=np.int32)
+    for q, g in enumerate(rows):
+        out[q, : len(g)] = g
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -323,11 +366,121 @@ def terms_scatter_plain(
     return scores, matched
 
 
+def terms_scatter_batch_plain(
+    doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+    num_docs: int, groups, cache=None, matched_only: bool = False,
+):
+    """The batched K1 as the solo plain version row by row."""
+    outs = [
+        terms_scatter_plain(
+            doc_tiles, vals, norm_bytes, tile_ids[q], starts[q], ends[q],
+            None if matched_only else weights[q], num_docs, groups[q],
+            cache=None if cache is None else cache[q],
+            matched_only=matched_only,
+        )
+        for q in range(tile_ids.shape[0])
+    ]
+    matched = torch.stack([m for _s, m in outs])
+    if matched_only:
+        return None, matched
+    return torch.stack([s for s, _m in outs]), matched
+
+
+def terms_scatter_batch(
+    doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+    num_docs: int, groups, cache=None, matched_only: bool = False,
+):
+    """BM25 term-disjunction scatter over Q tile worklists at once.
+
+    tile_ids/starts/ends/weights are [Q, nt], cache [Q, 256] or None, and
+    `groups` is the host-side batch_groups(...) int32[Q, G, 2] of the
+    worklists. Returns (scores f32[Q, num_docs + 1] or None in
+    matched-only mode, matched bool[Q, num_docs + 1]); slot num_docs of
+    each row is the discard slot."""
+    dev = doc_tiles.device
+    _check(doc_tiles, "doc_tiles", torch.int32, 2, dev)
+    _check(vals, "vals", torch.float32, 2, dev)
+    _check(norm_bytes, "norm_bytes", torch.uint8, 1, dev)
+    _check(tile_ids, "tile_ids", torch.int32, 2, dev)
+    q, nt = tile_ids.shape
+    for name, t, dt in (("starts", starts, torch.int32),
+                        ("ends", ends, torch.int32)):
+        _check(t, name, dt, 2, dev)
+        _check_rows(name, t, q, nt)
+    if doc_tiles.shape[1] != TILE or vals.shape != doc_tiles.shape:
+        raise ValueError("tile planes must be [NT, 256] and alike")
+    if norm_bytes.shape[0] != num_docs + 1:
+        raise ValueError("norm_bytes must have num_docs + 1 slots")
+    if not 1 <= q <= 65535:
+        raise ValueError(f"row count {q} out of range [1, 65535]")
+    if not matched_only:
+        _check(weights, "weights", torch.float32, 2, dev)
+        _check_rows("weights", weights, q, nt)
+    if cache is not None:
+        _check(cache, "cache", torch.float32, 2, dev)
+        _check_rows("cache", cache, q, 256)
+    groups = np.ascontiguousarray(np.asarray(groups, dtype=np.int32))
+    if groups.ndim != 3 or groups.shape[0] != q or groups.shape[2] != 2:
+        raise ValueError(f"groups must be [{q}, G, 2], got {groups.shape}")
+    if not _launchable(dev):
+        return terms_scatter_batch_plain(
+            doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+            num_docs, groups, cache=cache, matched_only=matched_only,
+        )
+    return _terms_scatter_launch(
+        doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+        num_docs, groups, cache, matched_only, (q, num_docs + 1),
+    )
+
+
+def _terms_scatter_launch(
+    doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+    num_docs, groups, cache, matched_only, out_shape,
+):
+    """Launch K1 on checked inputs: worklists [Q, nt] (or, for one row,
+    [nt]), groups int32[Q, G, 2]; outputs of `out_shape`."""
+    dev = doc_tiles.device
+    lib = ensure_built()
+    q, n_groups = groups.shape[0], groups.shape[1]
+    nt = tile_ids.shape[-1]
+    group_len = bounds = None
+    if q > 1 and not matched_only:
+        group_len = np.ascontiguousarray(
+            (groups[:, :, 1] - groups[:, :, 0]).max(axis=0, initial=0),
+            dtype=np.int32,
+        )
+        # Pinned and asynchronous: a pageable copy would stall the host
+        # until the stream drains. One row passes its bounds as launch
+        # arguments instead.
+        bounds = torch.from_numpy(groups).pin_memory().to(dev, non_blocking=True)
+    matched = torch.zeros(out_shape, dtype=torch.bool, device=dev)
+    scores = (
+        None if matched_only
+        else torch.zeros(out_shape, dtype=torch.float32, device=dev)
+    )
+    with torch.cuda.device(dev):
+        rc = lib.esk_terms_scatter(
+            _ptr(doc_tiles), _ptr(vals), _ptr(norm_bytes), _ptr(cache),
+            _ptr(tile_ids), _ptr(starts), _ptr(ends),
+            None if matched_only else _ptr(weights),
+            ctypes.c_void_p(groups.ctypes.data),  # host int32[Q, G, 2]
+            _ptr(bounds),
+            # host int32[G], or None: one row's own group lengths
+            None if group_len is None else ctypes.c_void_p(group_len.ctypes.data),
+            int(n_groups), int(q), int(nt), int(num_docs + 1),
+            _ptr(scores), _ptr(matched), int(bool(matched_only)),
+            _stream(dev),
+        )
+    _check_rc("terms_scatter", rc)
+    _count("terms_scatter", q)
+    return scores, matched
+
+
 def terms_scatter(
     doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
     num_docs: int, groups, cache=None, matched_only: bool = False,
 ):
-    """BM25 term-disjunction scatter over a tile worklist.
+    """K1 for one worklist: the batched launch with Q = 1.
 
     Returns (scores f32[num_docs + 1] or None in matched-only mode,
     matched bool[num_docs + 1]); slot num_docs is the discard slot.
@@ -336,10 +489,8 @@ def terms_scatter(
     _check(doc_tiles, "doc_tiles", torch.int32, 2, dev)
     _check(vals, "vals", torch.float32, 2, dev)
     _check(norm_bytes, "norm_bytes", torch.uint8, 1, dev)
-    for name, t, dt in (("tile_ids", tile_ids, torch.int32),
-                        ("starts", starts, torch.int32),
-                        ("ends", ends, torch.int32)):
-        _check(t, name, dt, 1, dev)
+    for name, t in (("tile_ids", tile_ids), ("starts", starts), ("ends", ends)):
+        _check(t, name, torch.int32, 1, dev)
     nt = tile_ids.shape[0]
     if starts.shape[0] != nt or ends.shape[0] != nt:
         raise ValueError("worklist arrays differ in length")
@@ -355,31 +506,18 @@ def terms_scatter(
         _check(cache, "cache", torch.float32, 1, dev)
         if cache.shape[0] != 256:
             raise ValueError("cache must have 256 entries")
-    groups = np.ascontiguousarray(np.asarray(groups, dtype=np.int32).reshape(-1, 2))
+    groups = np.ascontiguousarray(
+        np.asarray(groups, dtype=np.int32).reshape(1, -1, 2)
+    )
     if not _launchable(dev):
         return terms_scatter_plain(
             doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
-            num_docs, groups, cache=cache, matched_only=matched_only,
+            num_docs, groups[0], cache=cache, matched_only=matched_only,
         )
-    lib = ensure_built()
-    matched = torch.zeros(num_docs + 1, dtype=torch.bool, device=dev)
-    scores = (
-        None if matched_only
-        else torch.zeros(num_docs + 1, dtype=torch.float32, device=dev)
+    return _terms_scatter_launch(
+        doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+        num_docs, groups, cache, matched_only, (num_docs + 1,),
     )
-    with torch.cuda.device(dev):
-        rc = lib.esk_terms_scatter(
-            _ptr(doc_tiles), _ptr(vals), _ptr(norm_bytes), _ptr(cache),
-            _ptr(tile_ids), _ptr(starts), _ptr(ends),
-            None if matched_only else _ptr(weights),
-            ctypes.c_void_p(groups.ctypes.data),  # host int32[G, 2]
-            int(groups.shape[0]), int(nt),
-            _ptr(scores), _ptr(matched), int(bool(matched_only)),
-            _stream(dev),
-        )
-    _check_rc("terms_scatter", rc)
-    LAUNCHES["terms_scatter"] += 1
-    return scores, matched
 
 
 # ---------------------------------------------------------------------------
@@ -416,16 +554,112 @@ def sparse_fold_plain(
     return docs_s, run_sum, head & in_range & live_at
 
 
+def sparse_fold_batch_plain(
+    doc_tiles, tn, tile_ids, starts, ends, weights, live,
+    num_docs: int, t_pad: int,
+):
+    """The batched K2 as the solo plain version row by row."""
+    outs = [
+        sparse_fold_plain(
+            doc_tiles, tn, tile_ids[q], starts[q], ends[q], weights[q],
+            live, num_docs, t_pad,
+        )
+        for q in range(tile_ids.shape[0])
+    ]
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def sparse_fold_batch(
+    doc_tiles, tn, tile_ids, starts, ends, weights, live,
+    num_docs: int, t_pad: int,
+):
+    """Candidate-centric fold of Q terms worklists ([Q, nt] each).
+
+    Returns (docs_s i32[Q, P], run_sum f32[Q, P], eligible bool[Q, P]) with
+    P = nt * 256: each row's (doc, contrib) pairs stably sorted by doc,
+    each position's left fold over its run (at most t_pad entries), and
+    eligible = run head & doc < num_docs & live[doc]. A batch of more than
+    SPARSE_FOLD_MAX_PAIRS pairs runs as several launches over consecutive
+    rows."""
+    dev = doc_tiles.device
+    _check(doc_tiles, "doc_tiles", torch.int32, 2, dev)
+    _check(tn, "tn", torch.float32, 2, dev)
+    _check(tile_ids, "tile_ids", torch.int32, 2, dev)
+    q, nt = tile_ids.shape
+    for name, t, dt in (("starts", starts, torch.int32),
+                        ("ends", ends, torch.int32),
+                        ("weights", weights, torch.float32)):
+        _check(t, name, dt, 2, dev)
+        _check_rows(name, t, q, nt)
+    _check(live, "live", torch.bool, 1, dev)
+    if doc_tiles.shape[1] != TILE or tn.shape != doc_tiles.shape:
+        raise ValueError("tile planes must be [NT, 256] and alike")
+    if live.shape[0] != num_docs or num_docs < 1:
+        raise ValueError("live must have num_docs >= 1 entries")
+    if not 1 <= t_pad <= 1024:
+        raise ValueError(f"t_pad {t_pad} out of range")
+    if not 1 <= q <= 65535:
+        raise ValueError(f"row count {q} out of range [1, 65535]")
+    p = nt * TILE
+    if p >= 2**31:
+        raise ValueError("worklist too large for int32 positions")
+    if not _launchable(dev):
+        return sparse_fold_batch_plain(
+            doc_tiles, tn, tile_ids, starts, ends, weights, live,
+            num_docs, t_pad,
+        )
+    return _sparse_fold_launch(
+        doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs,
+        t_pad, q, (q, p),
+    )
+
+
+def _sparse_fold_launch(
+    doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs, t_pad,
+    q, out_shape,
+):
+    """Launch K2 on checked inputs (worklists [Q, nt], or [nt] for one
+    row), in as many launches over consecutive rows as
+    SPARSE_FOLD_MAX_PAIRS asks; outputs of `out_shape`."""
+    dev = doc_tiles.device
+    lib = ensure_built()
+    nt = tile_ids.shape[-1]
+    p = nt * TILE
+    i32, f32 = torch.int32, torch.float32
+    per = max(1, min(q, SPARSE_FOLD_MAX_PAIRS // max(1, p)))
+    n = per * p
+    keys_a = torch.empty(n, dtype=i32, device=dev)
+    vals_a = torch.empty(n, dtype=f32, device=dev)
+    keys_b = torch.empty(n, dtype=i32, device=dev)
+    vals_b = torch.empty(n, dtype=f32, device=dev)
+    counts = torch.empty(256 * per * max(1, -(-p // 4096)), dtype=i32,
+                         device=dev)
+    docs_s = torch.empty(out_shape, dtype=i32, device=dev)
+    run_sum = torch.empty(out_shape, dtype=f32, device=dev)
+    eligible = torch.empty(out_shape, dtype=torch.bool, device=dev)
+    for r0 in range(0, q, per):
+        rows = min(per, q - r0)
+        with torch.cuda.device(dev):
+            rc = lib.esk_sparse_fold(
+                _ptr(doc_tiles), _ptr(tn), _ptr(tile_ids, r0 * nt),
+                _ptr(starts, r0 * nt), _ptr(ends, r0 * nt),
+                _ptr(weights, r0 * nt), int(rows), int(nt), int(num_docs),
+                int(t_pad), key_bits(num_docs), _ptr(live), _ptr(keys_a),
+                _ptr(vals_a), _ptr(keys_b), _ptr(vals_b), _ptr(counts),
+                _ptr(docs_s, r0 * p), _ptr(run_sum, r0 * p),
+                _ptr(eligible, r0 * p), _stream(dev),
+            )
+        _check_rc("sparse_fold", rc)
+        _count("sparse_fold", q)
+    return docs_s, run_sum, eligible
+
+
 def sparse_fold(
     doc_tiles, tn, tile_ids, starts, ends, weights, live,
     num_docs: int, t_pad: int,
 ):
-    """Candidate-centric fold of a terms worklist.
-
-    Returns (docs_s i32[P], run_sum f32[P], eligible bool[P]) with
-    P = NT * 256: the (doc, contrib) pairs stably sorted by doc, each
-    position's left fold over its run (at most t_pad entries), and
-    eligible = run head & doc < num_docs & live[doc]."""
+    """K2 for one worklist: the batched launch with Q = 1. Returns
+    (docs_s i32[P], run_sum f32[P], eligible bool[P]), P = NT * 256."""
     dev = doc_tiles.device
     _check(doc_tiles, "doc_tiles", torch.int32, 2, dev)
     _check(tn, "tn", torch.float32, 2, dev)
@@ -452,27 +686,10 @@ def sparse_fold(
             doc_tiles, tn, tile_ids, starts, ends, weights, live,
             num_docs, t_pad,
         )
-    lib = ensure_built()
-    i32, f32 = torch.int32, torch.float32
-    keys_a = torch.empty(p, dtype=i32, device=dev)
-    vals_a = torch.empty(p, dtype=f32, device=dev)
-    keys_b = torch.empty(p, dtype=i32, device=dev)
-    vals_b = torch.empty(p, dtype=f32, device=dev)
-    counts = torch.empty(256 * max(1, -(-p // 4096)), dtype=i32, device=dev)
-    docs_s = torch.empty(p, dtype=i32, device=dev)
-    run_sum = torch.empty(p, dtype=f32, device=dev)
-    eligible = torch.empty(p, dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.esk_sparse_fold(
-            _ptr(doc_tiles), _ptr(tn), _ptr(tile_ids), _ptr(starts),
-            _ptr(ends), _ptr(weights), int(nt), int(num_docs), int(t_pad),
-            key_bits(num_docs), _ptr(live), _ptr(keys_a), _ptr(vals_a),
-            _ptr(keys_b), _ptr(vals_b), _ptr(counts), _ptr(docs_s),
-            _ptr(run_sum), _ptr(eligible), _stream(dev),
-        )
-    _check_rc("sparse_fold", rc)
-    LAUNCHES["sparse_fold"] += 1
-    return docs_s, run_sum, eligible
+    return _sparse_fold_launch(
+        doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs,
+        t_pad, 1, (p,),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -493,13 +710,70 @@ def masked_topk_plain(key, eligible, k: int):
     return key[order], order.to(torch.int32), total
 
 
-def masked_topk(key, eligible, k: int):
-    """Top-k of `key` by (score desc, index asc) — jax.lax.top_k's order —
-    and total = count of `eligible`.
+def masked_topk_batch_plain(key, eligible, k: int):
+    """The batched K3 as the solo plain version row by row."""
+    outs = [masked_topk_plain(key[q], eligible[q], k)
+            for q in range(key.shape[0])]
+    return tuple(torch.stack(col) for col in zip(*outs))
 
-    key f32[M] must already hold -inf at ineligible entries. Returns
-    (top_scores f32[min(k, M)], top_idx i32[min(k, M)], total i32[]).
-    Callers pad to k exactly as the reference does when M < k."""
+
+def masked_topk_batch(key, eligible, k: int):
+    """Top-k of each row of `key` by (score desc, index asc) —
+    jax.lax.top_k's order — and total = each row's count of `eligible`.
+
+    key f32[Q, M] must already hold -inf at ineligible entries. Returns
+    (top_scores f32[Q, min(k, M)], top_idx i32[Q, min(k, M)],
+    total i32[Q]). Callers pad to k exactly as the reference does when
+    M < k."""
+    dev = key.device
+    _check(key, "key", torch.float32, 2, dev)
+    _check(eligible, "eligible", torch.bool, 2, dev)
+    q, m = key.shape
+    if eligible.shape != key.shape:
+        raise ValueError("eligible differs in shape from key")
+    if k < 0:
+        raise ValueError("k must be >= 0")
+    if m >= 2**31:
+        raise ValueError("key rows too long for int32 indices")
+    if not 1 <= q <= 65535:
+        raise ValueError(f"row count {q} out of range [1, 65535]")
+    if not _launchable(dev):
+        return masked_topk_batch_plain(key, eligible, k)
+    return _masked_topk_launch(key, eligible, k, q, m, (q,))
+
+
+def _masked_topk_launch(key, eligible, k, q, m, rows_shape):
+    """Launch K3 on checked inputs; outputs shaped rows_shape + (kp,) and
+    rows_shape (rows_shape () for one row)."""
+    dev = key.device
+    kp = min(k, m)
+    ch = topk_chunk(kp)
+    if kp >= ch and m > ch:
+        raise ValueError(
+            f"k={k} exceeds the top-k kernel's window ({TOPK_MAX_CHUNK - 1})"
+        )
+    lib = ensure_built()
+    nb = max(1, -(-m // ch))
+    buf_a = torch.empty(max(1, q * nb * kp), dtype=torch.int64, device=dev)
+    buf_b = torch.empty(max(1, q * nb * kp), dtype=torch.int64, device=dev)
+    top_scores = torch.empty(rows_shape + (kp,), dtype=torch.float32, device=dev)
+    top_idx = torch.empty(rows_shape + (kp,), dtype=torch.int32, device=dev)
+    total = torch.empty(rows_shape, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.esk_masked_topk(
+            _ptr(key), _ptr(eligible), int(q), int(m), int(kp), int(ch),
+            _ptr(buf_a), _ptr(buf_b), _ptr(top_scores), _ptr(top_idx),
+            _ptr(total), _stream(dev),
+        )
+    _check_rc("masked_topk", rc)
+    _count("masked_topk", q)
+    return top_scores, top_idx, total
+
+
+def masked_topk(key, eligible, k: int):
+    """K3 for one row: the batched launch with Q = 1. key f32[M] (-inf at
+    ineligible entries) -> (top_scores f32[min(k, M)], top_idx
+    i32[min(k, M)], total i32[])."""
     dev = key.device
     _check(key, "key", torch.float32, 1, dev)
     _check(eligible, "eligible", torch.bool, 1, dev)
@@ -512,28 +786,7 @@ def masked_topk(key, eligible, k: int):
         raise ValueError("key too long for int32 indices")
     if not _launchable(dev):
         return masked_topk_plain(key, eligible, k)
-    kp = min(k, m)
-    ch = topk_chunk(kp)
-    if kp >= ch and m > ch:
-        raise ValueError(
-            f"k={k} exceeds the top-k kernel's window ({TOPK_MAX_CHUNK - 1})"
-        )
-    lib = ensure_built()
-    nb = max(1, -(-m // ch))
-    buf_a = torch.empty(max(1, nb * kp), dtype=torch.int64, device=dev)
-    buf_b = torch.empty(max(1, nb * kp), dtype=torch.int64, device=dev)
-    top_scores = torch.empty(kp, dtype=torch.float32, device=dev)
-    top_idx = torch.empty(kp, dtype=torch.int32, device=dev)
-    total = torch.empty((), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.esk_masked_topk(
-            _ptr(key), _ptr(eligible), int(m), int(kp), int(ch),
-            _ptr(buf_a), _ptr(buf_b), _ptr(top_scores), _ptr(top_idx),
-            _ptr(total), _stream(dev),
-        )
-    _check_rc("masked_topk", rc)
-    LAUNCHES["masked_topk"] += 1
-    return top_scores, top_idx, total
+    return _masked_topk_launch(key, eligible, k, 1, m, ())
 
 
 # ---------------------------------------------------------------------------
@@ -563,30 +816,70 @@ def span_locate_plain(flat, starts, ends, j: int, cands):
     return pos.to(torch.int32), found
 
 
-def span_locate(flat, starts, ends, j: int, cands):
-    """(pos i32[P], found bool[P]) of each candidate doc against the sorted
-    slice [starts[j], ends[j]) of a flat postings plane."""
+def span_locate_batch_plain(flat, starts, ends, j: int, cands):
+    """The batched K4 as the solo plain version row by row."""
+    outs = [span_locate_plain(flat, starts[q], ends[q], j, cands[q])
+            for q in range(cands.shape[0])]
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def span_locate_batch(flat, starts, ends, j: int, cands):
+    """(pos i32[Q, P], found bool[Q, P]) of each row's candidate docs
+    against that row's sorted slice [starts[q, j], ends[q, j]) of a flat
+    postings plane. starts/ends are i32[Q, T], cands i32[Q, P]."""
     dev = flat.device
     _check(flat, "flat", torch.int32, 1, dev)
-    _check(starts, "starts", torch.int32, 1, dev)
-    _check(ends, "ends", torch.int32, 1, dev)
-    _check(cands, "cands", torch.int32, 1, dev)
+    _check(starts, "starts", torch.int32, 2, dev)
+    _check(ends, "ends", torch.int32, 2, dev)
+    _check(cands, "cands", torch.int32, 2, dev)
+    q, p = cands.shape
+    n_spans = starts.shape[1]
+    _check_rows("starts", starts, q, n_spans)
+    _check_rows("ends", ends, q, n_spans)
+    if not 0 <= j < n_spans:
+        raise ValueError(f"span column {j} out of range")
+    if flat.shape[0] == 0:
+        raise ValueError("flat plane is empty")
+    if not 1 <= q <= 65535:
+        raise ValueError(f"row count {q} out of range [1, 65535]")
+    if not _launchable(dev):
+        return span_locate_batch_plain(flat, starts, ends, j, cands)
+    return _span_locate_launch(flat, starts, ends, n_spans, j, cands, q, p,
+                               (q, p))
+
+
+def _span_locate_launch(flat, starts, ends, n_spans, j, cands, q, p, out_shape):
+    """Launch K4 on checked inputs; outputs of `out_shape`."""
+    dev = flat.device
+    lib = ensure_built()
+    pos = torch.empty(out_shape, dtype=torch.int32, device=dev)
+    found = torch.empty(out_shape, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.esk_span_locate(
+            _ptr(flat), int(flat.shape[0]), _ptr(starts), _ptr(ends),
+            int(n_spans), int(j), _ptr(cands), int(q), int(p),
+            search_steps(flat.shape[0]), _ptr(pos), _ptr(found),
+            _stream(dev),
+        )
+    _check_rc("span_locate", rc)
+    _count("span_locate", q)
+    return pos, found
+
+
+def span_locate(flat, starts, ends, j: int, cands):
+    """K4 for one row: the batched launch with Q = 1. (pos i32[P], found
+    bool[P]) of each candidate doc against the sorted slice
+    [starts[j], ends[j]) of a flat postings plane."""
+    dev = flat.device
+    _check(flat, "flat", torch.int32, 1, dev)
+    for name, t in (("starts", starts), ("ends", ends), ("cands", cands)):
+        _check(t, name, torch.int32, 1, dev)
     if not 0 <= j < starts.shape[0] or ends.shape[0] != starts.shape[0]:
         raise ValueError(f"span row {j} out of range")
     if flat.shape[0] == 0:
         raise ValueError("flat plane is empty")
     if not _launchable(dev):
         return span_locate_plain(flat, starts, ends, j, cands)
-    lib = ensure_built()
-    p = cands.shape[0]
-    pos = torch.empty(p, dtype=torch.int32, device=dev)
-    found = torch.empty(p, dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.esk_span_locate(
-            _ptr(flat), int(flat.shape[0]), _ptr(starts), _ptr(ends), int(j),
-            _ptr(cands), int(p), search_steps(flat.shape[0]), _ptr(pos),
-            _ptr(found), _stream(dev),
-        )
-    _check_rc("span_locate", rc)
-    LAUNCHES["span_locate"] += 1
-    return pos, found
+    # One row's [T] spans are the [1, T] the kernel reads with j < T.
+    return _span_locate_launch(flat, starts, ends, starts.shape[0], j, cands,
+                               1, cands.shape[0], (cands.shape[0],))

@@ -3,9 +3,11 @@
 Port copy of elasticsearch_tpu/query/compile.py, trimmed to this slice:
 `FieldStats`, `aggregate_field_stats`, `_terms_arrays`, `make_bool_spec`,
 `select_lead_clause` and `Compiler` for match, term, terms, range, exists,
-match_all, match_none, constant_score and bool. Left out: nested, phrase,
-span, multi-term expansion, function/script score, percolate, ids,
-filter-cache keys and the sharded spec equalization (`unify_specs`).
+match_all, match_none, constant_score and bool; and the coalescing
+helpers `SpecUnifyError`, `unify_specs` and `pad_arrays_to_spec` for the
+node kinds this compiler emits. Left out: nested, phrase, span,
+multi-term expansion, function/script score, percolate, ids, filter-cache
+keys, `equalize_compiled` and the unify/pad cases of the kinds above.
 
 Everything data-dependent happens here, on the host, at plan time:
 analysis of match text, term-dictionary lookups -> posting spans ->
@@ -556,3 +558,127 @@ class Compiler:
         )
         arrays = {"boost": np.float32(boost), "children": children}
         return spec, arrays
+
+
+# ---------------------------------------------------------------------------
+# Spec unification for coalesced launches.
+#
+# Same-family plans that differ only in their pow-2 worklist buckets share
+# one padded launch: `unify_specs` takes the per-POSITION maximum bucket
+# over structurally identical specs, and `pad_arrays_to_spec` pads each
+# plan's arrays up to it with inert entries (empty [0, 0) spans never
+# validate, tile id 0 keeps gathers in range), so results are
+# bit-identical to the natural-bucket compile.
+# ---------------------------------------------------------------------------
+
+
+class SpecUnifyError(ValueError):
+    """Specs differ structurally (not just in bucket sizes)."""
+
+
+# Worklist-entry fill values for padding slots, by array key. Keys absent
+# from a node's arrays (or not [nt]-shaped) are left untouched.
+_PAD_FILLS = {
+    "tile_ids": 0,
+    "starts": 0,
+    "ends": 0,
+    "weights": 0.0,
+    "ub": 0.0,
+    "ub_other": 0.0,
+}
+
+# Node kinds whose spec[2] is a pow-2 worklist bucket.
+_NT_KINDS = ("terms", "terms_gather", "terms_const")
+
+
+def _unify_same(specs: list[tuple], idx: int):
+    vals = {s[idx] for s in specs}
+    if len(vals) != 1:
+        raise SpecUnifyError(
+            f"spec position {idx} differs across {specs[0][0]} nodes: {vals}"
+        )
+    return specs[0][idx]
+
+
+def unify_specs(specs: list[tuple]) -> tuple:
+    """The least common spec covering every spec in `specs`: identical
+    structure with each worklist bucket raised to the per-position max.
+    Raises SpecUnifyError when structures genuinely differ."""
+    first = specs[0]
+    if all(s == first for s in specs[1:]):
+        return first
+    kinds = {s[0] for s in specs}
+    if len(kinds) != 1 or any(len(s) != len(first) for s in specs):
+        raise SpecUnifyError(f"divergent node kinds/arity: {sorted(kinds)}")
+    kind = first[0]
+    if kind in _NT_KINDS:
+        for idx in range(1, len(first)):
+            if idx != 2:
+                _unify_same(specs, idx)
+        nt = max(s[2] for s in specs)
+        return (*first[:2], nt, *first[3:])
+    if kind == "const":
+        return (kind, unify_specs([s[1] for s in specs]))
+    if kind == "bool":
+        _unify_same(specs, 5)  # minimum_should_match
+        out_groups = []
+        for g in range(1, 5):
+            if len({len(s[g]) for s in specs}) != 1:
+                raise SpecUnifyError("bool clause-count differs")
+            out_groups.append(
+                tuple(
+                    unify_specs([s[g][i] for s in specs])
+                    for i in range(len(first[g]))
+                )
+            )
+        # Lead choice is a plan heuristic, not a result contract: the
+        # default must-driven fold (-1) is valid everywhere.
+        leads = {s[6] for s in specs}
+        lead = first[6] if len(leads) == 1 else -1
+        return make_bool_spec(*out_groups, msm=first[5], lead=lead)
+    # Leaf kinds (range, exists, match_all, ...) carry no buckets: reaching
+    # here means inequality at a position with no padding story.
+    raise SpecUnifyError(f"cannot unify [{kind}] specs: {specs}")
+
+
+def _pad_entries(arrays: dict, nt_src: int, nt_tgt: int) -> dict:
+    out = dict(arrays)
+    for key, fill in _PAD_FILLS.items():
+        arr = out.get(key)
+        # Pad the trailing (worklist) axis so stacked plans ([Q, nt]
+        # leaves) equalize too, not just single-plan arrays.
+        if arr is None or getattr(arr, "ndim", 0) < 1:
+            continue
+        if arr.shape[-1] != nt_src:
+            continue  # per-term planning rows ([t_pad]) etc.
+        pad = np.full(
+            (*arr.shape[:-1], nt_tgt - nt_src), fill, dtype=arr.dtype
+        )
+        out[key] = np.concatenate([arr, pad], axis=-1)
+    return out
+
+
+def pad_arrays_to_spec(spec: tuple, target: tuple, arrays):
+    """Pad a compiled plan's arrays so they execute under `target` (a
+    unify_specs output covering `spec`) with bit-identical results."""
+    if spec == target:
+        return arrays
+    kind = spec[0]
+    if kind in _NT_KINDS:
+        return _pad_entries(arrays, spec[2], target[2])
+    if kind == "const":
+        return {
+            **arrays,
+            "child": pad_arrays_to_spec(spec[1], target[1], arrays["child"]),
+        }
+    if kind == "bool":
+        out_children = []
+        i = 0
+        for g in range(1, 5):
+            for cs, ct in zip(spec[g], target[g]):
+                out_children.append(
+                    pad_arrays_to_spec(cs, ct, arrays["children"][i])
+                )
+                i += 1
+        return {**arrays, "children": tuple(out_children)}
+    return arrays

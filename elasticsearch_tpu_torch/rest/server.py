@@ -11,9 +11,14 @@ on the stdlib ThreadingHTTPServer:
     POST|GET /{index}/_refresh      refresh
     GET|POST /{index}/_search       search
 
-Responses and error payloads have the reference's shapes. Left out: every
-other API of the reference (cluster, cat, stats, aliases, templates,
-scroll, async search, tracing and metrics headers).
+Responses and error payloads have the reference's shapes; a search shed
+by the node's micro-batcher answers 429 with a Retry-After header. The
+server runs one thread per connection: handler threads compile and
+assemble concurrently, plain searches meet in the micro-batcher's thread,
+and every thread launches on its current CUDA stream through the one
+kernel library (ops/kernels.py loads it once under a lock). Left out:
+every other API of the reference (cluster, cat, stats, aliases,
+templates, scroll, async search, tracing and metrics headers).
 
 Run a server:  python -m elasticsearch_tpu_torch.rest.server --port 9200
 (the node runs on the CUDA device; --device cpu runs the plain versions).
@@ -96,6 +101,16 @@ class RestServer:
 
     def dispatch(self, method: str, path: str, query: dict, body: str):
         """Returns (status, payload), ES-style error payloads on failure."""
+        status, payload, _headers = self.dispatch_with_headers(
+            method, path, query, body
+        )
+        return status, payload
+
+    def dispatch_with_headers(
+        self, method: str, path: str, query: dict, body: str
+    ):
+        """(status, payload, extra response headers): a shed search's 429
+        carries Retry-After."""
         try:
             lookup = "GET" if method == "HEAD" else method
             path_matched = False
@@ -106,7 +121,7 @@ class RestServer:
                 if m != lookup:
                     path_matched = True
                     continue
-                return 200, handler(match.groupdict(), query, body)
+                return 200, handler(match.groupdict(), query, body), {}
             if path_matched:
                 raise ApiError(
                     405,
@@ -118,7 +133,7 @@ class RestServer:
                 400, "invalid_request", f"no handler found for uri [{path}]"
             )
         except ApiError as e:
-            return e.status, {
+            payload = {
                 "error": {
                     "type": e.err_type,
                     "reason": e.reason,
@@ -126,16 +141,21 @@ class RestServer:
                 },
                 "status": e.status,
             }
+            headers = (
+                {} if e.retry_after_s is None
+                else {"Retry-After": str(e.retry_after_s)}
+            )
+            return e.status, payload, headers
         except json.JSONDecodeError as e:
             return 400, {
                 "error": {"type": "parsing_exception", "reason": str(e)},
                 "status": 400,
-            }
+            }, {}
         except ValueError as e:
             return 400, {
                 "error": {"type": "illegal_argument_exception", "reason": str(e)},
                 "status": 400,
-            }
+            }, {}
 
     def serve(self, host: str = "127.0.0.1", port: int = 9200) -> ThreadingHTTPServer:
         """A threading HTTP server over this REST front (not yet serving:
@@ -155,6 +175,7 @@ class RestServer:
                 }
                 length = int(self.headers.get("Content-Length") or 0)
                 if length > rest.max_content_length:
+                    headers = {}
                     status, payload = 413, {
                         "error": {
                             "type": "content_too_long_exception",
@@ -165,11 +186,13 @@ class RestServer:
                     self.close_connection = True
                 else:
                     body = self.rfile.read(length).decode("utf-8") if length else ""
-                    status, payload = rest.dispatch(
+                    status, payload, headers = rest.dispatch_with_headers(
                         self.command, parsed.path.rstrip("/") or "/", query, body
                     )
                 data = json.dumps(payload).encode("utf-8")
                 self.send_response(status)
+                for name, value in headers.items():
+                    self.send_header(name, value)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
                 self.send_header("X-elastic-product", "Elasticsearch")
@@ -182,7 +205,14 @@ class RestServer:
             def log_message(self, *args):  # quiet
                 pass
 
-        return ThreadingHTTPServer((host, port), RequestHandler)
+        return _HttpServer((host, port), RequestHandler)
+
+
+class _HttpServer(ThreadingHTTPServer):
+    # A burst of concurrent clients must not overflow the accept queue:
+    # socketserver's default backlog of 5 resets the sixth simultaneous
+    # connect where the kernel aborts on overflow.
+    request_queue_size = 128
 
 
 def create_server(host: str = "127.0.0.1", port: int = 9200, device=DEFAULT_DEVICE):

@@ -3,11 +3,18 @@
 Port of elasticsearch_tpu/search/service.py, trimmed to this slice:
 `SearchRequest.from_json` for `query`, `from`, `size`, `track_total_hits`
 and `_source`; `SearchService.search` as the plain score-sorted loop over
-segments with the candidate merge and the `_source` fetch; and the hot
-branch of `_query_segment` (compile, `execute_auto`, collect). Every
-segment runs on the port's device path: there is no planner, CPU-oracle
-routing, batcher, filter cache, rescore, sort, cursor, aggregation or
-knn; a request asking for one of those is refused with a 400.
+segments with the candidate merge and the `_source` fetch; the hot branch
+of `_query_segment` (compile, `execute_auto`, collect); and the batched
+query phase the micro-batcher drives — `search_many`, `assemble_plain`,
+`_batched_query_phase`, `_merge_term_groups` (with `sparse_family_key`),
+`_execute_group`, `_device_batch` and `_append_plain`: N plain requests
+cost one padded launch per (segment, spec group) instead of N. Left out
+with the reference's padding instrument: `family_padding_tiles`. Every
+segment runs on the port's device path:
+there is no planner, CPU-oracle routing, filter cache (a batch's mask
+token is always `()`), task or timeout, rescore, sort, cursor,
+aggregation or knn; a request asking for one of those is refused with a
+400.
 """
 
 from __future__ import annotations
@@ -18,8 +25,23 @@ from typing import Any
 
 from ..index.engine import Engine, SegmentHandle
 from ..ops import bm25_device
-from ..query.compile import FieldStats
+from ..query.compile import CompiledQuery, FieldStats
 from ..query.dsl import MatchAllQuery, Query, parse_query
+
+
+def sparse_family_key(spec) -> tuple | None:
+    """Coalescing family of a compiled terms spec: same kind/field/
+    trailing shape, differing only in the nt bucket (spec[2]). Groups in
+    one family re-bucket to a common nt and share ONE padded launch
+    (_merge_term_groups); None for non-coalescible specs."""
+    if (
+        isinstance(spec, tuple)
+        and spec
+        and spec[0] in ("terms", "terms_gather")
+        and len(spec) == 4
+    ):
+        return (spec[0], spec[1], spec[3])
+    return None
 
 
 @dataclass
@@ -48,6 +70,8 @@ class SearchResponse:
     hits: list[SearchHit]
     shards: int = 1
     timed_out: bool = False
+    skipped: int = 0  # can_match pre-filtered shards
+    failed: int = 0  # shards whose scoring pass raised
 
     def to_json(self, index_name: str = "index") -> dict[str, Any]:
         hits_obj: dict[str, Any] = {
@@ -64,9 +88,10 @@ class SearchResponse:
             "timed_out": self.timed_out,
             "_shards": {
                 "total": self.shards,
-                "successful": self.shards,
-                "skipped": 0,
-                "failed": 0,
+                # successful + skipped + failed == total
+                "successful": max(0, self.shards - self.skipped - self.failed),
+                "skipped": self.skipped,
+                "failed": self.failed,
             },
             "hits": hits_obj,
         }
@@ -133,12 +158,17 @@ class SearchService:
         self,
         request: SearchRequest,
         stats: dict[str, FieldStats] | None = None,
+        segments: list | None = None,
     ) -> SearchResponse:
+        """One request, one device launch per segment. `stats` and
+        `segments` are the coordinator's pushed-down statistics and pinned
+        segment snapshot (default: this shard's own)."""
         start = time.monotonic()
         k = max(0, request.from_) + max(0, request.size)
         if stats is None:
             stats = self.engine.field_stats()
-        segments = list(self.engine.segments)
+        if segments is None:
+            segments = list(self.engine.segments)
         # Candidate tuples (merge_key, global_doc, handle, local, score):
         # merge_key ascending, then global doc id ascending, is Lucene's
         # order for the score sort (key = -score).
@@ -196,6 +226,192 @@ class SearchService:
             local = int(ids[rank])
             candidates.append((-score, handle.base + local, handle, local, score))
         return tot
+
+    # ------------------------------------------------- batched query phase
+
+    def search_many(self, requests: list) -> list:
+        """Serve several PLAIN searches with coalesced device launches.
+
+        The micro-batcher's group executor: one padded launch per
+        (segment, spec group) scores every request's lane at once instead
+        of one launch per request. Returns one SearchResponse (or
+        Exception) per request, result-identical to running each request
+        through search() alone."""
+        start = time.monotonic()
+        stats = self.engine.field_stats()
+        segments = list(self.engine.segments)
+        ks = [max(0, r.from_) + max(0, r.size) for r in requests]
+        cands, totals, errors = self._batched_query_phase(
+            requests, ks, stats, segments
+        )
+        return [
+            errors[i]
+            if errors[i] is not None
+            else self.assemble_plain(request, cands[i], totals[i], start)
+            for i, request in enumerate(requests)
+        ]
+
+    def assemble_plain(
+        self, request: SearchRequest, rows: list, total: int, start: float
+    ) -> SearchResponse:
+        """Assemble one plain score-sorted SearchResponse from candidate
+        tuples: sort, page, fetch, as search() does."""
+        rows = sorted(rows, key=lambda c: (c[0], c[1]))
+        page = rows[request.from_ : request.from_ + request.size]
+        max_score = -rows[0][0] if rows else None
+        hits = [
+            SearchHit(
+                doc_id=handle.segment.ids[local],
+                score=score,
+                source=self._fetch_source(handle, local, request),
+            )
+            for _key, _global_doc, handle, local, score in page
+        ]
+        total_out, relation = clamp_total(total, request.track_total_hits)
+        return SearchResponse(
+            took_ms=int((time.monotonic() - start) * 1000),
+            total=total_out,
+            total_relation=relation,
+            max_score=max_score,
+            hits=hits,
+        )
+
+    def _batched_query_phase(
+        self,
+        requests: list,
+        ks: list[int],
+        stats: dict[str, FieldStats],
+        segments: list,
+    ):
+        """One coalesced scoring pass over this shard for N plain requests.
+
+        Per segment, requests compile and group by spec (same-family term
+        groups are re-bucketed to a common nt so they share ONE padded
+        launch); each group executes as a single batched kernel call.
+        Returns (candidates per request, totals, errors)."""
+        n = len(requests)
+        cands: list[list] = [[] for _ in range(n)]
+        totals = [0] * n
+        errors: list[Exception | None] = [None] * n
+        alive = set(range(n))
+        for handle in segments:
+            if handle.segment.num_docs == 0 or not alive:
+                continue
+            seg_tree = bm25_device.segment_tree(handle.device)
+            compiled: dict[int, CompiledQuery] = {}
+            for i in sorted(alive):
+                try:
+                    compiled[i] = self.engine.compiler_for(
+                        handle, stats
+                    ).compile(requests[i].query)
+                except ValueError as e:
+                    errors[i] = e
+                    alive.discard(i)
+            # Group keys are (spec, mask token); the port has no filter
+            # cache, so every token is ().
+            groups: dict[tuple, list[int]] = {}
+            for i, c in compiled.items():
+                if i in alive:
+                    groups.setdefault((c.spec, ()), []).append(i)
+            groups = self._merge_term_groups(groups, compiled)
+            for (spec, _token), rows in groups.items():
+                try:
+                    self._execute_group(
+                        handle, spec, rows, compiled, ks, cands, totals,
+                        seg_tree=seg_tree,
+                    )
+                except (ValueError, TypeError):
+                    raise  # request-shaped: the compile path 400s
+                # Launch failure isolation: only the riders of THIS group
+                # fail (and get retried individually by the micro-batcher);
+                # batchmates in other groups and segments are untouched.
+                except Exception as e:  # noqa: BLE001
+                    for i in rows:
+                        errors[i] = e
+                        alive.discard(i)
+        return cands, totals, errors
+
+    def _merge_term_groups(self, groups, compiled):
+        """Coalesce same-family term groups that differ only in their nt
+        bucket, adaptively: exec/batcher.plan_spec_buckets splits the
+        family into sub-buckets, and a smaller group joins a larger bucket
+        only when the padding it would pay costs less than the launch it
+        saves. Joined groups PAD their compiled arrays to the bucket spec
+        (bit-identical results, no recompile)."""
+        from ..exec.batcher import plan_spec_buckets
+        from ..query.compile import pad_arrays_to_spec, unify_specs
+
+        families: dict[tuple, list[tuple]] = {}
+        for spec, token in list(groups):
+            fam = sparse_family_key(spec)
+            if fam is not None and token == ():
+                families.setdefault(fam, []).append(spec)
+        for specs in families.values():
+            if len(specs) < 2:
+                continue
+            for bucket in plan_spec_buckets(
+                [(s, len(groups[(s, ())])) for s in specs]
+            ):
+                if len(bucket) < 2:
+                    continue
+                target = unify_specs(list(bucket))
+                merged_rows: list[int] = []
+                for s in bucket:
+                    rows = groups.pop((s, ()))
+                    for i in rows:
+                        compiled[i] = CompiledQuery(
+                            spec=target,
+                            arrays=pad_arrays_to_spec(
+                                compiled[i].spec, target, compiled[i].arrays
+                            ),
+                        )
+                    merged_rows.extend(rows)
+                groups.setdefault((target, ()), []).extend(merged_rows)
+        return groups
+
+    def _execute_group(
+        self, handle, spec, rows, compiled, ks, cands, totals, seg_tree=None,
+    ) -> None:
+        """Execute one same-spec group — one padded device launch at the
+        group's largest k — and append candidates. (The reference may
+        route a group to its CPU oracle; the port has one backend.)"""
+        k_max = max(ks[i] for i in rows)
+        self._device_batch(
+            handle, spec, rows, compiled, ks, k_max, cands, totals,
+            seg_tree=seg_tree,
+        )
+
+    def _device_batch(
+        self, handle, spec, rows, compiled, ks, k_max, cands, totals,
+        seg_tree=None,
+    ) -> None:
+        """One padded device launch for a same-spec row group: the plans
+        stack on the host and upload once (`stack_plans`), the batched
+        executor runs every row, and the results come back in one device
+        -> host copy per output."""
+        if seg_tree is None:
+            seg_tree = bm25_device.segment_tree(handle.device)
+        arrays_b = bm25_device.plan_to_torch(
+            spec,
+            bm25_device.stack_plans([compiled[i].arrays for i in rows]),
+            handle.device.device,
+        )
+        s_b, i_b, t_b = bm25_device.execute_batch_auto(
+            seg_tree, spec, arrays_b, k_max, q=len(rows)
+        )
+        s_b, i_b, t_b = s_b.cpu().numpy(), i_b.cpu().numpy(), t_b.cpu().numpy()
+        for row, i in enumerate(rows):
+            tot = int(t_b[row])
+            nn = min(ks[i], tot, s_b.shape[1])
+            self._append_plain(cands[i], handle, s_b[row], i_b[row], nn)
+            totals[i] += tot
+
+    @staticmethod
+    def _append_plain(bucket, handle, scores, ids, n) -> None:
+        for rank in range(n):
+            score = float(scores[rank])
+            local = int(ids[rank])
+            bucket.append((-score, handle.base + local, handle, local, score))
 
     def _fetch_source(
         self, handle: SegmentHandle, local: int, request: SearchRequest

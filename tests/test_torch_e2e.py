@@ -243,7 +243,9 @@ def test_port_import_leaves_jax_unloaded():
     code = (
         "import sys; import elasticsearch_tpu_torch.rest.server, "
         "elasticsearch_tpu_torch.ops.bm25_device, "
-        "elasticsearch_tpu_torch.utils.corpus; "
+        "elasticsearch_tpu_torch.utils.corpus, "
+        "elasticsearch_tpu_torch.exec.cost, "
+        "elasticsearch_tpu_torch.search.can_match; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'elasticsearch_tpu' or m.startswith('elasticsearch_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
