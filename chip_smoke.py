@@ -19,7 +19,7 @@ and read just after it.
                  bool hits against the plain PyTorch path on the same card
                  tensors: 0 mismatches in ids, order, fp32 bits and totals
   5. concurrent  each of the same 64 requests four times over (the copies
-                 side by side), from 16 client threads: the micro-batcher
+                 shuffled), from 16 client threads: the micro-batcher
                  coalesces them; every answer equals its sequential answer
   6. kernels     K1-K4 at Q = 1 and K2b/K4b (the batched sparse fold and
                  span search) at the concurrent phase's mean batch, each
@@ -465,13 +465,14 @@ def run() -> dict:
         raise SmokeFailure(f"{mismatches} hit mismatches")
 
     # -- 5. concurrent (one shard) ----------------------------------------
-    # Each request four times, the copies side by side (a burst of one
-    # popular query from four clients), the bursts in random order: only
-    # equal compiled specs share a bool query's launch.
+    # Each request four times, the copies shuffled as in the sharded
+    # phase: only equal compiled specs share a bool query's launch.
     node.exec_batcher.close()
     node.exec_batcher = type(node.exec_batcher)()  # fresh counters
     server, base = serve(node)
-    order = np.repeat(np.random.default_rng(SEED + 2).permutation(len(bodies)), 4)
+    order = np.random.default_rng(SEED + 2).permutation(
+        np.tile(np.arange(len(bodies)), 4)
+    )
     conc_bodies = [bodies[int(j)] for j in order]
     try:
         with counted("concurrent", launches):
@@ -851,8 +852,10 @@ def _stacked_plan(compiler, bodies, dev):
 
 
 def kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q):
-    """K1-K4 at Q = 1 (one-shard sequential shapes) and K2b/K4b at Q rows
-    (the one-shard concurrent phase's mean batch)."""
+    """K1-K4 at Q = 1 (one-shard sequential shapes, through the batched
+    wrappers over one row, as the serving path calls them for one
+    request) and K2b/K4b at Q rows (the one-shard concurrent phase's mean
+    batch)."""
     import torch
 
     from elasticsearch_tpu_torch.ops import bm25_device
@@ -866,21 +869,28 @@ def kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q):
     rows = []
 
     def plan(body):
+        """One request's plan as the batch of one the serving path runs."""
         c = compiler.compile(parse_query(body["query"]))
-        return c.spec, bm25_device.plan_to_torch(c.spec, c.arrays, dev)
+        return c.spec, bm25_device._rows1(
+            bm25_device.plan_to_torch(c.spec, c.arrays, dev))
+
+    def n_real_of(a):
+        groups = a["_groups"][0]
+        return int(groups[-1][1]) if len(groups) else 0
 
     # K1: the first child of the first bool(should) query (dense path).
     _spec, sa = plan(bodies[N_MATCH])
     a = sa["children"][0]
     tid, valid = _worklist(a, lane)
-    n_real = int(a["_groups"][-1][1]) if len(a["_groups"]) else 0
+    n_real = n_real_of(a)
     args = (doc_tiles, tn, norm_bytes, a["tile_ids"], a["starts"], a["ends"],
             a["weights"], num_docs, a["_groups"])
-    w = a["weights"][:, None]
+    w = a["weights"][..., None]
     idx = doc_tiles[tid][valid].to(torch.int64)
     contrib = (w - w / (1.0 + tn[tid]))[valid]
     _row(rows, "terms_scatter", "elasticsearch_tpu/ops/bm25_device.py:436", 1,
-         lambda: kern.terms_scatter(*args), lambda: kern.terms_scatter_plain(*args),
+         lambda: kern.terms_scatter_batch(*args),
+         lambda: kern.terms_scatter_batch_plain(*args),
          lambda: torch.zeros(num_docs + 1, device=dev).index_add_(0, idx, contrib),
          "index_add_",
          # postings read (doc id + impact), worklist read, both planes written
@@ -889,22 +899,23 @@ def kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q):
     # K2 and K3: the first cfg2 match query (sparse path).
     spec, a = plan(bodies[0])
     tid, valid = _worklist(a, lane)
-    n_real = int(a["_groups"][-1][1]) if len(a["_groups"]) else 0
+    n_real = n_real_of(a)
     args = (doc_tiles, tn, a["tile_ids"], a["starts"], a["ends"], a["weights"],
             live, num_docs, spec[3])
-    docs_s, run_sum, elig = kern.sparse_fold(*args)
-    p = docs_s.shape[0]
+    docs_s, run_sum, elig = kern.sparse_fold_batch(*args)
+    p = docs_s.shape[1]
     cand_keys = torch.where(valid, doc_tiles[tid], num_docs).reshape(-1)
     _row(rows, "sparse_fold", "elasticsearch_tpu/ops/bm25_device.py:977", 1,
-         lambda: kern.sparse_fold(*args), lambda: kern.sparse_fold_plain(*args),
+         lambda: kern.sparse_fold_batch(*args),
+         lambda: kern.sparse_fold_batch_plain(*args),
          lambda: torch.sort(cand_keys, stable=True), "torch.sort(stable=True)",
          # tiles and worklist read; docs_s, run_sum, eligible written
          n_real * 256 * 8 + n_real * 16 + p * 9)
     key = torch.where(elig, run_sum, float("-inf"))
     _row(rows, "masked_topk", "elasticsearch_tpu/ops/bm25_device.py:1031", 1,
-         lambda: kern.masked_topk(key, elig, TOP_K),
-         lambda: kern.masked_topk_plain(key, elig, TOP_K),
-         lambda: torch.topk(key, TOP_K), "torch.topk",
+         lambda: kern.masked_topk_batch(key, elig, TOP_K),
+         lambda: kern.masked_topk_batch_plain(key, elig, TOP_K),
+         lambda: torch.topk(key[0], TOP_K), "torch.topk",
          p * 5 + TOP_K * 8 + 4)
 
     # K4: a filter-led conjunction's candidates in its first must span.
@@ -917,18 +928,21 @@ def kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q):
         raise SmokeFailure("no filter-led conjunction among the queries")
     spec, la = plan(lead_bodies[0])
     tid, valid = _worklist(la["children"][1 + spec[6]], lane)
-    cands = torch.clamp(torch.where(valid, doc_tiles[tid], num_docs).reshape(-1),
-                        max=num_docs - 1)
+    cands = torch.clamp(
+        torch.where(valid, doc_tiles[tid], num_docs).reshape(1, -1),
+        max=num_docs - 1,
+    )
     m = la["children"][0]
     flat = doc_tiles.reshape(-1)
     args = (flat, m["term_starts"], m["term_ends"], 0, cands)
-    s0, e0 = int(m["term_starts"][0]), int(m["term_ends"][0])
+    s0, e0 = int(m["term_starts"][0, 0]), int(m["term_ends"][0, 0])
     span = flat[s0:e0]
     _row(rows, "span_locate", "elasticsearch_tpu/ops/bm25_device.py:949", 1,
-         lambda: kern.span_locate(*args), lambda: kern.span_locate_plain(*args),
-         lambda: torch.searchsorted(span, cands), "torch.searchsorted",
+         lambda: kern.span_locate_batch(*args),
+         lambda: kern.span_locate_batch_plain(*args),
+         lambda: torch.searchsorted(span, cands[0]), "torch.searchsorted",
          # candidates and the span read once; pos and found written
-         cands.shape[0] * 9 + (e0 - s0) * 4)
+         cands.numel() * 9 + (e0 - s0) * 4)
 
     # K2b: Q cfg2 match queries, equalized and stacked as a batch is.
     spec, a = _stacked_plan(compiler, bodies[:q], dev)

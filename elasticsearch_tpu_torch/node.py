@@ -6,18 +6,18 @@ and `search` over indices of N shards on one device. Documents route to
 shards by murmur3 over their _id (parallel/routing.py); ids the node
 generates (`_auto_N`) come from one per-index counter. A multi-shard
 index searches through the ShardedSearchCoordinator. Plain searches ride
-the exec micro-batcher (exec/batcher.py; ESTPU_EXEC_BATCHER=0 opts out),
-which coalesces concurrent same-shape searches of an index into one
-batched launch per (shard, spec group). Left out: replication and
-clusters, aliases and templates, ingest pipelines, scroll and async
-search, QoS lanes, the SPMD mesh view, kNN, tasks, metrics and tracing,
-snapshots, and every other API of the reference node (ROADMAP queue A).
+the exec micro-batcher (exec/batcher.py), which coalesces concurrent
+same-shape searches of an index into one batched launch per (shard, spec
+group); a `from + size` past the index's `max_result_window` is refused
+before it. Left out: replication and clusters, aliases and templates,
+ingest pipelines, scroll and async search, QoS lanes, the SPMD mesh view,
+kNN, tasks, metrics and tracing, snapshots, and every other API of the
+reference node (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
 import json
-import os
 import re
 import threading
 import time
@@ -71,6 +71,7 @@ class IndexService:
     mappings: Mappings
     engines: list[Engine]
     search: SearchService | ShardedSearchCoordinator
+    max_result_window: int = 10_000  # index.max_result_window
     _auto_counter: int = -1  # seeded lazily from the shard engines
     _auto_lock: threading.Lock = field(default_factory=threading.Lock)
 
@@ -122,16 +123,11 @@ class Node:
         self._lock = threading.Lock()
         # Continuous micro-batching of concurrent plain searches
         # (ESTPU_EXEC_BATCH_WAIT_MS sets its window, default 4 ms).
-        self.exec_batcher = (
-            MicroBatcher()
-            if os.environ.get("ESTPU_EXEC_BATCHER", "1") != "0"
-            else None
-        )
+        self.exec_batcher = MicroBatcher()
 
     def close(self) -> None:
         """Stop the micro-batcher's scheduler thread."""
-        if self.exec_batcher is not None:
-            self.exec_batcher.close()
+        self.exec_batcher.close()
 
     # ------------------------------------------------------------- indices
 
@@ -172,6 +168,13 @@ class Node:
                     f"index.number_of_shards must be in [1, 1024], got "
                     f"{n_shards}",
                 )
+            try:
+                window = int(index_settings.get("max_result_window", 10_000))
+            except (TypeError, ValueError):
+                raise ApiError(
+                    400, "illegal_argument_exception",
+                    "index.max_result_window must be an integer",
+                ) from None
             params = BM25Params()
             sim = index_settings.get("similarity", {}).get("default", {})
             if sim.get("type") in (None, "BM25"):
@@ -201,6 +204,7 @@ class Node:
                     if n_shards == 1
                     else ShardedSearchCoordinator(engines, name)
                 ),
+                max_result_window=window,
             )
         return {"acknowledged": True, "shards_acknowledged": True, "index": name}
 
@@ -365,6 +369,16 @@ class Node:
             request = SearchRequest.from_json(body)
         except (ValueError, KeyError, TypeError) as e:
             raise ApiError(400, "parsing_exception", str(e)) from None
+        window = svc.max_result_window
+        if request.from_ + request.size > window:
+            raise ApiError(
+                400,
+                "illegal_argument_exception",
+                f"Result window is too large, from + size must be less "
+                f"than or equal to: [{window}] but was "
+                f"[{request.from_ + request.size}]. See the scroll api "
+                f"for a more efficient way to request large data sets.",
+            )
         try:
             if self._batchable(request):
                 response = self.exec_batcher.execute(
@@ -395,7 +409,4 @@ class Node:
         """May this search ride the exec micro-batcher? Plain score-sorted
         query phases that ask for at least one hit (every search the port
         serves is score-sorted)."""
-        return (
-            self.exec_batcher is not None
-            and max(0, request.from_) + max(0, request.size) > 0
-        )
+        return max(0, request.from_) + max(0, request.size) > 0

@@ -14,8 +14,9 @@ plain PyTorch versions.
 
 Every kernel takes a leading row axis Q: the `*_batch` wrappers run Q
 queries of one plan in one launch (the JAX package's vmapped
-execute_batch / execute_batch_sparse), and the solo wrappers are the same
-launch with Q = 1.
+execute_batch / execute_batch_sparse), and each solo wrapper is its
+`*_batch` wrapper over one row (x[None] in, [0] out), the call the
+serving path makes for one request.
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface, loaded with ctypes. The build runs on the first launch
@@ -429,20 +430,21 @@ def terms_scatter_batch(
         )
     return _terms_scatter_launch(
         doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
-        num_docs, groups, cache, matched_only, (q, num_docs + 1),
+        num_docs, groups, cache, matched_only,
     )
 
 
 def _terms_scatter_launch(
     doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
-    num_docs, groups, cache, matched_only, out_shape,
+    num_docs, groups, cache, matched_only,
 ):
-    """Launch K1 on checked inputs: worklists [Q, nt] (or, for one row,
-    [nt]), groups int32[Q, G, 2]; outputs of `out_shape`."""
+    """Launch K1 on checked inputs: worklists [Q, nt], groups
+    int32[Q, G, 2]; outputs [Q, num_docs + 1]."""
     dev = doc_tiles.device
     lib = ensure_built()
-    q, n_groups = groups.shape[0], groups.shape[1]
-    nt = tile_ids.shape[-1]
+    q, nt = tile_ids.shape
+    n_groups = groups.shape[1]
+    out_shape = (q, num_docs + 1)
     group_len = bounds = None
     if q > 1 and not matched_only:
         group_len = np.ascontiguousarray(
@@ -480,44 +482,17 @@ def terms_scatter(
     doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
     num_docs: int, groups, cache=None, matched_only: bool = False,
 ):
-    """K1 for one worklist: the batched launch with Q = 1.
-
-    Returns (scores f32[num_docs + 1] or None in matched-only mode,
-    matched bool[num_docs + 1]); slot num_docs is the discard slot.
-    `groups` is term_groups(...) of the worklist, host-side."""
-    dev = doc_tiles.device
-    _check(doc_tiles, "doc_tiles", torch.int32, 2, dev)
-    _check(vals, "vals", torch.float32, 2, dev)
-    _check(norm_bytes, "norm_bytes", torch.uint8, 1, dev)
-    for name, t in (("tile_ids", tile_ids), ("starts", starts), ("ends", ends)):
-        _check(t, name, torch.int32, 1, dev)
-    nt = tile_ids.shape[0]
-    if starts.shape[0] != nt or ends.shape[0] != nt:
-        raise ValueError("worklist arrays differ in length")
-    if doc_tiles.shape[1] != TILE or vals.shape != doc_tiles.shape:
-        raise ValueError("tile planes must be [NT, 256] and alike")
-    if norm_bytes.shape[0] != num_docs + 1:
-        raise ValueError("norm_bytes must have num_docs + 1 slots")
-    if not matched_only:
-        _check(weights, "weights", torch.float32, 1, dev)
-        if weights.shape[0] != nt:
-            raise ValueError("weights differ in length from the worklist")
-    if cache is not None:
-        _check(cache, "cache", torch.float32, 1, dev)
-        if cache.shape[0] != 256:
-            raise ValueError("cache must have 256 entries")
-    groups = np.ascontiguousarray(
-        np.asarray(groups, dtype=np.int32).reshape(1, -1, 2)
+    """K1 for one worklist: terms_scatter_batch over one row. Returns
+    (scores f32[num_docs + 1] or None in matched-only mode, matched
+    bool[num_docs + 1]); `groups` is term_groups(...) of the worklist."""
+    scores, matched = terms_scatter_batch(
+        doc_tiles, vals, norm_bytes, tile_ids[None], starts[None],
+        ends[None], None if weights is None else weights[None], num_docs,
+        np.asarray(groups, dtype=np.int32).reshape(1, -1, 2),
+        cache=None if cache is None else cache[None],
+        matched_only=matched_only,
     )
-    if not _launchable(dev):
-        return terms_scatter_plain(
-            doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
-            num_docs, groups[0], cache=cache, matched_only=matched_only,
-        )
-    return _terms_scatter_launch(
-        doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
-        num_docs, groups, cache, matched_only, (num_docs + 1,),
-    )
+    return (None if scores is None else scores[0]), matched[0]
 
 
 # ---------------------------------------------------------------------------
@@ -610,21 +585,20 @@ def sparse_fold_batch(
         )
     return _sparse_fold_launch(
         doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs,
-        t_pad, q, (q, p),
+        t_pad,
     )
 
 
 def _sparse_fold_launch(
     doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs, t_pad,
-    q, out_shape,
 ):
-    """Launch K2 on checked inputs (worklists [Q, nt], or [nt] for one
-    row), in as many launches over consecutive rows as
-    SPARSE_FOLD_MAX_PAIRS asks; outputs of `out_shape`."""
+    """Launch K2 on checked [Q, nt] worklists, in as many launches over
+    consecutive rows as SPARSE_FOLD_MAX_PAIRS asks; outputs [Q, P]."""
     dev = doc_tiles.device
     lib = ensure_built()
-    nt = tile_ids.shape[-1]
+    q, nt = tile_ids.shape
     p = nt * TILE
+    out_shape = (q, p)
     i32, f32 = torch.int32, torch.float32
     per = max(1, min(q, SPARSE_FOLD_MAX_PAIRS // max(1, p)))
     n = per * p
@@ -658,38 +632,13 @@ def sparse_fold(
     doc_tiles, tn, tile_ids, starts, ends, weights, live,
     num_docs: int, t_pad: int,
 ):
-    """K2 for one worklist: the batched launch with Q = 1. Returns
-    (docs_s i32[P], run_sum f32[P], eligible bool[P]), P = NT * 256."""
-    dev = doc_tiles.device
-    _check(doc_tiles, "doc_tiles", torch.int32, 2, dev)
-    _check(tn, "tn", torch.float32, 2, dev)
-    for name, t, dt in (("tile_ids", tile_ids, torch.int32),
-                        ("starts", starts, torch.int32),
-                        ("ends", ends, torch.int32),
-                        ("weights", weights, torch.float32)):
-        _check(t, name, dt, 1, dev)
-    _check(live, "live", torch.bool, 1, dev)
-    nt = tile_ids.shape[0]
-    if starts.shape[0] != nt or ends.shape[0] != nt or weights.shape[0] != nt:
-        raise ValueError("worklist arrays differ in length")
-    if doc_tiles.shape[1] != TILE or tn.shape != doc_tiles.shape:
-        raise ValueError("tile planes must be [NT, 256] and alike")
-    if live.shape[0] != num_docs or num_docs < 1:
-        raise ValueError("live must have num_docs >= 1 entries")
-    if not 1 <= t_pad <= 1024:
-        raise ValueError(f"t_pad {t_pad} out of range")
-    p = nt * TILE
-    if p >= 2**31:
-        raise ValueError("worklist too large for int32 positions")
-    if not _launchable(dev):
-        return sparse_fold_plain(
-            doc_tiles, tn, tile_ids, starts, ends, weights, live,
-            num_docs, t_pad,
-        )
-    return _sparse_fold_launch(
-        doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs,
-        t_pad, 1, (p,),
+    """K2 for one worklist: sparse_fold_batch over one row. Returns
+    (docs_s i32[P], run_sum f32[P], eligible bool[P]), P = nt * 256."""
+    out = sparse_fold_batch(
+        doc_tiles, tn, tile_ids[None], starts[None], ends[None],
+        weights[None], live, num_docs, t_pad,
     )
+    return tuple(t[0] for t in out)
 
 
 # ---------------------------------------------------------------------------
@@ -739,13 +688,14 @@ def masked_topk_batch(key, eligible, k: int):
         raise ValueError(f"row count {q} out of range [1, 65535]")
     if not _launchable(dev):
         return masked_topk_batch_plain(key, eligible, k)
-    return _masked_topk_launch(key, eligible, k, q, m, (q,))
+    return _masked_topk_launch(key, eligible, k)
 
 
-def _masked_topk_launch(key, eligible, k, q, m, rows_shape):
-    """Launch K3 on checked inputs; outputs shaped rows_shape + (kp,) and
-    rows_shape (rows_shape () for one row)."""
+def _masked_topk_launch(key, eligible, k):
+    """Launch K3 on checked [Q, M] inputs; outputs [Q, min(k, M)] and
+    [Q]."""
     dev = key.device
+    q, m = key.shape
     kp = min(k, m)
     ch = topk_chunk(kp)
     if kp >= ch and m > ch:
@@ -756,9 +706,9 @@ def _masked_topk_launch(key, eligible, k, q, m, rows_shape):
     nb = max(1, -(-m // ch))
     buf_a = torch.empty(max(1, q * nb * kp), dtype=torch.int64, device=dev)
     buf_b = torch.empty(max(1, q * nb * kp), dtype=torch.int64, device=dev)
-    top_scores = torch.empty(rows_shape + (kp,), dtype=torch.float32, device=dev)
-    top_idx = torch.empty(rows_shape + (kp,), dtype=torch.int32, device=dev)
-    total = torch.empty(rows_shape, dtype=torch.int32, device=dev)
+    top_scores = torch.empty((q, kp), dtype=torch.float32, device=dev)
+    top_idx = torch.empty((q, kp), dtype=torch.int32, device=dev)
+    total = torch.empty((q,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.esk_masked_topk(
             _ptr(key), _ptr(eligible), int(q), int(m), int(kp), int(ch),
@@ -771,22 +721,11 @@ def _masked_topk_launch(key, eligible, k, q, m, rows_shape):
 
 
 def masked_topk(key, eligible, k: int):
-    """K3 for one row: the batched launch with Q = 1. key f32[M] (-inf at
-    ineligible entries) -> (top_scores f32[min(k, M)], top_idx
+    """K3 for one row: masked_topk_batch over one row. key f32[M] (-inf
+    at ineligible entries) -> (top_scores f32[min(k, M)], top_idx
     i32[min(k, M)], total i32[])."""
-    dev = key.device
-    _check(key, "key", torch.float32, 1, dev)
-    _check(eligible, "eligible", torch.bool, 1, dev)
-    m = key.shape[0]
-    if eligible.shape[0] != m:
-        raise ValueError("eligible differs in length from key")
-    if k < 0:
-        raise ValueError("k must be >= 0")
-    if m >= 2**31:
-        raise ValueError("key too long for int32 indices")
-    if not _launchable(dev):
-        return masked_topk_plain(key, eligible, k)
-    return _masked_topk_launch(key, eligible, k, 1, m, ())
+    out = masked_topk_batch(key[None], eligible[None], k)
+    return tuple(t[0] for t in out)
 
 
 # ---------------------------------------------------------------------------
@@ -844,16 +783,9 @@ def span_locate_batch(flat, starts, ends, j: int, cands):
         raise ValueError(f"row count {q} out of range [1, 65535]")
     if not _launchable(dev):
         return span_locate_batch_plain(flat, starts, ends, j, cands)
-    return _span_locate_launch(flat, starts, ends, n_spans, j, cands, q, p,
-                               (q, p))
-
-
-def _span_locate_launch(flat, starts, ends, n_spans, j, cands, q, p, out_shape):
-    """Launch K4 on checked inputs; outputs of `out_shape`."""
-    dev = flat.device
     lib = ensure_built()
-    pos = torch.empty(out_shape, dtype=torch.int32, device=dev)
-    found = torch.empty(out_shape, dtype=torch.bool, device=dev)
+    pos = torch.empty((q, p), dtype=torch.int32, device=dev)
+    found = torch.empty((q, p), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         rc = lib.esk_span_locate(
             _ptr(flat), int(flat.shape[0]), _ptr(starts), _ptr(ends),
@@ -867,19 +799,8 @@ def _span_locate_launch(flat, starts, ends, n_spans, j, cands, q, p, out_shape):
 
 
 def span_locate(flat, starts, ends, j: int, cands):
-    """K4 for one row: the batched launch with Q = 1. (pos i32[P], found
+    """K4 for one row: span_locate_batch over one row. (pos i32[P], found
     bool[P]) of each candidate doc against the sorted slice
     [starts[j], ends[j]) of a flat postings plane."""
-    dev = flat.device
-    _check(flat, "flat", torch.int32, 1, dev)
-    for name, t in (("starts", starts), ("ends", ends), ("cands", cands)):
-        _check(t, name, torch.int32, 1, dev)
-    if not 0 <= j < starts.shape[0] or ends.shape[0] != starts.shape[0]:
-        raise ValueError(f"span row {j} out of range")
-    if flat.shape[0] == 0:
-        raise ValueError("flat plane is empty")
-    if not _launchable(dev):
-        return span_locate_plain(flat, starts, ends, j, cands)
-    # One row's [T] spans are the [1, T] the kernel reads with j < T.
-    return _span_locate_launch(flat, starts, ends, starts.shape[0], j, cands,
-                               1, cands.shape[0], (cands.shape[0],))
+    out = span_locate_batch(flat, starts[None], ends[None], j, cands[None])
+    return tuple(t[0] for t in out)

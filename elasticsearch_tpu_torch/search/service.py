@@ -6,15 +6,15 @@ and `_source`; `SearchService.search` as the plain score-sorted loop over
 segments with the candidate merge and the `_source` fetch; the hot branch
 of `_query_segment` (compile, `execute_auto`, collect); and the batched
 query phase the micro-batcher drives — `search_many`, `assemble_plain`,
-`_batched_query_phase`, `_merge_term_groups` (with `sparse_family_key`),
-`_execute_group`, `_device_batch` and `_append_plain`: N plain requests
-cost one padded launch per (segment, spec group) instead of N. Left out
-with the reference's padding instrument: `family_padding_tiles`. Every
-segment runs on the port's device path:
-there is no planner, CPU-oracle routing, filter cache (a batch's mask
-token is always `()`), task or timeout, rescore, sort, cursor,
-aggregation or knn; a request asking for one of those is refused with a
-400.
+`_batched_query_phase` (with the reference's `_execute_group` inlined),
+`_merge_term_groups` (with `sparse_family_key`), `_device_batch` and
+`_append_plain`: N plain requests cost one padded launch per (segment,
+spec group) instead of N. Left out with the reference's padding
+instrument: `family_padding_tiles`. Every segment runs on the port's
+device path: there is no planner, CPU-oracle routing, filter cache (a
+batch's mask token is always `()`), task or timeout, rescore, sort,
+cursor, aggregation or knn; a request asking for one of those is refused
+with a 400.
 """
 
 from __future__ import annotations
@@ -315,13 +315,32 @@ class SearchService:
                     groups.setdefault((c.spec, ()), []).append(i)
             groups = self._merge_term_groups(groups, compiled)
             for (spec, _token), rows in groups.items():
+                # One padded launch per group at its largest k (the
+                # reference may route a group to its CPU oracle; the port
+                # has one backend).
                 try:
-                    self._execute_group(
-                        handle, spec, rows, compiled, ks, cands, totals,
+                    self._device_batch(
+                        handle, spec, rows, compiled, ks,
+                        max(ks[i] for i in rows), cands, totals,
                         seg_tree=seg_tree,
                     )
-                except (ValueError, TypeError):
-                    raise  # request-shaped: the compile path 400s
+                except (ValueError, TypeError) as e:
+                    # Request-shaped (a k beyond the top-k window, say):
+                    # only the riders that cause it may fail, so a
+                    # coalesced group re-runs its riders one at a time.
+                    if len(rows) == 1:
+                        errors[rows[0]] = e
+                        alive.discard(rows[0])
+                        continue
+                    for i in rows:
+                        try:
+                            self._device_batch(
+                                handle, spec, [i], compiled, ks, ks[i],
+                                cands, totals, seg_tree=seg_tree,
+                            )
+                        except Exception as e_row:  # noqa: BLE001
+                            errors[i] = e_row
+                            alive.discard(i)
                 # Launch failure isolation: only the riders of THIS group
                 # fail (and get retried individually by the micro-batcher);
                 # batchmates in other groups and segments are untouched.
@@ -368,18 +387,6 @@ class SearchService:
                     merged_rows.extend(rows)
                 groups.setdefault((target, ()), []).extend(merged_rows)
         return groups
-
-    def _execute_group(
-        self, handle, spec, rows, compiled, ks, cands, totals, seg_tree=None,
-    ) -> None:
-        """Execute one same-spec group — one padded device launch at the
-        group's largest k — and append candidates. (The reference may
-        route a group to its CPU oracle; the port has one backend.)"""
-        k_max = max(ks[i] for i in rows)
-        self._device_batch(
-            handle, spec, rows, compiled, ks, k_max, cands, totals,
-            seg_tree=seg_tree,
-        )
 
     def _device_batch(
         self, handle, spec, rows, compiled, ks, k_max, cands, totals,

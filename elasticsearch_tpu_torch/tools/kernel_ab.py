@@ -2,15 +2,18 @@
 """Time the port's kernels against another build of them, on one GPU.
 
     git archive <commit> elasticsearch_tpu_torch | tar -x -C <dir>
-    python3 scripts/port_kernel_ab.py --baseline <dir> [--docs N] [--q Q]
+    python3 -m elasticsearch_tpu_torch.tools.kernel_ab --baseline <dir>
+        [--docs N] [--q Q]
 
 Loads the baseline package from <dir>/elasticsearch_tpu_torch under
 another module name, beside this checkout's, so both kernel libraries are
 built and loaded in one process on one card. On the one-shard Zipf corpus
 (the repo's generator, seed 13) it times each solo wrapper (Q = 1) of
 K1-K4 on identical inputs, in the turns baseline, current, current,
-baseline; then, for this checkout only, each batched wrapper on Q rows
-against Q solo calls on the same rows. Each turn gives two times a call:
+baseline (in this checkout the solo wrapper is the batched wrapper over
+one row, the call the serving path makes for one request); then, for
+this checkout only, each batched wrapper on Q rows against Q solo calls
+on the same rows. Each turn gives two times a call:
 `ms`, the CUDA-event mean over back-to-back calls (at these sizes it
 includes the host's launch cost), and `device_ms`, the summed duration of
 the kernels and copies the call ran on the card (torch.profiler), which
@@ -27,7 +30,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parent.parent
+REPO = Path(__file__).resolve().parents[2]
 
 
 def card_line() -> str:
@@ -114,7 +117,7 @@ def main() -> int:
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
-        print("port_kernel_ab.py: no CUDA device", file=sys.stderr)
+        print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     from elasticsearch_tpu_torch.index.engine import Engine
     from elasticsearch_tpu_torch.ops import bm25_device

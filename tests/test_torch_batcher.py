@@ -332,3 +332,109 @@ def test_node_sheds_with_429_and_retry_after(node):
     assert status == 429
     assert payload["error"]["type"] == "es_rejected_execution_exception"
     assert int(headers["Retry-After"]) >= 1
+
+
+def _without_took(out: dict) -> dict:
+    out = dict(out)
+    out.pop("took")
+    return out
+
+
+def test_oversized_rider_fails_alone_in_a_coalesced_launch(node, monkeypatch):
+    """A rider whose k the top-k kernel refuses fails on its own, with a
+    400; the batchmates that shared its launch answer as they do alone."""
+    from elasticsearch_tpu_torch.node import ApiError
+    from elasticsearch_tpu_torch.ops import kernels
+
+    svc = node.get_index("idx")
+    sizes = [5, 3, 40, 7]
+    bodies = [{"query": {"match": {"body": "v1 v2"}}, "size": s} for s in sizes]
+    solo = {s: _without_took(node.search("idx", b))
+            for s, b in zip(sizes, bodies) if s != 40}
+    real_topk = kernels.masked_topk_batch
+
+    def windowed(key, eligible, k):
+        # The CUDA launch refuses a k past its chunk window; the plain
+        # version on the CPU has none, so this stands in for the card.
+        if k > 20:
+            raise ValueError(f"k={k} exceeds the top-k kernel's window")
+        return real_topk(key, eligible, k)
+
+    monkeypatch.setattr(kernels, "masked_topk_batch", windowed)
+    gate = threading.Event()
+    batches: list = []
+    real_many = svc.search.search_many
+
+    def gated(requests):
+        batches.append(sorted(r.size for r in requests))
+        gate.wait(30)
+        return real_many(requests)
+
+    svc.search.search_many = gated
+    node.exec_batcher.close()
+    node.exec_batcher = MicroBatcher(max_wait_s=0.05)
+    got: dict = {}
+
+    def go(key, body):
+        try:
+            got[key] = node.search("idx", body)
+        except ApiError as e:
+            got[key] = e
+
+    try:
+        # A first search holds the scheduler in flight while the four
+        # riders queue behind it, so they share the next launch.
+        first = threading.Thread(target=go, args=("first", bodies[0]))
+        first.start()
+        deadline = time.monotonic() + 30
+        while not batches and time.monotonic() < deadline:
+            time.sleep(0.01)
+        riders = [threading.Thread(target=go, args=(s, b))
+                  for s, b in zip(sizes, bodies)]
+        for t in riders:
+            t.start()
+        while (node.exec_batcher.stats()["queued"] < len(sizes)
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        gate.set()
+        for t in [first, *riders]:
+            t.join(timeout=60)
+    finally:
+        gate.set()
+        del svc.search.search_many
+        node.exec_batcher.close()
+    assert batches == [[5], sorted(sizes)]
+    err = got[40]
+    assert isinstance(err, ApiError) and err.status == 400
+    assert "window" in err.reason
+    for s, want in solo.items():
+        assert _without_took(got[s]) == want, s
+    assert _without_took(got["first"]) == solo[5]
+
+
+def test_result_window_is_checked_before_batching():
+    n = Node(device="cpu")
+    try:
+        n.create_index("w", {
+            "settings": {"index": {"number_of_shards": 2,
+                                   "max_result_window": 5}},
+            "mappings": {"properties": {"body": {"type": "text"}}},
+        })
+        n.bulk("".join(
+            json.dumps({"index": {"_id": f"d{i}"}}) + "\n"
+            + json.dumps({"body": f"v1 v{i}"}) + "\n" for i in range(9)
+        ), default_index="w", refresh=True)
+        ok = n.search("w", {"query": {"match": {"body": "v1"}},
+                            "from": 2, "size": 3})
+        assert len(ok["hits"]["hits"]) == 3
+        from elasticsearch_tpu_torch.node import ApiError
+
+        with pytest.raises(ApiError) as e:
+            n.search("w", {"query": {"match": {"body": "v1"}},
+                           "from": 2, "size": 4})
+        assert e.value.status == 400
+        assert e.value.err_type == "illegal_argument_exception"
+        assert "[5]" in e.value.reason and "[6]" in e.value.reason
+        assert n.exec_batcher.stats()["requests"] == 1  # refused before it
+    finally:
+        n.close()
