@@ -7,7 +7,8 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line). Launch counters are zeroed just before each main-path phase
 and read just after it.
 
-  1. build       the four CUDA kernels (csrc/*.cu -> one sm_90a library)
+  1. build       the four CUDA kernels, each with its row and stacked-shard
+                 modes (csrc/*.cu -> one sm_90a library)
   2. corpus      the MS MARCO-sized Zipf corpus (8,841,823 passages, the
                  repo's own generator) installed in a one-shard index
   3. main        the REST server on loopback serves 64 sequential `_search`
@@ -42,6 +43,24 @@ and read just after it.
                  over all documents
  11. batched kernels  K1b/K3b at the sharded concurrent phase's mean batch
  12. results     latencies, QPS, device times, peak device memory
+ 6b. blockmax    (on the one-shard corpus, before it is freed) the match
+                 plans through execute_batch_blockmax and the must-led
+                 bool(must + filter) plans through execute_batch_blockmax_conj,
+                 per spec group at k = 10, each held to execute_batch_sparse
+                 (ids, order, fp32 bits; totals a lower bound, equal when
+                 "eq"); then those bodies with track_total_hits false, four
+                 times over HTTP, on a Node(exec_batcher=False): every answer
+                 equals phase 3's hits, and the exec planner decides both
+                 blockmax and blockmax_conj
+ 13. stacked     config 3 as the JAX bench serves it on one device: the 8
+                 shards packed to equal shapes (pad_docs_to, field_min_tiles)
+                 and stacked, each query compiled per shard with that shard's
+                 statistics and equalized, bucketed by plan_spec_buckets;
+                 execute_shards_batch (K1s-K4s) over phase 8's 64 queries
+                 and 16 dense bool(should) held to the numpy oracle per
+                 shard merged by (score desc, shard, rank), and
+                 execute_shards_blockmax_conj to execute_shards_batch;
+                 K1s-K4s against their plain versions; CUDA-event times
 
 The last lines are the card (nvidia-smi name, power limit), one JSON
 object with the kernel table, and {"ok": true, "device": {...}}.
@@ -69,6 +88,7 @@ N_SHOULD = 16
 N_MUST_FILTER = 16
 N_CFG3 = 32  # sharded bool(must 2-term match + filter term) requests
 N_CFG3_MATCH = 32  # sharded match requests of 4 terms
+N_STACKED_SHOULD = 16  # dense bool(should) on the stacked shards (K1s)
 N_CLIENTS = 16
 N_CONCURRENT = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
@@ -123,12 +143,12 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route bm25_device through the plain PyTorch versions of K1-K4, solo
-    and batched (on whatever device the tensors are) — the reference runs
-    of the check phases."""
+    """Route bm25_device through the plain PyTorch versions of K1-K4, solo,
+    batched and stacked (on whatever device the tensors are) — the
+    reference runs of the check phases."""
     from elasticsearch_tpu_torch.ops import kernels as kern
 
-    names = [n + s for n in KERNELS for s in ("", "_batch")]
+    names = [n + s for n in KERNELS for s in kern.MODES]
     saved = {n: getattr(kern, n) for n in names}
     try:
         for n in names:
@@ -542,6 +562,11 @@ def run() -> dict:
     }
     log(f"phase results (one shard): {json.dumps(single)} [{card}]")
 
+    # -- 6b. block-max on the one-shard corpus ----------------------------
+    single["blockmax"] = run_blockmax(
+        card, dev, segment, seg_tree, compiler, bodies, responses, launches
+    )
+
     # Free the one-shard corpus before the sharded one.
     node.close()
     del node, svc, handle, segment, fld, seg_tree, compiler, plans, plan
@@ -559,6 +584,166 @@ def run() -> dict:
     log(f"phase results: whole run {time.monotonic() - t_run:.1f} s [{card}]")
     return {"card": card, "kernels": rows,
             "result": {"one_shard": single, "sharded": sharded}}
+
+
+class PruneRecorder:
+    """The `instruments` of the block-max calls: every pruned fraction."""
+
+    def __init__(self):
+        self.fractions: list[float] = []
+
+    def blockmax_pruned(self, fraction: float) -> None:
+        self.fractions.append(float(fraction))
+
+
+def _same_topk(got, exact, row: int, k: int) -> bool:
+    """A block-max row against the exact row: fp32 score bits of the whole
+    row, ids over the hits, and a total that is a lower bound."""
+    import numpy as np
+
+    s, i, t = got
+    s_e, i_e, t_e = exact
+    n = min(k, int(t_e[row]))
+    return (
+        np.array_equal(score_bits(s[row]), score_bits(s_e[row]))
+        and np.array_equal(i[row][:n], i_e[row][:n])
+        and int(t[row]) <= int(t_e[row])
+    )
+
+
+def run_blockmax(card, dev, segment, seg_tree, compiler, bodies, responses,
+                 launches) -> dict:
+    """Block-max on the cfg2 corpus: execute_batch_blockmax on the match
+    plans and execute_batch_blockmax_conj on the bool(must + filter)
+    plans, per spec group at k = 10 as the JAX bench groups them, each
+    held to execute_batch_sparse on the same plans; then the same bodies
+    with untracked totals, four times over HTTP, on a node without a
+    batcher, whose planner explores both backends of every plan class."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    conj_lo = N_MATCH + N_SHOULD
+    picked = list(range(N_MATCH)) + list(range(conj_lo, len(bodies)))
+    groups: dict[tuple, list[int]] = {}
+    compiled = {}
+    for j in picked:
+        compiled[j] = compiler.compile(parse_query(bodies[j]["query"]))
+        groups.setdefault(compiled[j].spec, []).append(j)
+
+    def exact(spec, rows):
+        arrays = bm25_device.stack_plans([compiled[j].arrays for j in rows])
+        out = bm25_device.execute_batch_sparse(
+            seg_tree, spec, bm25_device.plan_to_torch(spec, arrays, dev), TOP_K)
+        return tuple(t.cpu().numpy() for t in out)
+
+    def pruned(spec, rows, rec=None):
+        fn = (bm25_device.execute_batch_blockmax if spec[0] == "terms"
+              else bm25_device.execute_batch_blockmax_conj)
+        return fn(seg_tree, spec, [compiled[j].arrays for j in rows], TOP_K,
+                  instruments=rec)
+
+    eligible = {
+        spec: rows for spec, rows in groups.items()
+        if spec[0] == "terms" or bm25_device.supports_blockmax_conj(spec)
+    }
+    want = {spec: exact(spec, rows) for spec, rows in eligible.items()}
+    rec = PruneRecorder()
+    relations = {"eq": 0, "gte": 0}
+    mismatches = 0
+    with counted("blockmax", launches):
+        got = {spec: pruned(spec, rows, rec) for spec, rows in eligible.items()}
+    for spec, rows in eligible.items():
+        relations[got[spec][3]] += len(rows)
+        for row in range(len(rows)):
+            ok = _same_topk(got[spec][:3], want[spec], row, TOP_K)
+            if got[spec][3] == "eq":
+                ok = ok and int(got[spec][2][row]) == int(want[spec][2][row])
+            if not ok:
+                mismatches += 1
+                log(f"  MISMATCH blockmax {bodies[rows[row]]}")
+    n_terms = sum(len(r) for sp, r in eligible.items() if sp[0] == "terms")
+    n_conj = sum(len(r) for sp, r in eligible.items() if sp[0] == "bool")
+
+    # Host clock, plans uploaded and results fetched in both: the block-max
+    # calls include their host prune.
+    def per_query_ms(fn, terms: bool, reps: int = 3) -> float:
+        chosen = {sp: r for sp, r in eligible.items() if (sp[0] == "terms") == terms}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for spec, rows in chosen.items():
+                fn(spec, rows)
+        return (time.perf_counter() - t0) * 1e3 / (reps * sum(map(len, chosen.values())))
+
+    timing = {
+        "blockmax_ms_per_query": per_query_ms(pruned, True),
+        "sparse_ms_per_query_terms": per_query_ms(exact, True),
+        "blockmax_conj_ms_per_query": per_query_ms(pruned, False),
+        "sparse_ms_per_query_conj": per_query_ms(exact, False),
+    }
+    summary = {
+        "match_plans": n_terms, "conj_plans": n_conj,
+        "conj_not_eligible": len(bodies) - conj_lo - n_conj,
+        "spec_groups": len(eligible), "relations": relations,
+        "pruned_tile_fraction_mean": float(np.mean(rec.fractions)) if rec.fractions else 0.0,
+        "mismatches": mismatches, **timing,
+    }
+    log(f"phase blockmax: {'ok' if mismatches == 0 else 'FAILED'} {json.dumps(summary)} [{card}]")
+    if mismatches:
+        raise SmokeFailure(f"{mismatches} block-max mismatches")
+    if not n_terms or not n_conj:
+        raise SmokeFailure("no plan eligible for one of the block-max paths")
+
+    # The planner's routing on the solo path: a node without a batcher.
+    t0 = time.monotonic()
+    node = Node(device=DEVICE, exec_batcher=False)
+    node.create_index("msmarco", {"mappings": {"properties": {"body": {"type": "text"}}}})
+    node.indices["msmarco"].engine._install_segment(segment)
+    torch.cuda.synchronize()
+    install_s = time.monotonic() - t0
+    server, base = serve(node)
+    bad = 0
+    try:
+        with counted("blockmax node", launches):
+            latencies, outs, wall_s = sequential(
+                base, "msmarco",
+                [{**bodies[j], "track_total_hits": False} for j in picked] * 4)
+    finally:
+        server.shutdown()
+        server.server_close()
+    for n, out in enumerate(outs):
+        ref = responses[picked[n % len(picked)]]
+        if ("total" in out["hits"]
+                or [h["_id"] for h in out["hits"]["hits"]]
+                != [h["_id"] for h in ref["hits"]["hits"]]
+                or not np.array_equal(
+                    score_bits([h["_score"] for h in out["hits"]["hits"]]),
+                    score_bits([h["_score"] for h in ref["hits"]["hits"]]))):
+            bad += 1
+            log(f"  MISMATCH solo untracked {bodies[picked[n % len(picked)]]}")
+    stats = node.exec_planner.stats()
+    node.close()
+    decisions = stats["decisions"]
+    routed = {
+        "requests": len(outs), "install_s": install_s,
+        "p50_ms": percentile(latencies, 50), "p99_ms": percentile(latencies, 99),
+        "qps": len(outs) / wall_s, "mismatches": bad,
+        "plan_classes": len(stats["ewma"]), "planner": stats,
+    }
+    log(f"phase blockmax node: {'ok' if bad == 0 else 'FAILED'} {json.dumps(routed)} [{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} solo untracked answers differ")
+    if decisions.get("blockmax", 0) <= 0 or decisions.get("blockmax_conj", 0) <= 0:
+        raise SmokeFailure(f"the planner never chose a block-max path: {decisions}")
+    del node
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**summary, "node": {k: v for k, v in routed.items() if k != "planner"},
+            "decisions": decisions}
 
 
 def run_sharded(card, dev, launches, rows) -> dict:
@@ -618,7 +803,7 @@ def run_sharded(card, dev, launches, rows) -> dict:
     try:
         for i in (0, N_CFG3):  # one untimed warm-up request per shape
             http(base, "POST", "/cfg3/_search", bodies[i])
-        with counted("sharded sequential", launches):
+        with counted("sharded sequential", launches), LaunchTimer() as seq_timer:
             latencies, responses, wall_s = sequential(base, "cfg3", bodies)
     finally:
         server.shutdown()
@@ -692,6 +877,25 @@ def run_sharded(card, dev, launches, rows) -> dict:
     rows.extend(kernel_rows_sharded(svc, handles, bodies, dev, q_batch))
     log(f"phase batched kernels: ok 0 mismatches, Q = {q_batch} [{card}]")
 
+    # The coordinator's dense 8-shard path, device time per request (the
+    # sum over its per-shard launches), to set the stacked phase beside.
+    dense = {
+        "sequential_device_ms_per_request":
+            sum(a.elapsed_time(b) for _q, a, b in seq_timer.events) / len(bodies),
+        "concurrent_device_ms_per_request":
+            sum(a.elapsed_time(b) for _q, a, b in timer.events) / N_CONCURRENT,
+    }
+    log(f"  coordinator dense path: {json.dumps(dense)}")
+    sharded_peak = int(torch.cuda.max_memory_allocated())
+    node.close()
+    del node, svc, handles, timer, seq_timer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13. stacked shards on one device (row 9b, row 12's shard form) ---
+    stacked = run_stacked(card, dev, shards, bodies, match_terms, launches, rows)
+    stacked["coordinator_dense"] = dense
+
     result = {
         "docs": sum(shard_docs),
         "shards": N_SHARDS,
@@ -705,11 +909,227 @@ def run_sharded(card, dev, launches, rows) -> dict:
         "sequential_batcher": seq_stats,
         "concurrent": conc,
         "routed_mismatches": routed_mismatches,
-        "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+        "max_memory_allocated_bytes": sharded_peak,
+        "stacked": stacked,
     }
     log(f"phase results (sharded): {json.dumps(result)} [{card}]")
-    node.close()
     return result
+
+
+def _oracle_topk(scores, eligible, k: int):
+    """Doc ids of the top k eligible docs by (score desc, doc asc)."""
+    import numpy as np
+
+    idx = np.flatnonzero(eligible)
+    if len(idx) > k:  # keep the k-th score's ties, drop what cannot win
+        sc = scores[idx]
+        idx = idx[sc >= np.partition(sc, len(sc) - k)[len(sc) - k]]
+    return idx[np.lexsort((idx, -scores[idx].astype(np.float64)))[:k]]
+
+
+def stacked_oracle(shards, query, k: int, docs_per_shard: int):
+    """The numpy oracle per shard with that shard's own statistics,
+    merged by (score desc, shard, rank) as bench.py:931-938 merges it:
+    (global ids, scores, total). `query` is ("match", terms),
+    ("conj", must terms, filter term) or ("should", match terms, term)."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.ops import bm25
+
+    merged, total = [], 0
+    for s, seg in enumerate(shards):
+        fld, n = seg.fields["body"], seg.num_docs
+        matched = np.zeros(n, dtype=bool)
+        scores = bm25.score_terms_dense(fld, query[1], n, matched=matched)
+        if query[0] == "conj":
+            has_filter = np.zeros(n, dtype=bool)
+            has_filter[fld.postings(query[2])[0]] = True
+            matched &= has_filter
+        elif query[0] == "should":
+            m2 = np.zeros(n, dtype=bool)
+            s2 = bm25.score_terms_dense(fld, [query[2]], n, matched=m2)
+            scores = (np.float32(0.0) + scores) + s2
+            matched |= m2
+        total += int(matched.sum())
+        for rank, d in enumerate(_oracle_topk(scores, matched, k)):
+            merged.append((-float(scores[d]), s, rank,
+                           s * docs_per_shard + int(d), scores[d]))
+    merged.sort(key=lambda t: t[:3])
+    page = merged[:k]
+    return [t[3] for t in page], [t[4] for t in page], total
+
+
+def run_stacked(card, dev, shards, bodies, match_terms, launches, rows) -> dict:
+    """BASELINE config 3 the way the JAX bench serves it on one device
+    (bench.py:931-1168): the 8 shards packed to equal shapes and stacked,
+    every query compiled per shard with that shard's own statistics and
+    equalized, bucketed with plan_spec_buckets(n_shards=8), run through
+    execute_shards_batch (K1s-K4s, the merge on K3b) and held to the
+    numpy oracle per shard; the conjunctions also through
+    execute_shards_blockmax_conj, held to execute_shards_batch."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.exec.batcher import plan_spec_buckets
+    from elasticsearch_tpu_torch.index.mapping import Mappings
+    from elasticsearch_tpu_torch.index.tiles import TILE, pack_segment
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.query.compile import (
+        CompiledQuery,
+        Compiler,
+        equalize_compiled,
+        pad_arrays_to_spec,
+        unify_specs,
+    )
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    n_pad = max(seg.num_docs for seg in shards)
+    min_tiles = {"body": max(len(seg.fields["body"].doc_ids) // TILE + 2
+                             for seg in shards)}
+    devs = [pack_segment(seg, device=dev, pad_docs_to=n_pad,
+                         field_min_tiles=min_tiles) for seg in shards]
+    stree = bm25_device.stack_segment_trees(
+        [bm25_device.segment_tree(d) for d in devs])
+    fields = [(d.fields, d.doc_values) for d in devs]  # the compilers' view
+    torch.cuda.synchronize()
+    pack_s = time.monotonic() - t0
+
+    # The queries: phase 8's 32 conjunctions and 32 matches, plus 16 dense
+    # bool(should) (K1s's path).
+    fld0 = shards[0].fields["body"]
+    by_df = sorted(fld0.terms, key=lambda t: -fld0.df[fld0.terms[t]])
+    head, mid = by_df[: len(by_df) // 100], by_df[len(by_df) // 100 : len(by_df) // 4]
+    queries = []
+    for body in bodies[:N_CFG3]:
+        b = body["query"]["bool"]
+        queries.append(("conj", b["must"][0]["match"]["body"].split(),
+                        b["filter"][0]["term"]["body"]))
+    queries += [("match", terms) for terms in match_terms]
+    rng = np.random.default_rng(SEED + 5)
+    should_bodies = []
+    for _ in range(N_STACKED_SHOULD):
+        a, b = (str(t) for t in rng.choice(mid, 2, replace=False))
+        h = str(rng.choice(head))
+        queries.append(("should", [a, b], h))
+        should_bodies.append({"query": {"bool": {"should": [
+            {"match": {"body": f"{a} {b}"}}, {"term": {"body": h}}]}}})
+    all_bodies = list(bodies) + should_bodies
+    mappings = Mappings(properties={"body": {"type": "text"}})
+    t0 = time.monotonic()
+    per_query = []
+    for body in all_bodies:
+        q = parse_query(body["query"])
+        cs = equalize_compiled([Compiler(f, dv, mappings).compile(q)
+                                for f, dv in fields])
+        per_query.append(CompiledQuery(
+            spec=cs[0].spec, arrays=bm25_device.stack_plans([c.arrays for c in cs])))
+    by_spec: dict[tuple, list[int]] = {}
+    for pos, c in enumerate(per_query):
+        by_spec.setdefault(c.spec, []).append(pos)
+    buckets = []  # (spec, positions, device plan [Qb, S, ...], host rows)
+    for bucket_specs in plan_spec_buckets(list(by_spec.items()), n_shards=N_SHARDS):
+        positions = [p for sp in bucket_specs for p in by_spec[sp]]
+        target = unify_specs(list(bucket_specs))
+        host_rows = [pad_arrays_to_spec(per_query[p].spec, target, per_query[p].arrays)
+                     for p in positions]
+        buckets.append((target, positions, bm25_device.plan_to_torch(
+            target, bm25_device.stack_plans(host_rows), dev), host_rows))
+    torch.cuda.synchronize()
+    plan_s = time.monotonic() - t0
+
+    def run_batch():
+        return [bm25_device.execute_shards_batch(stree, spec, plan, TOP_K, n_pad)
+                for spec, _p, plan, _h in buckets]
+
+    conj_buckets = [(spec, pos, host) for spec, pos, _a, host in buckets
+                    if bm25_device.supports_blockmax_conj(spec)]
+    rec = PruneRecorder()
+    with counted("stacked", launches):
+        outs = [tuple(t.cpu().numpy() for t in out) for out in run_batch()]
+        bm_outs = [bm25_device.execute_shards_blockmax_conj(
+            stree, spec, host, TOP_K, n_pad, instruments=rec)
+            for spec, _pos, host in conj_buckets]
+
+    t0 = time.monotonic()
+    mismatches = 0
+    results = {}
+    for (spec, positions, _a, _h), (s_b, g_b, t_b) in zip(buckets, outs):
+        for row, p in enumerate(positions):
+            results[p] = (s_b, g_b, t_b, row)
+            ids, scores, total = stacked_oracle(shards, queries[p], TOP_K, n_pad)
+            n = len(ids)
+            ok = (list(g_b[row][:n]) == ids
+                  and np.array_equal(score_bits(s_b[row][:n]), score_bits(scores))
+                  and bool(np.all(s_b[row][n:] == -np.inf))
+                  and int(t_b[row]) == total)
+            if not ok:
+                mismatches += 1
+                log(f"  MISMATCH stacked {queries[p]}")
+    oracle_s = time.monotonic() - t0
+    # Block-max against execute_shards_batch on the same plans.
+    relations = {"eq": 0, "gte": 0}
+    bm_mismatches = 0
+    for (spec, positions, _h), (s, g, t, rel) in zip(conj_buckets, bm_outs):
+        relations[rel] += len(positions)
+        for row, p in enumerate(positions):
+            s_b, g_b, t_b, r = results[p]
+            n = min(TOP_K, int(t_b[r]))
+            if not (np.array_equal(score_bits(s[row]), score_bits(s_b[r]))
+                    and np.array_equal(g[row][:n], g_b[r][:n])
+                    and int(t[row]) <= int(t_b[r])
+                    and (rel == "gte" or int(t[row]) == int(t_b[r]))):
+                bm_mismatches += 1
+                log(f"  MISMATCH stacked blockmax {queries[p]}")
+
+    # Device time by CUDA events: the batched calls over every bucket, and
+    # one query at a time at its own equalized spec.
+    n_q = len(all_bodies)
+    batch_ms = cuda_ms(run_batch, reps=5) / n_q
+    singles = [bm25_device.plan_to_torch(c.spec, c.arrays, dev) for c in per_query]
+    one_ms = cuda_ms(lambda: [
+        bm25_device.execute_shards(stree, c.spec, plan, TOP_K, n_pad)
+        for c, plan in zip(per_query, singles)], reps=3) / n_q
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for spec, _pos, host in conj_buckets:
+        bm25_device.execute_shards_blockmax_conj(stree, spec, host, TOP_K, n_pad)
+    n_conj = sum(len(pos) for _s, pos, _h in conj_buckets)
+    bm_ms = (time.perf_counter() - t1) * 1e3 / max(1, n_conj)
+    t1 = time.perf_counter()
+    for spec, pos, host in conj_buckets:
+        out = bm25_device.execute_shards_batch(
+            stree, spec, bm25_device.plan_to_torch(
+                spec, bm25_device.stack_plans(host), dev), TOP_K, n_pad)
+        [t.cpu() for t in out]
+    exact_ms = (time.perf_counter() - t1) * 1e3 / max(1, n_conj)
+
+    rows.extend(kernel_rows_stacked(stree, buckets, dev))
+    summary = {
+        "shards": N_SHARDS, "docs_per_shard_padded": n_pad,
+        "queries": n_q, "buckets": [[sp[0], len(pos)] for sp, pos, _a, _h in buckets],
+        "pack_stack_s": pack_s, "compile_s": plan_s, "oracle_check_s": oracle_s,
+        "mismatches": mismatches, "blockmax_conj_queries": n_conj,
+        "blockmax_relations": relations, "blockmax_mismatches": bm_mismatches,
+        "pruned_tile_fraction_mean": float(np.mean(rec.fractions)) if rec.fractions else 0.0,
+        "device_ms_per_query_batched": batch_ms,
+        "device_ms_per_query_q1": one_ms,
+        "blockmax_conj_ms_per_query": bm_ms,
+        "shards_batch_ms_per_query_conj": exact_ms,
+        "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+    }
+    log(f"phase stacked: {'ok' if mismatches + bm_mismatches == 0 else 'FAILED'} "
+        f"{json.dumps(summary)} [{card}]")
+    if mismatches or bm_mismatches:
+        raise SmokeFailure(f"{mismatches} stacked and {bm_mismatches} stacked "
+                           f"block-max mismatches")
+    if not conj_buckets:
+        raise SmokeFailure("no stacked conjunction was eligible for block-max")
+    del stree, buckets, singles, fields, devs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
 
 
 def run_routed(node, fld0, card, launches) -> int:
@@ -803,7 +1223,7 @@ def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes, reps
     got, want = fn(), plain()
     torch.cuda.synchronize()
     _same(got, want, name)
-    base = name[:-6] if name.endswith("_batch") else name
+    base = name.removesuffix("_batch").removesuffix("_stacked")
     r = {
         "name": name,
         "route": "cuda",
@@ -1031,6 +1451,99 @@ def kernel_rows_sharded(svc, handles, bodies, dev, q):
          lambda: kern.masked_topk_batch_plain(key, elig, TOP_K),
          lambda: torch.topk(key, TOP_K, dim=1), "torch.topk over [Q, M]",
          key.numel() * 5 + q * (TOP_K * 8 + 4))
+    return rows
+
+
+def kernel_rows_stacked(stree, buckets, dev):
+    """K1s-K4s, the stacked-shard modes, at the stacked phase's shapes:
+    R = Q x S rows of its largest bucket of each shape (K2s/K3s: the
+    matches, K4s: the conjunctions' filter membership, K1s: the dense
+    bool(should)'s first clause)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.ops import kernels as kern
+
+    doc_tiles, tn, _tfs, norm_bytes, _present = stree["fields"]["body"]
+    live = stree["live"]
+    n_shards, num_docs = live.shape
+    lane = torch.arange(256, device=dev, dtype=torch.int64)
+    rows = []
+
+    def largest(pred):
+        spec, pos, plan, _h = max((b for b in buckets if pred(b[0])),
+                                  key=lambda b: len(b[1]))
+        return spec, len(pos) * n_shards, bm25_device._pair_rows(plan)
+
+    def shard_of(r_count):
+        """Row r's shard, as a column that indexes beside [R, nt] tile ids."""
+        return (torch.arange(r_count, device=dev) % n_shards)[:, None]
+
+    def worklist(a, r_count):
+        tid, valid = _worklist(a, lane)
+        return tid, valid, doc_tiles[shard_of(r_count), tid]
+
+    # K2s and K3s: the largest match bucket.
+    spec, r_count, a = largest(lambda sp: sp[0] == "terms")
+    tid, valid, docs = worklist(a, r_count)
+    n_real = int(valid.any(dim=-1).sum())
+    args = (doc_tiles, tn, a["tile_ids"], a["starts"], a["ends"], a["weights"],
+            live, num_docs, spec[3])
+    docs_s, run_sum, elig = kern.sparse_fold_stacked(*args)
+    p_all = docs_s.numel()
+    cand_keys = torch.where(valid, docs, num_docs).reshape(r_count, -1)
+    _row(rows, "sparse_fold_stacked", "elasticsearch_tpu/ops/bm25_device.py:1161",
+         r_count, lambda: kern.sparse_fold_stacked(*args),
+         lambda: kern.sparse_fold_stacked_plain(*args),
+         lambda: torch.sort(cand_keys, dim=1, stable=True),
+         "torch.sort(stable=True) over [Q*S, P]",
+         n_real * 256 * 8 + n_real * 16 + p_all * 9)
+    key = torch.where(elig, run_sum, float("-inf"))
+    _row(rows, "masked_topk_stacked", "elasticsearch_tpu/ops/bm25_device.py:1137",
+         r_count, lambda: kern.masked_topk_stacked(key, elig, TOP_K, n_shards),
+         lambda: kern.masked_topk_stacked_plain(key, elig, TOP_K, n_shards),
+         lambda: torch.topk(key, TOP_K, dim=1), "torch.topk over [Q*S, P]",
+         key.numel() * 5 + r_count * (TOP_K * 8 + 4))
+
+    # K4s: the largest conjunction bucket's filter membership at its
+    # must's candidates.
+    spec, r_count, a = largest(lambda sp: sp[0] == "bool" and sp[3] and sp[6] < 0)
+    m = a["children"][0]
+    docs_s, _run, _el = kern.sparse_fold_stacked(
+        doc_tiles, tn, m["tile_ids"], m["starts"], m["ends"], m["weights"],
+        live, num_docs, spec[1][0][3])
+    cands = torch.clamp(docs_s, max=num_docs - 1)
+    f = a["children"][1]
+    starts, ends = f["span_start"].reshape(-1, 1), f["span_end"].reshape(-1, 1)
+    flat = doc_tiles.reshape(n_shards, -1)
+    args = (flat, starts, ends, 0, cands)
+    spans = [flat[r % n_shards][int(starts[r, 0]):int(ends[r, 0])]
+             for r in range(r_count)]
+    _row(rows, "span_locate_stacked", "elasticsearch_tpu/ops/bm25_device.py:1161",
+         r_count, lambda: kern.span_locate_stacked(*args),
+         lambda: kern.span_locate_stacked_plain(*args),
+         lambda: [torch.searchsorted(spans[r], cands[r]) for r in range(r_count)],
+         "torch.searchsorted per row",
+         cands.numel() * 9 + sum(x.numel() for x in spans) * 4)
+
+    # K1s: the dense bool(should)'s first clause.
+    spec, r_count, a = largest(lambda sp: not bm25_device.supports_sparse(sp))
+    c = a["children"][0]
+    tid, valid, docs = worklist(c, r_count)
+    n_real = int(valid.any(dim=-1).sum())
+    args = (doc_tiles, tn, norm_bytes, c["tile_ids"], c["starts"], c["ends"],
+            c["weights"], num_docs, c["_groups"])
+    row_of = torch.arange(r_count, device=dev)[:, None, None].expand_as(valid)
+    flat_idx = (row_of * (num_docs + 1) + docs)[valid].to(torch.int64)
+    w = c["weights"][..., None]
+    contrib = (w - w / (1.0 + tn[shard_of(r_count), tid]))[valid]
+    _row(rows, "terms_scatter_stacked", "elasticsearch_tpu/ops/bm25_device.py:1137",
+         r_count, lambda: kern.terms_scatter_stacked(*args),
+         lambda: kern.terms_scatter_stacked_plain(*args),
+         lambda: torch.zeros(r_count * (num_docs + 1), device=dev).index_add_(
+             0, flat_idx, contrib),
+         "index_add_ over [Q*S * (N + 1)]",
+         int(valid.sum()) * 8 + n_real * 16 + r_count * (num_docs + 1) * 5)
     return rows
 
 

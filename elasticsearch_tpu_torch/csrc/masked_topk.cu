@@ -25,6 +25,13 @@
 // is not used. The winning scores are gathered back from the input, so
 // the output keeps the input's exact bits. `total` is an integer
 // reduction over each row's eligible mask.
+//
+// Stacked mode (K3s; the per-shard top-k of `_shards_inner` :1137 under
+// the vmap of `execute_shards_batch` :1161): row r is the pair (query
+// r / S, shard r % S). Its keys are that pair's own candidates, so no
+// shard plane is read and the row mode above serves it unchanged, over
+// Q x S rows in one launch. The flat merge over [Q, S * k'] is the row
+// mode over Q rows.
 #include "common.cuh"
 
 #define TK_THREADS 1024

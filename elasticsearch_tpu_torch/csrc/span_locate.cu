@@ -17,6 +17,11 @@
 // clipping, so pos is bit-identical even for candidates outside the span.
 // The span bounds are read from device memory (row q's starts[q, j],
 // ends[q, j]), so a plan's per-term rows never round-trip to the host.
+//
+// Stacked mode (K4s; under the vmap of `execute_shards_batch` :1161): the
+// flat plane is S shards' equal-length planes, [S, flat_len], and row r
+// is the pair (query r / S, shard r % S), searching shard r % S's plane.
+// S = 1 is the mode above.
 #include "common.cuh"
 
 __global__ void span_locate_kernel(
@@ -30,12 +35,18 @@ __global__ void span_locate_kernel(
     int p,
     int steps,
     int32_t* __restrict__ pos_out,
-    uint8_t* __restrict__ found_out) {
+    uint8_t* __restrict__ found_out,
+    int n_shards) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= p) {
         return;
     }
     const int64_t q = blockIdx.y;
+    // One segment skips the shard offset: measured on the H100, a 64-bit
+    // modulo in every thread cost this kernel 4-9 % at one and four rows.
+    if (n_shards > 1) {
+        flat += (int64_t)(blockIdx.y % (unsigned)n_shards) * flat_len;
+    }
     const int64_t at = q * p + i;
     const int32_t c = cands[at];
     int32_t lo = starts[q * n_spans + j];
@@ -55,7 +66,8 @@ __global__ void span_locate_kernel(
 }
 
 // starts/ends i32[n_rows, n_spans], cands i32[n_rows, p]; outputs pos
-// i32[n_rows, p] and found u8[n_rows, p] against row q's span j.
+// i32[n_rows, p] and found u8[n_rows, p] against row q's span j. flat is
+// [n_shards, flat_len]; row q searches plane q % n_shards.
 extern "C" int esk_span_locate(
     const void* flat,
     long long flat_len,
@@ -69,15 +81,16 @@ extern "C" int esk_span_locate(
     int steps,
     void* pos_out,
     void* found_out,
+    int n_shards,
     void* stream) {
-    if (p == 0 || n_rows == 0) {
+    if (p == 0 || n_rows == 0 || n_shards <= 0) {
         return 0;
     }
     span_locate_kernel<<<dim3(esk_blocks(p, 256), n_rows), 256, 0,
                          (cudaStream_t)stream>>>(
         (const int32_t*)flat, (int64_t)flat_len, (const int32_t*)starts,
         (const int32_t*)ends, n_spans, j, (const int32_t*)cands, p, steps,
-        (int32_t*)pos_out, (uint8_t*)found_out);
+        (int32_t*)pos_out, (uint8_t*)found_out, n_shards);
     ESK_RETURN_IF_ERROR();
     return 0;
 }

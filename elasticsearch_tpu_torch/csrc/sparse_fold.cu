@@ -27,6 +27,14 @@
 // warps. Stability keeps each doc's pairs in worklist
 // (query-term) order, so the fold reproduces the oracle's fp32
 // accumulation order exactly. The fold never looks past its row.
+//
+// Stacked mode (K2s; `_shards_inner` :1137 under the vmap of
+// `execute_shards_batch` :1161): the tile planes are S shards' planes
+// stacked to equal shapes, [S, NT, 256], with live [S, num_docs], and row
+// r is the pair (query r / S, shard r % S): the gather reads shard r % S's
+// tiles and the fold its live plane. num_docs is the padded per-shard doc
+// count, so the sentinel and the key width are the same in every shard.
+// S = 1 is the mode above.
 #include "common.cuh"
 
 #define RS_THREADS 256
@@ -43,8 +51,16 @@ __global__ void sparse_gather_kernel(
     const float* __restrict__ weights,
     int nt,
     int num_docs,
+    int row0,
+    int n_shards,
+    int64_t tile_stride,
     int32_t* __restrict__ keys,
     float* __restrict__ vals) {
+    if (n_shards > 1) {
+        const int64_t shard = (row0 + (int)blockIdx.y) % n_shards;
+        doc_tiles += shard * tile_stride;
+        tn += shard * tile_stride;
+    }
     const int64_t e = (int64_t)blockIdx.y * nt + blockIdx.x;
     const int64_t i = e * ESK_TILE + threadIdx.x;
     const int64_t pos = (int64_t)tile_ids[e] * ESK_TILE + threadIdx.x;
@@ -176,7 +192,7 @@ __global__ void run_fold_kernel(
     const int32_t* __restrict__ docs,
     const float* __restrict__ vals,
     const uint8_t* __restrict__ live,
-    int64_t n, int p, int t_pad, int num_docs,
+    int64_t n, int p, int t_pad, int num_docs, int row0, int n_shards,
     int32_t* __restrict__ docs_out,
     float* __restrict__ run_sum,
     uint8_t* __restrict__ eligible) {
@@ -185,6 +201,9 @@ __global__ void run_fold_kernel(
         return;
     }
     const int in_row = (int)(i % p);
+    if (n_shards > 1) {
+        live += (((int64_t)row0 + i / p) % n_shards) * num_docs;
+    }
     const int32_t d = docs[i];
     float s = vals[i];
     int j = 1;
@@ -210,7 +229,10 @@ __global__ void run_fold_kernel(
 // Rows q in [0, n_rows), worklists [n_rows, nt]; P = nt * 256 pairs a row.
 // keys_a/vals_a/keys_b/vals_b: n_rows * P scratch; counts: n_rows * 256 *
 // ceil(P / RS_CHUNK) ints. Outputs docs_s i32, run_sum f32, eligible u8,
-// each [n_rows, P]. The caller keeps n_rows * P below 2^31.
+// each [n_rows, P]. The caller keeps n_rows * P below 2^31. Stacked
+// shards: the planes are [n_shards, ...] (tile planes tile_stride
+// elements apart, live num_docs apart) and the launch's row q is row
+// row0 + q of the batch, which reads shard (row0 + q) % n_shards.
 extern "C" int esk_sparse_fold(
     const void* doc_tiles,
     const void* tn,
@@ -232,17 +254,21 @@ extern "C" int esk_sparse_fold(
     void* docs_s,
     void* run_sum,
     void* eligible,
+    int row0,
+    int n_shards,
+    long long tile_stride,
     void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     const int p = nt * ESK_TILE;
-    if (p == 0 || n_rows == 0) {
+    if (p == 0 || n_rows == 0 || n_shards <= 0) {
         return 0;
     }
     const int64_t n = (int64_t)n_rows * p;
     sparse_gather_kernel<<<dim3(nt, n_rows), ESK_TILE, 0, s>>>(
         (const int32_t*)doc_tiles, (const float*)tn, (const int32_t*)tile_ids,
         (const int32_t*)starts, (const int32_t*)ends, (const float*)weights,
-        nt, num_docs, (int32_t*)keys_a, (float*)vals_a);
+        nt, num_docs, row0, n_shards, (int64_t)tile_stride,
+        (int32_t*)keys_a, (float*)vals_a);
     ESK_RETURN_IF_ERROR();
     const int nblocks = esk_blocks(p, RS_CHUNK);
     int32_t* src_k = (int32_t*)keys_a;
@@ -275,8 +301,8 @@ extern "C" int esk_sparse_fold(
         dst_v = tv;
     }
     run_fold_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-        src_k, src_v, (const uint8_t*)live, n, p, t_pad, num_docs,
-        (int32_t*)docs_s, (float*)run_sum, (uint8_t*)eligible);
+        src_k, src_v, (const uint8_t*)live, n, p, t_pad, num_docs, row0,
+        n_shards, (int32_t*)docs_s, (float*)run_sum, (uint8_t*)eligible);
     ESK_RETURN_IF_ERROR();
     return 0;
 }

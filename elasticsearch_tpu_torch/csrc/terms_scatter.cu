@@ -27,6 +27,12 @@
 // Rows write disjoint [num_docs + 1] planes, so they never race. A single
 // row takes its group bounds as launch arguments, so a solo query uploads
 // nothing. The matched bitmap is order-free and needs no grouping.
+//
+// Stacked mode (K1s; `_shards_inner` :1137 under the vmap of
+// `execute_shards_batch` :1161): the planes are S shards' planes stacked
+// to equal shapes, [S, NT, 256] and [S, N + 1], and row r is the pair
+// (query r / S, shard r % S), reading shard r % S's planes at the shard
+// strides. One launch serves all Q x S pairs; S = 1 is the mode above.
 #include "common.cuh"
 
 __global__ void terms_scatter_kernel(
@@ -47,8 +53,17 @@ __global__ void terms_scatter_kernel(
     int64_t n1,
     float* __restrict__ scores,
     uint8_t* __restrict__ matched,
-    int matched_only) {
+    int matched_only,
+    int n_shards,
+    int64_t tile_stride,
+    int64_t norm_stride) {
     const int q = blockIdx.y;
+    if (n_shards > 1) {
+        const int64_t shard = q % n_shards;
+        doc_tiles += shard * tile_stride;
+        vals += shard * tile_stride;
+        norm_bytes += shard * norm_stride;
+    }
     int e = blockIdx.x;
     if (!matched_only) {
         if (bounds != nullptr) {
@@ -89,7 +104,9 @@ __global__ void terms_scatter_kernel(
 // device, needed (and read) only when n_rows > 1. group_len: host int32
 // [n_groups], the longest group g of any row (null for one row: its own
 // group lengths). With matched_only the groups are ignored and every
-// entry of every row runs in one launch.
+// entry of every row runs in one launch. n_shards > 1: the planes are
+// [n_shards, ...] stacks, tile_stride and norm_stride elements apart, and
+// row q reads shard q % n_shards.
 extern "C" int esk_terms_scatter(
     const void* doc_tiles,
     const void* vals,
@@ -109,9 +126,12 @@ extern "C" int esk_terms_scatter(
     void* scores,
     void* matched,
     int matched_only,
+    int n_shards,
+    long long tile_stride,
+    long long norm_stride,
     void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (n_rows <= 0 || nt <= 0) {
+    if (n_rows <= 0 || nt <= 0 || n_shards <= 0) {
         return 0;
     }
     if (matched_only) {
@@ -121,7 +141,8 @@ extern "C" int esk_terms_scatter(
             (const int32_t*)tile_ids, (const int32_t*)starts,
             (const int32_t*)ends, (const float*)weights,
             nullptr, n_groups, 0, 0, 0, nt, (int64_t)n1,
-            (float*)scores, (uint8_t*)matched, 1);
+            (float*)scores, (uint8_t*)matched, 1, n_shards,
+            (int64_t)tile_stride, (int64_t)norm_stride);
         ESK_RETURN_IF_ERROR();
         return 0;
     }
@@ -139,7 +160,8 @@ extern "C" int esk_terms_scatter(
             (const int32_t*)tile_ids, (const int32_t*)starts,
             (const int32_t*)ends, (const float*)weights, dev_bounds,
             n_groups, g, groups[2 * g], groups[2 * g + 1], nt, (int64_t)n1,
-            (float*)scores, (uint8_t*)matched, 0);
+            (float*)scores, (uint8_t*)matched, 0, n_shards,
+            (int64_t)tile_stride, (int64_t)norm_stride);
         ESK_RETURN_IF_ERROR();
     }
     return 0;

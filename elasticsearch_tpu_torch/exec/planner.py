@@ -1,12 +1,29 @@
-"""Plan-shape helpers of the execution planner.
+"""Cost-based backend planner for the query phase.
 
-Port copy of elasticsearch_tpu/exec/planner.py, trimmed to `ast_signature`
-(the micro-batcher's group key) and `spec_work_tiles` (the coalescing
-work proxy). Left out: `ExecPlanner`, its backends and decision counters,
-and `oracle_eligible` — the port routes every group to the device.
+Port copy of elasticsearch_tpu/exec/planner.py, trimmed to
+`ast_signature` (the micro-batcher's group key), `spec_work_tiles` (the
+coalescing work proxy) and `ExecPlanner` (`classify`, `decide`,
+`record`, `note`, `decisions`, `stats`) over the backends the port has:
+`device`, `blockmax`, `blockmax_conj` and `device_batched`. The decision
+counters are a plain dict (the reference keeps them on its metrics
+registry, which is not ported). Left out: `oracle_eligible` and the
+`oracle`, `mesh_spmd`, `packed`, `cached_mask` and `ann_ivf` backends,
+which wait for their modules.
+
+Per (shard, query) the planner picks which backend runs the scoring
+pass: `device` (the sparse/dense kernels, always eligible) or a
+two-launch tile-pruned path (`blockmax` for a terms spec,
+`blockmax_conj` for a must-driven conjunction), which is eligible only
+when the request does not track exact totals, since its totals are lower
+bounds. Routing never changes the top-k: every eligible backend returns
+the same ids in the same order with the same fp32 scores. Decisions are
+exploration then exploitation per plan class: each eligible backend is
+tried MIN_OBS times, cheapest seed first, then the least EWMA wins.
 """
 
 from __future__ import annotations
+
+import threading
 
 from ..query.dsl import (
     BoolQuery,
@@ -15,6 +32,7 @@ from ..query.dsl import (
     Query,
     TermsQuery,
 )
+from .cost import CostModel, PlanFeatures
 
 _TERMS_KINDS = ("terms", "terms_gather", "terms_const")
 
@@ -63,3 +81,66 @@ def spec_work_tiles(spec: tuple, floor: int = 0) -> int:
                 total += spec_work_tiles(child, floor)
         return total
     return 0
+
+
+class ExecPlanner:
+    """Backend decisions + counters for one node's query executions."""
+
+    MIN_OBS = 2  # explorations per (class, backend) before exploiting
+    BACKENDS = ("device", "blockmax", "blockmax_conj", "device_batched")
+
+    def __init__(self, cost_model: CostModel | None = None):
+        self.cost = cost_model or CostModel()
+        self._lock = threading.Lock()
+        self._decisions: dict[str, int] = {b: 0 for b in self.BACKENDS}
+
+    @staticmethod
+    def classify(spec: tuple, k: int) -> tuple:
+        """Plan class: the compiled spec (same spec = same program = same
+        cost curve) plus the requested k."""
+        return (spec, k)
+
+    def decide(
+        self,
+        plan_class: tuple,
+        candidates: list[str],
+        feats: PlanFeatures | None = None,
+    ) -> str:
+        """Pick a backend among `candidates` (each must uphold the result
+        invariant for this request; eligibility is the caller's job).
+
+        Unexplored backends (fewer than MIN_OBS observations) are tried
+        first, cheapest seed first; once every candidate is calibrated the
+        least estimate wins."""
+        if len(candidates) == 1:
+            return candidates[0]
+        unexplored = [
+            b
+            for b in candidates
+            if self.cost.observations(plan_class, b) < self.MIN_OBS
+        ]
+        pool = unexplored or candidates
+        return min(
+            pool, key=lambda b: self.cost.predicted_ms(plan_class, b, feats)
+        )
+
+    def record(self, plan_class: tuple, backend: str, seconds: float) -> None:
+        """Count one executed decision and feed its latency to the EWMA."""
+        self.cost.observe(plan_class, backend, seconds)
+        self.note(backend)
+
+    def note(self, backend: str) -> None:
+        """Count a decision with no latency sample."""
+        with self._lock:
+            self._decisions[backend] = self._decisions.get(backend, 0) + 1
+
+    @property
+    def decisions(self) -> dict[str, int]:
+        """Decision counts by backend."""
+        with self._lock:
+            return dict(self._decisions)
+
+    def stats(self) -> dict:
+        """Decision counters + the EWMA table (the reference's
+        `_nodes/stats` payload)."""
+        return {"decisions": self.decisions, "ewma": self.cost.snapshot()}

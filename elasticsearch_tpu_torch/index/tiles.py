@@ -2,11 +2,11 @@
 
 Port of elasticsearch_tpu/index/tiles.py, trimmed to this slice:
 `TILE`, `_pad_to_tile`, `DeviceField`, `DeviceSegment`, `compute_tn`,
-`pack_field`, `pack_segment` and `device_nbytes`, plus
+`pack_field` (with `min_tiles`), `pack_segment` (with the stacking pads
+`pad_docs_to` and `field_min_tiles`) and `device_nbytes`, plus
 `device_segment_from_numpy` to attach planes packed elsewhere. Left out:
-positional and keyword-ordinal planes, vectors, nested blocks, sharded
-padding (`min_tiles`, `pad_docs_to`), `pack_segment_delta`, `repack_tn`
-and the packed multi-tenant planes.
+positional and keyword-ordinal planes, vectors, nested blocks,
+`pack_segment_delta`, `repack_tn` and the packed multi-tenant planes.
 
 A field's postings live on the device as flat CSR arrays padded to a tile
 multiple plus one all-sentinel tile, viewed as [NT, 256]:
@@ -141,17 +141,30 @@ def pack_field(
     field: FieldIndex,
     num_docs: int,
     device=DEFAULT_DEVICE,
+    min_tiles: int = 0,
     avgdl: float | None = None,
     k1: float = 1.2,
     b: float = 0.75,
 ) -> DeviceField:
-    """Pack one FieldIndex into tiled device tensors."""
+    """Pack one FieldIndex into tiled device tensors.
+
+    `num_docs` may exceed the segment's own doc count (stacked shards pad
+    to a common size); the scatter sentinel is always `num_docs`.
+    `min_tiles` pads the tile axis with sentinel tiles so that shards
+    stack to equal shapes."""
     device = resolve_device(device)
     if avgdl is None:
         avgdl = field.avgdl
     doc_ids = _pad_to_tile(field.doc_ids.astype(np.int32), np.int32(num_docs))
     tfs = _pad_to_tile(field.tfs.astype(np.float32), np.float32(0.0))
     tn = _pad_to_tile(compute_tn(field, avgdl, k1, b), np.float32(0.0))
+    if min_tiles and len(doc_ids) < min_tiles * TILE:
+        extra = min_tiles * TILE - len(doc_ids)
+        doc_ids = np.concatenate(
+            [doc_ids, np.full(extra, num_docs, dtype=np.int32)]
+        )
+        tfs = np.concatenate([tfs, np.zeros(extra, dtype=np.float32)])
+        tn = np.concatenate([tn, np.zeros(extra, dtype=np.float32)])
     norm_ext = np.zeros(num_docs + 1, dtype=np.uint8)
     norm_ext[: len(field.norm_bytes)] = field.norm_bytes
     doc_tiles = doc_ids.reshape(-1, TILE)
@@ -181,18 +194,28 @@ def pack_segment(
     segment: Segment,
     device=DEFAULT_DEVICE,
     deleted: np.ndarray | None = None,
+    pad_docs_to: int = 0,
+    field_min_tiles: dict[str, int] | None = None,
     field_avgdl: dict[str, float] | None = None,
     k1: float = 1.2,
     b: float = 0.75,
 ) -> DeviceSegment:
     """Upload a whole Segment to the device (the refresh step).
-    `field_avgdl` supplies the statistics scope of the precomputed
-    impacts (default: each field's own)."""
+
+    `pad_docs_to` / `field_min_tiles` pad the doc and tile axes so that
+    several shards' segments stack into one leading-axis tensor
+    (`ops/bm25_device.stack_segment_trees`); padding docs are dead:
+    live False, doc values NaN, never present. `field_avgdl` supplies the
+    statistics scope of the precomputed impacts (default: each field's
+    own)."""
     device = resolve_device(device)
-    n = segment.num_docs
+    n = max(segment.num_docs, pad_docs_to)
+    min_tiles = field_min_tiles or {}
     avgdls = field_avgdl or {}
     fields = {
-        name: pack_field(f, n, device, avgdls.get(name), k1, b)
+        name: pack_field(
+            f, n, device, min_tiles.get(name, 0), avgdls.get(name), k1, b
+        )
         for name, f in segment.fields.items()
     }
     doc_values = {}
@@ -200,7 +223,8 @@ def pack_segment(
         padded = np.full(n, np.nan, dtype=np.float32)
         padded[: len(col)] = col.astype(np.float32)
         doc_values[name] = _put(padded, device)
-    live = np.ones(n, dtype=bool)
+    live = np.zeros(n, dtype=bool)
+    live[: segment.num_docs] = True
     if deleted is not None and len(deleted):
         live[deleted] = False
     return DeviceSegment(

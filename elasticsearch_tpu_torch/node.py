@@ -9,7 +9,13 @@ index searches through the ShardedSearchCoordinator. Plain searches ride
 the exec micro-batcher (exec/batcher.py), which coalesces concurrent
 same-shape searches of an index into one batched launch per (shard, spec
 group); a `from + size` past the index's `max_result_window` is refused
-before it. Left out: replication and clusters, aliases and templates,
+before it. Every shard's SearchService shares the node's exec planner
+(exec/planner.py), which routes a solo search that does not track total
+hits to the block-max paths when its cost model says they win.
+`Node(exec_batcher=False)` / `Node(exec_planner=False)` turn either off:
+the port's form of the reference's ESTPU_EXEC_BATCHER=0 /
+ESTPU_EXEC_PLANNER=0; without the batcher every search takes the solo
+path. Left out: replication and clusters, aliases and templates,
 ingest pipelines, scroll and async search, QoS lanes, the SPMD mesh view,
 kNN, tasks, metrics and tracing, snapshots, and every other API of the
 reference node (ROADMAP queue A).
@@ -27,7 +33,7 @@ from typing import Any
 from .analysis.analyzers import AnalysisRegistry
 from .device import DEFAULT_DEVICE, resolve_device
 from .exec.batcher import BatcherRejected, MicroBatcher
-from .exec.planner import ast_signature
+from .exec.planner import ExecPlanner, ast_signature
 from .index.engine import Engine, VersionConflictError
 from .index.mapping import Mappings
 from .ops.bm25 import BM25Params
@@ -108,26 +114,34 @@ class IndexService:
 
 
 class Node:
-    """One node serving N-shard indices from one device."""
+    """One node serving N-shard indices from one device.
+
+    `exec_batcher` / `exec_planner` (default on) build the micro-batcher
+    and the cost-based backend planner; either is None when turned off."""
 
     def __init__(
         self,
         device=DEFAULT_DEVICE,
         node_name: str = "node-0",
         cluster_name: str = "elasticsearch",
+        exec_batcher: bool = True,
+        exec_planner: bool = True,
     ):
         self.device = resolve_device(device)
         self.node_name = node_name
         self.cluster_name = cluster_name
         self.indices: dict[str, IndexService] = {}
         self._lock = threading.Lock()
+        # Per (shard, query) backend routing, shared by every shard.
+        self.exec_planner = ExecPlanner() if exec_planner else None
         # Continuous micro-batching of concurrent plain searches
         # (ESTPU_EXEC_BATCH_WAIT_MS sets its window, default 4 ms).
-        self.exec_batcher = MicroBatcher()
+        self.exec_batcher = MicroBatcher() if exec_batcher else None
 
     def close(self) -> None:
         """Stop the micro-batcher's scheduler thread."""
-        self.exec_batcher.close()
+        if self.exec_batcher is not None:
+            self.exec_batcher.close()
 
     # ------------------------------------------------------------- indices
 
@@ -200,9 +214,11 @@ class Node:
                 mappings=mappings,
                 engines=engines,
                 search=(
-                    SearchService(engines[0])
+                    SearchService(engines[0], planner=self.exec_planner)
                     if n_shards == 1
-                    else ShardedSearchCoordinator(engines, name)
+                    else ShardedSearchCoordinator(
+                        engines, name, planner=self.exec_planner
+                    )
                 ),
                 max_result_window=window,
             )
@@ -408,5 +424,7 @@ class Node:
     def _batchable(self, request: SearchRequest) -> bool:
         """May this search ride the exec micro-batcher? Plain score-sorted
         query phases that ask for at least one hit (every search the port
-        serves is score-sorted)."""
+        serves is score-sorted), while the node has a batcher."""
+        if self.exec_batcher is None:
+            return False
         return max(0, request.from_) + max(0, request.size) > 0

@@ -4,11 +4,17 @@ Port of elasticsearch_tpu/ops/bm25_device.py, trimmed to this slice's
 paths: `execute` (dense), `execute_sparse` (candidate-centric),
 `execute_auto`, and their batched forms `execute_batch`,
 `execute_batch_sparse` and `execute_many` (the JAX package's vmaps of the
-same programs, which the micro-batcher's coalesced launches run), over the
-plan node kinds terms, terms_gather, terms_const, const, exists, range,
-match_all, match_none and bool. Left out: stacked-shard, rescore, sorted,
-cursor, block-max and packed execution, and the positional, nested,
-script, function_score, geo and dis_max nodes (see ROADMAP queue B).
+same programs, which the micro-batcher's coalesced launches run); the
+stacked single-device shards `execute_shards` / `execute_shards_batch`
+(with `stack_segment_trees`, the port's `jax.tree.map(np.stack, ...)`);
+and the two-launch block-max execution `execute_batch_blockmax`,
+`execute_batch_blockmax_conj` and `execute_shards_blockmax_conj` (with
+`supports_blockmax_conj`), over the plan node kinds terms, terms_gather,
+terms_const, const, exists, range, match_all, match_none and bool. Left
+out: dense-plane (`execute_dense`, filter masks, `scores_at`), rescore,
+sorted, cursor, strictly sequential and packed execution, and the
+positional, nested, script, function_score, geo and dis_max nodes (see
+ROADMAP queue B).
 
 Every executor here is batched: plan arrays carry a leading query axis
 [Q, ...] and one call runs all Q rows, one kernel launch per primitive,
@@ -22,6 +28,12 @@ K4 span_locate (binary-search membership). Everything around them is
 torch elementwise ops in the reference's exact fp32 operation order, so
 the results — top-k ids, order, fp32 score bits and totals — equal the
 JAX package's, row for row.
+
+Stacked shards: a segment tree whose planes carry a leading shard axis
+[S, ...] (`stack_segment_trees`) runs a plan's [Q * S] rows, row r the
+pair (query r // S, shard r % S), through the kernels' stacked mode
+(K1s-K4s), which reads shard r % S's planes; the torch ops between them
+take row r's shard the same way (`_take`, `_per_row`).
 
 Plans are the reference compiler's (spec, arrays) with the arrays as
 tensors (`plan_to_torch`); a terms node additionally carries its
@@ -62,7 +74,8 @@ def plan_to_torch(spec, arrays, device) -> Any:
     scalar becomes a tensor of the same dtype and shape on `device`; every
     worklist node (a dict with tile_ids/starts/ends) also gets `_groups`,
     its host-side K1 launch groups — int32[G, 2] for one plan, int32[Q, G,
-    2] for a plan stacked along a leading query axis (`stack_plans`).
+    2] for a plan stacked along a leading query axis (`stack_plans`), and
+    int32[Q, S, G, 2] for S stacked shards' plans of Q queries.
     `spec` is accepted for symmetry with the executors; the conversion
     needs only the arrays."""
     device = torch.device(device)
@@ -71,14 +84,8 @@ def plan_to_torch(spec, arrays, device) -> Any:
         if isinstance(node, dict):
             out = {key: walk(val) for key, val in node.items()}
             if {"tile_ids", "starts", "ends"} <= node.keys():
-                tile_ids = np.asarray(node["tile_ids"])
-                groups = (
-                    kernels.batch_groups
-                    if tile_ids.ndim == 2
-                    else kernels.term_groups
-                )
-                out["_groups"] = groups(
-                    tile_ids, np.asarray(node["starts"]),
+                out["_groups"] = _plan_groups(
+                    np.asarray(node["tile_ids"]), np.asarray(node["starts"]),
                     np.asarray(node["ends"]),
                 )
             return out
@@ -87,6 +94,18 @@ def plan_to_torch(spec, arrays, device) -> Any:
         return _to_tensor(node, device)
 
     return walk(arrays)
+
+
+def _plan_groups(tile_ids, starts, ends) -> np.ndarray:
+    """K1 launch groups of a worklist [nt], or of each row of [..., nt]."""
+    if tile_ids.ndim == 1:
+        return kernels.term_groups(tile_ids, starts, ends)
+    lead, nt = tile_ids.shape[:-1], tile_ids.shape[-1]
+    groups = kernels.batch_groups(
+        tile_ids.reshape(-1, nt), starts.reshape(-1, nt),
+        ends.reshape(-1, nt),
+    )
+    return groups.reshape(*lead, *groups.shape[1:])
 
 
 def stack_plans(arrays_list: list) -> Any:
@@ -132,6 +151,68 @@ def segment_tree(device_segment) -> dict[str, Any]:
     }
 
 
+def stack_segment_trees(trees: list) -> dict[str, Any]:
+    """S shards' segment trees as one tree of [S, ...] tensors on their
+    device: the port's `jax.tree.map(np.stack, *trees)`. The shards must
+    have equal shapes (pack_segment with a common `pad_docs_to` and
+    `field_min_tiles`, as bench.py:952-959 packs them)."""
+
+    def walk(*nodes):
+        first = nodes[0]
+        if isinstance(first, dict):
+            return {key: walk(*(n[key] for n in nodes)) for key in first}
+        if isinstance(first, (tuple, list)):
+            return tuple(walk(*col) for col in zip(*nodes))
+        return torch.stack(nodes)
+
+    return walk(*trees)
+
+
+def _n_shards(seg) -> int:
+    """S of a stacked segment tree ([S, N] live plane); 0 for one
+    segment."""
+    return seg["live"].shape[0] if seg["live"].dim() == 2 else 0
+
+
+def _take(seg, plane, idx: torch.Tensor) -> torch.Tensor:
+    """plane[idx] for rows of indices idx [R, ...]: one segment's plane
+    [X, ...], or, stacked, shard r % S's slice of [S, X, ...] for row r."""
+    n_shards = _n_shards(seg)
+    if not n_shards:
+        return plane[idx]
+    shard = torch.arange(idx.shape[0], device=idx.device) % n_shards
+    return plane[shard.view(-1, *([1] * (idx.dim() - 1))), idx]
+
+
+def _per_row(seg, plane, q: int) -> torch.Tensor:
+    """A per-doc plane as an operand of [q, N] row planes: one segment's
+    [N] broadcasts; a stacked [S, N] repeats so row r holds shard
+    r % S's."""
+    n_shards = _n_shards(seg)
+    return plane.repeat(q // n_shards, 1) if n_shards else plane
+
+
+def _flat_plane(seg, tiles) -> torch.Tensor:
+    """A [NT, 256] postings plane as the flat [NT * 256] plane K4
+    searches; stacked [S, NT, 256] planes as [S, NT * 256]."""
+    if _n_shards(seg):
+        return tiles.reshape(tiles.shape[0], -1)
+    return tiles.reshape(-1)
+
+
+def _kernel(seg, name: str):
+    """K1, K2 or K4's wrapper for this tree: the stacked mode for stacked
+    shards, the row mode for one segment."""
+    return getattr(kernels, name + ("_stacked" if _n_shards(seg) else "_batch"))
+
+
+def _k3(seg, key, eligible, k: int):
+    n_shards = _n_shards(seg)
+    if n_shards:
+        return kernels.masked_topk_stacked(key, eligible, k, n_shards)
+    return kernels.masked_topk_batch(key, eligible, k)
+
+
 def _col(x: torch.Tensor) -> torch.Tensor:
     """A per-row scalar [Q] as a column [Q, 1] that broadcasts over docs."""
     return x.reshape(-1, 1)
@@ -161,10 +242,10 @@ def _eval_node(spec, arrays, seg: dict[str, Any], num_docs: int, q: int):
             matched = seg["fields"][field_name][4]  # presence bitmap
         else:
             matched = ~torch.isnan(seg["doc_values"][field_name])
-        matched = matched.expand(q, num_docs)
+        matched = _per_row(seg, matched, q).expand(q, num_docs)
         return torch.where(matched, _col(arrays["boost"]), 0.0), matched
     if kind == "range":
-        return _eval_range(spec, arrays, seg, num_docs)
+        return _eval_range(spec, arrays, seg, num_docs, q)
     if kind == "match_all":
         matched = torch.ones((q, num_docs), dtype=torch.bool, device=device)
         return _col(arrays["boost"]).expand(q, num_docs), matched
@@ -183,7 +264,7 @@ def _eval_terms(spec, arrays, seg, num_docs):
     (`terms_gather`, non-default statistics or k1/b)."""
     doc_tiles, tn, tfs, norm_bytes, _present = seg["fields"][spec[1]]
     gather = spec[0] == "terms_gather"
-    scores, matched = kernels.terms_scatter_batch(
+    scores, matched = _kernel(seg, "terms_scatter")(
         doc_tiles,
         tfs if gather else tn,
         norm_bytes,
@@ -201,7 +282,7 @@ def _eval_terms(spec, arrays, seg, num_docs):
 def _terms_matched(spec, arrays, seg, num_docs):
     """K1 in matched-only mode: a constant terms clause's bitmaps."""
     doc_tiles, tn, _tfs, norm_bytes, _present = seg["fields"][spec[1]]
-    _, matched = kernels.terms_scatter_batch(
+    _, matched = _kernel(seg, "terms_scatter")(
         doc_tiles, tn, norm_bytes, arrays["tile_ids"], arrays["starts"],
         arrays["ends"], None, num_docs, arrays["_groups"],
         matched_only=True,
@@ -209,9 +290,9 @@ def _terms_matched(spec, arrays, seg, num_docs):
     return matched[:, :num_docs]
 
 
-def _eval_range(spec, arrays, seg, num_docs):
+def _eval_range(spec, arrays, seg, num_docs, q):
     _, field_name = spec
-    col = seg["doc_values"][field_name]  # f32[N], NaN = missing
+    col = _per_row(seg, seg["doc_values"][field_name], q)  # NaN = missing
     # NaN compares False
     matched = (col >= _col(arrays["lo"])) & (col <= _col(arrays["hi"]))
     return torch.where(matched, _col(arrays["boost"]), 0.0), matched
@@ -270,11 +351,11 @@ def _eval_bool(spec, arrays, seg, num_docs, q):
 
 def _execute_inner(seg, spec, arrays, k: int, q: int):
     live = seg["live"]
-    num_docs = live.shape[0]
+    num_docs = live.shape[-1]
     scores, matched = _eval_node(spec, arrays, seg, num_docs, q)
-    eligible = matched & live
+    eligible = matched & _per_row(seg, live, q)
     masked = torch.where(eligible, scores, NEG_INF)
-    return kernels.masked_topk_batch(masked, eligible, min(k, num_docs))
+    return _k3(seg, masked, eligible, min(k, num_docs))
 
 
 def _batch_size(arrays) -> int:
@@ -357,13 +438,13 @@ def _bool_lead(spec) -> int:
     return spec[6] if len(spec) > 6 else -1
 
 
-def _topk_padded(key, eligible, kk: int, ids_of):
+def _topk_padded(seg, key, eligible, kk: int, ids_of):
     """K3 over each row's candidate keys [Q, P], mapped to doc ids and
     padded to kk exactly as the reference pads when there are fewer
     candidate slots than k."""
     q, p = key.shape
     kp = min(kk, p)
-    top_scores, top_pos, total = kernels.masked_topk_batch(key, eligible, kp)
+    top_scores, top_pos, total = _k3(seg, key, eligible, kp)
     top_ids = torch.gather(ids_of, 1, top_pos.to(torch.int64))
     if kp < kk:
         top_scores = torch.cat([
@@ -382,9 +463,9 @@ def _sparse_candidates(seg, spec, arrays, k: int):
     """K2: (sorted candidate docs, left-fold run sums, run-head
     eligibility, each [Q, P], and the clamped k) for a terms spec."""
     live = seg["live"]
-    num_docs = live.shape[0]
+    num_docs = live.shape[-1]
     doc_tiles, tn, _tfs, _norm, _present = seg["fields"][spec[1]]
-    docs_s, run_sum, eligible = kernels.sparse_fold_batch(
+    docs_s, run_sum, eligible = _kernel(seg, "sparse_fold")(
         doc_tiles, tn, arrays["tile_ids"], arrays["starts"], arrays["ends"],
         arrays["weights"], live, num_docs, spec[3],
     )
@@ -394,7 +475,7 @@ def _sparse_candidates(seg, spec, arrays, k: int):
 def _sparse_terms_inner(seg, spec, arrays, k: int):
     docs_s, run_sum, eligible, kk = _sparse_candidates(seg, spec, arrays, k)
     key = torch.where(eligible, run_sum, NEG_INF)
-    return _topk_padded(key, eligible, kk, docs_s)
+    return _topk_padded(seg, key, eligible, kk, docs_s)
 
 
 def _const_membership(seg, child_spec, carr, safe_docs, num_docs):
@@ -402,8 +483,8 @@ def _const_membership(seg, child_spec, carr, safe_docs, num_docs):
     binary search for a single contiguous span, else the K1 matched
     bitmap gathered."""
     if len(child_spec) == 4 and child_spec[3] == 1:
-        flat = seg["fields"][child_spec[1]][0].reshape(-1)
-        _pos, found = kernels.span_locate_batch(
+        flat = _flat_plane(seg, seg["fields"][child_spec[1]][0])
+        _pos, found = _kernel(seg, "span_locate")(
             flat, _col(carr["span_start"]), _col(carr["span_end"]), 0,
             safe_docs,
         )
@@ -418,7 +499,7 @@ def _sparse_bool_inner(seg, spec, arrays, k: int):
     the candidates, no [num_docs] score plane and no dense top-k."""
     must_s, filter_s, must_not_s = spec[1], spec[3], spec[4]
     children = arrays["children"]
-    num_docs = seg["live"].shape[0]
+    num_docs = seg["live"].shape[-1]
     docs_s, run_sum, eligible, kk = _sparse_candidates(
         seg, must_s[0], children[0], k
     )
@@ -433,7 +514,7 @@ def _sparse_bool_inner(seg, spec, arrays, k: int):
             seg, child_spec, children[base + idx_child], safe_docs, num_docs
         )
     key = torch.where(eligible, run_sum * _col(arrays["boost"]), NEG_INF)
-    return _topk_padded(key, eligible, kk, docs_s)
+    return _topk_padded(seg, key, eligible, kk, docs_s)
 
 
 def _sparse_lead_inner(seg, spec, arrays, k: int):
@@ -445,7 +526,7 @@ def _sparse_lead_inner(seg, spec, arrays, k: int):
     lead = _bool_lead(spec)
     children = arrays["children"]
     live = seg["live"]
-    num_docs = live.shape[0]
+    num_docs = live.shape[-1]
     lead_spec = filter_s[lead]
     larr = children[1 + lead]
     lead_tiles = seg["fields"][lead_spec[1]][0]
@@ -456,27 +537,27 @@ def _sparse_lead_inner(seg, spec, arrays, k: int):
     valid = (pos >= larr["starts"].to(torch.int64)[..., None]) & (
         pos < larr["ends"].to(torch.int64)[..., None]
     )
-    cand = torch.where(valid, lead_tiles[tid], num_docs).reshape(q, -1)
+    cand = torch.where(valid, _take(seg, lead_tiles, tid), num_docs).reshape(q, -1)
     p = cand.shape[1]
     safe = torch.clamp(cand, max=num_docs - 1)
     in_range = cand != num_docs
     must_spec = must_s[0]
     marr = children[0]
     field_planes = seg["fields"][must_spec[1]]
-    flat_docs = field_planes[0].reshape(-1)
-    flat_tn = field_planes[1].reshape(-1)
+    flat_docs = _flat_plane(seg, field_planes[0])
+    flat_tn = _flat_plane(seg, field_planes[1])
     score = torch.zeros((q, p), dtype=torch.float32, device=live.device)
     matched_any = torch.zeros((q, p), dtype=torch.bool, device=live.device)
     for j in range(must_spec[3]):
-        at, found = kernels.span_locate_batch(
+        at, found = _kernel(seg, "span_locate")(
             flat_docs, marr["term_starts"], marr["term_ends"], j, safe
         )
         found = found & in_range
         w = marr["term_weights"][:, j : j + 1]
-        contrib = w - w / (1.0 + flat_tn[at.to(torch.int64)])
+        contrib = w - w / (1.0 + _take(seg, flat_tn, at.to(torch.int64)))
         score = score + torch.where(found, contrib, 0.0)
         matched_any = matched_any | found
-    eligible = matched_any & in_range & live[safe.to(torch.int64)]
+    eligible = matched_any & in_range & _take(seg, live, safe.to(torch.int64))
     for idx_child, child_spec in enumerate(filter_s):
         if idx_child == lead:
             continue
@@ -489,18 +570,22 @@ def _sparse_lead_inner(seg, spec, arrays, k: int):
             seg, child_spec, children[base + idx_child], safe, num_docs
         )
     key = torch.where(eligible, score * _col(arrays["boost"]), NEG_INF)
-    return _topk_padded(key, eligible, min(k, num_docs), cand)
+    return _topk_padded(seg, key, eligible, min(k, num_docs), cand)
+
+
+def _sparse_inner(seg, spec, arrays, k: int, q: int | None = None):
+    if spec[0] == "bool":
+        if _bool_lead(spec) >= 0:
+            return _sparse_lead_inner(seg, spec, arrays, k)
+        return _sparse_bool_inner(seg, spec, arrays, k)
+    return _sparse_terms_inner(seg, spec, arrays, k)
 
 
 def execute_batch_sparse(seg, spec, arrays_batched, k: int):
     """Candidate-centric execution of Q same-spec supports_sparse plans
     ([Q, ...] plan arrays) in one program. Returns (top_scores
     f32[Q, min(k, N)], top_ids i32[Q, min(k, N)], totals i32[Q])."""
-    if spec[0] == "bool":
-        if _bool_lead(spec) >= 0:
-            return _sparse_lead_inner(seg, spec, arrays_batched, k)
-        return _sparse_bool_inner(seg, spec, arrays_batched, k)
-    return _sparse_terms_inner(seg, spec, arrays_batched, k)
+    return _sparse_inner(seg, spec, arrays_batched, k)
 
 
 def execute_sparse(seg, spec, arrays, k: int):
@@ -550,3 +635,270 @@ def execute_many(seg, compiled_queries, k: int) -> list:
         for row, p in enumerate(positions):
             results[p] = (s_b[row], i_b[row], int(t_b[row]))
     return results
+
+
+# ---------------------------------------------------------------------------
+# Stacked shards on one device: every shard's tree stacked on a leading
+# axis (stack_segment_trees) and each (query, shard) pair a row of one
+# program, then a merge to the global top-k — the single-device complement
+# of the sharded coordinator, with the same merge contract: score desc,
+# shard asc, per-shard rank asc (SearchPhaseController.java:398 as one
+# top-k over the concatenated per-shard rank lists).
+# ---------------------------------------------------------------------------
+
+
+def _inner_for(spec):
+    """The executor of a spec's rows: sparse when it supports_sparse,
+    else dense."""
+    return _sparse_inner if supports_sparse(spec) else _execute_inner
+
+
+def _pair_rows(arrays) -> Any:
+    """A [Q, S, ...] plan as the [Q * S, ...] rows of its (query, shard)
+    pairs, `_groups` included."""
+    if isinstance(arrays, dict):
+        return {
+            key: (val.reshape(-1, *val.shape[2:]) if key == "_groups"
+                  else _pair_rows(val))
+            for key, val in arrays.items()
+        }
+    if isinstance(arrays, (tuple, list)):
+        return tuple(_pair_rows(v) for v in arrays)
+    return arrays.reshape(-1, *arrays.shape[2:])
+
+
+def _shards_inner(seg_stacked, spec, arrays, k: int, docs_per_shard: int,
+                  q: int):
+    n_shards = _n_shards(seg_stacked)
+    if not n_shards:
+        raise ValueError("execute_shards needs a stacked segment tree")
+    s, i, t = _inner_for(spec)(
+        seg_stacked, spec, _pair_rows(arrays), k, q * n_shards
+    )
+    kk = s.shape[1]
+    offsets = torch.arange(n_shards, dtype=torch.int32, device=s.device)
+    gids = (
+        i.view(q, n_shards, kk) + (offsets * docs_per_shard)[:, None]
+    ).reshape(q, n_shards * kk)
+    # The flat order is (shard, rank); each shard's ranks already break
+    # ties by doc id, so K3's lowest-index tie order is the merge order.
+    flat_s = s.reshape(q, n_shards * kk)
+    top_s, pos, _ = kernels.masked_topk_batch(
+        flat_s, torch.ones_like(flat_s, dtype=torch.bool),
+        min(k, n_shards * kk),
+    )
+    top_ids = torch.gather(gids, 1, pos.to(torch.int64))
+    return top_s, top_ids, t.view(q, n_shards).sum(dim=1, dtype=torch.int32)
+
+
+def execute_shards_batch(seg_stacked, spec, arrays_batched, k: int,
+                         docs_per_shard: int, q: int | None = None):
+    """Q same-spec queries over S stacked shards ([Q, S, ...] plans, each
+    shard's row compiled with that shard's own statistics) in one program.
+    Returns (top_scores f32[Q, k'], global ids i32[Q, k'], totals
+    i32[Q]): global id = local id + shard * docs_per_shard, totals summed
+    over shards."""
+    return _shards_inner(seg_stacked, spec, arrays_batched, k,
+                         docs_per_shard, _rows(arrays_batched, q))
+
+
+def execute_shards(seg_stacked, spec, arrays_stacked, k: int,
+                   docs_per_shard: int):
+    """One query over S stacked shards ([S, ...] plan) -> its global
+    top-k: execute_shards_batch over one query."""
+    return _unbatch(execute_shards_batch(
+        seg_stacked, spec, _rows1(arrays_stacked), k, docs_per_shard, q=1
+    ))
+
+
+# ---------------------------------------------------------------------------
+# Two-launch block-max execution, the block-max WAND analog (reference:
+# search/query/TopDocsCollectorContext.java:68). Launch 1 scores each
+# query's A highest-upper-bound worklist entries; θ = its k-th partial
+# score lower-bounds the final k-th score. The host drops every entry whose
+# tile bound plus the other terms' bounds cannot reach θ (with an fp32
+# margin) and re-buckets the survivors; launch 2 scores them exactly. Both
+# launches go through the batched sparse path (K2/K4/K3, K1 for filters),
+# so θ is phase A's k-th fp32 score bit for bit. Top-k ids and scores are
+# exact; totals are lower bounds ("gte") when any tile was pruned, so
+# serving offers these paths only when totals are untracked.
+# ---------------------------------------------------------------------------
+
+# Worklist-entry planes that a phase subset reorders along the tile axis.
+_BLOCKMAX_KEYS = ("tile_ids", "starts", "ends", "weights", "ub", "ub_other")
+
+
+def _launch_numpy(executor, seg, spec, arrays, k: int, *extra):
+    """Upload host plan arrays, run `executor`, bring the outputs back."""
+    plan = plan_to_torch(spec, arrays, seg["live"].device)
+    return tuple(t.cpu().numpy() for t in executor(seg, spec, plan, k, *extra))
+
+
+def _thetas(scores_a: np.ndarray, k: int, q: int) -> np.ndarray:
+    """Each query's k-th phase-A score (-inf for an underfull top-k)."""
+    if scores_a.shape[-1] >= k:
+        return scores_a[..., k - 1]
+    return np.full(q, -np.inf, dtype=np.float32)
+
+
+def _margin(thetas: np.ndarray) -> np.ndarray:
+    return thetas.astype(np.float32) * np.float32(1 - 1e-6) - np.float32(1e-6)
+
+
+def _rebucket(keep: np.ndarray):
+    """(survivor counts, pow-2 bucket, stable front order) of a keep mask
+    over the trailing tile axis; the order keeps survivors in worklist
+    order (the exact left fold of launch 2 needs it)."""
+    counts = keep.sum(axis=-1)
+    nt_b = 1 << (max(1, int(counts.max())) - 1).bit_length()
+    front = np.argsort(~keep, axis=-1, kind="stable")[..., :nt_b]
+    return counts, nt_b, front
+
+
+def _empty_pads(arrays: dict, counts: np.ndarray, nt_b: int) -> None:
+    """Entries past each row's survivor count are padding: an empty span
+    never validates, and the kept tile id keeps gathers in range."""
+    pad = np.arange(nt_b) >= counts[..., None]
+    arrays["starts"] = np.where(pad, 0, arrays["starts"])
+    arrays["ends"] = np.where(pad, 0, arrays["ends"])
+
+
+def execute_batch_blockmax(seg, spec, arrays_list, k: int, instruments=None):
+    """Two-launch thresholded batch over one segment for a terms spec.
+
+    `arrays_list` holds Q host plans (numpy). Returns (scores [Q, k'],
+    ids [Q, k'], totals [Q], relation) as numpy, with relation "gte"
+    when any pruning occurred, else "eq". `instruments`, if given, gets
+    `blockmax_pruned(fraction)` per query."""
+    nt = spec[2]
+    kind, field_name, _, t_pad = spec
+    a_bucket = max(8, nt // 4)
+    stacked = {
+        name: np.stack([a[name] for a in arrays_list])
+        for name in _BLOCKMAX_KEYS
+    }
+    if a_bucket >= nt:  # tiny worklists: one launch, exact totals
+        s, i, t = _launch_numpy(execute_batch_sparse, seg, spec, stacked, k)
+        return s, i, t, "eq"
+    # Launch 1 over each query's top-UB subset (reordering is safe: phase-A
+    # scores are only lower bounds).
+    spec_a = (kind, field_name, a_bucket, t_pad)
+    order = np.argsort(-stacked["ub"], axis=1, kind="stable")[:, :a_bucket]
+    arrays_a = {
+        name: np.take_along_axis(stacked[name], order, axis=1)
+        for name in stacked
+    }
+    scores_a, _, _ = _launch_numpy(execute_batch_sparse, seg, spec_a,
+                                   arrays_a, k)
+    thetas = _thetas(scores_a, k, len(arrays_list))
+    keep = (stacked["ub"] + stacked["ub_other"]) >= _margin(thetas)[:, None]
+    keep |= ~np.isfinite(thetas)[:, None]  # underfull top-k: keep all
+    counts, nt_b, front = _rebucket(keep)
+    if instruments is not None:
+        for c in counts:
+            instruments.blockmax_pruned(1.0 - float(c) / nt)
+    arrays_b = {
+        name: np.take_along_axis(stacked[name], front, axis=1)
+        for name in stacked
+    }
+    _empty_pads(arrays_b, counts, nt_b)
+    s, i, t = _launch_numpy(execute_batch_sparse, seg,
+                            (kind, field_name, nt_b, t_pad), arrays_b, k)
+    return s, i, t, ("gte" if bool((counts < nt).any()) else "eq")
+
+
+def supports_blockmax_conj(spec) -> bool:
+    """Two-phase pruned execution applies to the must-driven sparse
+    conjunction: a scored terms must (whose worklist carries block-max
+    upper bounds) with constant filters/exclusions and the default lead
+    (-1; a filter-led fold has no sort worth pruning)."""
+    return (
+        isinstance(spec, tuple)
+        and bool(spec)
+        and spec[0] == "bool"
+        and supports_sparse(spec)
+        and _bool_lead(spec) == -1
+        and bool(spec[1])
+        and spec[1][0][0] == "terms"
+    )
+
+
+def _with_must_nt(spec, nt: int):
+    """The bool spec with its single must child re-bucketed to nt."""
+    must_spec = spec[1][0]
+    return ("bool", ((must_spec[0], must_spec[1], nt, must_spec[3]),),
+            *spec[2:])
+
+
+def _subset_must_child(child: dict, order: np.ndarray) -> dict:
+    """Reorder/subset the must child's worklist planes along the tile axis
+    (the trailing axis of `order`); per-term planes pass through."""
+    out = dict(child)
+    for name in _BLOCKMAX_KEYS:
+        if name in out:
+            out[name] = np.take_along_axis(out[name], order, axis=-1)
+    return out
+
+
+def _blockmax_conj(run, spec, arrays_list, k: int, instruments, pruned_of):
+    """The two launches of a must-driven conjunction around the host
+    prune, over one segment ([Q, nt] must worklists) or S stacked shards
+    ([Q, S, nt]). `run(spec, arrays)` launches; `pruned_of(counts row)`
+    is a query's pruned count."""
+    nt = spec[1][0][2]
+    stacked = stack_plans(arrays_list)
+    a_bucket = max(8, nt // 4)
+    if a_bucket >= nt:  # tiny worklists: one launch, exact totals
+        return (*run(spec, stacked), "eq")
+    child0 = stacked["children"][0]
+    ub, ub_other = child0["ub"], child0["ub_other"]
+    q = ub.shape[0]
+    order = np.argsort(-ub, axis=-1, kind="stable")[..., :a_bucket]
+    arrays_a = {**stacked, "children": (
+        _subset_must_child(child0, order), *stacked["children"][1:])}
+    scores_a, _, _ = run(_with_must_nt(spec, a_bucket), arrays_a)
+    thetas = _thetas(scores_a, k, q)
+    # θ is in the bool's boosted score space, the bounds in term-weight
+    # space: scale the bounds by the query's boost (uniform across
+    # shards); a non-positive boost disables pruning.
+    boost = np.asarray(stacked["boost"], dtype=np.float32).reshape(q, -1)[:, 0]
+    extra = (1,) * (ub.ndim - 1)
+    keep = (ub + ub_other) * boost.reshape(q, *extra) >= _margin(
+        thetas).reshape(q, *extra)
+    keep |= (~np.isfinite(thetas)).reshape(q, *extra)
+    keep |= (boost <= 0).reshape(q, *extra)
+    counts, nt_b, front = _rebucket(keep)
+    if instruments is not None:
+        for row in counts:
+            instruments.blockmax_pruned(1.0 - pruned_of(row) / nt)
+    child_b = _subset_must_child(child0, front)
+    _empty_pads(child_b, counts, nt_b)
+    arrays_b = {**stacked, "children": (child_b, *stacked["children"][1:])}
+    s, i, t = run(_with_must_nt(spec, nt_b), arrays_b)
+    return s, i, t, ("gte" if bool((counts < nt).any()) else "eq")
+
+
+def execute_batch_blockmax_conj(seg, spec, arrays_list, k: int,
+                                instruments=None):
+    """Two-launch thresholded conjunction batch over one segment, for a
+    spec that supports_blockmax_conj. Returns (scores [Q, k'], ids
+    [Q, k'], totals [Q], relation) as numpy."""
+    return _blockmax_conj(
+        lambda sp, arr: _launch_numpy(execute_batch_sparse, seg, sp, arr, k),
+        spec, arrays_list, k, instruments, float,
+    )
+
+
+def execute_shards_blockmax_conj(seg_stacked, spec, arrays_list, k: int,
+                                 docs_per_shard: int, instruments=None):
+    """Two-launch thresholded conjunction batch over S stacked shards.
+
+    `arrays_list` holds per-query host plans with [S, ...] leaves. θ comes
+    from each query's MERGED phase-A top-k, so one shard's strong
+    candidates prune other shards' hopeless tiles too. Returns (scores
+    [Q, k'], global ids [Q, k'], totals [Q], relation) as numpy."""
+    return _blockmax_conj(
+        lambda sp, arr: _launch_numpy(execute_shards_batch, seg_stacked, sp,
+                                      arr, k, docs_per_shard),
+        spec, arrays_list, k, instruments, lambda row: float(row.mean()),
+    )

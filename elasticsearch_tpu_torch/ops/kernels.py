@@ -16,7 +16,12 @@ Every kernel takes a leading row axis Q: the `*_batch` wrappers run Q
 queries of one plan in one launch (the JAX package's vmapped
 execute_batch / execute_batch_sparse), and each solo wrapper is its
 `*_batch` wrapper over one row (x[None] in, [0] out), the call the
-serving path makes for one request.
+serving path makes for one request. The `*_stacked` wrappers (K1s-K4s)
+are the same kernels in their stacked-shard mode (the vmaps of
+execute_shards / execute_shards_batch): the planes are S shards' planes
+stacked to equal shapes ([S, ...]) and row r is the pair (query r // S,
+shard r % S), which reads shard r % S's planes; one launch serves all
+Q x S pairs.
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface, loaded with ctypes. The build runs on the first launch
@@ -30,7 +35,8 @@ plain version below it (for a batch, the solo plain version row by row);
 for CUDA tensors it launches the kernel (on the current stream, without
 synchronising) or raises — there is no fallback. `LAUNCHES` counts kernel
 launches: under the kernel's name for one row, under `<name>_batch` for
-more (plain runs do not count). Launches from several threads (the REST
+more, under `<name>_stacked` in the stacked mode (plain runs do not
+count). Launches from several threads (the REST
 handlers and the micro-batcher) share the one library and the caller's
 current stream; the library loads once under `_lib_lock` and the counts
 move under `_count_lock`.
@@ -71,8 +77,10 @@ TOPK_MAX_CHUNK = 16384
 
 KERNELS = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate")
 
+MODES = ("", "_batch", "_stacked")
+
 LAUNCHES: dict[str, int] = {
-    name + suffix: 0 for name in KERNELS for suffix in ("", "_batch")
+    name + suffix: 0 for name in KERNELS for suffix in MODES
 }
 
 # Pairs one K2 launch sorts at most (16 B of scratch each): larger batches
@@ -92,9 +100,14 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def _count(name: str, n_rows: int) -> None:
+def _count(name: str, n_rows: int, n_shards: int = 0) -> None:
+    """One launch of `name`: stacked (n_shards > 0), else by row count."""
+    if n_shards:
+        name += "_stacked"
+    elif n_rows > 1:
+        name += "_batch"
     with _count_lock:
-        LAUNCHES[name if n_rows == 1 else name + "_batch"] += 1
+        LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -179,10 +192,12 @@ def build_library() -> Path:
 
 def _bind(lib) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.esk_terms_scatter.argtypes = [P] * 11 + [I, I, I, L, P, P, I, P]
-    lib.esk_sparse_fold.argtypes = [P] * 6 + [I] * 5 + [P] * 10
+    lib.esk_terms_scatter.argtypes = (
+        [P] * 11 + [I, I, I, L, P, P, I, I, L, L, P]
+    )
+    lib.esk_sparse_fold.argtypes = [P] * 6 + [I] * 5 + [P] * 9 + [I, I, L, P]
     lib.esk_masked_topk.argtypes = [P, P, I, I, I, I] + [P] * 6
-    lib.esk_span_locate.argtypes = [P, L, P, P, I, I, P, I, I, I, P, P, P]
+    lib.esk_span_locate.argtypes = [P, L, P, P, I, I, P, I, I, I, P, P, I, P]
     for fn in (
         lib.esk_terms_scatter,
         lib.esk_sparse_fold,
@@ -282,6 +297,34 @@ def _check_rows(name: str, t: torch.Tensor, n_rows: int, width: int) -> None:
         )
 
 
+def _shard_stride(planes: torch.Tensor) -> int:
+    """Elements of one shard's [NT, 256] plane: a stacked launch's shard
+    stride."""
+    return int(planes.shape[-2] * planes.shape[-1])
+
+
+def _check_shards(n_shards: int, n_rows: int, planes: dict) -> None:
+    """A stacked launch: S >= 1 shards, every plane [S, ...], and R rows
+    that are whole (query, shard) pairs."""
+    if n_shards < 1:
+        raise ValueError("a stacked launch needs at least one shard")
+    for name, t in planes.items():
+        if t.shape[0] != n_shards:
+            raise ValueError(
+                f"{name} stacks {t.shape[0]} shards, expected {n_shards}"
+            )
+    if n_rows % n_shards:
+        raise ValueError(
+            f"{n_rows} rows are not whole (query, shard) pairs of "
+            f"{n_shards} shards"
+        )
+
+
+def _shard(x: torch.Tensor, r: int, stacked: bool) -> torch.Tensor:
+    """Row r's plane: shard r % S of a stacked [S, ...] plane, else x."""
+    return x[r % x.shape[0]] if stacked else x
+
+
 # ---------------------------------------------------------------------------
 # Worklist groups (K1 ordering)
 # ---------------------------------------------------------------------------
@@ -371,10 +414,13 @@ def terms_scatter_batch_plain(
     doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
     num_docs: int, groups, cache=None, matched_only: bool = False,
 ):
-    """The batched K1 as the solo plain version row by row."""
+    """The batched K1 as the solo plain version row by row; with stacked
+    planes ([S, NT, 256], [S, N + 1]), row q reads shard q % S's."""
+    st = doc_tiles.dim() == 3
     outs = [
         terms_scatter_plain(
-            doc_tiles, vals, norm_bytes, tile_ids[q], starts[q], ends[q],
+            _shard(doc_tiles, q, st), _shard(vals, q, st),
+            _shard(norm_bytes, q, st), tile_ids[q], starts[q], ends[q],
             None if matched_only else weights[q], num_docs, groups[q],
             cache=None if cache is None else cache[q],
             matched_only=matched_only,
@@ -398,20 +444,55 @@ def terms_scatter_batch(
     worklists. Returns (scores f32[Q, num_docs + 1] or None in
     matched-only mode, matched bool[Q, num_docs + 1]); slot num_docs of
     each row is the discard slot."""
+    return _terms_scatter(
+        doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+        num_docs, groups, cache, matched_only, 0,
+    )
+
+
+def terms_scatter_stacked(
+    doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+    num_docs: int, groups, cache=None, matched_only: bool = False,
+):
+    """K1s: terms_scatter_batch over R = Q x S rows of S stacked shards.
+
+    doc_tiles/vals are [S, NT, 256] and norm_bytes [S, num_docs + 1]
+    (num_docs: the padded per-shard doc count); row r of the [R, ...]
+    worklists is (query r // S, shard r % S) and reads shard r % S's
+    planes. Returns [R, num_docs + 1] planes as terms_scatter_batch."""
+    return _terms_scatter(
+        doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+        num_docs, groups, cache, matched_only, doc_tiles.shape[0],
+    )
+
+
+terms_scatter_stacked_plain = terms_scatter_batch_plain
+
+
+def _terms_scatter(
+    doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+    num_docs, groups, cache, matched_only, n_shards,
+):
+    """Check K1's inputs (planes stacked iff n_shards > 0), then run the
+    plain version for CPU tensors or launch the kernel."""
     dev = doc_tiles.device
-    _check(doc_tiles, "doc_tiles", torch.int32, 2, dev)
-    _check(vals, "vals", torch.float32, 2, dev)
-    _check(norm_bytes, "norm_bytes", torch.uint8, 1, dev)
+    st = 1 if n_shards else 0
+    _check(doc_tiles, "doc_tiles", torch.int32, 2 + st, dev)
+    _check(vals, "vals", torch.float32, 2 + st, dev)
+    _check(norm_bytes, "norm_bytes", torch.uint8, 1 + st, dev)
     _check(tile_ids, "tile_ids", torch.int32, 2, dev)
     q, nt = tile_ids.shape
     for name, t, dt in (("starts", starts, torch.int32),
                         ("ends", ends, torch.int32)):
         _check(t, name, dt, 2, dev)
         _check_rows(name, t, q, nt)
-    if doc_tiles.shape[1] != TILE or vals.shape != doc_tiles.shape:
+    if doc_tiles.shape[-1] != TILE or vals.shape != doc_tiles.shape:
         raise ValueError("tile planes must be [NT, 256] and alike")
-    if norm_bytes.shape[0] != num_docs + 1:
+    if norm_bytes.shape[-1] != num_docs + 1:
         raise ValueError("norm_bytes must have num_docs + 1 slots")
+    if n_shards:
+        _check_shards(n_shards, q, {"doc_tiles": doc_tiles,
+                                    "norm_bytes": norm_bytes})
     if not 1 <= q <= 65535:
         raise ValueError(f"row count {q} out of range [1, 65535]")
     if not matched_only:
@@ -430,13 +511,13 @@ def terms_scatter_batch(
         )
     return _terms_scatter_launch(
         doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
-        num_docs, groups, cache, matched_only,
+        num_docs, groups, cache, matched_only, n_shards,
     )
 
 
 def _terms_scatter_launch(
     doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
-    num_docs, groups, cache, matched_only,
+    num_docs, groups, cache, matched_only, n_shards,
 ):
     """Launch K1 on checked inputs: worklists [Q, nt], groups
     int32[Q, G, 2]; outputs [Q, num_docs + 1]."""
@@ -471,10 +552,12 @@ def _terms_scatter_launch(
             None if group_len is None else ctypes.c_void_p(group_len.ctypes.data),
             int(n_groups), int(q), int(nt), int(num_docs + 1),
             _ptr(scores), _ptr(matched), int(bool(matched_only)),
+            max(1, n_shards), _shard_stride(doc_tiles),
+            int(norm_bytes.shape[-1]),
             _stream(dev),
         )
     _check_rc("terms_scatter", rc)
-    _count("terms_scatter", q)
+    _count("terms_scatter", q, n_shards)
     return scores, matched
 
 
@@ -533,11 +616,14 @@ def sparse_fold_batch_plain(
     doc_tiles, tn, tile_ids, starts, ends, weights, live,
     num_docs: int, t_pad: int,
 ):
-    """The batched K2 as the solo plain version row by row."""
+    """The batched K2 as the solo plain version row by row; with stacked
+    planes ([S, NT, 256], live [S, N]), row q reads shard q % S's."""
+    st = doc_tiles.dim() == 3
     outs = [
         sparse_fold_plain(
-            doc_tiles, tn, tile_ids[q], starts[q], ends[q], weights[q],
-            live, num_docs, t_pad,
+            _shard(doc_tiles, q, st), _shard(tn, q, st), tile_ids[q],
+            starts[q], ends[q], weights[q], _shard(live, q, st), num_docs,
+            t_pad,
         )
         for q in range(tile_ids.shape[0])
     ]
@@ -556,9 +642,39 @@ def sparse_fold_batch(
     eligible = run head & doc < num_docs & live[doc]. A batch of more than
     SPARSE_FOLD_MAX_PAIRS pairs runs as several launches over consecutive
     rows."""
+    return _sparse_fold(
+        doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs,
+        t_pad, 0,
+    )
+
+
+def sparse_fold_stacked(
+    doc_tiles, tn, tile_ids, starts, ends, weights, live,
+    num_docs: int, t_pad: int,
+):
+    """K2s: sparse_fold_batch over R = Q x S rows of S stacked shards.
+
+    doc_tiles/tn are [S, NT, 256] and live [S, num_docs] (num_docs: the
+    padded per-shard doc count, which sets the sentinel and the key
+    width); row r of the [R, nt] worklists is (query r // S, shard
+    r % S) and reads shard r % S's planes."""
+    return _sparse_fold(
+        doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs,
+        t_pad, doc_tiles.shape[0],
+    )
+
+
+sparse_fold_stacked_plain = sparse_fold_batch_plain
+
+
+def _sparse_fold(
+    doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs, t_pad,
+    n_shards,
+):
     dev = doc_tiles.device
-    _check(doc_tiles, "doc_tiles", torch.int32, 2, dev)
-    _check(tn, "tn", torch.float32, 2, dev)
+    st = 1 if n_shards else 0
+    _check(doc_tiles, "doc_tiles", torch.int32, 2 + st, dev)
+    _check(tn, "tn", torch.float32, 2 + st, dev)
     _check(tile_ids, "tile_ids", torch.int32, 2, dev)
     q, nt = tile_ids.shape
     for name, t, dt in (("starts", starts, torch.int32),
@@ -566,11 +682,13 @@ def sparse_fold_batch(
                         ("weights", weights, torch.float32)):
         _check(t, name, dt, 2, dev)
         _check_rows(name, t, q, nt)
-    _check(live, "live", torch.bool, 1, dev)
-    if doc_tiles.shape[1] != TILE or tn.shape != doc_tiles.shape:
+    _check(live, "live", torch.bool, 1 + st, dev)
+    if doc_tiles.shape[-1] != TILE or tn.shape != doc_tiles.shape:
         raise ValueError("tile planes must be [NT, 256] and alike")
-    if live.shape[0] != num_docs or num_docs < 1:
+    if live.shape[-1] != num_docs or num_docs < 1:
         raise ValueError("live must have num_docs >= 1 entries")
+    if n_shards:
+        _check_shards(n_shards, q, {"doc_tiles": doc_tiles, "live": live})
     if not 1 <= t_pad <= 1024:
         raise ValueError(f"t_pad {t_pad} out of range")
     if not 1 <= q <= 65535:
@@ -585,12 +703,13 @@ def sparse_fold_batch(
         )
     return _sparse_fold_launch(
         doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs,
-        t_pad,
+        t_pad, n_shards,
     )
 
 
 def _sparse_fold_launch(
     doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs, t_pad,
+    n_shards,
 ):
     """Launch K2 on checked [Q, nt] worklists, in as many launches over
     consecutive rows as SPARSE_FOLD_MAX_PAIRS asks; outputs [Q, P]."""
@@ -621,10 +740,11 @@ def _sparse_fold_launch(
                 int(t_pad), key_bits(num_docs), _ptr(live), _ptr(keys_a),
                 _ptr(vals_a), _ptr(keys_b), _ptr(vals_b), _ptr(counts),
                 _ptr(docs_s, r0 * p), _ptr(run_sum, r0 * p),
-                _ptr(eligible, r0 * p), _stream(dev),
+                _ptr(eligible, r0 * p), int(r0), max(1, n_shards),
+                _shard_stride(doc_tiles), _stream(dev),
             )
         _check_rc("sparse_fold", rc)
-        _count("sparse_fold", q)
+        _count("sparse_fold", q, n_shards)
     return docs_s, run_sum, eligible
 
 
@@ -674,6 +794,30 @@ def masked_topk_batch(key, eligible, k: int):
     (top_scores f32[Q, min(k, M)], top_idx i32[Q, min(k, M)],
     total i32[Q]). Callers pad to k exactly as the reference does when
     M < k."""
+    _check_topk(key, eligible, k)
+    if not _launchable(key.device):
+        return masked_topk_batch_plain(key, eligible, k)
+    return _masked_topk_launch(key, eligible, k, 0)
+
+
+def masked_topk_stacked(key, eligible, k: int, n_shards: int):
+    """K3s: masked_topk_batch over R = Q x S rows, row r the candidates of
+    (query r // S, shard r % S). A row's keys are its pair's own, so the
+    kernel reads no shard plane: the mode is the row mode over Q x S
+    rows, counted apart."""
+    _check_topk(key, eligible, k)
+    _check_shards(n_shards, key.shape[0], {})
+    if not _launchable(key.device):
+        return masked_topk_stacked_plain(key, eligible, k, n_shards)
+    return _masked_topk_launch(key, eligible, k, n_shards)
+
+
+def masked_topk_stacked_plain(key, eligible, k: int, n_shards: int):
+    """The stacked K3 is the batched K3's plain version over Q x S rows."""
+    return masked_topk_batch_plain(key, eligible, k)
+
+
+def _check_topk(key, eligible, k: int) -> None:
     dev = key.device
     _check(key, "key", torch.float32, 2, dev)
     _check(eligible, "eligible", torch.bool, 2, dev)
@@ -686,12 +830,9 @@ def masked_topk_batch(key, eligible, k: int):
         raise ValueError("key rows too long for int32 indices")
     if not 1 <= q <= 65535:
         raise ValueError(f"row count {q} out of range [1, 65535]")
-    if not _launchable(dev):
-        return masked_topk_batch_plain(key, eligible, k)
-    return _masked_topk_launch(key, eligible, k)
 
 
-def _masked_topk_launch(key, eligible, k):
+def _masked_topk_launch(key, eligible, k, n_shards):
     """Launch K3 on checked [Q, M] inputs; outputs [Q, min(k, M)] and
     [Q]."""
     dev = key.device
@@ -716,7 +857,7 @@ def _masked_topk_launch(key, eligible, k):
             _ptr(total), _stream(dev),
         )
     _check_rc("masked_topk", rc)
-    _count("masked_topk", q)
+    _count("masked_topk", q, n_shards)
     return top_scores, top_idx, total
 
 
@@ -756,18 +897,35 @@ def span_locate_plain(flat, starts, ends, j: int, cands):
 
 
 def span_locate_batch_plain(flat, starts, ends, j: int, cands):
-    """The batched K4 as the solo plain version row by row."""
-    outs = [span_locate_plain(flat, starts[q], ends[q], j, cands[q])
+    """The batched K4 as the solo plain version row by row; with stacked
+    planes ([S, L]), row q searches shard q % S's."""
+    st = flat.dim() == 2
+    outs = [span_locate_plain(_shard(flat, q, st), starts[q], ends[q], j,
+                              cands[q])
             for q in range(cands.shape[0])]
     return tuple(torch.stack(col) for col in zip(*outs))
+
+
+span_locate_stacked_plain = span_locate_batch_plain
 
 
 def span_locate_batch(flat, starts, ends, j: int, cands):
     """(pos i32[Q, P], found bool[Q, P]) of each row's candidate docs
     against that row's sorted slice [starts[q, j], ends[q, j]) of a flat
     postings plane. starts/ends are i32[Q, T], cands i32[Q, P]."""
+    return _span_locate(flat, starts, ends, j, cands, 0)
+
+
+def span_locate_stacked(flat, starts, ends, j: int, cands):
+    """K4s: span_locate_batch over R = Q x S rows of S stacked shards:
+    flat is [S, L] (equal-length planes) and row r, the pair (query
+    r // S, shard r % S), searches shard r % S's plane."""
+    return _span_locate(flat, starts, ends, j, cands, flat.shape[0])
+
+
+def _span_locate(flat, starts, ends, j, cands, n_shards):
     dev = flat.device
-    _check(flat, "flat", torch.int32, 1, dev)
+    _check(flat, "flat", torch.int32, 2 if n_shards else 1, dev)
     _check(starts, "starts", torch.int32, 2, dev)
     _check(ends, "ends", torch.int32, 2, dev)
     _check(cands, "cands", torch.int32, 2, dev)
@@ -777,24 +935,27 @@ def span_locate_batch(flat, starts, ends, j: int, cands):
     _check_rows("ends", ends, q, n_spans)
     if not 0 <= j < n_spans:
         raise ValueError(f"span column {j} out of range")
-    if flat.shape[0] == 0:
+    if flat.shape[-1] == 0:
         raise ValueError("flat plane is empty")
     if not 1 <= q <= 65535:
         raise ValueError(f"row count {q} out of range [1, 65535]")
+    if n_shards:
+        _check_shards(n_shards, q, {"flat": flat})
     if not _launchable(dev):
         return span_locate_batch_plain(flat, starts, ends, j, cands)
     lib = ensure_built()
+    flat_len = flat.shape[-1]
     pos = torch.empty((q, p), dtype=torch.int32, device=dev)
     found = torch.empty((q, p), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         rc = lib.esk_span_locate(
-            _ptr(flat), int(flat.shape[0]), _ptr(starts), _ptr(ends),
+            _ptr(flat), int(flat_len), _ptr(starts), _ptr(ends),
             int(n_spans), int(j), _ptr(cands), int(q), int(p),
-            search_steps(flat.shape[0]), _ptr(pos), _ptr(found),
-            _stream(dev),
+            search_steps(flat_len), _ptr(pos), _ptr(found),
+            max(1, n_shards), _stream(dev),
         )
     _check_rc("span_locate", rc)
-    _count("span_locate", q)
+    _count("span_locate", q, n_shards)
     return pos, found
 
 

@@ -4,10 +4,11 @@ Port copy of elasticsearch_tpu/query/compile.py, trimmed to this slice:
 `FieldStats`, `aggregate_field_stats`, `_terms_arrays`, `make_bool_spec`,
 `select_lead_clause` and `Compiler` for match, term, terms, range, exists,
 match_all, match_none, constant_score and bool; and the coalescing
-helpers `SpecUnifyError`, `unify_specs` and `pad_arrays_to_spec` for the
-node kinds this compiler emits. Left out: nested, phrase, span,
-multi-term expansion, function/script score, percolate, ids, filter-cache
-keys, `equalize_compiled` and the unify/pad cases of the kinds above.
+helpers `SpecUnifyError`, `unify_specs`, `pad_arrays_to_spec` and
+`equalize_compiled` for the node kinds this compiler emits. Left out:
+nested, phrase, span, multi-term expansion, function/script score,
+percolate, ids, filter-cache keys and the unify/pad cases of the kinds
+above.
 
 Everything data-dependent happens here, on the host, at plan time:
 analysis of match text, term-dictionary lookups -> posting spans ->
@@ -645,8 +646,8 @@ def _pad_entries(arrays: dict, nt_src: int, nt_tgt: int) -> dict:
     out = dict(arrays)
     for key, fill in _PAD_FILLS.items():
         arr = out.get(key)
-        # Pad the trailing (worklist) axis so stacked plans ([Q, nt]
-        # leaves) equalize too, not just single-plan arrays.
+        # Pad the trailing (worklist) axis so stacked plans ([S, nt] or
+        # [Q, S, nt] leaves) equalize too, not just single-plan arrays.
         if arr is None or getattr(arr, "ndim", 0) < 1:
             continue
         if arr.shape[-1] != nt_src:
@@ -682,3 +683,19 @@ def pad_arrays_to_spec(spec: tuple, target: tuple, arrays):
                 i += 1
         return {**arrays, "children": tuple(out_children)}
     return arrays
+
+
+def equalize_compiled(compiled: list[CompiledQuery]) -> list[CompiledQuery]:
+    """Equalize a list of structurally identical compiled plans (one query
+    compiled against each of S shards) to one shared spec, the
+    per-position bucket maxima, by padding their arrays."""
+    specs = [c.spec for c in compiled]
+    if all(s == specs[0] for s in specs[1:]):
+        return compiled
+    target = unify_specs(specs)
+    return [
+        CompiledQuery(
+            spec=target, arrays=pad_arrays_to_spec(c.spec, target, c.arrays)
+        )
+        for c in compiled
+    ]

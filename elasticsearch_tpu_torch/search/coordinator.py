@@ -51,10 +51,12 @@ class SearchPhaseFailedError(Exception):
 class ShardedSearchCoordinator:
     """Serves search requests over N shard engines of one index."""
 
-    def __init__(self, engines: list["Engine"], index_name: str = "index"):
+    def __init__(
+        self, engines: list["Engine"], index_name: str = "index", planner=None
+    ):
         self.engines = engines
         self.index_name = index_name
-        self.services = [SearchService(e) for e in engines]
+        self.services = [SearchService(e, planner=planner) for e in engines]
         self._stats_cache = None
         self._stats_gen: tuple = ()
 

@@ -10,11 +10,15 @@ query phase the micro-batcher drives — `search_many`, `assemble_plain`,
 `_merge_term_groups` (with `sparse_family_key`), `_device_batch` and
 `_append_plain`: N plain requests cost one padded launch per (segment,
 spec group) instead of N. Left out with the reference's padding
-instrument: `family_padding_tiles`. Every segment runs on the port's
-device path: there is no planner, CPU-oracle routing, filter cache (a
-batch's mask token is always `()`), task or timeout, rescore, sort,
-cursor, aggregation or knn; a request asking for one of those is refused
-with a 400.
+instrument: `family_padding_tiles`. The solo loop asks the node's exec
+planner (`_decide_backend`) which backend scores each segment: the
+device kernels, or, when the request does not track exact totals, the
+two-launch block-max paths (`blockmax` for a terms spec,
+`blockmax_conj` for a must-driven conjunction), recording each
+execution's time. Left out: CPU-oracle routing (and with it any planner
+decision on the batched path), the filter cache (a batch's mask token is
+always `()`), tasks and timeouts, rescore, sort, cursor, aggregation and
+knn; a request asking for one of those is refused with a 400.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Any
 
+from ..exec.cost import PlanFeatures
+from ..exec.planner import spec_work_tiles
 from ..index.engine import Engine, SegmentHandle
 from ..ops import bm25_device
 from ..query.compile import CompiledQuery, FieldStats
@@ -149,10 +155,13 @@ class SearchRequest:
 
 
 class SearchService:
-    """Executes SearchRequests against one Engine (one shard)."""
+    """Executes SearchRequests against one Engine (one shard). `planner`
+    is the node's ExecPlanner (None: every segment runs on the device
+    kernels)."""
 
-    def __init__(self, engine: Engine):
+    def __init__(self, engine: Engine, planner=None):
         self.engine = engine
+        self.planner = planner
 
     def search(
         self,
@@ -206,26 +215,75 @@ class SearchService:
         stats: dict[str, FieldStats],
         candidates: list,
     ) -> int:
-        """Score one segment on the device, appending candidate tuples;
-        returns the segment's total hits."""
+        """Score one segment on the backend the planner picks, appending
+        candidate tuples; returns the segment's total hits (a lower bound
+        on the block-max paths, whose requests do not track totals)."""
         compiled = self.engine.compiler_for(handle, stats).compile(request.query)
         seg_tree = bm25_device.segment_tree(handle.device)
-        plan = bm25_device.plan_to_torch(
-            compiled.spec, compiled.arrays, handle.device.device
-        )
-        scores, ids, tot = bm25_device.execute_auto(
-            seg_tree, compiled.spec, plan, k
-        )
-        # One device -> host transfer of the k hits and the total.
-        scores = scores.cpu().numpy()
-        ids = ids.cpu().numpy()
-        tot = int(tot.cpu())
+        backend, plan_class = self._decide_backend(handle, request, compiled, k)
+        kern_t0 = time.monotonic()
+        if backend == "blockmax":
+            s, i, t, _rel = bm25_device.execute_batch_blockmax(
+                seg_tree, compiled.spec, [compiled.arrays], k
+            )
+            scores, ids, tot = s[0], i[0], int(t[0])
+        elif backend == "blockmax_conj":
+            s, i, t, _rel = bm25_device.execute_batch_blockmax_conj(
+                seg_tree, compiled.spec, [compiled.arrays], k
+            )
+            scores, ids, tot = s[0], i[0], int(t[0])
+        else:
+            plan = bm25_device.plan_to_torch(
+                compiled.spec, compiled.arrays, handle.device.device
+            )
+            scores, ids, tot = bm25_device.execute_auto(
+                seg_tree, compiled.spec, plan, k
+            )
+            # One device -> host transfer of the k hits and the total.
+            scores = scores.cpu().numpy()
+            ids = ids.cpu().numpy()
+            tot = int(tot.cpu())
+        if plan_class is not None:
+            self.planner.record(
+                plan_class, backend, time.monotonic() - kern_t0
+            )
         n = min(k, tot, len(ids))
         for rank in range(n):
             score = float(scores[rank])
             local = int(ids[rank])
             candidates.append((-score, handle.base + local, handle, local, score))
         return tot
+
+    def _decide_backend(
+        self, handle: SegmentHandle, request: SearchRequest, compiled, k: int
+    ) -> tuple[str, tuple | None]:
+        """(backend, plan_class) for one plain score-sorted segment pass.
+
+        The candidates are the backends that cannot change the top-k:
+        block-max only when exact totals are not tracked (its totals are
+        "gte"), and only for k >= 1 (its threshold is the k-th score)."""
+        if self.planner is None:
+            return "device", None
+        spec = compiled.spec
+        candidates = ["device"]
+        if request.track_total_hits is False and k > 0:
+            if spec[0] == "terms":
+                candidates.append("blockmax")
+            elif bm25_device.supports_blockmax_conj(spec):
+                candidates.append("blockmax_conj")
+        plan_class = self.planner.classify(spec, k)
+        if len(candidates) == 1:
+            return "device", plan_class
+        feats = PlanFeatures(
+            n_docs=handle.segment.num_docs,
+            work_tiles=(
+                spec_work_tiles(spec)
+                if bm25_device.supports_sparse(spec)
+                else 0
+            ),
+            n_clauses=spec[3] if spec[0] == "terms" else 1,
+        )
+        return self.planner.decide(plan_class, candidates, feats), plan_class
 
     # ------------------------------------------------- batched query phase
 

@@ -11,9 +11,9 @@ built and loaded in one process on one card. On the one-shard Zipf corpus
 (the repo's generator, seed 13) it times each solo wrapper (Q = 1) of
 K1-K4 on identical inputs, in the turns baseline, current, current,
 baseline (in this checkout the solo wrapper is the batched wrapper over
-one row, the call the serving path makes for one request); then, for
-this checkout only, each batched wrapper on Q rows against Q solo calls
-on the same rows. Each turn gives two times a call:
+one row, the call the serving path makes for one request), and each
+batched wrapper on Q rows the same way; then, for this checkout only,
+each batched wrapper on Q rows against Q solo calls on the same rows. Each turn gives two times a call:
 `ms`, the CUDA-event mean over back-to-back calls (at these sizes it
 includes the host's launch cost), and `device_ms`, the summed duration of
 the kernels and copies the call ran on the card (torch.profiler), which
@@ -221,27 +221,39 @@ def main() -> int:
     m4 = l4["children"][0]
     keys_b = key.expand(q, -1).contiguous()
     elig_b = elig.expand(q, -1).contiguous()
+    batch = {
+        "terms_scatter": lambda K: K.terms_scatter_batch(
+            doc_tiles, tn, norm, b1["tile_ids"], b1["starts"], b1["ends"],
+            b1["weights"], n, b1["_groups"]),
+        "sparse_fold": lambda K: K.sparse_fold_batch(
+            doc_tiles, tn, mb["tile_ids"], mb["starts"], mb["ends"],
+            mb["weights"], live, n, spec[3]),
+        "masked_topk": lambda K: K.masked_topk_batch(keys_b, elig_b, 10),
+        "span_locate": lambda K: K.span_locate_batch(
+            doc_tiles.reshape(-1), m4["term_starts"], m4["term_ends"], 0, cands_b),
+    }
+    for name, fn in batch.items():
+        turns = []
+        for label, K in (("baseline", base), ("current", cur),
+                         ("current", cur), ("baseline", base)):
+            turns.append((label, timed(lambda: fn(K), args.reps)))
+        emit({"kernel": name, "rows": q, "ab": "batched", "turns": turns})
     pairs = {
         "terms_scatter": (
-            lambda: cur.terms_scatter_batch(
-                doc_tiles, tn, norm, b1["tile_ids"], b1["starts"], b1["ends"],
-                b1["weights"], n, b1["_groups"]),
+            lambda: batch["terms_scatter"](cur),
             lambda: [cur.terms_scatter(
                 doc_tiles, tn, norm, c["tile_ids"], c["starts"], c["ends"],
                 c["weights"], n, c["_groups"]) for c in solo1]),
         "sparse_fold": (
-            lambda: cur.sparse_fold_batch(
-                doc_tiles, tn, mb["tile_ids"], mb["starts"], mb["ends"],
-                mb["weights"], live, n, spec[3]),
+            lambda: batch["sparse_fold"](cur),
             lambda: [cur.sparse_fold(
                 doc_tiles, tn, p["tile_ids"], p["starts"], p["ends"],
                 p["weights"], live, n, s[3]) for s, p in solo2]),
         "masked_topk": (
-            lambda: cur.masked_topk_batch(keys_b, elig_b, 10),
+            lambda: batch["masked_topk"](cur),
             lambda: [cur.masked_topk(keys_b[r], elig_b[r], 10) for r in range(q)]),
         "span_locate": (
-            lambda: cur.span_locate_batch(
-                doc_tiles.reshape(-1), m4["term_starts"], m4["term_ends"], 0, cands_b),
+            lambda: batch["span_locate"](cur),
             lambda: [cur.span_locate(
                 doc_tiles.reshape(-1), m4["term_starts"][r], m4["term_ends"][r], 0,
                 cands_b[r].contiguous()) for r in range(q)]),
