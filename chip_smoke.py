@@ -40,7 +40,8 @@ and read just after it.
                  the batcher's stats and device ms per batched launch
  10. routed      500 documents `_bulk`-indexed into an 8-shard index, half
                  on auto ids; `_shards` counts and hits against the oracle
-                 over all documents
+                 over all documents; a search_after walk sorted on a
+                 numeric field over the 8 shards against the oracle
  11. batched kernels  K1b/K3b at the sharded concurrent phase's mean batch
  12. results     latencies, QPS, device times, peak device memory
  6b. blockmax    (on the one-shard corpus, before it is freed) the match
@@ -52,6 +53,23 @@ and read just after it.
                  times over HTTP, on a Node(exec_batcher=False): every answer
                  equals phase 3's hits, and the exec planner decides both
                  blockmax and blockmax_conj
+ 6c. rescore     (one-shard corpus, columns f1/f2 = the first two draws of
+                 default_rng(99), f3 = f1 missing at every tenth doc)
+                 BASELINE config 4: phase 3's 32 `match` bodies with a
+                 window of 1,000 rescored by the cfg4 script_score over
+                 match_all, sequentially over HTTP (K1-K4, K6, K5's
+                 gather), held bit for bit to a numpy two-phase oracle;
+                 then execute_rescore (K5's fused mode) on the same plans,
+                 held to the REST answers and the oracle
+ 6d. sorted      the same 32 queries sorted by f1 desc, f3 asc (missing
+                 first), _score asc and (f3 desc, f2 asc) over HTTP (K3k);
+                 search_after walks of five pages of 10 for f1 desc, f3
+                 asc, _score desc and _score asc on 8 of them, each page
+                 and each from/size page held to a numpy oracle (the match
+                 mask, then a stable order by key and doc id; a key-only
+                 cursor skips the docs that tie with it); then K3k, K5
+                 (both modes) and K6 (cfg4's script and one script with
+                 every grammar node) against their plain versions
  13. stacked     config 3 as the JAX bench serves it on one device: the 8
                  shards packed to equal shapes (pad_docs_to, field_min_tiles)
                  and stacked, each query compiled per shard with that shard's
@@ -96,6 +114,24 @@ DEVICE = "cuda"
 REPO = Path(__file__).resolve().parent
 KERNELS = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate")
 SOURCES = {name: f"elasticsearch_tpu_torch/csrc/{name}.cu" for name in KERNELS}
+# BASELINE config 4 (bench.py:1273-1353): window, script and weights.
+CFG4_WINDOW = 1000
+CFG4_SCRIPT = ("params.w0 * _score + params.w1 * doc['f1'].value"
+               " + params.w2 * doc['f2'].value")
+CFG4_PARAMS = {"w0": 0.3, "w1": 4.0, "w2": 2.0}
+# One script over every grammar node of painless-lite (K6's second row).
+GRAMMAR_SCRIPT = (
+    "doc['f3'].empty ? -1.5 : where(doc['f2'].value > 0.5, "
+    "Math.log(doc['f1'].value) / 3, -doc['f2'].value % 0.7) + Math.sqrt(_score)"
+    " * Math.pow(doc['f1'].value, params.p) + Math.min(doc['f3'].value, 0.5)"
+    " - Math.max(_score, params.c) + Math.abs(doc['f2'].value - 0.5)"
+    " + Math.exp(-doc['f1'].value) + Math.log10(_score + 1) + Math.floor(_score)"
+    " - Math.ceil(doc['f2'].value) + sigmoid(doc['f2'].value) + saturation(_score, 2)"
+    " + (doc['f1'].value >= 0.5) * 2 + _score ** 2 + Math.E * Math.PI / 7"
+)
+GRAMMAR_PARAMS = {"p": 1.7, "c": 4.0}
+N_WALK = 8  # queries whose search_after walks the sorted phase checks
+WALK_PAGES = 5
 
 
 class SmokeFailure(Exception):
@@ -370,9 +406,20 @@ def run() -> dict:
     # -- 2. corpus ----------------------------------------------------------
     t0 = time.monotonic()
     _mappings, segment = build_zipf_segment(N_DOCS, seed=SEED)
+    # BASELINE config 4's feature columns, as bench.py:3326-3335 draws them,
+    # and f3: f1 missing at every tenth doc (the sorted phase's missing
+    # values).
+    rng99 = np.random.default_rng(99)
+    f1 = rng99.random(N_DOCS, dtype=np.float32)
+    f2 = rng99.random(N_DOCS, dtype=np.float32)
+    f3 = f1.copy()
+    f3[::10] = np.nan
+    segment.doc_values.update(f1=f1, f2=f2, f3=f3)
     gen_s = time.monotonic() - t0
     node = Node(device=DEVICE)
-    node.create_index("msmarco", {"mappings": {"properties": {"body": {"type": "text"}}}})
+    node.create_index("msmarco", {"mappings": {"properties": {
+        "body": {"type": "text"}, "f1": {"type": "float"},
+        "f2": {"type": "float"}, "f3": {"type": "float"}}}})
     svc = node.indices["msmarco"]
     t1 = time.monotonic()
     handle = svc.engine._install_segment(segment)
@@ -567,9 +614,19 @@ def run() -> dict:
         card, dev, segment, seg_tree, compiler, bodies, responses, launches
     )
 
+    # -- 6c/6d. rescore (BASELINE config 4) and sorted, same corpus ------
+    single["rescore"] = run_rescore(card, dev, node, seg_tree, compiler,
+                                    segment, match_terms, launches)
+    single["sorted"] = run_sorted(card, node, segment, match_terms, launches)
+    rows.extend(kernel_rows_slice4(seg_tree, compiler, match_terms, dev))
+    single["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
+    log(f"  one-shard phases: peak device memory "
+        f"{single['max_memory_allocated_bytes']} B [{card}]")
+
     # Free the one-shard corpus before the sharded one.
     node.close()
     del node, svc, handle, segment, fld, seg_tree, compiler, plans, plan
+    del f1, f2, f3
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -744,6 +801,291 @@ def run_blockmax(card, dev, segment, seg_tree, compiler, bodies, responses,
     torch.cuda.empty_cache()
     return {**summary, "node": {k: v for k, v in routed.items() if k != "planner"},
             "decisions": decisions}
+
+
+def _cfg4_rescore_query() -> dict:
+    return {"script_score": {"query": {"match_all": {}},
+                             "script": {"source": CFG4_SCRIPT,
+                                        "params": CFG4_PARAMS}}}
+
+
+def _matched_mask(fld, terms):
+    import numpy as np
+
+    matched = np.zeros(N_DOCS, dtype=bool)
+    for term in terms:
+        matched[fld.postings(term)[0]] = True
+    return matched
+
+
+def run_rescore(card, dev, node, seg_tree, compiler, segment, match_terms,
+                launches) -> dict:
+    """BASELINE config 4 over HTTP, then execute_rescore on the same plans;
+    both held bit for bit to bench.py's two-phase oracle (bench.py:
+    1317-1339): the numpy BM25 top-1000, the script's products and sums
+    in numpy fp32, then the combined order (the REST stage breaks ties by
+    doc id, the fused top-k by window position)."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25, bm25_device
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    fld = segment.fields["body"]
+    f1, f2 = segment.doc_values["f1"], segment.doc_values["f2"]
+    rescore = {"window_size": CFG4_WINDOW, "query": {
+        "rescore_query": _cfg4_rescore_query(), "query_weight": 1.0,
+        "rescore_query_weight": 1.0}}
+    bodies = [{"query": {"match": {"body": " ".join(t)}}, "size": TOP_K,
+               "rescore": rescore} for t in match_terms]
+    server, base = serve(node)
+    try:
+        t0 = time.monotonic()
+        http(base, "POST", "/msmarco/_search", bodies[0])  # untimed warm-up
+        first_ms = (time.monotonic() - t0) * 1e3
+        with counted("rescore", launches):
+            latencies, responses, wall_s = sequential(base, "msmarco", bodies)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    w0, w1, w2 = (np.float32(CFG4_PARAMS[k]) for k in ("w0", "w1", "w2"))
+    one = np.float32(1.0)
+    mismatches = 0
+    fused_want = []
+    t0 = time.monotonic()
+    for terms, out in zip(match_terms, responses):
+        o_s, o_i = bm25.search_field(fld, terms, N_DOCS, CFG4_WINDOW)
+        rs = (w0 * one + w1 * f1[o_i] + w2 * f2[o_i]).astype(np.float32)
+        comb = (one * o_s + one * rs).astype(np.float32)
+        total = int(_matched_mask(fld, terms).sum())
+        order = np.lexsort((o_i, -comb.astype(np.float64)))[:TOP_K]
+        if not same_hits(out, [segment.ids[int(d)] for d in o_i[order]],
+                         comb[order], total):
+            mismatches += 1
+            log(f"  MISMATCH rescore {terms}")
+        by_pos = np.argsort(-comb, kind="stable")[:TOP_K]
+        fused_want.append((o_i[by_pos], comb[by_pos], total, out))
+    oracle_s = time.monotonic() - t0
+
+    rc = compiler.compile(parse_query(_cfg4_rescore_query()))
+    rplan = bm25_device.plan_to_torch(rc.spec, rc.arrays, dev)
+    plans = []
+    for terms in match_terms:
+        c = compiler.compile(parse_query({"match": {"body": " ".join(terms)}}))
+        plans.append((c.spec, bm25_device.plan_to_torch(c.spec, c.arrays, dev)))
+
+    def fused():
+        return [bm25_device.execute_rescore(seg_tree, spec, plan, rc.spec, rplan,
+                                            TOP_K, CFG4_WINDOW, 1.0, 1.0)
+                for spec, plan in plans]
+
+    with counted("rescore fused", launches):
+        outs = [tuple(t.cpu().numpy() for t in o) for o in fused()]
+    fused_bad = 0
+    for (s, i, t), (ids, comb, total, rest) in zip(outs, fused_want):
+        n = len(ids)
+        rest_ids = [h["_id"] for h in rest["hits"]["hits"]]
+        rest_bits = score_bits([h["_score"] for h in rest["hits"]["hits"]])
+        if not (np.array_equal(i[:n], ids)
+                and np.array_equal(score_bits(s[:n]), score_bits(comb))
+                and int(t) == total
+                and [segment.ids[int(d)] for d in i[:n]] == rest_ids
+                and np.array_equal(score_bits(s[:n]), rest_bits)):
+            fused_bad += 1
+            log(f"  MISMATCH execute_rescore {rest_ids[:3]}")
+    fused_ms = cuda_ms(fused, reps=3) / len(plans)
+    summary = {
+        "requests": len(bodies), "window": CFG4_WINDOW,
+        "search_p50_ms": percentile(latencies, 50),
+        "search_p99_ms": percentile(latencies, 99),
+        "qps_sequential": len(bodies) / wall_s, "first_request_ms": first_ms,
+        "mismatches_vs_oracle": mismatches,
+        "execute_rescore_mismatches": fused_bad,
+        "execute_rescore_device_ms_per_query": fused_ms,
+        "oracle_s": oracle_s,
+    }
+    log(f"phase rescore: {'ok' if mismatches + fused_bad == 0 else 'FAILED'} "
+        f"{json.dumps(summary)} [{card}]")
+    if mismatches or fused_bad:
+        raise SmokeFailure(f"{mismatches} rescore and {fused_bad} execute_rescore "
+                           f"mismatches")
+    return summary
+
+
+# The sorted phase's sorts: (name, REST sort, [(field, desc, missing_first)]).
+SORTS = [
+    ("f1_desc", [{"f1": "desc"}], [("f1", True, False)]),
+    ("f3_asc_missing_first", [{"f3": {"order": "asc", "missing": "_first"}}],
+     [("f3", False, True)]),
+    ("score_asc", [{"_score": "asc"}], [("_score", False, False)]),
+    ("f3_desc_f2_asc", [{"f3": "desc"}, {"f2": "asc"}],
+     [("f3", True, False), ("f2", False, False)]),
+]
+WALK_SORTS = [SORTS[0], SORTS[1],
+              ("score_desc", [{"_score": "desc"}], [("_score", True, False)]),
+              SORTS[2]]
+
+
+class SortOracle:
+    """One query's matched docs and their sort keys: the numpy oracle of
+    the sorted phase (a stable order by the transformed keys, then doc
+    id)."""
+
+    def __init__(self, segment, terms):
+        import numpy as np
+
+        from elasticsearch_tpu_torch.ops import bm25
+
+        fld = segment.fields["body"]
+        matched = np.zeros(N_DOCS, dtype=bool)
+        scores = bm25.score_terms_dense(fld, terms, N_DOCS, matched=matched)
+        self.ids = np.flatnonzero(matched).astype(np.int64)
+        self.scores = scores[self.ids].astype(np.float32)
+        self.cols = {f: segment.doc_values[f][self.ids].astype(np.float32)
+                     for f in ("f1", "f2", "f3")}
+        self.segment = segment
+
+    def raw(self, field):
+        return self.scores if field == "_score" else self.cols[field]
+
+    def key(self, field, desc, mfirst):
+        import numpy as np
+
+        v = self.raw(field)
+        fmax = np.float32(np.finfo(np.float32).max)
+        k = np.where(np.isnan(v), -fmax if mfirst else fmax, -v if desc else v)
+        return k.astype(np.float64)
+
+    def page(self, keys, start, count, after=None):
+        """Hits [start, start + count) of the order, after the key-only
+        cursor `after` (a REST sort value) when one is given: (_id, sort
+        values, _score) each."""
+        import numpy as np
+
+        ks = [self.key(*k) for k in keys]
+        sel = np.ones(len(self.ids), dtype=bool)
+        if after is not None:
+            f, desc, mfirst = keys[0]
+            fmax = np.float64(np.finfo(np.float32).max)
+            if after[0] is None:
+                c = -fmax if mfirst else fmax
+            else:
+                c = float(np.float32(after[0]))
+                c = -c if desc else c
+            sel &= ks[0] > c
+        idx = np.flatnonzero(sel)
+        n = start + count
+        if len(idx) > n:  # keep the n-th primary key's ties
+            kth = np.partition(ks[0][idx], n - 1)[n - 1]
+            idx = idx[ks[0][idx] <= kth]
+        order = idx[np.lexsort((self.ids[idx],) + tuple(k[idx] for k in reversed(ks)))]
+        out = []
+        for j in order[start:n]:
+            vals = [None if np.isnan(self.raw(f)[j]) else float(self.raw(f)[j])
+                    for f, _d, _m in keys]
+            score = float(self.scores[j]) if keys[0][0] == "_score" else None
+            out.append((self.segment.ids[int(self.ids[j])], vals, score))
+        return out
+
+
+def _hits_of(out):
+    return [(h["_id"], h.get("sort"), h["_score"]) for h in out["hits"]["hits"]]
+
+
+def _same_page(got, want) -> bool:
+    import numpy as np
+
+    def bits(v):
+        return None if v is None else int(np.float32(v).view(np.int32))
+
+    return len(got) == len(want) and all(
+        g[0] == w[0] and [bits(x) for x in g[1]] == [bits(x) for x in w[1]]
+        and bits(g[2]) == bits(w[2]) for g, w in zip(got, want))
+
+
+def run_sorted(card, node, segment, match_terms, launches) -> dict:
+    """Field, `_score`-ascending and two-key sorts of phase 3's 32 match
+    queries over HTTP, and search_after walks, each page against the
+    numpy oracle; a walk page differs from the from/size page only where
+    a key-only cursor skips the docs that tie with it."""
+    bodies = [({"query": {"match": {"body": " ".join(t)}}, "sort": rest,
+                "size": TOP_K}, qi, keys)
+              for qi, t in enumerate(match_terms) for _n, rest, keys in SORTS]
+    server, base = serve(node)
+    walk_out: dict = {}
+    try:
+        http(base, "POST", "/msmarco/_search", bodies[0][0])  # warm-up
+        with counted("sorted", launches):
+            latencies, responses, wall_s = sequential(
+                base, "msmarco", [b for b, _q, _k in bodies])
+            t0 = time.monotonic()
+            n_walk = 0
+            for qi in range(N_WALK):
+                query = {"match": {"body": " ".join(match_terms[qi])}}
+                for name, rest, keys in WALK_SORTS:
+                    after, pages, fsize = None, [], []
+                    for p in range(WALK_PAGES):
+                        body = {"query": query, "sort": rest, "size": TOP_K}
+                        if after is not None:
+                            body["search_after"] = after
+                        out = http(base, "POST", "/msmarco/_search", body)
+                        pages.append((after, _hits_of(out)))
+                        fsize.append(_hits_of(http(
+                            base, "POST", "/msmarco/_search",
+                            {"query": query, "sort": rest, "size": TOP_K,
+                             "from": p * TOP_K})))
+                        n_walk += 2
+                        if not out["hits"]["hits"]:
+                            break
+                        after = out["hits"]["hits"][-1]["sort"]
+                    walk_out[(qi, name)] = (keys, pages, fsize)
+            walk_s = time.monotonic() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    mismatches = 0
+    t0 = time.monotonic()
+    oracles = {}
+    for (body, qi, keys), out in zip(bodies, responses):
+        if qi not in oracles:
+            oracles[qi] = SortOracle(segment, match_terms[qi])
+        o = oracles[qi]
+        if not _same_page(_hits_of(out), o.page(keys, 0, TOP_K)) or (
+                out["hits"]["total"]["value"] != min(len(o.ids), 10_000)):
+            mismatches += 1
+            log(f"  MISMATCH sorted {body['sort']} {match_terms[qi]}")
+    walk_bad = 0
+    tie_pages = 0
+    for (qi, name), (keys, pages, fsize) in walk_out.items():
+        o = oracles[qi]
+        for p, ((after, got), fs) in enumerate(zip(pages, fsize)):
+            want = o.page(keys, 0, TOP_K, after=after)
+            want_fs = o.page(keys, p * TOP_K, TOP_K)
+            if not _same_page(got, want) or not _same_page(fs, want_fs):
+                walk_bad += 1
+                log(f"  MISMATCH search_after {name} page {p} {match_terms[qi]}")
+            elif not _same_page(got, fs):
+                tie_pages += 1
+    oracle_s = time.monotonic() - t0
+    summary = {
+        "requests": len(bodies), "search_p50_ms": percentile(latencies, 50),
+        "search_p99_ms": percentile(latencies, 99),
+        "qps_sequential": len(bodies) / wall_s,
+        "per_sort_p50_ms": {
+            name: percentile(latencies[i::len(SORTS)], 50)
+            for i, (name, _r, _k) in enumerate(SORTS)},
+        "walks": len(walk_out), "walk_requests": n_walk, "walk_s": walk_s,
+        "mismatches": mismatches, "walk_mismatches": walk_bad,
+        "walk_pages_past_a_tied_cursor": tie_pages, "oracle_s": oracle_s,
+    }
+    log(f"phase sorted: {'ok' if mismatches + walk_bad == 0 else 'FAILED'} "
+        f"{json.dumps(summary)} [{card}]")
+    if mismatches or walk_bad:
+        raise SmokeFailure(f"{mismatches} sorted and {walk_bad} search_after "
+                           f"mismatches")
+    return summary
 
 
 def run_sharded(card, dev, launches, rows) -> dict:
@@ -1134,7 +1476,9 @@ def run_stacked(card, dev, shards, bodies, match_terms, launches, rows) -> dict:
 
 def run_routed(node, fld0, card, launches) -> int:
     """500 documents through `_bulk` into an 8-shard index, half on auto
-    ids: `_shards` counts and hits against the oracle over every doc."""
+    ids: `_shards` counts and hits against the oracle over every doc; then
+    a search_after walk sorted on a numeric field (distinct values) over
+    the 8 shards, each page against the oracle's order."""
     import numpy as np
 
     from elasticsearch_tpu_torch.parallel.routing import shard_for_id
@@ -1145,16 +1489,19 @@ def run_routed(node, fld0, card, launches) -> int:
     probs = zipf_probs(len(vocab))
     docs = [" ".join(rng.choice(vocab, int(rng.integers(4, 30)), p=probs))
             for _ in range(500)]
+    price = (rng.permutation(500) * 0.25 + 0.125).astype(np.float32)
     lines = []
     for i, text in enumerate(docs):
         meta = {"_id": f"r{i}"} if i % 2 == 0 else {}
-        lines += [json.dumps({"index": meta}), json.dumps({"body": text})]
+        lines += [json.dumps({"index": meta}),
+                  json.dumps({"body": text, "price": float(price[i])})]
     server, base = serve(node)
     bad = 0
     try:
         http(base, "PUT", "/routed", {
             "settings": {"index": {"number_of_shards": N_SHARDS}},
-            "mappings": {"properties": {"body": {"type": "text"}}},
+            "mappings": {"properties": {"body": {"type": "text"},
+                                        "price": {"type": "float"}}},
         })
         out = http(base, "POST", "/routed/_bulk", raw="\n".join(lines) + "\n")
         refreshed = http(base, "POST", "/routed/_refresh")
@@ -1184,13 +1531,31 @@ def run_routed(node, fld0, card, launches) -> int:
             }:
                 bad += 1
                 log(f"  MISMATCH routed {q}")
+        # The walk: price desc over every doc, five pages of 10.
+        order = np.argsort(-price, kind="stable")
+        want = [(items[int(j)]["_id"], [float(price[j])]) for j in order]
+        after, pages = None, []
+        with counted("routed sorted", launches):
+            for _p in range(WALK_PAGES):
+                body = {"query": {"match_all": {}}, "sort": [{"price": "desc"}],
+                        "size": TOP_K}
+                if after is not None:
+                    body["search_after"] = after
+                page = http(base, "POST", "/routed/_search", body)["hits"]["hits"]
+                pages.append([(h["_id"], h["sort"]) for h in page])
+                after = page[-1]["sort"]
+        for p, page in enumerate(pages):
+            if page != want[p * TOP_K:(p + 1) * TOP_K]:
+                bad += 1
+                log(f"  MISMATCH routed search_after page {p}")
     finally:
         server.shutdown()
         server.server_close()
     auto = sum(1 for it in items if it["_id"].startswith("_auto_"))
     per_shard = [e.num_docs for e in node.indices["routed"].engines]
     log(f"phase routed: {'ok' if bad == 0 else 'FAILED'} {bad} mismatches; "
-        f"500 docs ({auto} auto ids), per shard {per_shard}, 16 queries [{card}]")
+        f"500 docs ({auto} auto ids), per shard {per_shard}, 16 queries, a "
+        f"{WALK_PAGES}-page search_after walk [{card}]")
     if bad:
         raise SmokeFailure(f"{bad} routed-index mismatches")
     return bad
@@ -1215,9 +1580,11 @@ def _same(got, want, name):
             raise SmokeFailure(f"{name}: differs from the plain version")
 
 
-def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes, reps=20):
+def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes,
+         reps=20, route="cuda", source=None, case=None):
     """Hold a kernel to its plain version (exact) and time both, its byte
-    bound and one library call."""
+    bound and one library call (None where no one PyTorch call computes
+    the same function)."""
     import torch
 
     got, want = fn(), plain()
@@ -1226,8 +1593,8 @@ def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes, reps
     base = name.removesuffix("_batch").removesuffix("_stacked")
     r = {
         "name": name,
-        "route": "cuda",
-        "source": SOURCES[base],
+        "route": route,
+        "source": source or SOURCES[base],
         "replaces": replaces,
         "rows": q,
         "launches": 0,  # filled from the main-path counts
@@ -1237,10 +1604,12 @@ def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes, reps
         "plain_ms": cuda_ms(plain, 1),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
-        "library_ms": cuda_ms(library, reps),
+        "library_ms": None if library is None else cuda_ms(library, reps),
         "library_call": library_call,
         "bound_bytes": int(nbytes),
     }
+    if case is not None:
+        r["case"] = case
     log(f"  kernel {json.dumps(r)}")
     rows.append(r)
 
@@ -1399,6 +1768,91 @@ def kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q):
          lambda: [torch.searchsorted(spans[r], cands[r]) for r in range(q)],
          "torch.searchsorted per row",
          cands.numel() * 9 + sum(s.numel() for s in spans) * 4)
+    return rows
+
+
+def kernel_rows_slice4(seg_tree, compiler, match_terms, dev):
+    """K3k, K5 (fused and gather modes) and K6 at the rescore and sorted
+    phases' shapes: K3k on f1 over N = 8,841,823 docs at k = 10, K5 at a
+    window of 1,024, K6 on cfg4's script over N and on one script with
+    every grammar node (with min_score, and again over two rows)."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device, script_kernel
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+    from elasticsearch_tpu_torch.script import compile_script
+
+    rows = []
+    num_docs = seg_tree["live"].shape[0]
+    dv = seg_tree["doc_values"]
+    c = compiler.compile(parse_query({"match": {"body": " ".join(match_terms[0])}}))
+    plan = bm25_device._rows1(bm25_device.plan_to_torch(c.spec, c.arrays, dev))
+    scores, elig = bm25_device._dense_rows(seg_tree, c.spec, plan, 1)
+
+    # K3k: f1 desc over the match's eligible docs (the sorted phase's key).
+    masked = torch.where(elig[0], -kern.sort_key(dv["f1"], True, False),
+                         float("-inf")).contiguous()
+    args = (dv["f1"], elig, TOP_K, kern.KEYED_FIELD, True, False)
+    _row(rows, "keyed_topk", "elasticsearch_tpu/ops/bm25_device.py:1774", 1,
+         lambda: kern.keyed_topk_batch(*args),
+         lambda: kern.keyed_topk_batch_plain(*args),
+         lambda: torch.topk(masked, TOP_K), "torch.topk over the masked key",
+         num_docs * 5 + TOP_K * 8 + 8, source=SOURCES["masked_topk"])
+
+    # K5 at a window of 1,024: the match's top window and the cfg4 plane.
+    w = 1024
+    s, ids, _t = bm25_device._inner_for(c.spec)(seg_tree, c.spec, plan, w, 1)
+    s, ids = s.contiguous(), ids.contiguous()
+    rc = compiler.compile(parse_query(_cfg4_rescore_query()))
+    rplan = bm25_device._rows1(bm25_device.plan_to_torch(rc.spec, rc.arrays, dev))
+    rscores, relig = bm25_device._dense_rows(seg_tree, rc.spec, rplan, 1)
+    rs, rm = kern.window_gather_batch_plain(rscores, relig, ids)
+    comb = torch.where(s > float("-inf"), torch.where(rm, s + rs, s),
+                       float("-inf"))
+    fused = (s, ids, rscores, relig, 1.0, 1.0, TOP_K)
+    _row(rows, "window_rescore", "elasticsearch_tpu/ops/bm25_device.py:1197", 1,
+         lambda: kern.window_rescore_batch(*fused),
+         lambda: kern.window_rescore_batch_plain(*fused),
+         lambda: torch.topk(comb, TOP_K), "torch.topk over the combined window",
+         w * 13 + TOP_K * 8, source="elasticsearch_tpu_torch/csrc/window_rescore.cu")
+    _row(rows, "window_rescore_gather", "elasticsearch_tpu/ops/bm25_device.py:1835",
+         1, lambda: kern.window_gather_batch(rscores, relig, ids),
+         lambda: kern.window_gather_batch_plain(rscores, relig, ids),
+         None, None, w * 14,
+         source="elasticsearch_tpu_torch/csrc/window_rescore.cu")
+
+    # K6: cfg4's script over match_all (the rescore plane), then the
+    # every-node script over the match's scores with min_score.
+    cols = {f: dv[f] for f in ("f1", "f2", "f3")}
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    ones = torch.ones((1, num_docs), dtype=torch.float32, device=dev)
+    all_docs = torch.ones((1, num_docs), dtype=torch.bool, device=dev)
+    cfg4 = (compile_script(CFG4_SCRIPT), ones, all_docs, cols,
+            {k: torch.full((1,), v, device=dev) for k, v in CFG4_PARAMS.items()},
+            one)
+    _row(rows, "script_eval", "elasticsearch_tpu/ops/bm25_device.py:338", 1,
+         lambda: script_kernel.script_eval(*cfg4),
+         lambda: script_kernel.script_eval_plain(*cfg4), None, None,
+         num_docs * 17, route="triton",
+         source="elasticsearch_tpu_torch/ops/script_kernel.py",
+         case="cfg4 script")
+    gram = (compile_script(GRAMMAR_SCRIPT), scores, elig, cols,
+            {k: torch.full((1,), v, device=dev) for k, v in GRAMMAR_PARAMS.items()},
+            one, torch.full((1,), 2.0, device=dev))
+    _row(rows, "script_eval", "elasticsearch_tpu/ops/bm25_device.py:338", 1,
+         lambda: script_kernel.script_eval(*gram),
+         lambda: script_kernel.script_eval_plain(*gram), None, None,
+         num_docs * 22, route="triton",
+         source="elasticsearch_tpu_torch/ops/script_kernel.py",
+         case="every grammar node, min_score")
+    q2 = (gram[0], scores.repeat(2, 1), elig.repeat(2, 1), cols,
+          {k: torch.tensor([v, v * 0.5], device=dev) for k, v in GRAMMAR_PARAMS.items()},
+          torch.tensor([1.0, 2.0], device=dev), torch.tensor([2.0, 0.0], device=dev))
+    _same(script_kernel.script_eval(*q2), script_kernel.script_eval_plain(*q2),
+          "script_eval over two rows")
+    torch.cuda.synchronize()
     return rows
 
 

@@ -1,30 +1,48 @@
 // K3 masked_topk: top-k by (score desc, index asc) plus the eligible count,
-// for Q rows at once.
+// for Q rows at once; and its keyed mode K3k keyed_topk.
 //
 // Replaces: the masked `jax.lax.top_k` + `jnp.sum(eligible)` of
 // elasticsearch_tpu/ops/bm25_device.py `_execute_inner` (:741),
 // `_sparse_bool_inner` (:865), `_sparse_lead_inner` (:940) and
 // `_sparse_terms_inner` (:1031) — solo, and under the vmaps of
 // `execute_batch` (:1261) and `execute_batch_sparse` (:1050). A solo query
-// is the row count Q = 1.
+// is the row count Q = 1. K3k replaces the masked `lax.top_k` calls of the
+// sorted and cursor programs: `execute_score_asc` (:1276),
+// `execute_score_after` (:1313), `execute_sorted_after` (:1341) and
+// `execute_sorted` (:1774) over `sort_key_plane` (:1758).
 //
 // Bound on an H100: bytes. The function must read each key (4 B) and
 // eligible byte (1 B) once; for the k <= 10,000 of a search the output is
-// negligible. The shared-memory bitonic sorts below do O(log^2 chunk)
-// compare-exchanges per key, so this first kernel is compute-heavy next to
-// that bound; it is kept because it is simple and exactly right.
+// negligible (K3k on one doc-values column at BASELINE config 4's
+// 8,841,823 docs: 44,209,115 B, 0.0132 ms at 3.35 TB/s). The shared-memory
+// bitonic sorts below do O(log^2 chunk) compare-exchanges per key, so this
+// first kernel is compute-heavy next to that bound; it is kept because it
+// is simple and exactly right.
 //
-// Design: lax.top_k's order is score descending, lower index first on
-// ties. Each key becomes one 64-bit composite, the order-preserving bits of
-// the score (with -0.0 canonicalised to +0.0) above the inverted index
-// within its row, so a plain descending sort of composites IS that order
-// and needs no tie logic. Pass 1: each block (chunk, row) sorts one chunk
-// of a row's composites in shared memory and keeps its top min(k, chunk).
-// Further passes merge each row's survivors the same way until one block
-// a row remains; rows never meet. torch.topk documents no tie order and
-// is not used. The winning scores are gathered back from the input, so
-// the output keeps the input's exact bits. `total` is an integer
+// Design: lax.top_k's order is IEEE totalOrder descending (+NaN first,
+// +0.0 above -0.0), lower index first on ties. Each key becomes one 64-bit
+// composite, the total-order bits of the score above the inverted index
+// within its row (common.cuh), so a plain descending sort of composites IS
+// that order and needs no tie logic. Pass 1: each block (chunk, row) sorts
+// one chunk of a row's composites in shared memory and keeps its top
+// min(k, chunk). Further passes merge each row's survivors the same way
+// until one block a row remains; rows never meet. torch.topk documents no
+// tie order and is not used. The winning scores are gathered back from the
+// input, so the output keeps the input's exact bits. `total` is an integer
 // reduction over each row's eligible mask.
+//
+// K3k (keyed mode): pass 1 builds each doc's key in the kernel as the
+// reference composes it, then forms the composite of the value lax.top_k
+// sees; the merge passes are K3's. For a field sort the key is the
+// doc-values column negated for desc, NaN (missing) pinned to -/+f32max
+// for missing first/last; for a score order it is the score. A cursor
+// (after_key, after_doc) keeps `key > after_key | (key == after_key & doc
+// > after_doc)` (`<` for the descending score cursor); docs not kept are
+// set to +inf (-inf for the descending score order), and the composite is
+// of -masked (bottom-k and field sorts) or masked (descending score). The
+// count kernel returns total = sum(eligible) and n_after = sum(keep); the
+// decode returns the column's raw value (field sorts) or the masked score
+// (score orders) at each winner.
 //
 // Stacked mode (K3s; the per-shard top-k of `_shards_inner` :1137 under
 // the vmap of `execute_shards_batch` :1161): row r is the pair (query
@@ -32,17 +50,61 @@
 // shard plane is read and the row mode above serves it unchanged, over
 // Q x S rows in one launch. The flat merge over [Q, S * k'] is the row
 // mode over Q rows.
+#include <float.h>
+
 #include "common.cuh"
 
 #define TK_THREADS 1024
 #define CNT_THREADS 256
 
-__device__ __forceinline__ uint32_t f32_order(float f) {
-    uint32_t b = __float_as_uint(f);
-    if (b == 0x80000000u) {
-        b = 0u;
+#define KEYED_SCORE_DESC 0
+#define KEYED_SCORE_ASC 1
+#define KEYED_FIELD 2
+
+struct KeyedArgs {
+    const float* key;         // [Q, M] at row stride key_stride (0: one plane)
+    const uint8_t* eligible;  // [Q, M]
+    int64_t key_stride;
+    int64_t m;
+    int mode;
+    int desc;
+    int missing_first;
+    const float* after_key;    // [Q], or null: no cursor
+    const int32_t* after_doc;  // [Q]
+};
+
+// The value lax.top_k sees for doc i of row q (`*keep`: it passes the
+// eligibility and the cursor), and the masked value it came from.
+__device__ __forceinline__ float keyed_value(const KeyedArgs& a, int64_t q,
+                                             int64_t i, bool* keep,
+                                             float* masked) {
+    const float raw = a.key[q * a.key_stride + i];
+    float key = raw;
+    if (a.mode == KEYED_FIELD) {
+        const float k0 = a.desc ? -raw : raw;
+        key = isnan(k0) ? (a.missing_first ? -FLT_MAX : FLT_MAX) : k0;
     }
-    return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+    bool kp = a.eligible[q * a.m + i] != 0;
+    if (a.after_key != nullptr) {
+        const float ak = a.after_key[q];
+        const bool past = a.mode == KEYED_SCORE_DESC ? key < ak : key > ak;
+        kp = kp && (past || (key == ak && i > (int64_t)a.after_doc[q]));
+    }
+    const bool neg = a.mode != KEYED_SCORE_DESC;
+    const float mk = kp ? key : (neg ? ESK_INF : -ESK_INF);
+    *keep = kp;
+    *masked = mk;
+    return neg ? -mk : mk;
+}
+
+// Sort a block's `ch` composites and write its top min(kk, len).
+__device__ __forceinline__ void sort_and_emit(uint64_t* sm, int ch, int kk,
+                                              int len, uint64_t* dst) {
+    esk_bitonic_desc(sm, ch);
+    const int m = min(kk, len);
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+        dst[i] = sm[i];
+    }
 }
 
 // Row q's input is key_f/key_c + q * in_stride, n entries long; its
@@ -57,40 +119,39 @@ __global__ void topk_block_kernel(
     const int lo = blockIdx.x * ch;
     const int len = min(ch, n - lo);
     for (int i = threadIdx.x; i < ch; i += blockDim.x) {
-        uint64_t v = 0;  // below every real composite (even -inf's)
+        uint64_t v = 0;  // below every real composite (even -NaN's)
         if (i < len) {
             const int g = lo + i;
-            v = key_f != nullptr
-                    ? (((uint64_t)f32_order(key_f[row_in + g]) << 32) |
-                       (uint64_t)(~(uint32_t)g))
-                    : key_c[row_in + g];
+            v = key_f != nullptr ? esk_composite(key_f[row_in + g], (uint32_t)g)
+                                 : key_c[row_in + g];
         }
         sm[i] = v;
     }
-    __syncthreads();
-    for (int k = 2; k <= ch; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            for (int i = threadIdx.x; i < ch; i += blockDim.x) {
-                const int ixj = i ^ j;
-                if (ixj > i) {
-                    const uint64_t a = sm[i];
-                    const uint64_t b = sm[ixj];
-                    const bool desc = (i & k) == 0;
-                    if (desc ? (a < b) : (a > b)) {
-                        sm[i] = b;
-                        sm[ixj] = a;
-                    }
-                }
-            }
-            __syncthreads();
+    sort_and_emit(sm, ch, kk, len,
+                  out + (int64_t)blockIdx.y * out_stride +
+                      (int64_t)blockIdx.x * kk);
+}
+
+// K3k pass 1: the keyed composites of one chunk of a row.
+__global__ void keyed_block_kernel(KeyedArgs a, int kk, int ch,
+                                   int64_t out_stride,
+                                   uint64_t* __restrict__ out) {
+    extern __shared__ uint64_t sm[];
+    const int64_t q = blockIdx.y;
+    const int lo = blockIdx.x * ch;
+    const int len = (int)min((int64_t)ch, a.m - lo);
+    for (int i = threadIdx.x; i < ch; i += blockDim.x) {
+        uint64_t v = 0;
+        if (i < len) {
+            bool keep;
+            float masked;
+            const int g = lo + i;
+            v = esk_composite(keyed_value(a, q, g, &keep, &masked), (uint32_t)g);
         }
+        sm[i] = v;
     }
-    const int m = min(kk, len);
-    uint64_t* dst = out + (int64_t)blockIdx.y * out_stride +
-                    (int64_t)blockIdx.x * kk;
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-        dst[i] = sm[i];
-    }
+    sort_and_emit(sm, ch, kk, len,
+                  out + q * out_stride + (int64_t)blockIdx.x * kk);
 }
 
 __global__ void topk_decode_kernel(
@@ -103,9 +164,44 @@ __global__ void topk_decode_kernel(
     }
     const int64_t q = t / kk;
     const int r = (int)(t % kk);
-    const uint32_t idx = ~(uint32_t)(comp[q * comp_stride + r] & 0xffffffffull);
+    const uint32_t idx = esk_composite_index(comp[q * comp_stride + r]);
     top_idx[t] = (int32_t)idx;
     top_scores[t] = key_f[q * m + idx];
+}
+
+__global__ void keyed_decode_kernel(
+    KeyedArgs a, const uint64_t* __restrict__ comp, int64_t comp_stride,
+    int kk, int n_rows, float* __restrict__ values,
+    int32_t* __restrict__ top_idx) {
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= (int64_t)n_rows * kk) {
+        return;
+    }
+    const int64_t q = t / kk;
+    const int r = (int)(t % kk);
+    const uint32_t idx = esk_composite_index(comp[q * comp_stride + r]);
+    bool keep;
+    float masked;
+    keyed_value(a, q, idx, &keep, &masked);
+    top_idx[t] = (int32_t)idx;
+    values[t] = a.mode == KEYED_FIELD ? a.key[q * a.key_stride + idx] : masked;
+}
+
+__device__ __forceinline__ int block_sum(int c, int* warp_sums) {
+    for (int off = 16; off > 0; off >>= 1) {
+        c += __shfl_down_sync(0xffffffffu, c, off);
+    }
+    if ((threadIdx.x & 31) == 0) {
+        warp_sums[threadIdx.x >> 5] = c;
+    }
+    __syncthreads();
+    int s = 0;
+    if (threadIdx.x == 0) {
+        for (int w = 0; w < CNT_THREADS / 32; ++w) {
+            s += warp_sums[w];
+        }
+    }
+    return s;
 }
 
 __global__ void count_true_kernel(
@@ -117,20 +213,61 @@ __global__ void count_true_kernel(
          i += (int64_t)gridDim.x * blockDim.x) {
         c += row[i] != 0;
     }
-    for (int off = 16; off > 0; off >>= 1) {
-        c += __shfl_down_sync(0xffffffffu, c, off);
-    }
-    if ((threadIdx.x & 31) == 0) {
-        warp_sums[threadIdx.x >> 5] = c;
-    }
-    __syncthreads();
+    const int s = block_sum(c, warp_sums);
     if (threadIdx.x == 0) {
-        int s = 0;
-        for (int w = 0; w < CNT_THREADS / 32; ++w) {
-            s += warp_sums[w];
-        }
         atomicAdd(total + blockIdx.y, s);
     }
+}
+
+// K3k's counts: total = sum(eligible), n_after = sum(keep).
+__global__ void keyed_count_kernel(KeyedArgs a, int32_t* __restrict__ total,
+                                   int32_t* __restrict__ n_after) {
+    __shared__ int warp_sums[CNT_THREADS / 32];
+    const int64_t q = blockIdx.y;
+    int c = 0;
+    int kc = 0;
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.m;
+         i += (int64_t)gridDim.x * blockDim.x) {
+        bool keep;
+        float masked;
+        keyed_value(a, q, i, &keep, &masked);
+        c += a.eligible[q * a.m + i] != 0;
+        kc += keep;
+    }
+    const int s = block_sum(c, warp_sums);
+    __syncthreads();
+    const int ks = block_sum(kc, warp_sums);
+    if (threadIdx.x == 0) {
+        atomicAdd(total + q, s);
+        atomicAdd(n_after + q, ks);
+    }
+}
+
+static int count_grid(int64_t m, int n_rows) {
+    return esk_imin(esk_blocks(m, CNT_THREADS),
+                    esk_imin(132 * 8, 1 + 132 * 64 / n_rows));
+}
+
+// The merge passes: from a first pass's survivors in `out` (row stride
+// out_stride, n entries a row), merge each row down to one block. Returns
+// the buffer holding the final kk composites a row.
+static int merge_passes(int n_rows, int m, int kk, int ch, size_t smem,
+                        uint64_t** out, uint64_t** spare, cudaStream_t s) {
+    const int64_t out_stride = (int64_t)esk_blocks(m, ch) * kk;
+    int nb = esk_blocks(m, ch);
+    int n = (nb - 1) * kk + esk_imin(kk, m - (nb - 1) * ch);
+    while (nb > 1) {
+        nb = esk_blocks(n, ch);
+        topk_block_kernel<<<dim3(nb, n_rows), TK_THREADS, smem, s>>>(
+            nullptr, *out, n, out_stride, kk, ch, out_stride, *spare);
+        ESK_RETURN_IF_ERROR();
+        const int last = n - (nb - 1) * ch;
+        n = (nb - 1) * kk + esk_imin(kk, last);
+        uint64_t* t = *out;
+        *out = *spare;
+        *spare = t;
+    }
+    return 0;
 }
 
 // key f32[n_rows, m] (ineligible entries already -inf), eligible
@@ -157,10 +294,9 @@ extern "C" int esk_masked_topk(
     cudaMemsetAsync(total, 0, sizeof(int32_t) * (size_t)n_rows, s);
     ESK_RETURN_IF_ERROR();
     if (m > 0) {
-        const int grid = esk_imin(esk_blocks(m, CNT_THREADS),
-                                  esk_imin(132 * 8, 1 + 132 * 64 / n_rows));
-        count_true_kernel<<<dim3(grid, n_rows), CNT_THREADS, 0, s>>>(
-            (const uint8_t*)eligible, (int64_t)m, (int32_t*)total);
+        count_true_kernel<<<dim3(count_grid(m, n_rows), n_rows), CNT_THREADS,
+                            0, s>>>((const uint8_t*)eligible, (int64_t)m,
+                                    (int32_t*)total);
         ESK_RETURN_IF_ERROR();
     }
     const int kk = esk_imin(k, m);
@@ -168,41 +304,95 @@ extern "C" int esk_masked_topk(
         return 0;
     }
     const size_t smem = (size_t)ch * sizeof(uint64_t);
-    if (smem > 48 * 1024) {
-        cudaFuncSetAttribute(topk_block_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-        ESK_RETURN_IF_ERROR();
-    }
-    const float* in_f = (const float*)key;
-    const uint64_t* in_c = nullptr;
-    int64_t in_stride = m;
+    ESK_SMEM_OPT_IN(topk_block_kernel, smem);
     uint64_t* out = (uint64_t*)buf_a;
     uint64_t* spare = (uint64_t*)buf_b;
     // Every pass writes a row's survivors at the first pass's row stride.
     const int64_t out_stride = (int64_t)esk_blocks(m, ch) * kk;
-    int n = m;
-    while (true) {
-        const int nb = esk_blocks(n, ch);
-        topk_block_kernel<<<dim3(nb, n_rows), TK_THREADS, smem, s>>>(
-            in_f, in_c, n, in_stride, kk, ch, out_stride, out);
-        ESK_RETURN_IF_ERROR();
-        const int last = n - (nb - 1) * ch;
-        n = (nb - 1) * kk + esk_imin(kk, last);
-        if (nb == 1) {
-            break;
-        }
-        in_f = nullptr;
-        in_c = out;
-        in_stride = out_stride;
-        uint64_t* t = out;
-        out = spare;
-        spare = t;
+    topk_block_kernel<<<dim3(esk_blocks(m, ch), n_rows), TK_THREADS, smem,
+                        s>>>((const float*)key, nullptr, m, m, kk, ch,
+                             out_stride, out);
+    ESK_RETURN_IF_ERROR();
+    const int rc = merge_passes(n_rows, m, kk, ch, smem, &out, &spare, s);
+    if (rc != 0) {
+        return rc;
     }
     const int64_t n_out = (int64_t)n_rows * kk;
     topk_decode_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(
         out, out_stride, kk, n_rows, (const float*)key, (int64_t)m,
         (float*)top_scores, (int32_t*)top_idx);
+    ESK_RETURN_IF_ERROR();
+    return 0;
+}
+
+// K3k. key f32[n_rows, m] at row stride key_stride (0: one plane shared
+// by every row), eligible u8[n_rows, m]; mode KEYED_*; after_key f32[n_rows]
+// and after_doc i32[n_rows], or null for no cursor. Scratch and chunk as
+// esk_masked_topk. Outputs values/top_idx [n_rows, min(k, m)], total and
+// n_after i32[n_rows].
+extern "C" int esk_keyed_topk(
+    const void* key,
+    long long key_stride,
+    const void* eligible,
+    int n_rows,
+    int m,
+    int k,
+    int ch,
+    int mode,
+    int desc,
+    int missing_first,
+    const void* after_key,
+    const void* after_doc,
+    void* buf_a,
+    void* buf_b,
+    void* values,
+    void* top_idx,
+    void* total,
+    void* n_after,
+    void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n_rows <= 0) {
+        return 0;
+    }
+    KeyedArgs a;
+    a.key = (const float*)key;
+    a.eligible = (const uint8_t*)eligible;
+    a.key_stride = key_stride;
+    a.m = m;
+    a.mode = mode;
+    a.desc = desc;
+    a.missing_first = missing_first;
+    a.after_key = (const float*)after_key;
+    a.after_doc = (const int32_t*)after_doc;
+    cudaMemsetAsync(total, 0, sizeof(int32_t) * (size_t)n_rows, s);
+    ESK_RETURN_IF_ERROR();
+    cudaMemsetAsync(n_after, 0, sizeof(int32_t) * (size_t)n_rows, s);
+    ESK_RETURN_IF_ERROR();
+    if (m > 0) {
+        keyed_count_kernel<<<dim3(count_grid(m, n_rows), n_rows), CNT_THREADS,
+                             0, s>>>(a, (int32_t*)total, (int32_t*)n_after);
+        ESK_RETURN_IF_ERROR();
+    }
+    const int kk = esk_imin(k, m);
+    if (kk <= 0) {
+        return 0;
+    }
+    const size_t smem = (size_t)ch * sizeof(uint64_t);
+    ESK_SMEM_OPT_IN(topk_block_kernel, smem);
+    ESK_SMEM_OPT_IN(keyed_block_kernel, smem);
+    uint64_t* out = (uint64_t*)buf_a;
+    uint64_t* spare = (uint64_t*)buf_b;
+    const int64_t out_stride = (int64_t)esk_blocks(m, ch) * kk;
+    keyed_block_kernel<<<dim3(esk_blocks(m, ch), n_rows), TK_THREADS, smem,
+                         s>>>(a, kk, ch, out_stride, out);
+    ESK_RETURN_IF_ERROR();
+    const int rc = merge_passes(n_rows, m, kk, ch, smem, &out, &spare, s);
+    if (rc != 0) {
+        return rc;
+    }
+    const int64_t n_out = (int64_t)n_rows * kk;
+    keyed_decode_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(
+        a, out, out_stride, kk, n_rows, (float*)values, (int32_t*)top_idx);
     ESK_RETURN_IF_ERROR();
     return 0;
 }

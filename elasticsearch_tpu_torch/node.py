@@ -11,7 +11,8 @@ same-shape searches of an index into one batched launch per (shard, spec
 group); a `from + size` past the index's `max_result_window` is refused
 before it. Every shard's SearchService shares the node's exec planner
 (exec/planner.py), which routes a solo search that does not track total
-hits to the block-max paths when its cost model says they win.
+hits to the block-max paths when its cost model says they win. Requests
+with a sort, a rescore or a search_after cursor take the solo path.
 `Node(exec_batcher=False)` / `Node(exec_planner=False)` turn either off:
 the port's form of the reference's ESTPU_EXEC_BATCHER=0 /
 ESTPU_EXEC_PLANNER=0; without the batcher every search takes the solo
@@ -423,8 +424,15 @@ class Node:
 
     def _batchable(self, request: SearchRequest) -> bool:
         """May this search ride the exec micro-batcher? Plain score-sorted
-        query phases that ask for at least one hit (every search the port
-        serves is score-sorted), while the node has a batcher."""
+        query phases that ask for at least one hit, while the node has a
+        batcher: a sort, a rescore or a search_after cursor takes the
+        solo path."""
         if self.exec_batcher is None:
+            return False
+        if (
+            request.sort is not None
+            or request.rescore
+            or request.search_after is not None
+        ):
             return False
         return max(0, request.from_) + max(0, request.size) > 0

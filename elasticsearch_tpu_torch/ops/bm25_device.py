@@ -9,22 +9,29 @@ stacked single-device shards `execute_shards` / `execute_shards_batch`
 (with `stack_segment_trees`, the port's `jax.tree.map(np.stack, ...)`);
 and the two-launch block-max execution `execute_batch_blockmax`,
 `execute_batch_blockmax_conj` and `execute_shards_blockmax_conj` (with
-`supports_blockmax_conj`), over the plan node kinds terms, terms_gather,
-terms_const, const, exists, range, match_all, match_none and bool. Left
-out: dense-plane (`execute_dense`, filter masks, `scores_at`), rescore,
-sorted, cursor, strictly sequential and packed execution, and the
-positional, nested, script, function_score, geo and dis_max nodes (see
-ROADMAP queue B).
+`supports_blockmax_conj`); the dense planes `execute_dense` and
+`scores_at`; the sorted and cursor programs `sort_key_plane`,
+`execute_sorted`, `execute_sorted_after`, `execute_score_asc` and
+`execute_score_after`; and the fused rescore `execute_rescore` — over
+the plan node kinds terms, terms_gather, terms_const, const, exists,
+range, match_all, match_none, bool and script. Left out: the filter-mask
+planes (`compute_filter_mask*`, with the filter cache), strictly
+sequential and packed execution, and the positional, nested,
+function_score, terms_set, geo, rank_feature, dis_max, boosting and
+doc_set nodes (see ROADMAP queue B).
 
 Every executor here is batched: plan arrays carry a leading query axis
 [Q, ...] and one call runs all Q rows, one kernel launch per primitive,
 not one per query. A solo query is the batch of one (Q = 1).
 
-The four primitives that carry the path are hand-written CUDA kernels
+The primitives that carry the path are hand-written kernels
 (ops/kernels.py), each with a row axis: K1 terms_scatter (worklist gather
 + BM25 impact + ordered scatter), K2 sparse_fold (stable radix sort + run
-fold), K3 masked_topk (top-k by score desc, index asc, plus totals) and
-K4 span_locate (binary-search membership). Everything around them is
+fold), K3 masked_topk (top-k by score desc, index asc, plus totals), K4
+span_locate (binary-search membership), K3k keyed_topk (K3's keyed mode:
+bottom-k, field sorts and cursors), K5 window_rescore (the rescore
+window's gather, combine and top-k) and K6 script_eval (the Triton kernel
+generated from a script, ops/script_kernel.py). Everything around them is
 torch elementwise ops in the reference's exact fp32 operation order, so
 the results — top-k ids, order, fp32 score bits and totals — equal the
 JAX package's, row for row.
@@ -47,7 +54,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import kernels
+from ..script import compile_script
+from . import kernels, script_kernel
 
 NEG_INF = float("-inf")
 
@@ -256,6 +264,8 @@ def _eval_node(spec, arrays, seg: dict[str, Any], num_docs: int, q: int):
         )
     if kind == "bool":
         return _eval_bool(spec, arrays, seg, num_docs, q)
+    if kind == "script":
+        return _eval_script(spec, arrays, seg, num_docs, q)
     raise ValueError(f"unknown plan node kind [{kind}]")
 
 
@@ -349,6 +359,26 @@ def _eval_bool(spec, arrays, seg, num_docs, q):
     return score, matched
 
 
+def _eval_script(spec, arrays, seg, num_docs, q):
+    """script_score (row 16a): the child's dense scores through the
+    script, boost and min_score — K6 on the card, its plain torch
+    evaluation for CPU tensors (ops/script_kernel)."""
+    _, child_spec, source, _param_names, has_min_score = spec
+    child_scores, matched = _eval_node(
+        child_spec, arrays["child"], seg, num_docs, q
+    )
+    return script_kernel.script_eval(
+        compile_script(source),
+        child_scores.expand(q, num_docs).contiguous(),
+        matched.expand(q, num_docs).contiguous(),
+        seg["doc_values"],
+        {name: p.reshape(q, -1) for name, p in arrays["params"].items()},
+        arrays["boost"].reshape(q),
+        arrays["min_score"].reshape(q) if has_min_score else None,
+        n_shards=_n_shards(seg),
+    )
+
+
 def _execute_inner(seg, spec, arrays, k: int, q: int):
     live = seg["live"]
     num_docs = live.shape[-1]
@@ -406,6 +436,138 @@ def execute(seg, spec, arrays, k: int):
     one. Returns (top_scores f32[min(k, N)], top_ids i32[min(k, N)],
     total i32[])."""
     return _unbatch(execute_batch(seg, spec, _rows1(arrays), k, q=1))
+
+
+# ---------------------------------------------------------------------------
+# Dense planes (row 8a), sorts and cursors (row 11): one dense evaluation,
+# then K5's gather or one K3k launch. Public signatures are the
+# reference's solo ones; inside, a plan is the batch of one.
+# ---------------------------------------------------------------------------
+
+
+def _dense_rows(seg, spec, arrays, q: int):
+    """(scores f32[Q, N], eligible bool[Q, N] = matched & live), both
+    materialized, of Q rows."""
+    live = seg["live"]
+    num_docs = live.shape[-1]
+    scores, matched = _eval_node(spec, arrays, seg, num_docs, q)
+    eligible = (matched & _per_row(seg, live, q)).expand(q, num_docs)
+    return scores.expand(q, num_docs).contiguous(), eligible.contiguous()
+
+
+def execute_dense(seg, spec, arrays):
+    """Dense (scores, matched) over all docs — for rescoring and sorts:
+    (f32[N] scores, 0 where not eligible; bool[N] matched & live)."""
+    scores, eligible = _dense_rows(seg, spec, _rows1(arrays), 1)
+    return torch.where(eligible, scores, 0.0)[0], eligible[0]
+
+
+def scores_at(seg, spec, arrays, ids):
+    """Evaluate a query and gather (scores, matched) at specific doc ids
+    (i32[W]): the rescore phase's primitive; the dense evaluation stays
+    on the device and K5's gather mode reads the window out."""
+    scores, eligible = _dense_rows(seg, spec, _rows1(arrays), 1)
+    rs, rm = kernels.window_gather_batch(scores, eligible, ids[None])
+    return rs[0], rm[0]
+
+
+def sort_key_plane(seg, field_name: str, desc: bool, missing_first: bool):
+    """(column, transformed ascending sort key) of a doc-values column:
+    negated for desc, missing (NaN) pinned to -/+f32max per the missing
+    directive. K3k builds the same key inside its kernel; this is its
+    definition and the plain version's."""
+    col = seg["doc_values"][field_name]
+    return col, kernels.sort_key(col, desc, missing_first)
+
+
+def _cursor(after_key, after_doc, device):
+    return (
+        torch.tensor([np.float32(after_key)], dtype=torch.float32).to(device),
+        torch.tensor([int(after_doc)], dtype=torch.int32).to(device),
+    )
+
+
+def execute_sorted(seg, spec, arrays, field_name: str, desc: bool, k: int,
+                   missing_first: bool = False):
+    """Query + field sort: top-k by a doc-values column, missing first or
+    last (default last), ties by ascending doc id. Returns (values f32[k']
+    raw field values (NaN = missing), ids i32[k'], total i32[]), k' =
+    min(k, N)."""
+    _scores, eligible = _dense_rows(seg, spec, _rows1(arrays), 1)
+    values, ids, total, _n = kernels.keyed_topk_batch(
+        seg["doc_values"][field_name], eligible, k, kernels.KEYED_FIELD,
+        desc=desc, missing_first=missing_first,
+    )
+    return values[0], ids[0], total[0]
+
+
+def execute_sorted_after(seg, spec, arrays, field_name: str, desc: bool,
+                         k: int, after_key, after_doc,
+                         missing_first: bool = False):
+    """Field-sorted top-k strictly after the (key, doc) cursor; `after_key`
+    lives in the transformed ascending key space (negated for desc,
+    missing = -/+f32max). Returns (values, ids, total, n_after)."""
+    _scores, eligible = _dense_rows(seg, spec, _rows1(arrays), 1)
+    out = kernels.keyed_topk_batch(
+        seg["doc_values"][field_name], eligible, k, kernels.KEYED_FIELD,
+        desc, missing_first, *_cursor(after_key, after_doc, eligible.device),
+    )
+    return tuple(t[0] for t in out)
+
+
+def execute_score_asc(seg, spec, arrays, k: int):
+    """Bottom-k by score (explicit {"_score": "asc"} sorts): ineligible
+    docs mask to +inf, ties by ascending doc id. Returns (scores f32[k'],
+    ids i32[k'], total i32[])."""
+    scores, eligible = _dense_rows(seg, spec, _rows1(arrays), 1)
+    values, ids, total, _n = kernels.keyed_topk_batch(
+        scores, eligible, k, kernels.KEYED_SCORE_ASC,
+    )
+    return values[0], ids[0], total[0]
+
+
+def execute_score_after(seg, spec, arrays, k: int, after_score, after_doc,
+                        ascending: bool = False):
+    """Score-ordered top-k strictly after the (score, doc) cursor. Returns
+    (scores f32[k'], ids i32[k'], total i32[], n_after i32[]); totals
+    stay the full match count."""
+    scores, eligible = _dense_rows(seg, spec, _rows1(arrays), 1)
+    out = kernels.keyed_topk_batch(
+        scores, eligible, k,
+        kernels.KEYED_SCORE_ASC if ascending else kernels.KEYED_SCORE_DESC,
+        False, False, *_cursor(after_score, after_doc, eligible.device),
+    )
+    return tuple(t[0] for t in out)
+
+
+# ---------------------------------------------------------------------------
+# Fused rescore (row 10): the query's top window (K1-K4), the rescore
+# plane (the dense evaluation, K6 for a script) and K5's fused gather,
+# combine and top-k, with no host round trip between the phases.
+# ---------------------------------------------------------------------------
+
+
+def _rescore_inner(seg, spec, arrays, rspec, rarrays, k: int, window: int,
+                   query_weight, rescore_weight, q: int):
+    s, ids, total = _inner_for(spec)(seg, spec, arrays, window, q)
+    rscores, relig = _dense_rows(seg, rspec, rarrays, q)
+    top_s, top_ids = kernels.window_rescore_batch(
+        s.contiguous(), ids.contiguous(), rscores, relig,
+        query_weight, rescore_weight, k,
+    )
+    return top_s, top_ids, total
+
+
+def execute_rescore(seg, spec, arrays, rspec, rarrays, k: int, window: int,
+                    query_weight, rescore_weight):
+    """score_mode=total rescore: qw*orig + rw*rescore for window docs the
+    rescore query matches, qw*orig otherwise; ties keep original rank.
+    Returns (scores f32[min(k, W)], ids i32[min(k, W)], total i32[]),
+    W = min(window, N)."""
+    return _unbatch(_rescore_inner(
+        seg, spec, _rows1(arrays), rspec, _rows1(rarrays), k, window,
+        query_weight, rescore_weight, 1,
+    ))
 
 
 # ---------------------------------------------------------------------------

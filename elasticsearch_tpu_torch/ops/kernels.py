@@ -11,6 +11,15 @@ plain PyTorch versions.
                       asc) + eligible count (the masked lax.top_k)
     K4 span_locate    csrc/span_locate.cu    binary search in a sorted
                       posting span (_span_locate / _span_member)
+    K3k keyed_topk    csrc/masked_topk.cu    K3's keyed mode: bottom-k,
+                      field sorts and cursors (execute_score_asc /
+                      execute_score_after / execute_sorted(_after))
+    K5 window_rescore csrc/window_rescore.cu the rescore window's gather,
+                      combine and top-k (_rescore_inner; scores_at's
+                      gather in its gather mode)
+
+K6 script_eval, the Triton kernel generated from a script, lives in
+ops/script_kernel.py and counts its launches here.
 
 Every kernel takes a leading row axis Q: the `*_batch` wrappers run Q
 queries of one plan in one launch (the JAX package's vmapped
@@ -36,7 +45,9 @@ for CUDA tensors it launches the kernel (on the current stream, without
 synchronising) or raises — there is no fallback. `LAUNCHES` counts kernel
 launches: under the kernel's name for one row, under `<name>_batch` for
 more, under `<name>_stacked` in the stacked mode (plain runs do not
-count). Launches from several threads (the REST
+count); K3k, K5 and K6 count every launch under one name each
+(`keyed_topk`, `window_rescore` / `window_rescore_gather`,
+`script_eval`), whatever its row count. Launches from several threads (the REST
 handlers and the micro-batcher) share the one library and the caller's
 current stream; the library loads once under `_lib_lock` and the counts
 move under `_count_lock`.
@@ -79,9 +90,18 @@ KERNELS = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate")
 
 MODES = ("", "_batch", "_stacked")
 
+# Kernels counted under one name whatever their row count.
+ONE_NAME_KERNELS = (
+    "keyed_topk", "window_rescore", "window_rescore_gather", "script_eval",
+)
+
 LAUNCHES: dict[str, int] = {
-    name + suffix: 0 for name in KERNELS for suffix in MODES
+    **{name + suffix: 0 for name in KERNELS for suffix in MODES},
+    **{name: 0 for name in ONE_NAME_KERNELS},
 }
+
+# Largest rescore window K5 sorts in one block's shared memory (128 KB).
+WINDOW_MAX = 16384
 
 # Pairs one K2 launch sorts at most (16 B of scratch each): larger batches
 # run as several launches over consecutive rows, with identical results.
@@ -98,6 +118,12 @@ def reset_launches() -> None:
     with _count_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of a kernel counted under one name (ONE_NAME_KERNELS)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _count(name: str, n_rows: int, n_shards: int = 0) -> None:
@@ -198,11 +224,18 @@ def _bind(lib) -> None:
     lib.esk_sparse_fold.argtypes = [P] * 6 + [I] * 5 + [P] * 9 + [I, I, L, P]
     lib.esk_masked_topk.argtypes = [P, P, I, I, I, I] + [P] * 6
     lib.esk_span_locate.argtypes = [P, L, P, P, I, I, P, I, I, I, P, P, I, P]
+    lib.esk_keyed_topk.argtypes = [P, L, P] + [I] * 7 + [P] * 9
+    lib.esk_window_gather.argtypes = [P, P, L, P, I, I, P, P, P]
+    F = ctypes.c_float
+    lib.esk_window_rescore.argtypes = [P, P, I, I, P, P, L, F, F, I, I, P, P, P]
     for fn in (
         lib.esk_terms_scatter,
         lib.esk_sparse_fold,
         lib.esk_masked_topk,
         lib.esk_span_locate,
+        lib.esk_keyed_topk,
+        lib.esk_window_gather,
+        lib.esk_window_rescore,
     ):
         fn.restype = ctypes.c_int
 
@@ -259,10 +292,10 @@ def _launchable(device: torch.device) -> bool:
 
 
 def _f32_order(key: torch.Tensor) -> torch.Tensor:
-    """Order-preserving unsigned bits of fp32 keys (as int64), with -0.0
-    canonicalised to +0.0 — the composite K3 sorts by."""
+    """Order-preserving unsigned bits of fp32 keys (as int64) under IEEE
+    totalOrder, lax.top_k's order (-NaN < -inf < -0.0 < +0.0 < +inf <
+    +NaN) — the composite K3, K3k and K5 sort by."""
     bits = key.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    bits = torch.where(bits == 0x80000000, torch.zeros_like(bits), bits)
     neg = (bits & 0x80000000) != 0
     return torch.where(neg, (~bits) & 0xFFFFFFFF, bits | 0x80000000)
 
@@ -867,6 +900,273 @@ def masked_topk(key, eligible, k: int):
     i32[min(k, M)], total i32[])."""
     out = masked_topk_batch(key[None], eligible[None], k)
     return tuple(t[0] for t in out)
+
+
+# ---------------------------------------------------------------------------
+# K3k keyed_topk (K3's keyed mode)
+# ---------------------------------------------------------------------------
+
+KEYED_SCORE_DESC, KEYED_SCORE_ASC, KEYED_FIELD = 0, 1, 2
+
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+def sort_key(col: torch.Tensor, desc: bool, missing_first: bool) -> torch.Tensor:
+    """The transformed ascending sort key of a doc-values column: negated
+    for desc, NaN (missing) pinned to -/+f32max for missing first/last
+    (bm25_device.sort_key_plane)."""
+    key = -col if desc else col
+    miss = -F32_MAX if missing_first else F32_MAX
+    return torch.where(torch.isnan(key), torch.full_like(key, miss), key)
+
+
+def keyed_topk_plain(key, eligible, k: int, mode: int, desc=False,
+                     missing_first=False, after_key=None, after_doc=None):
+    """One row of K3k as the reference composes it: key f32[M] (scores,
+    or a doc-values column for KEYED_FIELD), eligible bool[M], the cursor
+    (after_key, after_doc) as Python numbers or None. Returns (values
+    f32[min(k, M)], ids i32[min(k, M)], total i32[], n_after i32[])."""
+    m = key.shape[0]
+    dev = key.device
+    if mode == KEYED_FIELD:
+        sk = sort_key(key, desc, missing_first)
+    else:
+        sk = key
+    keep = eligible
+    if after_key is not None:
+        ak = torch.tensor(after_key, dtype=torch.float32, device=dev)
+        iota = torch.arange(m, dtype=torch.int32, device=dev)
+        past = sk < ak if mode == KEYED_SCORE_DESC else sk > ak
+        keep = eligible & (past | ((sk == ak) & (iota > int(after_doc))))
+    neg = mode != KEYED_SCORE_DESC
+    inf = float("inf") if neg else float("-inf")
+    masked = torch.where(keep, sk, torch.full_like(sk, inf))
+    seen = -masked if neg else masked
+    kp = min(k, m)
+    order = stable_order(0xFFFFFFFF - _f32_order(seen), 32)[:kp]
+    values = key[order] if mode == KEYED_FIELD else masked[order]
+    return (values, order.to(torch.int32), eligible.sum(dtype=torch.int32),
+            keep.sum(dtype=torch.int32))
+
+
+def keyed_topk_batch_plain(key, eligible, k: int, mode: int, desc=False,
+                           missing_first=False, after_key=None,
+                           after_doc=None):
+    """The batched K3k as the solo plain version row by row."""
+    outs = []
+    for q in range(eligible.shape[0]):
+        cursor = (None, None) if after_key is None else (
+            float(after_key[q]), int(after_doc[q]))
+        outs.append(keyed_topk_plain(
+            key if key.dim() == 1 else key[q], eligible[q], k, mode, desc,
+            missing_first, *cursor,
+        ))
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def keyed_topk_batch(key, eligible, k: int, mode: int, desc=False,
+                     missing_first=False, after_key=None, after_doc=None):
+    """K3k over Q rows: the masked `lax.top_k` of the sorted and cursor
+    programs, its key built in the kernel.
+
+    key f32[M] (one plane for every row: a doc-values column) or
+    f32[Q, M]; eligible bool[Q, M]; mode KEYED_SCORE_DESC (the descending
+    score cursor), KEYED_SCORE_ASC (bottom-k, with or without a cursor)
+    or KEYED_FIELD (a field sort, `desc` / `missing_first`); the cursor
+    after_key f32[Q] (in the transformed key space) and after_doc i32[Q],
+    or None. Returns (values f32[Q, min(k, M)] — the column's raw values
+    for a field sort, the masked scores for a score order —, ids
+    i32[Q, min(k, M)], total i32[Q], n_after i32[Q])."""
+    dev = eligible.device
+    _check(eligible, "eligible", torch.bool, 2, dev)
+    q, m = eligible.shape
+    _check(key, "key", torch.float32, key.dim(), dev)
+    if key.shape[-1] != m or key.dim() not in (1, 2) or (
+            key.dim() == 2 and key.shape[0] != q):
+        raise ValueError(f"key must be [{m}] or [{q}, {m}]")
+    if mode not in (KEYED_SCORE_DESC, KEYED_SCORE_ASC, KEYED_FIELD):
+        raise ValueError(f"unknown keyed mode {mode}")
+    if (after_key is None) != (after_doc is None):
+        raise ValueError("a cursor needs both after_key and after_doc")
+    if after_key is not None:
+        _check(after_key, "after_key", torch.float32, 1, dev)
+        _check(after_doc, "after_doc", torch.int32, 1, dev)
+        if after_key.shape[0] != q or after_doc.shape[0] != q:
+            raise ValueError(f"cursor planes must be [{q}]")
+    if k < 0:
+        raise ValueError("k must be >= 0")
+    if m >= 2**31:
+        raise ValueError("key rows too long for int32 indices")
+    if not 1 <= q <= 65535:
+        raise ValueError(f"row count {q} out of range [1, 65535]")
+    if not _launchable(dev):
+        return keyed_topk_batch_plain(key, eligible, k, mode, desc,
+                                      missing_first, after_key, after_doc)
+    kp = min(k, m)
+    ch = topk_chunk(kp)
+    if kp >= ch and m > ch:
+        raise ValueError(
+            f"k={k} exceeds the top-k kernel's window ({TOPK_MAX_CHUNK - 1})"
+        )
+    lib = ensure_built()
+    nb = max(1, -(-m // ch))
+    buf_a = torch.empty(max(1, q * nb * kp), dtype=torch.int64, device=dev)
+    buf_b = torch.empty(max(1, q * nb * kp), dtype=torch.int64, device=dev)
+    values = torch.empty((q, kp), dtype=torch.float32, device=dev)
+    ids = torch.empty((q, kp), dtype=torch.int32, device=dev)
+    total = torch.empty((q,), dtype=torch.int32, device=dev)
+    n_after = torch.empty((q,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.esk_keyed_topk(
+            _ptr(key), int(m if key.dim() == 2 else 0), _ptr(eligible),
+            int(q), int(m), int(kp), int(ch), int(mode), int(bool(desc)),
+            int(bool(missing_first)), _ptr(after_key), _ptr(after_doc),
+            _ptr(buf_a), _ptr(buf_b), _ptr(values), _ptr(ids), _ptr(total),
+            _ptr(n_after), _stream(dev),
+        )
+    _check_rc("keyed_topk", rc)
+    count_launch("keyed_topk")
+    return values, ids, total, n_after
+
+
+def keyed_topk(key, eligible, k: int, mode: int, desc=False,
+               missing_first=False, after_key=None, after_doc=None):
+    """K3k for one row: keyed_topk_batch over one row. key f32[M],
+    eligible bool[M], the cursor as Python numbers (after_key in the
+    transformed key space) or None -> (values f32[min(k, M)], ids
+    i32[min(k, M)], total i32[], n_after i32[])."""
+    dev = eligible.device
+    cursor = (None, None)
+    if after_key is not None:
+        cursor = (
+            torch.tensor([after_key], dtype=torch.float32).to(dev),
+            torch.tensor([after_doc], dtype=torch.int32).to(dev),
+        )
+    out = keyed_topk_batch(key, eligible[None], k, mode, desc, missing_first,
+                           *cursor)
+    return tuple(t[0] for t in out)
+
+
+# ---------------------------------------------------------------------------
+# K5 window_rescore
+# ---------------------------------------------------------------------------
+
+
+def window_chunk(w: int) -> int:
+    """K5's shared window: the power of two >= w."""
+    return 1 << max(0, w - 1).bit_length()
+
+
+def window_gather_plain(scores, eligible, ids):
+    """One row of K5's gather mode: (where(eligible, scores, 0)[ids],
+    eligible[ids]), ids clamped to the plane as JAX's gather clamps."""
+    d = torch.clamp(ids.to(torch.int64), 0, scores.shape[0] - 1)
+    return torch.where(eligible, scores, 0.0)[d], eligible[d]
+
+
+def window_gather_batch_plain(scores, eligible, ids):
+    outs = [window_gather_plain(scores[q], eligible[q], ids[q])
+            for q in range(ids.shape[0])]
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def _check_plane(scores, eligible, q: int):
+    dev = scores.device
+    _check(scores, "scores", torch.float32, 2, dev)
+    _check(eligible, "eligible", torch.bool, 2, dev)
+    if scores.shape[0] != q or eligible.shape != scores.shape:
+        raise ValueError(f"the plane must be [{q}, N] with its eligibility")
+    if scores.shape[1] < 1:
+        raise ValueError("the plane is empty")
+
+
+def window_gather_batch(scores, eligible, ids):
+    """K5 gather mode over Q rows: scores f32[Q, N] and eligible bool[Q, N]
+    (a dense evaluation), ids i32[Q, W] -> (f32[Q, W] the scores where
+    eligible else 0, bool[Q, W] the eligibility) at the ids."""
+    dev = ids.device
+    _check(ids, "ids", torch.int32, 2, dev)
+    q, w = ids.shape
+    _check_plane(scores, eligible, q)
+    if not 1 <= q <= 65535:
+        raise ValueError(f"row count {q} out of range [1, 65535]")
+    if not _launchable(dev):
+        return window_gather_batch_plain(scores, eligible, ids)
+    lib = ensure_built()
+    out_s = torch.empty((q, w), dtype=torch.float32, device=dev)
+    out_m = torch.empty((q, w), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.esk_window_gather(
+            _ptr(scores), _ptr(eligible), int(scores.shape[1]), _ptr(ids),
+            int(q), int(w), _ptr(out_s), _ptr(out_m), _stream(dev),
+        )
+    _check_rc("window_gather", rc)
+    count_launch("window_rescore_gather")
+    return out_s, out_m
+
+
+def window_rescore_plain(s, ids, rscores, relig, qw: float, rw: float,
+                         k: int):
+    """One row of K5's fused mode, as `_rescore_inner` computes it after
+    the window: (top combined scores f32[min(k, W)], their doc ids
+    i32[min(k, W)])."""
+    rs, rm = window_gather_plain(rscores, relig, ids)
+    qw_t = torch.tensor(qw, dtype=torch.float32, device=s.device)
+    rw_t = torch.tensor(rw, dtype=torch.float32, device=s.device)
+    a = torch.mul(qw_t, s)
+    comb = torch.where(rm, torch.add(a, torch.mul(rw_t, rs)), a)
+    comb = torch.where(s > float("-inf"), comb, float("-inf"))
+    kk = min(k, comb.shape[0])
+    pos = stable_order(0xFFFFFFFF - _f32_order(comb), 32)[:kk]
+    return comb[pos], ids[pos]
+
+
+def window_rescore_batch_plain(s, ids, rscores, relig, qw, rw, k: int):
+    outs = [window_rescore_plain(s[q], ids[q], rscores[q], relig[q], qw, rw, k)
+            for q in range(ids.shape[0])]
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def window_rescore_batch(s, ids, rscores, relig, qw: float, rw: float,
+                         k: int):
+    """K5 fused mode over Q rows: the first phase's window (scores
+    f32[Q, W], -inf in padding slots, and doc ids i32[Q, W]) re-scored
+    with the rescore plane (rscores f32[Q, N], relig bool[Q, N] = its
+    matched & live): comb = qw*s + rw*rscore where the window doc is
+    relig, else qw*s, -inf where s is; returns its top min(k, W) in
+    lax.top_k order — (scores f32[Q, kk], ids i32[Q, kk])."""
+    dev = s.device
+    _check(s, "s", torch.float32, 2, dev)
+    _check(ids, "ids", torch.int32, 2, dev)
+    q, w = s.shape
+    if ids.shape != s.shape:
+        raise ValueError("ids differ in shape from the window scores")
+    _check_plane(rscores, relig, q)
+    if k < 0:
+        raise ValueError("k must be >= 0")
+    if not 1 <= q <= 65535:
+        raise ValueError(f"row count {q} out of range [1, 65535]")
+    if w > WINDOW_MAX:
+        raise ValueError(
+            f"rescore window {w} exceeds the kernel's window ({WINDOW_MAX})"
+        )
+    qw = float(np.float32(qw))
+    rw = float(np.float32(rw))
+    if not _launchable(dev):
+        return window_rescore_batch_plain(s, ids, rscores, relig, qw, rw, k)
+    kk = min(k, w)
+    lib = ensure_built()
+    top_s = torch.empty((q, kk), dtype=torch.float32, device=dev)
+    top_ids = torch.empty((q, kk), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.esk_window_rescore(
+            _ptr(s), _ptr(ids), int(q), int(w), _ptr(rscores), _ptr(relig),
+            int(rscores.shape[1]), qw, rw, int(kk), window_chunk(w),
+            _ptr(top_s), _ptr(top_ids), _stream(dev),
+        )
+    _check_rc("window_rescore", rc)
+    count_launch("window_rescore")
+    return top_s, top_ids
 
 
 # ---------------------------------------------------------------------------

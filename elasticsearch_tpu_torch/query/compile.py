@@ -3,10 +3,10 @@
 Port copy of elasticsearch_tpu/query/compile.py, trimmed to this slice:
 `FieldStats`, `aggregate_field_stats`, `_terms_arrays`, `make_bool_spec`,
 `select_lead_clause` and `Compiler` for match, term, terms, range, exists,
-match_all, match_none, constant_score and bool; and the coalescing
-helpers `SpecUnifyError`, `unify_specs`, `pad_arrays_to_spec` and
-`equalize_compiled` for the node kinds this compiler emits. Left out:
-nested, phrase, span, multi-term expansion, function/script score,
+match_all, match_none, constant_score, bool and script_score; and the
+coalescing helpers `SpecUnifyError`, `unify_specs`, `pad_arrays_to_spec`
+and `equalize_compiled` for the node kinds this compiler emits. Left
+out: nested, phrase, span, multi-term expansion, function score,
 percolate, ids, filter-cache keys and the unify/pad cases of the kinds
 above.
 
@@ -38,6 +38,7 @@ from .dsl import (
     MatchQuery,
     Query,
     RangeQuery,
+    ScriptScoreQuery,
     TermQuery,
     TermsQuery,
 )
@@ -388,7 +389,34 @@ class Compiler:
             }
         if isinstance(q, BoolQuery):
             return self._bool(q, scoring)
+        if isinstance(q, ScriptScoreQuery):
+            return self._script_score(q, scoring)
         raise ValueError(f"cannot compile query type {type(q).__name__}")
+
+    def _script_score(self, q: ScriptScoreQuery, scoring: bool) -> tuple[tuple, Any]:
+        from ..script import compile_script
+
+        compile_script(q.source)  # validate at plan time (parse errors 400)
+        child_spec, child_arrays = self._node(q.query, scoring)
+        param_names = tuple(sorted(q.params))
+        spec = (
+            "script",
+            child_spec,
+            q.source,
+            param_names,
+            q.min_score is not None,
+        )
+        arrays = {
+            "child": child_arrays,
+            "params": {
+                name: np.asarray(q.params[name], dtype=np.float32)
+                for name in param_names
+            },
+            "boost": np.float32(q.boost),
+        }
+        if q.min_score is not None:
+            arrays["min_score"] = np.float32(q.min_score)
+        return spec, arrays
 
     def _field_or_none(self, name: str) -> DeviceField | None:
         return self.fields.get(name)
@@ -620,6 +648,10 @@ def unify_specs(specs: list[tuple]) -> tuple:
         return (*first[:2], nt, *first[3:])
     if kind == "const":
         return (kind, unify_specs([s[1] for s in specs]))
+    if kind == "script":
+        for idx in range(2, len(first)):
+            _unify_same(specs, idx)
+        return (kind, unify_specs([s[1] for s in specs]), *first[2:])
     if kind == "bool":
         _unify_same(specs, 5)  # minimum_should_match
         out_groups = []
@@ -667,7 +699,7 @@ def pad_arrays_to_spec(spec: tuple, target: tuple, arrays):
     kind = spec[0]
     if kind in _NT_KINDS:
         return _pad_entries(arrays, spec[2], target[2])
-    if kind == "const":
+    if kind in ("const", "script"):
         return {
             **arrays,
             "child": pad_arrays_to_spec(spec[1], target[1], arrays["child"]),

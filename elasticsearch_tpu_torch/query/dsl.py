@@ -2,7 +2,9 @@
 
 Port copy of elasticsearch_tpu/query/dsl.py, trimmed to this slice's query
 types: `match`, `term`, `terms`, `bool`, `range`, `exists`, `match_all`,
-`match_none` and `constant_score`. Any other query type raises the same
+`match_none`, `constant_score` and `script_score` (whose painless-lite
+scripts leave out the vector functions, script/painless_lite.py). Any
+other query type raises the same
 ValueError as the reference's `parse_query` (a parsing_exception-shaped
 400 at the REST layer).
 """
@@ -88,6 +90,19 @@ class ConstantScoreQuery(Query):
 
 
 @dataclass
+class ScriptScoreQuery(Query):
+    """Replace the child query's score with a script-computed one
+    (the reference's script_score query, with the painless-lite
+    expression subset)."""
+
+    query: Query = None  # type: ignore[assignment]
+    source: str = ""
+    params: dict = field(default_factory=dict)
+    boost: float = 1.0
+    min_score: float | None = None
+
+
+@dataclass
 class BoolQuery(Query):
     """Boolean combination with BoolQueryBuilder semantics: must scores and
     is required; filter is required, never scored; should is optional
@@ -167,6 +182,15 @@ def parse_query(body: dict[str, Any]) -> Query:
     if kind == "constant_score":
         return ConstantScoreQuery(
             filter=parse_query(spec["filter"]), boost=_pop_boost(spec)
+        )
+    if kind == "script_score":
+        script = spec.get("script", {})
+        return ScriptScoreQuery(
+            query=parse_query(spec["query"]),
+            source=str(script.get("source", "")),
+            params=dict(script.get("params", {})),
+            boost=_pop_boost(spec),
+            min_score=spec.get("min_score"),
         )
     if kind == "bool":
         def _clauses(key: str) -> list[Query]:

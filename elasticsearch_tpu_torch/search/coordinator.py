@@ -2,10 +2,15 @@
 
 Port of elasticsearch_tpu/search/coordinator.py, trimmed to
 `ShardedSearchCoordinator` with `_shard_can_match`, `global_stats`,
-`search`, `search_many`, `_scatter_merge` and `_merge_key`. Left out:
-scroll contexts, aggregations, fetch sub-phases (highlight, fields),
-the SPMD mesh view, tasks and timeouts, the filter cache, tracing and
-injected faults.
+`search` (which validates the sort up front, as the shards would),
+`search_many`, `_scatter_merge` and `_merge_key` (the merge by
+`sort_merge_key`, so field sorts, multi-key sorts, `{"_score": "asc"}`
+and rescored hits merge as the reference merges them, each hit with its
+`sort` values). A request's `search_after` / `after_doc` reach every
+shard as they are; each shard's service makes `after_doc` local through
+its segments' `handle.base`. Left out: scroll contexts, aggregations,
+fetch sub-phases (highlight, fields), the SPMD mesh view, tasks and
+timeouts, the filter cache, tracing and injected faults.
 
 The single-process analog of the reference's coordinator node path —
 AbstractSearchAsyncAction fans per-shard query-phase requests out and
@@ -34,6 +39,7 @@ from .service import (
     SearchResponse,
     SearchService,
     clamp_total,
+    sort_merge_key,
 )
 
 if TYPE_CHECKING:
@@ -104,6 +110,7 @@ class ShardedSearchCoordinator:
         # One segment snapshot per shard, pinned for the whole request.
         snapshots = [list(e.segments) for e in self.engines]
         stats = self.global_stats(snapshots)
+        self.services[0]._validate_sort(request)
         k = max(0, request.from_) + max(0, request.size)
         shard_request = replace(
             request, from_=0, size=k, track_total_hits=True
@@ -209,12 +216,13 @@ class ShardedSearchCoordinator:
             page = merged[request.from_ : request.from_ + request.size]
             hits = []
             for _key, _shard, _rank, c in page:
-                _, _global_doc, handle, local, score = c
+                _, global_doc, handle, local, score, _sv = c
                 hits.append(
                     SearchHit(
                         doc_id=handle.segment.ids[local],
                         score=score,
                         source=svc0._fetch_source(handle, local, request),
+                        global_doc=global_doc,
                     )
                 )
             total_out, relation = clamp_total(
@@ -279,6 +287,7 @@ class ShardedSearchCoordinator:
 
     @staticmethod
     def _merge_key(request: SearchRequest, hit):
-        """Merge key of the score sort: -score (ascending order = score
-        descending); a hit without a score sorts last."""
-        return -hit.score if hit.score is not None else float("inf")
+        """Merge key matching the shard-local ordering contract: a scalar
+        for score/single-key sorts, a tuple for multi-key sorts, with
+        missing values placed per each key's missing directive."""
+        return sort_merge_key(request, hit.score, hit.sort)

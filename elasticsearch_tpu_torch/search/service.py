@@ -1,10 +1,16 @@
 """Shard-level search: query phase over device segments + fetch.
 
 Port of elasticsearch_tpu/search/service.py, trimmed to this slice:
-`SearchRequest.from_json` for `query`, `from`, `size`, `track_total_hits`
-and `_source`; `SearchService.search` as the plain score-sorted loop over
-segments with the candidate merge and the `_source` fetch; the hot branch
-of `_query_segment` (compile, `execute_auto`, collect); and the batched
+`SearchRequest.from_json` for `query`, `from`, `size`, `track_total_hits`,
+`_source`, `sort` (with `missing`), `rescore` and `search_after`, with
+the reference's validations and messages; `Rescore` with `combine`;
+`normalized_sort`, `sort_merge_key` and `_validate_sort`;
+`SearchService.search` as the loop over segments with the candidate
+merge and the `_source` fetch, hits carrying their `sort` values;
+`_query_segment` with its score-sorted branch (compile, `execute_auto`,
+collect), its `{"_score": "asc"}`, cursor, field-sort and missing-column
+branches and the rescore stages (`_apply_rescore`), and
+`_query_segment_multisort`; and the batched
 query phase the micro-batcher drives — `search_many`, `assemble_plain`,
 `_batched_query_phase` (with the reference's `_execute_group` inlined),
 `_merge_term_groups` (with `sparse_family_key`), `_device_batch` and
@@ -15,10 +21,12 @@ planner (`_decide_backend`) which backend scores each segment: the
 device kernels, or, when the request does not track exact totals, the
 two-launch block-max paths (`blockmax` for a terms spec,
 `blockmax_conj` for a must-driven conjunction), recording each
-execution's time. Left out: CPU-oracle routing (and with it any planner
+execution's time; it is not consulted for a request with rescore, as in
+the reference. Left out: CPU-oracle routing (and with it any planner
 decision on the batched path), the filter cache (a batch's mask token is
-always `()`), tasks and timeouts, rescore, sort, cursor, aggregation and
-knn; a request asking for one of those is refused with a 400.
+always `()`), tasks and timeouts, scroll, aggregations, knn, highlight,
+fields, profile and the other body keys of the reference; a request
+asking for one of those is refused with a 400.
 """
 
 from __future__ import annotations
@@ -26,6 +34,9 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 from typing import Any
+
+import numpy as np
+import torch
 
 from ..exec.cost import PlanFeatures
 from ..exec.planner import spec_work_tiles
@@ -55,6 +66,8 @@ class SearchHit:
     doc_id: str
     score: float | None
     source: dict[str, Any] | None
+    sort: list[Any] | None = None
+    global_doc: int = -1
 
     def to_json(self, index_name: str = "index") -> dict[str, Any]:
         out: dict[str, Any] = {
@@ -64,6 +77,8 @@ class SearchHit:
         }
         if self.source is not None:
             out["_source"] = self.source
+        if self.sort is not None:
+            out["sort"] = self.sort
         return out
 
 
@@ -116,16 +131,63 @@ def clamp_total(total: int, track_total_hits) -> tuple[int | None, str]:
 
 
 @dataclass
+class Rescore:
+    """One rescore stage: re-rank the top-`window_size` docs per shard
+    (the reference's QueryRescorer): combined score per `score_mode`,
+    with query_weight/rescore_query_weight factors; docs in the window
+    that don't match the rescore query keep query_weight * original."""
+
+    query: Query
+    window_size: int = 10
+    query_weight: float = 1.0
+    rescore_query_weight: float = 1.0
+    score_mode: str = "total"  # total | multiply | avg | max | min
+
+    def combine(self, orig: np.ndarray, resc: np.ndarray, matched: np.ndarray):
+        qw = np.float32(self.query_weight)
+        rw = np.float32(self.rescore_query_weight)
+        a, b = qw * orig, rw * resc
+        if self.score_mode == "total":
+            combined = a + b
+        elif self.score_mode == "multiply":
+            combined = a * b
+        elif self.score_mode == "avg":
+            combined = (a + b) / np.float32(2.0)
+        elif self.score_mode == "max":
+            combined = np.maximum(a, b)
+        elif self.score_mode == "min":
+            combined = np.minimum(a, b)
+        else:
+            raise ValueError(f"unknown rescore score_mode [{self.score_mode}]")
+        return np.where(matched, combined, a).astype(np.float32)
+
+
+@dataclass
 class SearchRequest:
     query: Query = field(default_factory=MatchAllQuery)
     size: int = 10
     from_: int = 0
     source_includes: bool | list[str] = True
+    sort: list[dict[str, str]] | None = None  # [{"field": "asc"|"desc"}]
+    # Per-sort-key missing-value placement ("_first" | "_last"), aligned
+    # with `sort` (default _last).
+    sort_missing: list[str] | None = None
+    rescore: list[Rescore] = field(default_factory=list)
+    # Pagination cursor: the sort-key value of the last consumed hit, plus
+    # an optional doc-id tiebreak (engine-global doc id; -1 = key-only
+    # cursor, the public search_after form).
+    search_after: list[Any] | None = None
+    after_doc: int = -1
     # True = exact, False = untracked, int = exact up to the threshold.
     track_total_hits: bool | int = 10_000
 
+    # The body keys this port serves; anything else (including the
+    # reference's keys still to port) is a parsing error.
     KNOWN_KEYS = frozenset(
-        {"query", "from", "size", "track_total_hits", "_source"}
+        {
+            "query", "from", "size", "track_total_hits", "_source", "sort",
+            "rescore", "search_after",
+        }
     )
 
     @classmethod
@@ -139,9 +201,84 @@ class SearchRequest:
         query = (
             parse_query(body["query"]) if "query" in body else MatchAllQuery()
         )
+        rescore = []
+        raw_rescore = body.get("rescore", [])
+        if isinstance(raw_rescore, dict):
+            raw_rescore = [raw_rescore]
+        for entry in raw_rescore:
+            rq = entry.get("query", {})
+            rescore.append(
+                Rescore(
+                    query=parse_query(rq["rescore_query"]),
+                    window_size=int(entry.get("window_size", 10)),
+                    query_weight=float(rq.get("query_weight", 1.0)),
+                    rescore_query_weight=float(
+                        rq.get("rescore_query_weight", 1.0)
+                    ),
+                    score_mode=str(rq.get("score_mode", "total")),
+                )
+            )
+        sort = None
+        sort_missing = None
+        if "sort" in body:
+            sort = []
+            sort_missing = []
+            raw = body["sort"]
+            if not isinstance(raw, list):
+                raw = [raw]
+            for entry in raw:
+                missing = "_last"
+                if isinstance(entry, str):
+                    fname = entry
+                    order = "asc" if entry != "_score" else "desc"
+                else:
+                    ((fname, spec),) = entry.items()
+                    if isinstance(spec, dict):
+                        order = spec.get("order", "asc")
+                        missing = str(spec.get("missing", "_last"))
+                    else:
+                        order = str(spec)
+                if missing not in ("_first", "_last"):
+                    raise ValueError(
+                        f"sort [missing] must be [_first] or [_last], got "
+                        f"[{missing}] (custom missing values are not "
+                        f"supported yet)"
+                    )
+                sort.append({fname: order})
+                sort_missing.append(missing)
+        if rescore and sort is not None:
+            raise ValueError(
+                "Cannot use [sort] option in conjunction with [rescore]"
+            )
         source = body.get("_source", True)
         if isinstance(source, str):  # a single field name
             source = [source]
+        search_after = body.get("search_after")
+        if search_after is not None:
+            if not isinstance(search_after, list) or len(search_after) != 1:
+                raise ValueError(
+                    "search_after must be a one-element array matching the "
+                    "primary sort key (multi-key cursors are not supported "
+                    "yet)"
+                )
+            if sort is None:
+                raise ValueError(
+                    "search_after requires a sort to be specified"
+                )
+            if rescore:
+                raise ValueError("cannot use [rescore] with [search_after]")
+            if int(body.get("from", 0)) > 0:
+                raise ValueError(
+                    "[from] parameter must be set to 0 when [search_after] "
+                    "is used"
+                )
+            ((sa_field, _),) = sort[0].items()
+            if sa_field == "_score" and not isinstance(
+                search_after[0], (int, float)
+            ):
+                raise ValueError(
+                    "search_after value for a [_score] sort must be a number"
+                )
         tth = body.get("track_total_hits", 10_000)
         if not isinstance(tth, bool):
             tth = int(tth)
@@ -150,8 +287,59 @@ class SearchRequest:
             size=int(body.get("size", 10)),
             from_=int(body.get("from", 0)),
             source_includes=source,
+            sort=sort,
+            sort_missing=sort_missing,
+            rescore=rescore,
+            search_after=search_after,
             track_total_hits=tth,
         )
+
+
+_NO_SORT = object()  # sentinel: hit carries no sort values (default score sort)
+
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+def normalized_sort(request: "SearchRequest") -> list[tuple[str, bool, bool]]:
+    """The request's sort as [(field, descending, missing_first)], with a
+    trailing "_doc" key dropped: the merge contract is ALWAYS doc-id
+    tiebroken, so an explicit trailing _doc only makes the implicit
+    tiebreak visible. "_score" keys pass through as the pseudo-field
+    "_score"."""
+    if request.sort is None:
+        return []
+    missing = request.sort_missing or ["_last"] * len(request.sort)
+    out: list[tuple[str, bool, bool]] = []
+    for i, entry in enumerate(request.sort):
+        ((fname, order),) = entry.items()
+        if fname == "_doc" and i == len(request.sort) - 1 and i > 0:
+            continue
+        out.append((fname, str(order) == "desc", missing[i] == "_first"))
+    return out
+
+
+def sort_merge_key(request: "SearchRequest", score, sort_values):
+    """Cross-shard merge key for one hit under the request's sort: a
+    scalar for single-key sorts, a tuple for multi-key. Ascending key
+    space; missing values map to -/+inf per the key's missing
+    directive."""
+    if request.sort is None:
+        return -score if score is not None else np.inf
+    keys = normalized_sort(request)
+    if keys and keys[0][0] == "_score":
+        s = score if score is not None else 0.0
+        return s if not keys[0][1] else -s
+    vals = sort_values or []
+    out = []
+    for i, (_f, desc, mfirst) in enumerate(keys):
+        v = vals[i] if i < len(vals) else None
+        if v is None:
+            out.append(-np.inf if mfirst else np.inf)
+        else:
+            out.append(-v if desc else v)
+    if not out:
+        return np.inf
+    return tuple(out) if len(out) > 1 else out[0]
 
 
 class SearchService:
@@ -176,11 +364,13 @@ class SearchService:
         k = max(0, request.from_) + max(0, request.size)
         if stats is None:
             stats = self.engine.field_stats()
+        self._validate_sort(request)
         if segments is None:
             segments = list(self.engine.segments)
-        # Candidate tuples (merge_key, global_doc, handle, local, score):
-        # merge_key ascending, then global doc id ascending, is Lucene's
-        # order for the score sort (key = -score).
+        # Candidate tuples (merge_key, global_doc, handle, local, score,
+        # sort_value): merge_key ascending, then global doc id ascending,
+        # is Lucene's order for the score sort (key = -score) and for
+        # field sorts.
         candidates: list[tuple] = []
         total = 0
         for handle in segments:
@@ -189,14 +379,24 @@ class SearchService:
             total += self._query_segment(handle, request, k, stats, candidates)
         candidates.sort(key=lambda c: (c[0], c[1]))
         page = candidates[request.from_ : request.from_ + request.size]
-        max_score = -candidates[0][0] if candidates else None
+        max_score = None
+        if request.sort is None and candidates:
+            max_score = -candidates[0][0]
         hits = [
             SearchHit(
                 doc_id=handle.segment.ids[local],
                 score=score,
                 source=self._fetch_source(handle, local, request),
+                sort=(
+                    None
+                    if sort_value is _NO_SORT
+                    else sort_value
+                    if isinstance(sort_value, list)
+                    else [sort_value]
+                ),
+                global_doc=global_doc,
             )
-            for _key, _global_doc, handle, local, score in page
+            for _key, global_doc, handle, local, score, sort_value in page
         ]
         total_out, relation = clamp_total(total, request.track_total_hits)
         return SearchResponse(
@@ -207,6 +407,39 @@ class SearchService:
             hits=hits,
         )
 
+    def _validate_sort(self, request: SearchRequest) -> None:
+        """Validate the sort spec against the mappings up front. Accepted
+        shapes: one or more numeric doc-values fields (multi-key sorts
+        lexsort on the host), an optional trailing "_doc" tiebreak, or a
+        lone "_score" key."""
+        if request.sort is None:
+            return
+        fields = [next(iter(e)) for e in request.sort]
+        for i, f in enumerate(fields):
+            if f == "_doc":
+                if i != len(fields) - 1 or i == 0:
+                    raise ValueError(
+                        "[_doc] is only supported as a trailing tiebreak "
+                        "after a field sort key"
+                    )
+                continue
+            if f == "_score":
+                if len(fields) > 1:
+                    raise ValueError(
+                        "[_score] cannot be combined with other sort keys"
+                    )
+                continue
+            fm = self.engine.mappings.get(f)
+            if fm is None or not fm.is_numeric:
+                raise ValueError(
+                    f"No mapping found for [{f}] in order to sort on"
+                )
+        real = [f for f in fields if f not in ("_doc", "_score")]
+        if request.search_after is not None and len(real) > 1:
+            raise ValueError(
+                "search_after with a multi-key sort is not supported yet"
+            )
+
     def _query_segment(
         self,
         handle: SegmentHandle,
@@ -215,12 +448,160 @@ class SearchService:
         stats: dict[str, FieldStats],
         candidates: list,
     ) -> int:
-        """Score one segment on the backend the planner picks, appending
-        candidate tuples; returns the segment's total hits (a lower bound
-        on the block-max paths, whose requests do not track totals)."""
+        """Score one segment, appending candidate tuples; returns the
+        segment's total hits (a lower bound on the block-max paths, whose
+        requests do not track totals)."""
         compiled = self.engine.compiler_for(handle, stats).compile(request.query)
         seg_tree = bm25_device.segment_tree(handle.device)
-        backend, plan_class = self._decide_backend(handle, request, compiled, k)
+
+        # Sort spec validity is enforced up front by _validate_sort.
+        sort_field = None
+        descending = False
+        missing_first = False
+        if request.sort is not None:
+            keys = normalized_sort(request)
+            if keys[0][0] == "_score":
+                sort_field = "_score"
+                descending = keys[0][1]
+            elif len(keys) == 1:
+                sort_field, descending, missing_first = keys[0]
+            else:
+                # Multi-key field sort: dense matched mask + host lexsort.
+                return self._query_segment_multisort(
+                    handle, k, keys, compiled, seg_tree, candidates
+                )
+
+        cursor = request.search_after
+        if sort_field is None or sort_field == "_score":
+            ascending_score = sort_field == "_score" and not descending
+            if cursor is not None:
+                # Cursor pagination: mask docs at or before the (score,
+                # doc) cursor BEFORE the device top-k.
+                a_doc = (
+                    request.after_doc - handle.base
+                    if request.after_doc >= 0
+                    else handle.device.num_docs  # key-only: no tie clause
+                )
+                scores, ids, tot, n_after = bm25_device.execute_score_after(
+                    seg_tree, compiled.spec, _plan(handle, compiled), k,
+                    np.float32(cursor[0]),
+                    a_doc, ascending=ascending_score,
+                )
+                scores, ids = _host(scores), _host(ids)
+                tot = int(tot)
+                n = min(k, int(n_after), len(ids))
+            elif ascending_score:
+                # Bottom-k needs its own device reduction.
+                scores, ids, tot = bm25_device.execute_score_asc(
+                    seg_tree, compiled.spec, _plan(handle, compiled), k
+                )
+                scores, ids, tot = _host(scores), _host(ids), int(tot)
+                n = min(k, tot, len(ids))
+            else:
+                scores, ids, tot = self._score_sorted(
+                    handle, request, compiled, seg_tree, k, stats
+                )
+                n = min(k, tot, len(ids))
+            for rank in range(n):
+                score = float(scores[rank])
+                local = int(ids[rank])
+                if sort_field is None:
+                    key, sort_value = -score, _NO_SORT
+                else:
+                    key, sort_value = (
+                        (score if ascending_score else -score), score
+                    )
+                candidates.append(
+                    (key, handle.base + local, handle, local, score, sort_value)
+                )
+            return tot
+
+        missing_key = -np.inf if missing_first else np.inf
+        if sort_field not in handle.device.doc_values:
+            # Mapped numeric field with no values in this segment: every
+            # matched doc is "missing", placed per the missing directive
+            # and ordered by doc id.
+            _, eligible = bm25_device.execute_dense(
+                seg_tree, compiled.spec, _plan(handle, compiled)
+            )
+            mask = _host(eligible)
+            locs = np.flatnonzero(mask)
+            if cursor is not None:
+                if cursor[0] is None:
+                    # Cursor inside the missing region: resume by doc id
+                    # (a key-only null cursor skips the whole region).
+                    if request.after_doc >= 0:
+                        locs = locs[locs > request.after_doc - handle.base]
+                    else:
+                        locs = locs[:0]
+                elif missing_first:
+                    # Missing-first: a real-valued cursor is PAST the
+                    # whole missing region.
+                    locs = locs[:0]
+                # Missing-last: a real cursor precedes every missing doc.
+            for local in locs[:k]:
+                candidates.append(
+                    (missing_key, handle.base + int(local), handle,
+                     int(local), None, None)
+                )
+            return int(mask.sum())
+        if cursor is not None:
+            raw_after = cursor[0]
+            fmax = np.float32(F32_MAX)
+            if raw_after is None:
+                # Missing-region cursor, in the transformed ascending key
+                # space (missing = +fmax last / -fmax first).
+                a_key = -fmax if missing_first else fmax
+            else:
+                a_key = np.float32(raw_after)
+                if descending:
+                    a_key = np.float32(-a_key)
+            a_doc = (
+                request.after_doc - handle.base
+                if request.after_doc >= 0
+                else handle.device.num_docs
+            )
+            values, ids, tot, n_after = bm25_device.execute_sorted_after(
+                seg_tree, compiled.spec, _plan(handle, compiled), sort_field,
+                descending, k,
+                a_key, a_doc, missing_first=missing_first,
+            )
+            n = min(k, int(n_after))
+        else:
+            values, ids, tot = bm25_device.execute_sorted(
+                seg_tree, compiled.spec, _plan(handle, compiled), sort_field,
+                descending, k,
+                missing_first=missing_first,
+            )
+            n = min(k, int(tot))
+        values, ids = _host(values), _host(ids)
+        for rank in range(n):
+            local = int(ids[rank])
+            raw = float(values[rank])
+            missing = np.isnan(values[rank])
+            key = missing_key if missing else (-raw if descending else raw)
+            candidates.append(
+                (
+                    key,
+                    handle.base + local,
+                    handle,
+                    local,
+                    None,  # ES omits _score for field sorts by default
+                    None if missing else raw,
+                )
+            )
+        return int(tot)
+
+    def _score_sorted(self, handle, request, compiled, seg_tree, k, stats):
+        """The score-sorted pass of one segment on the backend the planner
+        picks (not consulted for a request with rescore, whose window
+        runs on the device kernels), then the rescore stages. Returns
+        host (scores, ids, total)."""
+        backend, plan_class = "device", None
+        if self.planner is not None and not request.rescore:
+            backend, plan_class = self._decide_backend(
+                handle, request, compiled, k
+            )
         kern_t0 = time.monotonic()
         if backend == "blockmax":
             s, i, t, _rel = bm25_device.execute_batch_blockmax(
@@ -233,26 +614,119 @@ class SearchService:
             )
             scores, ids, tot = s[0], i[0], int(t[0])
         else:
-            plan = bm25_device.plan_to_torch(
-                compiled.spec, compiled.arrays, handle.device.device
-            )
+            fetch_k = k
+            if request.rescore:
+                fetch_k = max(k, max(r.window_size for r in request.rescore))
             scores, ids, tot = bm25_device.execute_auto(
-                seg_tree, compiled.spec, plan, k
+                seg_tree, compiled.spec, _plan(handle, compiled), fetch_k
             )
-            # One device -> host transfer of the k hits and the total.
-            scores = scores.cpu().numpy()
-            ids = ids.cpu().numpy()
-            tot = int(tot.cpu())
+            # One device -> host transfer of the hits and the total.
+            scores, ids, tot = _host(scores), _host(ids), int(tot)
+            if request.rescore:
+                scores, ids = self._apply_rescore(
+                    handle, seg_tree, request, scores, ids, tot, stats
+                )
         if plan_class is not None:
             self.planner.record(
                 plan_class, backend, time.monotonic() - kern_t0
             )
-        n = min(k, tot, len(ids))
-        for rank in range(n):
-            score = float(scores[rank])
-            local = int(ids[rank])
-            candidates.append((-score, handle.base + local, handle, local, score))
-        return tot
+        return scores, ids, tot
+
+    def _query_segment_multisort(
+        self, handle, k: int, keys, compiled, seg_tree, candidates: list,
+    ) -> int:
+        """Multi-key field sort over one segment: ONE dense device launch
+        for the matched mask, then a host lexsort over the f32-quantized
+        doc-values columns (per key: asc/desc, missing first/last; final
+        doc-id tiebreak). A per-key device top-k cannot serve this shape:
+        docs tying on the primary key may win on a secondary key from
+        beyond the primary top-k."""
+        _, eligible = bm25_device.execute_dense(
+            seg_tree, compiled.spec, _plan(handle, compiled)
+        )
+        n_docs = handle.segment.num_docs
+        mask = _host(eligible)[:n_docs]
+        locs = np.flatnonzero(mask)
+        total = int(len(locs))
+        if total == 0 or k <= 0:
+            return total
+        vals32 = []  # f32 stored-value semantics, like the device column
+        sortkeys = []  # transformed ascending f64 key per sort position
+        for f, desc, mfirst in keys:
+            col = handle.segment.doc_values.get(f)
+            if col is None:
+                v = np.full(len(locs), np.nan, dtype=np.float32)
+            else:
+                v = col[locs].astype(np.float32)
+            miss = np.float32(-F32_MAX if mfirst else F32_MAX)
+            key = np.where(
+                np.isnan(v), miss, (-v if desc else v)
+            ).astype(np.float64)
+            vals32.append(v)
+            sortkeys.append(key)
+        order = np.lexsort((locs,) + tuple(reversed(sortkeys)))[:k]
+        for pos in order:
+            local = int(locs[pos])
+            sort_vals = []
+            merge_key = []
+            for ki, (_f, desc, mfirst) in enumerate(keys):
+                v = vals32[ki][pos]
+                if np.isnan(v):
+                    sort_vals.append(None)
+                    merge_key.append(-np.inf if mfirst else np.inf)
+                else:
+                    sort_vals.append(float(v))
+                    merge_key.append(-float(v) if desc else float(v))
+            candidates.append(
+                (
+                    tuple(merge_key),
+                    handle.base + local,
+                    handle,
+                    local,
+                    None,  # no _score for field sorts
+                    sort_vals,
+                )
+            )
+        return total
+
+    def _apply_rescore(
+        self,
+        handle: SegmentHandle,
+        seg_tree,
+        request: SearchRequest,
+        scores: np.ndarray,
+        ids: np.ndarray,
+        total: int,
+        stats: dict[str, FieldStats],
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Run rescore stages over the shard-local top window: window docs
+        are re-sorted by combined score; hits past the window keep their
+        original order below it (QueryRescorer's contract). Each stage's
+        rescore query is evaluated densely on the device and read out at
+        the window's ids (scores_at: K5's gather)."""
+        n = min(len(ids), total)
+        scores, ids = scores[:n].copy(), ids[:n].copy()
+        compiler = self.engine.compiler_for(handle, stats)
+        for stage in request.rescore:
+            w = min(stage.window_size, len(ids))
+            if w == 0:
+                continue
+            compiled = compiler.compile(stage.query)
+            # The window padded to a pow-2 bucket, as the reference pads.
+            w_pad = 1 << (w - 1).bit_length()
+            padded = np.zeros(w_pad, dtype=np.int32)
+            padded[:w] = ids[:w]
+            r_scores, r_matched = bm25_device.scores_at(
+                seg_tree, compiled.spec, _plan(handle, compiled),
+                torch.from_numpy(padded).to(handle.device.device),
+            )
+            r_scores = _host(r_scores)[:w]
+            r_matched = _host(r_matched)[:w]
+            combined = stage.combine(scores[:w], r_scores, r_matched)
+            order = np.lexsort((ids[:w], -combined.astype(np.float64)))
+            scores[:w] = combined[order]
+            ids[:w] = ids[:w][order]
+        return scores, ids
 
     def _decide_backend(
         self, handle: SegmentHandle, request: SearchRequest, compiled, k: int
@@ -322,8 +796,9 @@ class SearchService:
                 doc_id=handle.segment.ids[local],
                 score=score,
                 source=self._fetch_source(handle, local, request),
+                global_doc=global_doc,
             )
-            for _key, _global_doc, handle, local, score in page
+            for _key, global_doc, handle, local, score, _sv in page
         ]
         total_out, relation = clamp_total(total, request.track_total_hits)
         return SearchResponse(
@@ -476,7 +951,9 @@ class SearchService:
         for rank in range(n):
             score = float(scores[rank])
             local = int(ids[rank])
-            bucket.append((-score, handle.base + local, handle, local, score))
+            bucket.append(
+                (-score, handle.base + local, handle, local, score, _NO_SORT)
+            )
 
     def _fetch_source(
         self, handle: SegmentHandle, local: int, request: SearchRequest
@@ -489,3 +966,15 @@ class SearchService:
         keep = set(request.source_includes)
         return {k: v for k, v in src.items() if k in keep}
 
+
+
+def _plan(handle: SegmentHandle, compiled: CompiledQuery):
+    """A compiled plan's arrays on the segment's device."""
+    return bm25_device.plan_to_torch(
+        compiled.spec, compiled.arrays, handle.device.device
+    )
+
+
+def _host(t) -> np.ndarray:
+    """A device result as numpy (one device -> host copy)."""
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
