@@ -110,6 +110,7 @@ N_STACKED_SHOULD = 16  # dense bool(should) on the stacked shards (K1s)
 N_CLIENTS = 16
 N_CONCURRENT = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (same)
 DEVICE = "cuda"
 REPO = Path(__file__).resolve().parent
 KERNELS = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate")
@@ -632,6 +633,10 @@ def run() -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     sharded = run_sharded(card, dev, launches, rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    knn = run_knn(card, dev, launches, rows)
     missing = [name for name in kern.LAUNCHES if launches.get(name, 0) <= 0]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")
@@ -640,7 +645,7 @@ def run() -> dict:
         r["launches"] = launches[r["name"]]
     log(f"phase results: whole run {time.monotonic() - t_run:.1f} s [{card}]")
     return {"card": card, "kernels": rows,
-            "result": {"one_shard": single, "sharded": sharded}}
+            "result": {"one_shard": single, "sharded": sharded, "knn": knn}}
 
 
 class PruneRecorder:
@@ -1562,6 +1567,472 @@ def run_routed(node, fld0, card, launches) -> int:
 
 
 # ---------------------------------------------------------------------------
+# kNN (BASELINE config 5)
+# ---------------------------------------------------------------------------
+
+N_VECTORS = 1_000_000  # BASELINE config 5: GloVe-100d, 1M vectors
+VEC_DIMS = 100
+N_KNN_QUERIES = 16
+N_KNN_FILTERED = 8
+CFG5_SCRIPT = "cosineSimilarity(params.qv, 'vec') + 1.0"
+KNN_KERNELS = (
+    "vector_score_batch", "vector_score_gather_batch", "vector_script_batch",
+    "masked_topk_ids_batch",
+)
+
+
+@contextlib.contextmanager
+def plain_knn_kernels():
+    """plain_kernels() plus the plain versions of K6, K7 and K3i: the
+    reference runs of the knn phase's checks."""
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.ops import script_kernel
+
+    swaps = [(kern, n) for n in KNN_KERNELS] + [(script_kernel, "script_eval")]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in swaps]
+    try:
+        for mod, n in swaps:
+            setattr(mod, n, getattr(mod, n + "_plain"))
+        with plain_kernels():
+            yield
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def ulp_close(a, b, ulps: int) -> bool:
+    """bench.py's ulp_close: |a - b| <= ulps * spacing(max(|a|, |b|))."""
+    import numpy as np
+
+    a = np.asarray(a, dtype=np.float32)
+    b = np.asarray(b, dtype=np.float32)
+    if a.shape != b.shape:
+        return False
+    tol = ulps * np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32))
+    return bool(np.all(np.abs(a.astype(np.float64) - b.astype(np.float64)) <= tol))
+
+
+def ranked_match(dev_ids, dev_scores, o_ids, o_scores, ulps: int) -> bool:
+    """bench.py's ranked_match (a copy): the same doc set, scores within
+    `ulps` at every rank, and a doc at another rank only where its oracle
+    score is within `ulps` of the oracle's at that rank."""
+    import numpy as np
+
+    n = len(o_ids)
+    dev_ids = [int(x) for x in dev_ids[:n]]
+    if sorted(dev_ids) != sorted(int(x) for x in o_ids):
+        return False
+    if not ulp_close(dev_scores[:n], o_scores, ulps=ulps):
+        return False
+    by_id = {int(i): np.float32(s) for i, s in zip(o_ids, o_scores)}
+    for rank, did in enumerate(dev_ids):
+        if did != int(o_ids[rank]) and not ulp_close(
+            by_id[did], np.float32(o_scores[rank]), ulps=ulps
+        ):
+            return False
+    return True
+
+
+def _hit_ids(out) -> list[int]:
+    return [int(h["_id"][1:]) for h in out["hits"]["hits"]]
+
+
+def _same_knn(out, scores, ids, total) -> bool:
+    """A REST answer against a plain run: the finite-score prefix of
+    (scores, ids), the total."""
+    import numpy as np
+
+    scores, ids = np.asarray(scores), np.asarray(ids)
+    n = min(len(out["hits"]["hits"]), int(np.sum(scores > -np.inf)))
+    return (
+        len(out["hits"]["hits"]) == n
+        and _hit_ids(out) == [int(i) for i in ids[:n]]
+        and np.array_equal(score_bits([h["_score"] for h in out["hits"]["hits"]]),
+                           score_bits(scores[:n]))
+        and out["hits"]["total"]["value"] == min(int(total), 10_000)
+    )
+
+
+class BuildTimer:
+    """Wall time of the IVF build (index/ann.build_partitions) and of its
+    K9 assignment passes (ops/ann_device.assign_all) while installed."""
+
+    def __init__(self):
+        from elasticsearch_tpu_torch.index import ann
+        from elasticsearch_tpu_torch.ops import ann_device
+
+        self.ann, self.dev = ann, ann_device
+        self.build_real, self.assign_real = ann.build_partitions, ann.assign_all
+        self.build_s = self.assign_s = 0.0
+        self.builds = 0
+
+    def __enter__(self):
+        def build(*a, **kw):
+            t0 = time.monotonic()
+            out = self.build_real(*a, **kw)
+            self.build_s += time.monotonic() - t0
+            self.builds += 1
+            return out
+
+        def assign(*a, **kw):
+            t0 = time.monotonic()
+            out = self.assign_real(*a, **kw)
+            self.assign_s += time.monotonic() - t0
+            return out
+
+        self.ann.build_partitions, self.ann.assign_all = build, assign
+        return self
+
+    def __exit__(self, *exc):
+        self.ann.build_partitions = self.build_real
+        self.ann.assign_all = self.assign_real
+
+
+def run_knn(card, dev, launches, rows) -> dict:
+    """BASELINE config 5 on the card: script_score over the vectors, the
+    knn section (IVF probe + exact re-rank), filtered knn, _knn_search,
+    k = 10,000, concurrent knn, then K7 / K9 / K3i rows."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.index.segment import Segment
+    from elasticsearch_tpu_torch.index.tiles import device_nbytes
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import ann_device, bm25_device
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+    from elasticsearch_tpu_torch.search.service import KnnSpec
+
+    # -- 14. corpus: bench.py:1369-1387's draws ---------------------------
+    t0 = time.monotonic()
+    rng = np.random.default_rng(31)
+    vecs = rng.standard_normal((N_VECTORS, VEC_DIMS), dtype=np.float32)
+    qvs = rng.standard_normal((N_KNN_QUERIES, VEC_DIMS), dtype=np.float32)
+    pop = np.random.default_rng(32).random(N_VECTORS)
+    segment = Segment(
+        num_docs=N_VECTORS, fields={}, doc_values={"pop": pop},
+        vectors={"vec": vecs}, sources=[{}] * N_VECTORS,
+        ids=[f"d{i}" for i in range(N_VECTORS)],
+    )
+    gen_s = time.monotonic() - t0
+    # No exec planner: every knn of a segment with IVF planes serves
+    # ann_ivf, so each answer has one plain run to equal.
+    node = Node(device=DEVICE, exec_planner=False)
+    node.create_index("glove", {"mappings": {"properties": {
+        "vec": {"type": "dense_vector", "dims": VEC_DIMS,
+                "similarity": "cosine"},
+        "pop": {"type": "float"}}}})
+    svc = node.indices["glove"]
+    t1 = time.monotonic()
+    handle = svc.engine._install_segment(segment)
+    torch.cuda.synchronize()
+    pack_s = time.monotonic() - t1
+    vec_dev = handle.device.vectors["vec"]
+    live = handle.device.live
+    seg_tree = bm25_device.segment_tree(handle.device)
+    compiler = svc.engine.compiler_for(handle)
+    log(f"phase knn corpus: ok {N_VECTORS} x {VEC_DIMS} vectors; generate "
+        f"{gen_s:.1f} s, install {pack_s:.1f} s, device bytes "
+        f"{device_nbytes(handle.device)} [{card}]")
+
+    def script_body(source, q):
+        return {"query": {"script_score": {"query": {"match_all": {}},
+                "script": {"source": source, "params": {"qv": q.tolist()}}}},
+                "size": TOP_K, "_source": False}
+
+    def knn_body(q, k=TOP_K, num_candidates=100, **extra):
+        knn = {"field": "vec", "query_vector": q.tolist(), "k": k,
+               "num_candidates": num_candidates, **extra}
+        return {"knn": knn, "_source": False,
+                "size": max(TOP_K, k) if k > TOP_K else TOP_K}
+
+    scripts = [(CFG5_SCRIPT, q) for q in qvs]
+    scripts += [("dotProduct(params.qv, 'vec')", qvs[0]),
+                ("1 / (1 + l2norm(params.qv, 'vec'))", qvs[1])]
+    script_bodies = [script_body(src, q) for src, q in scripts]
+    knn_bodies = [knn_body(q) for q in qvs]
+    filtered = [knn_body(q, filter={"range": {"pop": {"lt": 0.5}}})
+                for q in qvs[:N_KNN_FILTERED]]
+    big = knn_body(qvs[2], k=10_000, num_candidates=10_000)
+
+    server, base = serve(node)
+    try:
+        # Warm-up (untimed): the first script request (K6's Triton build)
+        # and the first knn request (the IVF build), each timed alone.
+        t0 = time.monotonic()
+        http(base, "POST", "/glove/_search", script_bodies[0])
+        first_script_ms = (time.monotonic() - t0) * 1e3
+        with counted("knn", launches), BuildTimer() as bt:
+            t0 = time.monotonic()
+            first_knn = http(base, "POST", "/glove/_search", knn_bodies[0])
+            first_knn_ms = (time.monotonic() - t0) * 1e3
+            s_lat, s_resp, s_wall = sequential(base, "glove", script_bodies)
+            k_lat, k_resp, k_wall = sequential(base, "glove", knn_bodies)
+            f_lat, f_resp, _f_wall = sequential(base, "glove", filtered)
+            knn_search = http(base, "POST", "/glove/_knn_search", {
+                "knn": {k: v for k, v in filtered[0]["knn"].items()
+                        if k != "filter"},
+                "filter": filtered[0]["knn"]["filter"], "_source": False})
+            t0 = time.monotonic()
+            big_out = http(base, "POST", "/glove/_search", big)
+            big_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+    if bt.builds != 1:
+        raise SmokeFailure(f"expected one IVF build, saw {bt.builds}")
+    parts = next(iter(node.ann_cache._entries.values()))
+    _p, plan_nprobe, _m, _pc, _b = svc.search._knn_plan(
+        handle, KnnSpec.from_json(knn_bodies[0]["knn"]))
+    build = {
+        "build_s": bt.build_s, "assign_k9_s": bt.assign_s,
+        "first_knn_request_ms": first_knn_ms,
+        "first_script_request_ms": first_script_ms,
+        "partitions": parts.n_partitions, "clusters": parts.n_clusters,
+        "pmax": parts.pmax, "plane_bytes": parts.nbytes,
+    }
+    log(f"phase knn: ok {len(script_bodies)} script_score, "
+        f"{len(knn_bodies) + 1} knn, {len(filtered)} filtered knn, one "
+        f"_knn_search and one k = 10,000 knn over HTTP; build "
+        f"{json.dumps(build)} [{card}]")
+
+    # -- 15. checks ----------------------------------------------------------
+    mismatches = 0
+    t0 = time.monotonic()
+    vnorm = np.sqrt(np.einsum("ij,ij->i", vecs, vecs, dtype=np.float32))
+    with plain_knn_kernels():
+        for (source, q), body, out in zip(scripts, script_bodies, s_resp):
+            c = compiler.compile(parse_query(body["query"]))
+            s, i, t = bm25_device.execute(
+                seg_tree, c.spec, bm25_device.plan_to_torch(c.spec, c.arrays, dev),
+                TOP_K)
+            if not _same_knn(out, s.cpu().numpy(), i.cpu().numpy(), int(t)):
+                mismatches += 1
+                log(f"  MISMATCH script (plain path) {source}")
+            # bench.py:1418-1434's numpy oracle, by ranked_match's 64 ulps.
+            if source == CFG5_SCRIPT:
+                qn = np.float32(np.sqrt(np.sum(q * q)))
+                denom = vnorm * qn
+                sims = np.where(denom > 0, (vecs @ q) / denom, np.float32(0.0)
+                                ).astype(np.float32) + np.float32(1.0)
+            elif source.startswith("dot"):
+                sims = (vecs @ q).astype(np.float32)
+            else:
+                dist = np.sqrt(np.einsum("ij,ij->i", vecs - q, vecs - q,
+                                         dtype=np.float32))
+                sims = (np.float32(1) / (np.float32(1) + dist)).astype(np.float32)
+            part = np.argpartition(-sims, TOP_K)[: TOP_K * 4]
+            order = part[np.lexsort((part, -sims[part]))][:TOP_K]
+            if not ranked_match(_hit_ids(out), [h["_score"] for h in out["hits"]["hits"]],
+                                order, sims[order], ulps=64):
+                mismatches += 1
+                log(f"  MISMATCH script (numpy oracle) {source}")
+
+        def plain_ivf(body):
+            knn = KnnSpec.from_json(body["knn"])
+            _p, nprobe, metric, _pc, backend = svc.search._knn_plan(handle, knn)
+            if backend != "ann_ivf":
+                raise SmokeFailure(f"knn served by {backend}, not ann_ivf")
+            fmask = None
+            if knn.filter is not None:
+                fmask = svc.search._knn_filter_mask(
+                    handle, seg_tree, knn.filter, svc.engine.field_stats())
+            return ann_device.ann_ivf_search(
+                parts.tree(), live, knn.query_vector, knn.k, nprobe, metric,
+                filter_mask=fmask)
+
+        for body, out in zip(knn_bodies + filtered + [big],
+                             k_resp + f_resp + [big_out]):
+            s, i, t, _c = plain_ivf(body)
+            if not _same_knn(out, s.cpu().numpy(), i.cpu().numpy(), int(t)):
+                mismatches += 1
+                log(f"  MISMATCH knn (plain ann_ivf_search) k={body['knn']['k']}")
+        if without_took(knn_search) != without_took(f_resp[0]):
+            mismatches += 1
+            log("  MISMATCH _knn_search against its _search form")
+        if without_took(first_knn) != without_took(k_resp[0]):
+            mismatches += 1
+            log("  MISMATCH the first knn request (with the build) against its repeat")
+    # Each hit's score equals K7's exact_scores; a full probe gives
+    # knn_exact's ids and bits; recall@10 at the default nprobe.
+    recalls, fractions = [], []
+    full_probe_bad = 0
+    for j, q in enumerate(qvs):
+        exact = ann_device.exact_scores(vec_dev, q, "cosine")
+        ids = torch.tensor(_hit_ids(k_resp[j]), dtype=torch.int64, device=dev)
+        got = score_bits([h["_score"] for h in k_resp[j]["hits"]["hits"]])
+        if not np.array_equal(got, score_bits(exact[ids].cpu().numpy())):
+            mismatches += 1
+            log(f"  MISMATCH knn hit scores against exact_scores, query {j}")
+        ex_s, ex_i, ex_t = ann_device.knn_exact(
+            vec_dev, live, q, TOP_K, "cosine",
+            has_vec=handle.device.has_vector["vec"])
+        fs, fi, ft, _fc = ann_device.ann_ivf_search(
+            parts.tree(), live, q, TOP_K, parts.n_partitions, "cosine")
+        if not (torch.equal(fi, ex_i) and torch.equal(fs.view(torch.int32),
+                                                      ex_s.view(torch.int32))
+                and int(ft) == int(ex_t)):
+            full_probe_bad += 1
+            log(f"  MISMATCH full probe against knn_exact, query {j}")
+        _s, _i, _t, n_cand = ann_device.ann_ivf_search(
+            parts.tree(), live, q, TOP_K, plan_nprobe, "cosine")
+        recalls.append(len(set(_hit_ids(k_resp[j])) & set(ex_i.tolist())) / TOP_K)
+        fractions.append(int(n_cand) / N_VECTORS)
+    mismatches += full_probe_bad
+    check_s = time.monotonic() - t0
+    knn_checks = {
+        "mismatches": mismatches,
+        "recall_at_10_default_nprobe_mean": float(np.mean(recalls)),
+        "recall_at_10_default_nprobe_min": float(np.min(recalls)),
+        "candidate_fraction_mean": float(np.mean(fractions)),
+        "default_nprobe": plan_nprobe,
+        "filtered_hits_pop_below_half": all(
+            pop[i] < 0.5 for out in f_resp for i in _hit_ids(out)),
+        "k10000_hits": len(big_out["hits"]["hits"]),
+        "check_s": check_s,
+    }
+    log(f"phase knn check: {'ok' if mismatches == 0 else 'FAILED'} "
+        f"{json.dumps(knn_checks)} [{card}]")
+    if mismatches or not knn_checks["filtered_hits_pop_below_half"]:
+        raise SmokeFailure(f"{mismatches} knn mismatches")
+    if knn_checks["k10000_hits"] != 10_000:
+        raise SmokeFailure("the k = 10,000 knn returned "
+                           f"{knn_checks['k10000_hits']} hits")
+
+    # -- 16. concurrent knn ------------------------------------------------
+    node.exec_batcher.close()
+    node.exec_batcher = type(node.exec_batcher)()
+    server, base = serve(node)
+    order = np.random.default_rng(SEED + 5).permutation(
+        np.tile(np.arange(len(knn_bodies)), 4))
+    conc_bodies = [knn_bodies[int(j)] for j in order]
+    try:
+        with counted("knn concurrent", launches):
+            c_lat, c_resp, c_wall = concurrent(base, "glove", conc_bodies, N_CLIENTS)
+    finally:
+        server.shutdown()
+        server.server_close()
+    bad = sum(without_took(c_resp[n]) != without_took(k_resp[int(j)])
+              for n, j in enumerate(order))
+    conc = {
+        "requests": len(conc_bodies), "qps": len(conc_bodies) / c_wall,
+        "p50_ms": percentile(c_lat, 50), "p99_ms": percentile(c_lat, 99),
+        "mismatches_vs_sequential": bad, "batcher": node.exec_batcher.stats(),
+    }
+    log(f"phase knn concurrent: {'ok' if bad == 0 else 'FAILED'} "
+        f"{json.dumps(conc)} [{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} concurrent knn answers differ from sequential")
+
+    # -- 17. device time per request --------------------------------------
+    dev_ms = {"script": [], "knn": []}
+    for body in script_bodies[:N_KNN_QUERIES]:
+        c = compiler.compile(parse_query(body["query"]))
+        plan = bm25_device.plan_to_torch(c.spec, c.arrays, dev)
+        dev_ms["script"].append(cuda_ms(
+            lambda: bm25_device.execute(seg_tree, c.spec, plan, TOP_K), 3))
+    for q in qvs:
+        dev_ms["knn"].append(cuda_ms(lambda: ann_device.ann_ivf_search(
+            parts.tree(), live, q, TOP_K, plan_nprobe, "cosine"), 3))
+    q_batch = max(2, round(conc["batcher"]["occupancy_mean"]))
+    rows.extend(kernel_rows_knn(vec_dev, qvs, parts, plan_nprobe, q_batch, dev))
+    result = {
+        "vectors": N_VECTORS, "dims": VEC_DIMS,
+        "script_p50_ms": percentile(s_lat[:N_KNN_QUERIES], 50),
+        "script_p99_ms": percentile(s_lat[:N_KNN_QUERIES], 99),
+        "script_qps_sequential": N_KNN_QUERIES / sum(s_lat[:N_KNN_QUERIES]) * 1e3,
+        "script_device_p50_ms": percentile(dev_ms["script"], 50),
+        "dot_ms": s_lat[N_KNN_QUERIES], "l2_ms": s_lat[N_KNN_QUERIES + 1],
+        "knn_p50_ms": percentile(k_lat, 50), "knn_p99_ms": percentile(k_lat, 99),
+        "knn_qps_sequential": len(k_lat) / k_wall,
+        "knn_device_p50_ms": percentile(dev_ms["knn"], 50),
+        "filtered_knn_p50_ms": percentile(f_lat, 50),
+        "k10000_ms": big_ms,
+        "build": build, "checks": knn_checks, "concurrent": conc,
+        "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+    }
+    log(f"phase results (knn): {json.dumps(result)} [{card}]")
+    node.close()
+    return result
+
+
+def kernel_rows_knn(vec_dev, qvs, parts, nprobe, q_batch, dev):
+    """K7 (dense at Q = 1 and at the concurrent phase's mean batch, gather
+    at the default nprobe, script at cfg5), K9 at [8,192, 100] x [C, 100]
+    and K3i at the IVF merge's shape, each against its plain version."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.ops import kernels as kern
+
+    rows = []
+    n, d = vec_dev.shape
+    vs_src = "elasticsearch_tpu_torch/csrc/vector_score.cu"
+    q1 = torch.from_numpy(qvs[:1]).to(dev).contiguous()
+    qb = torch.from_numpy(qvs[:q_batch]).to(dev).contiguous()
+    _row(rows, "vector_score", "elasticsearch_tpu/ops/ann_device.py:119", 1,
+         lambda: kern.vector_score_batch(vec_dev, q1, "cosine"),
+         lambda: kern.vector_score_batch_plain(vec_dev, q1, "cosine"),
+         lambda: torch.mv(vec_dev, q1[0]), "torch.mv over the plane (the dot only)",
+         n * d * 4 + d * 4 + n * 4, source=vs_src, case="dense, Q = 1")
+    _row(rows, "vector_score", "elasticsearch_tpu/ops/ann_device.py:162", q_batch,
+         lambda: kern.vector_score_batch(vec_dev, qb, "cosine"),
+         lambda: kern.vector_score_batch_plain(vec_dev, qb, "cosine"),
+         lambda: torch.matmul(qb, vec_dev.T),
+         "torch.matmul over the plane (the dots only)",
+         n * d * 4 + q_batch * d * 4 + q_batch * n * 4, source=vs_src,
+         case=f"dense, Q = {q_batch}", reps=5)
+    coarse = kern.vector_score_batch(parts.centroids, q1, "cosine")
+    _s, probes, _t = kern.masked_topk_batch(
+        coarse, torch.ones_like(coarse, dtype=torch.bool), nprobe)
+    kp, pmax = probes.shape[1], parts.pmax
+    _row(rows, "vector_score_gather", "elasticsearch_tpu/ops/ann_device.py:189", 1,
+         lambda: kern.vector_score_gather_batch(parts.part_vectors, q1, probes, "cosine"),
+         lambda: kern.vector_score_gather_batch_plain(parts.part_vectors, q1, probes,
+                                                      "cosine"),
+         None, None, kp * pmax * d * 4 + kp * 4 + d * 4 + kp * pmax * 4,
+         source=vs_src, case=f"gather, nprobe = {kp}, pmax = {pmax}")
+    _row(rows, "vector_score_script", "elasticsearch_tpu/script/painless_lite.py:178", 1,
+         lambda: kern.vector_script_batch(vec_dev, q1),
+         lambda: kern.vector_script_batch_plain(vec_dev, q1),
+         lambda: torch.mv(vec_dev, q1[0]), "torch.mv over the plane (the dot only)",
+         n * d * 4 + d * 4 + 3 * n * 4 + 4, source=vs_src, case="script, cfg5")
+    rows_m = vec_dev[:8192].contiguous()
+    cents = parts.centroids[:: max(1, parts.n_partitions // 1000)][:1000].contiguous()
+    c = cents.shape[0]
+    _row(rows, "ivf_assign", "elasticsearch_tpu/ops/ann_device.py:280", 8192,
+         lambda: kern.ivf_assign(cents, rows_m),
+         lambda: kern.ivf_assign_plain(cents, rows_m),
+         lambda: torch.argmin(
+             (rows_m * rows_m).sum(1, keepdim=True) - 2 * (rows_m @ cents.T)
+             + (cents * cents).sum(1), dim=1),
+         "torch.matmul + argmin", (8192 + c) * d * 4 + 8192 * 4,
+         source="elasticsearch_tpu_torch/csrc/ivf_assign.cu",
+         case=f"[8192, {d}] x [{c}, {d}]", flops=2 * 8192 * c * d, reps=5)
+    # K3i at the merge's shape: kp partitions x k survivors of one query.
+    g = kern.vector_score_gather_batch(parts.part_vectors, q1, probes, "cosine")
+    part_s, part_pos, _pt = kern.masked_topk_batch(
+        g.reshape(kp, pmax), torch.ones((kp, pmax), dtype=torch.bool, device=dev),
+        TOP_K)
+    part_d = torch.gather(parts.part_docs[probes[0].long()], 1, part_pos.long())
+    flat_s = part_s.reshape(1, -1).contiguous()
+    flat_d = part_d.reshape(1, -1).contiguous()
+    ones = torch.ones_like(flat_s, dtype=torch.bool)
+    m = flat_s.shape[1]
+
+    def two_sorts():
+        o1 = torch.sort(flat_d, dim=1, stable=True).indices
+        return torch.sort(-flat_s.gather(1, o1), dim=1, stable=True)
+
+    _row(rows, "masked_topk_ids", "elasticsearch_tpu/ops/ann_device.py:236", 1,
+         lambda: kern.masked_topk_ids_batch(flat_s, flat_d, ones, TOP_K),
+         lambda: kern.masked_topk_ids_batch_plain(flat_s, flat_d, ones, TOP_K),
+         two_sorts, "two stable torch.sorts", m * 9 + TOP_K * 8 + 4,
+         source=SOURCES["masked_topk"], case=f"merge of {m} survivors, k = {TOP_K}")
+    torch.cuda.synchronize()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Kernel rows
 # ---------------------------------------------------------------------------
 
@@ -1581,10 +2052,11 @@ def _same(got, want, name):
 
 
 def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes,
-         reps=20, route="cuda", source=None, case=None):
-    """Hold a kernel to its plain version (exact) and time both, its byte
-    bound and one library call (None where no one PyTorch call computes
-    the same function)."""
+         reps=20, route="cuda", source=None, case=None, flops=0):
+    """Hold a kernel to its plain version (exact) and time both, its bound
+    (the larger of its bytes over the memory rate and its fp32 `flops`
+    over the card's fp32 rate outside the tensor cores) and one library
+    call (None where no one PyTorch call computes the same function)."""
     import torch
 
     got, want = fn(), plain()
@@ -1602,12 +2074,17 @@ def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes,
         "max_abs_err": 0.0,
         "ms": cuda_ms(fn, reps),
         "plain_ms": cuda_ms(plain, 1),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3,
+        "bound_by": (
+            "operations" if flops / FP32_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
+            else "bytes"
+        ),
         "library_ms": None if library is None else cuda_ms(library, reps),
         "library_call": library_call,
         "bound_bytes": int(nbytes),
     }
+    if flops:
+        r["bound_flops"] = int(flops)
     if case is not None:
         r["case"] = case
     log(f"  kernel {json.dumps(r)}")

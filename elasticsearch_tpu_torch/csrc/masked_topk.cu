@@ -44,6 +44,18 @@
 // decode returns the column's raw value (field sorts) or the masked score
 // (score orders) at each winner.
 //
+// Id mode (K3i; the merge of the IVF survivors in elasticsearch_tpu/ops/
+// ann_device.py `_ivf_inner` :236-242, `lax.sort((-s, doc, s),
+// num_keys=2)`): the composite takes its low 32 bits from an int32 id
+// array (the doc ids) instead of the position, so one descending sort is
+// (score desc, id asc). lax.sort's float keys are canonical: -0.0 equals
+// +0.0 (the id decides) and every NaN sorts last; the id mode's high bits
+// follow it (+0.0 for either zero, 0 for a NaN). The decode reads the
+// score back from the high bits (+0.0 for a zero, the canonical NaN
+// 0x7fc00000 for a NaN; the kNN similarities produce neither -0.0 nor a
+// NaN that counts as a hit) and the id from the low bits. Its library
+// call is two stable torch.sorts.
+//
 // Stacked mode (K3s; the per-shard top-k of `_shards_inner` :1137 under
 // the vmap of `execute_shards_batch` :1161): row r is the pair (query
 // r / S, shard r % S). Its keys are that pair's own candidates, so no
@@ -111,6 +123,7 @@ __device__ __forceinline__ void sort_and_emit(uint64_t* sm, int ch, int kk,
 // survivors go to out + q * out_stride, kk per block.
 __global__ void topk_block_kernel(
     const float* __restrict__ key_f,
+    const int32_t* __restrict__ ids,
     const uint64_t* __restrict__ key_c,
     int n, int64_t in_stride, int kk, int ch, int64_t out_stride,
     uint64_t* __restrict__ out) {
@@ -122,8 +135,19 @@ __global__ void topk_block_kernel(
         uint64_t v = 0;  // below every real composite (even -NaN's)
         if (i < len) {
             const int g = lo + i;
-            v = key_f != nullptr ? esk_composite(key_f[row_in + g], (uint32_t)g)
-                                 : key_c[row_in + g];
+            if (key_f == nullptr) {
+                v = key_c[row_in + g];
+            } else {
+                const float kf = key_f[row_in + g];
+                if (ids != nullptr) {
+                    // lax.sort's canonical keys: zeros equal, NaN last.
+                    const uint32_t o =
+                        isnan(kf) ? 0u : esk_f32_order(kf == 0.f ? 0.f : kf);
+                    v = ((uint64_t)o << 32) | (uint64_t)(~(uint32_t)ids[row_in + g]);
+                } else {
+                    v = esk_composite(kf, (uint32_t)g);
+                }
+            }
         }
         sm[i] = v;
     }
@@ -167,6 +191,25 @@ __global__ void topk_decode_kernel(
     const uint32_t idx = esk_composite_index(comp[q * comp_stride + r]);
     top_idx[t] = (int32_t)idx;
     top_scores[t] = key_f[q * m + idx];
+}
+
+// The id mode's decode: score and id both from the composite.
+__global__ void topk_decode_ids_kernel(
+    const uint64_t* __restrict__ comp, int64_t comp_stride, int kk,
+    int n_rows, float* __restrict__ top_scores,
+    int32_t* __restrict__ top_idx) {
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= (int64_t)n_rows * kk) {
+        return;
+    }
+    const int64_t q = t / kk;
+    const int r = (int)(t % kk);
+    const uint64_t c = comp[q * comp_stride + r];
+    const uint32_t o = (uint32_t)(c >> 32);
+    const uint32_t b =
+        o == 0u ? 0x7fc00000u : ((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+    top_idx[t] = (int32_t)esk_composite_index(c);
+    top_scores[t] = __uint_as_float(b);
 }
 
 __global__ void keyed_decode_kernel(
@@ -259,7 +302,8 @@ static int merge_passes(int n_rows, int m, int kk, int ch, size_t smem,
     while (nb > 1) {
         nb = esk_blocks(n, ch);
         topk_block_kernel<<<dim3(nb, n_rows), TK_THREADS, smem, s>>>(
-            nullptr, *out, n, out_stride, kk, ch, out_stride, *spare);
+            nullptr, nullptr, *out, n, out_stride, kk, ch, out_stride,
+            *spare);
         ESK_RETURN_IF_ERROR();
         const int last = n - (nb - 1) * ch;
         n = (nb - 1) * kk + esk_imin(kk, last);
@@ -270,12 +314,14 @@ static int merge_passes(int n_rows, int m, int kk, int ch, size_t smem,
     return 0;
 }
 
-// key f32[n_rows, m] (ineligible entries already -inf), eligible
+// key f32[n_rows, m] (ineligible entries already -inf), ids i32[n_rows, m]
+// (the id mode's tie-break ids) or null (the position), eligible
 // u8[n_rows, m]. ch: power-of-two chunk (1024..16384) with ch > k.
 // buf_a/buf_b: u64 scratch of n_rows * ceil(m / ch) * k entries each.
 // Outputs top_scores/top_idx [n_rows, min(k, m)] and total i32[n_rows].
 extern "C" int esk_masked_topk(
     const void* key,
+    const void* ids,
     const void* eligible,
     int n_rows,
     int m,
@@ -310,17 +356,23 @@ extern "C" int esk_masked_topk(
     // Every pass writes a row's survivors at the first pass's row stride.
     const int64_t out_stride = (int64_t)esk_blocks(m, ch) * kk;
     topk_block_kernel<<<dim3(esk_blocks(m, ch), n_rows), TK_THREADS, smem,
-                        s>>>((const float*)key, nullptr, m, m, kk, ch,
-                             out_stride, out);
+                        s>>>((const float*)key, (const int32_t*)ids, nullptr,
+                             m, m, kk, ch, out_stride, out);
     ESK_RETURN_IF_ERROR();
     const int rc = merge_passes(n_rows, m, kk, ch, smem, &out, &spare, s);
     if (rc != 0) {
         return rc;
     }
     const int64_t n_out = (int64_t)n_rows * kk;
-    topk_decode_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(
-        out, out_stride, kk, n_rows, (const float*)key, (int64_t)m,
-        (float*)top_scores, (int32_t*)top_idx);
+    if (ids != nullptr) {
+        topk_decode_ids_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(
+            out, out_stride, kk, n_rows, (float*)top_scores,
+            (int32_t*)top_idx);
+    } else {
+        topk_decode_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(
+            out, out_stride, kk, n_rows, (const float*)key, (int64_t)m,
+            (float*)top_scores, (int32_t*)top_idx);
+    }
     ESK_RETURN_IF_ERROR();
     return 0;
 }

@@ -2,9 +2,9 @@
 
 Port copy of elasticsearch_tpu/exec/cost.py, trimmed to `PlanFeatures`,
 `coalesce_wins`, `seed_ms` for the `device`, `device_batched`,
-`blockmax` and `blockmax_conj` backends (and the generic device formula
-an unknown backend falls to), and `CostModel`. Left out with the
-backends that are not ported yet: the `oracle`, `mesh_spmd`, `ann_ivf`,
+`blockmax`, `blockmax_conj` and `ann_ivf` backends (and the generic
+device formula an unknown backend falls to), and `CostModel`. Left out
+with the backends that are not ported yet: the `oracle`, `mesh_spmd`,
 `packed` and `cached_mask` seeds and their constants.
 
 A plan class is the hashable identity of "queries that cost the same":
@@ -37,6 +37,9 @@ class PlanFeatures:
     work_tiles: int = 0  # pow-2 worklist tiles the compiled plan touches
     n_clauses: int = 1  # scoring clauses (run-fold width proxy)
     n_shards: int = 1  # stacked shards served by one launch
+    # IVF probe work: centroids scanned + nprobe * partition size
+    # candidates re-ranked (the ann_ivf seed's scale).
+    n_candidates: int = 0
 
 
 # Seed coefficients, milliseconds: the reference's TPU-derived priors,
@@ -64,6 +67,16 @@ _DEVICE_LIKE = ("device", "device_batched")
 def seed_ms(backend: str, feats: PlanFeatures) -> float:
     """Closed-form prior cost (ms) for one query on one backend."""
     shards = max(1, feats.n_shards)
+    if backend == "ann_ivf":
+        # IVF kNN: priced in candidates examined instead of corpus size,
+        # plus the dense share both knn kernels pay; the exact brute force
+        # prices through the device formula below, so the seed order
+        # flips to ann_ivf when the probe examines a small fraction.
+        return (
+            _DEVICE_LAUNCH_MS
+            + _DEVICE_DENSE_MS * (feats.n_candidates / 1e6)
+            + 0.25 * _DEVICE_DENSE_MS * (feats.n_docs / 1e6)
+        )
     if backend in ("blockmax", "blockmax_conj"):
         # Both two-phase tile-pruned paths: two launches + a host prune,
         # with roughly half the worklist surviving to the exact launch.

@@ -4,11 +4,13 @@ Port copy of elasticsearch_tpu/exec/planner.py, trimmed to
 `ast_signature` (the micro-batcher's group key), `spec_work_tiles` (the
 coalescing work proxy) and `ExecPlanner` (`classify`, `decide`,
 `record`, `note`, `decisions`, `stats`) over the backends the port has:
-`device`, `blockmax`, `blockmax_conj` and `device_batched`. The decision
-counters are a plain dict (the reference keeps them on its metrics
-registry, which is not ported). Left out: `oracle_eligible` and the
-`oracle`, `mesh_spmd`, `packed`, `cached_mask` and `ann_ivf` backends,
-which wait for their modules.
+`device`, `blockmax`, `blockmax_conj`, `device_batched` and `ann_ivf`
+(the knn section's IVF probe, decided against the exact `device` kernels
+only inside the knn section; script_score kNN never routes to it). The
+decision counters are a plain dict (the reference keeps them on its
+metrics registry, which is not ported). Left out: `oracle_eligible` and
+the `oracle`, `mesh_spmd`, `packed` and `cached_mask` backends, which
+wait for their modules.
 
 Per (shard, query) the planner picks which backend runs the scoring
 pass: `device` (the sparse/dense kernels, always eligible) or a
@@ -87,7 +89,9 @@ class ExecPlanner:
     """Backend decisions + counters for one node's query executions."""
 
     MIN_OBS = 2  # explorations per (class, backend) before exploiting
-    BACKENDS = ("device", "blockmax", "blockmax_conj", "device_batched")
+    BACKENDS = (
+        "device", "blockmax", "blockmax_conj", "device_batched", "ann_ivf",
+    )
 
     def __init__(self, cost_model: CostModel | None = None):
         self.cost = cost_model or CostModel()

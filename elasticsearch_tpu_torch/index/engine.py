@@ -3,15 +3,19 @@
 Port of elasticsearch_tpu/index/engine.py, trimmed to this slice: `index`,
 `delete`, `refresh`, the device live mask, `_install_segment` (attach a
 prebuilt segment), `field_stats`, `compiler_for`, the refresh
-`generation` and the live-doc count `num_docs`. Left out: the
+`generation` and the live-doc count `num_docs`. Engines and segment
+handles carry process-unique `uid`s (the kNN plane cache keys on them).
+Dense_vector matrices ride the segments and their device planes. Left
+out: the
 translog and store (no durability), merges, the HBM breaker, CAS writes,
 replication and cold-tier demotion; see ROADMAP queue A.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -23,6 +27,9 @@ from ..query.compile import Compiler, FieldStats, aggregate_field_stats
 from .mapping import Mappings
 from .segment import Segment, SegmentBuilder
 from .tiles import DeviceSegment, pack_segment
+
+
+_UIDS = itertools.count(1)
 
 
 class VersionConflictError(Exception):
@@ -42,6 +49,7 @@ class SegmentHandle:
     base: int  # global doc id base for this segment
     live_host: np.ndarray  # bool[N] host copy of the live mask
     live_dirty: bool = False
+    uid: int = field(default_factory=lambda: next(_UIDS))
 
     def soft_delete(self, local_doc: int) -> None:
         if self.live_host[local_doc]:
@@ -67,6 +75,7 @@ class Engine:
         device=DEFAULT_DEVICE,
     ):
         self.mappings = mappings or Mappings()
+        self.uid = next(_UIDS)
         self.params = params
         self.device = resolve_device(device)
         self.segments: list[SegmentHandle] = []

@@ -1,12 +1,18 @@
 """Field mappings: the schema of an index.
 
 Port copy of elasticsearch_tpu/index/mapping.py, trimmed to this slice:
-`text`, `keyword` and the numeric types `long`, `integer`, `float` and
-`double`, multi-fields (the dynamic `text` + `.keyword` pair) and dynamic
-mapping of unseen fields from JSON value types. Left out: objects and
-nested scopes, dates, booleans, vectors, geo, completion and the other
-mapper-extras types, dynamic templates and `to_json` round-trips; any
-such field is rejected at mapping or index time.
+`text`, `keyword`, the numeric types `long`, `integer`, `float` and
+`double`, and `dense_vector` (with `dims`, `similarity` — `cosine` by
+default —, `MAX_DIMS` and the reference's up-front checks), multi-fields
+(the dynamic `text` + `.keyword` pair) and dynamic mapping of unseen
+fields from JSON value types (a dense_vector is never mapped
+dynamically: a numeric array maps as a number, as in the reference).
+`merge_field` keeps the reference's mapping-update rules for the fields
+it has: a type never changes, and a dense_vector's `dims` and
+`similarity` are immutable. Left out: objects and nested scopes, dates,
+booleans, geo, completion and the other mapper-extras types, dynamic
+templates and `to_json` round-trips; any such field is rejected at
+mapping or index time.
 """
 
 from __future__ import annotations
@@ -22,10 +28,11 @@ LONG = "long"
 INTEGER = "integer"
 FLOAT = "float"
 DOUBLE = "double"
+DENSE_VECTOR = "dense_vector"
 
 NUMERIC_TYPES = {LONG, INTEGER, FLOAT, DOUBLE}
 INVERTED_TYPES = {TEXT, KEYWORD}
-ALL_TYPES = NUMERIC_TYPES | INVERTED_TYPES
+ALL_TYPES = NUMERIC_TYPES | INVERTED_TYPES | {DENSE_VECTOR}
 
 
 def coerce_numeric(field_type: str, value: Any) -> float:
@@ -46,12 +53,35 @@ class FieldMapping:
     norms: bool | None = None  # None -> type default (text: True, keyword: False)
     fields: dict[str, "FieldMapping"] = field(default_factory=dict)
     ignore_above: int = 0  # keyword: longer values are not indexed
+    dims: int = 0  # dense_vector dimension
+    # dense_vector similarity: the knn section's scoring and the IVF
+    # coarse scan.
+    similarity: str = "cosine"
+
+    # Max dense_vector dims (reference: DenseVectorFieldMapper MAX_DIMS).
+    MAX_DIMS = 4096
+    SIMILARITIES = ("cosine", "dot_product", "l2_norm")
 
     def __post_init__(self):
         if self.type not in ALL_TYPES:
             raise ValueError(
                 f"No handler for type [{self.type}] on field [{self.name}]"
             )
+        if self.type == DENSE_VECTOR:
+            # dims are required up front: a mapping without them would
+            # defer the shape error to ingest, or to the kernel.
+            if self.dims < 1 or self.dims > self.MAX_DIMS:
+                raise ValueError(
+                    f"The number of dimensions for field [{self.name}] "
+                    f"should be in the range [1, {self.MAX_DIMS}] but was "
+                    f"[{self.dims}]"
+                )
+            if self.similarity not in self.SIMILARITIES:
+                raise ValueError(
+                    f"Unknown similarity [{self.similarity}] for field "
+                    f"[{self.name}]; expected one of "
+                    f"{list(self.SIMILARITIES)}"
+                )
         if self.type == KEYWORD:
             self.analyzer = "keyword"
         if self.search_analyzer is None:
@@ -109,6 +139,8 @@ class Mappings:
             norms=None if norms is None else bool(norms),
             fields=subs,
             ignore_above=int(spec.get("ignore_above", 0)),
+            dims=int(spec.get("dims", 0)),
+            similarity=str(spec.get("similarity", "cosine")),
         )
 
     @classmethod
@@ -118,6 +150,34 @@ class Mappings:
             raw = mappings_json.get("dynamic", True)
             kw["dynamic"] = raw is True or str(raw).lower() == "true"
         return cls(properties=mappings_json.get("properties"), **kw)
+
+    def merge_field(self, name: str, spec: dict[str, Any]) -> None:
+        """Add or update one field from a mapping update (PUT _mapping):
+        a new field is added; an existing one keeps its type, and a
+        dense_vector keeps its `dims` and `similarity` (the vectors and
+        IVF planes were built under them), else ValueError with the
+        reference's message."""
+        new = self._parse_field(name, spec)
+        existing = self.fields.get(name)
+        if existing is None:
+            self.fields[name] = new
+            return
+        if existing.type != new.type:
+            raise ValueError(
+                f"mapper [{name}] cannot be changed from type "
+                f"[{existing.type}] to [{new.type}]"
+            )
+        if existing.type == DENSE_VECTOR:
+            for param in ("dims", "similarity"):
+                if getattr(existing, param) != getattr(new, param):
+                    raise ValueError(
+                        f"Mapper for [{name}] conflicts with existing "
+                        f"mapper: Cannot update parameter [{param}] from "
+                        f"[{getattr(existing, param)}] to "
+                        f"[{getattr(new, param)}]"
+                    )
+        for sub, sub_fm in new.fields.items():
+            existing.fields.setdefault(sub, sub_fm)
 
     def get(self, name: str) -> FieldMapping | None:
         fm = self.fields.get(name)

@@ -2,15 +2,20 @@
 
 Port copy of elasticsearch_tpu/index/segment.py, trimmed to this slice:
 `FieldIndex`, `Segment` and the Python path of `SegmentBuilder` for text,
-keyword and numeric fields (with multi-fields). Left out: the native C++
-accumulator, token positions, nested blocks, vectors, geo points,
-completion and percolator fields.
+keyword, numeric and dense_vector fields (with multi-fields). A
+dense_vector value is staged whole (never flattened as a multi-value)
+and checked with the reference's messages: rank, NaN / Infinity, dims,
+and zero magnitude under cosine and dot_product. Left out: the native
+C++ accumulator, token positions, nested blocks, geo points, completion
+and percolator fields.
 
 A Segment is an immutable columnar snapshot of a batch of documents, all
 plain numpy: per inverted field a term dictionary plus CSR postings (doc
 ids + term frequencies), SmallFloat norm bytes and the BM25 collection
 statistics; per numeric field a dense float64 doc-values column (NaN =
-missing); the stored `_source` documents for the fetch phase.
+missing); per dense_vector field a float32 [N, dims] matrix, zero rows
+for docs without a vector; the stored `_source` documents for the fetch
+phase.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from typing import Any
 import numpy as np
 
 from ..utils import smallfloat
-from .mapping import Mappings, coerce_numeric
+from .mapping import DENSE_VECTOR, Mappings, coerce_numeric
 
 
 @dataclass
@@ -67,7 +72,7 @@ class Segment:
     num_docs: int
     fields: dict[str, FieldIndex]
     doc_values: dict[str, np.ndarray]  # field -> float64[N] (NaN missing)
-    vectors: dict[str, np.ndarray]  # always empty in this slice
+    vectors: dict[str, np.ndarray]  # field -> float32[N, dims]
     sources: list[dict[str, Any]]  # stored _source per local doc
     ids: list[str]  # external _id per local doc
     versions: np.ndarray | None = None  # int64[N]; None = all 1
@@ -86,6 +91,48 @@ def _iter_field_values(value: Any) -> list[Any]:
     return [value]
 
 
+def _parse_vector(field_name: str, fm, value: Any) -> np.ndarray:
+    """A dense_vector value as float32[dims], or ValueError (a 400 at index
+    time) with the reference's messages: it must never surface later as a
+    kernel shape error."""
+    if isinstance(value, dict):
+        raise ValueError(
+            f"failed to parse field [{field_name}] of type [{fm.type}]: "
+            f"found an object value"
+        )
+    try:
+        vec = np.asarray(value, dtype=np.float32)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"Failed to parse object: dense_vector field [{field_name}] "
+            f"expects an array of numbers"
+        ) from None
+    if vec.ndim != 1:
+        raise ValueError(
+            f"dense_vector field [{field_name}] expects a flat array of "
+            f"numbers, got an array of rank {vec.ndim}"
+        )
+    if not np.all(np.isfinite(vec)):
+        raise ValueError(
+            f"dense_vector field [{field_name}] must not contain NaN or "
+            f"Infinity values"
+        )
+    if vec.shape[0] != fm.dims:
+        raise ValueError(
+            f"The [{field_name}] field has a different number of dimensions "
+            f"[{vec.shape[0]}] than defined in the mapping [{fm.dims}]"
+        )
+    if fm.similarity in ("cosine", "dot_product") and not np.any(vec):
+        # cosine (and unit-norm dot_product) cannot score a zero vector;
+        # rejecting it also makes the kNN kernels' all-zero row = no
+        # vector rule exact for these metrics.
+        raise ValueError(
+            f"The [{fm.similarity}] similarity does not support vectors "
+            f"with zero magnitude (field [{field_name}])"
+        )
+    return vec
+
+
 class SegmentBuilder:
     """Accumulates documents and freezes them into a Segment (the in-memory
     IndexWriter buffer of the write path)."""
@@ -101,15 +148,19 @@ class SegmentBuilder:
         self._lengths: dict[str, dict[int, int]] = {}  # field -> doc -> len
         self._present: dict[str, set[int]] = {}  # field -> docs with a value
         self._numeric: dict[str, dict[int, float]] = {}
+        self._vectors: dict[str, dict[int, np.ndarray]] = {}
 
     @property
     def num_docs(self) -> int:
         return len(self._sources)
 
-    def _stage_field(self, field_name, fm, value, staged_postings, staged_numeric):
+    def _stage_field(self, field_name, fm, value, staged_postings,
+                     staged_numeric, staged_vectors):
         """Stage one (field, value) pair: raises on mapper errors, touches
         no builder state."""
-        if fm.is_inverted:
+        if fm.type == DENSE_VECTOR:
+            staged_vectors.append((field_name, _parse_vector(field_name, fm, value)))
+        elif fm.is_inverted:
             analyzer = self.mappings.analysis.get(fm.analyzer)
             total_len = 0
             tf: dict[str, int] = {}
@@ -139,11 +190,14 @@ class SegmentBuilder:
     def _stage_doc(self, source: dict[str, Any]):
         staged_postings: list[tuple[str, dict[str, int], int]] = []
         staged_numeric: list[tuple[str, float]] = []
+        staged_vectors: list[tuple[str, np.ndarray]] = []
         staged_mappings: dict[str, Any] = {}
         for name, value in source.items():
             if value is None:
                 continue
-            if isinstance(value, list) and not value:
+            mapped = self.mappings.get(name)
+            if (isinstance(value, list) and not value and (
+                    mapped is None or mapped.type != DENSE_VECTOR)):
                 continue  # empty arrays index nothing
             fm = self.mappings.resolve_dynamic(name, value, staged_mappings)
             if fm is None:
@@ -156,9 +210,9 @@ class SegmentBuilder:
             for target_name, target_fm in targets:
                 self._stage_field(
                     target_name, target_fm, value, staged_postings,
-                    staged_numeric,
+                    staged_numeric, staged_vectors,
                 )
-        return staged_postings, staged_numeric, staged_mappings
+        return staged_postings, staged_numeric, staged_vectors, staged_mappings
 
     def add(
         self,
@@ -169,7 +223,9 @@ class SegmentBuilder:
     ) -> int:
         """Index one document; returns its local doc id. Atomic: everything
         that can fail runs in a staging pass that touches no state."""
-        staged_postings, staged_numeric, staged_mappings = self._stage_doc(source)
+        staged_postings, staged_numeric, staged_vectors, staged_mappings = (
+            self._stage_doc(source)
+        )
         local = len(self._sources)
         for fname, fm in staged_mappings.items():
             self.mappings.fields.setdefault(fname, fm)
@@ -188,6 +244,8 @@ class SegmentBuilder:
                 self._lengths.setdefault(field_name, {})[local] = total_len
         for field_name, v in staged_numeric:
             self._numeric.setdefault(field_name, {})[local] = v
+        for field_name, vec in staged_vectors:
+            self._vectors.setdefault(field_name, {})[local] = vec
         return local
 
     def build(self) -> Segment:
@@ -240,11 +298,19 @@ class SegmentBuilder:
             for doc, v in by_doc.items():
                 col[doc] = v
             doc_values[fname] = col
+        vectors: dict[str, np.ndarray] = {}
+        for fname, by_doc in self._vectors.items():
+            fm = self.mappings.get(fname)
+            dims = fm.dims if fm and fm.dims else len(next(iter(by_doc.values())))
+            mat = np.zeros((n, dims), dtype=np.float32)
+            for doc, vec in by_doc.items():
+                mat[doc] = vec
+            vectors[fname] = mat
         return Segment(
             num_docs=n,
             fields=fields,
             doc_values=doc_values,
-            vectors={},
+            vectors=vectors,
             sources=list(self._sources),
             ids=list(self._ids),
             versions=np.asarray(self._versions, dtype=np.int64),

@@ -4,9 +4,13 @@ Port of elasticsearch_tpu/index/tiles.py, trimmed to this slice:
 `TILE`, `_pad_to_tile`, `DeviceField`, `DeviceSegment`, `compute_tn`,
 `pack_field` (with `min_tiles`), `pack_segment` (with the stacking pads
 `pad_docs_to` and `field_min_tiles`) and `device_nbytes`, plus
-`device_segment_from_numpy` to attach planes packed elsewhere. Left out:
-positional and keyword-ordinal planes, vectors, nested blocks,
-`pack_segment_delta`, `repack_tn` and the packed multi-tenant planes.
+`device_segment_from_numpy` to attach planes packed elsewhere; the
+dense_vector planes (f32[N, dims], padding rows zero, as the reference
+pads them), each with its vector-presence plane `has_vector` (bool[N],
+any element non-zero: the kNN kernels' rule for docs without a vector,
+computed once at pack time instead of per query). Left out: positional
+and keyword-ordinal planes, nested blocks, `pack_segment_delta`,
+`repack_tn` and the packed multi-tenant planes.
 
 A field's postings live on the device as flat CSR arrays padded to a tile
 multiple plus one all-sentinel tile, viewed as [NT, 256]:
@@ -109,6 +113,20 @@ class DeviceSegment:
     sources: list[dict[str, Any]]
     ids: list[str]
     device: torch.device
+    vectors: dict[str, torch.Tensor] = None  # float32[N, dims]
+    has_vector: dict[str, torch.Tensor] = None  # bool[N]
+
+    def __post_init__(self):
+        if self.vectors is None:
+            self.vectors = {}
+        if self.has_vector is None:
+            self.has_vector = _has_vector(self.vectors)
+
+
+def _has_vector(vectors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Per dense_vector plane, which rows hold a vector (any element
+    non-zero; ingest rejects zero vectors under cosine and dot_product)."""
+    return {name: (mat != 0).any(dim=1) for name, mat in vectors.items()}
 
 
 def compute_tn(field: FieldIndex, avgdl: float, k1: float, b: float) -> np.ndarray:
@@ -223,6 +241,11 @@ def pack_segment(
         padded = np.full(n, np.nan, dtype=np.float32)
         padded[: len(col)] = col.astype(np.float32)
         doc_values[name] = _put(padded, device)
+    vectors = {}
+    for name, mat in segment.vectors.items():
+        padded = np.zeros((n, mat.shape[1]), dtype=np.float32)
+        padded[: len(mat)] = mat
+        vectors[name] = _put(padded, device)
     live = np.zeros(n, dtype=bool)
     live[: segment.num_docs] = True
     if deleted is not None and len(deleted):
@@ -235,6 +258,7 @@ def pack_segment(
         sources=segment.sources,
         ids=segment.ids,
         device=device,
+        vectors=vectors,
     )
 
 
@@ -246,6 +270,10 @@ def device_nbytes(seg: DeviceSegment) -> int:
         total += f.norm_bytes.nbytes + f.present.nbytes
     for col in seg.doc_values.values():
         total += col.nbytes
+    for mat in seg.vectors.values():
+        total += mat.nbytes
+    for present in seg.has_vector.values():
+        total += present.nbytes
     return int(total)
 
 
@@ -271,10 +299,10 @@ def device_segment_from_numpy(
     """Build a DeviceSegment from numpy planes packed elsewhere.
 
     `planes` is a segment-tree view as numpy: {"fields": {name: (doc_ids,
-    tn, tfs, norm_bytes, present)}, "doc_values": {name: f32[N]}, "live":
-    bool[N]} (the JAX package's `segment_tree(dev)` leaves after
-    np.asarray). `fields_meta` maps each field to its host planning
-    attributes (`field_meta`)."""
+    tn, tfs, norm_bytes, present)}, "doc_values": {name: f32[N]},
+    "vectors": {name: f32[N, dims]}, "live": bool[N]} (the JAX package's
+    `segment_tree(dev)` leaves after np.asarray). `fields_meta` maps each
+    field to its host planning attributes (`field_meta`)."""
     device = resolve_device(device)
     live = np.asarray(planes["live"], dtype=bool)
     n = int(live.shape[0])
@@ -295,6 +323,10 @@ def device_segment_from_numpy(
         name: _put(np.asarray(col, dtype=np.float32), device)
         for name, col in planes.get("doc_values", {}).items()
     }
+    vectors = {
+        name: _put(np.asarray(mat, dtype=np.float32), device)
+        for name, mat in planes.get("vectors", {}).items()
+    }
     return DeviceSegment(
         num_docs=n,
         fields=fields,
@@ -303,4 +335,5 @@ def device_segment_from_numpy(
         sources=list(sources) if sources is not None else [None] * n,
         ids=list(ids) if ids is not None else [str(i) for i in range(n)],
         device=device,
+        vectors=vectors,
     )

@@ -1,8 +1,10 @@
 """A node on one device: index management, writes and `_search`.
 
 Port of elasticsearch_tpu/node.py, trimmed to this slice: `create_index`
-(with `number_of_shards`), `index_doc`, `delete_doc`, `bulk`, `refresh`
-and `search` over indices of N shards on one device. Documents route to
+(with `number_of_shards`), `delete_index`, `put_mapping` (new fields;
+a type, and a dense_vector's dims and similarity, never change),
+`index_doc`, `delete_doc`, `bulk`, `refresh` and `search` over indices
+of N shards on one device. Documents route to
 shards by murmur3 over their _id (parallel/routing.py); ids the node
 generates (`_auto_N`) come from one per-index counter. A multi-shard
 index searches through the ShardedSearchCoordinator. Plain searches ride
@@ -35,6 +37,7 @@ from .analysis.analyzers import AnalysisRegistry
 from .device import DEFAULT_DEVICE, resolve_device
 from .exec.batcher import BatcherRejected, MicroBatcher
 from .exec.planner import ExecPlanner, ast_signature
+from .index.ann import AnnCache, clear_index_ann
 from .index.engine import Engine, VersionConflictError
 from .index.mapping import Mappings
 from .ops.bm25 import BM25Params
@@ -118,7 +121,9 @@ class Node:
     """One node serving N-shard indices from one device.
 
     `exec_batcher` / `exec_planner` (default on) build the micro-batcher
-    and the cost-based backend planner; either is None when turned off."""
+    and the cost-based backend planner; either is None when turned off.
+    `ann_cache`: True builds the default AnnCache, False none, or pass
+    one."""
 
     def __init__(
         self,
@@ -127,6 +132,7 @@ class Node:
         cluster_name: str = "elasticsearch",
         exec_batcher: bool = True,
         exec_planner: bool = True,
+        ann_cache: "bool | AnnCache" = True,
     ):
         self.device = resolve_device(device)
         self.node_name = node_name
@@ -138,6 +144,11 @@ class Node:
         # Continuous micro-batching of concurrent plain searches
         # (ESTPU_EXEC_BATCH_WAIT_MS sets its window, default 4 ms).
         self.exec_batcher = MicroBatcher() if exec_batcher else None
+        # IVF planes of the knn section (None: exact brute force only).
+        if isinstance(ann_cache, AnnCache):
+            self.ann_cache = ann_cache
+        else:
+            self.ann_cache = AnnCache() if ann_cache else None
 
     def close(self) -> None:
         """Stop the micro-batcher's scheduler thread."""
@@ -215,15 +226,41 @@ class Node:
                 mappings=mappings,
                 engines=engines,
                 search=(
-                    SearchService(engines[0], planner=self.exec_planner)
+                    SearchService(
+                        engines[0], planner=self.exec_planner,
+                        ann_cache=self.ann_cache,
+                    )
                     if n_shards == 1
                     else ShardedSearchCoordinator(
-                        engines, name, planner=self.exec_planner
+                        engines, name, planner=self.exec_planner,
+                        ann_cache=self.ann_cache,
                     )
                 ),
                 max_result_window=window,
             )
         return {"acknowledged": True, "shards_acknowledged": True, "index": name}
+
+    def delete_index(self, name: str) -> dict:
+        """Drop an index and its IVF planes."""
+        with self._lock:
+            svc = self.indices.pop(name, None)
+        if svc is None:
+            raise index_not_found(name)
+        clear_index_ann(self.ann_cache, svc.engines)
+        return {"acknowledged": True}
+
+    def put_mapping(self, index: str, body: dict[str, Any] | None) -> dict:
+        """Add fields to an index's mappings (PUT /{index}/_mapping); an
+        existing field keeps its type, a dense_vector its dims and
+        similarity (400 otherwise)."""
+        svc = self.get_index(index)
+        properties = (body or {}).get("properties") or {}
+        try:
+            for name, spec in properties.items():
+                svc.mappings.merge_field(name, spec)
+        except ValueError as e:
+            raise ApiError(400, "illegal_argument_exception", str(e)) from None
+        return {"acknowledged": True}
 
     def get_index(self, name: str, auto_create: bool = False) -> IndexService:
         svc = self.indices.get(name)
@@ -274,9 +311,18 @@ class Node:
             "_shards": {"total": 1, "successful": 1, "failed": 0},
         }
         if refresh:
-            engine.refresh()
+            self._refresh_engine(engine)
             out["forced_refresh"] = True
         return out
+
+    def _refresh_engine(self, engine: Engine) -> None:
+        """Refresh one shard and prune the IVF planes of its dead
+        segments."""
+        engine.refresh()
+        if self.ann_cache is not None:
+            self.ann_cache.prune_dead(
+                engine.uid, frozenset(h.uid for h in engine.segments)
+            )
 
     def delete_doc(self, index: str, doc_id: str, refresh: bool = False) -> dict:
         svc = self.get_index(index)
@@ -292,7 +338,7 @@ class Node:
             "_shards": {"total": 1, "successful": 1, "failed": 0},
         }
         if refresh:
-            engine.refresh()
+            self._refresh_engine(engine)
             out["forced_refresh"] = True
         return out
 
@@ -364,7 +410,7 @@ class Node:
             for index in touched:
                 if index in self.indices:
                     for engine in self.indices[index].engines:
-                        engine.refresh()
+                        self._refresh_engine(engine)
         return {
             "took": int((time.monotonic() - t0) * 1000),
             "errors": errors,
@@ -374,7 +420,7 @@ class Node:
     def refresh(self, index: str) -> dict:
         svc = self.get_index(index)
         for engine in svc.engines:
-            engine.refresh()
+            self._refresh_engine(engine)
         n = svc.n_shards
         return {"_shards": {"total": n, "successful": n, "failed": 0}}
 
@@ -397,7 +443,19 @@ class Node:
                 f"for a more efficient way to request large data sets.",
             )
         try:
-            if self._batchable(request):
+            if request.knn is not None and self._batchable(request, svc):
+                # Coalesced kNN: same-shape unfiltered knn searches group
+                # into one batched pass per segment.
+                knn = request.knn
+                response = self.exec_batcher.execute(
+                    svc.search,
+                    request,
+                    group_key=(
+                        "_knn", svc.name, knn.field, knn.k,
+                        knn.num_candidates, knn.nprobe,
+                    ),
+                )
+            elif self._batchable(request, svc):
                 response = self.exec_batcher.execute(
                     svc.search,
                     request,
@@ -422,11 +480,14 @@ class Node:
             ) from None
         return response.to_json(index)
 
-    def _batchable(self, request: SearchRequest) -> bool:
+    def _batchable(
+        self, request: SearchRequest, svc: IndexService | None = None
+    ) -> bool:
         """May this search ride the exec micro-batcher? Plain score-sorted
         query phases that ask for at least one hit, while the node has a
         batcher: a sort, a rescore or a search_after cursor takes the
-        solo path."""
+        solo path. A knn search rides it unfiltered on a one-shard index
+        (a per-lane filter mask or a shard scatter keeps its solo path)."""
         if self.exec_batcher is None:
             return False
         if (
@@ -435,4 +496,11 @@ class Node:
             or request.search_after is not None
         ):
             return False
+        if request.knn is not None:
+            return (
+                request.knn.filter is None
+                and svc is not None
+                and isinstance(svc.search, SearchService)
+                and max(0, request.size) > 0
+            )
         return max(0, request.from_) + max(0, request.size) > 0

@@ -12,10 +12,12 @@ and the two-launch block-max execution `execute_batch_blockmax`,
 `supports_blockmax_conj`); the dense planes `execute_dense` and
 `scores_at`; the sorted and cursor programs `sort_key_plane`,
 `execute_sorted`, `execute_sorted_after`, `execute_score_asc` and
-`execute_score_after`; and the fused rescore `execute_rescore` — over
-the plan node kinds terms, terms_gather, terms_const, const, exists,
-range, match_all, match_none, bool and script. Left out: the filter-mask
-planes (`compute_filter_mask*`, with the filter cache), strictly
+`execute_score_after`; the fused rescore `execute_rescore`; and
+`compute_filter_mask`, a filter plan's matched plane (the knn filter) —
+over the plan node kinds terms, terms_gather, terms_const, const,
+exists, range, match_all, match_none, bool and script (whose vector
+functions read the dense_vector planes through K7's script mode). Left
+out: `compute_filter_mask_stacked` (with the filter cache), strictly
 sequential and packed execution, and the positional, nested,
 function_score, terms_set, geo, rank_feature, dis_max, boosting and
 doc_set nodes (see ROADMAP queue B).
@@ -55,6 +57,7 @@ import numpy as np
 import torch
 
 from ..script import compile_script
+from ..script.painless_lite import _param_value, referenced_vectors
 from . import kernels, script_kernel
 
 NEG_INF = float("-inf")
@@ -148,13 +151,15 @@ def _rows1(plan) -> Any:
 
 def segment_tree(device_segment) -> dict[str, Any]:
     """The executor's view of a DeviceSegment, in the reference's tuple
-    order: fields -> (doc_ids, tn, tfs, norm_bytes, present)."""
+    order: fields -> (doc_ids, tn, tfs, norm_bytes, present); vectors ->
+    f32[N, dims]."""
     return {
         "fields": {
             name: (f.doc_ids, f.tn, f.tfs, f.norm_bytes, f.present)
             for name, f in device_segment.fields.items()
         },
         "doc_values": dict(device_segment.doc_values),
+        "vectors": dict(device_segment.vectors),
         "live": device_segment.live,
     }
 
@@ -362,21 +367,48 @@ def _eval_bool(spec, arrays, seg, num_docs, q):
 def _eval_script(spec, arrays, seg, num_docs, q):
     """script_score (row 16a): the child's dense scores through the
     script, boost and min_score — K6 on the card, its plain torch
-    evaluation for CPU tensors (ops/script_kernel)."""
+    evaluation for CPU tensors (ops/script_kernel). The script's vector
+    functions read K7's script-mode planes (`vector_planes`)."""
     _, child_spec, source, _param_names, has_min_score = spec
+    script = compile_script(source)
+    params = {name: p.reshape(q, -1) for name, p in arrays["params"].items()}
     child_scores, matched = _eval_node(
         child_spec, arrays["child"], seg, num_docs, q
     )
     return script_kernel.script_eval(
-        compile_script(source),
+        script,
         child_scores.expand(q, num_docs).contiguous(),
         matched.expand(q, num_docs).contiguous(),
         seg["doc_values"],
-        {name: p.reshape(q, -1) for name, p in arrays["params"].items()},
+        params,
         arrays["boost"].reshape(q),
         arrays["min_score"].reshape(q) if has_min_score else None,
         n_shards=_n_shards(seg),
+        vectors=vector_planes(script, seg.get("vectors", {}), params),
     )
+
+
+def vector_planes(script, vectors: dict, params: dict) -> dict:
+    """K7's script-mode planes for each (param, field) vector call of a
+    script: {(param, field): (dot, |v|, |v - q|) f32[Q, N] and |q| f32[Q]},
+    params name -> f32[Q, d]. An unknown field, or a query vector whose
+    length is not the field's dims, is a ValueError (a 400)."""
+    out = {}
+    for name, field in referenced_vectors(script):
+        if field not in vectors:
+            raise ValueError(f"no dense_vector field [{field}]")
+        plane = vectors[field]
+        qv = _param_value(params, name)
+        if qv.dim() != 2 or qv.shape[1] != plane.shape[-1]:
+            raise ValueError(
+                f"the query vector [params.{name}] has a different number "
+                f"of dimensions [{qv.shape[-1] if qv.dim() else 1}] than "
+                f"the document vectors [{plane.shape[-1]}]"
+            )
+        out[(name, field)] = kernels.vector_script_batch(
+            plane, qv.to(torch.float32).contiguous()
+        )
+    return out
 
 
 def _execute_inner(seg, spec, arrays, k: int, q: int):
@@ -453,6 +485,15 @@ def _dense_rows(seg, spec, arrays, q: int):
     scores, matched = _eval_node(spec, arrays, seg, num_docs, q)
     eligible = (matched & _per_row(seg, live, q)).expand(q, num_docs)
     return scores.expand(q, num_docs).contiguous(), eligible.contiguous()
+
+
+def compute_filter_mask(seg, spec, arrays):
+    """A filter plan's matched plane bool[N] over one segment: the dense
+    evaluation's `matched`, live deliberately NOT applied (deletions AND
+    in at query time) — the knn section's filter mask."""
+    num_docs = seg["live"].shape[-1]
+    _, matched = _eval_node(spec, _rows1(arrays), seg, num_docs, 1)
+    return matched[0]
 
 
 def execute_dense(seg, spec, arrays):

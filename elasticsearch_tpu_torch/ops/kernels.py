@@ -1,5 +1,5 @@
-"""The port's four hand-written Hopper kernels, their bindings and their
-plain PyTorch versions.
+"""The port's hand-written Hopper kernels, their bindings and their plain
+PyTorch versions.
 
     K1 terms_scatter  csrc/terms_scatter.cu  worklist gather + BM25 impact +
                       ordered scatter (bm25_device._gather_tiles /
@@ -17,6 +17,17 @@ plain PyTorch versions.
     K5 window_rescore csrc/window_rescore.cu the rescore window's gather,
                       combine and top-k (_rescore_inner; scores_at's
                       gather in its gather mode)
+    K7 vector_score   csrc/vector_score.cu   per-row dense_vector
+                      similarity in one fixed reduction order: dense
+                      mode (ann_device._scored_rows / exact_scores /
+                      similarity_scores), gather mode (the IVF re-rank of
+                      part_vectors[probes]) and script mode (the dot /
+                      norm / distance planes of the script functions)
+    K9 ivf_assign     csrc/ivf_assign.cu     nearest centroid of each row
+                      (ann_device.assign_chunk)
+    K3i masked_topk_ids csrc/masked_topk.cu  K3's id mode: top-k by (score
+                      desc, id asc) with the ids from an int32 array (the
+                      IVF survivors' merge)
 
 K6 script_eval, the Triton kernel generated from a script, lives in
 ops/script_kernel.py and counts its launches here.
@@ -47,7 +58,9 @@ launches: under the kernel's name for one row, under `<name>_batch` for
 more, under `<name>_stacked` in the stacked mode (plain runs do not
 count); K3k, K5 and K6 count every launch under one name each
 (`keyed_topk`, `window_rescore` / `window_rescore_gather`,
-`script_eval`), whatever its row count. Launches from several threads (the REST
+`script_eval`), as do K7 by mode (`vector_score`, `vector_score_gather`,
+`vector_score_script`), K9 (`ivf_assign`) and K3i (`masked_topk_ids`),
+whatever its row count. Launches from several threads (the REST
 handlers and the micro-batcher) share the one library and the caller's
 current stream; the library loads once under `_lib_lock` and the counts
 move under `_count_lock`.
@@ -93,6 +106,8 @@ MODES = ("", "_batch", "_stacked")
 # Kernels counted under one name whatever their row count.
 ONE_NAME_KERNELS = (
     "keyed_topk", "window_rescore", "window_rescore_gather", "script_eval",
+    "vector_score", "vector_score_gather", "vector_score_script",
+    "ivf_assign", "masked_topk_ids",
 )
 
 LAUNCHES: dict[str, int] = {
@@ -222,12 +237,14 @@ def _bind(lib) -> None:
         [P] * 11 + [I, I, I, L, P, P, I, I, L, L, P]
     )
     lib.esk_sparse_fold.argtypes = [P] * 6 + [I] * 5 + [P] * 9 + [I, I, L, P]
-    lib.esk_masked_topk.argtypes = [P, P, I, I, I, I] + [P] * 6
+    lib.esk_masked_topk.argtypes = [P, P, P, I, I, I, I] + [P] * 6
     lib.esk_span_locate.argtypes = [P, L, P, P, I, I, P, I, I, I, P, P, I, P]
     lib.esk_keyed_topk.argtypes = [P, L, P] + [I] * 7 + [P] * 9
     lib.esk_window_gather.argtypes = [P, P, L, P, I, I, P, P, P]
     F = ctypes.c_float
     lib.esk_window_rescore.argtypes = [P, P, I, I, P, P, L, F, F, I, I, P, P, P]
+    lib.esk_vector_score.argtypes = [P, L, I, P, I, P, I, I, I, I, I, L] + [P] * 5
+    lib.esk_ivf_assign.argtypes = [P, I, P, I, I, P, I, L, P, P]
     for fn in (
         lib.esk_terms_scatter,
         lib.esk_sparse_fold,
@@ -236,6 +253,8 @@ def _bind(lib) -> None:
         lib.esk_keyed_topk,
         lib.esk_window_gather,
         lib.esk_window_rescore,
+        lib.esk_vector_score,
+        lib.esk_ivf_assign,
     ):
         fn.restype = ctypes.c_int
 
@@ -865,9 +884,9 @@ def _check_topk(key, eligible, k: int) -> None:
         raise ValueError(f"row count {q} out of range [1, 65535]")
 
 
-def _masked_topk_launch(key, eligible, k, n_shards):
-    """Launch K3 on checked [Q, M] inputs; outputs [Q, min(k, M)] and
-    [Q]."""
+def _masked_topk_launch(key, eligible, k, n_shards, ids=None):
+    """Launch K3 on checked [Q, M] inputs (K3i with tie-break `ids`);
+    outputs [Q, min(k, M)] and [Q]."""
     dev = key.device
     q, m = key.shape
     kp = min(k, m)
@@ -885,12 +904,16 @@ def _masked_topk_launch(key, eligible, k, n_shards):
     total = torch.empty((q,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.esk_masked_topk(
-            _ptr(key), _ptr(eligible), int(q), int(m), int(kp), int(ch),
+            _ptr(key), _ptr(ids), _ptr(eligible), int(q), int(m), int(kp),
+            int(ch),
             _ptr(buf_a), _ptr(buf_b), _ptr(top_scores), _ptr(top_idx),
             _ptr(total), _stream(dev),
         )
     _check_rc("masked_topk", rc)
-    _count("masked_topk", q, n_shards)
+    if ids is not None:
+        count_launch("masked_topk_ids")
+    else:
+        _count("masked_topk", q, n_shards)
     return top_scores, top_idx, total
 
 
@@ -900,6 +923,280 @@ def masked_topk(key, eligible, k: int):
     i32[min(k, M)], total i32[])."""
     out = masked_topk_batch(key[None], eligible[None], k)
     return tuple(t[0] for t in out)
+
+
+def masked_topk_ids_plain(key, ids, eligible, k: int):
+    """One row of K3i: the top min(k, M) of `key` by (score desc, id asc)
+    in lax.sort's canonical float order (-0.0 equal to +0.0, every NaN
+    last) — two stable sorts, by id and then by the score — and total =
+    the count of `eligible`. The scores come back canonical (+0.0 for a
+    zero, NaN as 0x7fc00000), as the kernel decodes them."""
+    m = key.shape[0]
+    kp = min(k, m)
+    nan = torch.isnan(key)
+    canon = torch.where(key == 0, torch.zeros_like(key), key)
+    canon = torch.where(nan, torch.full_like(key, float("nan")), canon)
+    order_bits = torch.where(nan, torch.zeros_like(ids, dtype=torch.int64),
+                             _f32_order(canon))
+    by_id = stable_order(ids.to(torch.int64) & 0xFFFFFFFF, 32)
+    order = by_id[stable_order(0xFFFFFFFF - order_bits[by_id], 32)][:kp]
+    return canon[order], ids[order], eligible.sum(dtype=torch.int32)
+
+
+def masked_topk_ids_batch_plain(key, ids, eligible, k: int):
+    outs = [masked_topk_ids_plain(key[q], ids[q], eligible[q], k)
+            for q in range(key.shape[0])]
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def masked_topk_ids_batch(key, ids, eligible, k: int):
+    """K3i over Q rows: the top min(k, M) of each row of `key` by (score
+    desc, id asc) with the ids from `ids` i32[Q, M] (non-negative) —
+    `lax.sort((-s, id, s), num_keys=2)`'s order, zeros equal and NaN
+    last — and total = each row's count of `eligible`. Returns (scores f32[Q, kk], ids i32[Q, kk],
+    total i32[Q])."""
+    _check_topk(key, eligible, k)
+    _check(ids, "ids", torch.int32, 2, key.device)
+    if ids.shape != key.shape:
+        raise ValueError("ids differ in shape from key")
+    if not _launchable(key.device):
+        return masked_topk_ids_batch_plain(key, ids, eligible, k)
+    return _masked_topk_launch(key, eligible, k, 0, ids=ids)
+
+
+# ---------------------------------------------------------------------------
+# K7 vector_score
+# ---------------------------------------------------------------------------
+
+VS_DENSE, VS_GATHER, VS_SCRIPT = 0, 1, 2
+METRIC_CODES = {"cosine": 0, "dot_product": 1, "l2_norm": 2}
+
+
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in K7's fixed order: padded with +0.0 to a
+    multiple of 32, lane l sums elements l, l + 32, ... in ascending
+    order, then the lanes fold in halves (l += l + 16, + 8, + 4, + 2, + 1)."""
+    d = x.shape[-1]
+    slabs = max(1, -(-d // 32))
+    x = torch.nn.functional.pad(x, (0, slabs * 32 - d))
+    x = x.reshape(*x.shape[:-1], slabs, 32)
+    acc = x[..., 0, :]
+    for s in range(1, slabs):
+        acc = acc + x[..., s, :]
+    for w in (16, 8, 4, 2, 1):
+        acc = acc[..., :w] + acc[..., w : 2 * w]
+    return acc[..., 0]
+
+
+def _consts(dev):
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    return one, torch.full((), 0.5, dtype=torch.float32, device=dev)
+
+
+def similarity_plain(rows, q, metric: str):
+    """K7's dense and gather score of each row of rows f32[R, d] against
+    q f32[d], in the kernel's order: the ES similarity (cosine (1 + cos)
+    / 2, dot_product (1 + dot) / 2, l2_norm 1 / (1 + |q - v|^2))."""
+    one, half = _consts(rows.device)
+    if metric == "l2_norm":
+        diff = rows - q
+        return torch.div(one, torch.add(one, lane_sum(diff * diff)))
+    dot = lane_sum(rows * q)
+    if metric == "dot_product":
+        return torch.mul(torch.add(one, dot), half)
+    vnorm = torch.sqrt(lane_sum(rows * rows))
+    qnorm = torch.sqrt(lane_sum(q * q))
+    denom = vnorm * qnorm
+    cos = torch.where(denom > 0, dot / denom, torch.zeros_like(dot))
+    return torch.mul(torch.add(one, cos), half)
+
+
+def vector_score_batch_plain(vectors, queries, metric: str):
+    return torch.stack([similarity_plain(vectors, queries[q], metric)
+                        for q in range(queries.shape[0])])
+
+
+def vector_score_gather_batch_plain(part_vectors, queries, probes,
+                                    metric: str):
+    d = part_vectors.shape[-1]
+    return torch.stack([
+        similarity_plain(
+            part_vectors[probes[q].to(torch.int64)].reshape(-1, d),
+            queries[q], metric,
+        )
+        for q in range(queries.shape[0])
+    ])
+
+
+def vector_script_plain(rows, q):
+    """One row of K7's script mode: (dot f32[R], |v| f32[R], |v - q|
+    f32[R], |q| f32[])."""
+    diff = rows - q
+    return (lane_sum(rows * q), torch.sqrt(lane_sum(rows * rows)),
+            torch.sqrt(lane_sum(diff * diff)), torch.sqrt(lane_sum(q * q)))
+
+
+def vector_script_batch_plain(vectors, queries):
+    stacked = vectors.dim() == 3
+    outs = [vector_script_plain(_shard(vectors, q, stacked), queries[q])
+            for q in range(queries.shape[0])]
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def _check_vectors(vectors, queries, ndim: int):
+    dev = vectors.device
+    _check(vectors, "vectors", torch.float32, vectors.dim(), dev)
+    if vectors.dim() not in ndim:
+        raise ValueError(f"vectors must be {ndim}-d, got {tuple(vectors.shape)}")
+    _check(queries, "queries", torch.float32, 2, dev)
+    q, d = queries.shape
+    if d != vectors.shape[-1] or d < 1:
+        raise ValueError(
+            f"query vectors have {d} dims, the plane {vectors.shape[-1]}"
+        )
+    if not 1 <= q <= 65535:
+        raise ValueError(f"row count {q} out of range [1, 65535]")
+    return q, d
+
+
+def _metric_code(metric: str) -> int:
+    if metric not in METRIC_CODES:
+        raise ValueError(f"unknown dense_vector similarity [{metric}]")
+    return METRIC_CODES[metric]
+
+
+def _vector_score_launch(vectors, queries, probes, n_rows, mode, metric,
+                         n_shards, outs, qnorm, pmax=0):
+    dev = vectors.device
+    lib = ensure_built()
+    q, d = queries.shape
+    kp = 0 if probes is None else probes.shape[1]
+    with torch.cuda.device(dev):
+        rc = lib.esk_vector_score(
+            _ptr(vectors), int(n_rows), int(d), _ptr(queries), int(q),
+            _ptr(probes), int(kp), int(pmax), int(mode), int(metric),
+            max(1, n_shards), int(vectors.shape[-2] * d) if n_shards else 0,
+            *[_ptr(o) for o in outs], _ptr(qnorm), _stream(dev),
+        )
+    _check_rc("vector_score", rc)
+    count_launch({VS_DENSE: "vector_score", VS_GATHER: "vector_score_gather",
+                  VS_SCRIPT: "vector_score_script"}[mode])
+
+
+def vector_score_batch(vectors, queries, metric: str):
+    """K7 dense mode: the ES similarity of each of Q query vectors
+    (queries f32[Q, d]) against every row of vectors f32[N, d] ->
+    f32[Q, N]."""
+    code = _metric_code(metric)
+    q, _d = _check_vectors(vectors, queries, (2,))
+    n = vectors.shape[0]
+    if not _launchable(vectors.device):
+        return vector_score_batch_plain(vectors, queries, metric)
+    out = torch.empty((q, n), dtype=torch.float32, device=vectors.device)
+    _vector_score_launch(vectors, queries, None, n, VS_DENSE, code, 0,
+                         (out, None, None), None)
+    return out
+
+
+def vector_score_gather_batch(part_vectors, queries, probes, metric: str):
+    """K7 gather mode: the ES similarity of query q against every slot of
+    its probed partitions, read in place from part_vectors f32[C, pmax, d]
+    through probes i32[Q, kp] -> f32[Q, kp * pmax] (slot s of probe p at
+    p * pmax + s)."""
+    code = _metric_code(metric)
+    q, _d = _check_vectors(part_vectors, queries, (3,))
+    dev = part_vectors.device
+    _check(probes, "probes", torch.int32, 2, dev)
+    if probes.shape[0] != q:
+        raise ValueError(f"probes must be [{q}, kp]")
+    c, pmax = part_vectors.shape[0], part_vectors.shape[1]
+    kp = probes.shape[1]
+    if not _launchable(dev):
+        return vector_score_gather_batch_plain(part_vectors, queries, probes,
+                                               metric)
+    if kp and (int(probes.min()) < 0 or int(probes.max()) >= c):
+        raise ValueError("a probe names no partition")
+    out = torch.empty((q, kp * pmax), dtype=torch.float32, device=dev)
+    _vector_score_launch(part_vectors, queries, probes, kp * pmax, VS_GATHER,
+                         code, 0, (out, None, None), None, pmax=pmax)
+    return out
+
+
+def vector_script_batch(vectors, queries):
+    """K7 script mode: for Q query vectors (queries f32[Q, d]) against a
+    plane vectors f32[N, d] (or f32[S, N, d] stacked shards, row q
+    reading shard q % S): (dot f32[Q, N], |v| f32[Q, N], |v - q| f32[Q, N],
+    |q| f32[Q]) — the planes the script functions cosineSimilarity,
+    dotProduct and l2norm compose."""
+    q, _d = _check_vectors(vectors, queries, (2, 3))
+    n_shards = vectors.shape[0] if vectors.dim() == 3 else 0
+    if not _launchable(vectors.device):
+        return vector_script_batch_plain(vectors, queries)
+    n = vectors.shape[-2]
+    dev = vectors.device
+    outs = tuple(torch.empty((q, n), dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    qnorm = torch.empty((q,), dtype=torch.float32, device=dev)
+    _vector_score_launch(vectors, queries, None, n, VS_SCRIPT, 0, n_shards,
+                         outs, qnorm)
+    return (*outs, qnorm)
+
+
+# ---------------------------------------------------------------------------
+# K9 ivf_assign
+# ---------------------------------------------------------------------------
+
+# Shared memory K9 stages per block: its 8 rows plus a tile of centroids.
+IVF_ASSIGN_SMEM = 96 * 1024
+
+
+def ivf_assign_plain(centroids, rows, chunk: int = 64):
+    """K9's plain version: argmin_c (|x|^2 - 2 x.c) + |c|^2 with each sum
+    in K7's fixed order (lane_sum), first index on ties; rows in chunks
+    of `chunk` so the [chunk, C, d] products stay small."""
+    cc = lane_sum(centroids * centroids)
+    two = torch.full((), 2.0, dtype=torch.float32, device=rows.device)
+    out = []
+    for r0 in range(0, rows.shape[0], chunk):
+        x = rows[r0 : r0 + chunk]
+        xx = lane_sum(x * x)
+        xc = lane_sum(x[:, None, :] * centroids[None, :, :])
+        d2 = (xx[:, None] - torch.mul(two, xc)) + cc[None, :]
+        out.append(torch.argmin(d2, dim=1).to(torch.int32))
+    if not out:
+        return torch.zeros(0, dtype=torch.int32, device=rows.device)
+    return torch.cat(out)
+
+
+def ivf_assign(centroids, rows):
+    """K9: the nearest centroid (squared L2) of each row: centroids
+    f32[C, d], rows f32[M, d] -> i32[M], the first index on ties."""
+    dev = rows.device
+    _check(centroids, "centroids", torch.float32, 2, dev)
+    _check(rows, "rows", torch.float32, 2, dev)
+    c, d = centroids.shape
+    if rows.shape[1] != d or d < 1 or c < 1:
+        raise ValueError("rows and centroids must share d >= 1, with C >= 1")
+    if not _launchable(dev):
+        return ivf_assign_plain(centroids, rows)
+    width = -(-d // 32) * 32 * 4
+    tile = IVF_ASSIGN_SMEM // width - 8
+    if tile < 1:
+        raise ValueError(f"d = {d} is too wide for K9's shared tiles")
+    tile = min(tile, c)
+    smem = (8 + tile) * width
+    lib = ensure_built()
+    m = rows.shape[0]
+    cc = torch.empty((c,), dtype=torch.float32, device=dev)
+    out = torch.empty((m,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.esk_ivf_assign(
+            _ptr(rows), int(m), _ptr(centroids), int(c), int(d), _ptr(cc),
+            int(tile), int(smem), _ptr(out), _stream(dev),
+        )
+    _check_rc("ivf_assign", rc)
+    count_launch("ivf_assign")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,14 @@ minimum/maximum and its remainder (fmod, then the divisor's sign).
 A script the walk cannot type raises before anything is generated;
 there is no fallback to torch ops on the card.
 
+Vector functions: the script's `cosineSimilarity` / `dotProduct` /
+`l2norm` calls read K7's script-mode planes (ops/kernels.
+vector_script_batch), computed before the launch: per (param, field)
+call, the dot, |v| and |v - q| planes f32[Q, N] are three more input
+columns, read at the row's own offset, and |q| f32[Q] is one more
+per-row param. The walk composes them with the reference's formulas
+(script/painless_lite), in both versions alike.
+
 `LAUNCHES["script_eval"]` (ops/kernels) counts every launch, whatever
 its row count. For CPU tensors `script_eval` runs the plain version.
 """
@@ -54,11 +62,12 @@ from ..script.painless_lite import (
     _param_value,
     lower,
     referenced,
+    referenced_vectors,
 )
 from . import kernels
 
 BLOCK = 1024
-GENERATOR_VERSION = "k6-3"
+GENERATOR_VERSION = "k6-4"
 TRITON_DIR = kernels.BUILD_ROOT / "triton"
 
 _lock = threading.Lock()
@@ -71,9 +80,11 @@ _generated: dict[tuple, tuple] = {}
 
 
 def _check_inputs(script, score, matched, columns, params, boost, min_score,
-                  n_shards):
+                  n_shards, vectors=None):
     """Validate the launch and gather what the script reads: (fields'
-    columns in first-use order, [Q, P] params in first-use order)."""
+    columns in first-use order, [Q] params in first-use order, the vector
+    calls' [Q, N] planes (dot, |v|, |v - q| per call) and their [Q] |q|
+    params, in first-use order)."""
     if not isinstance(script, CompiledScript):
         raise TypeError("script must be a CompiledScript")
     dev = score.device
@@ -110,15 +121,32 @@ def _check_inputs(script, score, matched, columns, params, boost, min_score,
         if not isinstance(p, torch.Tensor) or p.dim() != 1 or p.shape[0] != q:
             raise ValueError(f"script param [{name}] must be a number")
         prm.append(p.to(device=dev, dtype=torch.float32))
-    return cols, prm
+    planes, qnorms = [], []
+    for name, field in referenced_vectors(script):
+        entry = (vectors or {}).get((name, field))
+        if entry is None:
+            raise ValueError(f"no dense_vector field [{field}]")
+        *three, qnorm = entry
+        for t in three:
+            kernels._check(t, f"vector plane [{field}]", torch.float32, 2, dev)
+            if tuple(t.shape) != (q, n):
+                raise ValueError(f"vector plane [{field}] must be [{q}, {n}]")
+        kernels._check(qnorm, f"|q| of [{name}]", torch.float32, 1, dev)
+        if qnorm.shape[0] != q:
+            raise ValueError(f"|q| of [{name}] must be [{q}]")
+        planes.extend(three)
+        qnorms.append(qnorm)
+    return cols, prm, planes, qnorms
 
 
 def script_eval_plain(script, score, matched, columns, params, boost,
-                      min_score=None, n_shards: int = 0):
+                      min_score=None, n_shards: int = 0, vectors=None):
     """K6's plain version: `CompiledScript.evaluate` with torch ops, then
     the boost and `min_score` of `_eval_script`, over Q rows."""
-    cols, prm = _check_inputs(script, score, matched, columns, params, boost,
-                              min_score, n_shards)
+    cols, prm, _planes, _qnorms = _check_inputs(
+        script, score, matched, columns, params, boost, min_score, n_shards,
+        vectors,
+    )
     q, n = score.shape
     fields, names = referenced(script)
     rows = {
@@ -126,7 +154,8 @@ def script_eval_plain(script, score, matched, columns, params, boost,
         for f, c in zip(fields, cols)
     }
     result = script.evaluate(
-        score, rows, {name: p.reshape(q, 1) for name, p in zip(names, prm)}
+        score, rows, {name: p.reshape(q, 1) for name, p in zip(names, prm)},
+        vectors=vectors,
     )
     result = torch.broadcast_to(result, (q, n))
     scores = torch.where(matched, torch.mul(result, boost.reshape(q, 1)), 0.0)
@@ -137,20 +166,24 @@ def script_eval_plain(script, score, matched, columns, params, boost,
 
 
 def script_eval(script, score, matched, columns, params, boost,
-                min_score=None, n_shards: int = 0):
+                min_score=None, n_shards: int = 0, vectors=None):
     """K6: `script` over Q rows. score f32[Q, N] (the child's dense
     scores), matched bool[Q, N], columns field -> f32[N] (one segment)
     or f32[S, N] (n_shards = S stacked shards; row r reads shard r % S),
-    params name -> f32[Q] (or [Q, 1]), boost f32[Q], min_score f32[Q] or None.
+    params name -> f32[Q] (or [Q, 1]), boost f32[Q], min_score f32[Q] or
+    None, vectors (param, field) -> K7's script-mode planes (dot, |v|,
+    |v - q| f32[Q, N], |q| f32[Q]) for the script's vector calls.
     Returns (scores f32[Q, N], matched bool[Q, N]) as `_eval_script`
     does."""
     if not kernels._launchable(score.device):
         return script_eval_plain(script, score, matched, columns, params,
-                                 boost, min_score, n_shards)
-    cols, prm = _check_inputs(script, score, matched, columns, params, boost,
-                              min_score, n_shards)
-    return _launch(script, score, matched, cols, prm, boost, min_score,
-                   n_shards)
+                                 boost, min_score, n_shards, vectors)
+    cols, prm, planes, qnorms = _check_inputs(
+        script, score, matched, columns, params, boost, min_score, n_shards,
+        vectors,
+    )
+    return _launch(script, score, matched, cols + planes, prm + qnorms, boost,
+                   min_score, n_shards)
 
 
 # ---------------------------------------------------------------------------
@@ -162,11 +195,13 @@ class TritonBackend(Backend):
     """Emits one Triton statement per operation; values are the names of
     the emitted variables."""
 
-    def __init__(self, fields: list[str], names: list[str]):
+    def __init__(self, fields: list[str], names: list[str],
+                 pairs: list[tuple[str, str]] = ()):
         self.lines: list[str] = []
         self.consts: list[float] = []
         self.fields = fields
         self.names = names
+        self.pairs = list(pairs)
         self.loaded: dict[str, str] = {}
         self.n = 0
 
@@ -194,6 +229,19 @@ class TritonBackend(Backend):
     def param(self, name):
         j = self.names.index(name)
         return self._load(f"param:{name}", f"tl.load(params_ptr + prow + {j})")
+
+    def vector(self, part, name, field):
+        j = self.pairs.index((name, field))
+        if part == "qnorm":  # after the script's own params
+            return self._load(
+                f"qnorm:{j}",
+                f"tl.load(params_ptr + prow + {len(self.names) + j})",
+            )
+        c = len(self.fields) + 3 * j + ("dot", "norm", "dist").index(part)
+        return self._load(
+            f"vec:{j}:{part}",
+            f"tl.load(col{c}_ptr + base + offs, mask=mask, other=0.0)",
+        )
 
     def scalar(self, c):
         self.consts.append(float(np.float32(c)))
@@ -288,9 +336,12 @@ def generate_source(script: CompiledScript) -> tuple[str, list[float]]:
     """(kernel module source, fp32 constants in kernel order) for a
     script; raises ValueError for what the walk cannot type."""
     fields, names = referenced(script)
-    be = TritonBackend(fields, names)
+    pairs = referenced_vectors(script)
+    be = TritonBackend(fields, names, pairs)
     result = lower(script, be)
-    col_args = "".join(f"\n    col{j}_ptr," for j in range(len(fields)))
+    col_args = "".join(
+        f"\n    col{j}_ptr," for j in range(len(fields) + 3 * len(pairs))
+    )
     body = "\n".join(f"    {line}" for line in be.lines)
     src = _TEMPLATE.format(
         source=script.source.replace("\n", " "), col_args=col_args,

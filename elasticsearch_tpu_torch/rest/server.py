@@ -5,11 +5,15 @@ on the stdlib ThreadingHTTPServer:
 
     GET  /                          node banner
     PUT  /{index}                   create index
+    DELETE /{index}                 delete index (and its IVF planes)
+    PUT  /{index}/_mapping          add fields to the mappings
     POST /{index}/_doc[/{id}]       index document (PUT with an id too)
     DELETE /{index}/_doc/{id}       delete document
     POST [/{index}]/_bulk           NDJSON bulk
     POST|GET /{index}/_refresh      refresh
-    GET|POST /{index}/_search       search
+    GET|POST /{index}/_search       search (with a `knn` section too)
+    POST /{index}/_knn_search       kNN search: the body's `knn` object,
+                                    a top-level filter folded into it
 
 Responses and error payloads have the reference's shapes; a search shed
 by the node's micro-batcher answers 429 with a Retry-After header. The
@@ -40,6 +44,29 @@ Handler = Callable[[dict, dict, str], Any]
 
 def _json(body: str) -> dict:
     return json.loads(body) if body and body.strip() else {}
+
+
+def _knn_search_body(body: dict) -> dict:
+    """`_knn_search` request body -> the equivalent `_search` body with a
+    top-level `knn` section: the endpoint's own keys are the knn object,
+    an optional top-level filter (folded into the section), and the
+    ordinary fetch and paging keys, which pass through."""
+    if "knn" not in body:
+        raise ApiError(
+            400, "parsing_exception", "[_knn_search] requires a [knn] body"
+        )
+    knn = dict(body["knn"]) if isinstance(body["knn"], dict) else body["knn"]
+    out: dict = {}
+    for key, value in body.items():
+        if key == "knn":
+            continue
+        if key == "filter":
+            if isinstance(knn, dict):
+                knn = {**knn, "filter": value}
+            continue
+        out[key] = value
+    out["knn"] = knn
+    return out
 
 
 def _flag(q: dict, name: str) -> bool:
@@ -87,6 +114,13 @@ class RestServer:
                 p["index"], _json(b)
             ))
             r(method, "/{index}/_refresh", lambda p, q, b: n.refresh(p["index"]))
+        r("POST", "/{index}/_knn_search", lambda p, q, b: n.search(
+            p["index"], _knn_search_body(_json(b))
+        ))
+        for method in ("PUT", "POST"):
+            r(method, "/{index}/_mapping", lambda p, q, b: n.put_mapping(
+                p["index"], _json(b)
+            ))
         r("POST", "/{index}/_doc", lambda p, q, b: n.index_doc(
             p["index"], _json(b), None, refresh=_flag(q, "refresh")
         ))
@@ -98,6 +132,7 @@ class RestServer:
             p["index"], p["id"], refresh=_flag(q, "refresh")
         ))
         r("PUT", "/{index}", lambda p, q, b: n.create_index(p["index"], _json(b)))
+        r("DELETE", "/{index}", lambda p, q, b: n.delete_index(p["index"]))
 
     def dispatch(self, method: str, path: str, query: dict, body: str):
         """Returns (status, payload), ES-style error payloads on failure."""

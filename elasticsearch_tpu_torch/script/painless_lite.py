@@ -7,11 +7,14 @@ messages, the ternary-to-`where` rewrite, and the grammar: literals,
 `+ - * / %` and `**`, unary minus, comparisons, ternaries, `_score`,
 `params.NAME` / `params['NAME']`, `doc['field'].value` / `.empty`,
 `Math.log/log10/sqrt/abs/exp/pow/min/max/floor/ceil` and `Math.E/PI`,
-`sigmoid(x)` and `saturation(x, k)`. Left out: the x-pack vector
-functions `cosineSimilarity`, `dotProduct` and `l2norm`, which wait for
-the port's dense_vector plane (kNN); a script that calls one is refused
-by `compile_script` with the reference's "cannot compile script" shape
-(a 400).
+`sigmoid(x)` and `saturation(x, k)`, and the x-pack vector functions
+`cosineSimilarity(params.qv, 'field')`, `dotProduct(...)` and
+`l2norm(...)` over a dense_vector field. Those lower to the per-doc
+planes of K7's script mode (ops/kernels.vector_script_batch: the dot,
+|v| and |v - q| of each doc, and |q|) with the reference's formulas:
+cosine = where(denom > 0, dot / denom, 0) with denom = |v| * |q|, the raw
+dot, and the distance |v - q| (not a similarity). The query vector must
+be a params reference and the field a string literal.
 
 Evaluation walks the tree once (`lower`) instead of handing it to
 Python's `eval`: every operation is an explicit call on a `Backend`,
@@ -93,11 +96,13 @@ _ALLOWED_NAMES = frozenset(
         "where",
         "True",
         "False",
+        "cosineSimilarity",
+        "dotProduct",
+        "l2norm",
     }
 )
 
-# The reference's vector functions: refused until the dense_vector plane
-# is ported.
+# The reference's vector functions (x-pack ScoreScriptUtils).
 _VECTOR_FUNCTIONS = frozenset({"cosineSimilarity", "dotProduct", "l2norm"})
 
 # `a ? b : c` → `(b) if (a) else (c)`; applied repeatedly for nesting.
@@ -192,11 +197,6 @@ def compile_script(source: str) -> "CompiledScript":
                 f"cannot compile script [{source}]: disallowed construct "
                 f"[{type(node).__name__}]"
             )
-        if isinstance(node, ast.Name) and node.id in _VECTOR_FUNCTIONS:
-            raise ValueError(
-                f"cannot compile script [{source}]: [{node.id}] needs a "
-                f"dense_vector field, which this node does not serve yet"
-            )
         if isinstance(node, ast.Name) and node.id not in _ALLOWED_NAMES:
             raise ValueError(
                 f"cannot compile script [{source}]: unknown identifier "
@@ -250,6 +250,7 @@ class Backend:
     def where(self, c, a, b): ...
     def isnan(self, a): ...
     def to_f32(self, a): ...
+    def vector(self, part: str, name: str, field: str): ...  # dot norm dist qnorm
 
 
 _BINOPS = {
@@ -401,6 +402,8 @@ class _Lowering:
             "sigmoid", "saturation", "where",
         ):
             name = func.id
+        elif isinstance(func, ast.Name) and func.id in _VECTOR_FUNCTIONS:
+            return self.vector_call(func.id, node.args)
         else:
             self.fail("only Math functions, sigmoid, saturation and where "
                       "are callable")
@@ -421,6 +424,23 @@ class _Lowering:
         if name == "where":
             return self.where(*args)
         return self.math(name, args)
+
+    def vector_call(self, name: str, args: list) -> Value:
+        """cosineSimilarity / dotProduct / l2norm over K7's planes."""
+        param, field = _vector_args(name, args, self.fail)
+        if name == "dotProduct":
+            return Value(F32, self.be.vector("dot", param, field))
+        if name == "l2norm":
+            return Value(F32, self.be.vector("dist", param, field))
+        dot = self.be.vector("dot", param, field)
+        denom = self.be.binary(
+            "mul", self.be.vector("norm", param, field),
+            self.be.vector("qnorm", param, field),
+        )
+        return Value(F32, self.be.where(
+            self.be.compare("gt", denom, self.be.scalar(0.0)),
+            self.be.binary("div", dot, denom), self.be.scalar(0.0),
+        ))
 
     # -- typed operations --------------------------------------------------
 
@@ -463,13 +483,62 @@ def lower(script: "CompiledScript", backend: Backend):
     return low.f32(low.visit(script._tree))
 
 
+def _param_ref(node) -> str | None:
+    """NAME of `params.NAME` / `params['NAME']`, else None."""
+    if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name):
+        return node.attr if node.value.id == "params" else None
+    if isinstance(node, ast.Subscript) and isinstance(node.value, ast.Name):
+        return node.slice.value if node.value.id == "params" else None
+    return None
+
+
+def _vector_args(name: str, args: list, fail) -> tuple[str, str]:
+    """(param, field) of a vector call `name(params.qv, 'field')`."""
+    if len(args) != 2:
+        fail(f"[{name}] takes 2 argument(s), got {len(args)}")
+    param = _param_ref(args[0])
+    if param is None:
+        fail(f"[{name}] takes its query vector as a params reference")
+    field = args[1]
+    if not (isinstance(field, ast.Constant) and isinstance(field.value, str)):
+        fail(f"[{name}] takes its field as a string literal")
+    return param, field.value
+
+
+def _is_vector_call(node) -> bool:
+    return (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+            and node.func.id in _VECTOR_FUNCTIONS)
+
+
+def referenced_vectors(script: "CompiledScript") -> list[tuple[str, str]]:
+    """The (param, field) pairs of the script's vector calls, in the order
+    the walk first meets them; a malformed call raises ValueError."""
+    pairs: list[tuple[str, str]] = []
+
+    def fail(why: str):
+        raise ValueError(f"cannot evaluate script [{script.source}]: {why}")
+
+    def visit(node) -> None:
+        if _is_vector_call(node):
+            pairs.append(_vector_args(node.func.id, node.args, fail))
+            return
+        for child in ast.iter_child_nodes(node):
+            visit(child)
+
+    visit(script._tree)
+    return list(dict.fromkeys(pairs))
+
+
 def referenced(script: "CompiledScript") -> tuple[list[str], list[str]]:
-    """(doc-values fields, params) the script reads, each in the order the
-    walk first meets it (left to right, depth first)."""
+    """(doc-values fields, params) the script reads as values, each in the
+    order the walk first meets it (left to right, depth first); the query
+    vectors of vector calls are not among them (referenced_vectors)."""
     fields: list[str] = []
     params: list[str] = []
 
     def visit(node) -> None:
+        if _is_vector_call(node):
+            return
         if isinstance(node, ast.Attribute) and isinstance(
             node.value, ast.Name
         ) and node.value.id == "params":
@@ -528,13 +597,26 @@ def _doc_column(columns: dict, field: str):
 class TorchBackend(Backend):
     """Evaluates with torch ops on the values' device. `params` values
     are fp32 tensors that broadcast against the columns (0-d for one
-    query, [Q, 1] for Q rows)."""
+    query, [Q, 1] for Q rows); `vectors` maps each (param, field) vector
+    call to K7's script-mode planes (dot, |v|, |v - q|) f32[Q, N] and |q|
+    f32[Q]."""
 
-    def __init__(self, score, columns: dict, params: dict, device):
+    def __init__(self, score, columns: dict, params: dict, device,
+                 vectors: dict | None = None):
         self._score = score
         self.columns = columns
         self.params = params
         self.device = torch.device(device)
+        self.vectors = vectors or {}
+
+    def vector(self, part, name, field):
+        planes = self.vectors.get((name, field))
+        if planes is None:
+            raise ValueError(f"no dense_vector field [{field}]")
+        dot, norm, dist, qnorm = planes
+        if part == "qnorm":
+            return qnorm.reshape(-1, 1)
+        return {"dot": dot, "norm": norm, "dist": dist}[part]
 
     def score(self):
         return self._score
@@ -579,10 +661,13 @@ class CompiledScript:
     normalized: str
     _tree: ast.Expression
 
-    def evaluate(self, score, doc_columns: dict, params: dict) -> torch.Tensor:
+    def evaluate(self, score, doc_columns: dict, params: dict,
+                 vectors: dict | None = None) -> torch.Tensor:
         """Evaluate over all docs at once with torch ops on `score`'s
         device: `score` is the tensor bound to `_score`, `doc_columns` maps
         fields to fp32 columns (NaN = missing), `params` names to fp32
-        tensors that broadcast against them. Returns an fp32 tensor that
-        broadcasts to the docs (a folded constant is 0-d)."""
-        return lower(self, TorchBackend(score, doc_columns, params, score.device))
+        tensors that broadcast against them, `vectors` the vector calls'
+        planes (TorchBackend). Returns an fp32 tensor that broadcasts to
+        the docs (a folded constant is 0-d)."""
+        return lower(self, TorchBackend(score, doc_columns, params,
+                                        score.device, vectors))

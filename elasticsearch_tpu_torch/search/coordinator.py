@@ -8,7 +8,10 @@ Port of elasticsearch_tpu/search/coordinator.py, trimmed to
 and rescored hits merge as the reference merges them, each hit with its
 `sort` values). A request's `search_after` / `after_doc` reach every
 shard as they are; each shard's service makes `after_doc` local through
-its segments' `handle.base`. Left out: scroll contexts, aggregations,
+its segments' `handle.base`. A `knn` request is validated on the
+first shard, each shard returns up to k candidates and the merge keeps
+the global k (the reference's kNN reduce); a batched knn group serves
+each rider through `search`. Left out: scroll contexts, aggregations,
 fetch sub-phases (highlight, fields), the SPMD mesh view, tasks and
 timeouts, the filter cache, tracing and injected faults.
 
@@ -58,11 +61,15 @@ class ShardedSearchCoordinator:
     """Serves search requests over N shard engines of one index."""
 
     def __init__(
-        self, engines: list["Engine"], index_name: str = "index", planner=None
+        self, engines: list["Engine"], index_name: str = "index", planner=None,
+        ann_cache=None,
     ):
         self.engines = engines
         self.index_name = index_name
-        self.services = [SearchService(e, planner=planner) for e in engines]
+        self.services = [
+            SearchService(e, planner=planner, ann_cache=ann_cache)
+            for e in engines
+        ]
         self._stats_cache = None
         self._stats_gen: tuple = ()
 
@@ -111,6 +118,7 @@ class ShardedSearchCoordinator:
         snapshots = [list(e.segments) for e in self.engines]
         stats = self.global_stats(snapshots)
         self.services[0]._validate_sort(request)
+        self.services[0]._validate_knn(request)
         k = max(0, request.from_) + max(0, request.size)
         shard_request = replace(
             request, from_=0, size=k, track_total_hits=True
@@ -119,6 +127,10 @@ class ShardedSearchCoordinator:
             shard_request, stats, snapshots
         )
         self._check_failed(failures, skipped)
+        if request.knn is not None:
+            # Global top-k reduce: shards contribute up to k candidates
+            # each; the merge keeps k.
+            merged = merged[: request.knn.k]
         page = merged[request.from_ : request.from_ + request.size]
         total_out, relation = clamp_total(total, request.track_total_hits)
         return SearchResponse(
@@ -143,6 +155,17 @@ class ShardedSearchCoordinator:
         merged by (score, shard, rank), then paged; can_match still
         pre-filters shards per request. Returns one SearchResponse (or
         Exception) per request."""
+        if any(r.knn is not None for r in requests):
+            # kNN groups coalesce only on one-shard services; a sharded
+            # rider serves through the scatter/merge path, result-identical,
+            # its error returned as its result.
+            out: list = []
+            for r in requests:
+                try:
+                    out.append(self.search(r))
+                except Exception as e:  # noqa: BLE001 - per-rider result
+                    out.append(e)
+            return out
         start = time.monotonic()
         n = len(requests)
         snapshots = [list(e.segments) for e in self.engines]

@@ -22,11 +22,19 @@ device kernels, or, when the request does not track exact totals, the
 two-launch block-max paths (`blockmax` for a terms spec,
 `blockmax_conj` for a must-driven conjunction), recording each
 execution's time; it is not consulted for a request with rescore, as in
-the reference. Left out: CPU-oracle routing (and with it any planner
-decision on the batched path), the filter cache (a batch's mask token is
-always `()`), tasks and timeouts, scroll, aggregations, knn, highlight,
-fields, profile and the other body keys of the reference; a request
-asking for one of those is refused with a 400.
+the reference. The top-level `knn` section (`KnnSpec`, with
+`KNN_EXCLUSIVE`) is served by `_validate_knn`, `_knn_filter_mask`
+(without the filter cache), `_knn_plan` (the node's AnnCache and the
+planner's `ann_ivf` / `device` decision), `_query_segment_knn` (IVF probe
++ exact re-rank where the segment has partition planes, brute force
+otherwise; ops/ann_device) and, for the micro-batcher's knn groups,
+`_knn_search_many`, with the reference's messages and its global top-k
+reduce. Left out: CPU-oracle routing (and with it any planner decision
+on the batched path), the filter cache (a batch's mask token is always
+`()`, and the knn filter's admission is not recorded), tasks and
+timeouts, scroll, aggregations, highlight, fields, profile and the other
+body keys of the reference; a request asking for one of those is
+refused with a 400.
 """
 
 from __future__ import annotations
@@ -40,8 +48,9 @@ import torch
 
 from ..exec.cost import PlanFeatures
 from ..exec.planner import spec_work_tiles
+from ..index.ann import default_nprobe
 from ..index.engine import Engine, SegmentHandle
-from ..ops import bm25_device
+from ..ops import ann_device, bm25_device
 from ..query.compile import CompiledQuery, FieldStats
 from ..query.dsl import MatchAllQuery, Query, parse_query
 
@@ -163,6 +172,81 @@ class Rescore:
 
 
 @dataclass
+class KnnSpec:
+    """The top-level `knn` search section (the reference's ES 8.0 `knn`
+    option and `_knn_search` endpoint). Approximate by contract: it may be
+    served from the IVF planes (index/ann.py), so the hit set may miss
+    neighbours the probe never reached; every returned score is the exact
+    one (ops/ann_device's parity law). Exact kNN stays available through
+    `script_score`, which never routes to the IVF planes."""
+
+    field: str
+    query_vector: np.ndarray  # f32[d]
+    k: int = 10
+    num_candidates: int = 100
+    # IVF probe width; None = the index-side default (index/ann.
+    # default_nprobe), raised if needed so probed slots cover
+    # num_candidates.
+    nprobe: int | None = None
+    filter: Query | None = None
+
+    KNOWN_KEYS = frozenset(
+        {"field", "query_vector", "k", "num_candidates", "nprobe", "filter"}
+    )
+
+    @classmethod
+    def from_json(cls, body) -> "KnnSpec":
+        if not isinstance(body, dict):
+            raise ValueError("[knn] must be an object")
+        unknown = set(body) - cls.KNOWN_KEYS
+        if unknown:
+            raise ValueError(
+                f"unknown key [{sorted(unknown)[0]}] in the [knn] section"
+            )
+        if "field" not in body:
+            raise ValueError("[knn] requires a [field]")
+        if "query_vector" not in body:
+            raise ValueError("[knn] requires a [query_vector]")
+        raw = body["query_vector"]
+        if not isinstance(raw, list) or not raw or not all(
+            isinstance(v, (int, float)) and not isinstance(v, bool)
+            for v in raw
+        ):
+            raise ValueError(
+                "[knn] [query_vector] must be a non-empty array of numbers"
+            )
+        k = int(body.get("k", 10))
+        if k < 1:
+            raise ValueError(f"[knn] [k] must be greater than 0, got [{k}]")
+        num_candidates = int(body.get("num_candidates", max(100, k)))
+        if num_candidates < k:
+            raise ValueError(
+                f"[knn] [num_candidates] cannot be less than [k] "
+                f"([{num_candidates}] < [{k}])"
+            )
+        if num_candidates > 10_000:
+            raise ValueError("[knn] [num_candidates] cannot exceed [10000]")
+        nprobe = body.get("nprobe")
+        if nprobe is not None:
+            nprobe = int(nprobe)
+            if nprobe < 1:
+                raise ValueError(
+                    f"[knn] [nprobe] must be greater than 0, got [{nprobe}]"
+                )
+        filter_q = None
+        if body.get("filter") is not None:
+            filter_q = parse_query(body["filter"])
+        return cls(
+            field=str(body["field"]),
+            query_vector=np.asarray(raw, dtype=np.float32),
+            k=k,
+            num_candidates=num_candidates,
+            nprobe=nprobe,
+            filter=filter_q,
+        )
+
+
+@dataclass
 class SearchRequest:
     query: Query = field(default_factory=MatchAllQuery)
     size: int = 10
@@ -180,14 +264,23 @@ class SearchRequest:
     after_doc: int = -1
     # True = exact, False = untracked, int = exact up to the threshold.
     track_total_hits: bool | int = 10_000
+    # Top-level `knn` section (approximate vector search; see KnnSpec).
+    knn: KnnSpec | None = None
 
     # The body keys this port serves; anything else (including the
     # reference's keys still to port) is a parsing error.
     KNOWN_KEYS = frozenset(
         {
             "query", "from", "size", "track_total_hits", "_source", "sort",
-            "rescore", "search_after",
+            "rescore", "search_after", "knn",
         }
+    )
+
+    # Body keys the `knn` section cannot ride with (the reference's list;
+    # those this port does not parse are refused as unknown keys first).
+    KNN_EXCLUSIVE = (
+        "query", "aggs", "aggregations", "sort", "rescore",
+        "search_after", "suggest", "min_score",
     )
 
     @classmethod
@@ -198,6 +291,16 @@ class SearchRequest:
             raise ValueError(
                 f"unknown key [{sorted(unknown)[0]}] in the search request"
             )
+        knn = None
+        if body.get("knn") is not None:
+            for key in cls.KNN_EXCLUSIVE:
+                if body.get(key) is not None:
+                    raise ValueError(
+                        f"[knn] cannot be combined with [{key}] yet; the "
+                        f"knn section serves pure vector queries "
+                        f"(script_score remains the exact hybrid path)"
+                    )
+            knn = KnnSpec.from_json(body["knn"])
         query = (
             parse_query(body["query"]) if "query" in body else MatchAllQuery()
         )
@@ -292,6 +395,7 @@ class SearchRequest:
             rescore=rescore,
             search_after=search_after,
             track_total_hits=tth,
+            knn=knn,
         )
 
 
@@ -345,11 +449,13 @@ def sort_merge_key(request: "SearchRequest", score, sort_values):
 class SearchService:
     """Executes SearchRequests against one Engine (one shard). `planner`
     is the node's ExecPlanner (None: every segment runs on the device
-    kernels)."""
+    kernels); `ann_cache` the node's AnnCache of IVF planes (None: every
+    knn runs the exact brute-force kernels)."""
 
-    def __init__(self, engine: Engine, planner=None):
+    def __init__(self, engine: Engine, planner=None, ann_cache=None):
         self.engine = engine
         self.planner = planner
+        self.ann_cache = ann_cache
 
     def search(
         self,
@@ -365,6 +471,7 @@ class SearchService:
         if stats is None:
             stats = self.engine.field_stats()
         self._validate_sort(request)
+        self._validate_knn(request)
         if segments is None:
             segments = list(self.engine.segments)
         # Candidate tuples (merge_key, global_doc, handle, local, score,
@@ -378,6 +485,11 @@ class SearchService:
                 continue
             total += self._query_segment(handle, request, k, stats, candidates)
         candidates.sort(key=lambda c: (c[0], c[1]))
+        if request.knn is not None:
+            # The knn contract returns the GLOBAL top k: segments each
+            # contribute up to k candidates, the merge keeps k, and
+            # from/size page within those.
+            candidates = candidates[: request.knn.k]
         page = candidates[request.from_ : request.from_ + request.size]
         max_score = None
         if request.sort is None and candidates:
@@ -451,6 +563,8 @@ class SearchService:
         """Score one segment, appending candidate tuples; returns the
         segment's total hits (a lower bound on the block-max paths, whose
         requests do not track totals)."""
+        if request.knn is not None:
+            return self._query_segment_knn(handle, request, stats, candidates)
         compiled = self.engine.compiler_for(handle, stats).compile(request.query)
         seg_tree = bm25_device.segment_tree(handle.device)
 
@@ -759,6 +873,211 @@ class SearchService:
         )
         return self.planner.decide(plan_class, candidates, feats), plan_class
 
+    # ------------------------------------------------------------------ knn
+
+    def _validate_knn(self, request: SearchRequest) -> None:
+        """Validate the knn section against the mappings up front (field
+        mapped as dense_vector, query_vector dims agree), so a malformed
+        request 400s before any segment pass runs."""
+        if request.knn is None:
+            return
+        knn = request.knn
+        fm = self.engine.mappings.get(knn.field)
+        if fm is None:
+            raise ValueError(
+                f"failed to find knn vector field [{knn.field}] in mapping"
+            )
+        if fm.type != "dense_vector":
+            raise ValueError(
+                f"[knn] field [{knn.field}] must be of type [dense_vector] "
+                f"but is [{fm.type}]"
+            )
+        if len(knn.query_vector) != fm.dims:
+            raise ValueError(
+                f"the query vector has a different number of dimensions "
+                f"[{len(knn.query_vector)}] than the document vectors "
+                f"[{fm.dims}]"
+            )
+
+    def _knn_filter_mask(self, handle, seg_tree, filter_query, stats):
+        """The knn filter as a device mask plane bool[N], applied before
+        the rank inside the kernels, so filtered-out docs never take a
+        candidate slot: one dense filter pass (compute_filter_mask)."""
+        compiled = self.engine.compiler_for(handle, stats).compile(
+            filter_query
+        )
+        return bm25_device.compute_filter_mask(
+            seg_tree, compiled.spec, _plan(handle, compiled)
+        )
+
+    def _knn_plan(self, handle, knn: KnnSpec):
+        """(partitions or None, nprobe, metric, plan_class, backend) for one
+        segment's knn pass. A segment without partitions (too small, or
+        the node's ANN cache off) serves the exact brute-force kernels; the
+        planner decides between `ann_ivf` and the exact `device` kernels
+        only here, because the knn section is approximate by contract."""
+        metric = self.engine.mappings.get(knn.field).similarity
+        parts = None
+        if self.ann_cache is not None:
+            parts = self.ann_cache.get_or_build(
+                self.engine, handle, knn.field, metric
+            )
+        if parts is None:
+            return None, 0, metric, None, "device"
+        nprobe = knn.nprobe or default_nprobe(parts.n_partitions)
+        # num_candidates is a floor on the real vectors the probe covers
+        # (average fill n_vectors / n_partitions); num_candidates at or
+        # above the corpus degenerates to a full probe.
+        nprobe = max(
+            nprobe,
+            -(-knn.num_candidates * parts.n_partitions
+              // max(1, parts.n_vectors)),
+        )
+        nprobe = min(nprobe, parts.n_partitions)
+        backend, plan_class = "ann_ivf", None
+        if self.planner is not None:
+            spec = ("knn", knn.field, metric, parts.n_partitions, nprobe)
+            plan_class = self.planner.classify(spec, knn.k)
+            feats = PlanFeatures(
+                n_docs=handle.segment.num_docs,
+                n_candidates=parts.n_partitions + nprobe * parts.pmax,
+            )
+            backend = self.planner.decide(
+                plan_class, ["ann_ivf", "device"], feats
+            )
+        return parts, nprobe, metric, plan_class, backend
+
+    def _record_knn(self, plan_class, backend: str, seconds: float) -> None:
+        if self.planner is None:
+            return
+        if plan_class is not None:
+            self.planner.record(plan_class, backend, seconds)
+        else:
+            self.planner.note(backend)
+
+    def _query_segment_knn(
+        self, handle: SegmentHandle, request: SearchRequest, stats,
+        candidates: list,
+    ) -> int:
+        """One segment's knn pass: IVF probe + exact re-rank where the
+        segment has partition planes, exact brute force otherwise. Appends
+        up to knn.k candidates (the per-segment count of the reference's
+        kNN contract); returns the live ∧ filter total."""
+        knn = request.knn
+        dev = handle.device
+        vectors = dev.vectors.get(knn.field)
+        if vectors is None:
+            return 0  # mapped field, no vectors in this segment
+        seg_tree = bm25_device.segment_tree(dev)
+        fmask = None
+        if knn.filter is not None:
+            fmask = self._knn_filter_mask(handle, seg_tree, knn.filter, stats)
+        parts, nprobe, metric, plan_class, backend = self._knn_plan(handle, knn)
+        t0 = time.monotonic()
+        if backend == "ann_ivf":
+            scores, ids, tot, n_cand = ann_device.ann_ivf_search(
+                parts.tree(), dev.live, knn.query_vector, knn.k, nprobe,
+                metric, filter_mask=fmask,
+            )
+        else:
+            scores, ids, tot = ann_device.knn_exact(
+                vectors, dev.live, knn.query_vector, knn.k, metric,
+                filter_mask=fmask, has_vec=dev.has_vector[knn.field],
+            )
+            n_cand = tot
+        scores, ids = _host(scores), _host(ids)
+        tot, n_cand = int(tot), int(n_cand)
+        self._record_knn(plan_class, backend, time.monotonic() - t0)
+        # Real hits are the finite-score prefix: totals count the eligible
+        # doc space, but vector-less docs cannot be scored.
+        n_cand = min(n_cand, int(np.sum(scores > np.float32(bm25_device.NEG_INF))))
+        self._append_plain(candidates, handle, scores, ids,
+                           min(knn.k, n_cand, len(ids)))
+        return tot
+
+    def _knn_search_many(self, requests: list) -> list:
+        """Coalesced knn serving: the micro-batcher groups unfiltered knn
+        requests by (field, k, num_candidates, nprobe), so every rider
+        shares one kernel shape and their query vectors stack into one
+        batched pass per segment, each lane equal to its solo answer."""
+        start = time.monotonic()
+        n = len(requests)
+        segments = list(self.engine.segments)
+        cands: list[list] = [[] for _ in range(n)]
+        totals = [0] * n
+        errors: list[Exception | None] = [None] * n
+        for i, r in enumerate(requests):
+            try:
+                self._validate_knn(r)
+            except ValueError as e:
+                errors[i] = e
+        knn0 = next(
+            (requests[i].knn for i in range(n) if errors[i] is None), None
+        )
+        uniform = all(
+            errors[i] is not None
+            or (
+                (kn := requests[i].knn) is not None
+                and kn.filter is None
+                and (kn.field, kn.k, kn.num_candidates, kn.nprobe)
+                == (knn0.field, knn0.k, knn0.num_candidates, knn0.nprobe)
+            )
+            for i in range(n)
+        )
+        if knn0 is None or not uniform:
+            # A mixed group (the batcher's group key prevents it) serves
+            # each rider solo, result-identical.
+            out = []
+            for i in range(n):
+                if errors[i] is not None:
+                    out.append(errors[i])
+                    continue
+                try:
+                    out.append(self.search(requests[i]))
+                except Exception as e:  # noqa: BLE001 - per-rider result
+                    out.append(e)
+            return out
+        alive = [i for i in range(n) if errors[i] is None]
+        for handle in segments:
+            dev = handle.device
+            vectors = dev.vectors.get(knn0.field)
+            if vectors is None or handle.segment.num_docs == 0:
+                continue
+            parts, nprobe, metric, plan_class, backend = self._knn_plan(
+                handle, knn0
+            )
+            qs = np.stack([requests[i].knn.query_vector for i in alive])
+            t0 = time.monotonic()
+            if backend == "ann_ivf":
+                s_b, i_b, t_b, nc_b = ann_device.ann_ivf_search_batch(
+                    parts.tree(), dev.live, qs, knn0.k, nprobe, metric
+                )
+            else:
+                s_b, i_b, t_b = ann_device.knn_exact_batch(
+                    vectors, dev.live, qs, knn0.k, metric,
+                    has_vec=dev.has_vector[knn0.field],
+                )
+                nc_b = t_b
+            s_b, i_b, t_b, nc_b = _host(s_b), _host(i_b), _host(t_b), _host(nc_b)
+            elapsed = time.monotonic() - t0
+            finite_b = np.sum(s_b > np.float32(bm25_device.NEG_INF), axis=1)
+            for row, i in enumerate(alive):
+                nn = min(knn0.k, int(nc_b[row]), int(finite_b[row]),
+                         i_b.shape[1])
+                self._append_plain(cands[i], handle, s_b[row], i_b[row], nn)
+                totals[i] += int(t_b[row])
+                self._record_knn(plan_class, backend, elapsed / len(alive))
+        out: list = []
+        for i, request in enumerate(requests):
+            if errors[i] is not None:
+                out.append(errors[i])
+                continue
+            rows = sorted(cands[i], key=lambda c: (c[0], c[1]))
+            out.append(self.assemble_plain(
+                request, rows[: request.knn.k], totals[i], start
+            ))
+        return out
+
     # ------------------------------------------------- batched query phase
 
     def search_many(self, requests: list) -> list:
@@ -769,6 +1088,9 @@ class SearchService:
         of one launch per request. Returns one SearchResponse (or
         Exception) per request, result-identical to running each request
         through search() alone."""
+        if any(r.knn is not None for r in requests):
+            # A coalesced knn group (the batcher's ("_knn", ...) key).
+            return self._knn_search_many(requests)
         start = time.monotonic()
         stats = self.engine.field_stats()
         segments = list(self.engine.segments)

@@ -201,8 +201,18 @@ def test_refused_scripts_match_reference(src):
 
 @pytest.mark.parametrize("fn", ["cosineSimilarity", "dotProduct", "l2norm"])
 def test_vector_functions_are_refused_until_knn(fn):
-    with pytest.raises(ValueError, match=r"^cannot compile script \["):
-        compile_script(f"{fn}(params.qv, 'vec') + 1.0")
+    """The vector functions compile since the port serves dense_vector
+    fields (tests/test_torch_knn_service.py evaluates them); over docs
+    without the dense_vector field they are refused with the reference's
+    message (EXACT)."""
+    src = f"{fn}(params.qv, 'vec') + 1.0"
+    script = compile_script(src)
+    with pytest.raises(ValueError) as ref_err:
+        ref_compile(src).evaluate(np, np.ones(3, np.float32), {}, {},
+                                  {"qv": [1.0, 2.0]})
+    with pytest.raises(ValueError) as port_err:
+        tbd.vector_planes(script, {}, {"qv": torch.ones((1, 2))})
+    assert str(port_err.value) == str(ref_err.value)
 
 
 def test_evaluate_errors_match_reference(inputs):
