@@ -70,6 +70,12 @@ and read just after it.
                  cursor skips the docs that tie with it); then K3k, K5
                  (both modes) and K6 (cfg4's script and one script with
                  every grammar node) against their plain versions
+ 6e. aggs-full   (one-shard corpus, before it is freed) size: 0 bodies
+                 over f1 / f2: a histogram of f1 (interval 0.001) with an
+                 avg f2 sub-metric and 20 f1 ranges with a sum f2
+                 sub-metric, each 20 times over HTTP, checked as phase 15
+                 checks; then K10's histogram and range rows at 8,841,823
+                 docs
  13. stacked     config 3 as the JAX bench serves it on one device: the 8
                  shards packed to equal shapes (pad_docs_to, field_min_tiles)
                  and stacked, each query compiled per shard with that shard's
@@ -79,6 +85,28 @@ and read just after it.
                  shard merged by (score desc, shard, rank), and
                  execute_shards_blockmax_conj to execute_shards_batch;
                  K1s-K4s against their plain versions; CUDA-event times
+
+ 15. aggs        the reference bench's cfg7 deployment (bench.py:346-432):
+                 8 shards x 125,000 Zipf docs (vocabulary 20,000, seed
+                 800 + s), price long in [0, 10,000) with ~10 % missing
+                 (default_rng(88)), tag keyword x / y / z (default_rng(99),
+                 as _cfg7_end_to_end draws it), and the same documents as
+                 one 1,000,000-doc shard; cfg7's four REST bodies
+                 (bench.py:604-615), a histogram at interval 500 with an
+                 avg sub-metric, 20 ranges with a sum sub-metric, filters
+                 over two term queries, missing on price and global with
+                 stats, each 20 times sequentially over HTTP on each index:
+                 every first answer against plain_kernels() (the whole JSON
+                 but `took`) and against a numpy oracle over the raw
+                 columns (counts exact, metrics in f64 as the reference
+                 folds them, bucket sums in K10's stated order), every
+                 repeat against the first; per-body p50 / p99, QPS, device
+                 ms per request; K10's terms and doc_count rows
+ 16. nan-pages   the C1 / C2 bodies (ROADMAP queue C's repro index, 1 and
+                 3 shards; script_score pages sorted by score, by _score
+                 asc and past an ascending cursor on a NaN, with and
+                 without a boost) on the card against a CPU node: ids,
+                 totals and every NaN score's bits equal
 
 The last lines are the card (nvidia-smi name, power limit), one JSON
 object with the kernel table, and {"ok": true, "device": {...}}.
@@ -114,6 +142,7 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (same)
 DEVICE = "cuda"
 REPO = Path(__file__).resolve().parent
 KERNELS = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate")
+AGG_KERNELS = ("bucket_fold", "range_fold")  # K10's two modes
 SOURCES = {name: f"elasticsearch_tpu_torch/csrc/{name}.cu" for name in KERNELS}
 # BASELINE config 4 (bench.py:1273-1353): window, script and weights.
 CFG4_WINDOW = 1000
@@ -181,11 +210,11 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 @contextlib.contextmanager
 def plain_kernels():
     """Route bm25_device through the plain PyTorch versions of K1-K4, solo,
-    batched and stacked (on whatever device the tensors are) — the
-    reference runs of the check phases."""
+    batched and stacked, and aggs_device through K10's (on whatever
+    device the tensors are) — the reference runs of the check phases."""
     from elasticsearch_tpu_torch.ops import kernels as kern
 
-    names = [n + s for n in KERNELS for s in kern.MODES]
+    names = [n + s for n in KERNELS for s in kern.MODES] + list(AGG_KERNELS)
     saved = {n: getattr(kern, n) for n in names}
     try:
         for n in names:
@@ -620,6 +649,8 @@ def run() -> dict:
                                     segment, match_terms, launches)
     single["sorted"] = run_sorted(card, node, segment, match_terms, launches)
     rows.extend(kernel_rows_slice4(seg_tree, compiler, match_terms, dev))
+    single["aggs_full"] = run_aggs_full(card, node, segment, launches)
+    kernel_rows_aggs_full(seg_tree, dev, rows)
     single["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
     log(f"  one-shard phases: peak device memory "
         f"{single['max_memory_allocated_bytes']} B [{card}]")
@@ -637,6 +668,11 @@ def run() -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     knn = run_knn(card, dev, launches, rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    aggs = run_aggs(card, dev, launches, rows)
+    nan_pages = run_nan_pages(card, launches)
     missing = [name for name in kern.LAUNCHES if launches.get(name, 0) <= 0]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")
@@ -645,7 +681,8 @@ def run() -> dict:
         r["launches"] = launches[r["name"]]
     log(f"phase results: whole run {time.monotonic() - t_run:.1f} s [{card}]")
     return {"card": card, "kernels": rows,
-            "result": {"one_shard": single, "sharded": sharded, "knn": knn}}
+            "result": {"one_shard": single, "sharded": sharded, "knn": knn,
+                       "aggs": aggs, "nan_pages": nan_pages}}
 
 
 class PruneRecorder:
@@ -2476,6 +2513,680 @@ def kernel_rows_stacked(stree, buckets, dev):
          "index_add_ over [Q*S * (N + 1)]",
          int(valid.sum()) * 8 + n_real * 16 + r_count * (num_docs + 1) * 5)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Aggregations (kernel-table row 22, K10) and the NaN-scored pages
+# ---------------------------------------------------------------------------
+
+N_AGG_DOCS = 1_000_000  # bench.py:346-432, cfg7's kernel half
+AGG_SHARDS = 8
+AGG_SEQ_REPS = 20  # sequential requests of each aggs body
+AGG_SOURCE = "elasticsearch_tpu_torch/csrc/bucket_fold.cu"
+AGG_TAGS = ["x", "y", "z"]  # _cfg7_end_to_end's tag values (bench.py:570)
+
+
+def _keyword_field(name: str, values: list, codes):
+    """A single-valued keyword FieldIndex (doc i has values[codes[i]], the
+    values sorted), as SegmentBuilder builds one: postings doc-ascending."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.index.segment import FieldIndex
+    from elasticsearch_tpu_torch.utils import smallfloat
+
+    n = len(codes)
+    df = np.bincount(codes, minlength=len(values)).astype(np.int32)
+    offsets = np.zeros(len(values) + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum(df)
+    return FieldIndex(
+        name=name, terms={v: i for i, v in enumerate(values)}, df=df,
+        offsets=offsets,
+        doc_ids=np.argsort(codes, kind="stable").astype(np.int32),
+        tfs=np.ones(n, dtype=np.float32),
+        norm_bytes=smallfloat.encode_lengths(np.ones(n, dtype=np.int64)),
+        doc_count=n, sum_total_tf=n, has_norms=False,
+        present=np.ones(n, dtype=bool),
+    )
+
+
+def _concat_segments(segments):
+    """One segment holding the given segments' documents in order (the
+    one-shard index of the aggs phase): postings regrouped by the union
+    term dictionary, doc values and ids concatenated."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.index.segment import FieldIndex, Segment
+
+    bases = np.cumsum([0] + [s.num_docs for s in segments])
+    fields = {}
+    for name in segments[0].fields:
+        parts = [s.fields[name] for s in segments]
+        vocab = sorted(set().union(*(f.terms for f in parts)))
+        gid = {t: i for i, t in enumerate(vocab)}
+        tids, docs, tfs = [], [], []
+        for base, f in zip(bases, parts):
+            to_global = np.empty(len(f.terms), dtype=np.int64)
+            for t, i in f.terms.items():
+                to_global[i] = gid[t]
+            tids.append(np.repeat(to_global, np.diff(f.offsets)))
+            docs.append(f.doc_ids.astype(np.int64) + base)
+            tfs.append(f.tfs)
+        tid = np.concatenate(tids)
+        order = np.argsort(tid, kind="stable")  # shard order: docs ascend
+        df = np.bincount(tid, minlength=len(vocab)).astype(np.int32)
+        offsets = np.zeros(len(vocab) + 1, dtype=np.int64)
+        offsets[1:] = np.cumsum(df)
+        fields[name] = FieldIndex(
+            name=name, terms=gid, df=df, offsets=offsets,
+            doc_ids=np.concatenate(docs)[order].astype(np.int32),
+            tfs=np.concatenate(tfs)[order],
+            norm_bytes=np.concatenate([f.norm_bytes for f in parts]),
+            doc_count=sum(f.doc_count for f in parts),
+            sum_total_tf=sum(f.sum_total_tf for f in parts),
+            has_norms=parts[0].has_norms,
+            present=np.concatenate([f.present for f in parts]),
+        )
+    return Segment(
+        num_docs=int(bases[-1]), fields=fields,
+        doc_values={k: np.concatenate([s.doc_values[k] for s in segments])
+                    for k in segments[0].doc_values},
+        vectors={}, sources=sum((s.sources for s in segments), []),
+        ids=sum((s.ids for s in segments), []),
+    )
+
+
+class AggTimer:
+    """CUDA events around every aggs_device.execute_aggs call while
+    installed: the device time of each segment's aggregation pass."""
+
+    def __init__(self):
+        from elasticsearch_tpu_torch.ops import aggs_device
+
+        self.mod = aggs_device
+        self.real = aggs_device.execute_aggs
+        self.events: list = []
+
+    def __enter__(self):
+        import torch
+
+        def timed(*args):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            out = self.real(*args)
+            ev1.record()
+            self.events.append((ev0, ev1))
+            return out
+
+        self.mod.execute_aggs = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        self.mod.execute_aggs = self.real
+        torch.cuda.synchronize()
+
+    def total_ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def _agg_bodies(match_terms, filter_term):
+    """cfg7's four REST bodies (bench.py:604-615, the match words drawn
+    from the Zipf vocabulary) and this slice's additions."""
+    match = {"match": {"body": " ".join(match_terms)}}
+    stats = {"stats": {"field": "price"}}
+    ranges = [{"from": i * 500, "to": (i + 1) * 500} for i in range(20)]
+    return {
+        "cfg7_sorted": {"query": match, "sort": [{"price": "desc"}],
+                        "size": 10},
+        "cfg7_sorted_aggs": {
+            "query": match,
+            "sort": [{"price": {"order": "asc", "missing": "_first"}}],
+            "size": 10,
+            "aggs": {"st": stats,
+                     "h": {"histogram": {"field": "price", "interval": 250}}}},
+        "cfg7_terms": {"query": {"match_all": {}}, "size": 0,
+                       "aggs": {"tags": {"terms": {"field": "tag"}},
+                                "st": stats}},
+        "cfg7_after": {"query": match, "sort": [{"price": "asc"}],
+                       "size": 10, "search_after": [2500]},
+        "histogram_500": {"size": 0, "aggs": {"h500": {"histogram": {
+            "field": "price", "interval": 500},
+            "aggs": {"a": {"avg": {"field": "price"}}}}}},
+        "range_20": {"size": 0, "aggs": {"r20": {"range": {
+            "field": "price", "ranges": ranges},
+            "aggs": {"s": {"sum": {"field": "price"}}}}}},
+        "filters": {"size": 0, "aggs": {"f": {"filters": {"filters": {
+            "x": {"term": {"tag": "x"}},
+            "t": {"term": {"body": filter_term}}}}}}},
+        "missing": {"query": match, "size": 0,
+                    "aggs": {"m": {"missing": {"field": "price"}}}},
+        "global": {"query": match, "size": 0,
+                   "aggs": {"g": {"global": {}, "aggs": {"st": stats}}}},
+    }
+
+
+def _full_agg_bodies():
+    """The histogram and range bodies over the 8,841,823-doc corpus's
+    f1 / f2 columns (f1 in [0, 1): 1,000 buckets of 0.001, 20 ranges of
+    0.05)."""
+    ranges = [{"from": i / 20, "to": (i + 1) / 20} for i in range(20)]
+    return {
+        "histogram_f1": {"size": 0, "aggs": {"h": {"histogram": {
+            "field": "f1", "interval": 0.001},
+            "aggs": {"a": {"avg": {"field": "f2"}}}}}},
+        "range_f1": {"size": 0, "aggs": {"r": {"range": {
+            "field": "f1", "ranges": ranges},
+            "aggs": {"s": {"sum": {"field": "f2"}}}}}},
+    }
+
+
+def _k10_sums(rows, groups, values, nb: int, ch: int, n_rows: int):
+    """K10's f32 sums of one segment in its stated order, in numpy: the
+    rows (ascending) cut into chunks of `ch`; np.add.at applies the adds
+    one at a time in row order, so each (chunk, bucket) partial is a left
+    fold; the partials then fold in chunk order."""
+    import numpy as np
+
+    part = np.zeros((-(-n_rows // ch), nb), dtype=np.float32)
+    np.add.at(part, (rows // ch, groups), values.astype(np.float32))
+    total = np.zeros(nb, dtype=np.float32)
+    for c in range(part.shape[0]):
+        total = (total + part[c]).astype(np.float32)
+    return total
+
+
+def _hist_oracle(segs, masks, field, interval, sub, sub_kind):
+    """A fixed-interval histogram's rendered buckets (keys, doc_counts and
+    the sub-metric) from the host columns: the reference's window over
+    the global f32 range, each segment's sub sums in K10's order, f64
+    across segments."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.ops.kernels import bucket_chunk_rows
+
+    lo = min(float(np.float32(np.nanmin(s.doc_values[field]))) for s in segs)
+    hi = max(float(np.float32(np.nanmax(s.doc_values[field]))) for s in segs)
+    base = np.floor(lo / interval)
+    nb = int(np.floor(hi / interval) - base) + 1
+    nb_pad = 1 << (nb - 1).bit_length()
+    counts = np.zeros(nb_pad, np.int64)
+    sub_counts = np.zeros(nb_pad, np.int64)
+    sums = np.zeros(nb_pad, np.float64)
+    for seg, mask in zip(segs, masks):
+        col = seg.doc_values[field].astype(np.float32)
+        rel = np.floor(col / np.float32(interval)) - np.float32(base)
+        ok = mask & ~np.isnan(col) & (rel >= 0) & (rel < nb_pad)
+        b = np.where(ok, rel, 0).astype(np.int64)
+        counts += np.bincount(b[ok], minlength=nb_pad)
+        if sub is not None:
+            sv = seg.doc_values[sub].astype(np.float32)
+            ok2 = ok & ~np.isnan(sv)
+            sub_counts += np.bincount(b[ok2], minlength=nb_pad)
+            sums += _k10_sums(np.flatnonzero(ok2), b[ok2], sv[ok2], nb_pad,
+                              bucket_chunk_rows(seg.num_docs, nb_pad),
+                              seg.num_docs).astype(np.float64)
+    occ = np.flatnonzero(counts)
+    out = []
+    for i in range(int(occ[0]), int(occ[-1]) + 1) if len(occ) else ():
+        key = (base + i) * interval
+        b = {"key": int(key) if float(key).is_integer() else float(key),
+             "doc_count": int(counts[i])}
+        if sub is not None:
+            c = int(sub_counts[i])
+            v = (float(sums[i]) / c if c else None) if sub_kind == "avg" \
+                else float(sums[i])
+            b["a"] = {"value": v}
+        out.append(b)
+    return out
+
+
+def _range_oracle(segs, masks, field, ranges, sub, sub_name):
+    """Range buckets from the host columns: f32 stored values against the
+    f32 bounds, each segment's sub sums in K10's range-mode order, f64
+    across segments."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.ops.kernels import bucket_chunk_rows
+
+    r = len(ranges)
+    out = []
+    for i, rg in enumerate(ranges):
+        lo = np.float32(rg.get("from", -np.inf))
+        hi = np.float32(rg.get("to", np.inf))
+        count, total = 0, 0.0
+        for seg, mask in zip(segs, masks):
+            col = seg.doc_values[field].astype(np.float32)
+            member = mask & (col >= lo) & (col < hi)
+            count += int(member.sum())
+            sv = seg.doc_values[sub].astype(np.float32)
+            ok = member & ~np.isnan(sv)
+            rows = np.flatnonzero(ok)
+            total += float(_k10_sums(
+                rows, np.zeros(len(rows), np.int64), sv[ok], 1,
+                bucket_chunk_rows(seg.num_docs, r), seg.num_docs)[0])
+        b = {"key": f"{float(rg['from']) if 'from' in rg else '*'}-"
+                    f"{float(rg['to']) if 'to' in rg else '*'}"}
+        if "from" in rg:
+            b["from"] = float(rg["from"])
+        if "to" in rg:
+            b["to"] = float(rg["to"])
+        b["doc_count"] = count
+        b[sub_name] = {"value": total}
+        out.append(b)
+    return out
+
+
+def _oracle_stats(segs, masks, field):
+    """Top-level stats as the reference folds them: per segment the
+    matched f64 values, np.sum / min / max, in segment order."""
+    import numpy as np
+
+    count, s, lo, hi = 0, 0.0, np.inf, -np.inf
+    for seg, m in zip(segs, masks):
+        v = seg.doc_values[field][m]
+        v = v[~np.isnan(v)]
+        count += len(v)
+        if len(v):
+            s += float(np.sum(v))
+            lo, hi = min(lo, float(np.min(v))), max(hi, float(np.max(v)))
+    return {"count": count, "min": lo if count else None,
+            "max": hi if count else None, "avg": s / count if count else None,
+            "sum": s}
+
+
+def _term_mask(seg, field, terms):
+    import numpy as np
+
+    mask = np.zeros(seg.num_docs, dtype=bool)
+    for t in terms:
+        mask[seg.fields[field].postings(t)[0]] = True
+    return mask
+
+
+def agg_oracle(body, out, segs) -> bool:
+    """One answer's totals and aggregations against numpy over the host
+    columns: integer counts exact, metrics in f64 as the reference folds
+    them, sub-metric sums in K10's stated order."""
+    import numpy as np
+
+    query = body.get("query", {"match_all": {}})
+    if "match" in query:
+        masks = [_term_mask(s, "body", query["match"]["body"].split())
+                 for s in segs]
+    else:
+        masks = [np.ones(s.num_docs, dtype=bool) for s in segs]
+    total = sum(int(m.sum()) for m in masks)
+    if out["hits"]["total"]["value"] != min(total, 10_000):
+        return False
+    want = {}
+    for name, spec in body.get("aggs", {}).items():
+        kind = next(k for k in spec if k != "aggs")
+        p = spec[kind]
+        if kind == "stats":
+            want[name] = _oracle_stats(segs, masks, p["field"])
+        elif kind == "histogram":
+            sub = next(iter(spec.get("aggs", {}).values()), None)
+            want[name] = {"buckets": _hist_oracle(
+                segs, masks, p["field"], p["interval"],
+                None if sub is None else sub["avg"]["field"], "avg")}
+        elif kind == "range":
+            want[name] = {"buckets": _range_oracle(
+                segs, masks, p["field"], p["ranges"],
+                spec["aggs"]["s"]["sum"]["field"], "s")}
+        elif kind == "terms":
+            counts = {}
+            for seg, m in zip(segs, masks):
+                f = seg.fields[p["field"]]
+                for term, tid in f.terms.items():
+                    docs = f.doc_ids[f.offsets[tid]:f.offsets[tid + 1]]
+                    counts[term] = counts.get(term, 0) + int(m[docs].sum())
+            items = sorted(((t, c) for t, c in counts.items() if c),
+                           key=lambda kv: (-kv[1], kv[0]))
+            top = items[:10]
+            want[name] = {
+                "doc_count_error_upper_bound": 0,
+                "sum_other_doc_count": sum(counts.values())
+                - sum(c for _, c in top),
+                "buckets": [{"key": t, "doc_count": c} for t, c in top]}
+        elif kind == "filters":
+            buckets = {}
+            for key, q in sorted(p["filters"].items()):
+                ((fname, term),) = q["term"].items()
+                buckets[key] = {"doc_count": sum(
+                    int((m & _term_mask(s, fname, [term])).sum())
+                    for s, m in zip(segs, masks))}
+            want[name] = {"buckets": buckets}
+        elif kind == "missing":
+            want[name] = {"doc_count": sum(
+                int((m & np.isnan(s.doc_values[p["field"]])).sum())
+                for s, m in zip(segs, masks))}
+        elif kind == "global":
+            everything = [np.ones(s.num_docs, dtype=bool) for s in segs]
+            want[name] = {"doc_count": sum(s.num_docs for s in segs),
+                          "st": _oracle_stats(segs, everything, "price")}
+    return out.get("aggregations", {}) == want
+
+
+def _serve_aggs(card, node, index, bodies, segs, launches, phase):
+    """Each body AGG_SEQ_REPS times sequentially (round robin) over HTTP,
+    checked three ways: the first answer against the same body served
+    with plain_kernels() on the same card tensors (the whole JSON but
+    `took`), against the numpy oracle, and every repeat against the
+    first answer. Latency percentiles per body (AGG_SEQ_REPS samples
+    each) and over the whole mix; device ms per request by CUDA events
+    around each segment's aggregation pass."""
+    from elasticsearch_tpu_torch.search.service import SearchRequest
+
+    names = list(bodies)
+    svc = node.indices[index]
+    server, base = serve(node)
+    try:
+        for nm in names:  # one untimed warm-up request per body
+            http(base, "POST", f"/{index}/_search", bodies[nm])
+        seq_names = names * AGG_SEQ_REPS
+        with counted(phase, launches), AggTimer() as timer:
+            lat, seq_resp, wall = sequential(
+                base, index, [bodies[n] for n in seq_names])
+    finally:
+        server.shutdown()
+        server.server_close()
+    first = seq_resp[: len(names)]
+    vs_plain = vs_oracle = 0
+    with plain_kernels():
+        for nm, out in zip(names, first):
+            want = svc.search.search(
+                SearchRequest.from_json(bodies[nm])).to_json(index)
+            if without_took(json.loads(json.dumps(want))) != without_took(out):
+                vs_plain += 1
+                log(f"  MISMATCH {phase} plain path {nm}")
+    for nm, out in zip(names, first):
+        if not agg_oracle(bodies[nm], out, segs):
+            vs_oracle += 1
+            log(f"  MISMATCH {phase} oracle {nm}: "
+                f"{json.dumps(out.get('aggregations'))[:600]}")
+    vs_first = sum(without_took(out) != without_took(first[i % len(names)])
+                   for i, out in enumerate(seq_resp))
+    stats = {
+        "requests": len(seq_names), "requests_per_body": AGG_SEQ_REPS,
+        "qps_sequential": len(seq_names) / wall,
+        "p50_ms": percentile(lat, 50), "p99_ms": percentile(lat, 99),
+        "device_ms_per_request": timer.total_ms() / len(seq_names),
+        "per_body": {nm: {"p50_ms": percentile(lat[j::len(names)], 50),
+                          "p99_ms": percentile(lat[j::len(names)], 99)}
+                     for j, nm in enumerate(names)},
+        "mismatches_vs_plain": vs_plain,
+        "mismatches_vs_oracle": vs_oracle,
+        "mismatches_vs_first": vs_first,
+    }
+    bad = vs_plain + vs_oracle + vs_first
+    log(f"phase {phase}: {'ok' if bad == 0 else 'FAILED'} {json.dumps(stats)} "
+        f"[{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} aggs mismatches in phase {phase}")
+    return stats
+
+
+def run_aggs_full(card, node, segment, launches) -> dict:
+    """The histogram and range bodies over the 8,841,823-doc one-shard
+    corpus (columns f1, f2): K10 at the full width, over HTTP."""
+    return _serve_aggs(card, node, "msmarco", _full_agg_bodies(), [segment],
+                       launches, "aggs-full")
+
+
+def run_aggs(card, dev, launches, rows) -> dict:
+    """The reference bench's cfg7 deployment (bench.py:346-432): 8 shards
+    of the Zipf generator (125,000 docs each, vocabulary 20,000, seed
+    800 + shard), `price` long in [0, 10,000) with ~10 % missing
+    (default_rng(88), drawn as bench.py:388-390 draws it), `tag` keyword
+    x / y / z (default_rng(99).choice, as _cfg7_end_to_end draws it); the
+    same documents as one 1,000,000-doc shard. The bodies of
+    _agg_bodies on both indices, then K10's terms and doc_count rows on
+    one shard."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.index.tiles import device_nbytes
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import aggs_device
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.utils.corpus import (
+        build_zipf_segment,
+        pick_query_terms,
+    )
+
+    t0 = time.monotonic()
+    per_shard = N_AGG_DOCS // AGG_SHARDS
+    rng_price = np.random.default_rng(88)
+    rng_tag = np.random.default_rng(99)
+    shards = []
+    for s in range(AGG_SHARDS):
+        _m, seg = build_zipf_segment(per_shard, vocab_size=20_000, seed=800 + s)
+        price = rng_price.integers(0, 10_000, per_shard).astype(np.float64)
+        price[rng_price.random(per_shard) < 0.1] = np.nan  # ~10% missing
+        codes = rng_tag.choice(len(AGG_TAGS), size=per_shard)
+        seg.fields["tag"] = _keyword_field("tag", AGG_TAGS, codes)
+        seg.doc_values["price"] = price
+        shards.append(replace(seg, ids=[f"s{s}d{i}" for i in range(per_shard)]))
+    whole = _concat_segments(shards)
+    gen_s = time.monotonic() - t0
+    mappings = {"properties": {"body": {"type": "text"},
+                               "price": {"type": "long"},
+                               "tag": {"type": "keyword"}}}
+    node = Node(device=DEVICE)
+    node.create_index("cfg7", {"settings": {"index": {
+        "number_of_shards": AGG_SHARDS}}, "mappings": mappings})
+    node.create_index("cfg7one", {"mappings": mappings})
+    t1 = time.monotonic()
+    handles = [e._install_segment(seg) for e, seg in
+               zip(node.indices["cfg7"].engines, shards)]
+    one = node.indices["cfg7one"].engine._install_segment(whole)
+    torch.cuda.synchronize()
+    log(f"phase aggs corpus: ok {AGG_SHARDS} shards x {per_shard} docs + one "
+        f"{whole.num_docs}-doc shard; generate {gen_s:.1f} s, pack+upload "
+        f"{time.monotonic() - t1:.1f} s, device bytes "
+        f"{sum(device_nbytes(h.device) for h in handles)} (8 shards), "
+        f"{device_nbytes(one.device)} (one) [{card}]")
+
+    match_terms = pick_query_terms(shards[0], np.random.default_rng(SEED + 6),
+                                   1, terms_per_query=2)[0]
+    fld = shards[0].fields["body"]
+    head = max(fld.terms, key=lambda t: fld.df[fld.terms[t]])
+    bodies = _agg_bodies(match_terms, head)
+    result = {"docs": N_AGG_DOCS, "shards": AGG_SHARDS}
+    for index, segs in (("cfg7", shards), ("cfg7one", [whole])):
+        result[index] = _serve_aggs(card, node, index, bodies, segs, launches,
+                                    f"aggs {index}")
+
+    # K10's count rows at one shard's shapes: terms over the tag postings
+    # and one doc_count.
+    tree = aggs_device.agg_segment_tree(handles[0].device)
+    live = tree["live"]
+    n = live.shape[0]
+    docs, ords = aggs_device._terms_postings(tree, "tag")
+    m_ext = torch.cat([live, live.new_zeros(1)])
+    m = m_ext[torch.clamp(docs, max=n).long()]
+    tp = 1 << (len(AGG_TAGS) - 1).bit_length()
+    p = docs.shape[0]
+    idx = torch.where(m, ords, tp).long()
+    _row(rows, "bucket_fold", "elasticsearch_tpu/ops/aggs_device.py:172", 1,
+         lambda: (kern.bucket_fold(ords, m, tp),),
+         lambda: (kern.bucket_fold_plain(ords, m, tp),),
+         lambda: torch.bincount(idx, minlength=tp + 1), "torch.bincount",
+         p * 5 + tp * 4, source=AGG_SOURCE,
+         case=f"terms counts over the tag postings, {p:,} rows")
+    _row(rows, "bucket_fold", "elasticsearch_tpu/ops/aggs_device.py:284", 1,
+         lambda: (kern.bucket_fold(None, live, 1),),
+         lambda: (kern.bucket_fold_plain(None, live, 1),),
+         lambda: live.sum(dtype=torch.int32), "torch.sum",
+         n + 4, source=AGG_SOURCE, case=f"one doc_count over {n:,} docs")
+    node.close()
+    return result
+
+
+def kernel_rows_aggs_full(seg_tree, dev, rows):
+    """K10 at the aggs-full phase's shapes over the 8,841,823-doc corpus:
+    the f1 histogram (1,024 buckets) with the f2 sub-metric (scatter
+    mode), and 20 f1 ranges with the f2 sum (range mode), each held to
+    its plain version. Library yardsticks, not ports: index_add_ +
+    scatter_reduce_(amin, amax) over the same rows, and a masked [R, N]
+    sum (with its min and max). Byte bounds: each input read once, each
+    output written once."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import kernels as kern
+
+    live = seg_tree["live"]
+    n = live.shape[0]
+    col, sub = seg_tree["doc_values"]["f1"], seg_tree["doc_values"]["f2"]
+    has = live & ~torch.isnan(col)
+    lo_v = float(torch.nan_to_num(col, nan=2.0).min())
+    base = float(torch.floor(torch.tensor(lo_v / 0.001)))
+    nb = 1024
+    rel = torch.floor(col / torch.tensor(0.001, device=dev)) - base
+    rel = torch.clamp(torch.nan_to_num(rel, nan=0.0), -1, nb).to(torch.int32)
+    inw = has & (rel >= 0) & (rel < nb)
+    bidx = torch.where(inw, rel, torch.full_like(rel, nb))
+    hs = inw & ~torch.isnan(sub)
+    idx = torch.where(hs, bidx, nb).long()
+    v = torch.where(hs, sub, 0.0)
+    f32max = torch.tensor(kern.F32_MAX, device=dev)
+
+    def scatter_library():
+        s = torch.zeros(nb + 1, device=dev).index_add_(0, idx, v)
+        lo = f32max.expand(nb + 1).clone().scatter_reduce_(0, idx, v, "amin")
+        hi = (-f32max).expand(nb + 1).clone().scatter_reduce_(0, idx, v, "amax")
+        return s, lo, hi
+
+    _row(rows, "bucket_fold", "elasticsearch_tpu/ops/aggs_device.py:91", 1,
+         lambda: kern.bucket_fold(bidx, inw, nb, values=sub),
+         lambda: kern.bucket_fold_plain(bidx, inw, nb, values=sub),
+         scatter_library, "index_add_ + scatter_reduce_(amin, amax)",
+         n * 9 + nb * 16, source=AGG_SOURCE, reps=10,
+         case=f"histogram f1 ({nb} buckets) + f2 sub-metric, {n:,} docs")
+    r = 20
+    lo = torch.arange(r, device=dev, dtype=torch.float64).float() / r
+    hi = (torch.arange(1, r + 1, device=dev, dtype=torch.float64) / r).float()
+
+    def range_library():
+        member = (live[None, :] & (col[None, :] >= lo[:, None])
+                  & (col[None, :] < hi[:, None]) & ~torch.isnan(sub)[None, :])
+        return (torch.where(member, sub[None, :], 0.0).sum(dim=1),
+                torch.where(member, sub[None, :], f32max).amin(dim=1),
+                torch.where(member, sub[None, :], -f32max).amax(dim=1))
+
+    _row(rows, "bucket_fold_range", "elasticsearch_tpu/ops/aggs_device.py:217",
+         r, lambda: kern.range_fold(col, live, lo, hi, sub=sub),
+         lambda: kern.range_fold_plain(col, live, lo, hi, sub=sub),
+         range_library, "masked [R, N] sum, amin, amax", n * 9 + r * 20,
+         source=AGG_SOURCE, reps=10,
+         case=f"{r} f1 ranges + f2 sum sub-metric, {n:,} docs")
+    torch.cuda.synchronize()
+
+
+NAN_PAGE_SCRIPTS = (
+    "doc['f'].value",
+    "Math.max(doc['f'].value, 0.0)",
+    "Math.min(doc['f'].value, 0.0)",
+    "Math.sqrt(doc['f'].value)",
+    "Math.log(doc['f'].value)",
+    "Math.log10(doc['f'].value)",
+    "Math.pow(doc['f'].value, 0.5)",
+    "sigmoid(doc['f'].value) * 2 + 1",
+)
+
+
+def _page_diff(card_out, cpu_out):
+    """Where two hits pages differ, or None: totals and ids exactly, every
+    NaN score or sort value with the same bits (sign and payload), other
+    values within rtol = atol = 1e-5 (libdevice's log / exp and the CPU's
+    round differently)."""
+    import numpy as np
+
+    def same(a, b):
+        if a is None or b is None or not isinstance(a, float):
+            return a == b
+        fa, fb = np.float32(a), np.float32(b)
+        if np.isnan(fa) or np.isnan(fb):
+            return fa.view(np.uint32) == fb.view(np.uint32)
+        return bool(np.isclose(fa, fb, rtol=1e-5, atol=1e-5))
+
+    a, b = card_out["hits"], cpu_out["hits"]
+    if a["total"] != b["total"]:
+        return f"totals {a['total']} != {b['total']}"
+    ids = ([h["_id"] for h in a["hits"]], [h["_id"] for h in b["hits"]])
+    if ids[0] != ids[1]:
+        return f"ids {ids[0]} != {ids[1]}"
+    for ha, hb in zip(a["hits"], b["hits"]):
+        va = [ha["_score"], *ha.get("sort", [])]
+        vb = [hb["_score"], *hb.get("sort", [])]
+        if len(va) != len(vb) or not all(map(same, va, vb)):
+            return f"doc {ha['_id']}: score / sort {va} != {vb}"
+    return None
+
+
+def run_nan_pages(card, launches) -> dict:
+    """The C1 / C2 bodies on the card: ROADMAP queue C's repro index (48
+    docs, `r = i`, `f = (i % 7) - 3`, no `f` where i % 4 == 0) on 1 and
+    3 shards; `script_score{range r gte 8, S}` pages (size 48) sorted by
+    score descending, by `{"_score": "asc"}` and past an ascending cursor
+    on a NaN, with and without a boost, served by the card's node and by
+    a CPU node (whose NaN rules the tests hold to the JAX package): ids
+    and totals equal, every NaN score and sort value with the same bits,
+    the others within 1e-5."""
+    from elasticsearch_tpu_torch.node import Node
+
+    t0 = time.monotonic()
+    lines = []
+    for i in range(48):
+        doc = {"r": i}
+        if i % 4:
+            doc["f"] = float((i % 7) - 3)
+        lines += [json.dumps({"index": {"_id": str(i)}}), json.dumps(doc)]
+    nodes = [Node(device=DEVICE), Node(device="cpu")]
+    pages = bad = 0
+    try:
+        requests = []
+        for shards in (1, 3):
+            index = f"nan{shards}"
+            body = {"settings": {"index": {"number_of_shards": shards}},
+                    "mappings": {"properties": {"r": {"type": "long"},
+                                                "f": {"type": "float"}}}}
+            for n in nodes:
+                n.create_index(index, body)
+                n.bulk("\n".join(lines) + "\n", default_index=index,
+                       refresh=True)
+            for src in NAN_PAGE_SCRIPTS:
+                for boost in (None, 2.5):
+                    query = {"query": {"range": {"r": {"gte": 8}}},
+                             "script": {"source": src}}
+                    if boost is not None:
+                        query["boost"] = boost
+                    base = {"query": {"script_score": query}, "size": 48}
+                    for extra in ({}, {"sort": [{"_score": "asc"}]},
+                                  {"sort": [{"_score": "asc"}],
+                                   "search_after": [float("nan")]}):
+                        requests.append((index, {**base, **extra}))
+        with counted("nan-pages", launches):
+            card_out = [nodes[0].search(i, req) for i, req in requests]
+        for (index, req), out in zip(requests, card_out):
+            diff = _page_diff(out, nodes[1].search(index, req))
+            pages += 1
+            if diff is not None:
+                bad += 1
+                log(f"  MISMATCH nan-pages {index} {json.dumps(req)}: {diff}")
+    finally:
+        for n in nodes:
+            n.close()
+    stats = {"pages": pages, "mismatches_vs_cpu": bad,
+             "seconds": time.monotonic() - t0}
+    log(f"phase nan-pages: {'ok' if bad == 0 else 'FAILED'} {json.dumps(stats)} "
+        f"[{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} NaN-scored pages differ between the card "
+                           f"and the CPU")
+    return stats
 
 
 def main() -> int:

@@ -39,10 +39,12 @@
 // (after_key, after_doc) keeps `key > after_key | (key == after_key & doc
 // > after_doc)` (`<` for the descending score cursor); docs not kept are
 // set to +inf (-inf for the descending score order), and the composite is
-// of -masked (bottom-k and field sorts) or masked (descending score). The
+// of -masked (bottom-k and field sorts; a NaN keeps its sign, as the
+// reference's jitted negation leaves it) or masked (descending score). The
 // count kernel returns total = sum(eligible) and n_after = sum(keep); the
 // decode returns the column's raw value (field sorts) or the masked score
-// (score orders) at each winner.
+// (score orders; a NaN of the bottom-k with its sign flipped) at each
+// winner.
 //
 // Id mode (K3i; the merge of the IVF survivors in elasticsearch_tpu/ops/
 // ann_device.py `_ivf_inner` :236-242, `lax.sort((-s, doc, s),
@@ -106,7 +108,8 @@ __device__ __forceinline__ float keyed_value(const KeyedArgs& a, int64_t q,
     const float mk = kp ? key : (neg ? ESK_INF : -ESK_INF);
     *keep = kp;
     *masked = mk;
-    return neg ? -mk : mk;
+    // The negation keeps a NaN's sign, as the reference serves it.
+    return (neg && !isnan(mk)) ? -mk : mk;
 }
 
 // Sort a block's `ch` composites and write its top min(kk, len).
@@ -227,7 +230,14 @@ __global__ void keyed_decode_kernel(
     float masked;
     keyed_value(a, q, idx, &keep, &masked);
     top_idx[t] = (int32_t)idx;
-    values[t] = a.mode == KEYED_FIELD ? a.key[q * a.key_stride + idx] : masked;
+    if (a.mode == KEYED_FIELD) {
+        values[t] = a.key[q * a.key_stride + idx];
+    } else if (a.mode == KEYED_SCORE_ASC && isnan(masked)) {
+        // -top_k(-masked): the output negation flips a NaN's sign.
+        values[t] = __uint_as_float(__float_as_uint(masked) ^ 0x80000000u);
+    } else {
+        values[t] = masked;
+    }
 }
 
 __device__ __forceinline__ int block_sum(int c, int* warp_sums) {

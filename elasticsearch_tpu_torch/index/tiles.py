@@ -8,9 +8,10 @@ Port of elasticsearch_tpu/index/tiles.py, trimmed to this slice:
 dense_vector planes (f32[N, dims], padding rows zero, as the reference
 pads them), each with its vector-presence plane `has_vector` (bool[N],
 any element non-zero: the kNN kernels' rule for docs without a vector,
-computed once at pack time instead of per query). Left out: positional
-and keyword-ordinal planes, nested blocks, `pack_segment_delta`,
-`repack_tn` and the packed multi-tenant planes.
+computed once at pack time instead of per query); and the keyword
+global-ordinal plane `ord_terms` (terms aggregations), packed for every
+field without norms. Left out: positional planes, nested blocks,
+`pack_segment_delta`, `repack_tn` and the packed multi-tenant planes.
 
 A field's postings live on the device as flat CSR arrays padded to a tile
 multiple plus one all-sentinel tile, viewed as [NT, 256]:
@@ -20,6 +21,8 @@ multiple plus one all-sentinel tile, viewed as [NT, 256]:
     tn      : float32[NT, 256] precomputed impact tf * normInverse
     norm_bytes : uint8[N + 1]  SmallFloat norms, one sentinel slot
     present : bool[N]          doc has a value for the field
+    ord_terms : int32[NT, 256] keyword fields: the term id owning each
+                               posting (sentinel T = the term count)
 
 The same dtypes and layout as the JAX package, so a plan compiled by
 either side addresses either side's planes. The host-side planning
@@ -75,6 +78,10 @@ class DeviceField:
     tile_max: np.ndarray | None = None  # f32[NT] per-tile max impact
     tile_doc_lo: np.ndarray | None = None  # per-tile min doc id
     tile_doc_hi: np.ndarray | None = None  # per-tile max doc id
+    # Global ordinals of a keyword field (terms aggregations): the term id
+    # owning each posting position, in the [NT, TILE] layout of doc_ids,
+    # padding = T (the aggregation's discard slot). None for text fields.
+    ord_terms: torch.Tensor | None = None  # int32[NT, TILE]
 
     @property
     def pad_tile(self) -> int:
@@ -86,6 +93,10 @@ class DeviceField:
         if self.doc_count == 0:
             return 1.0
         return self.sum_total_tf / self.doc_count
+
+    @property
+    def num_terms(self) -> int:
+        return len(self.df)
 
     def term_span(self, term: str) -> tuple[int, int]:
         """[start, end) posting positions for a term; (0, 0) if absent."""
@@ -186,6 +197,18 @@ def pack_field(
     norm_ext = np.zeros(num_docs + 1, dtype=np.uint8)
     norm_ext[: len(field.norm_bytes)] = field.norm_bytes
     doc_tiles = doc_ids.reshape(-1, TILE)
+    ord_terms = None
+    if not field.has_norms:
+        # Per-posting owning term id (CSR expansion), padded with the
+        # sentinel T, also for an empty vocabulary (all padding).
+        t_count = len(field.df)
+        ords = np.repeat(
+            np.arange(t_count, dtype=np.int32),
+            np.diff(field.offsets).astype(np.int64),
+        )
+        ords_pad = np.full(len(doc_ids), t_count, dtype=np.int32)
+        ords_pad[: len(ords)] = ords
+        ord_terms = _put(ords_pad.reshape(-1, TILE), device)
     return DeviceField(
         name=field.name,
         terms=field.terms,
@@ -205,6 +228,7 @@ def pack_field(
         tile_max=tn.reshape(-1, TILE).max(axis=1),
         tile_doc_lo=doc_tiles.min(axis=1),
         tile_doc_hi=doc_tiles.max(axis=1),
+        ord_terms=ord_terms,
     )
 
 
@@ -268,6 +292,8 @@ def device_nbytes(seg: DeviceSegment) -> int:
     for f in seg.fields.values():
         total += f.doc_ids.nbytes + f.tfs.nbytes + f.tn.nbytes
         total += f.norm_bytes.nbytes + f.present.nbytes
+        if f.ord_terms is not None:
+            total += f.ord_terms.nbytes
     for col in seg.doc_values.values():
         total += col.nbytes
     for mat in seg.vectors.values():
@@ -300,17 +326,22 @@ def device_segment_from_numpy(
 
     `planes` is a segment-tree view as numpy: {"fields": {name: (doc_ids,
     tn, tfs, norm_bytes, present)}, "doc_values": {name: f32[N]},
-    "vectors": {name: f32[N, dims]}, "live": bool[N]} (the JAX package's
-    `segment_tree(dev)` leaves after np.asarray). `fields_meta` maps each
-    field to its host planning attributes (`field_meta`)."""
+    "vectors": {name: f32[N, dims]}, "ordinals": {name: i32[NT, 256]},
+    "live": bool[N]} (the JAX package's `segment_tree(dev)` /
+    `agg_segment_tree(dev)` leaves after np.asarray). `fields_meta` maps
+    each field to its host planning attributes (`field_meta`)."""
     device = resolve_device(device)
     live = np.asarray(planes["live"], dtype=bool)
     n = int(live.shape[0])
     fields = {}
+    ordinals = planes.get("ordinals", {})
     for name, leaves in planes["fields"].items():
         doc_ids, tn, tfs, norm_bytes, present = (np.asarray(x) for x in leaves)
         meta = fields_meta[name]
+        ords = ordinals.get(name)
         fields[name] = DeviceField(
+            ord_terms=None if ords is None else _put(
+                np.asarray(ords, dtype=np.int32), device),
             name=name,
             doc_ids=_put(doc_ids.astype(np.int32), device),
             tn=_put(tn.astype(np.float32), device),

@@ -14,14 +14,15 @@ group); a `from + size` past the index's `max_result_window` is refused
 before it. Every shard's SearchService shares the node's exec planner
 (exec/planner.py), which routes a solo search that does not track total
 hits to the block-max paths when its cost model says they win. Requests
-with a sort, a rescore or a search_after cursor take the solo path.
+with aggregations, a sort, a rescore or a search_after cursor take the
+solo path.
 `Node(exec_batcher=False)` / `Node(exec_planner=False)` turn either off:
 the port's form of the reference's ESTPU_EXEC_BATCHER=0 /
 ESTPU_EXEC_PLANNER=0; without the batcher every search takes the solo
 path. Left out: replication and clusters, aliases and templates,
 ingest pipelines, scroll and async search, QoS lanes, the SPMD mesh view,
-kNN, tasks, metrics and tracing, snapshots, and every other API of the
-reference node (ROADMAP queue A).
+the filter and request caches, tasks, metrics and tracing, snapshots,
+and every other API of the reference node (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -485,13 +486,14 @@ class Node:
     ) -> bool:
         """May this search ride the exec micro-batcher? Plain score-sorted
         query phases that ask for at least one hit, while the node has a
-        batcher: a sort, a rescore or a search_after cursor takes the
-        solo path. A knn search rides it unfiltered on a one-shard index
+        batcher: aggregations, a sort, a rescore or a search_after cursor
+        take the solo path. A knn search rides it unfiltered on a one-shard index
         (a per-lane filter mask or a shard scatter keeps its solo path)."""
         if self.exec_batcher is None:
             return False
         if (
-            request.sort is not None
+            request.aggs is not None
+            or request.sort is not None
             or request.rescore
             or request.search_after is not None
         ):

@@ -28,6 +28,11 @@ PyTorch versions.
     K3i masked_topk_ids csrc/masked_topk.cu  K3's id mode: top-k by (score
                       desc, id asc) with the ids from an int32 array (the
                       IVF survivors' merge)
+    K10 bucket_fold   csrc/bucket_fold.cu    per-bucket count, sum, min and
+                      max over rows cut into fixed chunks (aggs_device.
+                      _bucket_metric_planes, the count scatters and
+                      doc_counts of _eval_agg); its range mode reduces R
+                      overlapping [lo, hi) ranges (`range`)
 
 K6 script_eval, the Triton kernel generated from a script, lives in
 ops/script_kernel.py and counts its launches here.
@@ -59,8 +64,9 @@ more, under `<name>_stacked` in the stacked mode (plain runs do not
 count); K3k, K5 and K6 count every launch under one name each
 (`keyed_topk`, `window_rescore` / `window_rescore_gather`,
 `script_eval`), as do K7 by mode (`vector_score`, `vector_score_gather`,
-`vector_score_script`), K9 (`ivf_assign`) and K3i (`masked_topk_ids`),
-whatever its row count. Launches from several threads (the REST
+`vector_score_script`), K9 (`ivf_assign`), K3i (`masked_topk_ids`) and
+K10 by mode (`bucket_fold`, `bucket_fold_range`), whatever its row
+count. Launches from several threads (the REST
 handlers and the micro-batcher) share the one library and the caller's
 current stream; the library loads once under `_lib_lock` and the counts
 move under `_count_lock`.
@@ -107,7 +113,7 @@ MODES = ("", "_batch", "_stacked")
 ONE_NAME_KERNELS = (
     "keyed_topk", "window_rescore", "window_rescore_gather", "script_eval",
     "vector_score", "vector_score_gather", "vector_score_script",
-    "ivf_assign", "masked_topk_ids",
+    "ivf_assign", "masked_topk_ids", "bucket_fold", "bucket_fold_range",
 )
 
 LAUNCHES: dict[str, int] = {
@@ -245,6 +251,8 @@ def _bind(lib) -> None:
     lib.esk_window_rescore.argtypes = [P, P, I, I, P, P, L, F, F, I, I, P, P, P]
     lib.esk_vector_score.argtypes = [P, L, I, P, I, P, I, I, I, I, I, L] + [P] * 5
     lib.esk_ivf_assign.argtypes = [P, I, P, I, I, P, I, L, P, P]
+    lib.esk_bucket_fold.argtypes = [P, P, P, P, L, I, L] + [P] * 9
+    lib.esk_range_fold.argtypes = [P, P, P, P, P, L, I, L] + [P] * 11
     for fn in (
         lib.esk_terms_scatter,
         lib.esk_sparse_fold,
@@ -255,6 +263,8 @@ def _bind(lib) -> None:
         lib.esk_window_rescore,
         lib.esk_vector_score,
         lib.esk_ivf_assign,
+        lib.esk_bucket_fold,
+        lib.esk_range_fold,
     ):
         fn.restype = ctypes.c_int
 
@@ -1238,12 +1248,28 @@ def keyed_topk_plain(key, eligible, k: int, mode: int, desc=False,
     neg = mode != KEYED_SCORE_DESC
     inf = float("inf") if neg else float("-inf")
     masked = torch.where(keep, sk, torch.full_like(sk, inf))
-    seen = -masked if neg else masked
+    # The negation keeps a NaN's sign, as the reference serves it (XLA
+    # folds `-masked` into the script's `* boost`): +NaN scores lead a
+    # bottom-k, -NaN ones trail the ineligible docs.
+    seen = torch.where(torch.isnan(masked), masked, -masked) if neg else masked
     kp = min(k, m)
     order = stable_order(0xFFFFFFFF - _f32_order(seen), 32)[:kp]
-    values = key[order] if mode == KEYED_FIELD else masked[order]
+    if mode == KEYED_FIELD:
+        values = key[order]
+    else:
+        values = masked[order]
+        if neg:  # the reference's `-top_k(-masked)` flips a NaN's sign
+            values = torch.where(torch.isnan(values), flip_sign(values),
+                                 values)
     return (values, order.to(torch.int32), eligible.sum(dtype=torch.int32),
             keep.sum(dtype=torch.int32))
+
+
+def flip_sign(x: torch.Tensor) -> torch.Tensor:
+    """x with its sign bit flipped, NaN payloads included."""
+    return (x.view(torch.int32) ^ torch.tensor(-2**31, dtype=torch.int32,
+                                               device=x.device)).view(
+        torch.float32)
 
 
 def keyed_topk_batch_plain(key, eligible, k: int, mode: int, desc=False,
@@ -1562,3 +1588,228 @@ def span_locate(flat, starts, ends, j: int, cands):
     [starts[j], ends[j]) of a flat postings plane."""
     out = span_locate_batch(flat, starts[None], ends[None], j, cands[None])
     return tuple(t[0] for t in out)
+
+
+# ---------------------------------------------------------------------------
+# K10 bucket_fold
+# ---------------------------------------------------------------------------
+
+# The order of K10's fp32 sums (csrc/bucket_fold.cu): rows cut into chunks
+# of bucket_chunk_rows(P, nb) consecutive rows, each chunk's partial a left
+# fold of its rows in row order, each sum a left fold of the partials in
+# chunk order.
+BUCKET_CHUNK = 1024
+BUCKET_MAX_PARTIALS = 1 << 22
+
+
+def bucket_chunk_rows(p: int, nb: int) -> int:
+    """Rows a chunk: 1,024, doubled while the [C, nb] partials would
+    exceed 2^22 entries and a chunk is shorter than the rows."""
+    ch = BUCKET_CHUNK
+    while ch < p and -(-p // ch) * nb > BUCKET_MAX_PARTIALS:
+        ch *= 2
+    return ch
+
+
+def _from_f32_order(o: torch.Tensor) -> torch.Tensor:
+    """fp32 values of _f32_order's keys (its inverse)."""
+    bits = torch.where(o >= 0x80000000, o & 0x7FFFFFFF, (~o) & 0xFFFFFFFF)
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _extrema(group: torch.Tensor, vals: torch.Tensor, nb: int):
+    """Per-group IEEE minimum / maximum (-0.0 < +0.0) of non-NaN values,
+    F32_MAX / -F32_MAX where a group is empty (or is the discard group
+    nb): an amin / amax of the values' total-order keys, which no order of
+    reduction changes."""
+    key = _f32_order(vals)
+    edge = torch.tensor([F32_MAX, -F32_MAX], dtype=torch.float32,
+                        device=vals.device)
+    lo, hi = _f32_order(edge).tolist()
+    vmin = torch.full((nb + 1,), lo, dtype=torch.int64, device=vals.device)
+    vmax = torch.full((nb + 1,), hi, dtype=torch.int64, device=vals.device)
+    vmin.scatter_reduce_(0, group, key, "amin")
+    vmax.scatter_reduce_(0, group, key, "amax")
+    return _from_f32_order(vmin[:nb]), _from_f32_order(vmax[:nb])
+
+
+def _chunk_sums(group: torch.Tensor, vals: torch.Tensor, nb: int,
+                ch: int) -> torch.Tensor:
+    """K10's sums in its order: group int64[P] in [0, nb] (nb: no bucket)
+    and vals f32[P] (0.0 where no bucket) in row order. Column j of the
+    [C, ch] chunk grid adds the j-th row of every chunk into its (chunk,
+    bucket) partial — distinct targets, so each partial is a left fold
+    in row order — then the partials fold in chunk order."""
+    p = group.numel()
+    dev = vals.device
+    n_chunks = -(-p // ch)
+    pad = n_chunks * ch - p
+    grid = torch.nn.functional.pad(group, (0, pad), value=nb)
+    grid = grid.view(n_chunks, ch) + (
+        torch.arange(n_chunks, device=dev) * (nb + 1))[:, None]
+    v = torch.nn.functional.pad(vals, (0, pad)).view(n_chunks, ch)
+    part = torch.zeros(n_chunks * (nb + 1), dtype=torch.float32, device=dev)
+    for j in range(min(ch, p)):
+        part.index_add_(0, grid[:, j], v[:, j])
+    part = part.view(n_chunks, nb + 1)[:, :nb]
+    total = torch.zeros(nb, dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        total = total + part[c]
+    return total
+
+
+def bucket_fold_plain(bucket, contrib, nb: int, values=None, docs=None):
+    """K10's scatter mode in PyTorch, in the kernel's order (see
+    bucket_fold)."""
+    dev = contrib.device
+    p = contrib.shape[0]
+    b = (torch.zeros(p, dtype=torch.int64, device=dev) if bucket is None
+         else bucket.to(torch.int64))
+    counts = contrib & (b >= 0) & (b < nb)
+    v = None
+    if values is not None:
+        v = values if docs is None else values[docs.to(torch.int64)]
+        counts = counts & ~torch.isnan(v)
+    group = torch.where(counts, b, torch.full_like(b, nb))
+    count = torch.bincount(group, minlength=nb + 1)[:nb].to(torch.int32)
+    if values is None:
+        return count
+    vals = torch.where(counts, v, torch.zeros_like(v))
+    vmin, vmax = _extrema(group, vals, nb)
+    return (count, _chunk_sums(group, vals, nb, bucket_chunk_rows(p, nb)),
+            vmin, vmax)
+
+
+def bucket_fold(bucket, contrib, nb: int, values=None, docs=None):
+    """K10 scatter mode: per-bucket counts over P rows and, with values,
+    the per-bucket f32 sum, min and max.
+
+    bucket int32[P] in [0, nb] (nb: discard) or None (every row in bucket
+    0: a doc_count), contrib bool[P]; values f32[N] (NaN: no value), read
+    at docs int32[P] in [0, N) or, without docs, aligned to the rows
+    (N = P). Row i counts in bucket[i] iff contrib[i], the bucket is in
+    [0, nb) and its value (with values) is not NaN. Returns count i32[nb],
+    or (count i32[nb], sum f32[nb], min f32[nb], max f32[nb]); an empty
+    bucket has sum 0.0, min F32_MAX and max -F32_MAX. Sums fold in the
+    order of bucket_chunk_rows (csrc/bucket_fold.cu)."""
+    dev = contrib.device
+    _check(contrib, "contrib", torch.bool, 1, dev)
+    p = contrib.shape[0]
+    if bucket is not None:
+        _check(bucket, "bucket", torch.int32, 1, dev)
+        if bucket.shape[0] != p:
+            raise ValueError(f"bucket must be [{p}]")
+    if not 1 <= nb < 2**30:
+        raise ValueError(f"bucket count {nb} out of range")
+    if docs is not None and values is None:
+        raise ValueError("docs gather from values")
+    if values is not None:
+        _check(values, "values", torch.float32, 1, dev)
+        if docs is None:
+            if values.shape[0] != p:
+                raise ValueError(f"values must be [{p}] without docs")
+        else:
+            _check(docs, "docs", torch.int32, 1, dev)
+            if docs.shape[0] != p:
+                raise ValueError(f"docs must be [{p}]")
+    if not _launchable(dev):
+        return bucket_fold_plain(bucket, contrib, nb, values, docs)
+    lib = ensure_built()
+    ch = bucket_chunk_rows(p, nb)
+    n_part = max(1, -(-p // ch) * nb)
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    count = torch.empty(nb, **i32)
+    p_count = torch.empty(n_part, **i32)
+    planes = parts = [None] * 3
+    if values is not None:
+        planes = [torch.empty(nb, **f32) for _ in range(3)]
+        parts = [torch.empty(n_part, **f32) for _ in range(3)]
+    with torch.cuda.device(dev):
+        rc = lib.esk_bucket_fold(
+            _ptr(bucket), _ptr(contrib), _ptr(values), _ptr(docs), int(p),
+            int(nb), int(ch), _ptr(p_count), *[_ptr(t) for t in parts],
+            _ptr(count), *[_ptr(t) for t in planes], _stream(dev),
+        )
+    _check_rc("bucket_fold", rc)
+    count_launch("bucket_fold")
+    return count if values is None else (count, *planes)
+
+
+def range_fold_plain(col, contrib, lo, hi, sub=None):
+    """K10's range mode in PyTorch, in the kernel's order (see
+    range_fold): the members' sub values (0.0 elsewhere, which adds no
+    bit) fold along each chunk of docs, column by column, then across the
+    chunks in order."""
+    n = col.shape[0]
+    r = lo.shape[0]
+    member = (contrib[None, :] & (col[None, :] >= lo[:, None])
+              & (col[None, :] < hi[:, None]))
+    counts = member.sum(dim=1, dtype=torch.int32)
+    if sub is None:
+        return counts
+    has = member & ~torch.isnan(sub)[None, :]
+    vals = torch.where(has, sub[None, :], torch.zeros_like(sub)[None, :])
+    group = torch.where(has, torch.arange(r, device=col.device)[:, None], r)
+    vmin, vmax = _extrema(group.reshape(-1), vals.reshape(-1), r)
+    ch = bucket_chunk_rows(n, r)
+    n_chunks = -(-n // ch)
+    grid = torch.nn.functional.pad(vals, (0, n_chunks * ch - n))
+    grid = grid.view(r, n_chunks, ch)
+    part = torch.zeros((r, n_chunks), dtype=torch.float32, device=col.device)
+    for j in range(min(ch, n)):
+        part = part + grid[:, :, j]
+    total = torch.zeros(r, dtype=torch.float32, device=col.device)
+    for c in range(n_chunks):
+        total = total + part[:, c]
+    return counts, has.sum(dim=1, dtype=torch.int32), total, vmin, vmax
+
+
+def range_fold(col, contrib, lo, hi, sub=None):
+    """K10 range mode: R ranges over N docs. Doc i is a member of range r
+    iff contrib[i] and lo[r] <= col[i] < hi[r] (ranges may overlap; each
+    reduces alone). col f32[N], contrib bool[N], lo / hi f32[R], sub
+    f32[N] or None. Returns counts i32[R] (members), or with sub (counts,
+    sub_count i32[R], sum f32[R], min f32[R], max f32[R]) over the members
+    whose sub value is not NaN; the sums fold in scatter mode's order with
+    the docs as rows (csrc/bucket_fold.cu)."""
+    dev = col.device
+    _check(col, "col", torch.float32, 1, dev)
+    _check(contrib, "contrib", torch.bool, 1, dev)
+    _check(lo, "lo", torch.float32, 1, dev)
+    _check(hi, "hi", torch.float32, 1, dev)
+    n = col.shape[0]
+    r = lo.shape[0]
+    if contrib.shape[0] != n or hi.shape[0] != r:
+        raise ValueError("contrib must be [N] and hi [R]")
+    if not 1 <= r < 2**21:
+        raise ValueError(f"range count {r} out of range")
+    if sub is not None:
+        _check(sub, "sub", torch.float32, 1, dev)
+        if sub.shape[0] != n:
+            raise ValueError(f"sub must be [{n}]")
+    if not _launchable(dev):
+        return range_fold_plain(col, contrib, lo, hi, sub)
+    lib = ensure_built()
+    ch = bucket_chunk_rows(n, r)
+    n_part = max(1, -(-n // ch) * r)
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    counts = torch.empty(r, **i32)
+    p_count = torch.empty(n_part, **i32)
+    outs = parts = [None] * 4
+    if sub is not None:
+        outs = [torch.empty(r, **i32)] + [torch.empty(r, **f32)
+                                          for _ in range(3)]
+        parts = [torch.empty(n_part, **i32)] + [torch.empty(n_part, **f32)
+                                                for _ in range(3)]
+    with torch.cuda.device(dev):
+        rc = lib.esk_range_fold(
+            _ptr(col), _ptr(contrib), _ptr(sub), _ptr(lo), _ptr(hi), int(n),
+            int(r), int(ch), _ptr(p_count), *[_ptr(t) for t in parts],
+            _ptr(counts), *[_ptr(t) for t in outs], _stream(dev),
+        )
+    _check_rc("bucket_fold_range", rc)
+    count_launch("bucket_fold_range")
+    return counts if sub is None else (counts, *outs)

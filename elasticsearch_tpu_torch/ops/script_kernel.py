@@ -28,8 +28,12 @@ one torch's CUDA kernel computes, so the two are bit-equal on the card:
 no mul+add contraction (launched with enable_fp_fusion=False), IEEE
 division and square root (div_rn, sqrt_rn), libdevice's logf/expf/
 log10f/fmodf, pow in float64 rounded once (as the plain version takes
-it), the exact abs/floor/ceil/min/max, torch's NaN rules for
-minimum/maximum and its remainder (fmod, then the divisor's sign).
+it), the exact floor/ceil, negation and abs as sign-bit operations,
+torch's remainder (fmod, then the divisor's sign), and the walk's NaN
+rules (arithmetic, the boost, min, max, sqrt, exp, floor, ceil, log,
+log10, pow) as the same selects the plain version runs, so a NaN result
+keeps the reference's sign and payload although the card's arithmetic
+returns its canonical NaN.
 A script the walk cannot type raises before anything is generated;
 there is no fallback to torch ops on the card.
 
@@ -59,7 +63,9 @@ from ..script.painless_lite import (
     Backend,
     CompiledScript,
     _doc_column,
+    TorchBackend,
     _param_value,
+    boosted,
     lower,
     referenced,
     referenced_vectors,
@@ -67,7 +73,7 @@ from ..script.painless_lite import (
 from . import kernels
 
 BLOCK = 1024
-GENERATOR_VERSION = "k6-4"
+GENERATOR_VERSION = "k6-5"
 TRITON_DIR = kernels.BUILD_ROOT / "triton"
 
 _lock = threading.Lock()
@@ -157,8 +163,10 @@ def script_eval_plain(script, score, matched, columns, params, boost,
         score, rows, {name: p.reshape(q, 1) for name, p in zip(names, prm)},
         vectors=vectors,
     )
-    result = torch.broadcast_to(result, (q, n))
-    scores = torch.where(matched, torch.mul(result, boost.reshape(q, 1)), 0.0)
+    be = TorchBackend(score, {}, {}, score.device)
+    result = torch.broadcast_to(
+        boosted(be, result, boost.reshape(q, 1)), (q, n))
+    scores = torch.where(matched, result, 0.0)
     if min_score is not None:
         matched = matched & (scores >= min_score.reshape(q, 1))
         scores = torch.where(matched, scores, 0.0)
@@ -250,8 +258,6 @@ class TritonBackend(Backend):
     def binary(self, op, a, b):
         if op == "div":
             return self.emit(f"libdevice.div_rn({a}, {b})")
-        if op == "pow":
-            return self.math("pow", [a, b])
         if op == "mod":  # torch.remainder: fmod, then the divisor's sign
             r = self.emit(f"libdevice.fmod({a}, {b})")
             return self.emit(
@@ -260,17 +266,13 @@ class TritonBackend(Backend):
         sym = {"add": "+", "sub": "-", "mul": "*"}[op]
         return self.emit(f"{a} {sym} {b}")
 
-    def neg(self, a):
-        return self.emit(f"-{a}")
+    def neg(self, a):  # a sign-bit flip: keeps a NaN's payload
+        return self.emit(
+            f"(~{a}.to(tl.int32, bitcast=True) ^ 0x7FFFFFFF)"
+            f".to(tl.float32, bitcast=True)"
+        )
 
     def math(self, fn, args):
-        if fn in ("min", "max"):  # torch: a NaN operand wins, a first
-            a, b = args
-            f = "minimum" if fn == "min" else "maximum"
-            return self.emit(
-                f"tl.where({a} != {a}, {a}, tl.where({b} != {b}, {b}, "
-                f"tl.{f}({a}, {b})))"
-            )
         if fn == "sqrt":
             return self.emit(f"libdevice.sqrt_rn({args[0]})")
         if fn == "pow":  # float64, rounded once (script/painless_lite)
@@ -279,7 +281,12 @@ class TritonBackend(Backend):
                 f"libdevice.pow({a}.to(tl.float64), {b}.to(tl.float64))"
                 f".to(tl.float32)"
             )
-        if fn in ("abs", "floor", "ceil"):  # exact in any form
+        if fn == "abs":  # a sign-bit clear: keeps a NaN's payload
+            return self.emit(
+                f"({args[0]}.to(tl.int32, bitcast=True) & 0x7FFFFFFF)"
+                f".to(tl.float32, bitcast=True)"
+            )
+        if fn in ("floor", "ceil"):  # exact in any form
             return self.emit(f"tl.{fn}({args[0]})")
         return self.emit(f"libdevice.{fn}({args[0]})")  # log, log10, exp
 
@@ -293,6 +300,18 @@ class TritonBackend(Backend):
 
     def isnan(self, a):
         return self.emit(f"{a} != {a}")
+
+    def signbit(self, a):
+        return self.emit(f"{a}.to(tl.int32, bitcast=True) < 0")
+
+    def logical_and(self, a, b):
+        return self.emit(f"{a} & {b}")
+
+    def logical_or(self, a, b):
+        return self.emit(f"{a} | {b}")
+
+    def logical_not(self, a):
+        return self.emit(f"~{a}")
 
     def to_f32(self, a):
         return self.emit(f"{a}.to(tl.float32)")
@@ -323,7 +342,7 @@ def script_eval_kernel(
     m = tl.load(matched_ptr + base + offs, mask=mask, other=0) != 0
 {body}
     res = tl.where(mask, {result}, {result})
-    sc = tl.where(m, res * tl.load(boost_ptr + row), 0.0)
+    sc = tl.where(m, res, 0.0)
     if HAS_MIN:
         m = m & (sc >= tl.load(min_score_ptr + row))
         sc = tl.where(m, sc, 0.0)
@@ -338,7 +357,8 @@ def generate_source(script: CompiledScript) -> tuple[str, list[float]]:
     fields, names = referenced(script)
     pairs = referenced_vectors(script)
     be = TritonBackend(fields, names, pairs)
-    result = lower(script, be)
+    boost = be.emit("tl.load(boost_ptr + row)")
+    result = boosted(be, lower(script, be), boost)
     col_args = "".join(
         f"\n    col{j}_ptr," for j in range(len(fields) + 3 * len(pairs))
     )

@@ -2,11 +2,10 @@
 
 Port copy of elasticsearch_tpu/query/dsl.py, trimmed to this slice's query
 types: `match`, `term`, `terms`, `bool`, `range`, `exists`, `match_all`,
-`match_none`, `constant_score` and `script_score` (whose painless-lite
-scripts leave out the vector functions, script/painless_lite.py). Any
-other query type raises the same
-ValueError as the reference's `parse_query` (a parsing_exception-shaped
-400 at the REST layer).
+`match_none`, `constant_score` and `script_score` (painless-lite, with
+the vector functions: script/painless_lite.py). Any other query type
+raises the same ValueError as the reference's `parse_query` (a
+parsing_exception-shaped 400 at the REST layer).
 """
 
 from __future__ import annotations

@@ -31,7 +31,13 @@ two agree op for op. The walk's rules:
   fp32 condition selects where it is non-zero (NaN included), and the
   result is fp32 (`doc[...].empty` or a comparison as 0.0 / 1.0);
 - `%` is the remainder with the divisor's sign (torch.remainder,
-  jnp.remainder); `Math.min`/`max` return a NaN operand;
+  jnp.remainder);
+- a NaN result takes the reference's bits (jnp under jit on XLA:CPU),
+  composed from selects: arithmetic, `Math.sqrt` and `Math.pow` / `**`
+  return their first NaN operand, else x86's default -NaN (and +NaN for
+  the literal exponent 0.5); `Math.min`/`max` are IEEE minimum / maximum
+  returning a NaN operand; every NaN of `Math.log`/`log10` is
+  0xffffffff;
 - `Math.pow` and `**` compute in float64 and round once to fp32: torch's
   fp32 CUDA pow agrees with neither libdevice's powf nor a float64 pow
   (bit for bit) on the H100, while the float64 route is the same
@@ -53,6 +59,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ..ops.kernels import flip_sign
 
 _ALLOWED_NODES = (
     ast.Expression,
@@ -224,6 +232,12 @@ class _TernaryToWhere(ast.NodeTransformer):
 
 CONST, F32, BOOL = "const", "f32", "bool"
 
+# NaNs of XLA:CPU: x86's default NaN, which an operation on non-NaN
+# operands makes, and the one its log and log10 return for a NaN or
+# negative operand.
+_DEFAULT_NAN = float(np.uint32(0xFFC00000).view(np.float32))
+_LOG_NAN = float(np.uint32(0xFFFFFFFF).view(np.float32))
+
 
 @dataclass(frozen=True)
 class Value:
@@ -243,12 +257,16 @@ class Backend:
     def column(self, field: str): ...
     def param(self, name: str): ...
     def scalar(self, c: float): ...
-    def binary(self, op: str, a, b): ...  # add sub mul div mod pow
+    def binary(self, op: str, a, b): ...  # add sub mul div mod
     def neg(self, a): ...
-    def math(self, fn: str, args: list): ...  # log ... ceil, pow, min, max
+    def math(self, fn: str, args: list): ...  # log ... ceil, pow
     def compare(self, op: str, a, b): ...  # gt ge lt le eq ne
     def where(self, c, a, b): ...
     def isnan(self, a): ...
+    def signbit(self, a): ...
+    def logical_and(self, a, b): ...
+    def logical_or(self, a, b): ...
+    def logical_not(self, a): ...
     def to_f32(self, a): ...
     def vector(self, part: str, name: str, field: str): ...  # dot norm dist qnorm
 
@@ -456,12 +474,75 @@ class _Lowering:
             return Value(CONST, _fold_binary(op, float(a.v), float(b.v)))
         if a.kind == BOOL and b.kind == BOOL:
             self.fail("arithmetic on two booleans")
-        return Value(F32, self.be.binary(op, self.f32(a), self.f32(b)))
+        xs = [self.f32(a), self.f32(b)]
+        if op == "pow":
+            return Value(F32, self.pow([a, b], xs))
+        return Value(F32, propagate(self.be, self.be.binary(op, *xs), *xs))
 
     def math(self, fn: str, args: list[Value]) -> Value:
         if all(a.kind == CONST for a in args):
             return Value(CONST, _fold_math(fn, [float(a.v) for a in args]))
-        return Value(F32, self.be.math(fn, [self.f32(a) for a in args]))
+        xs = [self.f32(a) for a in args]
+        if fn in ("min", "max"):
+            return Value(F32, self.extremum(fn, *xs))
+        if fn == "pow":
+            return Value(F32, self.pow(args, xs))
+        r = self.be.math(fn, xs)
+        if fn in ("sqrt", "exp", "floor", "ceil"):
+            # a NaN operand passes as it is; sqrt of a negative gives -NaN
+            return Value(F32, propagate(self.be, r, xs[0]))
+        if fn in ("log", "log10"):  # every NaN result is XLA's 0xffffffff
+            return Value(F32, self.be.where(
+                self.be.isnan(r), self.be.scalar(_LOG_NAN), r))
+        return Value(F32, r)
+
+    # The NaN rules below are the reference's: jnp under jit on XLA:CPU,
+    # measured op by op (tests/test_torch_script.py). torch's CPU kernels
+    # (which differ between their vectorized and scalar paths), libdevice
+    # and the card's canonical NaN each give other signs and payloads, so
+    # the walk composes every rule from selects, on both paths.
+
+    def extremum(self, fn: str, a, b):
+        """Math.min / Math.max: IEEE 754-2019 minimum / maximum (-0.0 <
+        +0.0) returning a NaN operand; of two NaNs, max returns the first
+        if it is negative and min the first if it is positive, else the
+        second."""
+        be = self.be
+        nan_a, nan_b = be.isnan(a), be.isnan(b)
+        if fn == "max":
+            b_wins_nan = be.logical_not(be.signbit(a))
+            a_first = be.logical_or(
+                be.compare("gt", a, b),
+                be.logical_and(be.compare("eq", a, b), be.signbit(b)),
+            )
+        else:
+            b_wins_nan = be.signbit(a)
+            a_first = be.logical_or(
+                be.compare("lt", a, b),
+                be.logical_and(be.compare("eq", a, b), be.signbit(a)),
+            )
+        return be.where(
+            nan_a, be.where(be.logical_and(nan_b, b_wins_nan), b, a),
+            be.where(nan_b, b, be.where(a_first, a, b)),
+        )
+
+    def pow(self, args: list[Value], xs):
+        """Math.pow and `**`, in float64 rounded once; a NaN result is
+        +NaN for the literal exponent 0.5 (XLA rewrites that power), else
+        as `propagate` gives it, except that a NaN base under a per-doc
+        odd integer exponent loses its sign (XLA takes the odd power of
+        |x|, then the sign of x)."""
+        be = self.be
+        a, b = xs
+        r = be.math("pow", xs)
+        if args[1].kind == CONST:
+            if float(args[1].v) == 0.5:
+                return be.where(be.isnan(r), be.scalar(np.nan), r)
+            return propagate(be, r, a, b)
+        odd = be.compare("eq", be.binary("mod", b, be.scalar(2.0)),
+                         be.scalar(1.0))
+        base = be.where(odd, be.math("abs", [a]), a)
+        return propagate(be, r, base, b)
 
     def compare(self, op: str, a: Value, b: Value) -> Value:
         if a.kind == CONST and b.kind == CONST:
@@ -474,6 +555,22 @@ class _Lowering:
         if a.kind == BOOL and b.kind == BOOL:
             return Value(BOOL, self.be.where(self.cond(c), a.v, b.v))
         return Value(F32, self.be.where(self.cond(c), self.f32(a), self.f32(b)))
+
+
+def propagate(be: Backend, r, *xs):
+    """r, with a NaN result replaced by the first NaN operand, or by x86's
+    default NaN (-NaN) where the operation made it: XLA:CPU's rule for
+    arithmetic, sqrt, exp, floor, ceil and pow."""
+    nan = be.scalar(_DEFAULT_NAN)
+    for x in reversed(xs):
+        nan = be.where(be.isnan(x), x, nan)
+    return be.where(be.isnan(r), nan, r)
+
+
+def boosted(be: Backend, r, boost):
+    """The script's result times the query's boost, under the same rule
+    (`_eval_script`'s `result * boost`)."""
+    return propagate(be, be.binary("mul", r, boost), r, boost)
 
 
 def lower(script: "CompiledScript", backend: Backend):
@@ -563,9 +660,15 @@ def _pow64(a, b):
     return torch.pow(a.double(), b.double()).float()
 
 
+def _clear_sign(a):
+    """|a| as a sign-bit clear, which keeps a NaN's payload on every
+    device (the card's arithmetic may return its canonical NaN)."""
+    return a.view(torch.int32).bitwise_and(0x7FFFFFFF).view(torch.float32)
+
+
 _TORCH_BINARY = {
     "add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div,
-    "mod": torch.remainder, "pow": _pow64,
+    "mod": torch.remainder,
 }
 _TORCH_COMPARE = {
     "gt": torch.gt, "ge": torch.ge, "lt": torch.lt, "le": torch.le,
@@ -573,9 +676,8 @@ _TORCH_COMPARE = {
 }
 _TORCH_MATH = {
     "log": torch.log, "log10": torch.log10, "sqrt": torch.sqrt,
-    "abs": torch.abs, "exp": torch.exp, "floor": torch.floor,
-    "ceil": torch.ceil, "pow": _pow64, "min": torch.minimum,
-    "max": torch.maximum,
+    "abs": _clear_sign, "exp": torch.exp, "floor": torch.floor,
+    "ceil": torch.ceil, "pow": _pow64,
 }
 
 
@@ -635,7 +737,7 @@ class TorchBackend(Backend):
         return _TORCH_BINARY[op](a, b)
 
     def neg(self, a):
-        return torch.neg(a)
+        return flip_sign(a)  # a sign-bit flip: keeps a NaN's payload
 
     def math(self, fn, args):
         return _TORCH_MATH[fn](*args)
@@ -648,6 +750,18 @@ class TorchBackend(Backend):
 
     def isnan(self, a):
         return torch.isnan(a)
+
+    def signbit(self, a):
+        return torch.signbit(a)
+
+    def logical_and(self, a, b):
+        return torch.logical_and(a, b)
+
+    def logical_or(self, a, b):
+        return torch.logical_or(a, b)
+
+    def logical_not(self, a):
+        return torch.logical_not(a)
 
     def to_f32(self, a):
         return a.to(torch.float32)

@@ -11,9 +11,12 @@ shard as they are; each shard's service makes `after_doc` local through
 its segments' `handle.base`. A `knn` request is validated on the
 first shard, each shard returns up to k candidates and the merge keeps
 the global k (the reference's kNN reduce); a batched knn group serves
-each rider through `search`. Left out: scroll contexts, aggregations,
-fetch sub-phases (highlight, fields), the SPMD mesh view, tasks and
-timeouts, the filter cache, tracing and injected faults.
+each rider through `search`. Aggregations run as one Aggregator over
+every shard's pinned handles with the global statistics, and the
+per-shard requests carry none (the reference's coordinator:228-247).
+Left out: scroll contexts, fetch sub-phases (highlight, fields), the
+SPMD mesh view, tasks and timeouts, the filter cache, tracing and
+injected faults.
 
 The single-process analog of the reference's coordinator node path —
 AbstractSearchAsyncAction fans per-shard query-phase requests out and
@@ -120,13 +123,30 @@ class ShardedSearchCoordinator:
         self.services[0]._validate_sort(request)
         self.services[0]._validate_knn(request)
         k = max(0, request.from_) + max(0, request.size)
+        aggregations = None
+        agg_total = None
+        if request.aggs is not None:
+            # One Aggregator over every shard's pinned handles, with the
+            # global statistics: the shards' agg states merge by key in
+            # one reduce, and the per-shard requests carry no aggs.
+            from .aggs import Aggregator
+
+            agg_total, aggregations = Aggregator(
+                self.engines[0], request.aggs,
+                handles=[h for snap in snapshots for h in snap],
+            ).run(request.query, stats=stats)
         shard_request = replace(
-            request, from_=0, size=k, track_total_hits=True
+            request, from_=0, size=k, aggs=None, track_total_hits=True
         )
-        merged, total, max_score, skipped, failures = self._scatter_merge(
-            shard_request, stats, snapshots
-        )
+        if k > 0 or agg_total is None:
+            merged, total, max_score, skipped, failures = self._scatter_merge(
+                shard_request, stats, snapshots
+            )
+        else:
+            merged, total, max_score, skipped, failures = [], 0, None, 0, []
         self._check_failed(failures, skipped)
+        if agg_total is not None:
+            total = agg_total
         if request.knn is not None:
             # Global top-k reduce: shards contribute up to k candidates
             # each; the merge keeps k.
@@ -139,6 +159,7 @@ class ShardedSearchCoordinator:
             total_relation=relation,
             max_score=max_score,
             hits=[hit for _, _, _, hit in page],
+            aggregations=aggregations,
             shards=len(self.engines),
             skipped=skipped,
             failed=len(failures),

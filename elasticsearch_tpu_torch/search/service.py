@@ -29,10 +29,13 @@ planner's `ann_ivf` / `device` decision), `_query_segment_knn` (IVF probe
 + exact re-rank where the segment has partition planes, brute force
 otherwise; ops/ann_device) and, for the micro-batcher's knn groups,
 `_knn_search_many`, with the reference's messages and its global top-k
-reduce. Left out: CPU-oracle routing (and with it any planner decision
-on the batched path), the filter cache (a batch's mask token is always
-`()`, and the knn filter's admission is not recorded), tasks and
-timeouts, scroll, aggregations, highlight, fields, profile and the other
+reduce. `aggs` / `aggregations` (search/aggs.py) run one Aggregator pass
+over the same pinned segment snapshot as the hits pass, which a
+`size: 0` request skips (its totals then come from the agg pass, as
+the reference's do). Left out: CPU-oracle routing (and with it any
+planner decision on the batched path), the filter cache (a batch's mask
+token is always `()`, and the knn filter's admission is not recorded),
+tasks and timeouts, scroll, highlight, fields, profile and the other
 body keys of the reference; a request asking for one of those is
 refused with a 400.
 """
@@ -98,6 +101,7 @@ class SearchResponse:
     total_relation: str
     max_score: float | None
     hits: list[SearchHit]
+    aggregations: dict[str, Any] | None = None
     shards: int = 1
     timed_out: bool = False
     skipped: int = 0  # can_match pre-filtered shards
@@ -113,7 +117,7 @@ class SearchResponse:
                 "total": {"value": self.total, "relation": self.total_relation},
                 **hits_obj,
             }
-        return {
+        out = {
             "took": self.took_ms,
             "timed_out": self.timed_out,
             "_shards": {
@@ -125,6 +129,9 @@ class SearchResponse:
             },
             "hits": hits_obj,
         }
+        if self.aggregations is not None:
+            out["aggregations"] = self.aggregations
+        return out
 
 
 def clamp_total(total: int, track_total_hits) -> tuple[int | None, str]:
@@ -266,13 +273,14 @@ class SearchRequest:
     track_total_hits: bool | int = 10_000
     # Top-level `knn` section (approximate vector search; see KnnSpec).
     knn: KnnSpec | None = None
+    aggs: list[Any] | None = None  # list[aggs.AggNode]
 
     # The body keys this port serves; anything else (including the
     # reference's keys still to port) is a parsing error.
     KNOWN_KEYS = frozenset(
         {
             "query", "from", "size", "track_total_hits", "_source", "sort",
-            "rescore", "search_after", "knn",
+            "rescore", "search_after", "knn", "aggs", "aggregations",
         }
     )
 
@@ -304,6 +312,12 @@ class SearchRequest:
         query = (
             parse_query(body["query"]) if "query" in body else MatchAllQuery()
         )
+        aggs = None
+        raw_aggs = body.get("aggs") or body.get("aggregations")
+        if raw_aggs:
+            from .aggs import parse_aggs
+
+            aggs = parse_aggs(raw_aggs)
         rescore = []
         raw_rescore = body.get("rescore", [])
         if isinstance(raw_rescore, dict):
@@ -396,6 +410,7 @@ class SearchRequest:
             search_after=search_after,
             track_total_hits=tth,
             knn=knn,
+            aggs=aggs,
         )
 
 
@@ -463,27 +478,44 @@ class SearchService:
         stats: dict[str, FieldStats] | None = None,
         segments: list | None = None,
     ) -> SearchResponse:
-        """One request, one device launch per segment. `stats` and
-        `segments` are the coordinator's pushed-down statistics and pinned
-        segment snapshot (default: this shard's own)."""
+        """One request, one device launch per segment (and one agg pass per
+        segment). `stats` and `segments` are the coordinator's pushed-down
+        statistics and pinned segment snapshot (default: this shard's
+        own)."""
         start = time.monotonic()
         k = max(0, request.from_) + max(0, request.size)
         if stats is None:
             stats = self.engine.field_stats()
         self._validate_sort(request)
         self._validate_knn(request)
+        # One segment snapshot shared by the agg pass and the hits pass.
         if segments is None:
             segments = list(self.engine.segments)
+        aggregations = None
+        agg_total = None
+        if request.aggs is not None:
+            from .aggs import Aggregator
+
+            agg_total, aggregations = Aggregator(
+                self.engine, request.aggs, handles=segments
+            ).run(request.query, stats=stats)
         # Candidate tuples (merge_key, global_doc, handle, local, score,
         # sort_value): merge_key ascending, then global doc id ascending,
         # is Lucene's order for the score sort (key = -score) and for
         # field sorts.
         candidates: list[tuple] = []
         total = 0
-        for handle in segments:
-            if handle.segment.num_docs == 0:
-                continue
-            total += self._query_segment(handle, request, k, stats, candidates)
+        if k > 0 or agg_total is None:
+            for handle in segments:
+                if handle.segment.num_docs == 0:
+                    continue
+                total += self._query_segment(
+                    handle, request, k, stats, candidates
+                )
+        if agg_total is not None:
+            # The agg pass counted matched & live docs: one source for
+            # totals (the same mask by construction).
+            total = agg_total
         candidates.sort(key=lambda c: (c[0], c[1]))
         if request.knn is not None:
             # The knn contract returns the GLOBAL top k: segments each
@@ -517,6 +549,7 @@ class SearchService:
             total_relation=relation,
             max_score=max_score,
             hits=hits,
+            aggregations=aggregations,
         )
 
     def _validate_sort(self, request: SearchRequest) -> None:

@@ -245,7 +245,9 @@ def test_port_import_leaves_jax_unloaded():
         "elasticsearch_tpu_torch.ops.bm25_device, "
         "elasticsearch_tpu_torch.utils.corpus, "
         "elasticsearch_tpu_torch.exec.cost, "
-        "elasticsearch_tpu_torch.search.can_match; "
+        "elasticsearch_tpu_torch.search.can_match, "
+        "elasticsearch_tpu_torch.ops.aggs_device, "
+        "elasticsearch_tpu_torch.search.aggs; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'elasticsearch_tpu' or m.startswith('elasticsearch_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"

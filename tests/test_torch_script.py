@@ -24,6 +24,7 @@ Tolerances, stated per test:
 
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,6 +41,7 @@ from elasticsearch_tpu_torch.node import Node
 from elasticsearch_tpu_torch.ops import bm25_device as tbd
 from elasticsearch_tpu_torch.ops import script_kernel
 from elasticsearch_tpu_torch.script import compile_script
+from elasticsearch_tpu_torch.script.painless_lite import TorchBackend, boosted, lower
 
 torch.set_num_threads(1)
 
@@ -449,3 +451,209 @@ def test_script_score_rides_the_batcher(nodes):
     before = port.exec_batcher.stats()["requests"]
     port.search("scripted", body)
     assert port.exec_batcher.stats()["requests"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# NaN results: the sign (and payload) bits the reference serves
+# ---------------------------------------------------------------------------
+#
+# Scripts whose values are NaN (a missing doc value, or a math function of
+# a negative) rank by IEEE total order, so the NaN's sign decides where a
+# doc lands. EXACT: the NaN bits of every op against the reference's
+# `evaluate(jnp, ...)` under jit (XLA:CPU), also under an arithmetic that
+# returns only the card's canonical NaN; through both nodes, ids, order,
+# totals and the scores' NaN sign bits (the other scores by the ULPS rule).
+
+NAN_SPECIALS = np.array([np.nan, -np.nan, -1.0, -0.0, 0.0, np.inf, -np.inf,
+                         2.0, -2.5, 0.5, 3.0, -7.0], dtype=np.float32)
+
+NAN_OPS = [
+    "doc['f'].value + doc['g'].value",
+    "doc['f'].value - doc['g'].value",
+    "doc['f'].value * doc['g'].value",
+    "doc['f'].value / doc['g'].value",
+    "doc['f'].value % doc['g'].value",
+    "doc['f'].value * 2 + 1",
+    "Math.max(doc['f'].value, doc['g'].value)",
+    "Math.min(doc['f'].value, doc['g'].value)",
+    "Math.max(doc['f'].value, 0.0)",
+    "Math.min(0.0, doc['f'].value)",
+    "Math.max(_score, doc['f'].value)",
+    "Math.sqrt(doc['f'].value)",
+    "Math.log(doc['f'].value)",
+    "Math.log10(doc['f'].value)",
+    "Math.pow(doc['f'].value, 0.5)",
+    "doc['f'].value ** 0.5",
+    "Math.pow(doc['f'].value, 3.0)",
+    "Math.pow(doc['f'].value, params.p)",
+    "Math.pow(doc['f'].value, doc['g'].value)",
+    "Math.pow(2, doc['f'].value)",
+    "Math.exp(doc['f'].value) + Math.abs(doc['g'].value)",
+    "Math.floor(doc['f'].value) - Math.ceil(doc['g'].value)",
+    "sigmoid(doc['f'].value)",
+    "Math.max(Math.sqrt(doc['f'].value), Math.log(doc['g'].value))",
+    "Math.min(Math.sqrt(doc['f'].value), Math.sqrt(doc['g'].value))",
+    "doc['f'].value > 0 ? Math.sqrt(doc['g'].value) : Math.log(doc['f'].value)",
+    "-doc['f'].value",
+    "-Math.sqrt(doc['f'].value)",
+    "Math.abs(doc['f'].value)",
+    "Math.exp(-doc['f'].value)",
+    "Math.floor(Math.log(doc['f'].value))",
+    "Math.ceil(-Math.sqrt(doc['f'].value))",
+]
+
+
+def _nan_cols():
+    """f x g over every pair of specials (144 docs, past torch's vector
+    width, so its vectorized CPU kernels run as well as its scalar tail)."""
+    return (np.repeat(NAN_SPECIALS, len(NAN_SPECIALS)),
+            np.tile(NAN_SPECIALS, len(NAN_SPECIALS)))
+
+
+def _same_nan_bits(got, want, shape):
+    want = np.broadcast_to(np.asarray(want, dtype=np.float32), shape)
+    got = np.broadcast_to(np.asarray(got, dtype=np.float32), shape)
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[nan].view(np.uint32), want[nan].view(np.uint32)), (
+        [hex(x) for x in got[nan].view(np.uint32)[:8]],
+        [hex(x) for x in want[nan].view(np.uint32)[:8]])
+    assert ulp_close(got[~nan], want[~nan])
+
+
+def _jitted_reference(src, score, f, g, boost=None):
+    def run(s, f, g, p, b):
+        out = ref_compile(src).evaluate(jnp, s, {"f": f, "g": g}, {}, {"p": p})
+        return out if boost is None else out * b
+
+    return np.asarray(jax.jit(run)(
+        jnp.asarray(score), jnp.asarray(f), jnp.asarray(g), jnp.float32(0.5),
+        jnp.float32(1.0 if boost is None else boost)))
+
+
+@pytest.mark.parametrize("src", NAN_OPS)
+def test_nan_bits_match_the_jitted_reference(src):
+    f, g = _nan_cols()
+    score = np.linspace(-3, 3, len(f)).astype(np.float32)
+    got = compile_script(src).evaluate(
+        torch.from_numpy(score),
+        {"f": torch.from_numpy(f), "g": torch.from_numpy(g)},
+        {"p": torch.tensor(0.5)}).numpy()
+    _same_nan_bits(got, _jitted_reference(src, score, f, g), f.shape)
+
+
+class _CardArithmetic(TorchBackend):
+    """The card's arithmetic on the CPU: every NaN that an arithmetic or
+    math operation returns is the canonical NaN 0x7fffffff (sign-bit
+    operations and selects keep their bits, as they do there)."""
+
+    CANONICAL = torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(torch.float32)
+
+    def _canonical(self, r):
+        return torch.where(torch.isnan(r), self.CANONICAL, r)
+
+    def binary(self, op, a, b):
+        return self._canonical(super().binary(op, a, b))
+
+    def math(self, fn, args):
+        r = super().math(fn, args)
+        return r if fn == "abs" else self._canonical(r)
+
+
+@pytest.mark.parametrize("src", NAN_OPS)
+def test_nan_bits_survive_the_cards_canonical_nan(src):
+    """The walk's selects, not the arithmetic, decide every NaN's bits, the
+    boost's product included: under an arithmetic that returns only the
+    canonical NaN the result still has the reference's bits."""
+    f, g = _nan_cols()
+    score = np.linspace(-3, 3, len(f)).astype(np.float32)
+    be = _CardArithmetic(
+        torch.from_numpy(score),
+        {"f": torch.from_numpy(f), "g": torch.from_numpy(g)},
+        {"p": torch.tensor(0.5)}, "cpu")
+    got = boosted(be, lower(compile_script(src), be), torch.tensor(2.0)).numpy()
+    _same_nan_bits(got, _jitted_reference(src, score, f, g, boost=2.0), f.shape)
+
+
+# The ROADMAP's repro index through both nodes: 48 docs, r = i, f = (i % 7)
+# - 3 except where i % 4 == 0 (no f); script_score{range r gte 8, S}.
+NAN_SCRIPTS = [
+    "doc['f'].value",
+    "Math.max(doc['f'].value, 0.0)",
+    "Math.min(doc['f'].value, 0.0)",
+    "Math.sqrt(doc['f'].value)",
+    "Math.log(doc['f'].value)",
+    "Math.log10(doc['f'].value)",
+    "Math.pow(doc['f'].value, 0.5)",
+    "Math.max(_score, doc['f'].value)",
+    "doc['f'].value > 0 ? Math.sqrt(doc['f'].value) : Math.sqrt(-1 - doc['f'].value)",
+    "doc['f'].value * 2 + 1",
+    "Math.exp(doc['f'].value)",
+    "sigmoid(doc['f'].value)",
+]
+
+
+@pytest.fixture(scope="module", params=[1, 3])
+def nan_nodes(request):
+    body = {"settings": {"index": {"number_of_shards": request.param}},
+            "mappings": {"properties": {"r": {"type": "long"},
+                                        "f": {"type": "float"}}}}
+    with pytest.MonkeyPatch.context() as mp:
+        for key, val in JAX_ENV.items():
+            mp.setenv(key, val)
+        ref = JaxNode()
+        ref.create_index("nan", body)
+    port = Node(device="cpu")
+    port.create_index("nan", body)
+    lines = []
+    for i in range(48):
+        doc = {"r": i}
+        if i % 4:
+            doc["f"] = float((i % 7) - 3)
+        lines += [json.dumps({"index": {"_id": str(i)}}), json.dumps(doc)]
+    for n in (port, ref):
+        n.bulk("\n".join(lines) + "\n", default_index="nan", refresh=True)
+    yield port, ref
+    port.close()
+    if ref.exec_batcher is not None:
+        ref.exec_batcher.close()
+
+
+def _nan_page(out):
+    hits = out["hits"]
+    scores = np.array([np.nan if h["_score"] is None else h["_score"]
+                       for h in hits["hits"]], dtype=np.float32)
+    return hits["total"], [h["_id"] for h in hits["hits"]], scores
+
+
+def _same_nan_page(port_out, ref_out):
+    p_total, p_ids, p_scores = _nan_page(port_out)
+    r_total, r_ids, r_scores = _nan_page(ref_out)
+    assert (p_total, p_ids) == (r_total, r_ids)
+    nan = np.isnan(r_scores)
+    assert np.array_equal(np.isnan(p_scores), nan)
+    assert np.array_equal(np.signbit(p_scores[nan]), np.signbit(r_scores[nan]))
+    assert ulp_close(p_scores[~nan], r_scores[~nan])
+
+
+def _nan_body(src, boost=None, **extra):
+    query = {"query": {"range": {"r": {"gte": 8}}}, "script": {"source": src}}
+    if boost is not None:
+        query["boost"] = boost
+    return {"query": {"script_score": query}, "size": 48, **extra}
+
+
+@pytest.mark.parametrize("src", NAN_SCRIPTS)
+def test_nan_scored_pages_match_the_jax_node(nan_nodes, src):
+    """Sorted by score descending and by `{"_score": "asc"}`, with and
+    without a query boost (the product keeps the NaN's sign, as the
+    reference's `result * boost` does), and the ascending search_after
+    page past -1.0, on 0.0 and on a NaN score (which keeps nothing)."""
+    port, ref = nan_nodes
+    asc = {"sort": [{"_score": "asc"}]}
+    bodies = [_nan_body(src), _nan_body(src, **asc),
+              _nan_body(src, boost=2.5), _nan_body(src, boost=2.5, **asc)]
+    bodies += [_nan_body(src, search_after=[after], **asc)
+               for after in (-1.0, 0.0, float("nan"))]
+    for body in bodies:
+        _same_nan_page(port.search("nan", body), ref.search("nan", body))

@@ -88,7 +88,10 @@ def _keys(seed, m, kind):
 
 def _jax_keyed(key, elig, k, mode, desc, mf, cursor):
     """The reference's composition of each sorted/cursor program's masked
-    top-k over a raw key plane, on jax."""
+    top-k over a raw key plane, on jax. The bottom-k's `-masked` keeps a
+    NaN's sign, as the reference's jitted programs serve it (XLA folds the
+    negation into the script's `* boost`; test_torch_script.py holds that
+    against the served answers)."""
     key = jnp.asarray(key)
     elig = jnp.asarray(elig)
     m = key.shape[0]
@@ -107,7 +110,8 @@ def _jax_keyed(key, elig, k, mode, desc, mf, cursor):
         vals, ids = jax.lax.top_k(masked, min(k, m))
     else:
         masked = jnp.where(keep, key, jnp.float32(jnp.inf))
-        neg, ids = jax.lax.top_k(-masked, min(k, m))
+        seen = jnp.where(jnp.isnan(masked), masked, -masked)
+        neg, ids = jax.lax.top_k(seen, min(k, m))
         vals = col[ids] if mode == K.KEYED_FIELD else -neg
     return (vals, ids.astype(jnp.int32), jnp.sum(elig, dtype=jnp.int32),
             jnp.sum(keep, dtype=jnp.int32))
@@ -142,7 +146,8 @@ def test_k3k_matches_lax_top_k(case):
 
 def _py_keyed(key, elig, k, mode, desc, mf, cursor):
     """K3k's contract one doc at a time in Python: (seen value, index)
-    sorted by IEEE total order descending, then index ascending."""
+    sorted by IEEE total order descending, then index ascending; the
+    bottom-k's negation keeps a NaN's sign and its output flips it."""
 
     def order_bits(v):
         b = int(np.float32(v).view(np.uint32))
@@ -163,9 +168,13 @@ def _py_keyed(key, elig, k, mode, desc, mf, cursor):
             keep = keep and (past or (kv == ak and i > cursor[1]))
         neg = mode != K.KEYED_SCORE_DESC
         masked = kv if keep else np.float32(np.inf if neg else -np.inf)
-        seen = -masked if neg else masked
-        rows.append((order_bits(seen), -i, raw if mode == K.KEYED_FIELD else masked,
-                     keep))
+        seen = -masked if neg and not np.isnan(masked) else masked
+        out = masked
+        if mode == K.KEYED_FIELD:
+            out = raw
+        elif neg and np.isnan(masked):
+            out = -masked
+        rows.append((order_bits(seen), -i, out, keep))
     top = sorted(rows, reverse=True)[: min(k, len(key))]
     vals = np.array([r[2] for r in top], dtype=np.float32)
     ids = np.array([-r[1] for r in top], dtype=np.int32)
@@ -338,23 +347,35 @@ def test_execute_score_after_matches_reference(corpus, qi, ascending):
 
 
 def test_nan_scores_sort_as_the_reference_composes_them(corpus):
-    """NaN scores (a missing column through a script) in bottom-k and the
-    descending cursor, ordered as lax.top_k orders the reference's masked
-    keys composed op by op. (Inside its jitted program XLA folds the
-    negation of `-masked` into the script's product, so a NaN keeps its
-    sign there and sorts at the other end; the port keeps the literal
-    composition.)"""
+    """NaN scores (a missing column or a negative operand through a
+    script) in bottom-k and both cursors, against the reference's served
+    programs themselves (`jbd.execute_score_asc` and
+    `jbd.execute_score_after`): +NaN leads a bottom-k and -NaN trails the
+    ineligible docs (XLA folds `-masked` into the script's `* boost`, so
+    the negation keeps a NaN's sign), the bottom-k's values carry the NaN
+    with its sign flipped, and a cursor on a NaN keeps nothing."""
     _e, _h, jtree, ptree = corpus
-    body = {"script_score": {"query": {"match": {"body": "w1 w2"}},
-                             "script": {"source": "doc['price'].value * 2"}}}
-    spec, arrays, plan = _plans(corpus, body)
-    scores, elig = (np.asarray(x) for x in jbd.execute_dense(jtree, spec, arrays))
-    assert np.isnan(scores[elig]).any()
-    _same(tbd.execute_score_asc(ptree, spec, plan, 200),
-          _jax_keyed(scores, elig, 200, K.KEYED_SCORE_ASC, False, False, None)[:3])
-    _same(tbd.execute_score_after(ptree, spec, plan, 200, 10.0, 320),
-          _jax_keyed(scores, elig, 200, K.KEYED_SCORE_DESC, False, False,
-                     (10.0, 320)))
+    for src in (
+        "doc['price'].value * 2",  # +NaN for a missing price
+        "Math.sqrt(doc['f'].value) + doc['price'].value",  # and -NaN for f < 0
+        # -NaN only (log's NaN, and -inf * 0.0); exact values elsewhere
+        "Math.log(doc['price'].value) * 0.0 + doc['price'].value",
+    ):
+        body = {"script_score": {"query": {"match": {"body": "w1 w2"}},
+                                 "script": {"source": src}}}
+        spec, arrays, plan = _plans(corpus, body)
+        scores, elig = (np.asarray(x)
+                        for x in jbd.execute_dense(jtree, spec, arrays))
+        assert np.isnan(scores[elig]).any()
+        _same(tbd.execute_score_asc(ptree, spec, plan, 320),
+              jbd.execute_score_asc(jtree, spec, arrays, 320))
+        for after, after_doc, asc in ((10.0, 320, False), (-1.0, 320, True),
+                                      (np.nan, 40, True), (np.nan, 40, False)):
+            _same(tbd.execute_score_after(ptree, spec, plan, 200, after,
+                                          after_doc, ascending=asc),
+                  jbd.execute_score_after(jtree, spec, arrays, 200,
+                                          np.float32(after),
+                                          np.int32(after_doc), ascending=asc))
 
 
 # ---------------------------------------------------------------------------
@@ -479,21 +500,19 @@ BAD_BODIES = [
     {"sort": [{"_score": "desc"}, {"price": "asc"}]},
     {"sort": [{"price": "asc"}, {"rank": "asc"}], "search_after": [1]},
     {"sort": [{"price": "asc", "rank": "desc"}]},
-    {"aggs": {"x": {"terms": {"field": "rank"}}}},
+    # bucket-in-bucket nesting under a terms agg: a parse error in both
+    {"aggs": {"x": {"terms": {"field": "rank"},
+                    "aggs": {"y": {"terms": {"field": "rank"}}}}}},
 ]
 
 
 @pytest.mark.parametrize("bi", range(len(BAD_BODIES)))
 def test_validation_400s_match_reference(nodes, bi):
-    """Status and reason equal; `aggs`, still to port, is refused by the
-    port as an unknown key where the reference serves it."""
+    """Status and reason equal."""
     port, ref = nodes
     body = BAD_BODIES[bi]
     with pytest.raises(ApiError) as p:
         port.search("sorted", body)
-    if "aggs" in body:
-        assert p.value.status == 400 and "unknown key [aggs]" in p.value.reason
-        return
     with pytest.raises(JaxApiError) as r:
         ref.search("sorted", body)
     assert (p.value.status, p.value.reason) == (r.value.status, r.value.reason)
