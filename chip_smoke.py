@@ -10,7 +10,9 @@ and read just after it.
   1. build       the four CUDA kernels, each with its row and stacked-shard
                  modes (csrc/*.cu -> one sm_90a library)
   2. corpus      the MS MARCO-sized Zipf corpus (8,841,823 passages, the
-                 repo's own generator) installed in a one-shard index
+                 repo's own generator) with its body field's ~296 M token
+                 positions (the generator's token stream re-drawn from its
+                 seed), installed in a one-shard index
   3. main        the REST server on loopback serves 64 sequential `_search`
                  requests: `match` of 4 terms (BASELINE config 2's shape),
                  bool(should) and bool(must match + filter term); one
@@ -76,6 +78,20 @@ and read just after it.
                  sub-metric, each 20 times over HTTP, checked as phase 15
                  checks; then K10's histogram and range rows at 8,841,823
                  docs
+ 6f. phrase      (one-shard corpus, before it is freed) 84 positional bodies
+                 over HTTP (default_rng(SEED + 8)): 32 match_phrase cut from
+                 random docs, 8 over head terms, 4 with an absent term, 8
+                 match_phrase_prefix, 8 span_near, 4 span_first, 4 span_not,
+                 4 span_or, 4 intervals, 8 bool(must match_phrase + filter),
+                 sequentially (one warm-up per shape): every answer against
+                 the plain path (K11 / K12 / K3 plain), every match_phrase
+                 against a numpy oracle (slot keys intersected, counted per
+                 doc, the fp32 BM25 tail); then each body four times,
+                 shuffled, from 16 clients, each answer equal to its
+                 sequential one; then K11 (phrase and span modes) and K12
+                 (phrase, near, near-unordered, first, not) at Q = 1 and at
+                 the concurrent phase's mean batch against their plain
+                 versions
  13. stacked     config 3 as the JAX bench serves it on one device: the 8
                  shards packed to equal shapes (pad_docs_to, field_min_tiles)
                  and stacked, each query compiled per shard with that shard's
@@ -210,11 +226,12 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 @contextlib.contextmanager
 def plain_kernels():
     """Route bm25_device through the plain PyTorch versions of K1-K4, solo,
-    batched and stacked, and aggs_device through K10's (on whatever
+    batched and stacked, K11 and K12, and aggs_device through K10's (on whatever
     device the tensors are) — the reference runs of the check phases."""
     from elasticsearch_tpu_torch.ops import kernels as kern
 
-    names = [n + s for n in KERNELS for s in kern.MODES] + list(AGG_KERNELS)
+    names = ([n + s for n in KERNELS for s in kern.MODES] + list(AGG_KERNELS)
+             + list(PHRASE_SOURCES))
     saved = {n: getattr(kern, n) for n in names}
     try:
         for n in names:
@@ -436,6 +453,12 @@ def run() -> dict:
     # -- 2. corpus ----------------------------------------------------------
     t0 = time.monotonic()
     _mappings, segment = build_zipf_segment(N_DOCS, seed=SEED)
+    # The body field's token positions (phase `phrase`), re-drawn from the
+    # generator's seed.
+    t_pos = time.monotonic()
+    stream = TokenStream(N_DOCS, SEED)
+    stream.add_positions(segment.fields["body"])
+    positions_s = time.monotonic() - t_pos
     # BASELINE config 4's feature columns, as bench.py:3326-3335 draws them,
     # and f3: f1 missing at every tenth doc (the sorted phase's missing
     # values).
@@ -458,7 +481,8 @@ def run() -> dict:
     fld = segment.fields["body"]
     log(
         f"phase corpus: ok {N_DOCS} docs, {len(fld.doc_ids)} postings, "
-        f"{len(fld.terms)} terms; generate {gen_s:.1f} s, pack+upload "
+        f"{len(fld.terms)} terms, {len(fld.positions)} positions; generate "
+        f"{gen_s:.1f} s (positions {positions_s:.1f} s), pack+upload "
         f"{pack_s:.1f} s, device bytes {device_nbytes(handle.device)} [{card}]"
     )
 
@@ -651,6 +675,8 @@ def run() -> dict:
     rows.extend(kernel_rows_slice4(seg_tree, compiler, match_terms, dev))
     single["aggs_full"] = run_aggs_full(card, node, segment, launches)
     kernel_rows_aggs_full(seg_tree, dev, rows)
+    single["phrase"] = run_phrase(card, dev, node, seg_tree, compiler,
+                                  segment, stream, launches, rows)
     single["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
     log(f"  one-shard phases: peak device memory "
         f"{single['max_memory_allocated_bytes']} B [{card}]")
@@ -658,7 +684,7 @@ def run() -> dict:
     # Free the one-shard corpus before the sharded one.
     node.close()
     del node, svc, handle, segment, fld, seg_tree, compiler, plans, plan
-    del f1, f2, f3
+    del f1, f2, f3, stream
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3187,6 +3213,478 @@ def run_nan_pages(card, launches) -> dict:
         raise SmokeFailure(f"{bad} NaN-scored pages differ between the card "
                            f"and the CPU")
     return stats
+
+
+PHRASE_SOURCES = {
+    "position_events": "elasticsearch_tpu_torch/csrc/position_events.cu",
+    "position_walk": "elasticsearch_tpu_torch/csrc/position_walk.cu",
+}
+PHRASE_HEAD = [f"t{i}" for i in range(10)]  # the widest position gathers
+
+
+class TokenStream:
+    """The token stream of build_zipf_segment's corpus, re-drawn from its
+    seed (default_rng(seed) -> lengths, then tokens), as int16 token
+    numbers ("t<i>") with each doc's [start, start + length) slice."""
+
+    def __init__(self, n_docs: int, seed: int, vocab_size: int = 30_000,
+                 min_len: int = 8, max_len: int = 60):
+        import numpy as np
+
+        from elasticsearch_tpu_torch.utils.corpus import zipf_probs
+
+        rng = np.random.default_rng(seed)
+        self.lengths = rng.integers(min_len, max_len, size=n_docs)
+        total = int(self.lengths.sum())
+        tokens = rng.choice(vocab_size, size=total, p=zipf_probs(vocab_size))
+        if vocab_size >= 2**15:
+            raise SmokeFailure("token numbers must fit int16")
+        self.tokens = tokens.astype(np.int16)
+        del tokens
+        self.starts = np.cumsum(self.lengths) - self.lengths
+        self.n_docs = n_docs
+
+    def cut(self, doc: int, at: int, k: int) -> list[str]:
+        lo = int(self.starts[doc]) + at
+        return [f"t{int(t)}" for t in self.tokens[lo:lo + k]]
+
+    def add_positions(self, fld) -> None:
+        """Give the field built from this stream its token positions: each
+        token's term id (through fld.terms), a stable order by term id
+        (doc and position ascending inside a term: the stream's own
+        order), then positions = position in doc and pos_offsets = [0,
+        cumsum(tf)] — SegmentBuilder's CSR layout."""
+        import numpy as np
+
+        tid_of = np.full(int(self.tokens.max()) + 1, -1, dtype=np.int64)
+        for name, tid in fld.terms.items():
+            tid_of[int(name[1:])] = tid
+        tids = tid_of[self.tokens]
+        if tids.min() < 0 or tids.max() >= 2**15:
+            raise SmokeFailure("a token has no term id of 16 bits")
+        order = np.argsort(tids.astype(np.int16), kind="stable")
+        del tids
+        pin = (np.arange(len(self.tokens), dtype=np.int64)
+               - np.repeat(self.starts, self.lengths)).astype(np.int32)
+        fld.positions = pin[order]
+        doc_of = np.repeat(np.arange(self.n_docs, dtype=np.int32),
+                           self.lengths)[order]
+        del pin, order
+        fld.pos_offsets = np.zeros(len(fld.tfs) + 1, dtype=np.int64)
+        fld.pos_offsets[1:] = np.cumsum(fld.tfs.astype(np.int64))
+        if not np.array_equal(
+                doc_of, np.repeat(fld.doc_ids, fld.tfs.astype(np.int64))):
+            raise SmokeFailure("positions do not line up with the postings")
+
+
+def _phrase_bodies(stream: TokenStream, fld):
+    """The phrase phase's traffic (names, bodies) over `body`, drawn from
+    default_rng(SEED + 8)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 8)
+
+    def doc_cut(k):
+        while True:
+            d = int(rng.integers(0, stream.n_docs))
+            n = int(stream.lengths[d])
+            if n >= k:
+                return stream.cut(d, int(rng.integers(0, n - k + 1)), k)
+
+    def body(q):
+        return {"query": q, "size": TOP_K}
+
+    out = []
+    for _ in range(32):
+        out.append(("phrase", body({"match_phrase": {"body": " ".join(
+            doc_cut(int(rng.integers(2, 5))))}})))
+    for _ in range(8):
+        k = int(rng.integers(2, 4))
+        words = [str(w) for w in rng.choice(PHRASE_HEAD, k)]
+        out.append(("phrase_head", body({"match_phrase": {"body": " ".join(words)}})))
+    for i in range(4):
+        words = doc_cut(2)
+        words.insert(i % 3, f"absent{i}")
+        out.append(("phrase_absent", body({"match_phrase": {"body": " ".join(words)}})))
+    for _ in range(8):
+        words = doc_cut(int(rng.integers(2, 4)))
+        last = words[-1]
+        words[-1] = last[: max(2, len(last) - 1)]
+        out.append(("phrase_prefix", body({"match_phrase_prefix": {"body": " ".join(words)}})))
+    for i in range(8):
+        k = 2 + i % 2
+        words = doc_cut(k + 2)
+        clauses = [{"span_term": {"body": w}} for w in words[::2][:k]]
+        ordered = k == 3 or i % 4 < 2
+        out.append(("span_near", body({"span_near": {
+            "clauses": clauses, "slop": i % 4, "in_order": ordered}})))
+    for i in range(4):
+        out.append(("span_first", body({"span_first": {
+            "match": {"span_term": {"body": PHRASE_HEAD[i]}}, "end": 3}})))
+    for i in range(4):
+        inc, exc = doc_cut(2)
+        out.append(("span_not", body({"span_not": {
+            "include": {"span_term": {"body": inc}},
+            "exclude": {"span_term": {"body": exc}}, "pre": 1, "post": 1}})))
+    for i in range(4):
+        words = doc_cut(2 + i % 2)
+        out.append(("span_or", body({"span_or": {
+            "clauses": [{"span_term": {"body": w}} for w in words]}})))
+    for _ in range(4):
+        words = doc_cut(int(rng.integers(2, 4)))
+        out.append(("intervals", body({"intervals": {"body": {"match": {
+            "query": " ".join(words), "max_gaps": 2, "ordered": True}}}})))
+    for i in range(8):
+        words = doc_cut(2)
+        out.append(("bool_phrase_filter", body({"bool": {
+            "must": [{"match_phrase": {"body": " ".join(words)}}],
+            "filter": [{"term": {"body": PHRASE_HEAD[i % 4]}}]}})))
+    return out
+
+
+def phrase_oracle(fld, n_docs: int, words: list[str], stats_weight):
+    """Exact phrase in numpy: per slot the (doc, pos - offset) keys of its
+    term, intersected over the slots, counted per doc, then the fp32 BM25
+    tail. Returns (ids, scores, total) of the top TOP_K."""
+    import numpy as np
+
+    keys = None
+    for off, term in enumerate(words):
+        tid = fld.terms.get(term)
+        if tid is None:
+            return [], [], 0
+        lo, hi = int(fld.offsets[tid]), int(fld.offsets[tid + 1])
+        plo, phi = int(fld.pos_offsets[lo]), int(fld.pos_offsets[hi])
+        docs = np.repeat(fld.doc_ids[lo:hi].astype(np.int64),
+                         fld.tfs[lo:hi].astype(np.int64))
+        apos = fld.positions[plo:phi].astype(np.int64) - off
+        k = (docs << 8) | np.where(apos >= 0, apos, 0)
+        k = k[apos >= 0]  # ascending: CSR order is (doc, pos)
+        if keys is None:
+            keys = k
+        else:
+            small, big = (keys, k) if len(keys) < len(k) else (k, keys)
+            at = np.minimum(np.searchsorted(big, small), max(len(big) - 1, 0))
+            keys = small[big[at] == small] if len(big) else small[:0]
+    docs, freq = np.unique(keys >> 8, return_counts=True)
+    w = stats_weight(words)
+    ninv = _norm_inverse(fld.sum_total_tf / fld.doc_count)[fld.norm_bytes[docs]]
+    f = freq.astype(np.float32)
+    scores = (w - w / (np.float32(1.0) + f * ninv)).astype(np.float32)
+    order = np.lexsort((docs, -scores))[:TOP_K]
+    return [f"d{int(d)}" for d in docs[order]], scores[order], len(docs)
+
+
+def _norm_inverse(avgdl: float):
+    """float32[256]: Lucene's BM25 cache 1 / (k1 * (1 - b + b * dl / avgdl))
+    over the 256 norm bytes, dl decoded from SmallFloat's 4-bit form (bytes
+    below 24 exact, then (8 | low 3 bits) << (high bits - 1), plus 24),
+    written here from the formulas, apart from the port's own helpers."""
+    import numpy as np
+
+    b8 = np.arange(256, dtype=np.int64)
+    v = np.maximum(b8 - 24, 0)
+    shift = (v >> 3) - 1
+    big = 24 + np.where(shift < 0, v & 7, (8 | (v & 7)) << np.maximum(shift, 0))
+    dl = np.where(b8 < 24, b8, big).astype(np.float32)
+    k1, b = np.float32(1.2), np.float32(0.75)
+    return (np.float32(1.0) / (k1 * ((np.float32(1.0) - b)
+                                    + b * dl / np.float32(avgdl)))
+            ).astype(np.float32)
+
+
+def _phrase_weight(fld, n_docs):
+    """Summed fp32 weight of a phrase's terms (Lucene's PhraseWeight),
+    from the formulas: idf = log(1 + (N - df + 0.5) / (df + 0.5)) in
+    float64 rounded to fp32, times (k1 + 1) in fp32."""
+    import numpy as np
+
+    k1_plus_1 = np.float32(np.float32(1.0) * np.float32(1.2 + 1.0))
+
+    def weight(words):
+        w = np.float32(0.0)
+        for t in words:
+            df = float(fld.df[fld.terms[t]])
+            idf = np.float32(np.log(1.0 + (fld.doc_count - df + 0.5)
+                                    / (df + 0.5)))
+            w = np.float32(w + np.float32(k1_plus_1 * idf))
+        return w
+
+    return weight
+
+
+def run_phrase(card, dev, node, seg_tree, compiler, segment, stream,
+               launches, rows) -> dict:
+    """Phase `phrase`: positional queries over the one-shard corpus with
+    positions, over HTTP: sequential (each shape warmed once), held to the
+    plain path and (match_phrase) a numpy oracle, then each body four
+    times from 16 clients; then K11 / K12 rows."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    fld = segment.fields["body"]
+    named = _phrase_bodies(stream, fld)
+    names = [n for n, _b in named]
+    bodies = [b for _n, b in named]
+    node.exec_batcher.close()
+    node.exec_batcher = type(node.exec_batcher)()
+    server, base = serve(node)
+    try:
+        first_ms = {}
+        for i, name in enumerate(names):
+            if name not in first_ms:
+                t0 = time.monotonic()
+                http(base, "POST", "/msmarco/_search", bodies[i])
+                first_ms[name] = (time.monotonic() - t0) * 1e3
+        with counted("phrase", launches):
+            latencies, responses, wall_s = sequential(base, "msmarco", bodies)
+    finally:
+        server.shutdown()
+        server.server_close()
+    log(f"  phrase: first request of each shape (untimed warm-up), ms: "
+        f"{json.dumps(first_ms)}")
+
+    # Plain path on the same card tensors, device ms per request, and the
+    # K11 rows each request gives (its solo launches).
+    vs_plain, exec_ms, plan_ms, plans, k11_rows = 0, [], [], [], []
+    for body in bodies:
+        t0 = time.perf_counter()
+        c = compiler.compile(parse_query(body["query"]))
+        plan = bm25_device.plan_to_torch(c.spec, c.arrays, dev)
+        torch.cuda.synchronize()
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+        plans.append((c.spec, plan))
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        k11_before = kern.LAUNCHES["position_events"]
+        ev0.record()
+        bm25_device.execute_auto(seg_tree, c.spec, plan, TOP_K)
+        ev1.record()
+        torch.cuda.synchronize()
+        exec_ms.append(ev0.elapsed_time(ev1))
+        k11_rows.append(kern.LAUNCHES["position_events"] - k11_before)
+    with plain_kernels():
+        for (spec, plan), out, name in zip(plans, responses, names):
+            s, i, t = bm25_device.execute_auto(seg_tree, spec, plan, TOP_K)
+            s, i, t = s.cpu().numpy(), i.cpu().numpy(), int(t.cpu())
+            n = min(TOP_K, t, len(i))
+            if not same_hits(out, [segment.ids[int(d)] for d in i[:n]], s[:n], t):
+                vs_plain += 1
+                log(f"  MISMATCH phrase plain {name} {spec[:4]}")
+    # The numpy oracle for every match_phrase body.
+    vs_oracle, n_oracle = 0, 0
+    weight = _phrase_weight(fld, segment.num_docs)
+    t0 = time.monotonic()
+    for name, body, out in zip(names, bodies, responses):
+        if name not in ("phrase", "phrase_head", "phrase_absent"):
+            continue
+        words = body["query"]["match_phrase"]["body"].split()
+        ids, scores, total = phrase_oracle(fld, segment.num_docs, words, weight)
+        n_oracle += 1
+        if not same_hits(out, ids, scores, total):
+            vs_oracle += 1
+            log(f"  MISMATCH phrase oracle {words}")
+    oracle_s = time.monotonic() - t0
+
+    # Concurrent: each body four times, shuffled, from 16 clients.
+    node.exec_batcher.close()
+    node.exec_batcher = type(node.exec_batcher)()
+    order = np.random.default_rng(SEED + 9).permutation(
+        np.tile(np.arange(len(bodies)), 4))
+    conc_bodies = [bodies[int(j)] for j in order]
+    server, base = serve(node)
+    k11_before = launches.get("position_events", 0)
+    try:
+        with counted("phrase concurrent", launches):
+            c_lat, c_resp, c_wall = concurrent(base, "msmarco", conc_bodies,
+                                               N_CLIENTS)
+    finally:
+        server.shutdown()
+        server.server_close()
+    batcher = node.exec_batcher.stats()
+    k11_conc = launches.get("position_events", 0) - k11_before
+    k11_rows_per_launch = (sum(k11_rows[int(j)] for j in order)
+                           / max(1, k11_conc))
+    vs_seq = sum(
+        without_took(c_resp[n]) != without_took(responses[int(j)])
+        for n, j in enumerate(order)
+    )
+    by_shape = {}
+    for name, ms in zip(names, latencies):
+        by_shape.setdefault(name, []).append(ms)
+    stats = {
+        "requests": len(bodies),
+        "p50_ms": percentile(latencies, 50),
+        "p99_ms": percentile(latencies, 99),
+        "qps_sequential": len(bodies) / wall_s,
+        "device_ms_p50": percentile(exec_ms, 50),
+        "device_ms_mean": float(np.mean(exec_ms)),
+        "per_shape_p50_ms": {k: percentile(v, 50) for k, v in by_shape.items()},
+        "per_shape_device_ms_p50": {
+            k: percentile([e for n2, e in zip(names, exec_ms) if n2 == k], 50)
+            for k in by_shape},
+        "host_plan_ms_p50": percentile(plan_ms, 50),
+        "per_shape_host_plan_ms_p50": {
+            k: percentile([e for n2, e in zip(names, plan_ms) if n2 == k], 50)
+            for k in by_shape},
+        "matched_total": sum(o["hits"]["total"]["value"] for o in responses),
+        "concurrent": {
+            "requests": len(conc_bodies),
+            "qps": len(conc_bodies) / c_wall,
+            "p50_ms": percentile(c_lat, 50),
+            "p99_ms": percentile(c_lat, 99),
+            "batcher": batcher,
+            "k11_launches": k11_conc,
+            "k11_rows_per_launch": k11_rows_per_launch,
+        },
+        "mismatches_vs_plain": vs_plain,
+        "mismatches_vs_oracle": vs_oracle,
+        "oracle_bodies": n_oracle,
+        "oracle_s": oracle_s,
+        "mismatches_vs_sequential": vs_seq,
+    }
+    bad = vs_plain + vs_oracle + vs_seq
+    log(f"phase phrase: {'ok' if bad == 0 else 'FAILED'} {json.dumps(stats)} "
+        f"[{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} phrase mismatches")
+    # The batched rows' Q: the rows a concurrent K11 launch took (at least
+    # 2, so that a batch is timed and checked).
+    q = max(2, round(k11_rows_per_launch))
+    kernel_rows_phrase(seg_tree, compiler, named, dev, q, rows)
+    return stats
+
+
+def kernel_rows_phrase(seg_tree, compiler, named, dev, q, rows):
+    """K11 (phrase and span modes) and K12 (phrase, near, near-unordered,
+    first and not modes), timed at Q = 1 on the phase's widest body of
+    each kind and at Q rows (the concurrent phase's rows per K11 launch,
+    at least 2) over head phrases; every mode also checked at Q rows; each
+    against its plain version (exact)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    num_docs = seg_tree["live"].shape[0]
+    pos_doc, pos_val, pos_bits = seg_tree["positions"]["body"]
+    norm_bytes = seg_tree["fields"]["body"][3]
+
+    def widest(kind, pred=lambda spec: True):
+        best = None
+        for _name, body in named:
+            c = compiler.compile(parse_query(body["query"]))
+            if c.spec[0] == kind and pred(c.spec) and (
+                    best is None or c.spec[2] > best[0][2]):
+                best = (c.spec, c.arrays)
+        if best is None:
+            raise SmokeFailure(f"no [{kind}] body for the kernel rows")
+        return best
+
+    def rows_of(spec, arrays_list):
+        a = bm25_device.plan_to_torch(
+            spec, bm25_device.stack_plans(arrays_list), dev)
+        return a
+
+    def events_row(spec, a, qq, case):
+        phrase = spec[0] == "phrase"
+        lane_key = "shifts" if phrase else "clause_of"
+        cb = 0 if phrase else kern.clause_bits_for(
+            spec[3] if spec[0] == "span_near" else 2)
+        mode = kern.EVENTS_PHRASE if phrase else kern.EVENTS_SPAN
+        args = (pos_doc, pos_val, a["tile_ids"], a["starts"], a["ends"],
+                a[lane_key], num_docs, pos_bits, cb, mode)
+        keys, count = kern.position_events(*args)
+        unsorted, _valid = kern.event_keys(*args)
+        n_valid = int(count.sum())
+        _row(rows, "position_events", "elasticsearch_tpu/ops/bm25_device.py:470"
+             if phrase else "elasticsearch_tpu/ops/bm25_device.py:545", qq,
+             lambda: kern.position_events(*args),
+             lambda: kern.position_events_plain(*args),
+             lambda: torch.sort(unsorted, dim=1),
+             "torch.sort over the packed keys",
+             # the valid lanes' doc + position read and their keys
+             # written, the worklist (4 planes of i32) read, counts written
+             n_valid * 16 + a["tile_ids"].numel() * 16 + qq * 4,
+             source=PHRASE_SOURCES["position_events"], case=case, reps=5)
+        return keys, count, cb
+
+    def walk_row(spec, a, keys, count, cb, qq, case, **walk):
+        args = (keys, count, norm_bytes, a["weight"].reshape(qq),
+                a["cache"].reshape(qq, -1), num_docs, pos_bits, cb)
+        n_valid = int(count.sum())
+        _row(rows, "position_walk", {
+            "phrase": "elasticsearch_tpu/ops/bm25_device.py:503",
+            "span_near": "elasticsearch_tpu/ops/bm25_device.py:567",
+            "span_not": "elasticsearch_tpu/ops/bm25_device.py:641"}[spec[0]], qq,
+             lambda: kern.position_walk(*args, **walk),
+             lambda: kern.position_walk_plain(*args, **walk),
+             None, "none: no one PyTorch call walks each doc's runs",
+             # the valid events read once; both [Q, N] planes written
+             n_valid * 8 + qq * num_docs * 5,
+             source=PHRASE_SOURCES["position_walk"], case=case, reps=5)
+
+    cases = [("phrase", widest("phrase"))]
+    for label, pred in (
+            ("near", lambda s: s[5] and s[3] > 1 and s[6] < 0),
+            ("near-unordered", lambda s: not s[5] and s[3] == 2),
+            ("first", lambda s: s[6] >= 0)):
+        cases.append((label, widest("span_near", pred)))
+    cases.append(("not", widest("span_not")))
+
+    def walk_args(spec):
+        if spec[0] == "phrase":
+            return {"mode": kern.WALK_PHRASE, "n": spec[3]}
+        if spec[0] == "span_near":
+            return {"mode": kern.WALK_NEAR, "n": spec[3], "slop": spec[4],
+                    "ordered": spec[5], "end_limit": spec[6]}
+        return {"mode": kern.WALK_NOT, "n": 2, "pre": spec[3],
+                "post": spec[4]}
+
+    for label, (spec, arr) in cases:
+        a = rows_of(spec, [arr])
+        kind = "phrase" if spec[0] == "phrase" else f"span {label}"
+        keys, count, cb = events_row(spec, a, 1, f"{kind}, NT {spec[2]}")
+        walk_row(spec, a, keys, count, cb, 1, label, **walk_args(spec))
+    # Q head phrases (the concurrent phase's rows per K11 launch),
+    # equalized and stacked as a batch is, timed; then every mode at Q rows
+    # (its Q = 1 plan repeated) held to the plain versions.
+    from elasticsearch_tpu_torch.query.compile import pad_arrays_to_spec, unify_specs
+
+    heads = [compiler.compile(parse_query(b["query"]))
+             for n, b in named if n == "phrase_head"]
+    by_slots = {}
+    for c in heads:
+        by_slots.setdefault(c.spec[3], []).append(c)
+    group = (max(by_slots.values(), key=len) * q)[:q]
+    spec = unify_specs([c.spec for c in group])
+    a = rows_of(spec, [pad_arrays_to_spec(c.spec, spec, c.arrays) for c in group])
+    keys, count, cb = events_row(spec, a, q, f"phrase batch, NT {spec[2]}")
+    walk_row(spec, a, keys, count, cb, q, "phrase batch", **walk_args(spec))
+    for label, (spec, arr) in cases:
+        a = rows_of(spec, [arr] * q)
+        lane_key = "shifts" if spec[0] == "phrase" else "clause_of"
+        cb = 0 if spec[0] == "phrase" else kern.clause_bits_for(
+            spec[3] if spec[0] == "span_near" else 2)
+        ev = (pos_doc, pos_val, a["tile_ids"], a["starts"], a["ends"],
+              a[lane_key], num_docs, pos_bits, cb,
+              kern.EVENTS_PHRASE if spec[0] == "phrase" else kern.EVENTS_SPAN)
+        keys, count = kern.position_events(*ev)
+        _same((keys, count), kern.position_events_plain(*ev),
+              f"position_events {label} Q = {q}")
+        wa = (keys, count, norm_bytes, a["weight"].reshape(q),
+              a["cache"].reshape(q, -1), num_docs, pos_bits, cb)
+        _same(kern.position_walk(*wa, **walk_args(spec)),
+              kern.position_walk_plain(*wa, **walk_args(spec)),
+              f"position_walk {label} Q = {q}")
+    torch.cuda.synchronize()
+    log(f"  phrase kernels: K11 / K12 bit-equal to their plain versions in "
+        f"every mode at Q = 1 and Q = {q}")
 
 
 def main() -> int:

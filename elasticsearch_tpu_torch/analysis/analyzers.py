@@ -3,9 +3,11 @@
 Port copy of elasticsearch_tpu/analysis/analyzers.py, trimmed to this
 slice: the `standard`, `whitespace` and `keyword` analyzers and an
 `AnalysisRegistry` that builds custom analyzers from those tokenizers and
-the lowercase / stop / asciifolding filters. Left out: the analysis-call
-metrics counter, position/offset analysis (phrase queries, highlighting),
-porter stemming and the english / search_as_you_type chains.
+the lowercase / stop / asciifolding filters, and position analysis
+(`Analyzer._carry_filters` and `analyze_positions`: the (token, position)
+pairs of phrase and span queries, stop words leaving gaps). Left out: the
+analysis-call metrics counter, offset analysis (highlighting), porter
+stemming and the english / search_as_you_type chains.
 
 Analysis runs on the host at index and query time; the only contract that
 matters for score parity is that index-time and query-time analysis agree,
@@ -17,7 +19,7 @@ from __future__ import annotations
 import re
 import unicodedata
 from dataclasses import dataclass, field
-from typing import Callable, Iterable
+from typing import Any, Callable, Iterable
 
 Token = str
 TokenFilter = Callable[[list[Token]], list[Token]]
@@ -50,6 +52,43 @@ class Analyzer:
     def __call__(self, text: str) -> list[Token]:
         return self.analyze(text)
 
+    def _carry_filters(
+        self, items: list[tuple[Token, Any]]
+    ) -> list[tuple[Token, Any]]:
+        """Thread (token, payload) pairs through the filter chain, keeping
+        each surviving token's payload (here a position).
+
+        Three filter shapes: marked drop filters (a `stopset` attribute)
+        keep gaps; length-preserving outputs are 1:1 order-preserving
+        maps; anything else is applied token by token."""
+        for f in self.filters:
+            stopset = getattr(f, "stopset", None)
+            if stopset is not None:
+                items = [it for it in items if it[0] not in stopset]
+                continue
+            mapped = f([tok for tok, _ in items])
+            if len(mapped) == len(items):
+                items = [(m, p) for m, (_, p) in zip(mapped, items)]
+                continue
+            out = []
+            for tok, p in items:
+                r = f([tok])
+                if r:
+                    out.append((r[0], p))
+            items = out
+        return items
+
+    def analyze_positions(self, text: str) -> tuple[list[tuple[Token, int]], int]:
+        """((token, position) pairs, total position span).
+
+        A token removed by a stop filter leaves a GAP rather than shifting
+        later tokens down (Lucene's position increments), which
+        `match_phrase` relies on. The span is the tokenizer's position
+        count (the base of a multi-valued field's next value)."""
+        tokens = self.tokenizer(text)
+        pairs = self._carry_filters([(t, i) for i, t in enumerate(tokens)])
+        return pairs, len(tokens)
+
 
 def _standard_tokenize(text: str) -> list[Token]:
     return _WORD_RE.findall(text)
@@ -73,6 +112,8 @@ def make_stop_filter(stopwords: Iterable[str]) -> TokenFilter:
     def stop_filter(tokens: list[Token]) -> list[Token]:
         return [t for t in tokens if t not in stopset]
 
+    # Marks a pure drop filter: position analysis keeps its gaps.
+    stop_filter.stopset = stopset
     return stop_filter
 
 

@@ -1,12 +1,18 @@
 """Columnar inverted-index segments.
 
 Port copy of elasticsearch_tpu/index/segment.py, trimmed to this slice:
-`FieldIndex`, `Segment` and the Python path of `SegmentBuilder` for text,
-keyword, numeric and dense_vector fields (with multi-fields). A
-dense_vector value is staged whole (never flattened as a multi-value)
-and checked with the reference's messages: rank, NaN / Infinity, dims,
-and zero magnitude under cosine and dot_product. Left out: the native
-C++ accumulator, token positions, nested blocks, geo points, completion
+`FieldIndex` (with its token positions: `pos_offsets`, `positions`,
+`term_positions`), `Segment` and the Python path of `SegmentBuilder` for
+text, keyword, numeric and dense_vector fields (with multi-fields). A
+text field (one with norms) stages each value's token positions
+(`Analyzer.analyze_positions`, stop words leaving gaps), the values of a
+multi-valued field `POSITION_INCREMENT_GAP` apart, and `build` lays them
+out as CSR arrays aligned with the postings, empty arrays for a text
+field whose values analyzed to zero tokens; keyword fields stay
+positionless. A dense_vector value is staged whole (never flattened as
+a multi-value) and checked with the reference's messages: rank, NaN /
+Infinity, dims, and zero magnitude under cosine and dot_product. Left
+out: the native C++ accumulator, nested blocks, geo points, completion
 and percolator fields.
 
 A Segment is an immutable columnar snapshot of a batch of documents, all
@@ -15,7 +21,7 @@ ids + term frequencies), SmallFloat norm bytes and the BM25 collection
 statistics; per numeric field a dense float64 doc-values column (NaN =
 missing); per dense_vector field a float32 [N, dims] matrix, zero rows
 for docs without a vector; the stored `_source` documents for the fetch
-phase.
+phase; per text field the token positions of every posting.
 """
 
 from __future__ import annotations
@@ -46,6 +52,32 @@ class FieldIndex:
     # bool[N]: the doc supplied a value for this field (exists semantics),
     # even if it analyzed to zero tokens.
     present: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=bool))
+    # Token positions (text fields; Lucene's .pos): CSR aligned with the
+    # postings, posting p's occurrence positions ascending in
+    # positions[pos_offsets[p]:pos_offsets[p + 1]]. None for fields
+    # indexed without positions (keyword).
+    pos_offsets: np.ndarray | None = None  # int64[P + 1]
+    positions: np.ndarray | None = None  # int32[sum tf]
+
+    @property
+    def has_positions(self) -> bool:
+        return self.positions is not None
+
+    def term_positions(self, term: str, local_doc: int) -> np.ndarray:
+        """Positions of `term` in `local_doc`; empty if absent or the
+        field has no positions."""
+        if self.positions is None:
+            return np.empty(0, dtype=np.int32)
+        tid = self.terms.get(term)
+        if tid is None:
+            return np.empty(0, dtype=np.int32)
+        lo, hi = int(self.offsets[tid]), int(self.offsets[tid + 1])
+        docs = self.doc_ids[lo:hi]
+        hit = np.searchsorted(docs, local_doc)
+        if hit >= len(docs) or docs[hit] != local_doc:
+            return np.empty(0, dtype=np.int32)
+        p = lo + int(hit)
+        return self.positions[self.pos_offsets[p] : self.pos_offsets[p + 1]]
 
     @property
     def avgdl(self) -> float:
@@ -89,6 +121,12 @@ def _iter_field_values(value: Any) -> list[Any]:
     if isinstance(value, list):
         return value
     return [value]
+
+
+# Positions of consecutive values of a multi-valued text field lie this
+# far apart, so that phrases cannot match across values (the reference's
+# TextFieldMapper position_increment_gap default).
+POSITION_INCREMENT_GAP = 100
 
 
 def _parse_vector(field_name: str, fm, value: Any) -> np.ndarray:
@@ -145,6 +183,8 @@ class SegmentBuilder:
         self._seqnos: list[int] = []
         # field -> term -> doc -> tf
         self._inverted: dict[str, dict[str, dict[int, int]]] = {}
+        # field -> term -> doc -> ascending token positions (text fields)
+        self._positions: dict[str, dict[str, dict[int, list[int]]]] = {}
         self._lengths: dict[str, dict[int, int]] = {}  # field -> doc -> len
         self._present: dict[str, set[int]] = {}  # field -> docs with a value
         self._numeric: dict[str, dict[int, float]] = {}
@@ -162,8 +202,14 @@ class SegmentBuilder:
             staged_vectors.append((field_name, _parse_vector(field_name, fm, value)))
         elif fm.is_inverted:
             analyzer = self.mappings.analysis.get(fm.analyzer)
+            # Keyword fields index without positions (the reference's
+            # KeywordFieldMapper default); text fields record the position
+            # of every occurrence for phrase and span queries.
+            with_positions = fm.norms
             total_len = 0
             tf: dict[str, int] = {}
+            poss: dict[str, list[int]] = {}
+            base = 0
             for v in _iter_field_values(value):
                 if isinstance(v, (dict, list)):
                     raise ValueError(
@@ -172,11 +218,19 @@ class SegmentBuilder:
                     )
                 if fm.ignore_above and len(str(v)) > fm.ignore_above:
                     continue
+                if with_positions:
+                    pairs, span = analyzer.analyze_positions(str(v))
+                    total_len += len(pairs)
+                    for tok, pos in pairs:
+                        tf[tok] = tf.get(tok, 0) + 1
+                        poss.setdefault(tok, []).append(base + pos)
+                    base += span + POSITION_INCREMENT_GAP
+                    continue
                 tokens = analyzer.analyze(str(v))
                 total_len += len(tokens)
                 for tok in tokens:
                     tf[tok] = tf.get(tok, 0) + 1
-            staged_postings.append((field_name, tf, total_len))
+            staged_postings.append((field_name, tf, total_len, poss))
         elif fm.is_numeric:
             v0 = _iter_field_values(value)[0]  # multi-valued: first value
             try:
@@ -188,7 +242,7 @@ class SegmentBuilder:
                 ) from None
 
     def _stage_doc(self, source: dict[str, Any]):
-        staged_postings: list[tuple[str, dict[str, int], int]] = []
+        staged_postings: list[tuple[str, dict[str, int], int, dict]] = []
         staged_numeric: list[tuple[str, float]] = []
         staged_vectors: list[tuple[str, np.ndarray]] = []
         staged_mappings: dict[str, Any] = {}
@@ -233,11 +287,15 @@ class SegmentBuilder:
         self._ids.append(doc_id if doc_id is not None else str(local))
         self._versions.append(int(version))
         self._seqnos.append(int(seqno))
-        for field_name, tf, total_len in staged_postings:
+        for field_name, tf, total_len, poss in staged_postings:
             self._present.setdefault(field_name, set()).add(local)
             postings = self._inverted.setdefault(field_name, {})
             for tok, count in tf.items():
                 postings.setdefault(tok, {})[local] = count
+            if poss:
+                fpos = self._positions.setdefault(field_name, {})
+                for tok, plist in poss.items():
+                    fpos.setdefault(tok, {})[local] = plist
             # Docs analyzing to zero tokens do not count toward
             # docCount/sumTotalTermFreq (Lucene Terms.getDocCount).
             if total_len > 0:
@@ -247,6 +305,34 @@ class SegmentBuilder:
         for field_name, vec in staged_vectors:
             self._vectors.setdefault(field_name, {})[local] = vec
         return local
+
+    def _build_positions(self, fname, terms, offsets, wants_positions):
+        """(pos_offsets int64[P + 1], positions int32[sum tf]) aligned with
+        the postings just built, or (None, None) for a positionless field.
+        A text field ALWAYS carries (possibly empty) position arrays: a
+        segment whose values all analyzed to zero tokens must not turn the
+        field positionless."""
+        if not wants_positions:
+            return None, None
+        fpos = self._positions.get(fname, {})
+        total = int(offsets[-1])
+        pos_counts = np.zeros(total, dtype=np.int64)
+        chunks: list[list[int]] = [[]] * total
+        for term, tid in terms.items():
+            lo = int(offsets[tid])
+            by_doc = fpos.get(term, {})
+            for off, d in enumerate(sorted(by_doc)):
+                plist = by_doc[d]
+                pos_counts[lo + off] = len(plist)
+                chunks[lo + off] = plist
+        pos_offsets = np.zeros(total + 1, dtype=np.int64)
+        pos_offsets[1:] = np.cumsum(pos_counts)
+        positions = np.fromiter(
+            (p for chunk in chunks for p in chunk),
+            dtype=np.int32,
+            count=int(pos_offsets[-1]),
+        )
+        return pos_offsets, positions
 
     def build(self) -> Segment:
         n = len(self._sources)
@@ -279,6 +365,9 @@ class SegmentBuilder:
             if present_docs:
                 present[np.fromiter(present_docs, dtype=np.int64)] = True
             fm = self.mappings.get(fname)
+            pos_offsets, positions = self._build_positions(
+                fname, terms, offsets, fm.norms if fm is not None else True
+            )
             fields[fname] = FieldIndex(
                 name=fname,
                 terms=terms,
@@ -291,6 +380,8 @@ class SegmentBuilder:
                 sum_total_tf=int(sum(lengths.values())),
                 has_norms=fm.norms if fm is not None else True,
                 present=present,
+                pos_offsets=pos_offsets,
+                positions=positions,
             )
         doc_values: dict[str, np.ndarray] = {}
         for fname, by_doc in self._numeric.items():

@@ -10,8 +10,14 @@ pads them), each with its vector-presence plane `has_vector` (bool[N],
 any element non-zero: the kNN kernels' rule for docs without a vector,
 computed once at pack time instead of per query); and the keyword
 global-ordinal plane `ord_terms` (terms aggregations), packed for every
-field without norms. Left out: positional planes, nested blocks,
-`pack_segment_delta`, `repack_tn` and the packed multi-tenant planes.
+field without norms; and the positional planes of a text field
+(`pos_doc`, `pos_val`, with `pos_offsets`, `term_pos_span` and
+`pos_pad_tile`), which phrase and span queries read, plus `pos_bits`,
+the width of the largest position (the packed sort key of K11,
+ops/kernels.py). Left out: nested blocks, `pack_segment_delta`,
+`repack_tn`, the packed multi-tenant planes and the stacking pad of the
+positional planes (`min_pos_tiles`: positional queries run on one
+segment's tree).
 
 A field's postings live on the device as flat CSR arrays padded to a tile
 multiple plus one all-sentinel tile, viewed as [NT, 256]:
@@ -23,6 +29,10 @@ multiple plus one all-sentinel tile, viewed as [NT, 256]:
     present : bool[N]          doc has a value for the field
     ord_terms : int32[NT, 256] keyword fields: the term id owning each
                                posting (sentinel T = the term count)
+    pos_doc : int32[PT, 256]   text fields: the doc owning each position
+                               entry (CSR term -> doc -> occurrence order,
+                               sentinel = num_docs)
+    pos_val : int32[PT, 256]   its position (sentinel -1)
 
 The same dtypes and layout as the JAX package, so a plan compiled by
 either side addresses either side's planes. The host-side planning
@@ -82,6 +92,30 @@ class DeviceField:
     # owning each posting position, in the [NT, TILE] layout of doc_ids,
     # padding = T (the aggregation's discard slot). None for text fields.
     ord_terms: torch.Tensor | None = None  # int32[NT, TILE]
+    # Positional planes (text fields; Lucene's .pos): flat position entries
+    # in CSR term -> doc -> occurrence order, tiled like the postings. A
+    # term's entries are the contiguous slice
+    # [pos_offsets[offsets[tid]], pos_offsets[offsets[tid + 1]]), which the
+    # compiler plans tile worklists over exactly as over postings tiles.
+    pos_doc: torch.Tensor | None = None  # int32[PT, TILE], sentinel N
+    pos_val: torch.Tensor | None = None  # int32[PT, TILE], sentinel -1
+    pos_offsets: np.ndarray | None = None  # int64[P + 1] host copy
+    pos_bits: int = 1  # bits of the largest position (>= 1)
+
+    def term_pos_span(self, term: str) -> tuple[int, int]:
+        """[start, end) position-entry span of a term; (0, 0) if absent."""
+        tid = self.terms.get(term)
+        if tid is None or self.pos_offsets is None:
+            return (0, 0)
+        return (
+            int(self.pos_offsets[self.offsets[tid]]),
+            int(self.pos_offsets[self.offsets[tid + 1]]),
+        )
+
+    @property
+    def pos_pad_tile(self) -> int:
+        """Tile id of the all-sentinel padding tile of the position planes."""
+        return self.pos_doc.shape[0] - 1
 
     @property
     def pad_tile(self) -> int:
@@ -179,8 +213,9 @@ def pack_field(
 
     `num_docs` may exceed the segment's own doc count (stacked shards pad
     to a common size); the scatter sentinel is always `num_docs`.
-    `min_tiles` pads the tile axis with sentinel tiles so that shards
-    stack to equal shapes."""
+    `min_tiles` pads the postings tile axis with sentinel tiles so that
+    shards stack to equal shapes (the positional planes are not stacked:
+    positional queries run on one segment's tree)."""
     device = resolve_device(device)
     if avgdl is None:
         avgdl = field.avgdl
@@ -209,6 +244,20 @@ def pack_field(
         ords_pad = np.full(len(doc_ids), t_count, dtype=np.int32)
         ords_pad[: len(ords)] = ords
         ord_terms = _put(ords_pad.reshape(-1, TILE), device)
+    pos = {}
+    if field.positions is not None:
+        # The owning doc of every position entry (CSR expansion over the
+        # per-posting counts), then both planes tiled like the postings.
+        counts = np.diff(field.pos_offsets).astype(np.int64)
+        owners = np.repeat(field.doc_ids.astype(np.int32), counts)
+        pd = _pad_to_tile(owners, np.int32(num_docs))
+        pv = _pad_to_tile(field.positions.astype(np.int32), np.int32(-1))
+        pos = {
+            "pos_doc": _put(pd.reshape(-1, TILE), device),
+            "pos_val": _put(pv.reshape(-1, TILE), device),
+            "pos_offsets": field.pos_offsets,
+            "pos_bits": position_bits(field.positions),
+        }
     return DeviceField(
         name=field.name,
         terms=field.terms,
@@ -229,7 +278,15 @@ def pack_field(
         tile_doc_lo=doc_tiles.min(axis=1),
         tile_doc_hi=doc_tiles.max(axis=1),
         ord_terms=ord_terms,
+        **pos,
     )
+
+
+def position_bits(positions: np.ndarray) -> int:
+    """Bits of the largest position (at least 1): the position field's
+    width in K11's packed sort keys."""
+    top = int(positions.max()) if len(positions) else 0
+    return max(1, top.bit_length())
 
 
 def pack_segment(
@@ -294,6 +351,8 @@ def device_nbytes(seg: DeviceSegment) -> int:
         total += f.norm_bytes.nbytes + f.present.nbytes
         if f.ord_terms is not None:
             total += f.ord_terms.nbytes
+        if f.pos_doc is not None:
+            total += f.pos_doc.nbytes + f.pos_val.nbytes
     for col in seg.doc_values.values():
         total += col.nbytes
     for mat in seg.vectors.values():
@@ -307,6 +366,7 @@ def device_nbytes(seg: DeviceSegment) -> int:
 FIELD_META_KEYS = (
     "terms", "df", "offsets", "doc_count", "sum_total_tf", "has_norms",
     "tn_avgdl", "tn_k1", "tn_b", "tile_max", "tile_doc_lo", "tile_doc_hi",
+    "pos_offsets",
 )
 
 
@@ -327,7 +387,8 @@ def device_segment_from_numpy(
     `planes` is a segment-tree view as numpy: {"fields": {name: (doc_ids,
     tn, tfs, norm_bytes, present)}, "doc_values": {name: f32[N]},
     "vectors": {name: f32[N, dims]}, "ordinals": {name: i32[NT, 256]},
-    "live": bool[N]} (the JAX package's `segment_tree(dev)` /
+    "positions": {name: (pos_doc, pos_val)}, "live": bool[N]} (the JAX
+    package's `segment_tree(dev)` /
     `agg_segment_tree(dev)` leaves after np.asarray). `fields_meta` maps
     each field to its host planning attributes (`field_meta`)."""
     device = resolve_device(device)
@@ -335,10 +396,16 @@ def device_segment_from_numpy(
     n = int(live.shape[0])
     fields = {}
     ordinals = planes.get("ordinals", {})
+    positions = planes.get("positions", {})
     for name, leaves in planes["fields"].items():
         doc_ids, tn, tfs, norm_bytes, present = (np.asarray(x) for x in leaves)
         meta = fields_meta[name]
         ords = ordinals.get(name)
+        pos = {}
+        if name in positions:
+            pd, pv = (np.asarray(x, dtype=np.int32) for x in positions[name])
+            pos = {"pos_doc": _put(pd, device), "pos_val": _put(pv, device),
+                   "pos_bits": position_bits(pv.reshape(-1))}
         fields[name] = DeviceField(
             ord_terms=None if ords is None else _put(
                 np.asarray(ords, dtype=np.int32), device),
@@ -349,6 +416,7 @@ def device_segment_from_numpy(
             norm_bytes=_put(norm_bytes.astype(np.uint8), device),
             present=_put(present.astype(bool), device),
             **meta,
+            **pos,
         )
     doc_values = {
         name: _put(np.asarray(col, dtype=np.float32), device)

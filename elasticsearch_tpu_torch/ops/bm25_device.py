@@ -15,12 +15,16 @@ and the two-launch block-max execution `execute_batch_blockmax`,
 `execute_score_after`; the fused rescore `execute_rescore`; and
 `compute_filter_mask`, a filter plan's matched plane (the knn filter) —
 over the plan node kinds terms, terms_gather, terms_const, const,
-exists, range, match_all, match_none, bool and script (whose vector
-functions read the dense_vector planes through K7's script mode). Left
-out: `compute_filter_mask_stacked` (with the filter cache), strictly
-sequential and packed execution, and the positional, nested,
-function_score, terms_set, geo, rank_feature, dis_max, boosting and
-doc_set nodes (see ROADMAP queue B).
+exists, range, match_all, match_none, bool, script (whose vector
+functions read the dense_vector planes through K7's script mode) and
+the positional kinds phrase, span_near and span_not (`_eval_phrase`,
+`_eval_span_near`, `_eval_span_not`: K11 position_events, then K12
+position_walk into the score plane, for one segment's Q rows; they are
+dense-only, so `supports_sparse` stays false for them). Left out:
+`compute_filter_mask_stacked` (with the filter cache), the positional
+kinds over stacked shards, strictly sequential and packed execution,
+and the nested, function_score, terms_set, geo, rank_feature, dis_max,
+boosting and doc_set nodes (see ROADMAP queue B).
 
 Every executor here is batched: plan arrays carry a leading query axis
 [Q, ...] and one call runs all Q rows, one kernel launch per primitive,
@@ -32,8 +36,10 @@ The primitives that carry the path are hand-written kernels
 fold), K3 masked_topk (top-k by score desc, index asc, plus totals), K4
 span_locate (binary-search membership), K3k keyed_topk (K3's keyed mode:
 bottom-k, field sorts and cursors), K5 window_rescore (the rescore
-window's gather, combine and top-k) and K6 script_eval (the Triton kernel
-generated from a script, ops/script_kernel.py). Everything around them is
+window's gather, combine and top-k), K6 script_eval (the Triton kernel
+generated from a script, ops/script_kernel.py) and, for phrase and span
+plans, K11 position_events (the sorted position events) and K12
+position_walk (per-doc walks -> frequency -> BM25). Everything around them is
 torch elementwise ops in the reference's exact fp32 operation order, so
 the results — top-k ids, order, fp32 score bits and totals — equal the
 JAX package's, row for row.
@@ -151,12 +157,19 @@ def _rows1(plan) -> Any:
 
 def segment_tree(device_segment) -> dict[str, Any]:
     """The executor's view of a DeviceSegment, in the reference's tuple
-    order: fields -> (doc_ids, tn, tfs, norm_bytes, present); vectors ->
-    f32[N, dims]."""
+    order: fields -> (doc_ids, tn, tfs, norm_bytes, present); positions
+    -> (pos_doc, pos_val, pos_bits) of each field with positions (the
+    reference's pair plus the host-side width of K11's position field);
+    vectors -> f32[N, dims]."""
     return {
         "fields": {
             name: (f.doc_ids, f.tn, f.tfs, f.norm_bytes, f.present)
             for name, f in device_segment.fields.items()
+        },
+        "positions": {
+            name: (f.pos_doc, f.pos_val, f.pos_bits)
+            for name, f in device_segment.fields.items()
+            if getattr(f, "pos_doc", None) is not None
         },
         "doc_values": dict(device_segment.doc_values),
         "vectors": dict(device_segment.vectors),
@@ -168,7 +181,10 @@ def stack_segment_trees(trees: list) -> dict[str, Any]:
     """S shards' segment trees as one tree of [S, ...] tensors on their
     device: the port's `jax.tree.map(np.stack, *trees)`. The shards must
     have equal shapes (pack_segment with a common `pad_docs_to` and
-    `field_min_tiles`, as bench.py:952-959 packs them)."""
+    `field_min_tiles`, as bench.py:952-959 packs them). The positional
+    planes are left out: the stacked mode of K11 / K12 is not ported, and
+    positional nodes refuse a stacked tree."""
+    trees = [{k: v for k, v in t.items() if k != "positions"} for t in trees]
 
     def walk(*nodes):
         first = nodes[0]
@@ -271,7 +287,67 @@ def _eval_node(spec, arrays, seg: dict[str, Any], num_docs: int, q: int):
         return _eval_bool(spec, arrays, seg, num_docs, q)
     if kind == "script":
         return _eval_script(spec, arrays, seg, num_docs, q)
+    if kind == "phrase":
+        return _eval_phrase(spec, arrays, seg, num_docs, q)
+    if kind == "span_near":
+        return _eval_span_near(spec, arrays, seg, num_docs, q)
+    if kind == "span_not":
+        return _eval_span_not(spec, arrays, seg, num_docs, q)
     raise ValueError(f"unknown plan node kind [{kind}]")
+
+
+def _position_walk(spec, arrays, seg, num_docs, q, lane_key, mode,
+                   clause_bits, **walk):
+    """K11 over the node's position worklist, then K12 into its [Q, N]
+    score and matched planes (one launch each for the Q rows)."""
+    if _n_shards(seg):
+        raise ValueError(
+            "phrase and span queries over stacked shards are not ported"
+        )
+    field_name = spec[1]
+    pos_doc, pos_val, pos_bits = seg["positions"][field_name]
+    keys, count = kernels.position_events(
+        pos_doc, pos_val, arrays["tile_ids"], arrays["starts"],
+        arrays["ends"], arrays[lane_key], num_docs, pos_bits, clause_bits,
+        kernels.EVENTS_PHRASE if mode == kernels.WALK_PHRASE
+        else kernels.EVENTS_SPAN,
+    )
+    return kernels.position_walk(
+        keys, count, seg["fields"][field_name][3], arrays["weight"].reshape(q),
+        arrays["cache"].reshape(q, -1), num_docs, pos_bits, clause_bits,
+        mode, **walk,
+    )
+
+
+def _eval_phrase(spec, arrays, seg, num_docs, q):
+    """Exact phrase (row 14): an occurrence is a (doc, aligned position)
+    group of at least n_slots position events; its frequency scores
+    through BM25 with the summed idf."""
+    _, _field, _nt, n_slots = spec
+    return _position_walk(spec, arrays, seg, num_docs, q, "shifts",
+                          kernels.WALK_PHRASE, 0, n=n_slots)
+
+
+def _eval_span_near(spec, arrays, seg, num_docs, q):
+    """span_near / span_or / span_first / intervals over unit spans
+    (row 15): chain ends within slop (both orders for an unordered pair),
+    cut at end_limit, counted per doc."""
+    _, _field, _nt, n_clauses, slop, ordered, end_limit = spec
+    return _position_walk(
+        spec, arrays, seg, num_docs, q, "clause_of", kernels.WALK_NEAR,
+        kernels.clause_bits_for(n_clauses), n=n_clauses, slop=slop,
+        ordered=ordered, end_limit=end_limit,
+    )
+
+
+def _eval_span_not(spec, arrays, seg, num_docs, q):
+    """span_not over unit spans (row 15): includes (clause 0) with no
+    exclude (clause 1) within [pos - pre, pos + post]."""
+    _, _field, _nt, pre, post = spec
+    return _position_walk(
+        spec, arrays, seg, num_docs, q, "clause_of", kernels.WALK_NOT,
+        kernels.clause_bits_for(2), n=2, pre=pre, post=post,
+    )
 
 
 def _eval_terms(spec, arrays, seg, num_docs):

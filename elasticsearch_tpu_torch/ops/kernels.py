@@ -34,6 +34,17 @@ PyTorch versions.
                       doc_counts of _eval_agg); its range mode reduces R
                       overlapping [lo, hi) ranges (`range`)
 
+    K11 position_events csrc/position_events.cu  the position events of
+                      phrase and span worklists, packed into 64-bit keys
+                      and radix-sorted per row (the gather and sort of
+                      bm25_device._eval_phrase / _gather_span_events)
+    K12 position_walk csrc/position_walk.cu  one thread per doc walks its
+                      sorted events: the phrase run count, the span chain
+                      DP (_span_chain_ends with _segmented_cummax, the
+                      unordered relabel, span_first's end limit), the
+                      span_not scans, then freq -> BM25 over the row's
+                      [N] planes (_span_freq_scores)
+
 K6 script_eval, the Triton kernel generated from a script, lives in
 ops/script_kernel.py and counts its launches here.
 
@@ -64,8 +75,9 @@ more, under `<name>_stacked` in the stacked mode (plain runs do not
 count); K3k, K5 and K6 count every launch under one name each
 (`keyed_topk`, `window_rescore` / `window_rescore_gather`,
 `script_eval`), as do K7 by mode (`vector_score`, `vector_score_gather`,
-`vector_score_script`), K9 (`ivf_assign`), K3i (`masked_topk_ids`) and
-K10 by mode (`bucket_fold`, `bucket_fold_range`), whatever its row
+`vector_score_script`), K9 (`ivf_assign`), K3i (`masked_topk_ids`),
+K10 by mode (`bucket_fold`, `bucket_fold_range`), K11
+(`position_events`) and K12 (`position_walk`), whatever its row
 count. Launches from several threads (the REST
 handlers and the micro-batcher) share the one library and the caller's
 current stream; the library loads once under `_lib_lock` and the counts
@@ -114,6 +126,7 @@ ONE_NAME_KERNELS = (
     "keyed_topk", "window_rescore", "window_rescore_gather", "script_eval",
     "vector_score", "vector_score_gather", "vector_score_script",
     "ivf_assign", "masked_topk_ids", "bucket_fold", "bucket_fold_range",
+    "position_events", "position_walk",
 )
 
 LAUNCHES: dict[str, int] = {
@@ -253,6 +266,10 @@ def _bind(lib) -> None:
     lib.esk_ivf_assign.argtypes = [P, I, P, I, I, P, I, L, P, P]
     lib.esk_bucket_fold.argtypes = [P, P, P, P, L, I, L] + [P] * 9
     lib.esk_range_fold.argtypes = [P, P, P, P, P, L, I, L] + [P] * 11
+    lib.esk_position_events.argtypes = [P] * 6 + [I] * 8 + [P] * 5
+    lib.esk_position_walk.argtypes = (
+        [P] * 5 + [I] * 7 + [F, I, I, F, F] + [P] * 4
+    )
     for fn in (
         lib.esk_terms_scatter,
         lib.esk_sparse_fold,
@@ -265,6 +282,8 @@ def _bind(lib) -> None:
         lib.esk_ivf_assign,
         lib.esk_bucket_fold,
         lib.esk_range_fold,
+        lib.esk_position_events,
+        lib.esk_position_walk,
     ):
         fn.restype = ctypes.c_int
 
@@ -1813,3 +1832,333 @@ def range_fold(col, contrib, lo, hi, sub=None):
     _check_rc("bucket_fold_range", rc)
     count_launch("bucket_fold_range")
     return counts if sub is None else (counts, *outs)
+
+
+# ---------------------------------------------------------------------------
+# K11 position_events and K12 position_walk (phrase and span queries)
+# ---------------------------------------------------------------------------
+
+# K11's modes: the phrase's (doc, aligned position) keys, the spans'
+# (doc, position, clause) keys.
+EVENTS_PHRASE, EVENTS_SPAN = 0, 1
+# K12's modes; `first` is WALK_NEAR with an end limit, the unordered
+# two-clause near WALK_NEAR with ordered false.
+WALK_PHRASE, WALK_NEAR, WALK_NOT = 0, 1, 2
+
+# Keys one K11 launch sorts at most (16 B of scratch each): larger
+# batches run as several launches over consecutive rows, with identical
+# results.
+POSITION_EVENTS_MAX_KEYS = 1 << 28
+# Rows one K11 or K12 launch takes (the grid's y extent).
+MAX_GRID_ROWS = 65535
+
+# The span programs' fp32 sentinels (bm25_device._span_chain_ends).
+SPAN_NEG = -(2.0**31)
+SPAN_INVALID_POS = 2**30
+
+
+def event_key_bits(num_docs: int, pos_bits: int, clause_bits: int) -> int:
+    """Width of K11's packed keys: the doc (0..num_docs, the sentinel
+    included), then the position, then (span mode) the clause."""
+    bits = int(num_docs).bit_length() + pos_bits + clause_bits
+    if bits > 63:
+        raise ValueError(
+            f"position event keys need {bits} bits (at most 63): "
+            f"{num_docs} docs, positions of {pos_bits} bits"
+        )
+    return bits
+
+
+def clause_bits_for(n_clauses: int) -> int:
+    """Bits of the clause field of a span key (at least 1)."""
+    return max(1, (int(n_clauses) - 1).bit_length())
+
+
+def event_keys(pos_doc, pos_val, tile_ids, starts, ends, lane_arg,
+               num_docs: int, pos_bits: int, clause_bits: int, mode: int):
+    """The unsorted packed keys int64[Q, P] of Q worklists and their
+    validity bool[Q, P]: the worklist gather of `_eval_phrase` (:486-502)
+    / `_gather_span_events` (:545-565)."""
+    tid = tile_ids.to(torch.int64)
+    lane = torch.arange(TILE, device=pos_doc.device, dtype=torch.int64)
+    idx = tid[..., None] * TILE + lane
+    valid = (idx >= starts.to(torch.int64)[..., None]) & (
+        idx < ends.to(torch.int64)[..., None])
+    docs = pos_doc[tid].to(torch.int64)
+    poss = pos_val[tid].to(torch.int64)
+    extra = lane_arg.to(torch.int64)[..., None]
+    if mode == EVENTS_PHRASE:
+        poss = poss - extra
+        valid = valid & (poss >= 0)
+        key = (docs << pos_bits) | poss
+        low = pos_bits
+    else:
+        key = (((docs << pos_bits) | poss) << clause_bits) | extra
+        low = pos_bits + clause_bits
+    key = torch.where(valid, key, int(num_docs) << low)
+    q = tile_ids.shape[0]
+    return key.reshape(q, -1), valid.reshape(q, -1)
+
+
+def position_events_plain(pos_doc, pos_val, tile_ids, starts, ends, lane_arg,
+                          num_docs: int, pos_bits: int, clause_bits: int,
+                          mode: int):
+    """K11's plain version: `event_keys`, ordered by torch.sort. Returns
+    (keys int64[Q, P] ascending, the row's valid events first; count
+    int32[Q])."""
+    key, valid = event_keys(pos_doc, pos_val, tile_ids, starts, ends,
+                            lane_arg, num_docs, pos_bits, clause_bits, mode)
+    keys, _ = torch.sort(key, dim=1)
+    return keys, valid.sum(dim=1).to(torch.int32)
+
+
+def position_events(pos_doc, pos_val, tile_ids, starts, ends, lane_arg,
+                    num_docs: int, pos_bits: int, clause_bits: int,
+                    mode: int):
+    """K11: the position events of Q worklists, sorted.
+
+    pos_doc / pos_val int32[PT, 256] (a field's positional planes);
+    tile_ids / starts / ends / lane_arg int32[Q, NT], lane_arg the
+    entry's shift (EVENTS_PHRASE) or clause (EVENTS_SPAN). An entry lane
+    is valid where starts <= tile * 256 + lane < ends (and, phrase mode,
+    apos = pos - shift >= 0). Keys: doc << pos_bits | apos (phrase) or
+    (doc << pos_bits | pos) << clause_bits | clause (span); an invalid
+    lane's key is num_docs shifted past the low fields, above every valid
+    key. Returns (keys int64[Q, NT * 256] ascending, so a row's `count`
+    valid events come first in (doc, apos) or (doc, pos, clause) order;
+    count int32[Q]). Equal keys are indistinguishable, so the order is
+    unique."""
+    dev = pos_doc.device
+    for t, name in ((pos_doc, "pos_doc"), (pos_val, "pos_val")):
+        _check(t, name, torch.int32, 2, dev)
+    if pos_val.shape != pos_doc.shape or pos_doc.shape[1] != TILE:
+        raise ValueError("pos_doc / pos_val must be [PT, 256] planes")
+    _check(tile_ids, "tile_ids", torch.int32, 2, dev)
+    q, nt = tile_ids.shape
+    for t, name in ((starts, "starts"), (ends, "ends"),
+                    (lane_arg, "lane_arg")):
+        _check(t, name, torch.int32, 2, dev)
+        _check_rows(name, t, q, nt)
+    if mode not in (EVENTS_PHRASE, EVENTS_SPAN):
+        raise ValueError(f"unknown position_events mode {mode}")
+    if mode == EVENTS_PHRASE:
+        clause_bits = 0
+    bits = event_key_bits(num_docs, pos_bits, clause_bits)
+    if not _launchable(dev):
+        return position_events_plain(pos_doc, pos_val, tile_ids, starts,
+                                     ends, lane_arg, num_docs, pos_bits,
+                                     clause_bits, mode)
+    lib = ensure_built()
+    p = nt * TILE
+    keys = torch.empty((q, p), dtype=torch.int64, device=dev)
+    count = torch.empty(q, dtype=torch.int32, device=dev)
+    if q == 0 or p == 0:
+        return keys, count
+    step = max(1, min(MAX_GRID_ROWS, POSITION_EVENTS_MAX_KEYS // p))
+    chunk = events_chunk(p)
+    nblocks = -(-p // chunk)
+    scratch = torch.empty(min(q, step) * p, dtype=torch.int64, device=dev)
+    counts = torch.empty(min(q, step) * 256 * (nblocks + 1), dtype=torch.int32,
+                         device=dev)
+    with torch.cuda.device(dev):
+        for r0 in range(0, q, step):
+            rows = min(step, q - r0)
+            rc = lib.esk_position_events(
+                _ptr(pos_doc), _ptr(pos_val), _ptr(tile_ids, r0 * nt),
+                _ptr(starts, r0 * nt), _ptr(ends, r0 * nt),
+                _ptr(lane_arg, r0 * nt), int(rows), int(nt), int(num_docs),
+                int(pos_bits), int(clause_bits), int(bits), int(mode),
+                int(chunk), _ptr(keys, r0 * p), _ptr(scratch), _ptr(counts),
+                _ptr(count, r0), _stream(dev),
+            )
+            _check_rc("position_events", rc)
+            count_launch("position_events")
+    return keys, count
+
+
+def events_chunk(p: int) -> int:
+    """Keys one K11 radix block histograms and scatters: at least 4,096,
+    and enough that a row needs at most ~2,048 blocks (a multiple of
+    256)."""
+    per_block = -(-p // 2048)
+    return max(4096, -(-per_block // 256) * 256)
+
+
+def _segmented_cummax(seg_ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Inclusive running max within runs of equal seg_ids along the last
+    axis: the doubling form of the reference's associative scan (max is
+    exact, so any association gives the same bits)."""
+    out = vals.clone()
+    n = vals.shape[-1]
+    step = 1
+    while step < n:
+        same = seg_ids[..., step:] == seg_ids[..., :-step]
+        out[..., step:] = torch.where(
+            same, torch.maximum(out[..., step:], out[..., :-step]),
+            out[..., step:])
+        step <<= 1
+    return out
+
+
+def _decode_events(keys, num_docs: int, pos_bits: int, clause_bits: int,
+                   mode: int):
+    """(doc, position, clause) int64 planes of K11's keys; invalid lanes
+    decode as the reference carries them (doc num_docs; position -1 in
+    phrase mode, 2^30 and clause 0 in span mode)."""
+    low = pos_bits + (clause_bits if mode != WALK_PHRASE else 0)
+    d = keys >> low
+    sentinel = d == num_docs
+    if mode == WALK_PHRASE:
+        p = keys & ((1 << pos_bits) - 1)
+        return d, torch.where(sentinel, -1, p), None
+    p = (keys >> clause_bits) & ((1 << pos_bits) - 1)
+    c = keys & ((1 << clause_bits) - 1)
+    return (d, torch.where(sentinel, SPAN_INVALID_POS, p),
+            torch.where(sentinel, 0, c))
+
+
+def _span_chain_ends(d, p, c, n_clauses: int, slop: int):
+    """Events that END an ordered chain c0 < c1 < ... with total stretch
+    <= slop (bm25_device._span_chain_ends :567, op for op)."""
+    neg = torch.tensor(SPAN_NEG, dtype=torch.float32, device=d.device)
+    pf = p.to(torch.float32)
+    dp = torch.where(c == 0, pf, neg)
+    n = d.shape[-1]
+    idx = torch.arange(n, device=d.device).expand_as(d)
+    is_new = torch.ones_like(d, dtype=torch.bool)
+    is_new[..., 1:] = (d[..., 1:] != d[..., :-1]) | (p[..., 1:] != p[..., :-1])
+    group_start = torch.cummax(torch.where(is_new, idx, -1), dim=-1).values
+    prev_idx = torch.clamp(group_start - 1, min=0)
+    has_prev = (group_start > 0) & (torch.gather(d, -1, prev_idx) == d)
+    for level in range(1, n_clauses):
+        vals = torch.where(c == level - 1, dp, neg)
+        run = _segmented_cummax(d, vals)
+        carry = torch.where(has_prev, torch.gather(run, -1, prev_idx), neg)
+        dp = torch.where(c == level, carry, neg)
+    ok = (c == n_clauses - 1) & (dp > neg)
+    stretch = pf - dp - torch.tensor(float(n_clauses - 1), dtype=torch.float32)
+    return ok & (stretch <= torch.tensor(float(slop), dtype=torch.float32))
+
+
+def _walk_ok(d, p, c, n_docs: int, mode: int, n: int, slop: int,
+             ordered: bool, end_limit: int, pre: int, post: int):
+    """Per event: does it count toward its doc's frequency."""
+    if mode == WALK_PHRASE:
+        # `_eval_phrase` :503-514: an occurrence is a (doc, apos) group of
+        # at least n_slots events, counted at its first event.
+        q, m = d.shape
+        d_ext = torch.cat([d, torch.full((q, n), n_docs + 1, dtype=d.dtype,
+                                         device=d.device)], dim=1)
+        a_ext = torch.cat([p, torch.full((q, n), -2, dtype=p.dtype,
+                                         device=p.device)], dim=1)
+        full = torch.ones_like(d, dtype=torch.bool)
+        for j in range(1, n):
+            full &= (d_ext[:, j:j + m] == d) & (a_ext[:, j:j + m] == p)
+        is_start = torch.ones_like(full)
+        is_start[:, 1:] = (d[:, 1:] != d[:, :-1]) | (p[:, 1:] != p[:, :-1])
+        return full & is_start
+    if mode == WALK_NEAR:
+        ok = _span_chain_ends(d, p, c, n, slop)
+        if not ordered and n == 2:
+            ok = ok | _span_chain_ends(d, p, 1 - c, n, slop)
+        if end_limit >= 0:
+            ok = ok & (p + 1 <= end_limit)
+        return ok
+    # WALK_NOT (`_eval_span_not` :641-666): clause 0 include, 1 exclude.
+    pf = p.to(torch.float32)
+    neg = torch.tensor(SPAN_NEG, dtype=torch.float32, device=d.device)
+    before = _segmented_cummax(d, torch.where(c == 1, pf, neg))
+    after = -_segmented_cummax(
+        d.flip(-1), torch.where(c.flip(-1) == 1, -pf.flip(-1), neg)
+    ).flip(-1)
+    violated = (before >= pf - torch.tensor(float(pre), dtype=torch.float32)) | (
+        after <= pf + torch.tensor(float(post), dtype=torch.float32))
+    return (c == 0) & ~violated
+
+
+def position_walk_plain(keys, count, norm_bytes, weight, cache,
+                        num_docs: int, pos_bits: int, clause_bits: int,
+                        mode: int, n: int, slop: int = 0,
+                        ordered: bool = True, end_limit: int = -1,
+                        pre: int = 0, post: int = 0):
+    """K12's plain version, the JAX programs step by step over all of a
+    row's keys (the invalid ones included): the phrase run count, the
+    span chain DP with its segmented cummax as a loop over levels, the
+    span_not scans, then frequency by index_add_ of ones and the fp32
+    BM25 tail (`_span_freq_scores` :598)."""
+    d, p, c = _decode_events(keys, num_docs, pos_bits, clause_bits, mode)
+    ok = _walk_ok(d, p, c, num_docs, mode, n, slop, ordered, end_limit,
+                  pre, post) & (d != num_docs)
+    q = keys.shape[0]
+    dev = keys.device
+    freq = torch.zeros((q, num_docs + 1), dtype=torch.float32, device=dev)
+    idx = torch.where(ok, d, num_docs)
+    freq.scatter_add_(1, idx, ok.to(torch.float32))
+    freq = freq[:, :num_docs]
+    matched = freq > 0
+    ninv = torch.gather(cache, 1, norm_bytes[:num_docs].to(torch.int64)
+                        .expand(q, num_docs))
+    w = weight.reshape(q, 1)
+    scores = w - w / (1.0 + freq * ninv)
+    return torch.where(matched, scores, 0.0), matched
+
+
+def position_walk(keys, count, norm_bytes, weight, cache, num_docs: int,
+                  pos_bits: int, clause_bits: int, mode: int, n: int,
+                  slop: int = 0, ordered: bool = True, end_limit: int = -1,
+                  pre: int = 0, post: int = 0):
+    """K12: per-doc walks over K11's sorted events -> frequency -> BM25.
+
+    keys int64[Q, P] and count int32[Q] are position_events' output;
+    norm_bytes uint8[num_docs + 1], weight f32[Q], cache f32[Q, 256].
+    Modes: WALK_PHRASE (n = n_slots: a (doc, apos) group of >= n events
+    is one occurrence), WALK_NEAR (n clauses, `slop`, `ordered` (two
+    clauses), `end_limit` >= 0 for span_first) and WALK_NOT (include 0,
+    exclude 1, `pre` / `post`). Returns (scores f32[Q, num_docs],
+    w - w / (1 + freq * cache[norm]) where freq > 0, else 0; matched
+    bool[Q, num_docs])."""
+    dev = keys.device
+    _check(keys, "keys", torch.int64, 2, dev)
+    q, p = keys.shape
+    _check(count, "count", torch.int32, 1, dev)
+    _check(norm_bytes, "norm_bytes", torch.uint8, 1, dev)
+    _check(weight, "weight", torch.float32, 1, dev)
+    _check(cache, "cache", torch.float32, 2, dev)
+    if count.shape[0] != q or weight.shape[0] != q or tuple(cache.shape) != (q, 256):
+        raise ValueError("count / weight / cache must have the keys' rows")
+    if norm_bytes.shape[0] < num_docs:
+        raise ValueError("norm_bytes must cover num_docs")
+    if mode not in (WALK_PHRASE, WALK_NEAR, WALK_NOT) or n < 1:
+        raise ValueError(f"bad position_walk mode {mode} / n {n}")
+    if mode == WALK_PHRASE:
+        clause_bits = 0
+    event_key_bits(num_docs, pos_bits, clause_bits)
+    if not _launchable(dev):
+        return position_walk_plain(keys, count, norm_bytes, weight, cache,
+                                   num_docs, pos_bits, clause_bits, mode, n,
+                                   slop, ordered, end_limit, pre, post)
+    lib = ensure_built()
+    scores = torch.zeros((q, num_docs), dtype=torch.float32, device=dev)
+    matched = torch.zeros((q, num_docs), dtype=torch.bool, device=dev)
+    if q == 0 or p == 0:
+        return scores, matched
+    # A chain of more than two clauses keeps each level's DP value of
+    # every event (the reference's dp plane).
+    dp = (torch.empty((q, p), dtype=torch.float32, device=dev)
+          if mode == WALK_NEAR and n > 2 else None)
+    end_limit = min(int(end_limit), 2**31 - 1)
+    with torch.cuda.device(dev):
+        for r0 in range(0, q, MAX_GRID_ROWS):
+            rows = min(MAX_GRID_ROWS, q - r0)
+            rc = lib.esk_position_walk(
+                _ptr(keys, r0 * p), _ptr(count, r0), _ptr(norm_bytes),
+                _ptr(weight, r0), _ptr(cache, r0 * 256), int(rows), int(p),
+                int(num_docs), int(pos_bits), int(clause_bits), int(mode),
+                int(n), float(np.float32(slop)), int(bool(ordered)),
+                end_limit, float(np.float32(pre)), float(np.float32(post)),
+                _ptr(dp, r0 * p), _ptr(scores, r0 * num_docs),
+                _ptr(matched, r0 * num_docs), _stream(dev),
+            )
+            _check_rc("position_walk", rc)
+            count_launch("position_walk")
+    return scores, matched

@@ -3,12 +3,20 @@
 Port copy of elasticsearch_tpu/query/compile.py, trimmed to this slice:
 `FieldStats`, `aggregate_field_stats`, `_terms_arrays`, `make_bool_spec`,
 `select_lead_clause` and `Compiler` for match, term, terms, range, exists,
-match_all, match_none, constant_score, bool and script_score; and the
-coalescing helpers `SpecUnifyError`, `unify_specs`, `pad_arrays_to_spec`
-and `equalize_compiled` for the node kinds this compiler emits. Left
-out: nested, phrase, span, multi-term expansion, function score,
-percolate, ids, filter-cache keys and the unify/pad cases of the kinds
-above.
+match_all, match_none, constant_score, bool and script_score; the
+positional queries (`_phrase_slots`, `_phrase`, `_phrase_prefix` and
+`_phrase_from_slots` for match_phrase and match_phrase_prefix, with the
+impossible-phrase empty worklist and the prefix's union slot;
+`_multi_term` for a bare one-slot prefix; `_span_terms`,
+`_span_worklist`, `_span_near_spec` and `_span_not_spec` for span_term,
+span_or, span_near, span_first, span_not and intervals), which compile
+to the `phrase`, `span_near` and `span_not` position-worklist nodes; and
+the coalescing helpers `SpecUnifyError`, `unify_specs`,
+`pad_arrays_to_spec` and `equalize_compiled` for the node kinds this
+compiler emits (the positional worklists pad with `shifts` /
+`clause_of` 0). Left out: nested, prefix / wildcard / fuzzy / regexp
+queries, function score, percolate, ids, filter-cache keys and the
+unify/pad cases of the kinds above.
 
 Everything data-dependent happens here, on the host, at plan time:
 analysis of match text, term-dictionary lookups -> posting spans ->
@@ -33,14 +41,26 @@ from .dsl import (
     BoolQuery,
     ConstantScoreQuery,
     ExistsQuery,
+    IntervalsQuery,
     MatchAllQuery,
     MatchNoneQuery,
+    MatchPhrasePrefixQuery,
+    MatchPhraseQuery,
     MatchQuery,
     Query,
     RangeQuery,
     ScriptScoreQuery,
+    SpanFirstQuery,
+    SpanNearQuery,
+    SpanNotQuery,
+    SpanOrQuery,
+    SpanTermQuery,
     TermQuery,
     TermsQuery,
+    intervals_to_spans,
+    span_clause_lists,
+    span_not_lists,
+    span_unit_terms,
 )
 
 @dataclass
@@ -391,7 +411,59 @@ class Compiler:
             return self._bool(q, scoring)
         if isinstance(q, ScriptScoreQuery):
             return self._script_score(q, scoring)
+        if isinstance(q, MatchPhraseQuery):
+            return self._phrase(q, scoring)
+        if isinstance(q, MatchPhrasePrefixQuery):
+            return self._phrase_prefix(q, scoring)
+        if isinstance(q, SpanTermQuery):
+            # Lucene rewrites a lone SpanTermQuery's scoring to exactly the
+            # term query's (freq = tf), so it compiles as one.
+            dfield = self._field_or_none(q.field_name)
+            if dfield is None:
+                return ("match_none",), {}
+            return self._terms_spec(
+                dfield, [q.value], q.boost, self.stats.get(q.field_name),
+                scored=scoring,
+            )
+        if isinstance(q, SpanOrQuery):
+            field_name, terms = self._span_terms(q)
+            return self._span_near_spec(
+                field_name, [terms], 0, True, -1, q.boost, scoring
+            )
+        if isinstance(q, SpanNearQuery):
+            field_name, clause_terms = span_clause_lists(q.clauses)
+            return self._span_near_spec(
+                field_name, clause_terms, q.slop, q.in_order, -1,
+                q.boost, scoring,
+            )
+        if isinstance(q, SpanFirstQuery):
+            field_name, terms = self._span_terms(q.match)
+            return self._span_near_spec(
+                field_name, [terms], 0, True, q.end, q.boost, scoring
+            )
+        if isinstance(q, SpanNotQuery):
+            return self._span_not_spec(q, scoring)
+        if isinstance(q, IntervalsQuery):
+            return self._intervals(q, scoring)
         raise ValueError(f"cannot compile query type {type(q).__name__}")
+
+    def _intervals(self, q: IntervalsQuery, scoring: bool) -> tuple[tuple, Any]:
+        analyzer = self.mappings.analyzer_for(q.field_name, search=True)
+        dfield = self._field_or_none(q.field_name)
+
+        def expand_prefix(prefix: str) -> list[str]:
+            if dfield is None:
+                return []
+            return [t for t in dfield.terms if t.startswith(prefix)]
+
+        clauses, slop, ordered = intervals_to_spans(
+            q.field_name, q.rule, analyzer, expand_prefix
+        )
+        if not clauses:
+            return ("match_none",), {}
+        return self._span_near_spec(
+            q.field_name, clauses, slop, ordered, -1, q.boost, scoring
+        )
 
     def _script_score(self, q: ScriptScoreQuery, scoring: bool) -> tuple[tuple, Any]:
         from ..script import compile_script
@@ -448,6 +520,254 @@ class Compiler:
                 should=children, msm=q.minimum_should_match, boost=1.0
             )
         return self._terms_spec(dfield, terms, q.boost, stats, scoring)
+
+    # -- positional queries -------------------------------------------------
+
+    def _phrase_slots(self, q, field_name: str):
+        """Analyzed (term, relative position) slots of a phrase query."""
+        if getattr(q, "analyzer", None):
+            analyzer = self.mappings.analysis.get(q.analyzer)
+        else:
+            analyzer = self.mappings.analyzer_for(field_name, search=True)
+        pairs, _span = analyzer.analyze_positions(q.query)
+        if not pairs:
+            return []
+        base = pairs[0][1]
+        return [(t, p - base) for t, p in pairs]
+
+    def _phrase(self, q: MatchPhraseQuery, scoring: bool):
+        if q.slop:
+            raise ValueError(
+                "match_phrase slop is not supported yet (exact phrases only)"
+            )
+        slots = self._phrase_slots(q, q.field_name)
+        return self._phrase_from_slots(q.field_name, slots, q.boost, scoring)
+
+    def _phrase_prefix(self, q: MatchPhrasePrefixQuery, scoring: bool):
+        slots = self._phrase_slots(q, q.field_name)
+        if not slots:
+            return ("match_none",), {}
+        dfield = self._field_or_none(q.field_name)
+        if dfield is None:
+            return ("match_none",), {}
+        last_term, last_pos = slots[-1]
+        expansions = [t for t in dfield.terms if t.startswith(last_term)]
+        expansions = expansions[: max(1, q.max_expansions)]
+        if len(slots) == 1:
+            # A bare prefix: the constant-score multi-term disjunction.
+            return self._multi_term(q.field_name, expansions, q.boost)
+        # MultiPhraseQuery form: the union of the expansions occupies the
+        # last slot, their position spans merged into one entry list.
+        return self._phrase_from_slots(
+            q.field_name,
+            slots[:-1],
+            q.boost,
+            scoring,
+            union_slot=(last_pos, expansions),
+        )
+
+    def _phrase_from_slots(
+        self, field_name, slots, boost, scoring, union_slot=None
+    ):
+        dfield = self._field_or_none(field_name)
+        if dfield is None or not slots and union_slot is None:
+            return ("match_none",), {}
+        if len(slots) == 1 and union_slot is None:
+            # A one-term phrase scores exactly as a term query (Lucene
+            # rewrites a one-term PhraseQuery to a TermQuery).
+            stats = self.stats.get(field_name)
+            return self._terms_spec(
+                dfield, [slots[0][0]], boost, stats, scoring
+            )
+        if dfield.pos_offsets is None:
+            raise ValueError(
+                f"field [{field_name}] was indexed without positions "
+                f"(keyword fields don't support phrase queries)"
+            )
+        stats = self.stats.get(field_name)
+        doc_count = stats.doc_count if stats else dfield.doc_count
+        avgdl = stats.avgdl if stats else dfield.avgdl
+
+        all_slots: list[tuple[str, int]] = list(slots)
+        if union_slot is not None:
+            last_pos, expansions = union_slot
+            all_slots += [(t, last_pos) for t in expansions]
+        # Every non-union slot term must exist in this segment; a union
+        # slot needs >= 1 surviving expansion. An impossible phrase
+        # compiles to an EMPTY worklist (not match_none), so that the spec
+        # shape stays uniform across shards.
+        entries: list[tuple[int, int, int, int]] = []  # (tile, ps, pe, shift)
+        w = np.float32(0.0)
+        union_alive = False
+        impossible = False
+        for t, off in all_slots:
+            ps, pe = dfield.term_pos_span(t)
+            is_union = union_slot is not None and off == union_slot[0]
+            if pe <= ps:
+                if is_union:
+                    continue
+                impossible = True
+                break
+            if is_union:
+                union_alive = True
+            df = stats.df.get(t, dfield.term_df(t)) if stats else dfield.term_df(t)
+            if scoring and df > 0 and doc_count > 0:
+                # Lucene's PhraseWeight sums idf over every term occurrence.
+                w = np.float32(
+                    w + term_weight(df, doc_count, boost, self.params)
+                )
+            first, last = ps // TILE, (pe - 1) // TILE
+            for tile in range(first, last + 1):
+                entries.append((tile, ps, pe, off))
+        if impossible or (union_slot is not None and not union_alive):
+            entries = []
+            w = np.float32(0.0)
+
+        nt = _pow2(len(entries), self.nt_floor)
+        tile_ids = np.full(nt, dfield.pos_pad_tile, dtype=np.int32)
+        starts = np.zeros(nt, dtype=np.int32)
+        ends = np.zeros(nt, dtype=np.int32)
+        shifts = np.zeros(nt, dtype=np.int32)
+        for i, (tile, ps, pe, off) in enumerate(entries):
+            tile_ids[i] = tile
+            starts[i] = ps
+            ends[i] = pe
+            shifts[i] = off
+        # Distinct phrase slots (not entries): a full occurrence yields at
+        # least this many equal (doc, aligned position) keys.
+        n_slots = len(slots) + (1 if union_slot is not None else 0)
+        cache = norm_inverse_cache(avgdl if doc_count else 1.0, self.params)
+        if not dfield.has_norms:
+            cache = np.full(256, cache[1], dtype=np.float32)
+        spec = ("phrase", field_name, nt, n_slots)
+        arrays = {
+            "tile_ids": tile_ids,
+            "starts": starts,
+            "ends": ends,
+            "shifts": shifts,
+            "weight": np.float32(w),
+            "cache": cache,
+        }
+        return spec, arrays
+
+    def _multi_term(self, field_name: str, terms: list[str], boost: float):
+        """Constant-score disjunction over expanded terms (the reference's
+        MultiTermQuery constant-score rewrite); zero expansions still
+        compile to an empty terms_const worklist."""
+        dfield = self._field_or_none(field_name)
+        if dfield is None:
+            return ("match_none",), {}
+        return self._terms_spec(
+            dfield, terms, boost, self.stats.get(field_name), scored=False
+        )
+
+    def _span_terms(self, q) -> tuple[str, list[str]]:
+        return span_unit_terms(q)
+
+    def _span_worklist(self, dfield, clause_terms, boost, scoring,
+                       optional_clauses=(), weight_clauses=None):
+        """The position worklist of the span programs: one entry per
+        position tile each clause term touches, carrying its clause id;
+        weight = the summed idf over the clause terms."""
+        field_name = dfield.name
+        if dfield.pos_offsets is None:
+            raise ValueError(
+                f"field [{field_name}] was indexed without positions "
+                f"(keyword fields don't support span queries)"
+            )
+        stats = self.stats.get(field_name)
+        doc_count = stats.doc_count if stats else dfield.doc_count
+        avgdl = stats.avgdl if stats else dfield.avgdl
+        entries: list[tuple[int, int, int, int]] = []  # (tile, ps, pe, cl)
+        w = np.float32(0.0)
+        possible = True
+        for cl, terms in enumerate(clause_terms):
+            clause_alive = False
+            for t in terms:
+                # The weight accumulates under the STATISTICS scope, whether
+                # or not this shard holds the term's positions.
+                df = (
+                    stats.df.get(t, dfield.term_df(t))
+                    if stats
+                    else dfield.term_df(t)
+                )
+                if (
+                    scoring
+                    and df > 0
+                    and doc_count > 0
+                    and (weight_clauses is None or cl in weight_clauses)
+                ):
+                    w = np.float32(
+                        w + term_weight(df, doc_count, boost, self.params)
+                    )
+                ps, pe = dfield.term_pos_span(t)
+                if pe <= ps:
+                    continue
+                clause_alive = True
+                first, last = ps // TILE, (pe - 1) // TILE
+                for tile in range(first, last + 1):
+                    entries.append((tile, ps, pe, cl))
+            if not clause_alive and cl not in optional_clauses:
+                possible = False
+        if not possible:
+            entries = []
+            w = np.float32(0.0)
+        nt = _pow2(len(entries), self.nt_floor)
+        tile_ids = np.full(nt, dfield.pos_pad_tile, dtype=np.int32)
+        starts = np.zeros(nt, dtype=np.int32)
+        ends = np.zeros(nt, dtype=np.int32)
+        clause_of = np.zeros(nt, dtype=np.int32)
+        for i, (tile, ps, pe, cl) in enumerate(entries):
+            tile_ids[i] = tile
+            starts[i] = ps
+            ends[i] = pe
+            clause_of[i] = cl
+        cache = norm_inverse_cache(avgdl if doc_count else 1.0, self.params)
+        if not dfield.has_norms:
+            cache = np.full(256, cache[1], dtype=np.float32)
+        arrays = {
+            "tile_ids": tile_ids,
+            "starts": starts,
+            "ends": ends,
+            "clause_of": clause_of,
+            "weight": np.float32(w),
+            "cache": cache,
+        }
+        return nt, arrays
+
+    def _span_near_spec(
+        self, field_name, clause_terms, slop, in_order, end_limit, boost,
+        scoring,
+    ):
+        dfield = self._field_or_none(field_name)
+        if dfield is None:
+            return ("match_none",), {}
+        nt, arrays = self._span_worklist(dfield, clause_terms, boost, scoring)
+        spec = (
+            "span_near",
+            field_name,
+            nt,
+            len(clause_terms),
+            int(slop),
+            bool(in_order),
+            int(end_limit),
+        )
+        return spec, arrays
+
+    def _span_not_spec(self, q, scoring: bool):
+        inc_field, inc_terms, exc_terms = span_not_lists(q.include, q.exclude)
+        dfield = self._field_or_none(inc_field)
+        if dfield is None:
+            return ("match_none",), {}
+        # The exclude clause is OPTIONAL (a shard without the exclude terms
+        # still matches includes, under the same spec) and weightless
+        # (SpanNotQuery scores the included spans only).
+        nt, arrays = self._span_worklist(
+            dfield, [inc_terms, exc_terms], q.boost, scoring,
+            optional_clauses=(1,), weight_clauses=(0,),
+        )
+        spec = ("span_not", inc_field, nt, int(q.pre), int(q.post))
+        return spec, arrays
 
     def _terms_spec(self, dfield, terms, boost, stats, scored=True):
         return _terms_arrays(
@@ -614,10 +934,14 @@ _PAD_FILLS = {
     "weights": 0.0,
     "ub": 0.0,
     "ub_other": 0.0,
+    "shifts": 0,
+    "clause_of": 0,
 }
 
 # Node kinds whose spec[2] is a pow-2 worklist bucket.
-_NT_KINDS = ("terms", "terms_gather", "terms_const")
+_NT_KINDS = (
+    "terms", "terms_gather", "terms_const", "phrase", "span_near", "span_not",
+)
 
 
 def _unify_same(specs: list[tuple], idx: int):

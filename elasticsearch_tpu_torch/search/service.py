@@ -32,7 +32,12 @@ otherwise; ops/ann_device) and, for the micro-batcher's knn groups,
 reduce. `aggs` / `aggregations` (search/aggs.py) run one Aggregator pass
 over the same pinned segment snapshot as the hits pass, which a
 `size: 0` request skips (its totals then come from the agg pass, as
-the reference's do). Left out: CPU-oracle routing (and with it any
+the reference's do). Positional queries (match_phrase,
+match_phrase_prefix, the span family and intervals) need no branch of
+their own: their plans are dense-only `_eval_node` specs, so they run
+through `_query_segment` and the batched query phase (K11 / K12 into
+the score plane, then K3), aggregations, rescore, sorts and cursors as
+any other dense plan does. Left out: CPU-oracle routing (and with it any
 planner decision on the batched path), the filter cache (a batch's mask
 token is always `()`, and the knn filter's admission is not recorded),
 tasks and timeouts, scroll, highlight, fields, profile and the other

@@ -121,7 +121,7 @@ def test_lead_clause_is_chosen_like_reference(compilers):
 
 
 def test_query_types_outside_the_slice_raise_parsing_errors():
-    for body in ({"fuzzy": {"body": "w1"}}, {"match_phrase": {"body": "w1"}},
+    for body in ({"fuzzy": {"body": "w1"}}, {"prefix": {"body": "w1"}},
                  {"nosuch": {}}):
         with pytest.raises(ValueError) as pe:
             parse_query(body)
