@@ -92,6 +92,31 @@ and read just after it.
                  (phrase, near, near-unordered, first, not) at Q = 1 and at
                  the concurrent phase's mean batch against their plain
                  versions
+ 6g. structured  (one-shard corpus, before it is freed; kernel-table row
+                 16b) the corpus gains a Zipf `title` (2-12 tokens, seed
+                 SEED + 9, with positions) and the columns loc (geo_point),
+                 pop, pagerank (rank_feature) and req (default_rng(SEED +
+                 9)): Rally `geonames`' location + population shape; a
+                 nested index `qa` (Rally's `nested` track shape: 1,000,000
+                 parents with a Zipf title, 0-8 nested answers each, ~4 M
+                 nested docs, built vectorized); 112 bodies over HTTP
+                 (default_rng(SEED + 9)): multi_match best_fields /
+                 most_fields / phrase, dis_max, ids (100 each), boosting,
+                 rank_feature (each function, and in bool.should),
+                 bool(match + geo_distance filter), geo_bounding_box (two
+                 across the antimeridian), terms_set (by field and by
+                 script), function_score (every function kind and
+                 score_mode, four boost modes, a min_score, a script
+                 function) and nested on qa (all five score modes, some in
+                 a bool with a parent filter); every answer against the
+                 plain path (K13 / K14 plain included), at least 40 (every
+                 kind) against a numpy oracle written here (ids and totals
+                 exact, scores exact or within 4 ulps where a logarithm,
+                 exp or pow is in them); 64 of them x 4 from 16 clients,
+                 each equal to its sequential answer; then K13 (each join
+                 mode, mark) and K14 (each node kind) at Q = 1 against
+                 their plain versions and bounds (K13 beside
+                 torch.segment_reduce), and at Q > 1 bit for bit
  13. stacked     config 3 as the JAX bench serves it on one device: the 8
                  shards packed to equal shapes (pad_docs_to, field_min_tiles)
                  and stacked, each query compiled per shard with that shard's
@@ -226,20 +251,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 @contextlib.contextmanager
 def plain_kernels():
     """Route bm25_device through the plain PyTorch versions of K1-K4, solo,
-    batched and stacked, K11 and K12, and aggs_device through K10's (on whatever
-    device the tensors are) — the reference runs of the check phases."""
+    batched and stacked, K11, K12, K13 and K14, and aggs_device through
+    K10's (on whatever device the tensors are) — the reference runs of the
+    check phases."""
     from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.ops import tail_kernel
 
     names = ([n + s for n in KERNELS for s in kern.MODES] + list(AGG_KERNELS)
-             + list(PHRASE_SOURCES))
+             + list(PHRASE_SOURCES) + ["doc_join", "doc_mark"])
     saved = {n: getattr(kern, n) for n in names}
+    real_tail = tail_kernel.tail_eval
     try:
         for n in names:
             setattr(kern, n, getattr(kern, n + "_plain"))
+        tail_kernel.tail_eval = tail_kernel.tail_eval_plain
         yield
     finally:
         for n, fn in saved.items():
             setattr(kern, n, fn)
+        tail_kernel.tail_eval = real_tail
 
 
 @contextlib.contextmanager
@@ -468,11 +498,15 @@ def run() -> dict:
     f3 = f1.copy()
     f3[::10] = np.nan
     segment.doc_values.update(f1=f1, f2=f2, f3=f3)
+    # Phase `structured`'s fields: title (with positions), loc, pop,
+    # pagerank and req.
+    title_s = structured_fields(segment)
     gen_s = time.monotonic() - t0
     node = Node(device=DEVICE)
     node.create_index("msmarco", {"mappings": {"properties": {
         "body": {"type": "text"}, "f1": {"type": "float"},
-        "f2": {"type": "float"}, "f3": {"type": "float"}}}})
+        "f2": {"type": "float"}, "f3": {"type": "float"},
+        **STRUCTURED_MAPPINGS}}})
     svc = node.indices["msmarco"]
     t1 = time.monotonic()
     handle = svc.engine._install_segment(segment)
@@ -677,6 +711,8 @@ def run() -> dict:
     kernel_rows_aggs_full(seg_tree, dev, rows)
     single["phrase"] = run_phrase(card, dev, node, seg_tree, compiler,
                                   segment, stream, launches, rows)
+    single["structured"] = run_structured(card, dev, node, segment, title_s,
+                                          launches, rows)
     single["max_memory_allocated_bytes"] = int(torch.cuda.max_memory_allocated())
     log(f"  one-shard phases: peak device memory "
         f"{single['max_memory_allocated_bytes']} B [{card}]")
@@ -3685,6 +3721,902 @@ def kernel_rows_phrase(seg_tree, compiler, named, dev, q, rows):
     torch.cuda.synchronize()
     log(f"  phrase kernels: K11 / K12 bit-equal to their plain versions in "
         f"every mode at Q = 1 and Q = {q}")
+
+
+# ---------------------------------------------------------------------------
+# Phase `structured`: the structured query tail (kernel-table row 16b),
+# K13 doc_join and K14 tail_eval
+# ---------------------------------------------------------------------------
+
+STRUCT_SOURCES = {
+    "doc_join": "elasticsearch_tpu_torch/csrc/doc_join.cu",
+    "tail_eval": "elasticsearch_tpu_torch/ops/tail_kernel.py",
+}
+JOIN_MODES = ("none", "sum", "avg", "max", "min")
+TAIL_KINDS = ("function_score", "geo_distance", "geo_box", "rank_feature",
+              "dismax", "boosting", "terms_set")
+N_QA = 1_000_000  # Rally `nested` track's shape: questions with answers
+STRUCT_CONC = 64  # bodies of the concurrent run (x 4, from 16 clients)
+ORACLE_PER_SHAPE = 6  # bodies of a shape held to the numpy oracle
+TERMS_SET_SCRIPT = "Math.min(params.num_terms, doc['req'].value)"
+FS_SCRIPT = "_score * params.a + doc['req'].value"
+
+
+def structured_fields(segment):
+    """The cfg2 corpus's new fields (phase `structured`): a Zipf `title` of
+    2-12 tokens (with its positions) and the columns loc (geo_point), pop,
+    pagerank and req, drawn from default_rng(SEED + 9) — Rally `geonames`'
+    location + population shape over the same 8,841,823 docs."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.utils.corpus import build_zipf_segment
+
+    t0 = time.monotonic()
+    _m, tseg = build_zipf_segment(N_DOCS, seed=SEED + 9, min_len=2,
+                                  max_len=12, field="title")
+    title = tseg.fields["title"]
+    TokenStream(N_DOCS, SEED + 9, min_len=2, max_len=12).add_positions(title)
+    segment.fields["title"] = title
+    rng = np.random.default_rng(SEED + 9)
+    segment.doc_values["loc.lat"] = rng.uniform(-60, 70, N_DOCS).astype(np.float32)
+    segment.doc_values["loc.lon"] = rng.uniform(-180, 180, N_DOCS).astype(np.float32)
+    segment.doc_values["pop"] = rng.lognormal(8.0, 2.0, N_DOCS).astype(np.float32)
+    segment.doc_values["pagerank"] = rng.lognormal(0.0, 1.0, N_DOCS).astype(np.float32)
+    segment.doc_values["req"] = rng.integers(1, 4, N_DOCS).astype(np.float32)
+    return time.monotonic() - t0
+
+
+STRUCTURED_MAPPINGS = {
+    "title": {"type": "text"}, "loc": {"type": "geo_point"},
+    "pop": {"type": "float"}, "pagerank": {"type": "rank_feature"},
+    "req": {"type": "integer"},
+}
+
+
+def build_qa(node):
+    """Index `qa` (Rally's `nested` track shape, StackOverflow questions
+    with nested answers; `reduced`: synthetic Zipf text): 1,000,000
+    parents with a Zipf title of 4-16 tokens, 0-8 nested `answers` each
+    (body Zipf of 8-40 tokens, votes a long), built vectorized: the inner
+    segment is one build_zipf_segment call and parent_of = repeat(arange(N),
+    counts). Returns (parent segment, seconds, device bytes)."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.index.segment import NestedBlock
+    from elasticsearch_tpu_torch.index.tiles import device_nbytes
+    from elasticsearch_tpu_torch.utils.corpus import build_zipf_segment
+
+    t0 = time.monotonic()
+    rng = np.random.default_rng(SEED + 10)
+    counts = rng.integers(0, 9, N_QA)
+    _m, seg = build_zipf_segment(N_QA, seed=SEED + 10, min_len=4, max_len=16,
+                                 field="title")
+    nn = int(counts.sum())
+    _m, inner = build_zipf_segment(nn, seed=SEED + 11, min_len=8, max_len=40,
+                                   field="answers.body")
+    inner.doc_values["answers.votes"] = rng.integers(-5, 200, nn).astype(np.float64)
+    seg.nested = {"answers": NestedBlock(
+        seg=inner, parent_of=np.repeat(np.arange(N_QA, dtype=np.int32), counts))}
+    build_s = time.monotonic() - t0
+    node.create_index("qa", {"mappings": {"properties": {
+        "title": {"type": "text"},
+        "answers": {"type": "nested", "properties": {
+            "body": {"type": "text"}, "votes": {"type": "long"}}}}}})
+    t1 = time.monotonic()
+    handle = node.indices["qa"].engine._install_segment(seg)
+    torch.cuda.synchronize()
+    return seg, handle, build_s, time.monotonic() - t1, device_nbytes(handle.device)
+
+
+def _mid_terms(fld):
+    by_df = sorted(fld.terms, key=lambda t: -fld.df[fld.terms[t]])
+    return by_df[:len(by_df) // 100 or 1], by_df[len(by_df) // 100: len(by_df) // 4]
+
+
+def _structured_bodies(segment, qa_seg):
+    """The phase's traffic, drawn from default_rng(SEED + 9): (shape, index,
+    body) triples, 112 in all."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 9)
+    t_head, t_mid = _mid_terms(segment.fields["title"])
+    b_head, b_mid = _mid_terms(segment.fields["body"])
+    _a, a_mid = _mid_terms(qa_seg.nested["answers"].seg.fields["answers.body"])
+    qt_head, _q = _mid_terms(qa_seg.fields["title"])
+
+    def words(pool, k):
+        return " ".join(str(w) for w in rng.choice(pool, k, replace=False))
+
+    def body(q):
+        return {"query": q, "size": TOP_K}
+
+    out = []
+    for _ in range(16):
+        out.append(("multi_match_best", "msmarco", body({"multi_match": {
+            "query": words(t_mid, int(rng.integers(2, 5))),
+            "fields": ["title^2", "body"], "tie_breaker": 0.3}})))
+    for _ in range(8):
+        out.append(("multi_match_most", "msmarco", body({"multi_match": {
+            "query": words(t_mid, int(rng.integers(2, 4))),
+            "fields": ["title^2", "body"], "type": "most_fields"}})))
+    for _ in range(4):
+        out.append(("multi_match_phrase", "msmarco", body({"multi_match": {
+            "query": words(t_head, 2), "fields": ["title^2", "body"],
+            "type": "phrase"}})))
+    for _ in range(8):
+        out.append(("dis_max", "msmarco", body({"dis_max": {"queries": [
+            {"match": {"title": words(t_mid, 2)}},
+            {"term": {"body": words(b_mid, 1)}}], "tie_breaker": 0.2}})))
+    for _ in range(8):
+        ids = [f"d{int(i)}" for i in rng.choice(N_DOCS, 100, replace=False)]
+        out.append(("ids", "msmarco", body({"ids": {"values": ids}})))
+    for _ in range(8):
+        out.append(("boosting", "msmarco", body({"boosting": {
+            "positive": {"match": {"body": words(b_mid, 2)}},
+            "negative": {"term": {"title": words(t_head, 1)}},
+            "negative_boost": 0.3}})))
+    rank_fns = [{"saturation": {"pivot": 1.5}}, {"log": {"scaling_factor": 2.0}},
+                {"sigmoid": {"pivot": 1.0, "exponent": 0.6}}]
+    for i in range(8):
+        rf = {"rank_feature": {"field": "pagerank", **rank_fns[i % 3]}}
+        if i >= 6:
+            rf = {"bool": {"should": [{"match": {"body": words(b_mid, 2)}}, rf]}}
+        out.append(("rank_feature", "msmarco", body(rf)))
+    for _ in range(8):
+        km = float(rng.uniform(10, 500))
+        out.append(("geo_distance", "msmarco", body({"bool": {
+            "must": [{"match": {"body": words(b_head, 2)}}],
+            "filter": [{"geo_distance": {
+                "distance": f"{km:.1f}km",
+                "loc": {"lat": float(rng.uniform(-50, 60)),
+                        "lon": float(rng.uniform(-170, 170))}}}]}})))
+    for i in range(4):
+        if i < 2:
+            left = float(rng.uniform(-170, 150))
+            box = {"top": 10.0 + i, "left": left, "bottom": -10.0 - i,
+                   "right": left + 3.0}
+        else:
+            box = {"top": 5.0 + i, "left": 178.5, "bottom": -5.0 - i,
+                   "right": -178.0}
+        out.append(("geo_bounding_box", "msmarco", body({"geo_bounding_box": {
+            "loc": box}})))
+    for i in range(8):
+        terms = [str(t) for t in rng.choice(b_head[:40], 4, replace=False)]
+        msm = ({"minimum_should_match_field": "req"} if i < 4 else
+               {"minimum_should_match_script": {"source": TERMS_SET_SCRIPT}})
+        out.append(("terms_set", "msmarco", body({"terms_set": {"body": {
+            "terms": terms, **msm}}})))
+    score_modes = ("multiply", "sum", "avg", "first", "max", "min")
+    boost_modes = ("multiply", "sum", "replace", "max")
+    fns = [
+        {"filter": {"term": {"title": str(t_head[0])}}, "weight": 2.0},
+        {"field_value_factor": {"field": "pop", "modifier": "log1p",
+                                "factor": 0.5}},
+        {"random_score": {"seed": 7}},
+        {"gauss": {"pop": {"origin": 3000.0, "scale": 1500.0,
+                           "decay": 0.5}}},
+        {"linear": {"req": {"origin": 1, "scale": 2, "decay": 0.4}},
+         "weight": 1.5},
+        {"field_value_factor": {"field": "pagerank", "modifier": "sqrt"}},
+        {"exp": {"pagerank": {"origin": 0.0, "scale": 2.0, "offset": 0.5}}},
+        {"script_score": {"script": {"source": FS_SCRIPT,
+                                     "params": {"a": 0.25}}}},
+    ]
+    for i in range(16):
+        chosen = [fns[i % 8], fns[(i + 3) % 8]] if i < 12 else [fns[i % 8]]
+        fs = {"query": {"match": {"body": words(b_mid, 2)}},
+              "functions": chosen, "score_mode": score_modes[i % 6],
+              "boost_mode": boost_modes[i % 4]}
+        if i == 13:
+            fs["min_score"] = 1.0
+        out.append(("function_score", "msmarco", body({"function_score": fs})))
+    for i in range(16):
+        nq = {"nested": {"path": "answers", "score_mode": JOIN_MODES[i % 5],
+                         "query": {"match": {"answers.body": words(
+                             a_mid, int(rng.integers(1, 4)))}}}}
+        if i >= 10:
+            nq = {"bool": {"must": [nq], "filter": [
+                {"term": {"title": str(rng.choice(qt_head))}}]}}
+        out.append(("nested", "qa", body(nq)))
+    return out
+
+
+# -- the numpy oracle, written from the reference's formulas --------------
+
+def _np_weight(fld, term, boost):
+    """Lucene's fp32 BM25 weight of a term from its formulas:
+    f32(f32(boost) * f32(k1 + 1)) * f32(idf), idf in float64."""
+    import numpy as np
+
+    df = float(fld.df[fld.terms[term]])
+    idf = np.float32(np.log(1.0 + (fld.doc_count - df + 0.5) / (df + 0.5)))
+    return np.float32(np.float32(np.float32(boost) * np.float32(2.2)) * idf)
+
+
+def _np_terms(fld, terms, n, boost=1.0):
+    """A disjunction of terms in numpy: (scores f32[n], matched bool[n],
+    per-term matched list), the contributions w - w / (1 + tf * ninv)
+    folded term by term in query order."""
+    import numpy as np
+
+    ninv = _norm_inverse(fld.sum_total_tf / fld.doc_count)
+    scores = np.zeros(n, dtype=np.float32)
+    matched = np.zeros(n, dtype=bool)
+    per_term = []
+    for term in terms:
+        m = np.zeros(n, dtype=bool)
+        tid = fld.terms.get(term)
+        if tid is not None:
+            lo, hi = int(fld.offsets[tid]), int(fld.offsets[tid + 1])
+            docs = fld.doc_ids[lo:hi]
+            w = _np_weight(fld, term, boost)
+            tn = (fld.tfs[lo:hi] * ninv[fld.norm_bytes[docs]]).astype(np.float32)
+            scores[docs] = (scores[docs] + (w - w / (np.float32(1.0) + tn))
+                            ).astype(np.float32)
+            m[docs] = True
+        matched |= m
+        per_term.append(m)
+    return scores, matched, per_term
+
+
+def _np_dismax(parts, tie, boost=1.0):
+    import numpy as np
+
+    best = np.zeros_like(parts[0][0])
+    total = np.zeros_like(parts[0][0])
+    matched = np.zeros(len(best), dtype=bool)
+    for s, m in parts:
+        s = np.where(m, s, np.float32(0.0)).astype(np.float32)
+        best = np.maximum(best, s)
+        total = (total + s).astype(np.float32)
+        matched |= m
+    scores = (best + np.float32(tie) * (total - best)).astype(np.float32)
+    return np.where(matched, scores * np.float32(boost), np.float32(0.0)), matched
+
+
+def _np_haversine(lat, lon, qlat, qlon):
+    """The reference's `_haversine_m` term for term, in float32 numpy."""
+    import numpy as np
+
+    f = np.float32
+    rad = f(0.017453292519943295)
+    phi1, phi2 = lat * rad, f(qlat) * rad
+    dphi = (f(qlat) - lat) * rad
+    dlmb = (f(qlon) - lon) * rad
+    s1, s2 = np.sin(dphi / f(2)), np.sin(dlmb / f(2))
+    a = s1 * s1 + np.cos(phi1) * np.cos(phi2) * s2 * s2
+    return f(6371008.7714 * 2) * np.arctan2(np.sqrt(a), np.sqrt(f(1) - a))
+
+
+def _np_function(fn, child, dv, n):
+    """One score function's raw value (un-weighted), numpy float32."""
+    import math
+
+    import numpy as np
+
+    f = np.float32
+    if "field_value_factor" in fn:
+        spec = fn["field_value_factor"]
+        col = dv[spec["field"]]
+        v = f(spec.get("factor", 1.0)) * np.where(np.isnan(col), f(1), col)
+        mod = spec.get("modifier", "none")
+        return {"none": v, "log1p": np.log10(v + f(1)),
+                "sqrt": np.sqrt(v)}[mod].astype(np.float32)
+    if "random_score" in fn:
+        x = (np.arange(n, dtype=np.uint32) + np.uint32(fn["random_score"]["seed"])
+             ) * np.uint32(2654435761)
+        x = x ^ (x >> np.uint32(16))
+        x = x * np.uint32(2246822519)
+        x = x ^ (x >> np.uint32(13))
+        return (x >> np.uint32(8)).astype(np.float32) * f(1.0 / (1 << 24))
+    for kind in ("gauss", "exp", "linear"):
+        if kind in fn:
+            (field, spec), = fn[kind].items()
+            scale, decay = float(spec["scale"]), float(spec.get("decay", 0.5))
+            const = {"gauss": math.log(decay) / (scale * scale),
+                     "exp": math.log(decay) / scale,
+                     "linear": scale / (1.0 - decay)}[kind]
+            col = dv[field]
+            d = np.maximum(f(0), np.abs(col - f(spec.get("origin", 0.0)))
+                           - f(spec.get("offset", 0.0)))
+            c = f(const)
+            if kind in ("gauss", "exp"):
+                v = np.exp(c * d * d if kind == "gauss" else c * d)
+                # the reference's (XLA's CPU) exp gives +0.0 for a
+                # subnormal result
+                v = np.where(v < np.finfo(np.float32).tiny, f(0), v)
+            else:
+                v = np.maximum(f(0), (c - d) / c)
+            return np.where(np.isnan(col), f(1), v).astype(np.float32)
+    if "script_score" in fn:
+        a = f(fn["script_score"]["script"]["params"]["a"])
+        return (child * a + dv["req"]).astype(np.float32)
+    return np.ones(n, dtype=np.float32)  # weight
+
+
+def _np_function_score(fs, child, matched, dv, title_fld, n):
+    """FunctionScoreQuery's combine in numpy (score_mode, boost_mode,
+    max_boost = FLT_MAX, boost 1, min_score)."""
+    import numpy as np
+
+    f = np.float32
+    values, applies, weights = [], [], []
+    for fn in fs["functions"]:
+        w = f(fn.get("weight", 1.0))
+        values.append((w * _np_function(fn, child, dv, n)).astype(np.float32))
+        a = matched
+        if "filter" in fn:
+            term = fn["filter"]["term"]["title"]
+            _s, fm, _p = _np_terms(title_fld, [term], n)
+            a = matched & fm
+        applies.append(a)
+        weights.append(w)
+    any_a = np.zeros(n, dtype=bool)
+    for a in applies:
+        any_a |= a
+    mode = fs["score_mode"]
+    if mode == "multiply":
+        factor = np.ones(n, dtype=np.float32)
+        for a, v in zip(applies, values):
+            factor = (factor * np.where(a, v, f(1))).astype(np.float32)
+    elif mode in ("sum", "avg"):
+        total = np.zeros(n, dtype=np.float32)
+        wsum = np.zeros(n, dtype=np.float32)
+        for a, v, w in zip(applies, values, weights):
+            total = (total + np.where(a, v, f(0))).astype(np.float32)
+            wsum = (wsum + np.where(a, w, f(0))).astype(np.float32)
+        if mode == "sum":
+            factor = np.where(any_a, total, f(1))
+        else:
+            denom = np.where(wsum != 0, wsum, f(1))
+            factor = np.where(wsum != 0, total / denom, f(1))
+    elif mode == "first":
+        factor = np.ones(n, dtype=np.float32)
+        taken = np.zeros(n, dtype=bool)
+        for a, v in zip(applies, values):
+            factor = np.where(a & ~taken, v, factor)
+            taken |= a
+    else:
+        op = np.maximum if mode == "max" else np.minimum
+        best = np.full(n, f(-np.inf if mode == "max" else np.inf))
+        for a, v in zip(applies, values):
+            best = op(best, np.where(a, v, best.dtype.type(
+                -np.inf if mode == "max" else np.inf)))
+        factor = np.where(any_a, best, f(1))
+    factor = np.minimum(factor, f(3.4028235e38)).astype(np.float32)  # max_boost
+    bm = fs["boost_mode"]
+    scores = {"multiply": lambda: child * factor, "sum": lambda: child + factor,
+              "replace": lambda: factor,
+              "max": lambda: np.maximum(child, factor)}[bm]().astype(np.float32)
+    scores = np.where(matched, scores * f(1), f(0)).astype(np.float32)
+    if "min_score" in fs:
+        matched = matched & (scores >= f(fs["min_score"]))
+        scores = np.where(matched, scores, f(0)).astype(np.float32)
+    return scores, matched
+
+
+def _np_nested(q, qa_seg):
+    """nested in numpy: the inner match, then each parent's matched
+    children folded in ascending order (sum / avg / max / min / none)."""
+    import numpy as np
+
+    blk = qa_seg.nested["answers"]
+    inner = blk.seg
+    nn = inner.num_docs
+    text = q["query"]["match"]["answers.body"]
+    cs, cm, _p = _np_terms(inner.fields["answers.body"], text.split(), nn)
+    mode = q["score_mode"]
+    parent = blk.parent_of[cm]
+    vals = cs[cm]
+    n = qa_seg.num_docs
+    matched = np.zeros(n, dtype=bool)
+    matched[parent] = True
+    if mode == "none":
+        return np.zeros(n, dtype=np.float32), matched
+    # rank of each matched child within its parent (children ascending)
+    first = np.searchsorted(parent, parent, side="left")
+    rank = np.arange(len(parent)) - first
+    acc = np.full(n, np.float32(-np.inf) if mode in ("max", "min")
+                  else np.float32(0.0), dtype=np.float32)
+    count = np.zeros(n, dtype=np.float32)
+    for r in range(int(rank.max()) + 1 if len(rank) else 0):
+        sel = rank == r
+        p, v = parent[sel], vals[sel]
+        if mode in ("max", "min"):
+            acc[p] = np.maximum(acc[p], v if mode == "max" else -v)
+        else:
+            acc[p] = (acc[p] + v).astype(np.float32)
+            count[p] += np.float32(1.0)
+    if mode == "avg":
+        acc = (acc / np.maximum(count, np.float32(1.0))).astype(np.float32)
+    elif mode == "min":
+        acc = -acc
+    return np.where(matched, acc * np.float32(1.0), np.float32(0.0)), matched
+
+
+def structured_oracle(shape, index, body, segment, qa_seg):
+    """(scores f32[n], matched bool[n], ulps, live) of a body in numpy, or
+    None where the oracle does not cover the body (multi_match phrase,
+    nested inside a bool: the plain path holds those)."""
+    import numpy as np
+
+    q = body["query"]
+    n = segment.num_docs
+    title, fbody = segment.fields.get("title"), segment.fields.get("body")
+    dv = segment.doc_values
+    f = np.float32
+    if shape in ("multi_match_best", "multi_match_most"):
+        words = q["multi_match"]["query"].split()
+        st, mt, _ = _np_terms(title, words, n, 2.0)
+        sb, mb, _ = _np_terms(fbody, words, n)
+        if shape == "multi_match_most":
+            s = ((f(0) + st) + sb).astype(np.float32)
+            m = mt | mb
+            return np.where(m, s * f(1), f(0)), m, 0
+        s, m = _np_dismax([(st, mt), (sb, mb)], 0.3)
+        return s, m, 0
+    if shape == "dis_max":
+        a, b = q["dis_max"]["queries"]
+        st, mt, _ = _np_terms(title, a["match"]["title"].split(), n)
+        sb, mb, _ = _np_terms(fbody, [b["term"]["body"]], n)
+        s, m = _np_dismax([(st, mt), (sb, mb)], 0.2)
+        return s, m, 0
+    if shape == "ids":
+        m = np.zeros(n, dtype=bool)
+        m[[int(v[1:]) for v in q["ids"]["values"]]] = True
+        return np.where(m, f(1), f(0)), m, 0
+    if shape == "boosting":
+        bq = q["boosting"]
+        ps, pm, _ = _np_terms(fbody, bq["positive"]["match"]["body"].split(), n)
+        _s, nm, _ = _np_terms(title, [bq["negative"]["term"]["title"]], n)
+        factor = np.where(nm, f(bq["negative_boost"]), f(1))
+        return np.where(pm, ps * factor * f(1), f(0)), pm, 0
+    if shape == "rank_feature":
+        rf = q.get("rank_feature")
+        extra = None
+        if rf is None:
+            match, rf = q["bool"]["should"][0], q["bool"]["should"][1]["rank_feature"]
+            extra = _np_terms(fbody, match["match"]["body"].split(), n)
+        col = dv["pagerank"].astype(np.float32)
+        m = ~np.isnan(col)
+        v = np.where(m, col, f(0))
+        ulps = 0
+        if "saturation" in rf:
+            s = v / (v + f(rf["saturation"]["pivot"]))
+        elif "log" in rf:
+            s, ulps = np.log(f(rf["log"]["scaling_factor"]) + v), 4
+        else:
+            e = float(np.float32(rf["sigmoid"]["exponent"]))
+            ve = (v.astype(np.float64) ** e).astype(np.float32)
+            pe = np.float32(float(np.float32(rf["sigmoid"]["pivot"])) ** e)
+            s, ulps = ve / (ve + pe), 4
+        s = np.where(m, f(1) * s, f(0)).astype(np.float32)
+        if extra is None:
+            return s, m, ulps
+        sm, mm, _ = extra
+        score = ((f(0) + np.where(mm, sm, f(0))) + s).astype(np.float32)
+        any_m = mm | m
+        return np.where(any_m, score * f(1), f(0)), any_m, ulps
+    if shape == "geo_distance":
+        must = q["bool"]["must"][0]["match"]["body"].split()
+        gd = dict(q["bool"]["filter"][0]["geo_distance"])
+        radius = f(float(gd.pop("distance")[:-2]) * 1000.0)
+        (_fld, point), = gd.items()
+        sm, mm, _ = _np_terms(fbody, must, n)
+        d = _np_haversine(dv["loc.lat"], dv["loc.lon"], point["lat"], point["lon"])
+        m = mm & ~np.isnan(dv["loc.lat"]) & (d <= radius)
+        return np.where(m, (f(0) + sm) * f(1), f(0)), m, 0
+    if shape == "geo_bounding_box":
+        box = q["geo_bounding_box"]["loc"]
+        lat, lon = dv["loc.lat"], dv["loc.lon"]
+        top, bottom = f(box["top"]), f(box["bottom"])
+        left, right = f(box["left"]), f(box["right"])
+        in_lon = ((lon >= left) | (lon <= right)) if left > right else (
+            (lon >= left) & (lon <= right))
+        m = ~np.isnan(lat) & (lat <= top) & (lat >= bottom) & in_lon
+        return np.where(m, f(1), f(0)), m, 0
+    if shape == "terms_set":
+        ts = q["terms_set"]["body"]
+        s, _m, per_term = _np_terms(fbody, ts["terms"], n)
+        count = np.zeros(n, dtype=np.float32)
+        for m in per_term:
+            count = count + m.astype(np.float32)
+        req = dv["req"].astype(np.float32)
+        if "minimum_should_match_script" in ts:
+            req = np.minimum(f(len(ts["terms"])), req)
+        required = np.maximum(req, f(1))
+        m = count >= required
+        return np.where(m, s * f(1), f(0)), m, 0
+    if shape == "function_score":
+        fs = q["function_score"]
+        child, cm, _ = _np_terms(fbody, fs["query"]["match"]["body"].split(), n)
+        ulps = 4 if any(k in fn for fn in fs["functions"]
+                        for k in ("gauss", "exp", "field_value_factor")) else 0
+        s, m = _np_function_score(fs, child, cm, dv, title, n)
+        return s, m, ulps
+    if shape == "nested" and "nested" in q:
+        s, m = _np_nested(q["nested"], qa_seg)
+        return s, m, 0
+    return None
+
+
+def _oracle_page(scores, matched, ids_of, k=TOP_K):
+    import numpy as np
+
+    docs = np.flatnonzero(matched)
+    order = np.lexsort((docs, -scores[docs]))[:k]
+    return [ids_of(int(d)) for d in docs[order]], scores[docs[order]], len(docs)
+
+
+def _structured_plain(compiler_of, triples):
+    """Each body on the plain path (every kernel's plain version, K13 and
+    K14 included) over the same card tensors: (ids, scores, total)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    out = []
+    with plain_kernels():
+        for _shape, index, body in triples:
+            compiler, seg_tree, segment = compiler_of[index]
+            c = compiler.compile(parse_query(body["query"]))
+            plan = bm25_device.plan_to_torch(c.spec, c.arrays, seg_tree["live"].device)
+            s, i, t = bm25_device.execute_auto(seg_tree, c.spec, plan, TOP_K)
+            s, i, t = s.cpu().numpy(), i.cpu().numpy(), int(t.cpu())
+            k = min(TOP_K, t, len(i))
+            out.append(([segment.ids[int(d)] for d in i[:k]], s[:k], t))
+    torch.cuda.synchronize()
+    return out
+
+
+def run_structured(card, dev, node, segment, title_s, launches, rows) -> dict:
+    """Phase `structured`: the structured tail over HTTP on cfg2's corpus
+    (title, loc, pop, pagerank, req added) and on the nested `qa` index:
+    112 bodies sequentially (each shape warmed once), each against the
+    plain path on the card and, where the oracle covers it, a numpy oracle;
+    then 64 of them x 4 from 16 clients through the batcher; then K13 and
+    K14 rows at Q = 1 and their checks at Q > 1."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    t_phase = time.monotonic()
+    qa_seg, qa_handle, qa_build_s, qa_pack_s, qa_bytes = build_qa(node)
+    log(f"  structured: qa built in {qa_build_s:.1f} s ({qa_seg.num_docs} "
+        f"parents, {qa_seg.nested['answers'].seg.num_docs} nested answers), "
+        f"pack+upload {qa_pack_s:.1f} s, device bytes {qa_bytes} [{card}]")
+    svc = node.indices["msmarco"]
+    handle = svc.engine.segments[0]
+    added = 0
+    for name in STRUCTURED_MAPPINGS:
+        for col in (name, name + ".lat", name + ".lon"):
+            if col in handle.device.doc_values:
+                added += handle.device.doc_values[col].nbytes
+    tf = handle.device.fields["title"]
+    added += sum(t.nbytes for t in (tf.doc_ids, tf.tn, tf.tfs, tf.norm_bytes,
+                                    tf.present, tf.pos_doc, tf.pos_val))
+    triples = _structured_bodies(segment, qa_seg)
+    shapes = [s for s, _i, _b in triples]
+    node.exec_batcher.close()
+    node.exec_batcher = type(node.exec_batcher)()
+    server, base = serve(node)
+    try:
+        first_ms = {}
+        for shape, index, body in triples:
+            if shape not in first_ms:
+                t0 = time.monotonic()
+                http(base, "POST", f"/{index}/_search", body)
+                first_ms[shape] = (time.monotonic() - t0) * 1e3
+        latencies, responses = [], []
+        with counted("structured", launches):
+            t_all = time.monotonic()
+            for _shape, index, body in triples:
+                t0 = time.monotonic()
+                responses.append(http(base, "POST", f"/{index}/_search", body))
+                latencies.append((time.monotonic() - t0) * 1e3)
+            wall_s = time.monotonic() - t_all
+    finally:
+        server.shutdown()
+        server.server_close()
+    log(f"  structured: first request of each shape (untimed warm-up), ms: "
+        f"{json.dumps(first_ms)}")
+    for name in [f"doc_join_{m}" for m in JOIN_MODES] + ["doc_mark"] + [
+            f"tail_eval_{k}" for k in TAIL_KINDS]:
+        if launches.get(name, 0) < 1:
+            raise SmokeFailure(f"structured traffic never launched {name}")
+
+    compiler_of = {
+        "msmarco": (svc.engine.compiler_for(handle),
+                    bm25_device.segment_tree(handle.device), segment),
+        "qa": (node.indices["qa"].engine.compiler_for(qa_handle),
+               bm25_device.segment_tree(qa_handle.device), qa_seg),
+    }
+    # Device ms (CUDA events) and host plan ms per body.
+    exec_ms, plan_ms = [], []
+    for _shape, index, body in triples:
+        compiler, seg_tree, _seg = compiler_of[index]
+        t0 = time.perf_counter()
+        c = compiler.compile(parse_query(body["query"]))
+        plan = bm25_device.plan_to_torch(c.spec, c.arrays, dev)
+        torch.cuda.synchronize()
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        bm25_device.execute_auto(seg_tree, c.spec, plan, TOP_K)
+        ev1.record()
+        torch.cuda.synchronize()
+        exec_ms.append(ev0.elapsed_time(ev1))
+    # Every body against the plain path on the card.
+    vs_plain = 0
+    for (shape, _i, _b), out, (ids, scores, total) in zip(
+            triples, responses, _structured_plain(compiler_of, triples)):
+        if not same_hits(out, ids, scores, total):
+            vs_plain += 1
+            log(f"  MISMATCH structured plain {shape}")
+    # The numpy oracle where it covers the body.
+    vs_oracle, n_oracle, kinds_checked, per_shape = 0, 0, set(), {}
+    t0 = time.monotonic()
+    for (shape, index, body), out in zip(triples, responses):
+        if per_shape.get(shape, 0) >= ORACLE_PER_SHAPE:
+            continue
+        seg = segment if index == "msmarco" else qa_seg
+        got = structured_oracle(shape, index, body, seg, qa_seg)
+        if got is None:
+            continue
+        scores, matched, ulps = got
+        ids, o_scores, total = _oracle_page(scores, matched,
+                                            lambda d, s=seg: s.ids[d])
+        n_oracle += 1
+        per_shape[shape] = per_shape.get(shape, 0) + 1
+        kinds_checked.add(shape)
+        hits = out["hits"]["hits"]
+        ok = out["hits"]["total"]["value"] == min(total, 10_000)
+        if ulps:
+            ok = ok and ranked_match([int(h["_id"][1:]) for h in hits],
+                                     [h["_score"] for h in hits],
+                                     [int(i[1:]) for i in ids], o_scores, ulps)
+        else:
+            ok = ok and same_hits(out, ids, o_scores, total)
+        if not ok:
+            vs_oracle += 1
+            log(f"  MISMATCH structured oracle {shape} {json.dumps(body)[:300]}")
+    oracle_s = time.monotonic() - t0
+    if n_oracle < 40 or len(kinds_checked) < 11:
+        raise SmokeFailure(f"the oracle covered {n_oracle} bodies of "
+                           f"{sorted(kinds_checked)}")
+
+    # Concurrent: 64 bodies (every shape) x 4, shuffled, from 16 clients.
+    pick = np.random.default_rng(SEED + 9).permutation(len(triples))[:STRUCT_CONC]
+    order = np.random.default_rng(SEED + 10).permutation(np.tile(pick, 4))
+    node.exec_batcher.close()
+    node.exec_batcher = type(node.exec_batcher)()
+    server, base = serve(node)
+    conc_lat = [0.0] * len(order)
+    conc_out: list = [None] * len(order)
+    errors: list = []
+    barrier = threading.Barrier(N_CLIENTS)
+
+    def client(cl):
+        barrier.wait()
+        for j in range(cl, len(order), N_CLIENTS):
+            _s, index, body = triples[int(order[j])]
+            try:
+                t0 = time.monotonic()
+                conc_out[j] = http(base, "POST", f"/{index}/_search", body)
+                conc_lat[j] = (time.monotonic() - t0) * 1e3
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+    before = dict(launches)
+    try:
+        with counted("structured concurrent", launches):
+            threads = [threading.Thread(target=client, args=(cl,))
+                       for cl in range(N_CLIENTS)]
+            t0 = time.monotonic()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            c_wall = time.monotonic() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+    if errors:
+        raise SmokeFailure(f"structured concurrent requests failed: {errors[:3]}")
+    batcher = node.exec_batcher.stats()
+    vs_seq = sum(without_took(conc_out[j]) != without_took(responses[int(i)])
+                 for j, i in enumerate(order))
+    struct_launch = {k: launches.get(k, 0) - before.get(k, 0)
+                     for k in launches if k.startswith(("doc_", "tail_eval_"))}
+    solo_launch = {}
+    for j in order:
+        for k in _kernels_of(*triples[int(j)][::2]):
+            solo_launch[k] = solo_launch.get(k, 0) + 1
+    rows_per_launch = {k: solo_launch[k] / max(1, struct_launch.get(k, 0))
+                       for k in solo_launch}
+
+    by_shape: dict = {}
+    for i, shape in enumerate(shapes):
+        by_shape.setdefault(shape, []).append(i)
+    stats = {
+        "requests": len(triples),
+        "p50_ms": percentile(latencies, 50),
+        "p99_ms": percentile(latencies, 99),
+        "qps_sequential": len(triples) / wall_s,
+        "per_shape": {
+            k: {"p50_ms": percentile([latencies[i] for i in v], 50),
+                "p99_ms": percentile([latencies[i] for i in v], 99),
+                "device_ms_p50": percentile([exec_ms[i] for i in v], 50),
+                "host_plan_ms_p50": percentile([plan_ms[i] for i in v], 50)}
+            for k, v in by_shape.items()},
+        "title_and_columns_build_s": title_s,
+        "title_and_columns_device_bytes": int(added),
+        "qa_build_s": qa_build_s,
+        "qa_pack_s": qa_pack_s,
+        "qa_device_bytes": int(qa_bytes),
+        "qa_nested_docs": int(qa_seg.nested["answers"].seg.num_docs),
+        "matched_total": sum(o["hits"]["total"]["value"] for o in responses),
+        "oracle_bodies": n_oracle,
+        "oracle_kinds": sorted(kinds_checked),
+        "oracle_s": oracle_s,
+        "concurrent": {
+            "requests": len(order),
+            "qps": len(order) / c_wall,
+            "p50_ms": percentile(conc_lat, 50),
+            "p99_ms": percentile(conc_lat, 99),
+            "batcher": batcher,
+            "launches": struct_launch,
+            "rows_per_launch": rows_per_launch,
+        },
+        "mismatches_vs_plain": vs_plain,
+        "mismatches_vs_oracle": vs_oracle,
+        "mismatches_vs_sequential": vs_seq,
+    }
+    bad = vs_plain + vs_oracle + vs_seq
+    log(f"phase structured: {'ok' if bad == 0 else 'FAILED'} {json.dumps(stats)} "
+        f"[{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} structured mismatches")
+    q = max(2, round(max(rows_per_launch.values())))
+    kernel_rows_structured(compiler_of, triples, dev, q, rows)
+    node.delete_index("qa")
+    stats["kernel_rows_q"] = q
+    stats["phase_s"] = time.monotonic() - t_phase
+    log(f"  structured: phase {stats['phase_s']:.1f} s (title and columns "
+        f"{title_s:.1f} s more, at corpus time) [{card}]")
+    return stats
+
+
+def _kernels_of(shape, body):
+    """The K13 / K14 launch names a body of this shape makes (one each)."""
+    if shape == "nested":
+        q = body["query"]
+        q = q["bool"]["must"][0] if "bool" in q else q
+        return [f"doc_join_{q['nested']['score_mode']}"]
+    return {
+        "multi_match_best": ["tail_eval_dismax"],
+        "multi_match_phrase": ["tail_eval_dismax"],
+        "dis_max": ["tail_eval_dismax"],
+        "ids": ["doc_mark"],
+        "boosting": ["tail_eval_boosting"],
+        "rank_feature": ["tail_eval_rank_feature"],
+        "geo_distance": ["tail_eval_geo_distance"],
+        "geo_bounding_box": ["tail_eval_geo_box"],
+        "terms_set": ["tail_eval_terms_set"],
+        "function_score": ["tail_eval_function_score"],
+    }.get(shape, [])
+
+
+def kernel_rows_structured(compiler_of, triples, dev, q, rows):
+    """K13 (each join mode, and mark) and K14 (each node kind) at Q = 1 on
+    the phase's own plans, timed beside their bounds and plain versions
+    (and torch.segment_reduce for K13's join); then each at Q rows (the
+    concurrent phase's rows per launch, at least 2) held to its plain
+    version (exact)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.ops import tail_kernel
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    captured: dict = {}
+    real_join, real_mark, real_tail = kern.doc_join, kern.doc_mark, tail_kernel.tail_eval
+
+    def cap_join(cm, cs, start, boost, mode):
+        captured.setdefault(f"doc_join_{mode}", (cm, cs, start, boost, mode))
+        return real_join(cm, cs, start, boost, mode)
+
+    def cap_mark(ids, boost, n):
+        captured.setdefault("doc_mark", (ids, boost, n))
+        return real_mark(ids, boost, n)
+
+    def cap_tail(key, qq, n, planes, masks, columns, params):
+        captured.setdefault(f"tail_eval_{key[0]}",
+                            (key, qq, n, planes, masks, columns, params))
+        return real_tail(key, qq, n, planes, masks, columns, params)
+
+    kern.doc_join, kern.doc_mark, tail_kernel.tail_eval = cap_join, cap_mark, cap_tail
+    try:
+        for _shape, index, body in triples:
+            compiler, seg_tree, _seg = compiler_of[index]
+            c = compiler.compile(parse_query(body["query"]))
+            bm25_device.execute_auto(
+                seg_tree, c.spec, bm25_device.plan_to_torch(c.spec, c.arrays, dev),
+                TOP_K)
+    finally:
+        kern.doc_join, kern.doc_mark, tail_kernel.tail_eval = (
+            real_join, real_mark, real_tail)
+    torch.cuda.synchronize()
+
+    for mode in JOIN_MODES:
+        cm, cs, start, boost, _m = captured[f"doc_join_{mode}"]
+        nn, n = cs.shape[1], start.shape[0] - 1
+        lengths = (start[1:] - start[:-1]).to(torch.int64)
+        reduce = {"none": "max", "sum": "sum", "avg": "mean", "max": "max",
+                  "min": "min"}[mode]
+        data = torch.where(cm[0], cs[0], 0.0)
+        _row(rows, f"doc_join_{mode}", "elasticsearch_tpu/ops/bm25_device.py:271",
+             1, lambda a=(cm, cs, start, boost, mode): kern.doc_join(*a),
+             lambda a=(cm, cs, start, boost, mode): kern.doc_join_plain(*a),
+             lambda d=data, ln=lengths, r=reduce: torch.segment_reduce(
+                 d, r, lengths=ln),
+             "torch.segment_reduce over the children (no fixed order)",
+             nn * 5 + (n + 1) * 4 + n * 5, source=STRUCT_SOURCES["doc_join"],
+             case=f"nested {mode}, {nn} children, {n} parents")
+        rep = (cm.repeat(q, 1), cs.repeat(q, 1), start, boost.repeat(q), mode)
+        _same(kern.doc_join(*rep), kern.doc_join_plain(*rep),
+              f"doc_join {mode} Q = {q}")
+    ids, boost, n = captured["doc_mark"]
+    _row(rows, "doc_mark", "elasticsearch_tpu/ops/bm25_device.py:200", 1,
+         lambda: kern.doc_mark(ids, boost, n),
+         lambda: kern.doc_mark_plain(ids, boost, n), None,
+         "none: no one PyTorch call marks a doc set and its scores",
+         ids.numel() * 4 + n * 5, source=STRUCT_SOURCES["doc_join"],
+         case=f"ids, {ids.shape[1]} slots, {n} docs")
+    rep = (ids.repeat(q, 1), boost.repeat(q), n)
+    _same(kern.doc_mark(*rep), kern.doc_mark_plain(*rep), f"doc_mark Q = {q}")
+
+    replaces = {
+        "function_score": "elasticsearch_tpu/ops/bm25_device.py:367",
+        "geo_distance": "elasticsearch_tpu/ops/bm25_device.py:120",
+        "geo_box": "elasticsearch_tpu/ops/bm25_device.py:128",
+        "rank_feature": "elasticsearch_tpu/ops/bm25_device.py:141",
+        "dismax": "elasticsearch_tpu/ops/bm25_device.py:208",
+        "boosting": "elasticsearch_tpu/ops/bm25_device.py:178",
+        "terms_set": "elasticsearch_tpu/ops/bm25_device.py:232",
+    }
+    for kind in TAIL_KINDS:
+        key, qq, n, planes, masks, columns, params = captured[f"tail_eval_{kind}"]
+        _src, _consts, be = tail_kernel.generate_source(key)
+        calls = sum(line.count("libdevice.") for line in be.lines)
+        # One operation a statement; a libdevice call (sin, cos, atan2,
+        # exp, log, pow) counted as 20.
+        flops = (len(be.lines) + 19 * calls) * n
+        used_cols = [columns[c] for c in be.column_names]
+        nbytes = n * (4 * len(be.plane_names) + len(be.mask_names) + 5) + sum(
+            c.numel() * 4 for c in used_cols)
+        args = (key, 1, n, planes, masks, columns, params)
+        _row(rows, f"tail_eval_{kind}", replaces[kind], 1,
+             lambda a=args: tail_kernel.tail_eval(*a),
+             lambda a=args: tail_kernel.tail_eval_plain(*a), None,
+             "none: no one PyTorch call computes the node's tail",
+             nbytes, route="triton", source=STRUCT_SOURCES["tail_eval"],
+             case=f"{key[0]}: {len(be.lines)} statements, {calls} libdevice "
+                  f"calls", flops=flops)
+        rep = (key, q, n, {k: v.repeat(q, 1) for k, v in planes.items()},
+               {k: v.repeat(q, 1) for k, v in masks.items()}, columns,
+               {k: v.repeat(q) for k, v in params.items()})
+        _same(tail_kernel.tail_eval(*rep), tail_kernel.tail_eval_plain(*rep),
+              f"tail_eval {kind} Q = {q}")
+    torch.cuda.synchronize()
+    log(f"  structured kernels: K13 / K14 bit-equal to their plain versions "
+        f"in every mode and kind at Q = 1 and Q = {q}")
 
 
 def main() -> int:

@@ -12,6 +12,10 @@ metrics registry, which is not ported). Left out: `oracle_eligible` and
 the `oracle`, `mesh_spmd`, `packed` and `cached_mask` backends, which
 wait for their modules.
 
+The structured kinds (nested, function_score, terms_set, geo, rank_feature,
+dismax, boosting, doc_set) are dense-only specs: each spec is its own plan
+class, and `device` is their one candidate.
+
 Per (shard, query) the planner picks which backend runs the scoring
 pass: `device` (the sparse/dense kernels, always eligible) or a
 two-launch tile-pruned path (`blockmax` for a terms spec,

@@ -5,8 +5,11 @@ Port of elasticsearch_tpu/index/engine.py, trimmed to this slice: `index`,
 prebuilt segment), `field_stats`, `compiler_for`, the refresh
 `generation` and the live-doc count `num_docs`. Engines and segment
 handles carry process-unique `uid`s (the kNN plane cache keys on them).
-Dense_vector matrices ride the segments and their device planes. Left
-out: the
+Dense_vector matrices and nested blocks ride the segments and their
+device planes (a nested block's inner planes are packed with the parent
+segment at refresh; a delete masks the parent, and the join drops its
+children with it); `compiler_for` hands the compiler the segment's
+nested blocks and its lazy `_id` index (ids queries). Left out: the
 translog and store (no durability), merges, the HBM breaker, CAS writes,
 replication and cold-tier demotion; see ROADMAP queue A.
 """
@@ -50,6 +53,13 @@ class SegmentHandle:
     live_host: np.ndarray  # bool[N] host copy of the live mask
     live_dirty: bool = False
     uid: int = field(default_factory=lambda: next(_UIDS))
+    _id_index: dict[str, int] | None = None  # lazy _id -> local (ids query)
+
+    @property
+    def id_index(self) -> dict[str, int]:
+        if self._id_index is None:
+            self._id_index = {d: i for i, d in enumerate(self.segment.ids)}
+        return self._id_index
 
     def soft_delete(self, local_doc: int) -> None:
         if self.live_host[local_doc]:
@@ -277,4 +287,6 @@ class Engine:
             params=self.params,
             stats=stats if stats is not None else self.field_stats(),
             nt_floor=nt_floor,
+            id_index=lambda: handle.id_index,  # built only if ids compiles
+            nested=handle.device.nested,
         )

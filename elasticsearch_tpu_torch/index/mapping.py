@@ -6,13 +6,19 @@ Port copy of elasticsearch_tpu/index/mapping.py, trimmed to this slice:
 default —, `MAX_DIMS` and the reference's up-front checks), multi-fields
 (the dynamic `text` + `.keyword` pair) and dynamic mapping of unseen
 fields from JSON value types (a dense_vector is never mapped
-dynamically: a numeric array maps as a number, as in the reference).
+dynamically: a numeric array maps as a number, as in the reference);
+`object` and `nested` scopes (`Mappings._register`: object leaves
+flatten to dotted paths, a nested path gets its own `Mappings` scope in
+`Mappings.nested`, dynamic objects map as `object`, and a dotted name
+under a nested path never maps flat), `geo_point` (two doc-values
+columns, `<field>.lat` / `<field>.lon`), `rank_feature` (a doc-values
+column) and `rank_features` (one rank_feature column per key).
 `merge_field` keeps the reference's mapping-update rules for the fields
 it has: a type never changes, and a dense_vector's `dims` and
-`similarity` are immutable. Left out: objects and nested scopes, dates,
-booleans, geo, completion and the other mapper-extras types, dynamic
-templates and `to_json` round-trips; any such field is rejected at
-mapping or index time.
+`similarity` are immutable. Left out: dates, booleans, completion,
+percolator and the other mapper-extras types, dynamic templates and
+`to_json` round-trips; any such field is rejected at mapping or index
+time.
 """
 
 from __future__ import annotations
@@ -29,10 +35,19 @@ INTEGER = "integer"
 FLOAT = "float"
 DOUBLE = "double"
 DENSE_VECTOR = "dense_vector"
+OBJECT = "object"
+NESTED = "nested"
+GEO_POINT = "geo_point"
+RANK_FEATURE = "rank_feature"
+RANK_FEATURES = "rank_features"
 
 NUMERIC_TYPES = {LONG, INTEGER, FLOAT, DOUBLE}
 INVERTED_TYPES = {TEXT, KEYWORD}
-ALL_TYPES = NUMERIC_TYPES | INVERTED_TYPES | {DENSE_VECTOR}
+# rank_feature materializes as a numeric doc-values column.
+DOC_VALUE_TYPES = NUMERIC_TYPES | {RANK_FEATURE}
+ALL_TYPES = NUMERIC_TYPES | INVERTED_TYPES | {
+    DENSE_VECTOR, OBJECT, NESTED, GEO_POINT, RANK_FEATURE, RANK_FEATURES,
+}
 
 
 def coerce_numeric(field_type: str, value: Any) -> float:
@@ -57,6 +72,9 @@ class FieldMapping:
     # dense_vector similarity: the knn section's scoring and the IVF
     # coarse scan.
     similarity: str = "cosine"
+    # object / nested: the raw `properties` sub-schema as written (leaf
+    # sub-fields are also registered flat under their dotted full paths).
+    properties: dict[str, Any] | None = None
 
     # Max dense_vector dims (reference: DenseVectorFieldMapper MAX_DIMS).
     MAX_DIMS = 4096
@@ -95,13 +113,15 @@ class FieldMapping:
 
     @property
     def is_numeric(self) -> bool:
-        return self.type in NUMERIC_TYPES
+        return self.type in DOC_VALUE_TYPES
 
 
 class Mappings:
     """Parsed `mappings` for one index, with dynamic-mapping support:
     unmapped fields map on first sight from their JSON type (string ->
-    text + .keyword, int -> long, float -> double)."""
+    text + .keyword, int -> long, float -> double, object -> object).
+    Nested paths carry their own scope (`nested`: path -> a Mappings
+    whose field names are full dotted paths)."""
 
     def __init__(
         self,
@@ -112,15 +132,33 @@ class Mappings:
         self.fields: dict[str, FieldMapping] = {}
         self.analysis = analysis or AnalysisRegistry()
         self.dynamic = dynamic
+        self.nested: dict[str, "Mappings"] = {}
         for name, spec in (properties or {}).items():
+            self._register(name, spec)
+
+    def _register(self, name: str, spec: dict[str, Any]) -> None:
+        """Register one property, flattening object trees to dotted leaf
+        names and splitting nested sub-schemas into their own scopes."""
+        ftype = spec.get("type", OBJECT if "properties" in spec else TEXT)
+        if ftype == NESTED:
+            self.fields[name] = FieldMapping(
+                name=name, type=NESTED, properties=spec.get("properties") or {}
+            )
+            scope = Mappings(analysis=self.analysis, dynamic=self.dynamic)
+            for sub, subspec in (spec.get("properties") or {}).items():
+                scope._register(f"{name}.{sub}", subspec)
+            self.nested[name] = scope
+        elif ftype == OBJECT:
+            self.fields[name] = FieldMapping(
+                name=name, type=OBJECT, properties=spec.get("properties") or {}
+            )
+            for sub, subspec in (spec.get("properties") or {}).items():
+                self._register(f"{name}.{sub}", subspec)
+        else:
             self.fields[name] = self._parse_field(name, spec)
 
     @classmethod
     def _parse_field(cls, name: str, spec: dict[str, Any]) -> FieldMapping:
-        if "properties" in spec:
-            raise ValueError(
-                f"object field [{name}] is not supported by this port"
-            )
         norms = spec.get("norms")
         subs = {}
         for sub_name, sub_spec in (spec.get("fields") or {}).items():
@@ -157,6 +195,16 @@ class Mappings:
         dense_vector keeps its `dims` and `similarity` (the vectors and
         IVF planes were built under them), else ValueError with the
         reference's message."""
+        if "properties" in spec or spec.get("type") in (OBJECT, NESTED):
+            existing = self.fields.get(name)
+            kind = spec.get("type", OBJECT)
+            if existing is not None and existing.type != kind:
+                raise ValueError(
+                    f"mapper [{name}] cannot be changed from type "
+                    f"[{existing.type}] to [{kind}]"
+                )
+            self._register(name, spec)
+            return
         new = self._parse_field(name, spec)
         existing = self.fields.get(name)
         if existing is None:
@@ -208,6 +256,23 @@ class Mappings:
         if not self.dynamic:
             return None
         target = self.fields if stage is None else stage
+        if "." in name:
+            # A dotted name under a NESTED path never maps flat: the
+            # document parser routes such keys into the nested scope.
+            parts = name.split(".")
+            for i in range(1, len(parts)):
+                pfm = self.fields.get(".".join(parts[:i]))
+                if pfm is not None and pfm.type == NESTED:
+                    return None
+        if isinstance(value, dict) or (
+            isinstance(value, list) and value and isinstance(value[0], dict)
+        ):
+            # Dynamic objects (and arrays of objects without a nested
+            # mapping) map as `object`; their leaves flatten to dotted
+            # paths.
+            fm = FieldMapping(name=name, type=OBJECT, properties={})
+            target[name] = fm
+            return fm
         sample = value[0] if isinstance(value, list) and value else value
         if isinstance(sample, bool):
             raise ValueError(
@@ -226,10 +291,6 @@ class Mappings:
                         name=f"{name}.keyword", type=KEYWORD, ignore_above=256
                     )
                 },
-            )
-        elif isinstance(sample, dict):
-            raise ValueError(
-                f"object field [{name}] is not supported by this port"
             )
         else:
             return None

@@ -11,9 +11,16 @@ out as CSR arrays aligned with the postings, empty arrays for a text
 field whose values analyzed to zero tokens; keyword fields stay
 positionless. A dense_vector value is staged whole (never flattened as
 a multi-value) and checked with the reference's messages: rank, NaN /
-Infinity, dims, and zero magnitude under cosine and dot_product. Left
-out: the native C++ accumulator, nested blocks, geo points, completion
-and percolator fields.
+Infinity, dims, and zero magnitude under cosine and dot_product. The
+reference's document parser (`_collect_values`): objects flatten to
+dotted leaves, arrays of objects merge their leaves as multi-values,
+`rank_features` flatten to one rank_feature column per key, a geo_point
+(`parse_geo_point`) stages its `<field>.lat` / `<field>.lon` columns,
+and each object under a `nested` path becomes one hidden sub-document of
+that path's `NestedBlock` (an inner Segment plus `parent_of`), staged in
+a candidate sub-builder and registered only when the parent commits, so
+a rejected write leaves no nested block behind. Left out: the native
+C++ accumulator, completion and percolator fields.
 
 A Segment is an immutable columnar snapshot of a batch of documents, all
 plain numpy: per inverted field a term dictionary plus CSR postings (doc
@@ -32,7 +39,34 @@ from typing import Any
 import numpy as np
 
 from ..utils import smallfloat
-from .mapping import DENSE_VECTOR, Mappings, coerce_numeric
+from .mapping import (
+    DENSE_VECTOR,
+    GEO_POINT,
+    NESTED,
+    OBJECT,
+    RANK_FEATURE,
+    RANK_FEATURES,
+    FieldMapping,
+    Mappings,
+    coerce_numeric,
+)
+
+
+def parse_geo_point(value) -> tuple[float, float]:
+    """(lat, lon) from the reference's accepted forms: [lon, lat] arrays,
+    {lat, lon} objects, "lat,lon" strings (geohash form unsupported)."""
+    if isinstance(value, (list, tuple)) and len(value) == 2:
+        try:
+            lon, lat = float(value[0]), float(value[1])
+        except (TypeError, ValueError):
+            raise ValueError(f"failed to parse geo_point [{value!r}]") from None
+        return lat, lon
+    if isinstance(value, dict) and "lat" in value and "lon" in value:
+        return float(value["lat"]), float(value["lon"])
+    if isinstance(value, str) and "," in value:
+        lat_s, lon_s = value.split(",", 1)
+        return float(lat_s), float(lon_s)
+    raise ValueError(f"failed to parse geo_point [{value!r}]")
 
 
 @dataclass
@@ -109,12 +143,22 @@ class Segment:
     ids: list[str]  # external _id per local doc
     versions: np.ndarray | None = None  # int64[N]; None = all 1
     seqnos: np.ndarray | None = None  # int64[N]; None = all -1
+    # path -> the nested objects of that path (NestedBlock)
+    nested: dict[str, "NestedBlock"] = field(default_factory=dict)
 
     def doc_version(self, local: int) -> int:
         return int(self.versions[local]) if self.versions is not None else 1
 
     def doc_seqno(self, local: int) -> int:
         return int(self.seqnos[local]) if self.seqnos is not None else -1
+
+
+@dataclass
+class NestedBlock:
+    """All nested objects of one path within a segment."""
+
+    seg: Segment  # inner document space (fields named with full paths)
+    parent_of: np.ndarray  # int32[seg.num_docs] -> parent local doc id
 
 
 def _iter_field_values(value: Any) -> list[Any]:
@@ -189,6 +233,21 @@ class SegmentBuilder:
         self._present: dict[str, set[int]] = {}  # field -> docs with a value
         self._numeric: dict[str, dict[int, float]] = {}
         self._vectors: dict[str, dict[int, np.ndarray]] = {}
+        # Nested paths: each accumulates its objects in a sub-builder over
+        # the path's scope mappings, plus the parent doc of every object.
+        self._nested: dict[str, tuple["SegmentBuilder", list[int]]] = {}
+
+    def _nested_candidate(self, path: str) -> tuple["SegmentBuilder", list[int]]:
+        """The accumulator a nested object WOULD commit into, existing or
+        freshly built but never registered here: staging touches no
+        builder state, so registration happens in _commit_doc."""
+        acc = self._nested.get(path)
+        if acc is None:
+            scope = self.mappings.nested.get(path)
+            if scope is None:  # defensive; NESTED mappings always have one
+                scope = Mappings(analysis=self.mappings.analysis)
+            acc = (SegmentBuilder(scope), [])
+        return acc
 
     @property
     def num_docs(self) -> int:
@@ -198,7 +257,21 @@ class SegmentBuilder:
                      staged_numeric, staged_vectors):
         """Stage one (field, value) pair: raises on mapper errors, touches
         no builder state."""
-        if fm.type == DENSE_VECTOR:
+        if fm.type == GEO_POINT:
+            # A bare [lon, lat] number pair is one point; a list of point
+            # forms is multi-valued, and the first point wins.
+            try:
+                lat, lon = parse_geo_point(value)
+            except ValueError:
+                lat, lon = parse_geo_point(_iter_field_values(value)[0])
+            if not (-90.0 <= lat <= 90.0) or not (-180.0 <= lon <= 180.0):
+                raise ValueError(
+                    f"failed to parse geo_point: [{lat}, {lon}] out of "
+                    f"bounds for field [{field_name}]"
+                )
+            staged_numeric.append((f"{field_name}.lat", lat))
+            staged_numeric.append((f"{field_name}.lon", lon))
+        elif fm.type == DENSE_VECTOR:
             staged_vectors.append((field_name, _parse_vector(field_name, fm, value)))
         elif fm.is_inverted:
             analyzer = self.mappings.analysis.get(fm.analyzer)
@@ -241,21 +314,120 @@ class SegmentBuilder:
                     f"[{fm.type}]: [{v0!r}]"
                 ) from None
 
+    def _collect_values(self, prefix, value, flat, nested_ops,
+                        staged_mappings) -> None:
+        """Flatten one source entry into leaf (field -> values) pairs:
+        objects flatten to dotted paths and arrays of objects merge their
+        leaves as multi-values; values under a `nested` path route to
+        nested_ops, one hidden sub-document per object. New dynamic
+        mappings land in `staged_mappings`, committed only with the doc."""
+        if "." in prefix and self.mappings.get(prefix) is None:
+            # Dot-expansion through a nested parent: {"c.author": "x"} with
+            # `c` mapped nested becomes one nested sub-document.
+            parts = prefix.split(".")
+            for i in range(1, len(parts)):
+                parent = ".".join(parts[:i])
+                pfm = self.mappings.fields.get(parent)
+                if pfm is not None and pfm.type == NESTED:
+                    obj: Any = value
+                    for part in reversed(parts[i:]):
+                        obj = {part: obj}
+                    self._collect_values(parent, obj, flat, nested_ops,
+                                         staged_mappings)
+                    return
+        fm = self.mappings.resolve_dynamic(prefix, value, staged_mappings)
+        if fm is not None and fm.type == NESTED:
+            for obj in value if isinstance(value, list) else [value]:
+                if not isinstance(obj, dict):
+                    raise ValueError(
+                        f"object mapping for [{prefix}] tried to parse "
+                        f"field as object, but found a concrete value"
+                    )
+                nested_ops.append((prefix, obj))
+            return
+        if fm is not None and fm.type == GEO_POINT:
+            flat.setdefault(prefix, (fm, []))[1].append(value)
+            return
+        if fm is not None and fm.type == RANK_FEATURES:
+            # rank_features flatten to one rank_feature column per key.
+            if not isinstance(value, dict):
+                raise ValueError(
+                    f"rank_features field [{prefix}] must hold an object "
+                    f"mapping feature names to positive numbers"
+                )
+            for k, v in value.items():
+                leaf = f"{prefix}.{k}"
+                leaf_fm = self.mappings.get(leaf) or staged_mappings.get(leaf)
+                if leaf_fm is None:
+                    leaf_fm = FieldMapping(name=leaf, type=RANK_FEATURE)
+                    staged_mappings[leaf] = leaf_fm
+                try:
+                    fv = float(v)
+                except (TypeError, ValueError):
+                    raise ValueError(
+                        f"rank_features field [{prefix}] feature [{k}] "
+                        f"must be a number, got [{v!r}]"
+                    ) from None
+                self._collect_values(leaf, fv, flat, nested_ops,
+                                     staged_mappings)
+            return
+        if isinstance(value, dict):
+            if fm is not None and fm.type not in (OBJECT, NESTED):
+                raise ValueError(
+                    f"failed to parse field [{prefix}] of type [{fm.type}]: "
+                    f"found an object value"
+                )
+            for k, v in value.items():
+                if v is None:
+                    continue
+                self._collect_values(f"{prefix}.{k}", v, flat, nested_ops,
+                                     staged_mappings)
+            return
+        if isinstance(value, list) and any(isinstance(v, dict) for v in value):
+            for obj in value:
+                if obj is None:
+                    continue
+                if not isinstance(obj, dict):
+                    raise ValueError(
+                        f"mapper [{prefix}] cannot mix objects and "
+                        f"concrete values in one array"
+                    )
+                self._collect_values(prefix, obj, flat, nested_ops,
+                                     staged_mappings)
+            return
+        if fm is None:
+            return
+        if fm.type == OBJECT:
+            raise ValueError(
+                f"object mapping for [{prefix}] tried to parse field "
+                f"[{prefix}] as object, but found a concrete value"
+            )
+        # A dense_vector value IS the array: staged whole, never flattened.
+        values = [value] if fm.type == DENSE_VECTOR else _iter_field_values(value)
+        if not values:  # empty arrays index nothing
+            return
+        entry = flat.get(prefix)
+        if entry is None:
+            flat[prefix] = (fm, values)
+        else:
+            entry[1].extend(values)
+
     def _stage_doc(self, source: dict[str, Any]):
+        """Validation pass: analyze and coerce everything, nested objects
+        included, and touch no state (dynamic mappings stage in a side
+        dict, nested objects in candidate sub-builders)."""
         staged_postings: list[tuple[str, dict[str, int], int, dict]] = []
         staged_numeric: list[tuple[str, float]] = []
         staged_vectors: list[tuple[str, np.ndarray]] = []
         staged_mappings: dict[str, Any] = {}
+        flat: dict[str, tuple[Any, list[Any]]] = {}
+        nested_ops: list[tuple[str, dict[str, Any]]] = []
         for name, value in source.items():
             if value is None:
                 continue
-            mapped = self.mappings.get(name)
-            if (isinstance(value, list) and not value and (
-                    mapped is None or mapped.type != DENSE_VECTOR)):
-                continue  # empty arrays index nothing
-            fm = self.mappings.resolve_dynamic(name, value, staged_mappings)
-            if fm is None:
-                continue
+            self._collect_values(name, value, flat, nested_ops, staged_mappings)
+        for name, (fm, values) in flat.items():
+            value = values if len(values) > 1 else values[0]
             # Multi-fields: the same value indexes under the parent AND
             # every "<name>.<sub>" sub-field with its own mapping.
             targets = [(name, fm)] + [
@@ -266,7 +438,19 @@ class SegmentBuilder:
                     target_name, target_fm, value, staged_postings,
                     staged_numeric, staged_vectors,
                 )
-        return staged_postings, staged_numeric, staged_vectors, staged_mappings
+        staged_nested = []
+        candidates: dict[str, tuple] = {}
+        for path, obj in nested_ops:
+            acc = candidates.get(path)
+            if acc is None:
+                acc = self._nested_candidate(path)
+                candidates[path] = acc
+            prefixed = {f"{path}.{k}": v for k, v in obj.items()}
+            staged_nested.append(
+                (path, acc, prefixed, acc[0]._stage_doc(prefixed))
+            )
+        return (staged_postings, staged_numeric, staged_vectors,
+                staged_nested, staged_mappings)
 
     def add(
         self,
@@ -276,10 +460,15 @@ class SegmentBuilder:
         seqno: int = -1,
     ) -> int:
         """Index one document; returns its local doc id. Atomic: everything
-        that can fail runs in a staging pass that touches no state."""
-        staged_postings, staged_numeric, staged_vectors, staged_mappings = (
-            self._stage_doc(source)
-        )
+        that can fail runs in a staging pass that touches no state, for
+        every nested object too."""
+        staged = self._stage_doc(source)
+        return self._commit_doc(source, doc_id, version, seqno, staged)
+
+    def _commit_doc(self, source, doc_id, version, seqno, staged) -> int:
+        (staged_postings, staged_numeric, staged_vectors, staged_nested,
+         staged_mappings) = staged
+        # ---- commit phase: nothing below raises -------------------------
         local = len(self._sources)
         for fname, fm in staged_mappings.items():
             self.mappings.fields.setdefault(fname, fm)
@@ -304,6 +493,11 @@ class SegmentBuilder:
             self._numeric.setdefault(field_name, {})[local] = v
         for field_name, vec in staged_vectors:
             self._vectors.setdefault(field_name, {})[local] = vec
+        for path, acc, prefixed, sub_staged in staged_nested:
+            self._nested.setdefault(path, acc)
+            sub_builder, parents = acc
+            sub_builder._commit_doc(prefixed, None, 1, -1, sub_staged)
+            parents.append(local)
         return local
 
     def _build_positions(self, fname, terms, offsets, wants_positions):
@@ -397,6 +591,13 @@ class SegmentBuilder:
             for doc, vec in by_doc.items():
                 mat[doc] = vec
             vectors[fname] = mat
+        nested = {
+            path: NestedBlock(
+                seg=sub_builder.build(),
+                parent_of=np.asarray(parents, dtype=np.int32),
+            )
+            for path, (sub_builder, parents) in sorted(self._nested.items())
+        }
         return Segment(
             num_docs=n,
             fields=fields,
@@ -406,4 +607,5 @@ class SegmentBuilder:
             ids=list(self._ids),
             versions=np.asarray(self._versions, dtype=np.int64),
             seqnos=np.asarray(self._seqnos, dtype=np.int64),
+            nested=nested,
         )

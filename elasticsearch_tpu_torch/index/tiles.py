@@ -14,7 +14,11 @@ field without norms; and the positional planes of a text field
 (`pos_doc`, `pos_val`, with `pos_offsets`, `term_pos_span` and
 `pos_pad_tile`), which phrase and span queries read, plus `pos_bits`,
 the width of the largest position (the packed sort key of K11,
-ops/kernels.py). Left out: nested blocks, `pack_segment_delta`,
+ops/kernels.py); and the nested blocks (`DeviceSegment.nested`: per
+path the inner DeviceSegment, `parent_of` i32[NN] and one plane derived
+at pack time for K13 doc_join, the CSR `child_start` i32[N + 1] whose
+parent p owns children [child_start[p], child_start[p + 1]); the pack
+raises if `parent_of` is not nondecreasing). Left out: `pack_segment_delta`,
 `repack_tn`, the packed multi-tenant planes and the stacking pad of the
 positional planes (`min_pos_tiles`: positional queries run on one
 segment's tree).
@@ -160,8 +164,13 @@ class DeviceSegment:
     device: torch.device
     vectors: dict[str, torch.Tensor] = None  # float32[N, dims]
     has_vector: dict[str, torch.Tensor] = None  # bool[N]
+    # path -> (inner DeviceSegment over the nested-doc space, parent_of
+    # i32[NN], child_start i32[N + 1]): the block-join planes.
+    nested: dict[str, tuple] = None
 
     def __post_init__(self):
+        if self.nested is None:
+            self.nested = {}
         if self.vectors is None:
             self.vectors = {}
         if self.has_vector is None:
@@ -282,6 +291,29 @@ def pack_field(
     )
 
 
+def child_starts(parent_of: np.ndarray, num_docs: int) -> np.ndarray:
+    """K13's CSR plane: child_start i32[num_docs + 1], parent p owning the
+    nested docs [child_start[p], child_start[p + 1]). The builder appends
+    a parent's nested objects when it commits that parent, so parent_of
+    is nondecreasing; anything else is refused (the per-parent ascending
+    fold would not be the reference's scatter order)."""
+    parent_of = np.asarray(parent_of, dtype=np.int64)
+    if len(parent_of) and (
+        np.any(np.diff(parent_of) < 0) or parent_of[0] < 0
+        or parent_of[-1] >= num_docs
+    ):
+        raise ValueError("nested parent_of must be nondecreasing in [0, N)")
+    return np.searchsorted(
+        parent_of, np.arange(num_docs + 1), side="left"
+    ).astype(np.int32)
+
+
+def _nested_entry(inner: "DeviceSegment", parent_of, num_docs: int, device):
+    parent_of = np.asarray(parent_of, dtype=np.int32)
+    return (inner, _put(parent_of, device),
+            _put(child_starts(parent_of, num_docs), device))
+
+
 def position_bits(positions: np.ndarray) -> int:
     """Bits of the largest position (at least 1): the position field's
     width in K11's packed sort keys."""
@@ -331,6 +363,13 @@ def pack_segment(
     live[: segment.num_docs] = True
     if deleted is not None and len(deleted):
         live[deleted] = False
+    nested = {
+        path: _nested_entry(
+            pack_segment(block.seg, device=device, k1=k1, b=b),
+            block.parent_of, n, device,
+        )
+        for path, block in segment.nested.items()
+    }
     return DeviceSegment(
         num_docs=n,
         fields=fields,
@@ -340,6 +379,7 @@ def pack_segment(
         ids=segment.ids,
         device=device,
         vectors=vectors,
+        nested=nested,
     )
 
 
@@ -359,6 +399,8 @@ def device_nbytes(seg: DeviceSegment) -> int:
         total += mat.nbytes
     for present in seg.has_vector.values():
         total += present.nbytes
+    for inner, parent_of, child_start in seg.nested.values():
+        total += device_nbytes(inner) + parent_of.nbytes + child_start.nbytes
     return int(total)
 
 
@@ -387,10 +429,12 @@ def device_segment_from_numpy(
     `planes` is a segment-tree view as numpy: {"fields": {name: (doc_ids,
     tn, tfs, norm_bytes, present)}, "doc_values": {name: f32[N]},
     "vectors": {name: f32[N, dims]}, "ordinals": {name: i32[NT, 256]},
-    "positions": {name: (pos_doc, pos_val)}, "live": bool[N]} (the JAX
-    package's `segment_tree(dev)` /
+    "positions": {name: (pos_doc, pos_val)}, "live": bool[N], "nested":
+    {path: {"tree": <the inner segment's planes, this same layout>,
+    "parent_of": i32[NN]}}} (the JAX package's `segment_tree(dev)` /
     `agg_segment_tree(dev)` leaves after np.asarray). `fields_meta` maps
-    each field to its host planning attributes (`field_meta`)."""
+    each field to its host planning attributes (`field_meta`); a nested
+    block's fields are there too, under their full dotted names."""
     device = resolve_device(device)
     live = np.asarray(planes["live"], dtype=bool)
     n = int(live.shape[0])
@@ -426,6 +470,13 @@ def device_segment_from_numpy(
         name: _put(np.asarray(mat, dtype=np.float32), device)
         for name, mat in planes.get("vectors", {}).items()
     }
+    nested = {
+        path: _nested_entry(
+            device_segment_from_numpy(blk["tree"], fields_meta, device=device),
+            blk["parent_of"], n, device,
+        )
+        for path, blk in planes.get("nested", {}).items()
+    }
     return DeviceSegment(
         num_docs=n,
         fields=fields,
@@ -435,4 +486,5 @@ def device_segment_from_numpy(
         ids=list(ids) if ids is not None else [str(i) for i in range(n)],
         device=device,
         vectors=vectors,
+        nested=nested,
     )

@@ -15,7 +15,11 @@ before it. Every shard's SearchService shares the node's exec planner
 (exec/planner.py), which routes a solo search that does not track total
 hits to the block-max paths when its cost model says they win. Requests
 with aggregations, a sort, a rescore or a search_after cursor take the
-solo path.
+solo path. Documents may carry objects (flattened to dotted fields),
+nested arrays (kept whole in the parent's `_source`, indexed as the
+path's hidden nested docs), geo_points and rank_features; the mapper
+errors of the reference (a concrete value for an object, an object for
+a leaf, a geo_point out of bounds, ...) are 400s.
 `Node(exec_batcher=False)` / `Node(exec_planner=False)` turn either off:
 the port's form of the reference's ESTPU_EXEC_BATCHER=0 /
 ESTPU_EXEC_PLANNER=0; without the batcher every search takes the solo

@@ -20,11 +20,17 @@ functions read the dense_vector planes through K7's script mode) and
 the positional kinds phrase, span_near and span_not (`_eval_phrase`,
 `_eval_span_near`, `_eval_span_not`: K11 position_events, then K12
 position_walk into the score plane, for one segment's Q rows; they are
-dense-only, so `supports_sparse` stays false for them). Left out:
-`compute_filter_mask_stacked` (with the filter cache), the positional
-kinds over stacked shards, strictly sequential and packed execution,
-and the nested, function_score, terms_set, geo, rank_feature, dis_max,
-boosting and doc_set nodes (see ROADMAP queue B).
+dense-only, so `supports_sparse` stays false for them); and the
+structured tail (row 16b): `nested` (`_eval_nested`: the child in the
+nested docs' space, then K13 doc_join's join mode into parent space) and
+`doc_set` (K13's mark mode, ids queries), and `function_score`,
+`geo_distance`, `geo_box`, `rank_feature`, `boosting`, `terms_set` and
+`dismax`, whose children run as any node does and whose elementwise tail
+is one K14 tail_eval launch (ops/tail_kernel.py), again dense-only. Left
+out: `compute_filter_mask_stacked` (with the filter cache), the
+positional and structured kinds over stacked shards (they raise on a
+stacked tree), and strictly sequential and packed execution (see ROADMAP
+queue B).
 
 Every executor here is batched: plan arrays carry a leading query axis
 [Q, ...] and one call runs all Q rows, one kernel launch per primitive,
@@ -64,7 +70,7 @@ import torch
 
 from ..script import compile_script
 from ..script.painless_lite import _param_value, referenced_vectors
-from . import kernels, script_kernel
+from . import kernels, script_kernel, tail_kernel
 
 NEG_INF = float("-inf")
 
@@ -160,7 +166,8 @@ def segment_tree(device_segment) -> dict[str, Any]:
     order: fields -> (doc_ids, tn, tfs, norm_bytes, present); positions
     -> (pos_doc, pos_val, pos_bits) of each field with positions (the
     reference's pair plus the host-side width of K11's position field);
-    vectors -> f32[N, dims]."""
+    vectors -> f32[N, dims]; nested -> {"tree", "parent_of"} of each path
+    (the reference's) plus K13's "child_start"."""
     return {
         "fields": {
             name: (f.doc_ids, f.tn, f.tfs, f.norm_bytes, f.present)
@@ -174,6 +181,12 @@ def segment_tree(device_segment) -> dict[str, Any]:
         "doc_values": dict(device_segment.doc_values),
         "vectors": dict(device_segment.vectors),
         "live": device_segment.live,
+        "nested": {
+            path: {"tree": segment_tree(inner), "parent_of": parent_of,
+                   "child_start": child_start}
+            for path, (inner, parent_of, child_start)
+            in device_segment.nested.items()
+        },
     }
 
 
@@ -182,9 +195,10 @@ def stack_segment_trees(trees: list) -> dict[str, Any]:
     device: the port's `jax.tree.map(np.stack, *trees)`. The shards must
     have equal shapes (pack_segment with a common `pad_docs_to` and
     `field_min_tiles`, as bench.py:952-959 packs them). The positional
-    planes are left out: the stacked mode of K11 / K12 is not ported, and
-    positional nodes refuse a stacked tree."""
-    trees = [{k: v for k, v in t.items() if k != "positions"} for t in trees]
+    planes and the nested blocks are left out: the stacked modes of K11 /
+    K12 and K13 are not ported, and their nodes refuse a stacked tree."""
+    trees = [{k: v for k, v in t.items() if k not in ("positions", "nested")}
+             for t in trees]
 
     def walk(*nodes):
         first = nodes[0]
@@ -293,7 +307,180 @@ def _eval_node(spec, arrays, seg: dict[str, Any], num_docs: int, q: int):
         return _eval_span_near(spec, arrays, seg, num_docs, q)
     if kind == "span_not":
         return _eval_span_not(spec, arrays, seg, num_docs, q)
+    if kind in _STRUCTURED:
+        if _n_shards(seg):
+            raise ValueError(
+                f"[{kind}] queries over stacked shards are not ported"
+            )
+        return _STRUCTURED[kind](spec, arrays, seg, num_docs, q)
     raise ValueError(f"unknown plan node kind [{kind}]")
+
+
+# ---------------------------------------------------------------------------
+# The structured tail (row 16b): K13 for nested and doc_set, K14 for the
+# elementwise tails; dense-only, one segment's Q rows
+# ---------------------------------------------------------------------------
+
+
+def _rows_of(x: torch.Tensor, q: int, n: int) -> torch.Tensor:
+    """A child's plane (possibly broadcast) as a contiguous [Q, N]."""
+    return x.expand(q, n).contiguous()
+
+
+def _row_param(x: torch.Tensor, q: int) -> torch.Tensor:
+    return x.reshape(q).to(torch.float32).contiguous()
+
+
+def _tail(key, q, n, planes=None, masks=None, columns=None, params=None):
+    """One K14 launch over the node's inputs."""
+    return tail_kernel.tail_eval(
+        key, q, n,
+        {k: _rows_of(v, q, n) for k, v in (planes or {}).items()},
+        {k: _rows_of(v, q, n) for k, v in (masks or {}).items()},
+        dict(columns or {}),
+        {k: _row_param(v, q) for k, v in (params or {}).items()},
+    )
+
+
+def _pick(arrays, *names):
+    return {name: arrays[name] for name in names}
+
+
+def _eval_geo_distance(spec, arrays, seg, num_docs, q):
+    field = spec[1]
+    dv = seg["doc_values"]
+    return _tail(
+        ("geo_distance",), q, num_docs,
+        columns={"lat": dv[field + ".lat"], "lon": dv[field + ".lon"]},
+        params=_pick(arrays, "lat", "lon", "radius_m", "boost"),
+    )
+
+
+def _eval_geo_box(spec, arrays, seg, num_docs, q):
+    field = spec[1]
+    dv = seg["doc_values"]
+    return _tail(
+        ("geo_box",), q, num_docs,
+        columns={"lat": dv[field + ".lat"], "lon": dv[field + ".lon"]},
+        params=_pick(arrays, "top", "left", "bottom", "right", "boost"),
+    )
+
+
+def _eval_rank_feature(spec, arrays, seg, num_docs, q):
+    _, field, fn = spec
+    return _tail(
+        ("rank_feature", fn), q, num_docs,
+        columns={"col": seg["doc_values"][field]},
+        params=_pick(arrays, "pivot", "scaling", "exponent", "boost"),
+    )
+
+
+def _eval_boosting(spec, arrays, seg, num_docs, q):
+    _, pos_spec, neg_spec = spec
+    ps, pm = _eval_node(pos_spec, arrays["positive"], seg, num_docs, q)
+    _, nm = _eval_node(neg_spec, arrays["negative"], seg, num_docs, q)
+    return _tail(
+        ("boosting",), q, num_docs,
+        planes={"positive": ps}, masks={"positive": pm, "negative": nm},
+        params=_pick(arrays, "negative_boost", "boost"),
+    )
+
+
+def _eval_dismax(spec, arrays, seg, num_docs, q):
+    _, child_specs = spec
+    planes, masks = {}, {}
+    for i, (cspec, carr) in enumerate(zip(child_specs, arrays["children"])):
+        planes[f"s{i}"], masks[f"m{i}"] = _eval_node(cspec, carr, seg,
+                                                     num_docs, q)
+    return _tail(("dismax", len(child_specs)), q, num_docs, planes, masks,
+                 params=_pick(arrays, "tie", "boost"))
+
+
+def _eval_terms_set(spec, arrays, seg, num_docs, q):
+    """terms_set: the scored terms (K1), one matched-only K1 per term,
+    then K14's coverage gate against a column or a script."""
+    _, scored_spec, count_specs, msm_kind, msm_ref = spec
+    s, _m = _eval_node(scored_spec, arrays["scored"], seg, num_docs, q)
+    masks = {}
+    for i, (cspec, carr) in enumerate(zip(count_specs, arrays["counts"])):
+        _, masks[f"m{i}"] = _eval_node(cspec, carr, seg, num_docs, q)
+    params = {"boost": arrays["boost"]}
+    if msm_kind == "field":
+        columns = {"required": seg["doc_values"][msm_ref]}
+        key = ("terms_set", len(count_specs), "field", None)
+    else:
+        columns = seg["doc_values"]
+        params.update(
+            {"p." + name: p for name, p in arrays["params"].items()}
+        )
+        key = ("terms_set", len(count_specs), "script", msm_ref)
+    return _tail(key, q, num_docs, {"scored": s}, masks, columns, params)
+
+
+def _eval_function_score(spec, arrays, seg, num_docs, q):
+    """function_score: the child and the function filters as any node,
+    then one K14 launch with query/functions.py's math."""
+    (_, child_spec, fspecs, filter_specs, score_mode, boost_mode,
+     has_min) = spec
+    cs, cm = _eval_node(child_spec, arrays["child"], seg, num_docs, q)
+    masks = {"child": cm}
+    params = {"max_boost": arrays["max_boost"], "boost": arrays["boost"]}
+    if has_min:
+        params["min_score"] = arrays["min_score"]
+    for i, (fspec, farr, fil_spec, fil_arr) in enumerate(zip(
+        fspecs, arrays["functions"], filter_specs, arrays["filters"]
+    )):
+        if fil_spec is not None:
+            _, masks[f"f{i}"] = _eval_node(fil_spec, fil_arr, seg, num_docs, q)
+        for name, val in farr.items():
+            if name == "params":
+                params.update({f"f{i}.p.{k}": v for k, v in val.items()})
+            elif name == "seed":
+                params[f"f{i}.seed"] = tail_kernel.seed_bits(val.reshape(q))
+            else:
+                params[f"f{i}.{name}"] = val
+    key = ("function_score", fspecs, tuple(f is not None for f in filter_specs),
+           score_mode, boost_mode, has_min)
+    return _tail(key, q, num_docs, {"child": cs}, masks, seg["doc_values"],
+                 params)
+
+
+def _eval_nested(spec, arrays, seg, num_docs, q):
+    """nested: the child in the path's nested-doc space, then K13's join
+    of its matches and score reduction into parent space."""
+    _, path, child_spec, score_mode = spec
+    blk = seg["nested"][path]
+    ntree = blk["tree"]
+    nn = ntree["live"].shape[0]
+    cs, cm = _eval_node(child_spec, arrays["child"], ntree, nn, q)
+    cm = cm & ntree["live"]
+    matched, scores = kernels.doc_join(
+        _rows_of(cm, q, nn), _rows_of(cs, q, nn), blk["child_start"],
+        _row_param(arrays["boost"], q), score_mode,
+    )
+    return scores, matched
+
+
+def _eval_doc_set(spec, arrays, seg, num_docs, q):
+    """ids: K13's mark mode over the row's local ids (-1 padding)."""
+    matched, scores = kernels.doc_mark(
+        arrays["docs"].reshape(q, -1).to(torch.int32).contiguous(),
+        _row_param(arrays["boost"], q), num_docs,
+    )
+    return scores, matched
+
+
+_STRUCTURED = {
+    "geo_distance": _eval_geo_distance,
+    "geo_box": _eval_geo_box,
+    "rank_feature": _eval_rank_feature,
+    "boosting": _eval_boosting,
+    "dismax": _eval_dismax,
+    "terms_set": _eval_terms_set,
+    "function_score": _eval_function_score,
+    "nested": _eval_nested,
+    "doc_set": _eval_doc_set,
+}
 
 
 def _position_walk(spec, arrays, seg, num_docs, q, lane_key, mode,

@@ -44,9 +44,16 @@ PyTorch versions.
                       unordered relabel, span_first's end limit), the
                       span_not scans, then freq -> BM25 over the row's
                       [N] planes (_span_freq_scores)
+    K13 doc_join      csrc/doc_join.cu       the nested block join: one
+                      thread per (row, parent) folds its children in
+                      ascending order (sum / avg / max / min / none of
+                      _eval_nested's scatters); its mark mode sets the
+                      doc_set of ids queries
 
 K6 script_eval, the Triton kernel generated from a script, lives in
-ops/script_kernel.py and counts its launches here.
+ops/script_kernel.py, and K14 tail_eval, the Triton kernel generated per
+structured plan node, in ops/tail_kernel.py; both count their launches
+here.
 
 Every kernel takes a leading row axis Q: the `*_batch` wrappers run Q
 queries of one plan in one launch (the JAX package's vmapped
@@ -77,7 +84,9 @@ count); K3k, K5 and K6 count every launch under one name each
 `script_eval`), as do K7 by mode (`vector_score`, `vector_score_gather`,
 `vector_score_script`), K9 (`ivf_assign`), K3i (`masked_topk_ids`),
 K10 by mode (`bucket_fold`, `bucket_fold_range`), K11
-(`position_events`) and K12 (`position_walk`), whatever its row
+(`position_events`), K12 (`position_walk`), K13 by mode (`doc_join_none`,
+`doc_join_sum`, `doc_join_avg`, `doc_join_max`, `doc_join_min`,
+`doc_mark`) and K14 by node kind (`tail_eval_<kind>`), whatever its row
 count. Launches from several threads (the REST
 handlers and the micro-batcher) share the one library and the caller's
 current stream; the library loads once under `_lib_lock` and the counts
@@ -127,6 +136,11 @@ ONE_NAME_KERNELS = (
     "vector_score", "vector_score_gather", "vector_score_script",
     "ivf_assign", "masked_topk_ids", "bucket_fold", "bucket_fold_range",
     "position_events", "position_walk",
+    "doc_join_none", "doc_join_sum", "doc_join_avg", "doc_join_max",
+    "doc_join_min", "doc_mark",
+    "tail_eval_function_score", "tail_eval_geo_distance",
+    "tail_eval_geo_box", "tail_eval_rank_feature", "tail_eval_dismax",
+    "tail_eval_boosting", "tail_eval_terms_set",
 )
 
 LAUNCHES: dict[str, int] = {
@@ -270,7 +284,11 @@ def _bind(lib) -> None:
     lib.esk_position_walk.argtypes = (
         [P] * 5 + [I] * 7 + [F, I, I, F, F] + [P] * 4
     )
+    lib.esk_doc_join.argtypes = [P] * 4 + [I] * 4 + [P] * 3
+    lib.esk_doc_mark.argtypes = [P, P, I, I, I, P, P, P]
     for fn in (
+        lib.esk_doc_join,
+        lib.esk_doc_mark,
         lib.esk_terms_scatter,
         lib.esk_sparse_fold,
         lib.esk_masked_topk,
@@ -2162,3 +2180,161 @@ def position_walk(keys, count, norm_bytes, weight, cache, num_docs: int,
             _check_rc("position_walk", rc)
             count_launch("position_walk")
     return scores, matched
+
+
+# ---------------------------------------------------------------------------
+# K13 doc_join
+# ---------------------------------------------------------------------------
+
+JOIN_MODES = ("none", "sum", "avg", "max", "min")  # csrc/doc_join.cu codes
+
+_DEFAULT_NAN = -float("nan")  # x86's default NaN, 0xffc00000
+
+
+def _propagate(r, a, b) -> torch.Tensor:
+    """r with a NaN result replaced by the first NaN operand, else by x86's
+    default NaN (csrc/doc_join.cu `esk_propagate`)."""
+    dflt = torch.full((), _DEFAULT_NAN, dtype=torch.float32, device=r.device)
+    nan = torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b, dflt))
+    return torch.where(torch.isnan(r), nan, r)
+
+
+def _scatter_add(acc, v) -> torch.Tensor:
+    """The reference scatter's add: a NaN update wins, then a NaN sum."""
+    dflt = torch.full((), _DEFAULT_NAN, dtype=torch.float32, device=acc.device)
+    r = acc + v
+    r = torch.where(torch.isnan(r), dflt, r)
+    return torch.where(torch.isnan(v), v, torch.where(torch.isnan(acc), acc, r))
+
+
+def _scatter_max(acc, v) -> torch.Tensor:
+    """The reference scatter's max: a NaN wins; of two NaNs the
+    accumulator if its sign is set, else the update; +0.0 over -0.0."""
+    na, nv = torch.isnan(acc), torch.isnan(v)
+    plain = torch.where(acc == v, torch.where(acc.view(torch.int32) == 0, acc, v),
+                        torch.where(acc > v, acc, v))
+    both = torch.where(torch.signbit(acc), acc, v)
+    return torch.where(na & nv, both,
+                       torch.where(na, acc, torch.where(nv, v, plain)))
+
+
+def doc_join_plain(child_matched, child_scores, child_start, boost, mode: str):
+    """K13's join mode in PyTorch, folding by child rank: step r folds the
+    r-th child of every parent, so each parent's children fold in
+    ascending order (an exact left fold, without index_add_), under the
+    kernel's rules (csrc/doc_join.cu). Returns (matched bool[Q, N],
+    scores f32[Q, N])."""
+    q = child_scores.shape[0]
+    dev = child_scores.device
+    n = child_start.shape[0] - 1
+    lo = child_start[:-1].to(torch.int64)
+    n_children = child_start[1:].to(torch.int64) - lo
+    extremum = mode in ("max", "min")
+    acc = torch.full((q, n), -float("inf") if extremum else 0.0,
+                     dtype=torch.float32, device=dev)
+    count = torch.zeros((q, n), dtype=torch.float32, device=dev)
+    any_m = torch.zeros((q, n), dtype=torch.bool, device=dev)
+    top = int(n_children.max()) if n else 0
+    nn = child_scores.shape[1]
+    for r in range(top):
+        has = n_children > r
+        idx = torch.clamp(lo + r, max=max(nn - 1, 0))
+        m = child_matched[:, idx].to(torch.bool) & has
+        v = child_scores[:, idx]
+        if extremum:
+            if mode == "min":  # -1 * v: a NaN keeps its sign
+                v = torch.where(torch.isnan(v), v, flip_sign(v))
+            acc = torch.where(m, _scatter_max(acc, v), acc)
+        else:
+            acc = torch.where(m, _scatter_add(acc, v), acc)
+            count = torch.where(m, count + 1.0, count)
+        any_m = any_m | m
+    if mode == "none":
+        return any_m, torch.zeros((q, n), dtype=torch.float32, device=dev)
+    reduced = acc
+    if mode == "avg":
+        denom = torch.clamp(count, min=1.0)
+        reduced = _propagate(acc / denom, acc, denom)
+    elif mode == "min":
+        reduced = flip_sign(acc)  # -best, a NaN's sign flipped too
+    b = boost.reshape(q, 1)
+    scores = _propagate(reduced * b, reduced, b.expand(q, n))
+    return any_m, torch.where(any_m, scores, 0.0)
+
+
+def doc_join(child_matched, child_scores, child_start, boost, mode: str):
+    """K13 join mode: nested docs' results joined to their parents.
+
+    child_matched bool[Q, NN] (the child's matched & the inner live
+    plane), child_scores f32[Q, NN], child_start int32[N + 1] (the CSR of
+    tiles.child_starts), boost f32[Q], mode one of JOIN_MODES. Returns
+    (matched bool[Q, N], scores f32[Q, N]) as `_eval_nested` composes
+    them."""
+    dev = child_scores.device
+    _check(child_matched, "child_matched", torch.bool, 2, dev)
+    _check(child_scores, "child_scores", torch.float32, 2, dev)
+    _check(child_start, "child_start", torch.int32, 1, dev)
+    _check(boost, "boost", torch.float32, 1, dev)
+    q, nn = child_scores.shape
+    if tuple(child_matched.shape) != (q, nn) or boost.shape[0] != q:
+        raise ValueError("child_matched / boost must have the scores' rows")
+    if mode not in JOIN_MODES:
+        raise ValueError(f"unknown nested score_mode [{mode}]")
+    if not 1 <= q <= MAX_GRID_ROWS:
+        raise ValueError(f"row count {q} out of range [1, {MAX_GRID_ROWS}]")
+    n = child_start.shape[0] - 1
+    if n < 0:
+        raise ValueError("child_start must hold N + 1 offsets")
+    if not _launchable(dev):
+        return doc_join_plain(child_matched, child_scores, child_start,
+                              boost, mode)
+    lib = ensure_built()
+    matched = torch.empty((q, n), dtype=torch.bool, device=dev)
+    scores = torch.empty((q, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.esk_doc_join(
+            _ptr(child_matched), _ptr(child_scores), _ptr(child_start),
+            _ptr(boost), int(q), int(nn), int(n), JOIN_MODES.index(mode),
+            _ptr(matched), _ptr(scores), _stream(dev),
+        )
+    _check_rc("doc_join", rc)
+    count_launch("doc_join_" + mode)
+    return matched, scores
+
+
+def doc_mark_plain(ids, boost, n: int):
+    """K13's mark mode in PyTorch: (matched bool[Q, n], scores f32[Q, n]),
+    boost where an id of the row points."""
+    q = ids.shape[0]
+    dev = ids.device
+    valid = (ids >= 0) & (ids < n)
+    rows = torch.arange(q, device=dev).reshape(q, 1).expand_as(ids)
+    matched = torch.zeros((q, n), dtype=torch.bool, device=dev)
+    matched[rows[valid], ids[valid].to(torch.int64)] = True
+    return matched, torch.where(matched, boost.reshape(q, 1), 0.0)
+
+
+def doc_mark(ids, boost, n: int):
+    """K13 mark mode (ids queries): ids int32[Q, ND] with -1 padding,
+    boost f32[Q] -> (matched bool[Q, n], scores f32[Q, n])."""
+    dev = ids.device
+    _check(ids, "ids", torch.int32, 2, dev)
+    _check(boost, "boost", torch.float32, 1, dev)
+    q, nd = ids.shape
+    if boost.shape[0] != q:
+        raise ValueError("boost must have the ids' rows")
+    if not 1 <= q <= MAX_GRID_ROWS:
+        raise ValueError(f"row count {q} out of range [1, {MAX_GRID_ROWS}]")
+    if not _launchable(dev):
+        return doc_mark_plain(ids, boost, n)
+    lib = ensure_built()
+    matched = torch.empty((q, n), dtype=torch.bool, device=dev)
+    scores = torch.empty((q, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.esk_doc_mark(
+            _ptr(ids), _ptr(boost), int(q), int(nd), int(n), _ptr(matched),
+            _ptr(scores), _stream(dev),
+        )
+    _check_rc("doc_mark", rc)
+    count_launch("doc_mark")
+    return matched, scores

@@ -14,9 +14,14 @@ to the `phrase`, `span_near` and `span_not` position-worklist nodes; and
 the coalescing helpers `SpecUnifyError`, `unify_specs`,
 `pad_arrays_to_spec` and `equalize_compiled` for the node kinds this
 compiler emits (the positional worklists pad with `shifts` /
-`clause_of` 0). Left out: nested, prefix / wildcard / fuzzy / regexp
-queries, function score, percolate, ids, filter-cache keys and the
-unify/pad cases of the kinds above.
+`clause_of` 0); and the structured tail: `_nested_q` (the child compiled
+against the nested path's inner segment, with the reader-level
+statistics that `aggregate_field_stats` gathers from nested inner
+fields too), `_function_score` (query/functions.lower_function per
+function, filters as ordinary nodes), `_rank_feature`, the geo nodes,
+`boosting`, `_terms_set`, `_ids` (a `doc_set` of local ids) and
+`dis_max`, with their unify/pad rules. Left out: prefix / wildcard /
+fuzzy / regexp queries, percolate and filter-cache keys.
 
 Everything data-dependent happens here, on the host, at plan time:
 analysis of match text, term-dictionary lookups -> posting spans ->
@@ -39,16 +44,24 @@ from ..index.tiles import TILE, DeviceField
 from ..ops.bm25 import BM25Params, norm_inverse_cache, term_weight
 from .dsl import (
     BoolQuery,
+    BoostingQuery,
     ConstantScoreQuery,
+    DisMaxQuery,
     ExistsQuery,
+    FunctionScoreQuery,
+    GeoBoundingBoxQuery,
+    GeoDistanceQuery,
+    IdsQuery,
     IntervalsQuery,
     MatchAllQuery,
     MatchNoneQuery,
     MatchPhrasePrefixQuery,
     MatchPhraseQuery,
     MatchQuery,
+    NestedQuery,
     Query,
     RangeQuery,
+    RankFeatureQuery,
     ScriptScoreQuery,
     SpanFirstQuery,
     SpanNearQuery,
@@ -57,6 +70,7 @@ from .dsl import (
     SpanTermQuery,
     TermQuery,
     TermsQuery,
+    TermsSetQuery,
     intervals_to_spans,
     span_clause_lists,
     span_not_lists,
@@ -76,11 +90,13 @@ class FieldStats:
 def aggregate_field_stats(segments) -> dict[str, FieldStats]:
     """Reader-level statistics across segments: deleted docs still count
     (Lucene statistics ignore liveDocs until segments merge) and
-    avgdl = sumTotalTermFreq / docCount."""
+    avgdl = sumTotalTermFreq / docCount. Nested blocks' inner fields
+    count as the reference counts them."""
     stats: dict[str, FieldStats] = {}
     totals: dict[str, list[int]] = {}
     dfs: dict[str, dict[str, int]] = {}
-    for seg in segments:
+
+    def walk(seg):
         for name, fld in seg.fields.items():
             tot = totals.setdefault(name, [0, 0])
             tot[0] += fld.doc_count
@@ -88,6 +104,13 @@ def aggregate_field_stats(segments) -> dict[str, FieldStats]:
             fdfs = dfs.setdefault(name, {})
             for term, tid in fld.terms.items():
                 fdfs[term] = fdfs.get(term, 0) + int(fld.df[tid])
+        # Nested inner fields aggregate at reader level too (full-path
+        # names cannot collide with flat fields).
+        for block in getattr(seg, "nested", {}).values():
+            walk(block.seg)
+
+    for seg in segments:
+        walk(seg)
     for name, (doc_count, sum_tf) in totals.items():
         stats[name] = FieldStats(
             doc_count=doc_count,
@@ -367,6 +390,8 @@ class Compiler:
         params: BM25Params = BM25Params(),
         stats: dict[str, FieldStats] | None = None,
         nt_floor: int = 1,
+        id_index: Any = None,  # dict[str, int] | zero-arg callable | None
+        nested: dict[str, Any] | None = None,  # path -> (inner dev, ...)
     ):
         self.fields = fields
         self.doc_values = doc_values
@@ -375,6 +400,13 @@ class Compiler:
         self.stats = stats or {}
         # Minimum worklist bucket (uniform shapes across a batch).
         self.nt_floor = nt_floor
+        # _id -> local doc for ids queries (or a zero-arg callable
+        # returning that dict, built only when an ids query compiles).
+        self.id_index = id_index
+        # Nested blocks of the segment: path -> (inner DeviceSegment,
+        # parent_of, child_start); child queries compile against the
+        # inner segment.
+        self.nested = nested or {}
         # Conjunction pushdown state: the doc-id range single-span filters
         # bound while a bool's must clauses lower (see _bool).
         self._doc_range: tuple[int, int] | None = None
@@ -445,7 +477,214 @@ class Compiler:
             return self._span_not_spec(q, scoring)
         if isinstance(q, IntervalsQuery):
             return self._intervals(q, scoring)
+        if isinstance(q, NestedQuery):
+            return self._nested_q(q, scoring)
+        if isinstance(q, RankFeatureQuery):
+            return self._rank_feature(q)
+        if isinstance(q, GeoDistanceQuery):
+            if f"{q.field_name}.lat" not in self.doc_values:
+                return ("match_none",), {}
+            return ("geo_distance", q.field_name), {
+                "lat": np.float32(q.lat),
+                "lon": np.float32(q.lon),
+                "radius_m": np.float32(q.distance_m),
+                "boost": np.float32(q.boost),
+            }
+        if isinstance(q, GeoBoundingBoxQuery):
+            if f"{q.field_name}.lat" not in self.doc_values:
+                return ("match_none",), {}
+            return ("geo_box", q.field_name), {
+                "top": np.float32(q.top),
+                "left": np.float32(q.left),
+                "bottom": np.float32(q.bottom),
+                "right": np.float32(q.right),
+                "boost": np.float32(q.boost),
+            }
+        if isinstance(q, FunctionScoreQuery):
+            return self._function_score(q, scoring)
+        if isinstance(q, BoostingQuery):
+            pos_spec, pos_arrays = self._node(q.positive, scoring)
+            neg_spec, neg_arrays = self._node(q.negative, scoring=False)
+            return ("boosting", pos_spec, neg_spec), {
+                "positive": pos_arrays,
+                "negative": neg_arrays,
+                "negative_boost": np.float32(q.negative_boost),
+                "boost": np.float32(q.boost),
+            }
+        if isinstance(q, TermsSetQuery):
+            return self._terms_set(q, scoring)
+        if isinstance(q, IdsQuery):
+            return self._ids(q)
+        if isinstance(q, DisMaxQuery):
+            children = [self._node(c, scoring) for c in q.queries]
+            if not children:
+                return ("match_none",), {}
+            return ("dismax", tuple(s for s, _ in children)), {
+                "tie": np.float32(q.tie_breaker),
+                "boost": np.float32(q.boost),
+                "children": tuple(a for _, a in children),
+            }
         raise ValueError(f"cannot compile query type {type(q).__name__}")
+
+    def _nested_q(self, q, scoring: bool) -> tuple[tuple, Any]:
+        """The child compiled against the path's inner document space (its
+        own fields and doc values, the reader-level statistics), then the
+        block-join spec. A segment with no objects under the path
+        compiles to match_none."""
+        scope = self.mappings.nested.get(q.path)
+        if scope is None:
+            if q.ignore_unmapped:
+                return ("match_none",), {}
+            raise ValueError(
+                f"[nested] failed to find nested object under path [{q.path}]"
+            )
+        blk = self.nested.get(q.path)
+        if blk is None:
+            return ("match_none",), {}
+        inner_dev = blk[0]
+        if inner_dev.num_docs == 0 or not (
+            inner_dev.fields or inner_dev.doc_values
+        ):
+            return ("match_none",), {}
+        sub = Compiler(
+            fields=inner_dev.fields,
+            doc_values=inner_dev.doc_values,
+            mappings=scope,
+            params=self.params,
+            stats=self.stats,
+            nt_floor=self.nt_floor,
+            nested=inner_dev.nested,
+        )
+        child_spec, child_arrays = sub._node(
+            q.query, scoring=scoring and q.score_mode != "none"
+        )
+        spec = ("nested", q.path, child_spec, q.score_mode)
+        return spec, {"child": child_arrays, "boost": np.float32(q.boost)}
+
+    def _function_score(self, q, scoring: bool) -> tuple[tuple, Any]:
+        """Child plan + per-function (static spec, f32 constants) + per-
+        function filter plans (FunctionScoreQueryBuilder)."""
+        from .functions import lower_function
+
+        child_spec, child_arrays = self._node(q.query, scoring)
+        fspecs, filter_specs, fn_arrays, filter_arrays = [], [], [], []
+        for fs in q.functions:
+            fspec, farrays = lower_function(
+                fs, lambda name: name in self.doc_values
+            )
+            fspecs.append(fspec)
+            fn_arrays.append(farrays)
+            if fs.filter is not None:
+                fspec_filter, fa = self._node(fs.filter, scoring=False)
+                filter_specs.append(fspec_filter)
+                filter_arrays.append(fa)
+            else:
+                filter_specs.append(None)
+                filter_arrays.append({})
+        spec = (
+            "function_score",
+            child_spec,
+            tuple(fspecs),
+            tuple(filter_specs),
+            q.score_mode,
+            q.boost_mode,
+            q.min_score is not None,
+        )
+        arrays: dict[str, Any] = {
+            "child": child_arrays,
+            "functions": tuple(fn_arrays),
+            "filters": tuple(filter_arrays),
+            "max_boost": np.float32(q.max_boost),
+            "boost": np.float32(q.boost),
+        }
+        if q.min_score is not None:
+            arrays["min_score"] = np.float32(q.min_score)
+        return spec, arrays
+
+    def _rank_feature(self, q):
+        """rank_feature over the feature's doc-values column; the default
+        saturation pivot (index statistics in the reference) must be
+        explicit."""
+        if q.field_name not in self.doc_values:
+            return ("match_none",), {}
+        fm = self.mappings.get(q.field_name)
+        if fm is not None and fm.type not in ("rank_feature", "token_count"):
+            if not fm.is_numeric:
+                raise ValueError(
+                    f"[rank_feature] field [{q.field_name}] must be a "
+                    f"rank_feature or numeric field"
+                )
+        if q.function == "saturation" and q.pivot is None:
+            raise ValueError(
+                "[rank_feature] [saturation] requires an explicit [pivot] "
+                "(automatic pivots from index statistics are not supported "
+                "yet)"
+            )
+        arrays = {
+            "pivot": np.float32(q.pivot if q.pivot is not None else 1.0),
+            "scaling": np.float32(q.scaling_factor),
+            "exponent": np.float32(q.exponent),
+            "boost": np.float32(q.boost),
+        }
+        return ("rank_feature", q.field_name, q.function), arrays
+
+    def _terms_set(self, q, scoring: bool):
+        """One scored disjunction for the BM25 sum plus one matched-only
+        worklist per term for the coverage count; the per-doc requirement
+        reads a doc-values column or a painless-lite script (missing values
+        never match, the requirement clamps to >= 1)."""
+        dfield = self._field_or_none(q.field_name)
+        if dfield is None:
+            return ("match_none",), {}
+        stats = self.stats.get(q.field_name)
+        scored_spec, scored_arrays = self._terms_spec(
+            dfield, q.terms, 1.0, stats, scored=scoring
+        )
+        counts = [
+            self._terms_spec(dfield, [t], 1.0, stats, scored=False)
+            for t in q.terms
+        ]
+        arrays: dict[str, Any] = {
+            "scored": scored_arrays,
+            "counts": tuple(ca for _, ca in counts),
+            "boost": np.float32(q.boost),
+        }
+        if q.minimum_should_match_field is not None:
+            if q.minimum_should_match_field not in self.doc_values:
+                return ("match_none",), {}
+            msm_kind, msm_ref = "field", q.minimum_should_match_field
+        else:
+            from ..script import compile_script
+
+            compile_script(q.minimum_should_match_script)  # 400 on parse
+            params = dict(q.script_params)
+            params["num_terms"] = float(len(q.terms))
+            names = tuple(sorted(params))
+            msm_kind, msm_ref = "script", (q.minimum_should_match_script, names)
+            arrays["params"] = {
+                name: np.asarray(params[name], dtype=np.float32)
+                for name in names
+            }
+        spec = (
+            "terms_set",
+            scored_spec,
+            tuple(cs for cs, _ in counts),
+            msm_kind,
+            msm_ref,
+        )
+        return spec, arrays
+
+    def _ids(self, q: IdsQuery):
+        if self.id_index is None or not q.values:
+            return ("match_none",), {}
+        index = self.id_index() if callable(self.id_index) else self.id_index
+        locals_ = sorted(index[v] for v in set(q.values) if v in index)
+        # A shard with no matching id still compiles to an (all-padding)
+        # doc_set, so the spec stays uniform across shards.
+        nd = _pow2(len(locals_), self.nt_floor)
+        docs = np.full(nd, -1, dtype=np.int32)
+        docs[: len(locals_)] = locals_
+        return ("doc_set", nd), {"docs": docs, "boost": np.float32(q.boost)}
 
     def _intervals(self, q: IntervalsQuery, scoring: bool) -> tuple[tuple, Any]:
         analyzer = self.mappings.analyzer_for(q.field_name, search=True)
@@ -970,12 +1209,66 @@ def unify_specs(specs: list[tuple]) -> tuple:
                 _unify_same(specs, idx)
         nt = max(s[2] for s in specs)
         return (*first[:2], nt, *first[3:])
+    if kind == "doc_set":
+        return (kind, max(s[1] for s in specs))
     if kind == "const":
         return (kind, unify_specs([s[1] for s in specs]))
     if kind == "script":
         for idx in range(2, len(first)):
             _unify_same(specs, idx)
         return (kind, unify_specs([s[1] for s in specs]), *first[2:])
+    if kind == "nested":
+        _unify_same(specs, 1)
+        _unify_same(specs, 3)
+        return (kind, first[1], unify_specs([s[2] for s in specs]), first[3])
+    if kind == "boosting":
+        return (
+            kind,
+            unify_specs([s[1] for s in specs]),
+            unify_specs([s[2] for s in specs]),
+        )
+    if kind == "terms_set":
+        _unify_same(specs, 3)
+        _unify_same(specs, 4)
+        if len({len(s[2]) for s in specs}) != 1:
+            raise SpecUnifyError("terms_set count-clause arity differs")
+        counts = tuple(
+            unify_specs([s[2][i] for s in specs])
+            for i in range(len(first[2]))
+        )
+        return (kind, unify_specs([s[1] for s in specs]), counts, *first[3:])
+    if kind == "function_score":
+        for idx in range(2, len(first)):
+            if idx != 3:
+                _unify_same(specs, idx)
+        if len({len(s[3]) for s in specs}) != 1:
+            raise SpecUnifyError("function_score filter arity differs")
+        filters = []
+        for i in range(len(first[3])):
+            col = [s[3][i] for s in specs]
+            if any(c is None for c in col):
+                if not all(c is None for c in col):
+                    raise SpecUnifyError("function filter None-ness differs")
+                filters.append(None)
+            else:
+                filters.append(unify_specs(col))
+        return (
+            kind,
+            unify_specs([s[1] for s in specs]),
+            first[2],
+            tuple(filters),
+            *first[4:],
+        )
+    if kind == "dismax":
+        if len({len(s[1]) for s in specs}) != 1:
+            raise SpecUnifyError("dismax clause-count differs")
+        return (
+            kind,
+            tuple(
+                unify_specs([s[1][i] for s in specs])
+                for i in range(len(first[1]))
+            ),
+        )
     if kind == "bool":
         _unify_same(specs, 5)  # minimum_should_match
         out_groups = []
@@ -1023,10 +1316,51 @@ def pad_arrays_to_spec(spec: tuple, target: tuple, arrays):
     kind = spec[0]
     if kind in _NT_KINDS:
         return _pad_entries(arrays, spec[2], target[2])
-    if kind in ("const", "script"):
+    if kind == "doc_set":
+        docs = arrays["docs"]
+        pad = np.full(
+            (*docs.shape[:-1], target[1] - spec[1]), -1, dtype=docs.dtype
+        )
+        return {**arrays, "docs": np.concatenate([docs, pad], axis=-1)}
+    if kind in ("const", "script", "nested"):
+        child_idx = 1 if kind != "nested" else 2
+        return {
+            **arrays,
+            "child": pad_arrays_to_spec(
+                spec[child_idx], target[child_idx], arrays["child"]
+            ),
+        }
+    if kind == "boosting":
+        return {
+            **arrays,
+            "positive": pad_arrays_to_spec(spec[1], target[1], arrays["positive"]),
+            "negative": pad_arrays_to_spec(spec[2], target[2], arrays["negative"]),
+        }
+    if kind == "terms_set":
+        return {
+            **arrays,
+            "scored": pad_arrays_to_spec(spec[1], target[1], arrays["scored"]),
+            "counts": tuple(
+                pad_arrays_to_spec(cs, ct, ca)
+                for cs, ct, ca in zip(spec[2], target[2], arrays["counts"])
+            ),
+        }
+    if kind == "function_score":
         return {
             **arrays,
             "child": pad_arrays_to_spec(spec[1], target[1], arrays["child"]),
+            "filters": tuple(
+                fa if fs is None else pad_arrays_to_spec(fs, ft, fa)
+                for fs, ft, fa in zip(spec[3], target[3], arrays["filters"])
+            ),
+        }
+    if kind == "dismax":
+        return {
+            **arrays,
+            "children": tuple(
+                pad_arrays_to_spec(cs, ct, ca)
+                for cs, ct, ca in zip(spec[1], target[1], arrays["children"])
+            ),
         }
     if kind == "bool":
         out_children = []

@@ -1,7 +1,6 @@
 """can_match shard pre-filtering.
 
-Port copy of elasticsearch_tpu/search/can_match.py, whole except the
-nested-query branch (the port's DSL has no nested queries).
+Port copy of elasticsearch_tpu/search/can_match.py, whole.
 
 The coordinator's pre-flight phase (the reference's TransportSearchAction
 can-match round, action/search/CanMatchPreFilterSearchPhase.java): before
@@ -19,6 +18,7 @@ from ..query.dsl import (
     BoolQuery,
     ConstantScoreQuery,
     MatchNoneQuery,
+    NestedQuery,
     RangeQuery,
     TermQuery,
 )
@@ -102,6 +102,8 @@ def can_match(query, bounds, mappings=None) -> bool:
         return True
     if isinstance(query, ConstantScoreQuery):
         return can_match(query.filter, bounds, mappings)
+    if isinstance(query, NestedQuery):
+        return True  # nested bounds live in another doc space
     if isinstance(query, BoolQuery):
         for child in list(query.must) + list(query.filter):
             if not can_match(child, bounds, mappings):

@@ -28,8 +28,10 @@ contract: per-shard top-(from+size), merged by (sort key, shard index,
 per-shard rank), then paged.
 
 Statistics: the coordinator aggregates term statistics across every
-shard's segments and pushes them down (the DFS phase, always on), so
-scores are independent of routing.
+shard's segments, nested inner fields included, and pushes them down
+(the DFS phase, always on), so scores are independent of routing. An
+`ids` query compiles on every shard against that shard's own `_id`
+index, so each shard marks the ids it holds.
 """
 
 from __future__ import annotations

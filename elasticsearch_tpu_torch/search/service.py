@@ -37,7 +37,11 @@ match_phrase_prefix, the span family and intervals) need no branch of
 their own: their plans are dense-only `_eval_node` specs, so they run
 through `_query_segment` and the batched query phase (K11 / K12 into
 the score plane, then K3), aggregations, rescore, sorts and cursors as
-any other dense plan does. Left out: CPU-oracle routing (and with it any
+any other dense plan does; so do the structured queries (multi_match,
+dis_max, ids, boosting, rank_feature, geo_distance, geo_bounding_box,
+terms_set, function_score and nested: K13 / K14 after their children),
+a nested query's child compiling against the segment's nested block.
+Left out: CPU-oracle routing (and with it any
 planner decision on the batched path), the filter cache (a batch's mask
 token is always `()`, and the knn filter's admission is not recorded),
 tasks and timeouts, scroll, highlight, fields, profile and the other

@@ -16,6 +16,7 @@ from elasticsearch_tpu_torch.index.mapping import Mappings
 from elasticsearch_tpu_torch.index.segment import SegmentBuilder
 from elasticsearch_tpu_torch.index.tiles import (
     TILE,
+    device_nbytes,
     device_segment_from_numpy,
     field_meta,
     pack_segment,
@@ -168,3 +169,77 @@ def test_device_segment_from_numpy_round_trips():
             else:
                 assert val == other, key
     assert torch.equal(back.live, dev.live)
+
+
+def test_device_segment_from_numpy_carries_nested_and_structured_columns():
+    """The JAX package's planes of a segment with nested blocks and the geo,
+    rank_feature and `req` columns, moved with device_segment_from_numpy:
+    every column, the inner segment's planes, parent_of and the derived
+    child_start equal the port's own pack of the port's own build."""
+    from elasticsearch_tpu.index.mapping import Mappings as JaxMappings
+    from elasticsearch_tpu.index.segment import SegmentBuilder as JaxBuilder
+    from elasticsearch_tpu.index.tiles import pack_segment as jax_pack
+    from elasticsearch_tpu.ops import bm25_device as jbd
+    from elasticsearch_tpu_torch.index.mapping import Mappings
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+
+    props = {"title": {"type": "text"}, "loc": {"type": "geo_point"},
+             "pr": {"type": "rank_feature"}, "req": {"type": "integer"},
+             "answers": {"type": "nested", "properties": {
+                 "body": {"type": "text"}, "votes": {"type": "long"}}}}
+    rng = np.random.default_rng(3)
+    docs = []
+    for i in range(40):
+        d = {"title": " ".join(rng.choice(["a", "b", "c", "d"], 3)),
+             "req": int(rng.integers(1, 4)), "pr": float(rng.random() + 0.1)}
+        if i % 3:
+            d["loc"] = [float(rng.uniform(-180, 180)), float(rng.uniform(-60, 70))]
+        d["answers"] = [{"body": str(rng.choice(["x y", "y z"])),
+                         "votes": int(rng.integers(0, 9))}
+                        for _ in range(int(rng.integers(0, 4)))]
+        docs.append(d)
+    jb, pb = JaxBuilder(JaxMappings(properties=props)), SegmentBuilder(
+        Mappings(properties=props))
+    for i, d in enumerate(docs):
+        jb.add(d, f"d{i}")
+        pb.add(d, f"d{i}")
+    jdev = jax_pack(jb.build())
+    pdev = pack_segment(pb.build(), device="cpu")
+
+    def planes(tree):
+        return {"fields": {n: [np.asarray(x) for x in v]
+                           for n, v in tree["fields"].items()},
+                "positions": {n: [np.asarray(x) for x in v]
+                              for n, v in tree["positions"].items()},
+                "doc_values": {n: np.asarray(v)
+                               for n, v in tree["doc_values"].items()},
+                "live": np.asarray(tree["live"]),
+                "nested": {p: {"tree": planes(b["tree"]),
+                               "parent_of": np.asarray(b["parent_of"])}
+                           for p, b in tree["nested"].items()}}
+
+    meta = {n: field_meta(f) for n, f in jdev.fields.items()}
+    for inner, _parent_of in jdev.nested.values():
+        meta.update({n: field_meta(f) for n, f in inner.fields.items()})
+    back = device_segment_from_numpy(planes(jbd.segment_tree(jdev)), meta,
+                                     device="cpu")
+
+    def same(a, b):
+        assert sorted(a.doc_values) == sorted(b.doc_values) == sorted(
+            set(a.doc_values))
+        for name, col in a.doc_values.items():
+            assert torch.equal(col.isnan(), b.doc_values[name].isnan()), name
+            assert torch.equal(col.nan_to_num(), b.doc_values[name].nan_to_num())
+        for name, f in a.fields.items():
+            for attr in ("doc_ids", "tn", "tfs", "norm_bytes", "present"):
+                assert torch.equal(getattr(f, attr), getattr(b.fields[name], attr))
+        assert torch.equal(a.live, b.live)
+
+    same(back, pdev)
+    assert {"loc.lat", "loc.lon", "pr", "req"} <= set(back.doc_values)
+    assert sorted(back.nested) == sorted(pdev.nested) == ["answers"]
+    (bi, bp, bc), (pi, pp, pc) = back.nested["answers"], pdev.nested["answers"]
+    same(bi, pi)
+    assert torch.equal(bp, pp) and torch.equal(bc, pc)
+    assert bc.dtype == torch.int32 and bc.shape[0] == back.num_docs + 1
+    assert device_nbytes(back) == device_nbytes(pdev)
