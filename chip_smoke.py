@@ -149,6 +149,25 @@ and read just after it.
                  without a boost) on the card against a CPU node: ids,
                  totals and every NaN score's bits equal
 
+ 17. packed      (kernel-table row 13) the reference bench's config 6 at the
+                 plane budget: 900 one-shard tenants (sizes [8, 64, 256] +
+                 897 log-uniform 1k-10k draws of default_rng(61); Zipf
+                 titles, vocabulary 4,000, seed 700 + t; one flooded with
+                 a term rare elsewhere) plus BASELINE config 1's scifact
+                 shape (5,000 docs) indexed over HTTP `_bulk`; two bodies a
+                 tenant (60 % match of 3 terms, 25 % bool(must + filter),
+                 15 % bool(should, msm 1)) and 12 leak bodies: a warm-up
+                 touching every tenant from 32 clients (plane rebuilds), 64
+                 bodies one at a time, every body from 32 clients, the
+                 same on a Node(exec_packed=False), then both again in
+                 turns (steady state); every answer against its solo
+                 answer on the card, the numpy oracle, the unpacked node
+                 and the repeats, no foreign doc in any page; 100 docs
+                 `_bulk`-indexed into one tenant: the plane rebuilds and
+                 its answers track the new segment; then K2b's bounds mode
+                 and K3b's window mode on the phase's widest launch of each
+                 against their plain versions
+
 The last lines are the card (nvidia-smi name, power limit), one JSON
 object with the kernel table, and {"ok": true, "device": {...}}.
 """
@@ -258,7 +277,8 @@ def plain_kernels():
     from elasticsearch_tpu_torch.ops import tail_kernel
 
     names = ([n + s for n in KERNELS for s in kern.MODES] + list(AGG_KERNELS)
-             + list(PHRASE_SOURCES) + ["doc_join", "doc_mark"])
+             + list(PHRASE_SOURCES) + ["doc_join", "doc_mark"]
+             + list(PACKED_SOURCES))
     saved = {n: getattr(kern, n) for n in names}
     real_tail = tail_kernel.tail_eval
     try:
@@ -735,6 +755,10 @@ def run() -> dict:
     torch.cuda.reset_peak_memory_stats()
     aggs = run_aggs(card, dev, launches, rows)
     nan_pages = run_nan_pages(card, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    packed = run_packed(card, dev, launches, rows)
     missing = [name for name in kern.LAUNCHES if launches.get(name, 0) <= 0]
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")
@@ -744,7 +768,8 @@ def run() -> dict:
     log(f"phase results: whole run {time.monotonic() - t_run:.1f} s [{card}]")
     return {"card": card, "kernels": rows,
             "result": {"one_shard": single, "sharded": sharded, "knn": knn,
-                       "aggs": aggs, "nan_pages": nan_pages}}
+                       "aggs": aggs, "nan_pages": nan_pages,
+                       "packed": packed}}
 
 
 class PruneRecorder:
@@ -4617,6 +4642,513 @@ def kernel_rows_structured(compiler_of, triples, dev, q, rows):
     torch.cuda.synchronize()
     log(f"  structured kernels: K13 / K14 bit-equal to their plain versions "
         f"in every mode and kind at Q = 1 and Q = {q}")
+
+
+# ---------------------------------------------------------------------------
+# Phase `packed` (kernel-table row 13): many small one-shard indices scored
+# by coalesced packed launches over one plane (exec/packed.py)
+# ---------------------------------------------------------------------------
+
+N_TENANTS = 900  # the reference's config 6 (bench.py:712-760) at the plane budget
+TENANT_VOCAB = 4_000
+PACKED_CLIENTS = 32
+PACKED_SEQ = 64  # bodies sent one at a time (each rides solo)
+PACKED_FRESH = 100  # docs `_bulk`-indexed into one tenant after the passes
+LEAK_TERM = "zzleak"  # floods one tenant; a few docs of a few others hold it
+PACKED_SOURCES = {
+    "sparse_fold_bounds": "elasticsearch_tpu_torch/csrc/sparse_fold.cu",
+    "masked_topk_window": "elasticsearch_tpu_torch/csrc/masked_topk.cu",
+}
+
+
+def _flood(seg, term: str, docs, tf: int):
+    """The segment with `term` added `tf` times to each doc of `docs` in its
+    title field (a new last term: the name sorts after every `t<i>`; the
+    lengths, norms and statistics follow)."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.index.segment import FieldIndex
+    from elasticsearch_tpu_torch.utils import smallfloat
+
+    fld = seg.fields["title"]
+    docs = np.asarray(docs, dtype=np.int32)
+    lengths = np.bincount(fld.doc_ids, weights=fld.tfs,
+                          minlength=seg.num_docs).astype(np.int64)
+    lengths[docs] += tf
+    terms = dict(fld.terms)
+    terms[term] = len(terms)
+    new = FieldIndex(
+        name="title", terms=terms,
+        df=np.append(fld.df, np.int32(len(docs))).astype(np.int32),
+        offsets=np.append(fld.offsets, fld.offsets[-1] + len(docs)),
+        doc_ids=np.concatenate([fld.doc_ids, docs]),
+        tfs=np.concatenate([fld.tfs, np.full(len(docs), tf, np.float32)]),
+        norm_bytes=smallfloat.encode_lengths(lengths),
+        doc_count=fld.doc_count, sum_total_tf=fld.sum_total_tf + tf * len(docs),
+        has_norms=True, present=fld.present,
+    )
+    return replace(seg, fields={"title": new})
+
+
+def _zipf_docs(seg):
+    """The documents of a generated title segment as JSON bodies (each
+    term tf times; the order of tokens leaves BM25 unchanged)."""
+    import numpy as np
+
+    fld = seg.fields["title"]
+    names = sorted(fld.terms, key=fld.terms.get)
+    term_of = np.repeat(np.arange(len(names)), np.diff(fld.offsets))
+    toks: list[list[str]] = [[] for _ in range(seg.num_docs)]
+    for d, t, tf in zip(fld.doc_ids.tolist(), term_of.tolist(),
+                        fld.tfs.astype(np.int64).tolist()):
+        toks[d].extend([names[t]] * tf)
+    return [{"title": " ".join(tk)} for tk in toks]
+
+
+def _packed_bodies(tenants, rng):
+    """Two bodies per tenant in the reference test's three shapes: 60 %
+    `match` of 3 terms (pick_query_terms), 25 % bool(must match of 1-2
+    terms + filter term; the filter a head term or, every other time, a
+    mid one that leads the conjunction), 15 % bool(should [term, term],
+    minimum_should_match 1). Returns [(index, body, (shape, terms))]."""
+    from elasticsearch_tpu_torch.utils.corpus import pick_query_terms
+
+    out = []
+    n_bool = 0
+    for index, seg in tenants:
+        for _ in range(2):
+            t = pick_query_terms(seg, rng, 1, terms_per_query=3,
+                                 field="title")[0]
+            roll = rng.random()
+            if roll < 0.60:
+                q, shape = {"match": {"title": " ".join(t)}}, ("match", t)
+            elif roll < 0.85:
+                n_must = int(rng.integers(1, 3))
+                filt = t[0] if n_bool % 2 == 0 else t[2]
+                must = [w for w in t if w != filt][:n_must]
+                n_bool += 1
+                q = {"bool": {"must": [{"match": {"title": " ".join(must)}}],
+                              "filter": [{"term": {"title": filt}}]}}
+                shape = ("must_filter", (must, filt))
+            else:
+                pair = [t[1], t[0] if rng.random() < 0.5 else t[2]]
+                q = {"bool": {"should": [{"term": {"title": w}} for w in pair],
+                              "minimum_should_match": 1}}
+                shape = ("should", pair)
+            out.append((index, {"query": q, "size": TOP_K}, shape))
+    return out
+
+
+def packed_oracle(engine, shape, k=TOP_K):
+    """(ids, scores, total) of one body on its own tenant, in numpy: each
+    segment scored with the engine's statistics (ops/bm25), live docs only,
+    merged by (score desc, global doc id)."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.ops import bm25
+
+    kind, terms = shape
+    stats = engine.field_stats()["title"]
+    merged, total = [], 0
+    for h in engine.segments:
+        fld, n = h.segment.fields["title"], h.segment.num_docs
+        matched = np.zeros(n, dtype=bool)
+        scoring = terms[0] if kind == "must_filter" else terms
+        scores = bm25.score_terms_dense(fld, scoring, n, matched=matched,
+                                        stats=stats)
+        if kind == "must_filter":
+            keep = np.zeros(n, dtype=bool)
+            keep[fld.postings(terms[1])[0]] = True
+            matched &= keep
+        matched &= h.live_host
+        total += int(matched.sum())
+        top_s, top_i = bm25.top_k(scores, k, matched)
+        merged += [(-float(sc), h.base + int(d), h.segment.ids[int(d)], sc)
+                   for sc, d in zip(top_s, top_i)]
+    merged.sort(key=lambda c: (c[0], c[1]))
+    page = merged[:k]
+    return [c[2] for c in page], [c[3] for c in page], total
+
+
+class LaunchRecorder:
+    """Keeps the inputs of the widest launch (most rows) of one kernel
+    wrapper while installed: the kernel rows replay the phase's largest
+    launch."""
+
+    def __init__(self, name):
+        from elasticsearch_tpu_torch.ops import kernels as kern
+
+        self.kern, self.name = kern, name
+        self.real = getattr(kern, name)
+        self.args = None
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        def record(*args):
+            with self.lock:
+                if self.args is None or args[2].shape[0] > self.args[2].shape[0]:
+                    self.args = args
+            return self.real(*args)
+
+        setattr(self.kern, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.kern, self.name, self.real)
+
+
+def _leak_free(out, prefix) -> bool:
+    """Every hit of the page names a doc of the tenant (ids `<prefix>i`)."""
+    return all(h["_id"].startswith(prefix) for h in out["hits"]["hits"])
+
+
+def run_packed(card, dev, launches, rows) -> dict:
+    """The reference bench's config 6 at the plane budget: 900 tenants
+    (sizes [8, 64, 256] + 897 draws of int(10 ** uniform(3, 4)) from
+    default_rng(61); build_zipf_segment(n, vocab 4,000, seed 700 + t,
+    3-12 title tokens), installed with `_install_segment`, one of them
+    flooded with LEAK_TERM and five holding it in a few docs; plus BASELINE
+    config 1's scifact shape (5,000 docs, vocab 8,000, seed 17) indexed over
+    HTTP `_bulk`. Two bodies a tenant (default_rng(SEED + 10)) and 12 leak
+    bodies; passes: a warm-up touching every tenant once from 32 clients,
+    64 bodies one at a time, every body from 32 clients, the same on a
+    Node(exec_packed=False), then both again in turns. Every concurrent
+    answer equals its solo answer on the card (`svc.search.search`), the
+    numpy oracle and the other passes' answers, and names only its own
+    tenant's docs; then 100 docs `_bulk`-indexed into one tenant
+    and a refresh: the plane rebuilds and that tenant's packed answers
+    track the new segment. Then K2b's bounds mode and K3b's window mode
+    replayed on the phase's widest launch of each."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.exec.batcher import MicroBatcher
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.search.service import SearchRequest
+    from elasticsearch_tpu_torch.utils.corpus import build_zipf_segment
+
+    t_phase = time.monotonic()
+    rng61 = np.random.default_rng(61)
+    sizes = [8, 64, 256] + [int(10 ** rng61.uniform(3.0, 4.0))
+                            for _ in range(N_TENANTS - 3)]
+    segs = []
+    for t, n in enumerate(sizes):
+        _m, seg = build_zipf_segment(n, vocab_size=TENANT_VOCAB, seed=700 + t,
+                                     min_len=3, max_len=12, field="title")
+        segs.append(replace(seg, ids=[f"{t}-{i}" for i in range(n)]))
+    leak_t = 3
+    segs[leak_t] = _flood(segs[leak_t], LEAK_TERM, np.arange(sizes[leak_t]), 3)
+    for t in range(4, 9):
+        segs[t] = _flood(segs[t], LEAK_TERM, [1, sizes[t] // 2], 1)
+    _m, scifact = build_zipf_segment(5_000, vocab_size=8_000, seed=17,
+                                     min_len=3, max_len=12, field="title")
+    scifact = replace(scifact, ids=[f"s-{i}" for i in range(5_000)])
+    gen_s = time.monotonic() - t_phase
+    mappings = {"mappings": {"properties": {"title": {"type": "text"}}}}
+    node = Node(device=DEVICE)
+    flat = Node(device=DEVICE, exec_packed=False)
+    names = [f"tenant{t:03d}" for t in range(N_TENANTS)]
+    t0 = time.monotonic()
+    for name, seg in zip(names, segs):
+        for n in (node, flat):
+            n.create_index(name, mappings)
+            n.indices[name].engine._install_segment(seg)
+    torch.cuda.synchronize()
+    install_s = time.monotonic() - t0
+    server, base = serve(node)
+    try:
+        http(base, "PUT", "/scifact", mappings)
+        docs = _zipf_docs(scifact)
+        bulk = "".join(json.dumps({"index": {"_id": scifact.ids[i]}}) + "\n"
+                       + json.dumps(d) + "\n" for i, d in enumerate(docs))
+        t0 = time.monotonic()
+        if http(base, "POST", "/scifact/_bulk", raw=bulk)["errors"]:
+            raise SmokeFailure("scifact _bulk reported errors")
+        http(base, "POST", "/scifact/_refresh")
+        ingest_s = time.monotonic() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+    sci_seg = node.indices["scifact"].engine.segments[0].segment
+    got_f, want_f = sci_seg.fields["title"], scifact.fields["title"]
+    if not (got_f.terms == want_f.terms
+            and all(np.array_equal(getattr(got_f, a), getattr(want_f, a))
+                    for a in ("df", "offsets", "doc_ids", "tfs", "norm_bytes"))):
+        raise SmokeFailure("the scifact tenant's _bulk ingest differs from "
+                           "its generated segment")
+    flat.create_index("scifact", mappings)
+    flat.indices["scifact"].engine._install_segment(sci_seg)
+    names.append("scifact")
+    tenant_segs = list(zip(names, segs + [scifact]))
+    prefix = {name: f"{t}-" for t, name in enumerate(names[:-1])}
+    prefix["scifact"] = "s-"
+    all_docs = sum(sizes) + 5_000
+    log(f"phase packed corpus: ok {N_TENANTS} tenants + scifact, {all_docs} "
+        f"docs, {sum(len(s.fields['title'].doc_ids) for s in segs)} postings; "
+        f"generate {gen_s:.1f} s, install (both nodes) {install_s:.1f} s, "
+        f"scifact _bulk + refresh {ingest_s:.1f} s [{card}]")
+
+    rng = np.random.default_rng(SEED + 10)
+    traffic = _packed_bodies(tenant_segs, rng)
+    leak_names = [names[t] for t in (leak_t, 4, 5, 6, 7, 8, 0, 1, 2, 10, 11, 12)]
+    traffic += [(nm, {"query": {"match": {"title": LEAK_TERM}}, "size": TOP_K},
+                 ("match", [LEAK_TERM])) for nm in leak_names]
+    shape_counts = {}
+    for _i, _b, (kind, _t) in traffic:
+        shape_counts[kind] = shape_counts.get(kind, 0) + 1
+
+    def send(base_url, items, n_clients):
+        lat = [0.0] * len(items)
+        out: list = [None] * len(items)
+        errors: list = []
+        barrier = threading.Barrier(n_clients)
+
+        def client(c):
+            barrier.wait()
+            for i in range(c, len(items), n_clients):
+                try:
+                    t1 = time.monotonic()
+                    out[i] = http(base_url, "POST", f"/{items[i][0]}/_search",
+                                  items[i][1])
+                    lat[i] = (time.monotonic() - t1) * 1e3
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(n_clients)]
+        t1 = time.monotonic()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise SmokeFailure(f"packed requests failed: {errors[:3]}")
+        wall = time.monotonic() - t1
+        return lat, out, {"requests": len(items), "qps": len(items) / wall,
+                          "p50_ms": percentile(lat, 50),
+                          "p99_ms": percentile(lat, 99), "wall_s": wall}
+
+    order = np.random.default_rng(SEED + 11).permutation(len(traffic))
+    shuffled = [traffic[int(j)] for j in order]
+    warm = [next(x for x in traffic if x[0] == nm) for nm in names]
+    warm = [warm[int(j)] for j in np.random.default_rng(SEED + 12).permutation(len(warm))]
+    passes = {}
+    recorders = [LaunchRecorder(n) for n in PACKED_SOURCES]
+    server, base = serve(node)
+    try:
+        # 1. warm-up: every tenant once from 32 clients (plane builds).
+        node.exec_batcher.close()
+        node.exec_batcher = MicroBatcher()
+        with counted("packed warm-up", launches):
+            _l, warm_out, passes["warm_up"] = send(base, warm, PACKED_CLIENTS)
+        warm_stats = node.packed_exec.stats()
+        passes["warm_up"]["plane_rebuilds"] = warm_stats["plane_rebuilds"]
+        passes["warm_up"]["plane_rebuild_s"] = warm_stats["plane_rebuild_s"]
+        # 2. sequential: each rides solo.
+        with counted("packed sequential", launches):
+            _l, seq_out, passes["sequential"] = send(base, shuffled[:PACKED_SEQ], 1)
+        # 3. every body from 32 clients.
+        node.exec_batcher.close()
+        node.exec_batcher = MicroBatcher()
+        before = node.packed_exec.stats()
+        with counted("packed concurrent", launches), \
+                recorders[0], recorders[1]:
+            _l, conc_out, passes["concurrent"] = send(base, shuffled,
+                                                      PACKED_CLIENTS)
+        after = node.packed_exec.stats()
+        passes["concurrent"]["batcher"] = node.exec_batcher.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+    # The concurrent pass's launches and lanes; maxima and histograms
+    # over the phase's passes so far.
+    packed = dict(after)
+    for key in ("launches", "lanes", "plane_rebuilds"):
+        packed[key] = after[key] - before[key]
+    packed["lanes_per_launch_mean"] = (
+        packed["lanes"] / packed["launches"] if packed["launches"] else 0.0)
+    retried = passes["concurrent"]["batcher"]["retried_individually"]
+
+    # 4. the same pass on Node(exec_packed=False), for comparison only;
+    # then both once more in turns (the warm-up's lone riders ran solo and
+    # joined the plane only in pass 3, whose rebuilds pass 3b no longer
+    # pays).
+    def again(n, name):
+        n.exec_batcher.close()
+        n.exec_batcher = MicroBatcher()
+        server, base = serve(n)
+        try:
+            _l, out, passes[name] = send(base, shuffled, PACKED_CLIENTS)
+            passes[name]["batcher"] = n.exec_batcher.stats()
+        finally:
+            server.shutdown()
+            server.server_close()
+        return out
+
+    flat_out = again(flat, "unpacked")
+    rebuilds_3 = node.packed_exec.stats()["plane_rebuilds"]
+    steady_out = again(node, "concurrent_steady")
+    passes["concurrent_steady"]["plane_rebuilds"] = (
+        node.packed_exec.stats()["plane_rebuilds"] - rebuilds_3)
+    flat_again = again(flat, "unpacked_again")
+
+    # Checks: solo on the card, the numpy oracle, no foreign doc.
+    t0 = time.monotonic()
+    vs_solo = vs_oracle = vs_flat = leaks = 0
+    solo_cache = {}
+    for n, (index, body, shape) in enumerate(shuffled):
+        out = conc_out[n]
+        key = (index, json.dumps(body, sort_keys=True))
+        if key not in solo_cache:
+            svc = node.indices[index]
+            solo_cache[key] = json.loads(json.dumps(
+                svc.search.search(SearchRequest.from_json(body)).to_json(index)))
+        if without_took(out) != without_took(solo_cache[key]):
+            vs_solo += 1
+            log(f"  MISMATCH packed vs solo {index} {json.dumps(body)}")
+        if any(without_took(o[n]) != without_took(out)
+               for o in (flat_out, steady_out, flat_again)):
+            vs_flat += 1
+            log(f"  MISMATCH packed vs unpacked / repeat {index} "
+                f"{json.dumps(body)}")
+        if not same_hits(out, *packed_oracle(node.indices[index].engine, shape)):
+            vs_oracle += 1
+            log(f"  MISMATCH packed vs oracle {index} {json.dumps(body)}")
+        if not _leak_free(out, prefix[index]):
+            leaks += 1
+            log(f"  LEAK {index} {json.dumps(body)}")
+    for n, (index, body, shape) in enumerate(shuffled[:PACKED_SEQ]):
+        key = (index, json.dumps(body, sort_keys=True))
+        if without_took(seq_out[n]) != without_took(solo_cache[key]):
+            vs_solo += 1
+            log(f"  MISMATCH sequential vs solo {index} {json.dumps(body)}")
+    leak_totals = {}
+    for n, (index, body, shape) in enumerate(shuffled):
+        if shape[1] == [LEAK_TERM]:
+            leak_totals[index] = conc_out[n]["hits"]["total"]["value"]
+    if leak_totals.get(names[leak_t]) != sizes[leak_t]:
+        leaks += 1
+        log(f"  LEAK totals {leak_totals}")
+    check_s = time.monotonic() - t0
+
+    # 5. 100 docs into one tenant over `_bulk`, a refresh, then its bodies
+    # again among others from 32 clients: the plane tracks the segment.
+    fresh_t = 17
+    fresh = names[fresh_t]
+    rng_f = np.random.default_rng(SEED + 13)
+    vocab = sorted(segs[fresh_t].fields["title"].terms)
+    bulk = "".join(
+        json.dumps({"index": {"_id": f"{fresh_t}-new{i}"}}) + "\n"
+        + json.dumps({"title": " ".join(["zzfresh"] + list(
+            rng_f.choice(vocab, int(rng_f.integers(2, 11)))))}) + "\n"
+        for i in range(PACKED_FRESH))
+    rebuilds0 = node.packed_exec.stats()["plane_rebuilds"]
+    server, base = serve(node)
+    try:
+        if http(base, "POST", f"/{fresh}/_bulk", raw=bulk)["errors"]:
+            raise SmokeFailure("fresh _bulk reported errors")
+        http(base, "POST", f"/{fresh}/_refresh")
+        again = [x for x in traffic if x[0] == fresh] + [
+            (fresh, {"query": {"match": {"title": "zzfresh"}}, "size": TOP_K},
+             ("match", ["zzfresh"]))]
+        others = [x for x in shuffled if x[0] != fresh][:PACKED_CLIENTS * 2]
+        items = again + others
+        with counted("packed refresh", launches):
+            _l, fresh_out, _st = send(base, items, PACKED_CLIENTS)
+    finally:
+        server.shutdown()
+        server.server_close()
+    rebuilt = node.packed_exec.stats()["plane_rebuilds"] - rebuilds0
+    fresh_bad = 0
+    for (index, body, shape), out in zip(items, fresh_out):
+        want = node.indices[index].search.search(SearchRequest.from_json(body))
+        if without_took(out) != without_took(json.loads(json.dumps(
+                want.to_json(index)))):
+            fresh_bad += 1
+        if not same_hits(out, *packed_oracle(node.indices[index].engine, shape)):
+            fresh_bad += 1
+        if not _leak_free(out, prefix[index]):
+            fresh_bad += 1
+    if fresh_out[len(again) - 1]["hits"]["total"]["value"] != PACKED_FRESH:
+        fresh_bad += 1
+    stats = {
+        "tenants": N_TENANTS + 1, "docs": all_docs,
+        "bodies": len(traffic), "shapes": shape_counts, "passes": passes,
+        "packed": packed, "retried_individually": retried,
+        "mismatches_vs_solo": vs_solo, "mismatches_vs_oracle": vs_oracle,
+        "mismatches_vs_unpacked_or_repeat": vs_flat,
+        "cross_tenant_hits": leaks,
+        "leak_totals": leak_totals, "check_s": check_s,
+        "refresh": {"rebuilds": rebuilt, "mismatches": fresh_bad,
+                    "bodies": len(items)},
+    }
+    log(f"phase packed: {json.dumps(stats)} [{card}]")
+    bad = vs_solo + vs_oracle + vs_flat + leaks + fresh_bad
+    if bad or rebuilt < 1:
+        raise SmokeFailure(f"phase packed: {bad} mismatches or leaks, "
+                           f"{rebuilt} rebuilds after the refresh")
+    if packed["launches"] < 1 or packed["lanes"] <= packed["launches"]:
+        raise SmokeFailure(f"phase packed: no coalesced packed launch {packed}")
+    fallbacks = node.packed_exec.stats()["fallback_solo"]
+    if fallbacks or retried:
+        raise SmokeFailure(f"phase packed: {fallbacks} solo fallbacks (no "
+                           f"ineligible body was sent), {retried} riders "
+                           f"retried alone")
+    kernel_rows_packed(recorders, dev, rows)
+    flat.close()
+    node.close()
+    stats["seconds"] = time.monotonic() - t_phase
+    log(f"phase packed: ok {stats['seconds']:.1f} s [{card}]")
+    return stats
+
+
+def kernel_rows_packed(recorders, dev, rows):
+    """K2b's bounds mode and K3b's window mode replayed on the concurrent
+    pass's widest launch of each (Q = its lanes), against their plain
+    versions, bit for bit."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import kernels as kern
+
+    lane = torch.arange(256, device=dev, dtype=torch.int64)
+    fold, window = recorders
+    if fold.args is None or window.args is None:
+        raise SmokeFailure("phase packed launched no K2b bounds or K3b window")
+    (doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs, t_pad,
+     lo, hi) = fold.args
+    q, nt = tile_ids.shape
+    a = {"tile_ids": tile_ids, "starts": starts, "ends": ends}
+    tid, valid = _worklist(a, lane)
+    n_real = int(valid.any(dim=-1).sum())
+    cand_keys = torch.where(valid, doc_tiles[tid], num_docs).reshape(q, -1)
+    _row(rows, "sparse_fold_bounds", "elasticsearch_tpu/ops/bm25_device.py:1014", q,
+         lambda: kern.sparse_fold_bounds(*fold.args),
+         lambda: kern.sparse_fold_bounds_plain(*fold.args),
+         lambda: torch.sort(cand_keys, dim=1, stable=True),
+         "torch.sort(stable=True) over [Q, P]",
+         # valid postings (doc id + impact), the worklist, the bounds read;
+         # docs_s, run_sum and eligible written
+         int(valid.sum()) * 8 + n_real * 16 + q * 8 + q * nt * 256 * 9,
+         source=PACKED_SOURCES["sparse_fold_bounds"],
+         case=f"the widest packed sparse launch, {q} lanes over "
+              f"{num_docs:,} plane docs")
+    key, eligible, wlo, whi, k = window.args
+    q = key.shape[0]
+    spans = [(int(a_), int(b_)) for a_, b_ in zip(wlo.tolist(), whi.tolist())]
+    width = sum(b_ - a_ for a_, b_ in spans)
+    _row(rows, "masked_topk_window", "elasticsearch_tpu/ops/bm25_device.py:741", q,
+         lambda: kern.masked_topk_window(*window.args),
+         lambda: kern.masked_topk_window_plain(*window.args),
+         lambda: [torch.topk(key[r, a_:b_], min(k, b_ - a_))
+                  for r, (a_, b_) in enumerate(spans)],
+         "torch.topk per row window",
+         # each row's window of keys and eligibility read once; the bounds
+         # read; scores, ids and totals written
+         width * 5 + q * 8 + q * min(k, key.shape[1]) * 8 + q * 4,
+         source=PACKED_SOURCES["masked_topk_window"],
+         case=f"the widest packed dense launch, {q} lanes, windows of "
+              f"{width:,} docs in all over a {key.shape[1]:,}-doc plane")
 
 
 def main() -> int:

@@ -64,6 +64,19 @@
 // shard plane is read and the row mode above serves it unchanged, over
 // Q x S rows in one launch. The flat merge over [Q, S * k'] is the row
 // mode over Q rows.
+//
+// Window mode (K3b window; the masked `lax.top_k` of `_execute_inner`
+// (:729-742) with `bounds=` under `execute_batch_packed` :1724, the
+// packed plane's dense lanes): row q reads only its tenant's window
+// [lo[q], hi[q]) of the [Q, M] key and eligibility planes. The window is
+// one contiguous slice, so its top-k in (score desc, index asc) is the
+// reference's order over the masked plane; the composites carry the
+// window-local index, which is the tenant-local id (id - lo). The blocks
+// of every pass run over the widest window: a block past its row's
+// window (or past its row's survivors in a merge pass) exits, so a row
+// costs what its own window holds. The count reduces each row's window
+// only. Slots past min(k, w) of a row are padding (-inf, 0). Bound:
+// bytes, each row's window read once (5 B an entry).
 #include <float.h>
 
 #include "common.cuh"
@@ -122,17 +135,44 @@ __device__ __forceinline__ void sort_and_emit(uint64_t* sm, int ch, int kk,
     }
 }
 
+// Survivors a pass keeps of a row's n entries: kk per full chunk, and
+// min(kk, rest) of the last.
+__device__ __host__ __forceinline__ int topk_survivors(int n, int kk, int ch) {
+    if (n <= 0) {
+        return 0;
+    }
+    const int nb = (n + ch - 1) / ch;
+    return (nb - 1) * kk + (kk < n - (nb - 1) * ch ? kk : n - (nb - 1) * ch);
+}
+
 // Row q's input is key_f/key_c + q * in_stride, n entries long; its
-// survivors go to out + q * out_stride, kk per block.
+// survivors go to out + q * out_stride, kk per block. Window mode
+// (win_lo != null): row q's n is its window's hi - lo carried through
+// `pass` merge passes, and pass 0 reads from the window's start.
 __global__ void topk_block_kernel(
     const float* __restrict__ key_f,
     const int32_t* __restrict__ ids,
     const uint64_t* __restrict__ key_c,
     int n, int64_t in_stride, int kk, int ch, int64_t out_stride,
-    uint64_t* __restrict__ out) {
+    uint64_t* __restrict__ out,
+    const int32_t* __restrict__ win_lo,
+    const int32_t* __restrict__ win_hi,
+    int pass) {
     extern __shared__ uint64_t sm[];
-    const int64_t row_in = (int64_t)blockIdx.y * in_stride;
+    int64_t row_in = (int64_t)blockIdx.y * in_stride;
+    if (win_lo != nullptr) {
+        n = win_hi[blockIdx.y] - win_lo[blockIdx.y];
+        for (int p = 0; p < pass; ++p) {
+            n = topk_survivors(n, kk, ch);
+        }
+        if (pass == 0) {
+            row_in += win_lo[blockIdx.y];
+        }
+    }
     const int lo = blockIdx.x * ch;
+    if (lo >= n) {
+        return;  // past this row's window: the whole block leaves
+    }
     const int len = min(ch, n - lo);
     for (int i = threadIdx.x; i < ch; i += blockDim.x) {
         uint64_t v = 0;  // below every real composite (even -NaN's)
@@ -196,6 +236,31 @@ __global__ void topk_decode_kernel(
     top_scores[t] = key_f[q * m + idx];
 }
 
+// The window mode's decode: row q's first min(kk, w) slots from its
+// composites (window-local ids, scores read back from the window), the
+// rest of its out_k slots padding (-inf, 0).
+__global__ void topk_decode_window_kernel(
+    const uint64_t* __restrict__ comp, int64_t comp_stride, int kk,
+    int out_k, int n_rows, const float* __restrict__ key_f, int64_t m,
+    const int32_t* __restrict__ win_lo, const int32_t* __restrict__ win_hi,
+    float* __restrict__ top_scores, int32_t* __restrict__ top_idx) {
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= (int64_t)n_rows * out_k) {
+        return;
+    }
+    const int64_t q = t / out_k;
+    const int r = (int)(t % out_k);
+    const int lo = win_lo[q];
+    if (r < min(kk, win_hi[q] - lo)) {
+        const uint32_t idx = esk_composite_index(comp[q * comp_stride + r]);
+        top_idx[t] = (int32_t)idx;
+        top_scores[t] = key_f[q * m + lo + idx];
+    } else {
+        top_idx[t] = 0;
+        top_scores[t] = -ESK_INF;
+    }
+}
+
 // The id mode's decode: score and id both from the composite.
 __global__ void topk_decode_ids_kernel(
     const uint64_t* __restrict__ comp, int64_t comp_stride, int kk,
@@ -257,10 +322,16 @@ __device__ __forceinline__ int block_sum(int c, int* warp_sums) {
     return s;
 }
 
+// Window mode (win_lo != null): row q counts only its [lo, hi).
 __global__ void count_true_kernel(
-    const uint8_t* __restrict__ mask, int64_t n, int32_t* __restrict__ total) {
+    const uint8_t* __restrict__ mask, int64_t n, int32_t* __restrict__ total,
+    const int32_t* __restrict__ win_lo, const int32_t* __restrict__ win_hi) {
     __shared__ int warp_sums[CNT_THREADS / 32];
     const uint8_t* row = mask + (int64_t)blockIdx.y * n;
+    if (win_lo != nullptr) {
+        row += win_lo[blockIdx.y];
+        n = win_hi[blockIdx.y] - win_lo[blockIdx.y];
+    }
     int c = 0;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += (int64_t)gridDim.x * blockDim.x) {
@@ -303,20 +374,24 @@ static int count_grid(int64_t m, int n_rows) {
 
 // The merge passes: from a first pass's survivors in `out` (row stride
 // out_stride, n entries a row), merge each row down to one block. Returns
-// the buffer holding the final kk composites a row.
+// the buffer holding the final kk composites a row. Window mode: m is the
+// widest window, which bounds every row's survivors pass by pass.
 static int merge_passes(int n_rows, int m, int kk, int ch, size_t smem,
-                        uint64_t** out, uint64_t** spare, cudaStream_t s) {
+                        uint64_t** out, uint64_t** spare, cudaStream_t s,
+                        const int32_t* win_lo = nullptr,
+                        const int32_t* win_hi = nullptr) {
     const int64_t out_stride = (int64_t)esk_blocks(m, ch) * kk;
     int nb = esk_blocks(m, ch);
-    int n = (nb - 1) * kk + esk_imin(kk, m - (nb - 1) * ch);
+    int n = topk_survivors(m, kk, ch);
+    int pass = 1;
     while (nb > 1) {
         nb = esk_blocks(n, ch);
         topk_block_kernel<<<dim3(nb, n_rows), TK_THREADS, smem, s>>>(
             nullptr, nullptr, *out, n, out_stride, kk, ch, out_stride,
-            *spare);
+            *spare, win_lo, win_hi, pass);
         ESK_RETURN_IF_ERROR();
-        const int last = n - (nb - 1) * ch;
-        n = (nb - 1) * kk + esk_imin(kk, last);
+        n = topk_survivors(n, kk, ch);
+        ++pass;
         uint64_t* t = *out;
         *out = *spare;
         *spare = t;
@@ -352,7 +427,7 @@ extern "C" int esk_masked_topk(
     if (m > 0) {
         count_true_kernel<<<dim3(count_grid(m, n_rows), n_rows), CNT_THREADS,
                             0, s>>>((const uint8_t*)eligible, (int64_t)m,
-                                    (int32_t*)total);
+                                    (int32_t*)total, nullptr, nullptr);
         ESK_RETURN_IF_ERROR();
     }
     const int kk = esk_imin(k, m);
@@ -367,7 +442,8 @@ extern "C" int esk_masked_topk(
     const int64_t out_stride = (int64_t)esk_blocks(m, ch) * kk;
     topk_block_kernel<<<dim3(esk_blocks(m, ch), n_rows), TK_THREADS, smem,
                         s>>>((const float*)key, (const int32_t*)ids, nullptr,
-                             m, m, kk, ch, out_stride, out);
+                             m, m, kk, ch, out_stride, out, nullptr, nullptr,
+                             0);
     ESK_RETURN_IF_ERROR();
     const int rc = merge_passes(n_rows, m, kk, ch, smem, &out, &spare, s);
     if (rc != 0) {
@@ -383,6 +459,72 @@ extern "C" int esk_masked_topk(
             out, out_stride, kk, n_rows, (const float*)key, (int64_t)m,
             (float*)top_scores, (int32_t*)top_idx);
     }
+    ESK_RETURN_IF_ERROR();
+    return 0;
+}
+
+// K3b window mode. key f32[n_rows, m] (ineligible entries already -inf),
+// eligible u8[n_rows, m], lo/hi i32[n_rows] with 0 <= lo <= hi <= m;
+// wmax = max(hi - lo); kk = min(k, wmax) survivors a row; out_k = min(k,
+// m) output slots a row. ch: power-of-two chunk (1024..16384), ch > kk.
+// buf_a/buf_b: u64 scratch of n_rows * ceil(wmax / ch) * kk entries each.
+// Outputs top_scores/top_idx [n_rows, out_k] (window-local ids) and total
+// i32[n_rows].
+extern "C" int esk_masked_topk_window(
+    const void* key,
+    const void* eligible,
+    const void* lo,
+    const void* hi,
+    int n_rows,
+    int m,
+    int wmax,
+    int kk,
+    int out_k,
+    int ch,
+    void* buf_a,
+    void* buf_b,
+    void* top_scores,
+    void* top_idx,
+    void* total,
+    void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n_rows <= 0) {
+        return 0;
+    }
+    const int32_t* wlo = (const int32_t*)lo;
+    const int32_t* whi = (const int32_t*)hi;
+    cudaMemsetAsync(total, 0, sizeof(int32_t) * (size_t)n_rows, s);
+    ESK_RETURN_IF_ERROR();
+    if (wmax > 0) {
+        count_true_kernel<<<dim3(count_grid(wmax, n_rows), n_rows),
+                            CNT_THREADS, 0, s>>>(
+            (const uint8_t*)eligible, (int64_t)m, (int32_t*)total, wlo, whi);
+        ESK_RETURN_IF_ERROR();
+    }
+    if (out_k <= 0) {
+        return 0;
+    }
+    uint64_t* out = (uint64_t*)buf_a;
+    uint64_t* spare = (uint64_t*)buf_b;
+    const int64_t out_stride = (int64_t)esk_blocks(wmax, ch) * kk;
+    if (kk > 0) {
+        const size_t smem = (size_t)ch * sizeof(uint64_t);
+        ESK_SMEM_OPT_IN(topk_block_kernel, smem);
+        topk_block_kernel<<<dim3(esk_blocks(wmax, ch), n_rows), TK_THREADS,
+                            smem, s>>>((const float*)key, nullptr, nullptr,
+                                       wmax, m, kk, ch, out_stride, out, wlo,
+                                       whi, 0);
+        ESK_RETURN_IF_ERROR();
+        const int rc = merge_passes(n_rows, wmax, kk, ch, smem, &out, &spare,
+                                    s, wlo, whi);
+        if (rc != 0) {
+            return rc;
+        }
+    }
+    const int64_t n_out = (int64_t)n_rows * out_k;
+    topk_decode_window_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(
+        out, out_stride, kk, out_k, n_rows, (const float*)key, (int64_t)m,
+        wlo, whi, (float*)top_scores, (int32_t*)top_idx);
     ESK_RETURN_IF_ERROR();
     return 0;
 }

@@ -35,6 +35,15 @@
 // tiles and the fold its live plane. num_docs is the padded per-shard doc
 // count, so the sentinel and the key width are the same in every shard.
 // S = 1 is the mode above.
+//
+// Bounds mode (K2b bounds; the `bounds=` argument of `_sparse_candidates`
+// (:1014-1015) under `execute_batch_packed` :1724): the planes are one
+// packed multi-tenant plane and row q carries its tenant's doc range
+// [lo[q], hi[q]); a run head is eligible only inside it. A row's worklist
+// lies in its own tenant's tiles, so the mask changes nothing unless a
+// plan pointed at another tenant's tiles: it enforces the isolation the
+// plan gives by construction. The gather, sort and fold are unchanged; the
+// fold reads two ints a row more.
 #include "common.cuh"
 
 #define RS_THREADS 256
@@ -193,6 +202,8 @@ __global__ void run_fold_kernel(
     const float* __restrict__ vals,
     const uint8_t* __restrict__ live,
     int64_t n, int p, int t_pad, int num_docs, int row0, int n_shards,
+    const int32_t* __restrict__ win_lo,
+    const int32_t* __restrict__ win_hi,
     int32_t* __restrict__ docs_out,
     float* __restrict__ run_sum,
     uint8_t* __restrict__ eligible) {
@@ -223,7 +234,12 @@ __global__ void run_fold_kernel(
     const bool head = (in_row == 0) || (docs[i - 1] != d);
     const bool in_range = d != num_docs;
     const int safe = min(d, num_docs - 1);
-    eligible[i] = (head && in_range && live[safe]) ? 1 : 0;
+    bool in_window = true;
+    if (win_lo != nullptr) {
+        const int64_t row = i / p;
+        in_window = d >= win_lo[row] && d < win_hi[row];
+    }
+    eligible[i] = (head && in_range && live[safe] && in_window) ? 1 : 0;
 }
 
 // Rows q in [0, n_rows), worklists [n_rows, nt]; P = nt * 256 pairs a row.
@@ -232,7 +248,8 @@ __global__ void run_fold_kernel(
 // each [n_rows, P]. The caller keeps n_rows * P below 2^31. Stacked
 // shards: the planes are [n_shards, ...] (tile planes tile_stride
 // elements apart, live num_docs apart) and the launch's row q is row
-// row0 + q of the batch, which reads shard (row0 + q) % n_shards.
+// row0 + q of the batch, which reads shard (row0 + q) % n_shards. lo/hi:
+// i32[n_rows] doc bounds of the bounds mode (this launch's rows), or null.
 extern "C" int esk_sparse_fold(
     const void* doc_tiles,
     const void* tn,
@@ -257,6 +274,8 @@ extern "C" int esk_sparse_fold(
     int row0,
     int n_shards,
     long long tile_stride,
+    const void* lo,
+    const void* hi,
     void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     const int p = nt * ESK_TILE;
@@ -302,7 +321,8 @@ extern "C" int esk_sparse_fold(
     }
     run_fold_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
         src_k, src_v, (const uint8_t*)live, n, p, t_pad, num_docs, row0,
-        n_shards, (int32_t*)docs_s, (float*)run_sum, (uint8_t*)eligible);
+        n_shards, (const int32_t*)lo, (const int32_t*)hi, (int32_t*)docs_s,
+        (float*)run_sum, (uint8_t*)eligible);
     ESK_RETURN_IF_ERROR();
     return 0;
 }

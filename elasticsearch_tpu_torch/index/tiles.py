@@ -18,10 +18,13 @@ ops/kernels.py); and the nested blocks (`DeviceSegment.nested`: per
 path the inner DeviceSegment, `parent_of` i32[NN] and one plane derived
 at pack time for K13 doc_join, the CSR `child_start` i32[N + 1] whose
 parent p owns children [child_start[p], child_start[p + 1]); the pack
-raises if `parent_of` is not nondecreasing). Left out: `pack_segment_delta`,
-`repack_tn`, the packed multi-tenant planes and the stacking pad of the
-positional planes (`min_pos_tiles`: positional queries run on one
-segment's tree).
+raises if `parent_of` is not nondecreasing); and the packed multi-tenant
+plane (`PackedField`, `PackedPlane`, `pack_field_packed`,
+`_shifted_tile_plane`, `pack_segments_packed`, `packed_device_nbytes`:
+several small segments' postings concatenated on the device, with a
+compile view per member). Left out: `pack_segment_delta`, `repack_tn`,
+`tile_doc_bounds` and the stacking pad of the positional planes
+(`min_pos_tiles`: positional queries run on one segment's tree).
 
 A field's postings live on the device as flat CSR arrays padded to a tile
 multiple plus one all-sentinel tile, viewed as [NT, 256]:
@@ -401,6 +404,236 @@ def device_nbytes(seg: DeviceSegment) -> int:
         total += present.nbytes
     for inner, parent_of, child_start in seg.nested.values():
         total += device_nbytes(inner) + parent_of.nbytes + child_start.nbytes
+    return int(total)
+
+
+# ---------------------------------------------------------------------------
+# Packed multi-tenant planes: several small DeviceSegments concatenated into
+# ONE set of shared postings planes, so that one launch scores queries of
+# many small indices (ops/bm25_device.execute_batch_packed).
+#
+# Member m owns the global doc range [doc_base[m], doc_base[m] + n_m) and,
+# per field, the tile range [tile_base[m], tile_base[m] + its tiles). Its
+# compile view is an ordinary DeviceField over the shared planes whose
+# posting offsets and per-tile metadata are shifted into plane coordinates,
+# so the unmodified Compiler plans straight into the packed plane with the
+# member's own term dictionary, statistics and impacts.
+#
+# Cross-tenant isolation is structural (a plan's worklist tiles all lie in
+# its member's tile range) and enforced: the packed executor masks
+# eligibility to the member's [lo, hi) doc bounds.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PackedField:
+    """One field's postings for ALL members, concatenated on the device."""
+
+    name: str
+    doc_ids: torch.Tensor  # int32[NT_total, TILE], GLOBAL ids, sentinel N_total
+    tfs: torch.Tensor  # float32[NT_total, TILE]
+    tn: torch.Tensor  # float32[NT_total, TILE] impacts (per-member stats)
+    norm_bytes: torch.Tensor  # uint8[N_total + 1]
+    present: torch.Tensor  # bool[N_total]
+    tile_base: dict[int, int]  # member index -> first global tile
+    views: dict[int, DeviceField]  # member index -> compile view
+
+
+@dataclass
+class PackedPlane:
+    """Several small DeviceSegments concatenated into shared tile planes."""
+
+    num_docs: int  # total packed doc space (sum of member doc spaces)
+    doc_base: list[int]  # member index -> global doc-id base
+    doc_count: list[int]  # member index -> member doc-space size
+    fields: dict[str, PackedField]
+    live: torch.Tensor  # bool[N_total], the members' live masks in order
+
+    @property
+    def n_members(self) -> int:
+        return len(self.doc_base)
+
+    def member_bounds(self, member: int) -> tuple[int, int]:
+        """GLOBAL [lo, hi) doc-id bounds of one member: the per-lane mask
+        the packed executor applies, so no other member's doc can appear
+        in this member's results."""
+        lo = self.doc_base[member]
+        return lo, lo + self.doc_count[member]
+
+    def member_fields(self, member: int) -> dict[str, DeviceField]:
+        """Compile views of one member: a dict shaped exactly like
+        DeviceSegment.fields, sharing the packed device planes."""
+        return {
+            name: pf.views[member]
+            for name, pf in self.fields.items()
+            if member in pf.views
+        }
+
+
+def _shifted_tile_plane(local, tile_base: int, total_tiles: int, fill=0.0,
+                        out=None):
+    """Host per-tile metadata (tile_max, doc bounds) of one member placed
+    at its global tile range [tile_base, tile_base + len(local)) of a
+    plane-wide array of `total_tiles` entries (`fill` elsewhere). With
+    `out`, the member writes into that shared array instead: every view
+    of a packed field shares one array, since a member's plan reads only
+    its own tile range (one array per field, not one per member)."""
+    if local is None:
+        return out
+    local = np.asarray(local)
+    if out is None:
+        out = np.full(total_tiles, fill, dtype=local.dtype)
+    out[tile_base : tile_base + len(local)] = local
+    return out
+
+
+def pack_field_packed(
+    name: str,
+    members: list[tuple[DeviceField | None, int, int]],
+    n_total: int,
+) -> PackedField | None:
+    """Concatenate one field's member planes into a packed field.
+
+    `members`: (DeviceField or None when the member lacks the field,
+    member doc base, member doc-space size) per member, in member order.
+    Returns None when no member has the field.
+
+    Doc ids become global ids, each member's padding sentinel (its local
+    num_docs) rewritten to the GLOBAL sentinel n_total BEFORE the base
+    shift, so a member's pad slot scatters into the plane's discard slot
+    and never into the doc range of the member after it. Norm bytes and
+    presence land at the member's doc range; a member without the field
+    contributes zeros (norm 0, not present), never another member's
+    bytes. Everything concatenates on the device: no postings, norms or
+    presence come back to the host."""
+    present_members = [df for df, _b, _n in members if df is not None]
+    if not present_members:
+        return None
+    device = present_members[0].doc_ids.device
+    id_parts, tf_parts, tn_parts = [], [], []
+    norm_parts, present_parts = [], []
+    tile_base: dict[int, int] = {}
+    shifted: list[tuple[int, DeviceField, int, int, int]] = []
+    tiles = 0
+    for m, (dfield, base, n_member) in enumerate(members):
+        if dfield is None:
+            norm_parts.append(torch.zeros(n_member, dtype=torch.uint8,
+                                          device=device))
+            present_parts.append(torch.zeros(n_member, dtype=torch.bool,
+                                             device=device))
+            continue
+        ids = dfield.doc_ids
+        id_parts.append(torch.where(
+            ids == n_member,
+            torch.full_like(ids, n_total),
+            ids + base,
+        ))
+        tf_parts.append(dfield.tfs)
+        tn_parts.append(dfield.tn)
+        norm_parts.append(dfield.norm_bytes[:n_member])
+        present_parts.append(dfield.present[:n_member])
+        tile_base[m] = tiles
+        shifted.append((m, dfield, base, n_member, tiles))
+        tiles += dfield.doc_ids.shape[0]
+    doc_ids = torch.cat(id_parts)
+    tfs = torch.cat(tf_parts)
+    tn = torch.cat(tn_parts)
+    norm_parts.append(torch.zeros(1, dtype=torch.uint8, device=device))
+    norm_bytes = torch.cat(norm_parts)
+    present = torch.cat(present_parts)
+    # One plane-wide array per per-tile attribute, shared by every view.
+    tile_max = tile_lo = tile_hi = None
+    for m, dfield, base, n_member, tbase in shifted:
+        lo, hi = dfield.tile_doc_lo, dfield.tile_doc_hi
+        if lo is not None:
+            # Real ids shift by the member base; a bound that IS the
+            # member sentinel stays the (global) sentinel, so range
+            # pruning stays conservative at partly padded tiles.
+            lo = np.where(lo == n_member, n_total, lo + base).astype(np.int64)
+            hi = np.where(hi == n_member, n_total, hi + base).astype(np.int64)
+        tile_max = _shifted_tile_plane(dfield.tile_max, tbase, tiles,
+                                       out=tile_max)
+        tile_lo = _shifted_tile_plane(lo, tbase, tiles, fill=n_total,
+                                      out=tile_lo)
+        tile_hi = _shifted_tile_plane(hi, tbase, tiles, fill=n_total,
+                                      out=tile_hi)
+    views: dict[int, DeviceField] = {}
+    for m, dfield, _base, _n_member, tbase in shifted:
+        views[m] = DeviceField(
+            name=name,
+            terms=dfield.terms,
+            df=dfield.df,
+            # Posting positions shift with the member's tile range, so the
+            # unmodified Compiler plans straight into packed coordinates.
+            offsets=dfield.offsets + np.int64(tbase * TILE),
+            doc_count=dfield.doc_count,
+            sum_total_tf=dfield.sum_total_tf,
+            has_norms=dfield.has_norms,
+            doc_ids=doc_ids,
+            tfs=tfs,
+            norm_bytes=norm_bytes,
+            present=present,
+            tn=tn,
+            tn_avgdl=dfield.tn_avgdl,
+            tn_k1=dfield.tn_k1,
+            tn_b=dfield.tn_b,
+            tile_max=None if dfield.tile_max is None else tile_max,
+            tile_doc_lo=None if dfield.tile_doc_lo is None else tile_lo,
+            tile_doc_hi=None if dfield.tile_doc_hi is None else tile_hi,
+        )
+    return PackedField(
+        name=name,
+        doc_ids=doc_ids,
+        tfs=tfs,
+        tn=tn,
+        norm_bytes=norm_bytes,
+        present=present,
+        tile_base=tile_base,
+        views=views,
+    )
+
+
+def pack_segments_packed(segments: list[DeviceSegment]) -> PackedPlane:
+    """Concatenate several small DeviceSegments into one PackedPlane.
+
+    Member order fixes the tenant dimension: member m owns the doc range
+    [doc_base[m], doc_base[m] + num_docs). Only the inverted fields' postings
+    planes pack (doc values, vectors, positions, ordinals and nested blocks
+    stay per tenant: the packed executor's eligibility gate routes queries
+    needing them to the tenant's own path)."""
+    doc_base: list[int] = []
+    doc_count: list[int] = []
+    n_total = 0
+    for seg in segments:
+        doc_base.append(n_total)
+        doc_count.append(seg.num_docs)
+        n_total += seg.num_docs
+    field_names = sorted({n for seg in segments for n in seg.fields})
+    fields: dict[str, PackedField] = {}
+    for name in field_names:
+        members = [
+            (seg.fields.get(name), doc_base[m], seg.num_docs)
+            for m, seg in enumerate(segments)
+        ]
+        pf = pack_field_packed(name, members, n_total)
+        if pf is not None:
+            fields[name] = pf
+    return PackedPlane(
+        num_docs=n_total,
+        doc_base=doc_base,
+        doc_count=doc_count,
+        fields=fields,
+        live=torch.cat([seg.live for seg in segments]),
+    )
+
+
+def packed_device_nbytes(plane: PackedPlane) -> int:
+    """Device bytes the packed plane itself holds (it duplicates its
+    members' postings: the price of one-launch multi-tenant scoring)."""
+    total = plane.live.nbytes
+    for pf in plane.fields.values():
+        total += pf.doc_ids.nbytes + pf.tfs.nbytes + pf.tn.nbytes
+        total += pf.norm_bytes.nbytes + pf.present.nbytes
     return int(total)
 
 

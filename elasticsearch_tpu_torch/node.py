@@ -23,7 +23,11 @@ a leaf, a geo_point out of bounds, ...) are 400s.
 `Node(exec_batcher=False)` / `Node(exec_planner=False)` turn either off:
 the port's form of the reference's ESTPU_EXEC_BATCHER=0 /
 ESTPU_EXEC_PLANNER=0; without the batcher every search takes the solo
-path. Left out: replication and clusters, aliases and templates,
+path. Plain searches of small one-shard indices with inverted-only query
+shapes ride one shared batcher group instead of their index's
+(exec/packed.py): concurrent searches on DIFFERENT small indices coalesce
+into one packed launch; `Node(exec_packed=False)` (the reference's
+ESTPU_EXEC_PACKED=0) keeps every index in its own group. Left out: replication and clusters, aliases and templates,
 ingest pipelines, scroll and async search, QoS lanes, the SPMD mesh view,
 the filter and request caches, tasks, metrics and tracing, snapshots,
 and every other API of the reference node (ROADMAP queue A).
@@ -35,12 +39,14 @@ import json
 import re
 import threading
 import time
+import uuid as uuid_mod
 from dataclasses import dataclass, field
 from typing import Any
 
 from .analysis.analyzers import AnalysisRegistry
 from .device import DEFAULT_DEVICE, resolve_device
 from .exec.batcher import BatcherRejected, MicroBatcher
+from .exec.packed import PackedExecutor
 from .exec.planner import ExecPlanner, ast_signature
 from .index.ann import AnnCache, clear_index_ann
 from .index.engine import Engine, VersionConflictError
@@ -89,6 +95,13 @@ class IndexService:
     max_result_window: int = 10_000  # index.max_result_window
     _auto_counter: int = -1  # seeded lazily from the shard engines
     _auto_lock: threading.Lock = field(default_factory=threading.Lock)
+    # The index's incarnation id (the packed plane's member key).
+    uuid: str = field(default_factory=lambda: uuid_mod.uuid4().hex)
+
+    @property
+    def num_docs(self) -> int:
+        """Live searchable docs over every shard."""
+        return sum(e.num_docs for e in self.engines)
 
     @property
     def engine(self) -> Engine:
@@ -127,8 +140,9 @@ class Node:
 
     `exec_batcher` / `exec_planner` (default on) build the micro-batcher
     and the cost-based backend planner; either is None when turned off.
-    `ann_cache`: True builds the default AnnCache, False none, or pass
-    one."""
+    `exec_packed` (default on) builds the packed multi-tenant executor,
+    which rides the batcher (None without one). `ann_cache`: True builds
+    the default AnnCache, False none, or pass one."""
 
     def __init__(
         self,
@@ -138,6 +152,7 @@ class Node:
         exec_batcher: bool = True,
         exec_planner: bool = True,
         ann_cache: "bool | AnnCache" = True,
+        exec_packed: bool = True,
     ):
         self.device = resolve_device(device)
         self.node_name = node_name
@@ -149,6 +164,13 @@ class Node:
         # Continuous micro-batching of concurrent plain searches
         # (ESTPU_EXEC_BATCH_WAIT_MS sets its window, default 4 ms).
         self.exec_batcher = MicroBatcher() if exec_batcher else None
+        # Packed multi-tenant execution (exec/packed.py): small one-shard
+        # indices share ONE batcher group and one launch per spec bucket.
+        self.packed_exec = (
+            PackedExecutor()
+            if self.exec_batcher is not None and exec_packed
+            else None
+        )
         # IVF planes of the knn section (None: exact brute force only).
         if isinstance(ann_cache, AnnCache):
             self.ann_cache = ann_cache
@@ -461,11 +483,24 @@ class Node:
                     ),
                 )
             elif self._batchable(request, svc):
-                response = self.exec_batcher.execute(
-                    svc.search,
-                    request,
-                    group_key=(svc.name, ast_signature(request.query)),
-                )
+                if self.packed_exec is not None and self.packed_exec.eligible(
+                    svc, request
+                ):
+                    # Small-tenant searches share ONE batcher group across
+                    # indices: the packed executor is the group's searcher,
+                    # so concurrent searches on DIFFERENT small indices
+                    # coalesce into one packed launch.
+                    response = self.exec_batcher.execute(
+                        self.packed_exec,
+                        self.packed_exec.wrap(svc, request),
+                        group_key=("_packed", ast_signature(request.query)),
+                    )
+                else:
+                    response = self.exec_batcher.execute(
+                        svc.search,
+                        request,
+                        group_key=(svc.name, ast_signature(request.query)),
+                    )
             else:
                 response = svc.search.search(request)
         except ValueError as e:

@@ -29,8 +29,11 @@ nested docs' space, then K13 doc_join's join mode into parent space) and
 is one K14 tail_eval launch (ops/tail_kernel.py), again dense-only. Left
 out: `compute_filter_mask_stacked` (with the filter cache), the
 positional and structured kinds over stacked shards (they raise on a
-stacked tree), and strictly sequential and packed execution (see ROADMAP
-queue B).
+stacked tree), and strictly sequential execution (see ROADMAP queue B).
+Packed multi-tenant execution (row 13) is here: `supports_packed`,
+`packed_segment_tree` and `execute_batch_packed`, which carry each lane's
+tenant doc bounds into the dense path (K3b's window mode), the sparse
+candidates (K2b's bounds mode) and the lead-driven conjunction.
 
 Every executor here is batched: plan arrays carry a leading query axis
 [Q, ...] and one call runs all Q rows, one kernel launch per primitive,
@@ -674,12 +677,19 @@ def vector_planes(script, vectors: dict, params: dict) -> dict:
     return out
 
 
-def _execute_inner(seg, spec, arrays, k: int, q: int):
+def _execute_inner(seg, spec, arrays, k: int, q: int, bounds=None):
     live = seg["live"]
     num_docs = live.shape[-1]
     scores, matched = _eval_node(spec, arrays, seg, num_docs, q)
     eligible = matched & _per_row(seg, live, q)
     masked = torch.where(eligible, scores, NEG_INF)
+    if bounds is not None:
+        # Packed plane: only this lane's tenant doc range [lo, hi) is
+        # eligible. K3b's window mode reads just that window, counts the
+        # total there and returns tenant-local ids (id - lo).
+        return kernels.masked_topk_window(
+            masked, eligible, bounds[0], bounds[1], min(k, num_docs)
+        )
     return _k3(seg, masked, eligible, min(k, num_docs))
 
 
@@ -925,21 +935,29 @@ def _topk_padded(seg, key, eligible, kk: int, ids_of):
     return top_scores, top_ids.to(torch.int32), total
 
 
-def _sparse_candidates(seg, spec, arrays, k: int):
+def _sparse_candidates(seg, spec, arrays, k: int, bounds=None):
     """K2: (sorted candidate docs, left-fold run sums, run-head
-    eligibility, each [Q, P], and the clamped k) for a terms spec."""
+    eligibility, each [Q, P], and the clamped k) for a terms spec.
+    `bounds` (lo, hi int32[Q]) are the packed plane's tenant doc ranges:
+    K2b's bounds mode keeps a run head eligible only inside its row's."""
     live = seg["live"]
     num_docs = live.shape[-1]
     doc_tiles, tn, _tfs, _norm, _present = seg["fields"][spec[1]]
-    docs_s, run_sum, eligible = _kernel(seg, "sparse_fold")(
+    args = (
         doc_tiles, tn, arrays["tile_ids"], arrays["starts"], arrays["ends"],
         arrays["weights"], live, num_docs, spec[3],
     )
+    if bounds is None:
+        docs_s, run_sum, eligible = _kernel(seg, "sparse_fold")(*args)
+    else:
+        docs_s, run_sum, eligible = kernels.sparse_fold_bounds(*args, *bounds)
     return docs_s, run_sum, eligible, min(k, num_docs)
 
 
-def _sparse_terms_inner(seg, spec, arrays, k: int):
-    docs_s, run_sum, eligible, kk = _sparse_candidates(seg, spec, arrays, k)
+def _sparse_terms_inner(seg, spec, arrays, k: int, bounds=None):
+    docs_s, run_sum, eligible, kk = _sparse_candidates(
+        seg, spec, arrays, k, bounds
+    )
     key = torch.where(eligible, run_sum, NEG_INF)
     return _topk_padded(seg, key, eligible, kk, docs_s)
 
@@ -959,7 +977,7 @@ def _const_membership(seg, child_spec, carr, safe_docs, num_docs):
     return torch.gather(matched, 1, safe_docs.to(torch.int64))
 
 
-def _sparse_bool_inner(seg, spec, arrays, k: int):
+def _sparse_bool_inner(seg, spec, arrays, k: int, bounds=None):
     """bool(must=[terms], filter/must_not=[terms_const...]): candidates
     from the must disjunction's K2 fold, each filter/exclusion tested at
     the candidates, no [num_docs] score plane and no dense top-k."""
@@ -967,7 +985,7 @@ def _sparse_bool_inner(seg, spec, arrays, k: int):
     children = arrays["children"]
     num_docs = seg["live"].shape[-1]
     docs_s, run_sum, eligible, kk = _sparse_candidates(
-        seg, must_s[0], children[0], k
+        seg, must_s[0], children[0], k, bounds
     )
     safe_docs = torch.clamp(docs_s, max=num_docs - 1)
     for idx_child, child_spec in enumerate(filter_s):
@@ -983,7 +1001,7 @@ def _sparse_bool_inner(seg, spec, arrays, k: int):
     return _topk_padded(seg, key, eligible, kk, docs_s)
 
 
-def _sparse_lead_inner(seg, spec, arrays, k: int):
+def _sparse_lead_inner(seg, spec, arrays, k: int, bounds=None):
     """Lead-driven conjunction: the most selective single-span filter's
     postings (already doc-ascending) are the candidates; each must term
     verifies and scores them with one K4 binary search plus an impact
@@ -1024,6 +1042,9 @@ def _sparse_lead_inner(seg, spec, arrays, k: int):
         score = score + torch.where(found, contrib, 0.0)
         matched_any = matched_any | found
     eligible = matched_any & in_range & _take(seg, live, safe.to(torch.int64))
+    if bounds is not None:
+        eligible = eligible & (cand >= _col(bounds[0])) & (
+            cand < _col(bounds[1]))
     for idx_child, child_spec in enumerate(filter_s):
         if idx_child == lead:
             continue
@@ -1039,12 +1060,13 @@ def _sparse_lead_inner(seg, spec, arrays, k: int):
     return _topk_padded(seg, key, eligible, min(k, num_docs), cand)
 
 
-def _sparse_inner(seg, spec, arrays, k: int, q: int | None = None):
+def _sparse_inner(seg, spec, arrays, k: int, q: int | None = None,
+                  bounds=None):
     if spec[0] == "bool":
         if _bool_lead(spec) >= 0:
-            return _sparse_lead_inner(seg, spec, arrays, k)
-        return _sparse_bool_inner(seg, spec, arrays, k)
-    return _sparse_terms_inner(seg, spec, arrays, k)
+            return _sparse_lead_inner(seg, spec, arrays, k, bounds)
+        return _sparse_bool_inner(seg, spec, arrays, k, bounds)
+    return _sparse_terms_inner(seg, spec, arrays, k, bounds)
 
 
 def execute_batch_sparse(seg, spec, arrays_batched, k: int):
@@ -1101,6 +1123,76 @@ def execute_many(seg, compiled_queries, k: int) -> list:
         for row, p in enumerate(positions):
             results[p] = (s_b[row], i_b[row], int(t_b[row]))
     return results
+
+
+# ---------------------------------------------------------------------------
+# Packed multi-tenant execution (kernel-table row 13): B (query, tenant)
+# lanes of one spec scored against one packed plane (index/tiles.py
+# PackedPlane) in one program, each lane masked to its tenant's doc range
+# [lo, hi) — K2b's bounds mode on the sparse path, a torch mask on the
+# lead-driven conjunction's candidates, K3b's window mode on the dense
+# path — and its ids returned tenant-local. A lane's plan is its solo
+# plan shifted by whole tiles, so the fold order and the fp32 rounding
+# are the solo ones.
+# ---------------------------------------------------------------------------
+
+_PACKED_KINDS = ("terms", "terms_gather", "terms_const", "match_none")
+
+
+def supports_packed(spec) -> bool:
+    """May this compiled spec execute on a packed multi-tenant plane?
+    Trees of term-worklist nodes only (every match / term / terms query
+    and bool / constant_score combinations of them): the plane holds only
+    the inverted fields' postings planes."""
+    if not isinstance(spec, tuple) or not spec:
+        return False
+    kind = spec[0]
+    if kind in _PACKED_KINDS:
+        return True
+    if kind == "const":
+        return supports_packed(spec[1])
+    if kind == "bool":
+        return all(supports_packed(c) for group in spec[1:5] for c in group)
+    return False
+
+
+def packed_segment_tree(plane) -> dict[str, Any]:
+    """The executor's view of an index.tiles.PackedPlane (the packed
+    counterpart of segment_tree; only inverted fields exist)."""
+    return {
+        "fields": {
+            name: (pf.doc_ids, pf.tn, pf.tfs, pf.norm_bytes, pf.present)
+            for name, pf in plane.fields.items()
+        },
+        "positions": {},
+        "doc_values": {},
+        "vectors": {},
+        "live": plane.live,
+        "nested": {},
+    }
+
+
+def execute_batch_packed(seg, spec, arrays_batched, lo_b, hi_b, k: int):
+    """Score B same-spec lanes against one packed plane in one program.
+
+    arrays_batched: plan arrays with a leading lane axis [B, ...], compiled
+    in packed coordinates (each lane through its member's views). lo_b /
+    hi_b: the lanes' tenant doc bounds, B ints each (numpy or a list).
+    Returns (scores f32[B, min(k, N_total)], TENANT-LOCAL ids
+    i32[B, min(k, N_total)], totals i32[B]): per lane, the first
+    min(k, total) slots equal the lane's query run on its tenant's own
+    plane; the slots past them are padding no caller reads."""
+    device = seg["live"].device
+    lo, hi = (
+        torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
+        for x in (lo_b, hi_b)
+    )
+    if supports_sparse(spec):
+        s, ids, t = _sparse_inner(seg, spec, arrays_batched, k,
+                                  bounds=(lo, hi))
+        return s, ids - _col(lo), t
+    return _execute_inner(seg, spec, arrays_batched, k, int(lo.shape[0]),
+                          bounds=(lo, hi))
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,15 @@ PyTorch versions.
                       _eval_terms / _eval_terms_gather / _scatter_scored /
                       _terms_matched in the JAX package)
     K2 sparse_fold    csrc/sparse_fold.cu    candidate pairs, stable radix
-                      sort by doc, run fold (_sparse_candidates)
+                      sort by doc, run fold (_sparse_candidates); its
+                      bounds mode (K2b bounds) also keeps a run head
+                      eligible only inside its row's [lo, hi) doc range
+                      (the packed plane's tenant mask, execute_batch_packed)
     K3 masked_topk    csrc/masked_topk.cu    top-k by (score desc, index
-                      asc) + eligible count (the masked lax.top_k)
+                      asc) + eligible count (the masked lax.top_k); its
+                      window mode (K3b window) reads only each row's
+                      [lo, hi) of the plane and returns window-local ids
+                      (the packed plane's dense lanes)
     K4 span_locate    csrc/span_locate.cu    binary search in a sorted
                       posting span (_span_locate / _span_member)
     K3k keyed_topk    csrc/masked_topk.cu    K3's keyed mode: bottom-k,
@@ -86,8 +92,9 @@ count); K3k, K5 and K6 count every launch under one name each
 K10 by mode (`bucket_fold`, `bucket_fold_range`), K11
 (`position_events`), K12 (`position_walk`), K13 by mode (`doc_join_none`,
 `doc_join_sum`, `doc_join_avg`, `doc_join_max`, `doc_join_min`,
-`doc_mark`) and K14 by node kind (`tail_eval_<kind>`), whatever its row
-count. Launches from several threads (the REST
+`doc_mark`), K14 by node kind (`tail_eval_<kind>`), K2's bounds mode
+(`sparse_fold_bounds`) and K3's window mode (`masked_topk_window`),
+whatever its row count. Launches from several threads (the REST
 handlers and the micro-batcher) share the one library and the caller's
 current stream; the library loads once under `_lib_lock` and the counts
 move under `_count_lock`.
@@ -141,6 +148,7 @@ ONE_NAME_KERNELS = (
     "tail_eval_function_score", "tail_eval_geo_distance",
     "tail_eval_geo_box", "tail_eval_rank_feature", "tail_eval_dismax",
     "tail_eval_boosting", "tail_eval_terms_set",
+    "sparse_fold_bounds", "masked_topk_window",
 )
 
 LAUNCHES: dict[str, int] = {
@@ -269,8 +277,11 @@ def _bind(lib) -> None:
     lib.esk_terms_scatter.argtypes = (
         [P] * 11 + [I, I, I, L, P, P, I, I, L, L, P]
     )
-    lib.esk_sparse_fold.argtypes = [P] * 6 + [I] * 5 + [P] * 9 + [I, I, L, P]
+    lib.esk_sparse_fold.argtypes = (
+        [P] * 6 + [I] * 5 + [P] * 9 + [I, I, L, P, P, P]
+    )
     lib.esk_masked_topk.argtypes = [P, P, P, I, I, I, I] + [P] * 6
+    lib.esk_masked_topk_window.argtypes = [P] * 4 + [I] * 6 + [P] * 6
     lib.esk_span_locate.argtypes = [P, L, P, P, I, I, P, I, I, I, P, P, I, P]
     lib.esk_keyed_topk.argtypes = [P, L, P] + [I] * 7 + [P] * 9
     lib.esk_window_gather.argtypes = [P, P, L, P, I, I, P, P, P]
@@ -292,6 +303,7 @@ def _bind(lib) -> None:
         lib.esk_terms_scatter,
         lib.esk_sparse_fold,
         lib.esk_masked_topk,
+        lib.esk_masked_topk_window,
         lib.esk_span_locate,
         lib.esk_keyed_topk,
         lib.esk_window_gather,
@@ -684,7 +696,7 @@ def terms_scatter(
 
 def sparse_fold_plain(
     doc_tiles, tn, tile_ids, starts, ends, weights, live,
-    num_docs: int, t_pad: int,
+    num_docs: int, t_pad: int, lo=None, hi=None,
 ):
     tid, docs, valid = _gather_valid(doc_tiles, tile_ids, starts, ends)
     w = weights[:, None]
@@ -708,7 +720,10 @@ def sparse_fold_plain(
     head[1:] = docs_s[1:] != docs_s[:-1]
     in_range = docs_s != num_docs
     live_at = live[torch.clamp(docs_s, max=num_docs - 1).to(torch.int64)]
-    return docs_s, run_sum, head & in_range & live_at
+    eligible = head & in_range & live_at
+    if lo is not None:
+        eligible = eligible & (docs_s >= lo) & (docs_s < hi)
+    return docs_s, run_sum, eligible
 
 
 def sparse_fold_batch_plain(
@@ -766,9 +781,44 @@ def sparse_fold_stacked(
 sparse_fold_stacked_plain = sparse_fold_batch_plain
 
 
+def sparse_fold_bounds_plain(
+    doc_tiles, tn, tile_ids, starts, ends, weights, live,
+    num_docs: int, t_pad: int, lo, hi,
+):
+    """K2b bounds mode as the solo plain version row by row, row q's run
+    heads also required to lie in [lo[q], hi[q])."""
+    outs = [
+        sparse_fold_plain(
+            doc_tiles, tn, tile_ids[q], starts[q], ends[q], weights[q], live,
+            num_docs, t_pad, lo[q], hi[q],
+        )
+        for q in range(tile_ids.shape[0])
+    ]
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def sparse_fold_bounds(
+    doc_tiles, tn, tile_ids, starts, ends, weights, live,
+    num_docs: int, t_pad: int, lo, hi,
+):
+    """K2b's bounds mode: sparse_fold_batch over Q worklists of one
+    packed plane, where a run head is eligible only if its doc is in
+    range, live AND inside its row's [lo[q], hi[q]) (lo, hi: int32[Q],
+    the lanes' tenant doc bounds). Counted as `sparse_fold_bounds`."""
+    dev = doc_tiles.device
+    for name, t in (("lo", lo), ("hi", hi)):
+        _check(t, name, torch.int32, 1, dev)
+        if t.shape[0] != tile_ids.shape[0]:
+            raise ValueError(f"{name} must have one bound per row")
+    return _sparse_fold(
+        doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs,
+        t_pad, 0, bounds=(lo, hi),
+    )
+
+
 def _sparse_fold(
     doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs, t_pad,
-    n_shards,
+    n_shards, bounds=None,
 ):
     dev = doc_tiles.device
     st = 1 if n_shards else 0
@@ -796,19 +846,24 @@ def _sparse_fold(
     if p >= 2**31:
         raise ValueError("worklist too large for int32 positions")
     if not _launchable(dev):
+        if bounds is not None:
+            return sparse_fold_bounds_plain(
+                doc_tiles, tn, tile_ids, starts, ends, weights, live,
+                num_docs, t_pad, *bounds,
+            )
         return sparse_fold_batch_plain(
             doc_tiles, tn, tile_ids, starts, ends, weights, live,
             num_docs, t_pad,
         )
     return _sparse_fold_launch(
         doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs,
-        t_pad, n_shards,
+        t_pad, n_shards, bounds,
     )
 
 
 def _sparse_fold_launch(
     doc_tiles, tn, tile_ids, starts, ends, weights, live, num_docs, t_pad,
-    n_shards,
+    n_shards, bounds=None,
 ):
     """Launch K2 on checked [Q, nt] worklists, in as many launches over
     consecutive rows as SPARSE_FOLD_MAX_PAIRS asks; outputs [Q, P]."""
@@ -829,6 +884,7 @@ def _sparse_fold_launch(
     docs_s = torch.empty(out_shape, dtype=i32, device=dev)
     run_sum = torch.empty(out_shape, dtype=f32, device=dev)
     eligible = torch.empty(out_shape, dtype=torch.bool, device=dev)
+    lo, hi = bounds if bounds is not None else (None, None)
     for r0 in range(0, q, per):
         rows = min(per, q - r0)
         with torch.cuda.device(dev):
@@ -840,10 +896,14 @@ def _sparse_fold_launch(
                 _ptr(vals_a), _ptr(keys_b), _ptr(vals_b), _ptr(counts),
                 _ptr(docs_s, r0 * p), _ptr(run_sum, r0 * p),
                 _ptr(eligible, r0 * p), int(r0), max(1, n_shards),
-                _shard_stride(doc_tiles), _stream(dev),
+                _shard_stride(doc_tiles), _ptr(lo, r0), _ptr(hi, r0),
+                _stream(dev),
             )
         _check_rc("sparse_fold", rc)
-        _count("sparse_fold", q, n_shards)
+        if bounds is not None:
+            count_launch("sparse_fold_bounds")
+        else:
+            _count("sparse_fold", q, n_shards)
     return docs_s, run_sum, eligible
 
 
@@ -970,6 +1030,82 @@ def masked_topk(key, eligible, k: int):
     i32[min(k, M)], total i32[])."""
     out = masked_topk_batch(key[None], eligible[None], k)
     return tuple(t[0] for t in out)
+
+
+def masked_topk_window_plain(key, eligible, lo, hi, k: int):
+    """K3b window mode as the solo plain version over each row's slice
+    [lo[q], hi[q]) of the plane, padded to min(k, M) slots with (-inf, 0)."""
+    q, m = key.shape
+    kk = min(k, m)
+    scores = torch.full((q, kk), float("-inf"), dtype=torch.float32,
+                        device=key.device)
+    ids = torch.zeros((q, kk), dtype=torch.int32, device=key.device)
+    totals = torch.zeros(q, dtype=torch.int32, device=key.device)
+    for r in range(q):
+        a, b = int(lo[r]), int(hi[r])
+        s, i, t = masked_topk_plain(key[r, a:b], eligible[r, a:b], kk)
+        scores[r, : s.shape[0]] = s
+        ids[r, : i.shape[0]] = i
+        totals[r] = t
+    return scores, ids, totals
+
+
+def masked_topk_window(key, eligible, lo, hi, k: int):
+    """K3b's window mode: per row q, the top min(k, w) of key[q, lo:hi]
+    (w = hi - lo) by (score desc, index asc) — lax.top_k's order, which a
+    contiguous window does not change — with the ids window-local
+    (index - lo[q]), and total = the count of eligible[q, lo:hi].
+
+    key f32[Q, M] (-inf at ineligible entries), eligible bool[Q, M], lo /
+    hi int32[Q] with 0 <= lo <= hi <= M. Returns (top_scores f32[Q, kk],
+    top_ids i32[Q, kk], total i32[Q]) with kk = min(k, M): the packed
+    plane's output shape; slots past min(k, w) of a row are padding
+    (-inf, 0). Counted as `masked_topk_window`."""
+    _check_topk(key, eligible, k)
+    q, m = key.shape
+    for name, t in (("lo", lo), ("hi", hi)):
+        _check(t, name, torch.int32, 1, key.device)
+        if t.shape[0] != q:
+            raise ValueError(f"{name} must have one bound per row")
+    # One host read of the bounds: their checks and the widest window
+    # (the launch's grid).
+    lo_h, hi_h = (t.cpu().numpy().astype(np.int64) for t in (lo, hi))
+    if np.any(lo_h < 0) or np.any(hi_h < lo_h) or np.any(hi_h > m):
+        raise ValueError("window bounds must satisfy 0 <= lo <= hi <= M")
+    if not _launchable(key.device):
+        return masked_topk_window_plain(key, eligible, lo_h, hi_h, k)
+    return _masked_topk_window_launch(
+        key, eligible, lo, hi, k, int((hi_h - lo_h).max(initial=0))
+    )
+
+
+def _masked_topk_window_launch(key, eligible, lo, hi, k, wmax):
+    dev = key.device
+    q, m = key.shape
+    out_k = min(k, m)
+    kw = min(out_k, wmax)  # the survivors a row's window can hold
+    ch = topk_chunk(kw)
+    if kw >= ch and wmax > ch:
+        raise ValueError(
+            f"k={k} exceeds the top-k kernel's window ({TOPK_MAX_CHUNK - 1})"
+        )
+    lib = ensure_built()
+    nb = max(1, -(-wmax // ch))
+    buf_a = torch.empty(max(1, q * nb * kw), dtype=torch.int64, device=dev)
+    buf_b = torch.empty(max(1, q * nb * kw), dtype=torch.int64, device=dev)
+    top_scores = torch.empty((q, out_k), dtype=torch.float32, device=dev)
+    top_idx = torch.empty((q, out_k), dtype=torch.int32, device=dev)
+    total = torch.empty((q,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.esk_masked_topk_window(
+            _ptr(key), _ptr(eligible), _ptr(lo), _ptr(hi), int(q), int(m),
+            int(wmax), int(kw), int(out_k), int(ch), _ptr(buf_a),
+            _ptr(buf_b), _ptr(top_scores), _ptr(top_idx), _ptr(total),
+            _stream(dev),
+        )
+    _check_rc("masked_topk_window", rc)
+    count_launch("masked_topk_window")
+    return top_scores, top_idx, total
 
 
 def masked_topk_ids_plain(key, ids, eligible, k: int):

@@ -259,20 +259,28 @@ def test_exec_planner_false_takes_effect(jax_node):
 def test_exec_batcher_switch_takes_effect(jax_node):
     """With the batcher (the default) untracked searches ride it, as in
     the reference, and the planner decides nothing; without it they take
-    the solo path and the planner decides every one."""
-    on = _port_node()
+    the solo path and the planner decides every one. A small index's
+    search rides the packed group (the default), whose lone rider runs
+    solo, so the planner decides it, as the reference's PackedExecutor
+    does; `exec_packed=False` keeps the index's own batcher group."""
+    on = _port_node(exec_packed=False)
     off = _port_node(exec_batcher=False)
+    packed = _port_node()
     try:
         body = _bodies()[0]
-        for node in (on, off):
+        for node in (on, off, packed):
             assert _view(node.search("docs", body)) == _view(
                 jax_node.search("docs", body))
         assert on.exec_batcher.stats()["requests"] == 1
         assert sum(on.exec_planner.decisions.values()) == 0
         assert sum(off.exec_planner.decisions.values()) == 1
+        assert packed.exec_batcher.stats()["requests"] == 1
+        assert sum(packed.exec_planner.decisions.values()) == 1
+        assert packed.packed_exec.stats()["fallback_solo"] == 0
     finally:
         on.close()
         off.close()
+        packed.close()
 
 
 def test_sharded_index_never_takes_blockmax():
