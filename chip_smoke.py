@@ -143,6 +143,32 @@ and read just after it.
                  folds them, bucket sums in K10's stated order), every
                  repeat against the first; per-body p50 / p99, QPS, device
                  ms per request; K10's terms and doc_count rows
+ 15b. aggs-ext  (kernel-table row 22's rest) the same node and documents
+                 with a `ts` date column (epoch ms drawn evenly over
+                 2023-01-01 .. 2025-12-31 UTC, 5 docs a shard within 60 s
+                 of each month edge, ~2 % missing) and a `flag` boolean
+                 (default_rng(SEED + 11)): 25 bodies (significant_terms
+                 with each heuristic, with stats and top_hits subs and
+                 under a filter; rare_terms; cardinality on keyword,
+                 numeric, boolean and date fields; top_hits at the top
+                 level and under terms, a calendar date_histogram, range
+                 and filter; matrix_stats; percentiles, percentile_ranks,
+                 extended_stats, median_absolute_deviation;
+                 date_histogram at 1d, 12h, month, quarter and year;
+                 numeric and boolean terms; a date range query sorted on
+                 ts; a match sorted on ts) 5 times each sequentially over
+                 HTTP on each index, and a composite (terms + week
+                 date_histogram + histogram sources, avg sub) paged to
+                 its end with `after`: every first answer against
+                 plain_kernels() and against ExtOracle (numpy over the
+                 host columns: keys, counts, bg counts, significance
+                 scores, hit ids and order and the f64 host metrics
+                 exact, K10's bucket sums within rtol 1e-5), every repeat
+                 against the first; p50 / p99 per body family, device ms
+                 (CUDA events around execute_aggs), host ms and readback
+                 ms per request; then K10's sig_terms counts, its range
+                 mode over the 37 month edges (R > 32) and its 1d scatter
+                 rows
  16. nan-pages   the C1 / C2 bodies (ROADMAP queue C's repro index, 1 and
                  3 shards; script_score pages sorted by score, by _score
                  asc and past an ascending cursor on a NaN, with and
@@ -3047,6 +3073,7 @@ def run_aggs(card, dev, launches, rows) -> dict:
     per_shard = N_AGG_DOCS // AGG_SHARDS
     rng_price = np.random.default_rng(88)
     rng_tag = np.random.default_rng(99)
+    rng_ext = np.random.default_rng(SEED + 11)
     shards = []
     for s in range(AGG_SHARDS):
         _m, seg = build_zipf_segment(per_shard, vocab_size=20_000, seed=800 + s)
@@ -3055,12 +3082,17 @@ def run_aggs(card, dev, launches, rows) -> dict:
         codes = rng_tag.choice(len(AGG_TAGS), size=per_shard)
         seg.fields["tag"] = _keyword_field("tag", AGG_TAGS, codes)
         seg.doc_values["price"] = price
+        # phase aggs-ext's date and boolean columns
+        seg.doc_values["ts"], seg.doc_values["flag"] = _ext_columns(
+            rng_ext, per_shard)
         shards.append(replace(seg, ids=[f"s{s}d{i}" for i in range(per_shard)]))
     whole = _concat_segments(shards)
     gen_s = time.monotonic() - t0
     mappings = {"properties": {"body": {"type": "text"},
                                "price": {"type": "long"},
-                               "tag": {"type": "keyword"}}}
+                               "tag": {"type": "keyword"},
+                               "ts": {"type": "date"},
+                               "flag": {"type": "boolean"}}}
     node = Node(device=DEVICE)
     node.create_index("cfg7", {"settings": {"index": {
         "number_of_shards": AGG_SHARDS}}, "mappings": mappings})
@@ -3108,6 +3140,8 @@ def run_aggs(card, dev, launches, rows) -> dict:
          lambda: (kern.bucket_fold_plain(None, live, 1),),
          lambda: live.sum(dtype=torch.int32), "torch.sum",
          n + 4, source=AGG_SOURCE, case=f"one doc_count over {n:,} docs")
+    result["aggs_ext"] = run_aggs_ext(card, node, shards, whole, one,
+                                      match_terms, launches, rows)
     node.close()
     return result
 
@@ -3169,6 +3203,928 @@ def kernel_rows_aggs_full(seg_tree, dev, rows):
          range_library, "masked [R, N] sum, amin, amax", n * 9 + r * 20,
          source=AGG_SOURCE, reps=10,
          case=f"{r} f1 ranges + f2 sum sub-metric, {n:,} docs")
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# aggs-ext: the rest of kernel-table row 22 (significant_terms, rare_terms,
+# cardinality, top_hits, composite, matrix_stats, the host metrics,
+# date_histogram) over the cfg7 corpus with a date and a boolean column
+# ---------------------------------------------------------------------------
+
+AGG_EXT_REPS = 5  # timed sequential requests of each aggs-ext body
+EXT_EDGE_DOCS = 5  # docs a shard plants within 60 s of each month edge
+EXT_MONTHS = [(y, m) for y in (2023, 2024, 2025) for m in range(1, 13)]
+DAY_MS = 86_400_000
+
+
+def _utc_ms(*ymd_hms) -> float:
+    from datetime import datetime, timezone
+
+    return datetime(*ymd_hms, tzinfo=timezone.utc).timestamp() * 1000.0
+
+
+def _ext_columns(rng, n: int):
+    """(ts, flag) for one shard: ts epoch milliseconds drawn evenly over
+    2023-01-01 .. 2025-12-31 UTC, EXT_EDGE_DOCS docs within 60 s of each
+    of the 36 month edges, ~2 % missing; flag a boolean (1.0 / 0.0), 30 %
+    true."""
+    import numpy as np
+
+    ts = np.round(rng.uniform(_utc_ms(2023, 1, 1), _utc_ms(2025, 12, 31), n))
+    edges = np.repeat([_utc_ms(y, m, 1) for y, m in EXT_MONTHS],
+                      EXT_EDGE_DOCS)
+    at = rng.choice(n, size=len(edges), replace=False)
+    ts[at] = edges + rng.integers(-60_000, 60_001, len(edges))
+    ts[rng.random(n) < 0.02] = np.nan
+    flag = (rng.random(n) < 0.3).astype(np.float64)
+    return ts, flag
+
+
+def _ext_bodies(match_terms):
+    """(family, body) of phase aggs-ext's bodies, by name."""
+    match = {"match": {"body": " ".join(match_terms)}}
+    sig = {"field": "tag", "min_doc_count": 1}
+    top2 = {"th": {"top_hits": {"size": 2}}}
+    return {
+        "sig_jlh": ("significant_terms", {"query": match, "size": 0, "aggs": {
+            "s": {"significant_terms": sig, "aggs": {
+                "st": {"stats": {"field": "price"}},
+                "th": {"top_hits": {"size": 3}}}}}}),
+        "sig_chi_square_negatives": ("significant_terms", {
+            "query": match, "size": 0, "aggs": {"s": {"significant_terms": {
+                **sig, "chi_square": {"include_negatives": True}}}}}),
+        "sig_chi_square": ("significant_terms", {
+            "query": match, "size": 0, "aggs": {"s": {"significant_terms": {
+                "field": "tag", "chi_square": {}}}}}),
+        "sig_percentage": ("significant_terms", {
+            "query": match, "size": 0, "aggs": {"s": {"significant_terms": {
+                **sig, "percentage": {}}}}}),
+        "sig_under_filter": ("significant_terms", {
+            "query": match, "size": 0, "aggs": {"f": {
+                "filter": {"term": {"flag": True}},
+                "aggs": {"s": {"significant_terms": sig}}}}}),
+        "rare_price": ("rare_terms", {"size": 0, "aggs": {
+            "r": {"rare_terms": {"field": "price", "max_doc_count": 72}}}}),
+        "rare_tag": ("rare_terms", {"query": match, "size": 0, "aggs": {
+            "r": {"rare_terms": {"field": "tag",
+                                 "max_doc_count": 1_000_000}}}}),
+        "cardinality": ("cardinality", {"size": 0, "aggs": {
+            "tag": {"cardinality": {"field": "tag"}},
+            "price": {"cardinality": {"field": "price"}},
+            "flag": {"cardinality": {"field": "flag"}}}}),
+        "cardinality_ts": ("cardinality", {"query": match, "size": 0, "aggs": {
+            "ts": {"cardinality": {"field": "ts"}}}}),
+        "top_hits": ("top_hits", {"query": match, "size": 0, "aggs": {
+            "th": {"top_hits": {"size": 5}},
+            "paged": {"top_hits": {"size": 3, "from": 2,
+                                   "_source": False}}}}),
+        "top_hits_terms": ("top_hits", {"query": match, "size": 0, "aggs": {
+            "t": {"terms": {"field": "tag"}, "aggs": top2}}}),
+        "top_hits_month": ("top_hits", {"query": match, "size": 0, "aggs": {
+            "d": {"date_histogram": {"field": "ts",
+                                     "calendar_interval": "month"},
+                  "aggs": {"th": {"top_hits": {"size": 1}}}}}}),
+        "top_hits_range": ("top_hits", {"query": match, "size": 0, "aggs": {
+            "r": {"range": {"field": "price", "ranges": [
+                {"to": 2500}, {"from": 2500, "to": 7500}, {"from": 7500}]},
+                  "aggs": top2}}}),
+        "top_hits_filter": ("top_hits", {"query": match, "size": 0, "aggs": {
+            "f": {"filter": {"term": {"flag": True}}, "aggs": {
+                "th": {"top_hits": {"size": 3}},
+                "t": {"terms": {"field": "tag"}, "aggs": top2}}}}}),
+        "matrix_stats": ("host_metrics", {"query": match, "size": 0, "aggs": {
+            "m": {"matrix_stats": {"fields": ["price", "ts", "flag"]}}}}),
+        "host_metrics": ("host_metrics", {"size": 0, "aggs": {
+            "p": {"percentiles": {"field": "price"}},
+            "pr": {"percentile_ranks": {"field": "price",
+                                        "values": [100, 5000, 9990]}},
+            "es": {"extended_stats": {"field": "price"}},
+            "mad": {"median_absolute_deviation": {"field": "price"}}}}),
+        "date_1d": ("date_histogram", {"size": 0, "aggs": {
+            "d": {"date_histogram": {"field": "ts", "fixed_interval": "1d"}}}}),
+        "date_12h": ("date_histogram", {"size": 0, "aggs": {
+            "d": {"date_histogram": {"field": "ts",
+                                     "fixed_interval": "12h"}}}}),
+        "date_month": ("date_histogram", {"size": 0, "aggs": {
+            "d": {"date_histogram": {"field": "ts",
+                                     "calendar_interval": "month"},
+                  "aggs": {"s": {"sum": {"field": "price"}}}}}}),
+        "date_quarter": ("date_histogram", {"size": 0, "aggs": {
+            "d": {"date_histogram": {"field": "ts",
+                                     "calendar_interval": "quarter"}}}}),
+        "date_year": ("date_histogram", {"size": 0, "aggs": {
+            "d": {"date_histogram": {"field": "ts",
+                                     "calendar_interval": "year"}}}}),
+        "terms_price": ("terms", {"size": 0, "aggs": {
+            "t": {"terms": {"field": "price"}}}}),
+        "terms_flag": ("terms", {"size": 0, "aggs": {
+            "t": {"terms": {"field": "flag"}}}}),
+        "date_range_query": ("date_query", {
+            "query": {"range": {"ts": {"gte": "2024-03-01",
+                                       "lt": "2024-09-01T12:00:00Z"}}},
+            "size": 10, "sort": [{"ts": "desc"}],
+            "aggs": {"d": {"date_histogram": {
+                "field": "ts", "calendar_interval": "month"}}}}),
+        "sort_ts": ("date_query", {"query": match, "size": 10,
+                                   "sort": [{"ts": "asc"}]}),
+    }
+
+
+def _ext_composite(match_terms, after=None) -> dict:
+    comp = {"size": 500, "sources": [
+        {"tag": {"terms": {"field": "tag"}}},
+        {"week": {"date_histogram": {"field": "ts",
+                                     "calendar_interval": "week"}}},
+        {"price": {"histogram": {"field": "price", "interval": 2500}}}]}
+    if after is not None:
+        comp["after"] = after
+    return {"query": {"match": {"body": " ".join(match_terms)}}, "size": 0,
+            "aggs": {"c": {"composite": comp,
+                           "aggs": {"a": {"avg": {"field": "price"}}}}}}
+
+
+class _Rel:
+    """An expected float that an answer matches within rtol 1e-5 (K10's
+    f32 bucket sums)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __repr__(self):
+        return f"~{self.value!r}"
+
+
+def _ext_equal(got, want) -> bool:
+    import math
+
+    if isinstance(want, _Rel):
+        return (isinstance(got, float)
+                and math.isclose(got, want.value, rel_tol=1e-5))
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and set(got) == set(want)
+                and all(_ext_equal(got[k], want[k]) for k in want))
+    if isinstance(want, list):
+        return (isinstance(got, list) and len(got) == len(want)
+                and all(_ext_equal(g, w) for g, w in zip(got, want)))
+    return got == want and type(got) is type(want)
+
+
+def _iso(ms: float) -> str:
+    from datetime import datetime, timezone
+
+    dt = datetime.fromtimestamp(ms / 1000.0, tz=timezone.utc)
+    return dt.strftime("%Y-%m-%dT%H:%M:%S.") + f"{dt.microsecond // 1000:03d}Z"
+
+
+def _date_ms(text: str) -> float:
+    from datetime import datetime, timezone
+
+    dt = datetime.fromisoformat(text.replace("Z", "+00:00"))
+    if dt.tzinfo is None:
+        dt = dt.replace(tzinfo=timezone.utc)
+    return dt.timestamp() * 1000.0
+
+
+class ExtOracle:
+    """Phase aggs-ext's answers from the host columns in numpy: each
+    query's mask (match: the union of the terms' postings; a date range
+    on the f32 stored values) and BM25 scores (ops/bm25's numpy scorer
+    with the node's statistics), then every aggregation kind as its
+    semantics define it. Counts, keys, bg counts, significance scores,
+    hit ids and order and the f64 host metrics are exact; K10's f32
+    bucket sums (a terms or date_histogram sub-metric sum) within rtol
+    1e-5."""
+
+    def __init__(self, segs, stats, index):
+        self.segs, self.stats, self.index = segs, stats, index
+
+    # -- contexts -------------------------------------------------------
+
+    def masks(self, query):
+        import numpy as np
+
+        if query is None or "match_all" in query:
+            return [np.ones(s.num_docs, dtype=bool) for s in self.segs]
+        if "match" in query:
+            return [_term_mask(s, "body", query["match"]["body"].split())
+                    for s in self.segs]
+        (field, bounds), = query["range"].items()
+        lo = np.float32(_date_ms(bounds["gte"]))
+        hi = np.float32(_date_ms(bounds["lt"]))
+        return [(s.doc_values[field].astype(np.float32) >= lo)
+                & (s.doc_values[field].astype(np.float32) < hi)
+                for s in self.segs]
+
+    def scores(self, query):
+        import numpy as np
+
+        from elasticsearch_tpu_torch.ops import bm25
+
+        if query is None or "match" not in query:
+            return [np.ones(s.num_docs, dtype=np.float32) for s in self.segs]
+        terms = query["match"]["body"].split()
+        return [bm25.score_terms_dense(s.fields["body"], terms, s.num_docs,
+                                       stats=self.stats) for s in self.segs]
+
+    def values(self, masks, field):
+        import numpy as np
+
+        out = []
+        for s, m in zip(self.segs, masks):
+            v = s.doc_values[field][m]
+            out.append(v[~np.isnan(v)])
+        return out
+
+    # -- kinds ----------------------------------------------------------
+
+    def top_hits(self, p, members, scores):
+        import numpy as np
+
+        size, frm = int(p.get("size", 3)), int(p.get("from", 0))
+        cands, total = [], 0
+        for si, (seg, m, sc) in enumerate(zip(self.segs, members, scores)):
+            locs = np.flatnonzero(m)
+            total += len(locs)
+            s64 = sc[locs].astype(np.float64)
+            for i in np.lexsort((locs, -s64))[:frm + size]:
+                cands.append((-float(s64[i]), int(locs[i]), si))
+        cands.sort()
+        hits = [{"_index": self.index, "_id": self.segs[si].ids[d],
+                 "_score": -neg} for neg, d, si in cands[frm:frm + size]]
+        return {"hits": {"total": {"value": total, "relation": "eq"},
+                         "max_score": -cands[0][0] if cands else None,
+                         "hits": hits}}
+
+    def stats_of(self, vals, rel=False):
+        """stats over per-segment f64 value arrays; `rel`: a K10 bucket
+        plane (f32 sums, compared within rtol 1e-5)."""
+        import numpy as np
+
+        count = sum(len(v) for v in vals)
+        total = sum(float(np.sum(v)) for v in vals)
+        lo = min((float(np.min(v)) for v in vals if len(v)), default=None)
+        hi = max((float(np.max(v)) for v in vals if len(v)), default=None)
+        wrap = _Rel if rel else float
+        return {"count": count, "min": lo, "max": hi,
+                "avg": wrap(total / count) if count else None,
+                "sum": wrap(total)}
+
+    def subs(self, spec, members, scores, members32=None):
+        """A bucket's sub-aggregations: top_hits over `members` (the host
+        f64 membership), K10's metric planes over `members32` (the device
+        f32 membership, where it differs)."""
+        m32 = members if members32 is None else members32
+        out = {}
+        for name, sub in (spec.get("aggs") or {}).items():
+            kind, p = next(iter(sub.items()))
+            if kind == "top_hits":
+                out[name] = self.top_hits(p, members, scores)
+            elif kind == "stats":
+                out[name] = self.stats_of(self.values(m32, p["field"]),
+                                          rel=True)
+            elif kind == "sum":
+                vals = self.values(m32, p["field"])
+                out[name] = {"value": _Rel(sum(float(v.sum()) for v in vals))}
+        return out
+
+    def significant_terms(self, spec, masks, scores):
+        import numpy as np
+
+        p = spec["significant_terms"]
+        field = p["field"]
+        heuristic, hp = "jlh", {}
+        for h in ("jlh", "chi_square", "percentage"):
+            if h in p:
+                heuristic, hp = h, p[h]
+        subset = int(sum(int(m.sum()) for m in masks))
+        superset = int(sum(s.num_docs for s in self.segs))
+        fg, bg = {}, {}
+        for s, m in zip(self.segs, masks):
+            f = s.fields[field]
+            for term, tid in f.terms.items():
+                docs = f.doc_ids[f.offsets[tid]:f.offsets[tid + 1]]
+                fg[term] = fg.get(term, 0) + int(m[docs].sum())
+                bg[term] = bg.get(term, 0) + int(f.df[tid])
+        n_sub, n_sup = max(subset, 1), max(superset, 1)
+
+        def score(a: int, b: int) -> float:
+            fp, bp = a / n_sub, b / n_sup
+            if heuristic == "percentage":
+                return a / b if b > 0 else 0.0
+            if heuristic == "chi_square":
+                if not hp.get("include_negatives", False) and fp < bp:
+                    return 0.0
+                x, y = a, b - a
+                z, w = n_sub - a, n_sup - b - (n_sub - a)
+                den = (x + y) * (z + w) * (x + z) * (y + w)
+                return ((x * w - y * z) ** 2 * (x + y + z + w)) / den \
+                    if den > 0 else 0.0
+            if fp <= bp or bp == 0:
+                return 0.0
+            return (fp - bp) * (fp / bp)
+
+        kept = []
+        for term, a in fg.items():
+            if a < int(p.get("min_doc_count", 3)):
+                continue
+            sc = score(a, bg[term])
+            if sc > 0:
+                kept.append((-sc, term))
+        kept.sort()
+        buckets = []
+        for neg, term in kept[:int(p.get("size", 10))]:
+            members = [m & _term_mask(s, field, [term])
+                       for s, m in zip(self.segs, masks)]
+            buckets.append({"key": term, "doc_count": fg[term],
+                            "score": -neg, "bg_count": bg[term],
+                            **self.subs(spec, members, scores)})
+        return {"doc_count": subset, "bg_count": superset,
+                "buckets": buckets}
+
+    def terms(self, spec, masks, scores):
+        """keyword terms (with subs), or numeric / boolean terms over the
+        host columns."""
+        import numpy as np
+
+        p = spec["terms"]
+        field = p["field"]
+        counts = {}
+        if field in self.segs[0].fields:
+            for s, m in zip(self.segs, masks):
+                f = s.fields[field]
+                for term, tid in f.terms.items():
+                    docs = f.doc_ids[f.offsets[tid]:f.offsets[tid + 1]]
+                    counts[term] = counts.get(term, 0) + int(m[docs].sum())
+            counts = {k: c for k, c in counts.items() if c}
+        else:
+            vals, cnt = np.unique(np.concatenate(self.values(masks, field)),
+                                  return_counts=True)
+            counts = {float(v): int(c) for v, c in zip(vals, cnt)}
+        items = sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))
+        top = items[:int(p.get("size", 10))]
+        buckets = []
+        for key, c in top:
+            b = {"key": int(key) if field == "price" else key, "doc_count": c}
+            if spec.get("aggs"):
+                members = [m & _term_mask(s, field, [key])
+                           for s, m in zip(self.segs, masks)]
+                b.update(self.subs(spec, members, scores))
+            buckets.append(b)
+        return {"doc_count_error_upper_bound": 0,
+                "sum_other_doc_count": sum(counts.values())
+                - sum(c for _, c in top),
+                "buckets": buckets}
+
+    def rare_terms(self, p, masks):
+        import numpy as np
+
+        field = p["field"]
+        if field in self.segs[0].fields:
+            counts = self.terms({"terms": {"field": field, "size": 1 << 30}},
+                                masks, None)
+            items = [(b["key"], b["doc_count"]) for b in counts["buckets"]]
+        else:
+            vals, cnt = np.unique(np.concatenate(self.values(masks, field)),
+                                  return_counts=True)
+            items = [(int(v), int(c)) for v, c in zip(vals, cnt)]
+        items = sorted(((k, c) for k, c in items
+                        if c <= int(p.get("max_doc_count", 1))),
+                       key=lambda kv: (kv[1], kv[0]))
+        return {"buckets": [{"key": k, "doc_count": c}
+                            for k, c in items[:10_000]]}
+
+    def cardinality(self, p, masks):
+        import numpy as np
+
+        field = p["field"]
+        if field in self.segs[0].fields:
+            seen = set()
+            for s, m in zip(self.segs, masks):
+                f = s.fields[field]
+                for term, tid in f.terms.items():
+                    if m[f.doc_ids[f.offsets[tid]:f.offsets[tid + 1]]].any():
+                        seen.add(term)
+            return {"value": len(seen)}
+        return {"value": int(np.unique(
+            np.concatenate(self.values(masks, field))).size)}
+
+    def date_histogram(self, spec, masks, scores):
+        """Fixed intervals: the global f32 window and f32 bucket index of
+        the device plan; calendar units: UTC edges from the f32 minimum,
+        counted on the f32 column against f32 edges; a top_hits sub's
+        members test the f64 column against the f64 edges."""
+        import math
+        from datetime import datetime, timezone
+
+        import numpy as np
+
+        p = spec["date_histogram"]
+        field = p["field"]
+        cols = [s.doc_values[field] for s in self.segs]
+        lo = min(float(np.float32(np.nanmin(c))) for c in cols)
+        hi = max(float(np.float32(np.nanmax(c))) for c in cols)
+        unit = p.get("calendar_interval") or p.get("fixed_interval")
+        fixed = {"1d": DAY_MS, "12h": DAY_MS / 2}.get(unit)
+        if fixed is not None:
+            base = math.floor(lo / fixed)
+            nb = int(math.floor(hi / fixed) - base) + 1
+            nb_pad = 1 << (nb - 1).bit_length()
+            counts = np.zeros(nb_pad, np.int64)
+            for c, m in zip(cols, masks):
+                rel = (np.floor(c.astype(np.float32) / np.float32(fixed))
+                       - np.float32(base))
+                ok = m & ~np.isnan(c) & (rel >= 0) & (rel < nb_pad)
+                counts += np.bincount(rel[ok].astype(np.int64),
+                                      minlength=nb_pad)
+            edges = [(base + i) * fixed for i in range(nb_pad + 1)]
+        else:
+            step = {"month": 1, "quarter": 3, "year": 12}[unit]
+            start = datetime.fromtimestamp(lo / 1000.0, tz=timezone.utc)
+            y, mo = start.year, ((start.month - 1) // step) * step + 1
+            edges = []
+            while True:
+                edges.append(_utc_ms(y, mo, 1))
+                if edges[-1] > hi:
+                    break
+                mo += step
+                y, mo = y + (mo - 1) // 12, (mo - 1) % 12 + 1
+            counts = np.zeros(len(edges) - 1, np.int64)
+            for c, m in zip(cols, masks):
+                c32 = c.astype(np.float32)
+                for i in range(len(edges) - 1):
+                    counts[i] += int((m & (c32 >= np.float32(edges[i]))
+                                      & (c32 < np.float32(edges[i + 1]))).sum())
+        occ = np.flatnonzero(counts)
+        buckets = []
+        for i in range(int(occ[0]), int(occ[-1]) + 1) if len(occ) else ():
+            b = {"key_as_string": _iso(edges[i]), "key": int(edges[i]),
+                 "doc_count": int(counts[i])}
+            if spec.get("aggs"):
+                members = [m & (c >= edges[i]) & (c < edges[i + 1])
+                           for c, m in zip(cols, masks)]
+                members32 = [
+                    m & (c.astype(np.float32) >= np.float32(edges[i]))
+                    & (c.astype(np.float32) < np.float32(edges[i + 1]))
+                    for c, m in zip(cols, masks)]
+                b.update(self.subs(spec, members, scores, members32))
+            buckets.append(b)
+        return {"buckets": buckets}
+
+    def range_agg(self, spec, masks, scores):
+        import numpy as np
+
+        p = spec["range"]
+        buckets = []
+        for r in p["ranges"]:
+            lo, hi = r.get("from"), r.get("to")
+            b = {"key": f"{'*' if lo is None else float(lo)}-"
+                        f"{'*' if hi is None else float(hi)}"}
+            if lo is not None:
+                b["from"] = float(lo)
+            if hi is not None:
+                b["to"] = float(hi)
+            cols = [s.doc_values[p["field"]] for s in self.segs]
+            lo32 = np.float32(-np.inf if lo is None else lo)
+            hi32 = np.float32(np.inf if hi is None else hi)
+            members32 = [m & (c.astype(np.float32) >= lo32)
+                         & (c.astype(np.float32) < hi32)
+                         for c, m in zip(cols, masks)]
+            b["doc_count"] = sum(int(m.sum()) for m in members32)
+            members = [m & (c >= (-np.inf if lo is None else lo))
+                       & (c < (np.inf if hi is None else hi))
+                       for c, m in zip(cols, masks)]
+            b.update(self.subs(spec, members, scores, members32))
+            buckets.append(b)
+        return {"buckets": buckets}
+
+    def host_metric(self, kind, p, masks):
+        import numpy as np
+
+        vals = self.values(masks, p["field"])
+        flat = np.sort(np.concatenate(vals))
+
+        def label(v):
+            return f"{v:g}.0" if float(v).is_integer() else f"{v:g}"
+
+        if kind == "percentiles":
+            pct = p.get("percents", (1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0))
+            return {"values": {label(float(q)): float(np.percentile(
+                flat, float(q), method="linear")) for q in pct}}
+        if kind == "percentile_ranks":
+            return {"values": {label(float(v)): float(np.searchsorted(
+                flat, float(v), side="right")) / len(flat) * 100.0
+                for v in p["values"]}}
+        if kind == "median_absolute_deviation":
+            med = float(np.median(flat))
+            return {"value": float(np.median(np.abs(flat - med)))}
+        count = sum(len(v) for v in vals)
+        total = sumsq = 0.0
+        for v in vals:
+            total += float(np.sum(v))
+            sumsq += float(np.sum(v * v))
+        mean = total / count
+        var = max(0.0, sumsq / count - mean * mean)
+        std = float(np.sqrt(var))
+        return {"count": count, "min": float(flat[0]), "max": float(flat[-1]),
+                "avg": mean, "sum": total, "sum_of_squares": sumsq,
+                "variance": var, "std_deviation": std,
+                "std_deviation_bounds": {"upper": mean + 2.0 * std,
+                                         "lower": mean - 2.0 * std}}
+
+    def matrix_stats(self, fields, masks):
+        """Per-field moments from power sums about the first complete
+        row's values, folded segment by segment; covariance and
+        correlation from the cross products."""
+        import numpy as np
+
+        n, pivot = 0, None
+        s1 = s2 = s3 = s4 = cross = 0.0
+        for s, m in zip(self.segs, masks):
+            cols = [s.doc_values[f].astype(np.float64) for f in fields]
+            rows = m.copy()
+            for c in cols:
+                rows &= ~np.isnan(c)
+            if not rows.any():
+                continue
+            x = np.stack([c[rows] for c in cols])
+            if pivot is None:
+                pivot = x[:, 0].copy()
+                s1 = s2 = s3 = s4 = np.zeros(len(fields))
+                cross = np.zeros((len(fields), len(fields)))
+            x = x - pivot[:, None]
+            n += int(x.shape[1])
+            s1 = s1 + x.sum(axis=1)
+            s2 = s2 + (x ** 2).sum(axis=1)
+            s3 = s3 + (x ** 3).sum(axis=1)
+            s4 = s4 + (x ** 4).sum(axis=1)
+            cross = cross + x @ x.T
+        mu = s1 / n
+        m2 = np.maximum(s2 / n - mu ** 2, 0.0)
+        m3 = s3 / n - 3 * mu * s2 / n + 2 * mu ** 3
+        m4 = s4 / n - 4 * mu * s3 / n + 6 * mu ** 2 * s2 / n - 3 * mu ** 4
+        std = np.sqrt(m2)
+        cov_pop = cross / n - np.outer(mu, mu)
+        out = []
+        for i, f in enumerate(fields):
+            out.append({
+                "name": f, "count": n, "mean": float(pivot[i] + mu[i]),
+                "variance": float(m2[i] * n / max(n - 1, 1)),
+                "skewness": float(m3[i] / std[i] ** 3) if std[i] > 0 else 0.0,
+                "kurtosis": float(m4[i] / m2[i] ** 2) if m2[i] > 0 else 0.0,
+                "covariance": {g: float(cov_pop[i, j] * n / max(n - 1, 1))
+                               for j, g in enumerate(fields)},
+                "correlation": {g: float(cov_pop[i, j] / (std[i] * std[j]))
+                                if std[i] * std[j] > 0 else 0.0
+                                for j, g in enumerate(fields)}})
+        return {"doc_count": n, "fields": out}
+
+    def composite(self, body):
+        """Every bucket of the composite body (keys in source order,
+        ascending), its doc count and f64 avg sub-metric, then the page
+        after body's `after`."""
+        import numpy as np
+
+        comp = body["aggs"]["c"]["composite"]
+        masks = self.masks(body.get("query"))
+        acc = {}
+        for s, m in zip(self.segs, masks):
+            tag = np.full(s.num_docs, -1)
+            f = s.fields["tag"]
+            tag[f.doc_ids] = np.repeat(np.arange(len(f.terms)),
+                                       np.diff(f.offsets))
+            vocab = sorted(f.terms, key=f.terms.get)
+            ts, price = s.doc_values["ts"], s.doc_values["price"]
+            ok = m & (tag >= 0) & ~np.isnan(ts) & ~np.isnan(price)
+            week = np.floor(ts[ok] / 604_800_000.0) * 604_800_000.0
+            band = np.floor(price[ok] / 2500.0) * 2500.0
+            rows = np.stack([tag[ok], week, band], axis=1)
+            uniq, inv = np.unique(rows, axis=0, return_inverse=True)
+            inv = inv.reshape(-1)
+            cnt = np.bincount(inv, minlength=len(uniq))
+            tot = np.zeros(len(uniq))
+            np.add.at(tot, inv, price[ok])
+            for i, (t, w, b) in enumerate(uniq):
+                key = (vocab[int(t)], int(w), int(b))
+                c, sm = acc.get(key, (0, 0.0))
+                acc[key] = (c + int(cnt[i]), sm + float(tot[i]))
+        items = sorted(acc.items())
+        after = comp.get("after")
+        if after:
+            cut = (after["tag"], after["week"], after["price"])
+            items = [it for it in items if it[0] > cut]
+        page = items[:comp["size"]]
+        buckets = [{"key": {"tag": k[0], "week": k[1], "price": k[2]},
+                    "doc_count": c, "a": {"value": sm / c}}
+                   for k, (c, sm) in page]
+        out = {"buckets": buckets}
+        if page and len(items) > comp["size"]:
+            out["after_key"] = buckets[-1]["key"]
+        return out
+
+    def sorted_hits(self, body, masks):
+        import numpy as np
+
+        (field, order), = body["sort"][0].items()
+        rows = []
+        for si, (s, m) in enumerate(zip(self.segs, masks)):
+            v = s.doc_values[field].astype(np.float32)
+            locs = np.flatnonzero(m)
+            key = np.where(np.isnan(v[locs]), np.inf,
+                           -v[locs] if order == "desc" else v[locs])
+            for i in np.lexsort((locs, key.astype(np.float64)))[:body["size"]]:
+                d = int(locs[i])
+                rows.append((float(key[i]), si, d,
+                             None if np.isnan(v[d]) else float(v[d])))
+        rows.sort()
+        return [(self.segs[si].ids[d], [val])
+                for _k, si, d, val in rows[:body["size"]]]
+
+    # -- one answer -----------------------------------------------------
+
+    def check(self, body, out) -> bool:
+        masks = self.masks(body.get("query"))
+        total = sum(int(m.sum()) for m in masks)
+        if out["hits"]["total"]["value"] != min(total, 10_000):
+            return False
+        if body.get("sort"):
+            got = [(h["_id"], h["sort"]) for h in out["hits"]["hits"]]
+            if got != self.sorted_hits(body, masks):
+                return False
+        aggs = body.get("aggs") or {}
+        if "composite" in aggs.get("c", {}):
+            want = {"c": self.composite(body)}
+        else:
+            scores = self.scores(body.get("query"))
+            want = {name: self.one(spec, masks, scores)
+                    for name, spec in aggs.items()}
+        return _ext_equal(out.get("aggregations", {}), want) if want else True
+
+    def one(self, spec, masks, scores):
+        kind = next(k for k in spec if k != "aggs")
+        p = spec[kind]
+        if kind == "significant_terms":
+            return self.significant_terms(spec, masks, scores)
+        if kind == "terms":
+            return self.terms(spec, masks, scores)
+        if kind == "rare_terms":
+            return self.rare_terms(p, masks)
+        if kind == "cardinality":
+            return self.cardinality(p, masks)
+        if kind == "top_hits":
+            return self.top_hits(p, masks, scores)
+        if kind == "date_histogram":
+            return self.date_histogram(spec, masks, scores)
+        if kind == "range":
+            return self.range_agg(spec, masks, scores)
+        if kind == "matrix_stats":
+            return self.matrix_stats(p["fields"], masks)
+        if kind == "filter":
+            (field, value), = p["term"].items()
+            sub = [m & (s.doc_values[field] == float(value))
+                   for s, m in zip(self.segs, masks)]
+            return {"doc_count": sum(int(m.sum()) for m in sub),
+                    **{n: self.one(sp, sub, scores)
+                       for n, sp in spec["aggs"].items()}}
+        return self.host_metric(kind, p, masks)
+
+
+class ReadbackTimer:
+    """Host time of every aggs._to_host call while installed: the device
+    result trees' readback (top_hits' [N] mask and score planes among
+    them)."""
+
+    def __init__(self):
+        from elasticsearch_tpu_torch.search import aggs
+
+        self.mod = aggs
+        self.real = aggs._to_host
+        self.ms: list = []
+
+    def __enter__(self):
+        def timed(tree):
+            t0 = time.perf_counter()
+            out = self.real(tree)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self.mod._to_host = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._to_host = self.real
+
+
+def run_aggs_ext(card, node, shards, whole, one, match_terms, launches,
+                 rows) -> dict:
+    """Phase aggs-ext on the aggs phase's node: the bodies of _ext_bodies
+    and the composite walked to its end with `after`, on the 8-shard and
+    the one-shard index, over HTTP. Each body once untimed, then
+    AGG_EXT_REPS times sequentially (round robin), the composite walk
+    inside the same counted run; every first answer against the same
+    body served with plain_kernels() (the whole JSON but `took`) and
+    against ExtOracle, every repeat against the first. Per family p50 /
+    p99 ms, device ms per request (CUDA events around execute_aggs), host
+    ms per request (the rest) and readback ms; then K10's rows at the
+    phase's widest launches on the one-shard index."""
+    from elasticsearch_tpu_torch.search.service import SearchRequest
+
+    t_phase = time.monotonic()
+    bodies = _ext_bodies(match_terms)
+    names = list(bodies)
+    result = {}
+    for index, segs in (("cfg7", shards), ("cfg7one", [whole])):
+        svc = node.indices[index]
+        stats = (svc.search.global_stats() if len(segs) > 1
+                 else svc.engines[0].field_stats())["body"]
+        oracle = ExtOracle(segs, stats, index)
+        server, base = serve(node)
+        try:
+            for nm in names:  # one untimed warm-up request per body
+                http(base, "POST", f"/{index}/_search", bodies[nm][1])
+            lat, resp, marks, reads = [], [], [], []
+            with counted(f"aggs-ext {index}", launches), AggTimer() as timer, \
+                    ReadbackTimer() as rb:
+                for _rep in range(AGG_EXT_REPS):
+                    for nm in names:
+                        e0, r0 = len(timer.events), len(rb.ms)
+                        t0 = time.monotonic()
+                        resp.append(http(base, "POST", f"/{index}/_search",
+                                         bodies[nm][1]))
+                        lat.append((time.monotonic() - t0) * 1e3)
+                        marks.append((e0, len(timer.events)))
+                        reads.append(sum(rb.ms[r0:]))
+                pages, page_bodies, after = [], [], None
+                while True:
+                    page_bodies.append(_ext_composite(match_terms, after))
+                    t0 = time.monotonic()
+                    pages.append(http(base, "POST", f"/{index}/_search",
+                                      page_bodies[-1]))
+                    lat.append((time.monotonic() - t0) * 1e3)
+                    after = pages[-1]["aggregations"]["c"].get("after_key")
+                    if after is None:
+                        break
+        finally:
+            server.shutdown()
+            server.server_close()
+        dev_ms = [sum(a.elapsed_time(b) for a, b in timer.events[e0:e1])
+                  for e0, e1 in marks]
+        first = resp[:len(names)]
+        checked = list(zip([bodies[n][1] for n in names], first)) + list(
+            zip(page_bodies, pages))
+        vs_plain = vs_oracle = 0
+        with plain_kernels():
+            for body, out in checked:
+                want = svc.search.search(
+                    SearchRequest.from_json(body)).to_json(index)
+                if without_took(json.loads(json.dumps(want))) != \
+                        without_took(out):
+                    vs_plain += 1
+                    log(f"  MISMATCH aggs-ext {index} plain path "
+                        f"{json.dumps(body)[:200]}")
+        for body, out in checked:
+            if not oracle.check(body, out):
+                vs_oracle += 1
+                log(f"  MISMATCH aggs-ext {index} oracle "
+                    f"{json.dumps(body)[:200]}: "
+                    f"{json.dumps(out.get('aggregations'))[:600]}")
+        vs_first = sum(without_took(out) != without_took(first[i % len(names)])
+                       for i, out in enumerate(resp))
+        # month buckets whose f32 doc_count and f64 top_hits membership
+        # differ (documents within 60 s of an edge)
+        month = first[names.index("top_hits_month")]["aggregations"]["d"]
+        split = sum(b["th"]["hits"]["total"]["value"] != b["doc_count"]
+                    for b in month["buckets"])
+        n = len(names)
+        families = {}
+        for j, nm in enumerate(names):
+            families.setdefault(bodies[nm][0], []).append(j)
+        per_family = {}
+        for fam, js in families.items():
+            idx = [r * n + j for r in range(AGG_EXT_REPS) for j in js]
+            per_family[fam] = {
+                "bodies": len(js),
+                "p50_ms": percentile([lat[i] for i in idx], 50),
+                "p99_ms": percentile([lat[i] for i in idx], 99),
+                "device_ms_per_request": sum(dev_ms[i] for i in idx) / len(idx),
+                "host_ms_p50": percentile([lat[i] - dev_ms[i] for i in idx], 50),
+                "readback_ms_p50": percentile([reads[i] for i in idx], 50),
+            }
+        page_lat = lat[len(resp):]
+        per_family["composite"] = {
+            "pages": len(pages), "p50_ms": percentile(page_lat, 50),
+            "p99_ms": percentile(page_lat, 99),
+            "buckets": sum(len(p["aggregations"]["c"]["buckets"])
+                           for p in pages)}
+        stats_out = {
+            "requests": len(resp) + len(pages),
+            "p50_ms": percentile(lat, 50), "p99_ms": percentile(lat, 99),
+            "device_ms_per_request": sum(dev_ms) / len(dev_ms),
+            "host_ms_per_request": (sum(lat[:len(resp)]) - sum(dev_ms))
+            / len(dev_ms),
+            "per_family": per_family,
+            "month_buckets_f32_f64_split": split,
+            "mismatches_vs_plain": vs_plain,
+            "mismatches_vs_oracle": vs_oracle,
+            "mismatches_vs_first": vs_first,
+        }
+        bad = vs_plain + vs_oracle + vs_first
+        log(f"phase aggs-ext {index}: {'ok' if bad == 0 else 'FAILED'} "
+            f"{json.dumps(stats_out)} [{card}]")
+        if bad:
+            raise SmokeFailure(f"{bad} mismatches in phase aggs-ext {index}")
+        result[index] = stats_out
+    kernel_rows_aggs_ext(node.indices["cfg7one"].engines[0], one,
+                         bodies["sig_jlh"][1], rows)
+    result["phase_s"] = time.monotonic() - t_phase
+    log(f"phase aggs-ext: ok {result['phase_s']:.1f} s [{card}]")
+    return result
+
+
+def kernel_rows_aggs_ext(engine, handle, sig_body, rows):
+    """K10 at phase aggs-ext's widest launches on the one-shard index
+    (1,000,000 docs): terms-count mode over the tag postings under
+    sig_jlh's match mask (significant_terms), range mode over the 37
+    month edges of `ts` with the price sum (R > 32: two groups of 32
+    ranges), and scatter mode for the 1d date_histogram (counts). Each
+    held to its plain version bit for bit, beside its byte bound and one
+    library call (torch.bincount; a masked [R, N] sum, amin, amax)."""
+    import math
+    from datetime import datetime, timezone
+
+    import torch
+
+    from elasticsearch_tpu_torch.ops import aggs_device
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    tree = aggs_device.agg_segment_tree(handle.device)
+    live = tree["live"]
+    n = live.shape[0]
+    dev = live.device
+    compiled = engine.compiler_for(handle).compile(
+        parse_query(sig_body["query"]))
+    _tot, res = aggs_device.execute_aggs(tree, compiled.spec, compiled.arrays,
+                                         (("hits_planes",),), ({},))
+    mask = res[0]["mask"]
+    _docs, ords, m = aggs_device._posting_matched(tree, "tag", mask, n)
+    tp = 1 << (len(AGG_TAGS) - 1).bit_length()
+    p = ords.shape[0]
+    idx = torch.where(m, ords, tp).long()
+    _row(rows, "bucket_fold", "elasticsearch_tpu/ops/aggs_device.py:165", 1,
+         lambda: (kern.bucket_fold(ords, m, tp),),
+         lambda: (kern.bucket_fold_plain(ords, m, tp),),
+         lambda: torch.bincount(idx, minlength=tp + 1), "torch.bincount",
+         p * 5 + tp * 4, source=AGG_SOURCE,
+         case=f"sig_terms counts over the tag postings, {p:,} rows")
+
+    ts, price = tree["doc_values"]["ts"], tree["doc_values"]["price"]
+    lo_v = float(torch.nan_to_num(ts, nan=float("inf")).min())
+    hi_v = float(torch.nan_to_num(ts, nan=float("-inf")).max())
+    start = datetime.fromtimestamp(lo_v / 1000.0, tz=timezone.utc)
+    y, mo, edges = start.year, start.month, []
+    while True:
+        edges.append(_utc_ms(y, mo, 1))
+        if edges[-1] > hi_v:
+            break
+        y, mo = y + mo // 12, mo % 12 + 1
+    r = len(edges) - 1
+    if r <= 32:
+        raise SmokeFailure(f"aggs-ext month edges: {r} ranges, want > 32")
+    lo = torch.tensor(edges[:-1], dtype=torch.float64, device=dev).float()
+    hi = torch.tensor(edges[1:], dtype=torch.float64, device=dev).float()
+    f32max = torch.tensor(kern.F32_MAX, device=dev)
+
+    def range_library():
+        member = (live[None, :] & (ts[None, :] >= lo[:, None])
+                  & (ts[None, :] < hi[:, None]) & ~torch.isnan(price)[None, :])
+        return (torch.where(member, price[None, :], 0.0).sum(dim=1),
+                torch.where(member, price[None, :], f32max).amin(dim=1),
+                torch.where(member, price[None, :], -f32max).amax(dim=1))
+
+    _row(rows, "bucket_fold_range", "elasticsearch_tpu/ops/aggs_device.py:217",
+         r, lambda: kern.range_fold(ts, live, lo, hi, sub=price),
+         lambda: kern.range_fold_plain(ts, live, lo, hi, sub=price),
+         range_library, "masked [R, N] sum, amin, amax", n * 9 + r * 20,
+         source=AGG_SOURCE, reps=10,
+         case=f"{r} month ranges of ts (R > 32) + price sum, {n:,} docs")
+
+    interval = float(DAY_MS)
+    base = math.floor(lo_v / interval)
+    nb = int(math.floor(hi_v / interval) - base) + 1
+    nb_pad = 1 << (nb - 1).bit_length()
+    rel = (torch.floor((ts - torch.tensor(0.0, device=dev))
+                       / torch.tensor(interval, device=dev))
+           - torch.tensor(float(base), device=dev))
+    rel = torch.clamp(torch.nan_to_num(rel, nan=0.0), -1, nb_pad).to(torch.int32)
+    inw = live & ~torch.isnan(ts) & (rel >= 0) & (rel < nb_pad)
+    bidx = torch.where(inw, rel, torch.full_like(rel, nb_pad))
+    _row(rows, "bucket_fold", "elasticsearch_tpu/ops/aggs_device.py:191", 1,
+         lambda: (kern.bucket_fold(bidx, inw, nb_pad),),
+         lambda: (kern.bucket_fold_plain(bidx, inw, nb_pad),),
+         lambda: torch.bincount(bidx.long(), minlength=nb_pad + 1),
+         "torch.bincount", n * 5 + nb_pad * 4, source=AGG_SOURCE, reps=10,
+         case=f"date_histogram 1d counts ({nb_pad} buckets), {n:,} docs")
     torch.cuda.synchronize()
 
 

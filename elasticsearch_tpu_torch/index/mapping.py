@@ -1,11 +1,16 @@
 """Field mappings: the schema of an index.
 
 Port copy of elasticsearch_tpu/index/mapping.py, trimmed to this slice:
-`text`, `keyword`, the numeric types `long`, `integer`, `float` and
-`double`, and `dense_vector` (with `dims`, `similarity` — `cosine` by
-default —, `MAX_DIMS` and the reference's up-front checks), multi-fields
-(the dynamic `text` + `.keyword` pair) and dynamic mapping of unseen
-fields from JSON value types (a dense_vector is never mapped
+`text`, `keyword`, the numeric types `long`, `integer`, `short`, `byte`,
+`float` and `double`, `boolean` (a 1.0 / 0.0 doc-values column; JSON
+`true` / `false` and the strings "true" / "false"), `date` and
+`date_nanos` (epoch milliseconds in a doc-values column, from epoch
+millis or ISO 8601 strings: `parse_date_millis`, `_trim_subsecond` and
+the boolean and date branches of `coerce_numeric`), and `dense_vector`
+(with `dims`, `similarity` — `cosine` by default —, `MAX_DIMS` and the
+reference's up-front checks), multi-fields (the dynamic `text` +
+`.keyword` pair) and dynamic mapping of unseen fields from JSON value
+types (a JSON boolean maps as `boolean`; a dense_vector is never mapped
 dynamically: a numeric array maps as a number, as in the reference);
 `object` and `nested` scopes (`Mappings._register`: object leaves
 flatten to dotted paths, a nested path gets its own `Mappings` scope in
@@ -15,10 +20,11 @@ columns, `<field>.lat` / `<field>.lon`), `rank_feature` (a doc-values
 column) and `rank_features` (one rank_feature column per key).
 `merge_field` keeps the reference's mapping-update rules for the fields
 it has: a type never changes, and a dense_vector's `dims` and
-`similarity` are immutable. Left out: dates, booleans, completion,
-percolator and the other mapper-extras types, dynamic templates and
-`to_json` round-trips; any such field is rejected at mapping or index
-time.
+`similarity` are immutable; `to_json` serializes the schema as the
+reference's `_mapping` response does. Left out: completion, percolator,
+ip, binary and the other mapper-extras types (`half_float`,
+`scaled_float`, `unsigned_long`, `token_count`, `search_as_you_type`)
+and dynamic templates; any such field is rejected at mapping time.
 """
 
 from __future__ import annotations
@@ -32,8 +38,13 @@ TEXT = "text"
 KEYWORD = "keyword"
 LONG = "long"
 INTEGER = "integer"
+SHORT = "short"
+BYTE = "byte"
 FLOAT = "float"
 DOUBLE = "double"
+BOOLEAN = "boolean"
+DATE = "date"
+DATE_NANOS = "date_nanos"
 DENSE_VECTOR = "dense_vector"
 OBJECT = "object"
 NESTED = "nested"
@@ -41,7 +52,9 @@ GEO_POINT = "geo_point"
 RANK_FEATURE = "rank_feature"
 RANK_FEATURES = "rank_features"
 
-NUMERIC_TYPES = {LONG, INTEGER, FLOAT, DOUBLE}
+NUMERIC_TYPES = {
+    LONG, INTEGER, SHORT, BYTE, DOUBLE, FLOAT, DATE, BOOLEAN, DATE_NANOS,
+}
 INVERTED_TYPES = {TEXT, KEYWORD}
 # rank_feature materializes as a numeric doc-values column.
 DOC_VALUE_TYPES = NUMERIC_TYPES | {RANK_FEATURE}
@@ -50,9 +63,63 @@ ALL_TYPES = NUMERIC_TYPES | INVERTED_TYPES | {
 }
 
 
+def parse_date_millis(value: Any) -> float:
+    """Parse a date value to epoch milliseconds (the doc-values unit):
+    epoch millis (a number, or a string of digits) or an ISO 8601 date /
+    datetime string, the reference's default
+    `strict_date_optional_time||epoch_millis`; a zone-less datetime is
+    UTC."""
+    if isinstance(value, bool):
+        raise ValueError(f"failed to parse date field [{value!r}]")
+    if isinstance(value, (int, float)):
+        return float(value)
+    if isinstance(value, str):
+        s = value.strip()
+        try:
+            return float(int(s))  # epoch_millis as string
+        except ValueError:
+            pass
+        from datetime import datetime, timezone
+
+        s = _trim_subsecond(s)
+        try:
+            dt = datetime.fromisoformat(s.replace("Z", "+00:00"))
+        except ValueError:
+            raise ValueError(
+                f"failed to parse date field [{value}] with format "
+                f"[strict_date_optional_time||epoch_millis]"
+            ) from None
+        if dt.tzinfo is None:
+            dt = dt.replace(tzinfo=timezone.utc)
+        return dt.timestamp() * 1000.0
+    raise ValueError(f"failed to parse date field [{value!r}]")
+
+
+def _trim_subsecond(s: str) -> str:
+    """Truncate fractional seconds past microseconds (date_nanos inputs;
+    fromisoformat accepts at most 6 fractional digits)."""
+    import re
+
+    return re.sub(r"(\.\d{6})\d+", r"\1", s)
+
+
 def coerce_numeric(field_type: str, value: Any) -> float:
-    """Coerce a query/document value to the numeric column representation
-    (numeric strings parse; anything else raises ValueError)."""
+    """Coerce a query/document value to the numeric column representation:
+    booleans map to 1.0 / 0.0 (a boolean field also takes "true" /
+    "false"), dates parse to epoch millis, numeric strings parse; anything
+    else raises ValueError."""
+    if field_type == BOOLEAN:
+        if value is True or value == "true":
+            return 1.0
+        if value is False or value == "false":
+            return 0.0
+        if isinstance(value, (int, float)):  # already-coerced column value
+            return float(value)
+        raise ValueError(
+            f"Can't parse boolean value [{value!r}], expected [true] or [false]"
+        )
+    if field_type in (DATE, DATE_NANOS):
+        return parse_date_millis(value)
     if isinstance(value, bool):
         return 1.0 if value else 0.0
     return float(value)
@@ -119,7 +186,8 @@ class FieldMapping:
 class Mappings:
     """Parsed `mappings` for one index, with dynamic-mapping support:
     unmapped fields map on first sight from their JSON type (string ->
-    text + .keyword, int -> long, float -> double, object -> object).
+    text + .keyword, bool -> boolean, int -> long, float -> double,
+    object -> object).
     Nested paths carry their own scope (`nested`: path -> a Mappings
     whose field names are full dotted paths)."""
 
@@ -227,6 +295,73 @@ class Mappings:
         for sub, sub_fm in new.fields.items():
             existing.fields.setdefault(sub, sub_fm)
 
+    def _props_under(self, prefix: str) -> dict[str, Any]:
+        """Relative `properties` of an object / nested parent, rebuilt from
+        the registered flat fields (dynamic leaves included)."""
+        dot = prefix + "."
+        return {
+            name[len(dot):]: self._spec_of(f)
+            for name, f in self.fields.items()
+            if name.startswith(dot) and "." not in name[len(dot):]
+        }
+
+    def _spec_of(self, f: FieldMapping) -> dict[str, Any]:
+        if f.type == OBJECT:
+            return {"type": OBJECT, "properties": self._props_under(f.name)}
+        if f.type == NESTED:
+            scope = self.nested.get(f.name)
+            props = (scope._props_under(f.name) if scope is not None
+                     else dict(f.properties or {}))
+            return {"type": NESTED, "properties": props}
+        return self._field_spec(f)
+
+    @staticmethod
+    def _field_spec(f: FieldMapping) -> dict[str, Any]:
+        spec: dict[str, Any] = {"type": f.type}
+        if f.type == TEXT and f.analyzer != "standard":
+            spec["analyzer"] = f.analyzer
+        if f.search_analyzer != f.analyzer:
+            spec["search_analyzer"] = f.search_analyzer
+        if f.type == DENSE_VECTOR:
+            spec["dims"] = f.dims
+            if f.similarity != "cosine":
+                spec["similarity"] = f.similarity
+        if not f.index:
+            spec["index"] = False
+        if f.norms != (f.type == TEXT):
+            spec["norms"] = f.norms
+        if f.ignore_above:
+            spec["ignore_above"] = f.ignore_above
+        if f.fields:
+            spec["fields"] = {
+                sub_name: Mappings._field_spec(sub)
+                for sub_name, sub in f.fields.items()
+            }
+        return spec
+
+    def _under_object(self, name: str) -> bool:
+        """True when `name` is a flattened leaf of a registered object
+        parent (it serializes inside the parent's `properties`)."""
+        parts = name.split(".")
+        for i in range(1, len(parts)):
+            fm = self.fields.get(".".join(parts[:i]))
+            if fm is not None and fm.type == OBJECT:
+                return True
+        return False
+
+    def to_json(self) -> dict[str, Any]:
+        """The schema as the `_mapping` response renders it."""
+        out: dict[str, Any] = {
+            "properties": {
+                f.name: self._spec_of(f)
+                for f in self.fields.values()
+                if not self._under_object(f.name)
+            }
+        }
+        if not self.dynamic:
+            out["dynamic"] = False
+        return out
+
     def get(self, name: str) -> FieldMapping | None:
         fm = self.fields.get(name)
         if fm is not None:
@@ -273,16 +408,21 @@ class Mappings:
             fm = FieldMapping(name=name, type=OBJECT, properties={})
             target[name] = fm
             return fm
-        sample = value[0] if isinstance(value, list) and value else value
-        if isinstance(sample, bool):
-            raise ValueError(
-                f"boolean field [{name}] is not supported by this port"
-            )
-        if isinstance(sample, int):
+        if isinstance(value, bool):
+            fm = FieldMapping(name=name, type=BOOLEAN)
+        elif isinstance(value, int):
             fm = FieldMapping(name=name, type=LONG)
-        elif isinstance(sample, float):
+        elif isinstance(value, float):
             fm = FieldMapping(name=name, type=DOUBLE)
-        elif isinstance(sample, str):
+        elif (isinstance(value, list) and value
+              and isinstance(value[0], (int, float))):
+            # A numeric array (a list of booleans included, as in the
+            # reference) maps as a number: double if any value is a float.
+            fm = FieldMapping(name=name, type=DOUBLE if any(
+                isinstance(v, float) for v in value) else LONG)
+        elif isinstance(value, str) or (
+                isinstance(value, list) and value
+                and isinstance(value[0], str)):
             fm = FieldMapping(
                 name=name,
                 type=TEXT,

@@ -3,24 +3,25 @@
 Port copy of elasticsearch_tpu/index/segment.py, trimmed to this slice:
 `FieldIndex` (with its token positions: `pos_offsets`, `positions`,
 `term_positions`), `Segment` and the Python path of `SegmentBuilder` for
-text, keyword, numeric and dense_vector fields (with multi-fields). A
-text field (one with norms) stages each value's token positions
-(`Analyzer.analyze_positions`, stop words leaving gaps), the values of a
-multi-valued field `POSITION_INCREMENT_GAP` apart, and `build` lays them
-out as CSR arrays aligned with the postings, empty arrays for a text
-field whose values analyzed to zero tokens; keyword fields stay
-positionless. A dense_vector value is staged whole (never flattened as
-a multi-value) and checked with the reference's messages: rank, NaN /
-Infinity, dims, and zero magnitude under cosine and dot_product. The
-reference's document parser (`_collect_values`): objects flatten to
-dotted leaves, arrays of objects merge their leaves as multi-values,
-`rank_features` flatten to one rank_feature column per key, a geo_point
-(`parse_geo_point`) stages its `<field>.lat` / `<field>.lon` columns,
-and each object under a `nested` path becomes one hidden sub-document of
-that path's `NestedBlock` (an inner Segment plus `parent_of`), staged in
-a candidate sub-builder and registered only when the parent commits, so
-a rejected write leaves no nested block behind. Left out: the native
-C++ accumulator, completion and percolator fields.
+text, keyword, numeric (dates and booleans among them: a doc-values
+column through `coerce_numeric`) and dense_vector fields (with
+multi-fields). A text field (one with norms) stages each value's token
+positions (`Analyzer.analyze_positions`, stop words leaving gaps), the
+values of a multi-valued field `POSITION_INCREMENT_GAP` apart, and
+`build` lays them out as CSR arrays aligned with the postings, empty
+arrays for a text field whose values analyzed to zero tokens; keyword
+fields stay positionless. A dense_vector value is staged whole (never
+flattened as a multi-value) and checked with the reference's messages:
+rank, NaN / Infinity, dims, and zero magnitude under cosine and
+dot_product. The reference's document parser (`_collect_values`):
+objects flatten to dotted leaves, arrays of objects merge their leaves
+as multi-values, `rank_features` flatten to one rank_feature column per
+key, a geo_point (`parse_geo_point`) stages its `<field>.lat` /
+`<field>.lon` columns, and each object under a `nested` path becomes one
+hidden sub-document of that path's `NestedBlock` (an inner Segment plus
+`parent_of`), staged in a candidate sub-builder and registered only when
+the parent commits, so a rejected write leaves no nested block behind.
+Left out: the native C++ accumulator, completion and percolator fields.
 
 A Segment is an immutable columnar snapshot of a batch of documents, all
 plain numpy: per inverted field a term dictionary plus CSR postings (doc
@@ -40,6 +41,9 @@ import numpy as np
 
 from ..utils import smallfloat
 from .mapping import (
+    BOOLEAN,
+    DATE,
+    DATE_NANOS,
     DENSE_VECTOR,
     GEO_POINT,
     NESTED,
@@ -305,10 +309,17 @@ class SegmentBuilder:
                     tf[tok] = tf.get(tok, 0) + 1
             staged_postings.append((field_name, tf, total_len, poss))
         elif fm.is_numeric:
-            v0 = _iter_field_values(value)[0]  # multi-valued: first value
+            # multi-valued: the first value (dates and booleans too); a
+            # date parses from epoch millis or ISO 8601, a boolean from
+            # true / false / "true" / "false", each with the reference's
+            # reason when it does not
+            v0 = _iter_field_values(value)[0]
             try:
                 staged_numeric.append((field_name, coerce_numeric(fm.type, v0)))
-            except (TypeError, ValueError):
+            except (TypeError, ValueError) as e:
+                if isinstance(e, ValueError) and fm.type in (
+                        BOOLEAN, DATE, DATE_NANOS):
+                    raise
                 raise ValueError(
                     f"failed to parse field [{field_name}] of type "
                     f"[{fm.type}]: [{v0!r}]"

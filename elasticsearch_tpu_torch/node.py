@@ -1,8 +1,9 @@
 """A node on one device: index management, writes and `_search`.
 
 Port of elasticsearch_tpu/node.py, trimmed to this slice: `create_index`
-(with `number_of_shards`), `delete_index`, `put_mapping` (new fields;
-a type, and a dense_vector's dims and similarity, never change),
+(with `number_of_shards`), `delete_index`, `get_mapping`, `put_mapping`
+(new fields; a type, and a dense_vector's dims and similarity, never
+change),
 `index_doc`, `delete_doc`, `bulk`, `refresh` and `search` over indices
 of N shards on one device. Documents route to
 shards by murmur3 over their _id (parallel/routing.py); ids the node
@@ -255,7 +256,7 @@ class Node:
                 search=(
                     SearchService(
                         engines[0], planner=self.exec_planner,
-                        ann_cache=self.ann_cache,
+                        ann_cache=self.ann_cache, index_name=name,
                     )
                     if n_shards == 1
                     else ShardedSearchCoordinator(
@@ -288,6 +289,11 @@ class Node:
         except ValueError as e:
             raise ApiError(400, "illegal_argument_exception", str(e)) from None
         return {"acknowledged": True}
+
+    def get_mapping(self, index: str) -> dict:
+        """An index's mappings (GET /{index}/_mapping)."""
+        svc = self.get_index(index)
+        return {index: {"mappings": svc.mappings.to_json()}}
 
     def get_index(self, name: str, auto_create: bool = False) -> IndexService:
         svc = self.indices.get(name)

@@ -1,23 +1,28 @@
 """Aggregation execution over device segments: the query's dense
 (scores, matched) planes, then every aggregation off the shared mask.
 
-Port of elasticsearch_tpu/ops/aggs_device.py (kernel-table row 22),
-trimmed to this slice: `agg_segment_tree` (:78), `_bucket_metric_planes`
-(:91), `_terms_postings` (:117), `execute_aggs` (:360) and `_eval_agg`
-(:124) with the kinds `matched`, `empty_buckets`, `top_metric_score`,
-`terms`, `histogram`, `range`, `filter`, `filters`, `global` and
-`missing`. Left out: `hits_planes` and the trailing "mask" flag (top_hits),
-`cardinality_terms`, `sig_terms` / `sig_matched` (significant_terms), and
-`_mesh_combine_node` / `mesh_combine` (the in-program psum across a shard
-mesh, with kernel-table row 23); a plan node of another kind raises.
+Port of elasticsearch_tpu/ops/aggs_device.py (kernel-table row 22):
+`agg_segment_tree` (:78), `_bucket_metric_planes` (:91), `_terms_postings`
+(:117), `execute_aggs` (:360) and `_eval_agg` (:124) with every kind the
+reference's has: `matched`, `hits_planes` (the context mask and the
+query's scores, for top_hits), `top_metric_score`, `cardinality_terms`,
+`sig_matched`, `terms` / `sig_terms` (significant_terms' foreground
+counts and context doc count), `histogram`, `range`, `empty_buckets`,
+`filter`, `filters`, `global` and `missing`, with the trailing "mask"
+flag of `terms`, `sig_terms`, `histogram`, `range` and `empty_buckets`
+(the node's context mask back for a top_hits sub-aggregation). Left out:
+`_mesh_combine_node` / `mesh_combine` (the in-program psum across a
+shard mesh, with kernel-table row 23); a plan node of another kind
+raises.
 
 The query and each filter's sub-query evaluate densely through
 ops/bm25_device's `_eval_node`, as the reference's do. Every per-bucket
 count and metric plane and every doc_count (one bucket) runs on K10
-(ops/kernels.bucket_fold, csrc/bucket_fold.cu): `terms` over a keyword
-field's postings, `histogram` over docs, and `range` in K10's range
-mode. K10 sums in one fixed chunked order; the reference's is XLA's, so
-the bucket sums agree with it within rtol 1e-5 and all else exactly. The
+(ops/kernels.bucket_fold, csrc/bucket_fold.cu): `terms`, `sig_terms`
+and `cardinality_terms` over a keyword field's postings, `histogram`
+over docs, and `range` in K10's range mode. K10 sums in one fixed
+chunked order; the reference's is XLA's, so the bucket sums agree with
+it within rtol 1e-5 and all else exactly. The
 elementwise tail is plain torch ops in the reference's operation order:
 the histogram bucket index, the postings' matched gather, and the
 `missing` and `global` masks.
@@ -86,16 +91,34 @@ def _nested(sub_specs, sub_arrays, seg, m, scores, num_docs):
     }
 
 
+def _posting_matched(seg, field_name, matched, num_docs: int):
+    """(docs, ords, matched at each posting's doc): the sentinel doc
+    num_docs reads False (the reference's m_ext[min(docs, num_docs)])."""
+    docs, ords = _terms_postings(seg, field_name)
+    m_ext = torch.cat([matched, matched.new_zeros(1)])
+    return docs, ords, m_ext[torch.clamp(docs, max=num_docs).long()]
+
+
 def _eval_agg(spec, arrays, seg, matched, scores, num_docs: int):
     kind = spec[0]
     dev = matched.device
     if kind == "empty_buckets":
         # A histogram/range over a column absent from this segment: zero
-        # counts shaped like the segments that carry the column.
-        return {"counts": torch.zeros(spec[1], dtype=torch.int32, device=dev)}
+        # counts shaped like the segments that carry the column; the
+        # "mask" flag still reports the context mask (top_hits subs).
+        out = {"counts": torch.zeros(spec[1], dtype=torch.int32, device=dev)}
+        if len(spec) > 2:
+            out["ctx_mask"] = matched
+        return out
     if kind == "matched":
-        # The f64-exact host metrics finish from the matched mask.
+        # The f64-exact host metrics (and the host kinds: percentiles,
+        # numeric terms and cardinality, composite, matrix_stats) finish
+        # from the matched mask.
         return {"mask": matched}
+    if kind == "hits_planes":
+        # top_hits: the context mask and the query's per-doc scores; the
+        # host selects each rendered bucket's top docs from them.
+        return {"mask": matched, "scores": scores}
     if kind == "top_metric_score":
         # max(where(matched, scores, -F32_MAX)): K10's max of the non-NaN
         # scores; a matched NaN score propagates as XLA's max does.
@@ -104,14 +127,27 @@ def _eval_agg(spec, arrays, seg, matched, scores, num_docs: int):
         first_nan = scores[nan.to(torch.int8).argmax()]
         mx = torch.where(nan.any(), first_nan, mx[0])
         return {"max_score": mx, "any": _doc_count(matched) > 0}
-    if kind == "terms":
+    if kind == "cardinality_terms":
+        # distinct keyword values: K10's terms counts, then the occupied
+        # buckets (the reference's boolean scatter-max, then a sum)
+        _, field_name, tp = spec
+        _docs, ords, m = _posting_matched(seg, field_name, matched, num_docs)
+        counts = kernels.bucket_fold(ords, m, tp)
+        return {"distinct": (counts > 0).sum(dtype=torch.int32)}
+    if kind == "sig_matched":
+        # significant_terms over a segment without the field: only the
+        # context (subset) size contributes.
+        return {"doc_count": _doc_count(matched)}
+    if kind in ("terms", "sig_terms"):
         field_name, tp, sub_fields = spec[1], spec[2], spec[3]
-        docs, ords = _terms_postings(seg, field_name)
-        # matched at each posting's doc; the sentinel doc num_docs reads
-        # False (the reference's m_ext[min(docs, num_docs)])
-        m_ext = torch.cat([matched, matched.new_zeros(1)])
-        m = m_ext[torch.clamp(docs, max=num_docs).long()]
+        docs, ords, m = _posting_matched(seg, field_name, matched, num_docs)
         out = {"counts": kernels.bucket_fold(ords, m, tp)}
+        if kind == "sig_terms":
+            # the subset (foreground) size the significance heuristics
+            # need beside the per-term counts
+            out["doc_count"] = _doc_count(matched)
+        if len(spec) > 4:  # top_hits subs need the context mask
+            out["ctx_mask"] = matched
         if sub_fields:
             safe_docs = torch.clamp(docs, max=num_docs - 1)
             out["subs"] = {
@@ -135,6 +171,8 @@ def _eval_agg(spec, arrays, seg, matched, scores, num_docs: int):
         in_window = has & (rel >= 0) & (rel < nb)
         bidx = torch.where(in_window, rel, torch.full_like(rel, nb))
         out = {"counts": kernels.bucket_fold(bidx, in_window, nb)}
+        if len(spec) > 4:
+            out["ctx_mask"] = matched
         if sub_fields:
             out["subs"] = {
                 f: _bucket_metric_planes(
@@ -149,6 +187,8 @@ def _eval_agg(spec, arrays, seg, matched, scores, num_docs: int):
         los = torch.as_tensor(np.asarray(arrays["los"], np.float32), device=dev)
         his = torch.as_tensor(np.asarray(arrays["his"], np.float32), device=dev)
         out = {"counts": kernels.range_fold(col, matched, los, his)}
+        if len(spec) > 4:
+            out["ctx_mask"] = matched
         if sub_fields:
             subs = {}
             for f in sub_fields:

@@ -6,6 +6,7 @@ on the stdlib ThreadingHTTPServer:
     GET  /                          node banner
     PUT  /{index}                   create index
     DELETE /{index}                 delete index (and its IVF planes)
+    GET  /{index}/_mapping          the mappings
     PUT  /{index}/_mapping          add fields to the mappings
     POST /{index}/_doc[/{id}]       index document (PUT with an id too)
     DELETE /{index}/_doc/{id}       delete document
@@ -117,6 +118,7 @@ class RestServer:
         r("POST", "/{index}/_knn_search", lambda p, q, b: n.search(
             p["index"], _knn_search_body(_json(b))
         ))
+        r("GET", "/{index}/_mapping", lambda p, q, b: n.get_mapping(p["index"]))
         for method in ("PUT", "POST"):
             r(method, "/{index}/_mapping", lambda p, q, b: n.put_mapping(
                 p["index"], _json(b)

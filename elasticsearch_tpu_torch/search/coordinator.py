@@ -72,7 +72,8 @@ class ShardedSearchCoordinator:
         self.engines = engines
         self.index_name = index_name
         self.services = [
-            SearchService(e, planner=planner, ann_cache=ann_cache)
+            SearchService(e, planner=planner, ann_cache=ann_cache,
+                          index_name=index_name)
             for e in engines
         ]
         self._stats_cache = None
@@ -136,6 +137,7 @@ class ShardedSearchCoordinator:
             agg_total, aggregations = Aggregator(
                 self.engines[0], request.aggs,
                 handles=[h for snap in snapshots for h in snap],
+                index_name=self.index_name,
             ).run(request.query, stats=stats)
         shard_request = replace(
             request, from_=0, size=k, aggs=None, track_total_hits=True

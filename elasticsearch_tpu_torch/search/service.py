@@ -476,8 +476,10 @@ class SearchService:
     kernels); `ann_cache` the node's AnnCache of IVF planes (None: every
     knn runs the exact brute-force kernels)."""
 
-    def __init__(self, engine: Engine, planner=None, ann_cache=None):
+    def __init__(self, engine: Engine, planner=None, ann_cache=None,
+                 index_name: str = "index"):
         self.engine = engine
+        self.index_name = index_name  # top_hits' `_index`
         self.planner = planner
         self.ann_cache = ann_cache
 
@@ -506,7 +508,8 @@ class SearchService:
             from .aggs import Aggregator
 
             agg_total, aggregations = Aggregator(
-                self.engine, request.aggs, handles=segments
+                self.engine, request.aggs, handles=segments,
+                index_name=self.index_name,
             ).run(request.query, stats=stats)
         # Candidate tuples (merge_key, global_doc, handle, local, score,
         # sort_value): merge_key ascending, then global doc id ascending,

@@ -409,5 +409,5 @@ def test_unknown_plan_node_raises(engines):
     tree = tagg.agg_segment_tree(peng.segments[0].device)
     mask = torch.ones(tree["live"].shape[0], dtype=torch.bool)
     with pytest.raises(ValueError, match="unknown aggregation plan node"):
-        tagg._eval_agg(("cardinality_terms", "tag", 32), {}, tree, mask, None,
+        tagg._eval_agg(("mesh_combine", "tag", 32), {}, tree, mask, None,
                        mask.shape[0])

@@ -24,8 +24,8 @@ Tolerances (fixed before the port was written):
   order (XLA's scatter and reduce; K10's chunks). The largest relative
   difference measured here is 1.05e-7 (the `range` body on 3 shards).
 The 400s: status and reason equal to the reference's for every parse
-error both refuse; the kinds this port leaves out answer 400
-`unknown aggregation type [kind]` where the reference serves them.
+error both refuse, among them a body of each kind a later slice added
+(tests/test_torch_aggs_ext_service.py serves those kinds).
 """
 
 import json
@@ -311,47 +311,63 @@ def test_parse_errors_match_the_jax_node(nodes, i):
     assert (p.value.status, p.value.reason) == (r.value.status, r.value.reason)
 
 
+# The kinds an earlier slice of the port left out, each in a body the
+# reference refuses too.
 LEFT_OUT = [
-    ("top_hits", {"t": {"top_hits": {"size": 1}}}),
-    ("top_hits", {"t": {"terms": {"field": "tag"},
-                        "aggs": {"h": {"top_hits": {"size": 1}}}}}),
+    ("top_hits", {"t": {"top_hits": {"size": 1},
+                        "aggs": {"x": {"max": {"field": "w"}}}}}),
+    ("top_hits", {"t": {"terms": {"field": "tag"}, "aggs": {
+        "h": {"top_hits": {"size": 1},
+              "aggs": {"m": {"max": {"field": "w"}}}}}}}),
     ("composite", {"c": {"composite": {"sources": [
-        {"t": {"terms": {"field": "tag"}}}]}}}),
-    ("significant_terms", {"s": {"significant_terms": {"field": "tag"}}}),
-    ("rare_terms", {"r": {"rare_terms": {"field": "tag"}}}),
+        {"t": {"geotile_grid": {"field": "tag"}}}]}}}),
+    ("significant_terms", {"s": {"significant_terms": {"field": "price"}}}),
+    ("rare_terms", {"r": {"rare_terms": {"field": "tag"},
+                          "aggs": {"m": {"max": {"field": "w"}}}}}),
     ("matrix_stats", {"f": {"global": {}, "aggs": {
-        "m": {"matrix_stats": {"fields": ["w"]}}}}}),
-    ("cardinality", {"c": {"cardinality": {"field": "tag"}}}),
-    ("percentiles", {"p": {"percentiles": {"field": "price"}}}),
-    ("percentile_ranks", {"p": {"percentile_ranks": {"field": "price",
+        "m": {"matrix_stats": {"fields": ["w", "tag"]}}}}}),
+    ("cardinality", {"c": {"cardinality": {"field": "body"}}}),
+    ("percentiles", {"p": {"percentiles": {"field": "tag"}}}),
+    ("percentile_ranks", {"p": {"percentile_ranks": {"field": "tag",
                                                      "values": [5]}}}),
-    ("extended_stats", {"e": {"extended_stats": {"field": "w"}}}),
-    ("median_absolute_deviation", {"m": {"median_absolute_deviation": {
-        "field": "w"}}}),
+    ("extended_stats", {"e": {"extended_stats": {"field": "color"}}}),
+    ("median_absolute_deviation", {"m": {"median_absolute_deviation": {}}}),
     ("date_histogram", {"d": {"date_histogram": {
-        "field": "price", "fixed_interval": "1d"}}}),
+        "field": "price", "calendar_interval": "fortnight"}}}),
 ]
 
 
 @pytest.mark.parametrize("i", range(len(LEFT_OUT)))
 def test_left_out_kinds_answer_400(nodes, i):
-    """The reference serves these; the port answers a 400, never a 500."""
-    port, _ref = nodes
+    """The kinds an earlier slice left out are served now: a body of each
+    that the reference refuses gets the reference's 400 and reason."""
+    port, ref = nodes
     kind, aggs = LEFT_OUT[i]
+    assert kind in json.dumps(aggs)
     with pytest.raises(ApiError) as p:
         port.search("a", {"size": 0, "aggs": aggs})
-    assert p.value.status == 400
-    assert p.value.reason == f"unknown aggregation type [{kind}]"
+    with pytest.raises(JaxApiError) as r:
+        ref.search("a", {"size": 0, "aggs": aggs})
+    assert p.value.status == r.value.status == 400
+    assert p.value.reason == r.value.reason
 
 
 def test_numeric_terms_answers_400(nodes):
-    """terms over a numeric field (the reference's host fallback) is left
-    out: a 400 naming the field."""
-    port, _ref = nodes
-    body = {"size": 0, "aggs": {"p": {"terms": {"field": "price"}}}}
+    """terms over a numeric field is served over the host column (the
+    reference's host fallback); with a sub-aggregation it is the
+    reference's 400."""
+    port, ref = nodes
+    body = {"size": 0, "aggs": {"p": {"terms": {"field": "price"}, "aggs": {
+        "h": {"top_hits": {"size": 1}}}}}}
     with pytest.raises(ApiError) as p:
         port.search("a", body)
-    assert p.value.status == 400 and "[price]" in p.value.reason
+    with pytest.raises(JaxApiError) as r:
+        ref.search("a", body)
+    assert p.value.status == r.value.status == 400
+    assert p.value.reason == r.value.reason
+    plain = {"size": 0, "aggs": {"p": {"terms": {"field": "price"}}}}
+    assert port.search("a", plain)["aggregations"] == ref.search(
+        "a", plain)["aggregations"]
 
 
 def test_aggregation_requests_take_the_solo_path(nodes):
