@@ -193,6 +193,40 @@ and read just after it.
                  its answers track the new segment; then K2b's bounds mode
                  and K3b's window mode on the phase's widest launch of each
                  against their plain versions
+ 18. mesh        (kernel-table row 23 and row 22's mesh half) the shards of
+                 one index as one mesh request (parallel/sharded.py,
+                 parallel/mesh_serving.py) over [card] * 8 on one card (8
+                 distinct cards where the machine has them; the layout is
+                 printed): on cfg3's node (before it is freed),
+                 IndexService.mesh_snapshot's ShardedIndex.search and
+                 search_batch on a (1 x 8) mesh over phase 8's 64 bodies,
+                 search_batch on a (2 replica x 4 shard) mesh over shard
+                 segments 0-3 (each held to the same index's search), then
+                 the 64 bodies over HTTP with a MeshView installed, every
+                 answer held to phase 8's host-loop answer (the whole JSON
+                 but `took`); the merge's K3 row ([1, S * kk] gathered
+                 keys) beside torch.topk; on cfg7's node (phase 15's),
+                 the eligible aggregation bodies, four sorted searches
+                 walked with search_after and four size-0 counts through
+                 the view against the host loop, and one request of each
+                 ineligible shape, which must fall back under its reason;
+                 then a 2-shard index of 2 x 100,000 docs drawn as phase
+                 6f draws its corpus, five match_phrase bodies through the
+                 mesh and the host loop (and over cuda:0 + cuda:1 when the
+                 machine has two cards); p50 / p99 against the host loop,
+                 device ms per request (CUDA events around the bodies and
+                 the merge), launches per request, snapshot seconds and
+                 bytes, peak device memory, the view's counters; no
+                 execute failure and no fallback of an eligible body
+ 18b. mesh cards (a machine with two or more cards) an index of one shard
+                 a card (up to 8) on a default Node, which spreads it over
+                 the cards: REST bodies, a sorted walk, counts and
+                 aggregations through the view against the host loop,
+                 mesh_snapshot's search, and search_batch on a (2 replica
+                 x n/2 shard) grid of distinct cards
+
+    python3 chip_smoke.py --cards    # phases 1, 18's phrase part and 18b
+                                     # alone; needs two or more cards
 
 The last lines are the card (nvidia-smi name, power limit), one JSON
 object with the kernel table, and {"ok": true, "device": {...}}.
@@ -783,6 +817,15 @@ def run() -> dict:
     nan_pages = run_nan_pages(card, launches)
     gc.collect()
     torch.cuda.empty_cache()
+    mesh_phrase = run_mesh_phrase(card, dev, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 2:
+        mesh_phrase["cards"] = run_mesh_cards(card, launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        log(f"  mesh cards: not run (1 card on this machine) [{card}]")
     torch.cuda.reset_peak_memory_stats()
     packed = run_packed(card, dev, launches, rows)
     missing = [name for name in kern.LAUNCHES if launches.get(name, 0) <= 0]
@@ -790,12 +833,13 @@ def run() -> dict:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")
     log(f"  launches over all main-path phases: {json.dumps(launches)}")
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        if "launches_of" not in r:
+            r["launches"] = launches[r["name"]]
     log(f"phase results: whole run {time.monotonic() - t_run:.1f} s [{card}]")
     return {"card": card, "kernels": rows,
             "result": {"one_shard": single, "sharded": sharded, "knn": knn,
                        "aggs": aggs, "nan_pages": nan_pages,
-                       "packed": packed}}
+                       "mesh_phrase": mesh_phrase, "packed": packed}}
 
 
 class PruneRecorder:
@@ -1384,6 +1428,10 @@ def run_sharded(card, dev, launches, rows) -> dict:
     }
     log(f"  coordinator dense path: {json.dumps(dense)}")
     sharded_peak = int(torch.cuda.max_memory_allocated())
+
+    # -- 18. mesh: the same shards and bodies served as one mesh request --
+    mesh = run_mesh_cfg3(card, dev, node, shards, bodies, responses,
+                         latencies, launches, rows)
     node.close()
     del node, svc, handles, timer, seq_timer
     gc.collect()
@@ -1392,6 +1440,13 @@ def run_sharded(card, dev, launches, rows) -> dict:
     # -- 13. stacked shards on one device (row 9b, row 12's shard form) ---
     stacked = run_stacked(card, dev, shards, bodies, match_terms, launches, rows)
     stacked["coordinator_dense"] = dense
+    log(f"  cfg3 mesh / host loop / stacked: sequential p50 "
+        f"{mesh['mesh_p50_ms']} / {mesh['host_loop_p50_ms']} ms, p99 "
+        f"{mesh['mesh_p99_ms']} / {mesh['host_loop_p99_ms']} ms; device ms "
+        f"per request {mesh['device_ms_per_request_mean']} (mesh) / "
+        f"{dense['sequential_device_ms_per_request']} (host loop) / "
+        f"{stacked['device_ms_per_query_q1']} (stacked, Q = 1) / "
+        f"{stacked['device_ms_per_query_batched']} (stacked, batched) [{card}]")
 
     result = {
         "docs": sum(shard_docs),
@@ -1408,6 +1463,7 @@ def run_sharded(card, dev, launches, rows) -> dict:
         "routed_mismatches": routed_mismatches,
         "max_memory_allocated_bytes": sharded_peak,
         "stacked": stacked,
+        "mesh": mesh,
     }
     log(f"phase results (sharded): {json.dumps(result)} [{card}]")
     return result
@@ -2202,11 +2258,14 @@ def _same(got, want, name):
 
 
 def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes,
-         reps=20, route="cuda", source=None, case=None, flops=0):
+         reps=20, route="cuda", source=None, case=None, flops=0,
+         launches=None):
     """Hold a kernel to its plain version (exact) and time both, its bound
     (the larger of its bytes over the memory rate and its fp32 `flops`
     over the card's fp32 rate outside the tensor cores) and one library
-    call (None where no one PyTorch call computes the same function)."""
+    call (None where no one PyTorch call computes the same function).
+    `launches`: the row's own main-path count where one wrapper serves
+    several rows (else the wrapper's total over the main-path phases)."""
     import torch
 
     got, want = fn(), plain()
@@ -2219,7 +2278,7 @@ def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes,
         "source": source or SOURCES[base],
         "replaces": replaces,
         "rows": q,
-        "launches": 0,  # filled from the main-path counts
+        "launches": 0 if launches is None else int(launches),
         "mismatches": 0,
         "max_abs_err": 0.0,
         "ms": cuda_ms(fn, reps),
@@ -2237,6 +2296,8 @@ def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes,
         r["bound_flops"] = int(flops)
     if case is not None:
         r["case"] = case
+    if launches is not None:
+        r["launches_of"] = "this row's calls on the main path"
     log(f"  kernel {json.dumps(r)}")
     rows.append(r)
 
@@ -3142,6 +3203,8 @@ def run_aggs(card, dev, launches, rows) -> dict:
          n + 4, source=AGG_SOURCE, case=f"one doc_count over {n:,} docs")
     result["aggs_ext"] = run_aggs_ext(card, node, shards, whole, one,
                                       match_terms, launches, rows)
+    result["mesh"] = run_mesh_aggs(card, dev, node, bodies, match_terms,
+                                   launches)
     node.close()
     return result
 
@@ -6107,6 +6170,645 @@ def kernel_rows_packed(recorders, dev, rows):
               f"{width:,} docs in all over a {key.shape[1]:,}-doc plane")
 
 
+# ---------------------------------------------------------------------------
+# Phase mesh (kernel-table row 23 and row 22's mesh half): the shards of one
+# index served as one mesh request (parallel/sharded.py, mesh_serving.py)
+# ---------------------------------------------------------------------------
+
+MESH_PHRASE_DOCS = 100_000  # docs a shard of the phrase mesh index (2 shards)
+MESH_PHRASE_BODIES = 5
+MESH_WALK_PAGES = 3
+MESH_CARDS_DOCS = 100_000  # docs a shard of phase mesh cards
+
+
+def _mesh_devices(dev, n: int):
+    """n distinct cards when the machine has them, else n entries of one
+    card; and the layout's name."""
+    import torch
+
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], f"{n} distinct cards"
+    return [dev] * n, f"{n} shards on one card ({dev})"
+
+
+def _tree_nbytes(tree) -> int:
+    import torch
+
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_tree_nbytes(v) for v in tree)
+    return int(tree.nbytes) if isinstance(tree, torch.Tensor) else 0
+
+
+def _install_view(svc, devices):
+    """A MeshView over `devices` on a multi-shard index's coordinator."""
+    from elasticsearch_tpu_torch.parallel.mesh_serving import maybe_mesh_view
+
+    view = maybe_mesh_view(svc.engines, svc.mappings, svc.engines[0].params,
+                           devices)
+    if view is None:
+        raise SmokeFailure("no mesh view for the index (fewer devices than shards?)")
+    svc.search.mesh_view = view
+    return view
+
+
+class MeshTimer:
+    """CUDA events around every mesh request's bodies and merge
+    (mesh_serving's sharded_execute / sharded_execute_request) while
+    installed; the first merge's gathered key plane (K3's row) and the
+    number of merges (one K3 launch each)."""
+
+    def __init__(self):
+        from elasticsearch_tpu_torch.parallel import mesh_serving, sharded
+
+        self.ms, self.sh = mesh_serving, sharded
+        self.real = (mesh_serving.sharded_execute,
+                     mesh_serving.sharded_execute_request, sharded._merge_topk)
+        self.events: list = []
+        self.merge_input = None
+        self.merges = 0
+
+    def __enter__(self):
+        import torch
+
+        def timed(real):
+            def run(*args, **kw):
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+                out = real(*args, **kw)
+                ev1.record()
+                self.events.append((ev0, ev1))
+                return out
+            return run
+
+        def capture(flat_key, k):
+            self.merges += 1
+            if self.merge_input is None:
+                self.merge_input = (flat_key.clone(), k)
+            return self.real[2](flat_key, k)
+
+        self.ms.sharded_execute = timed(self.real[0])
+        self.ms.sharded_execute_request = timed(self.real[1])
+        self.sh._merge_topk = capture
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        (self.ms.sharded_execute, self.ms.sharded_execute_request,
+         self.sh._merge_topk) = self.real
+        torch.cuda.synchronize()
+
+    def device_ms(self) -> list[float]:
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def _launch_total(before: dict, after: dict) -> int:
+    return sum(after.get(k, 0) - before.get(k, 0) for k in after)
+
+
+def _batch_rows(index, queries, want, batch_axis_size: int) -> int:
+    """search_batch over each compile_batch_buckets bucket (a bucket of
+    odd size padded with its last query when the batch axis has 2 rows),
+    each row held to the same index's `search`: ids, score bits, totals.
+    Returns the mismatches."""
+    import numpy as np
+
+    bad = 0
+    for _c, positions in index.compile_batch_buckets(queries):
+        pos = list(positions)
+        while len(pos) % batch_axis_size:
+            pos.append(pos[-1])
+        s_b, g_b, t_b = index.search_batch([queries[p] for p in pos], TOP_K,
+                                           "batch")
+        s_b, g_b, t_b = s_b.cpu().numpy(), g_b.cpu().numpy(), t_b.cpu().numpy()
+        for row, p in enumerate(pos):
+            scores, gids, total = want[p]
+            n = len(gids)
+            if not (int(t_b[row]) == total
+                    and np.array_equal(g_b[row][:n], gids)
+                    and np.array_equal(score_bits(s_b[row][:n]),
+                                       score_bits(scores))):
+                bad += 1
+                log(f"  MISMATCH mesh search_batch row {p}")
+    return bad
+
+
+def run_mesh_cfg3(card, dev, node, shards, bodies, responses, host_lat,
+                  launches, rows) -> dict:
+    """Phase mesh on cfg3's 8-shard node (run_sharded's): mesh_snapshot's
+    ShardedIndex.search and search_batch on a (1 x 8) mesh; search_batch
+    on a (2 replica x 4 shard) mesh over shard segments 0-3; then REST
+    with a MeshView installed; every answer held to the host loop's
+    (phase 8's responses, or the same index's search)."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.parallel import sharded as psh
+    from elasticsearch_tpu_torch.parallel.mesh import Mesh
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    svc = node.indices["cfg3"]
+    devices, layout = _mesh_devices(dev, N_SHARDS)
+    log(f"phase mesh: layout {layout}: {[str(d) for d in devices]} [{card}]")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.monotonic()
+    queries = [parse_query(b["query"]) for b in bodies]
+    mismatches = 0
+
+    # 1. IndexService.mesh_snapshot, ShardedIndex.search
+    t0 = time.monotonic()
+    sidx = svc.mesh_snapshot(Mesh(np.array(devices, dtype=object), ("shard",)))
+    torch.cuda.synchronize()
+    snapshot_s = time.monotonic() - t0
+    snapshot_bytes = _tree_nbytes(sidx.trees)
+    with counted("mesh ShardedIndex.search", launches):
+        outs = [sidx.search(q, TOP_K) for q in queries]
+    for body, out, (scores, gids, total) in zip(bodies, responses, outs):
+        ids = [sidx.segments[s].ids[loc] for s, loc in map(sidx.locate, gids)]
+        if not same_hits(out, ids, scores, total):
+            mismatches += 1
+            log(f"  MISMATCH mesh search {body}")
+    # 2. search_batch on (1 x 8), then (2 x 4) over shard segments 0-3
+    b18 = replace(sidx, mesh=Mesh(np.array([devices], dtype=object),
+                                  ("batch", "shard")), _replicas={})
+    with counted("mesh search_batch (1 x 8)", launches):
+        mismatches += _batch_rows(b18, queries, outs, 1)
+    del b18, sidx
+    gc.collect()
+    grid = (np.array(devices, dtype=object).reshape(2, 4) if layout.endswith(
+        "distinct cards") else np.full((2, 4), dev, dtype=object))
+    idx24 = psh.ShardedIndex.from_segments(
+        shards[:4], svc.mappings, Mesh(grid, ("batch", "shard")))
+    want24 = [idx24.search(q, TOP_K) for q in queries]
+    with counted("mesh search_batch (2 x 4)", launches):
+        mismatches += _batch_rows(idx24, queries, want24, 2)
+    del idx24, want24
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. REST through the MeshView
+    view = _install_view(svc, devices)
+    t0 = time.monotonic()
+    view._ensure()
+    torch.cuda.synchronize()
+    view_build_s = time.monotonic() - t0
+    server, base = serve(node)
+    try:
+        for i in (0, N_CFG3):  # one untimed warm-up request per shape
+            http(base, "POST", "/cfg3/_search", bodies[i])
+        before = dict(launches)
+        with counted("mesh REST cfg3", launches), MeshTimer() as timer:
+            lat, mresp, _wall = sequential(base, "cfg3", bodies)
+        n_launch = _launch_total(before, launches)
+    finally:
+        server.shutdown()
+        server.server_close()
+    for body, got, want in zip(bodies, mresp, responses):
+        if without_took(got) != without_took(want):
+            mismatches += 1
+            log(f"  MISMATCH mesh REST {body}")
+    counters = view.stats()
+    if counters["served"] != len(bodies) + 2 or counters["fallbacks"] or \
+            counters["exec_failures"]:
+        raise SmokeFailure(f"mesh view fell back on eligible bodies: {counters}")
+    if timer.merges != len(bodies):
+        raise SmokeFailure(f"{timer.merges} K3 merges for {len(bodies)} mesh "
+                           "requests")
+    flat, m = timer.merge_input
+    ones = torch.ones_like(flat, dtype=torch.bool)
+    _row(rows, "masked_topk", "elasticsearch_tpu/parallel/sharded.py:717", 1,
+         lambda: kern.masked_topk_batch(flat, ones, m),
+         lambda: kern.masked_topk_batch_plain(flat, ones, m),
+         lambda: torch.topk(flat, m), "torch.topk",
+         flat.numel() * 5 + m * 8 + 4, launches=timer.merges,
+         case=f"mesh merge: [1, {flat.shape[1]}] gathered keys (S = "
+              f"{N_SHARDS}, kk = {flat.shape[1] // N_SHARDS}), k = {m}")
+    dev_ms = timer.device_ms()
+    peak = int(torch.cuda.max_memory_allocated())
+    svc.search.mesh_view = None
+    del view
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {
+        "layout": layout,
+        "mismatches": mismatches,
+        "snapshot_build_s": snapshot_s,
+        "snapshot_bytes": snapshot_bytes,
+        "view_build_s": view_build_s,
+        "view_plane_bytes": counters["plane_bytes"],
+        "mesh_p50_ms": percentile(lat, 50),
+        "mesh_p99_ms": percentile(lat, 99),
+        "host_loop_p50_ms": percentile(host_lat, 50),
+        "host_loop_p99_ms": percentile(host_lat, 99),
+        "device_ms_per_request_p50": percentile(dev_ms, 50),
+        "device_ms_per_request_mean": sum(dev_ms) / len(dev_ms),
+        "launches_per_request": n_launch / len(bodies),
+        "merge_launches_per_request": timer.merges / len(bodies),
+        "peak_device_bytes": peak,
+        "view": counters,
+        "phase_s": time.monotonic() - t_phase,
+    }
+    log(f"phase mesh cfg3: {'ok' if mismatches == 0 else 'FAILED'} "
+        f"{json.dumps(result)} [{card}]")
+    if mismatches:
+        raise SmokeFailure(f"{mismatches} mesh mismatches on cfg3")
+    return result
+
+
+def _mesh_and_host(base, svc, view, index, body):
+    """(mesh answer, host-loop answer, served on the mesh) for one body
+    over HTTP: the view installed, then set aside."""
+    before = view.served
+    got = http(base, "POST", f"/{index}/_search", body)
+    used = view.served > before
+    svc.search.mesh_view = None
+    try:
+        want = http(base, "POST", f"/{index}/_search", body)
+    finally:
+        svc.search.mesh_view = view
+    return without_took(got), without_took(want), used
+
+
+def run_mesh_aggs(card, dev, node, bodies, match_terms, launches) -> dict:
+    """Phase mesh on cfg7's 8 x 125,000 index (run_aggs's node): the
+    eligible aggregation bodies, four sorted searches walked with
+    search_after and size-0 counts through a MeshView, each held to the
+    host loop; one request of each ineligible shape, each falling back
+    under the reference's reason."""
+    from elasticsearch_tpu_torch.parallel.mesh_serving import MeshView
+    from elasticsearch_tpu_torch.search.service import SearchRequest
+
+    svc = node.indices["cfg7"]
+    devices, layout = _mesh_devices(dev, AGG_SHARDS)
+    view = _install_view(svc, devices)
+    match = {"match": {"body": " ".join(match_terms)}}
+    eligible = {nm: b for nm, b in bodies.items()
+                if MeshView.eligible(SearchRequest.from_json(b))}
+    walks = {
+        "price_asc": {"query": match, "sort": [{"price": "asc"}]},
+        "price_desc_missing_first": {"query": {"match_all": {}}, "sort": [
+            {"price": {"order": "desc", "missing": "_first"}}]},
+        "tag_x_price_asc": {"query": {"term": {"tag": "x"}},
+                            "sort": [{"price": "asc"}, "_doc"]},
+        "score_desc": {"query": match, "sort": [{"_score": "desc"}]},
+    }
+    counts = {
+        "count_match": {"query": match, "size": 0},
+        "count_tag": {"query": {"term": {"tag": "y"}}, "size": 0},
+        "count_range": {"query": {"range": {"price": {"gte": 2000,
+                                                      "lt": 7000}}},
+                        "size": 0},
+        "count_all": {"query": {"match_all": {}}, "size": 0,
+                      "track_total_hits": True},
+    }
+    ineligible = [
+        ("ineligible_shape", {"query": match, "rescore": {
+            "window_size": 50, "query": {"rescore_query": {
+                "term": {"tag": "x"}}}}}),
+        ("sort_shape", {"query": match,
+                        "sort": [{"price": "asc"}, {"ts": "desc"}]}),
+        ("sort_shape", {"query": match, "sort": [{"_score": "asc"}]}),
+        ("agg_shape", {"size": 0, "aggs": {"t": {"terms": {"field": "tag"},
+                                                 "aggs": {"s": {"sum": {
+                                                     "field": "price"}}}}}}),
+        ("agg_shape", {"size": 0, "aggs": {"c": {"composite": {"sources": [
+            {"t": {"terms": {"field": "tag"}}}]}}}}),
+        ("agg_shape", {"query": match, "size": 0,
+                       "aggs": {"h": {"top_hits": {"size": 3}}}}),
+    ] + [("agg_shape", b) for nm, b in bodies.items() if nm not in eligible]
+    mismatches = wrong_route = 0
+    lat_mesh: list[float] = []
+    server, base = serve(node)
+    try:
+        http(base, "POST", "/cfg7/_search", next(iter(eligible.values())))
+        with counted("mesh REST cfg7", launches), MeshTimer() as timer:
+            for nm, body in list(eligible.items()) + list(counts.items()):
+                t0 = time.monotonic()
+                got, want, used = _mesh_and_host(base, svc, view, "cfg7", body)
+                lat_mesh.append((time.monotonic() - t0) * 1e3)
+                if got != want:
+                    mismatches += 1
+                    log(f"  MISMATCH mesh cfg7 {nm}")
+                if not used:
+                    wrong_route += 1
+                    log(f"  NOT SERVED on the mesh: cfg7 {nm} "
+                        f"({view.last_fallback_reason})")
+            pages = 0
+            for nm, walk in walks.items():
+                cursor = None
+                for _page in range(MESH_WALK_PAGES):
+                    body = {**walk, "size": 10}
+                    if cursor is not None:
+                        body["search_after"] = cursor
+                    got, want, used = _mesh_and_host(base, svc, view, "cfg7",
+                                                     body)
+                    pages += 1
+                    if got != want or not used:
+                        mismatches += got != want
+                        wrong_route += not used
+                        log(f"  MISMATCH mesh cfg7 walk {nm} page {_page}")
+                    hits = got["hits"]["hits"]
+                    if not hits:
+                        break
+                    cursor = hits[-1]["sort"]
+        reasons_bad = 0
+        for reason, body in ineligible:
+            before = dict(view.fallbacks)
+            got, want, used = _mesh_and_host(base, svc, view, "cfg7", body)
+            if used or view.fallbacks.get(reason, 0) != before.get(reason, 0) + 1:
+                reasons_bad += 1
+                log(f"  WRONG FALLBACK cfg7 {reason}: {view.fallbacks}")
+            if got != want:
+                mismatches += 1
+                log(f"  MISMATCH mesh cfg7 fallback {reason}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    counters = view.stats()
+    svc.search.mesh_view = None
+    del view
+    dev_ms = timer.device_ms()
+    result = {
+        "layout": layout,
+        "eligible_bodies": list(eligible),
+        "walk_pages": pages,
+        "mismatches": mismatches,
+        "not_served": wrong_route,
+        "wrong_fallbacks": reasons_bad,
+        "device_ms_per_request_p50": percentile(dev_ms, 50),
+        "mesh_plus_host_wall_p50_ms": percentile(lat_mesh, 50),
+        "view": counters,
+    }
+    bad = mismatches + wrong_route + reasons_bad + counters["exec_failures"]
+    log(f"phase mesh cfg7: {'ok' if bad == 0 else 'FAILED'} "
+        f"{json.dumps(result)} [{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} mesh faults on cfg7")
+    return result
+
+
+def run_mesh_phrase(card, dev, launches) -> dict:
+    """Phase mesh's positional part: a 2-shard index of 2 x 100,000 docs
+    drawn as phase phrase draws its corpus (build_zipf_segment and its
+    TokenStream positions, seeds SEED + 30 + shard); five match_phrase
+    bodies through the mesh and through the host loop; then, when the
+    machine has two cards, the same over cuda:0 and cuda:1."""
+    import torch
+
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.utils.corpus import build_zipf_segment
+
+    t0 = time.monotonic()
+    segs = []
+    for s in range(2):
+        _m, seg = build_zipf_segment(MESH_PHRASE_DOCS, seed=SEED + 30 + s)
+        TokenStream(MESH_PHRASE_DOCS, SEED + 30 + s).add_positions(
+            seg.fields["body"])
+        segs.append(replace(seg, ids=[f"p{s}d{i}" for i in
+                                      range(MESH_PHRASE_DOCS)]))
+    stream = TokenStream(MESH_PHRASE_DOCS, SEED + 30)
+    bodies = [b for name, b in _phrase_bodies(stream, segs[0].fields["body"])
+              if name == "phrase"][:MESH_PHRASE_BODIES]
+    del stream
+    node = Node(device=DEVICE, mesh_devices=[dev, dev])
+    node.create_index("mphrase", {
+        "settings": {"index": {"number_of_shards": 2}},
+        "mappings": {"properties": {"body": {"type": "text"}}},
+    })
+    svc = node.indices["mphrase"]
+    for e, seg in zip(svc.engines, segs):
+        e._install_segment(seg)
+    build_s = time.monotonic() - t0
+    views = {"one card": svc.search.mesh_view}
+    if torch.cuda.device_count() >= 2:
+        views["cuda:0 + cuda:1"] = None  # installed below
+    else:
+        log(f"  mesh distinct cards: not run ({torch.cuda.device_count()} "
+            f"card on this machine) [{card}]")
+    mismatches = not_served = hits = 0
+    server, base = serve(node)
+    try:
+        for layout in list(views):
+            view = views[layout]
+            if view is None:
+                view = _install_view(svc, [torch.device("cuda", 0),
+                                           torch.device("cuda", 1)])
+                views[layout] = view
+            svc.search.mesh_view = view
+            with counted(f"mesh phrase ({layout})", launches):
+                for body in bodies:
+                    got, want, used = _mesh_and_host(base, svc, view,
+                                                     "mphrase", body)
+                    hits += len(got["hits"]["hits"])
+                    if got != want or not used:
+                        mismatches += got != want
+                        not_served += not used
+                        log(f"  MISMATCH mesh phrase ({layout}) {body}")
+    finally:
+        server.shutdown()
+        server.server_close()
+    result = {
+        "docs": 2 * MESH_PHRASE_DOCS, "bodies": len(bodies),
+        "layouts": list(views), "hits": hits, "build_s": build_s,
+        "mismatches": mismatches, "not_served": not_served,
+        "views": {k: v.stats() for k, v in views.items()},
+    }
+    del views
+    node.close()
+    log(f"phase mesh phrase: "
+        f"{'ok' if mismatches + not_served == 0 and hits else 'FAILED'} "
+        f"{json.dumps(result)} [{card}]")
+    if mismatches + not_served or not hits:
+        raise SmokeFailure(f"mesh phrase: {mismatches} mismatches, "
+                           f"{not_served} not served, {hits} hits")
+    return result
+
+
+def run_mesh_cards(card, launches, devices=None) -> dict:
+    """Phase mesh on distinct cards: an index of one shard a card (n = the
+    visible cards, at most 8) of MESH_CARDS_DOCS Zipf docs a shard
+    (vocabulary 20,000, seed SEED + 40 + shard) with cfg7's `price` and
+    `tag` columns, on a default Node, which takes every visible card and
+    so serves the index over them. Held to the host loop: 16 bool(must +
+    filter) and 16 match bodies, a search_after walk sorted on price,
+    size-0 counts and a terms / histogram aggregation; mesh_snapshot's
+    search on the same cards; with four or more cards, search_batch on a
+    (2 replica x n/2 shard) grid of distinct cards, held to that index's
+    search. `devices` replaces the cards (a rehearsal off the card)."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.parallel import sharded as psh
+    from elasticsearch_tpu_torch.parallel.mesh import Mesh
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+    from elasticsearch_tpu_torch.utils.corpus import build_zipf_segment
+
+    if devices is None:
+        n = min(torch.cuda.device_count(), N_SHARDS)
+        devices = [torch.device("cuda", i) for i in range(n)]
+        node = Node(device=DEVICE)  # mesh_devices: every visible card
+    else:
+        n = len(devices)
+        node = Node(device=DEVICE, mesh_devices=devices)
+    t0 = time.monotonic()
+    rng = np.random.default_rng(SEED + 40)
+    segs = []
+    for s in range(n):
+        _m, seg = build_zipf_segment(MESH_CARDS_DOCS, vocab_size=20_000,
+                                     seed=SEED + 40 + s)
+        price = rng.integers(0, 10_000, MESH_CARDS_DOCS).astype(np.float64)
+        price[rng.random(MESH_CARDS_DOCS) < 0.1] = np.nan
+        seg.fields["tag"] = _keyword_field(
+            "tag", AGG_TAGS, rng.choice(len(AGG_TAGS), size=MESH_CARDS_DOCS))
+        seg.doc_values["price"] = price
+        segs.append(replace(seg, ids=[f"c{s}d{i}"
+                                      for i in range(MESH_CARDS_DOCS)]))
+    node.create_index("mcards", {
+        "settings": {"index": {"number_of_shards": n}},
+        "mappings": {"properties": {"body": {"type": "text"},
+                                    "price": {"type": "long"},
+                                    "tag": {"type": "keyword"}}},
+    })
+    svc = node.indices["mcards"]
+    for e, seg in zip(svc.engines, segs):
+        e._install_segment(seg)
+    build_s = time.monotonic() - t0
+    view = svc.search.mesh_view
+    layout = [str(d) for d in devices]
+    if view is None or [str(d) for d in view.mesh.devices.ravel()] != layout:
+        raise SmokeFailure(f"mesh cards: the node's view is not over {layout}")
+    log(f"phase mesh cards: layout {layout}, {n} x {MESH_CARDS_DOCS} docs "
+        f"[{card}]")
+
+    fld = segs[0].fields["body"]
+    by_df = sorted(fld.terms, key=lambda t: -fld.df[fld.terms[t]])
+    head = by_df[: len(by_df) // 100]
+    mid = by_df[len(by_df) // 100 : len(by_df) // 4]
+    qrng = np.random.default_rng(SEED + 41)
+    bodies = []
+    for _ in range(16):
+        m1, m2 = qrng.choice(mid, 2, replace=False)
+        bodies.append({"query": {"bool": {
+            "must": [{"match": {"body": f"{m1} {m2}"}}],
+            "filter": [{"term": {"body": str(qrng.choice(head))}}],
+        }}, "size": TOP_K})
+    for _ in range(16):
+        terms = [str(qrng.choice(head))] + [
+            str(t) for t in qrng.choice(mid, 3, replace=False)]
+        bodies.append({"query": {"match": {"body": " ".join(terms)}},
+                       "size": TOP_K})
+    match = bodies[-1]["query"]
+    others = [
+        {"query": match, "size": 0},
+        {"query": {"term": {"tag": "y"}}, "size": 0,
+         "track_total_hits": True},
+        {"query": match, "size": 0, "aggs": {
+            "t": {"terms": {"field": "tag"}},
+            "h": {"histogram": {"field": "price", "interval": 1000}}}},
+    ]
+    walk = {"query": match, "sort": [{"price": "asc"}], "size": TOP_K}
+    mismatches = not_served = pages = 0
+    host_hits = []
+    server, base = serve(node)
+    try:
+        with counted("mesh cards REST", launches), MeshTimer() as timer:
+            for body in bodies + others:
+                got, want, used = _mesh_and_host(base, svc, view, "mcards",
+                                                 body)
+                if body in bodies:
+                    host_hits.append(want)
+                if got != want or not used:
+                    mismatches += got != want
+                    not_served += not used
+                    log(f"  MISMATCH mesh cards {body} (served {used})")
+            cursor = None
+            for _page in range(MESH_WALK_PAGES):
+                body = dict(walk)
+                if cursor is not None:
+                    body["search_after"] = cursor
+                got, want, used = _mesh_and_host(base, svc, view, "mcards",
+                                                 body)
+                pages += 1
+                if got != want or not used:
+                    mismatches += got != want
+                    not_served += not used
+                    log(f"  MISMATCH mesh cards walk page {_page}")
+                if not got["hits"]["hits"]:
+                    break
+                cursor = got["hits"]["hits"][-1]["sort"]
+    finally:
+        server.shutdown()
+        server.server_close()
+    counters = view.stats()
+    svc.search.mesh_view = None
+    del view
+
+    queries = [parse_query(b["query"]) for b in bodies]
+    sidx = svc.mesh_snapshot(Mesh(np.array(devices, dtype=object), ("shard",)))
+    with counted("mesh cards ShardedIndex.search", launches):
+        outs = [sidx.search(q, TOP_K) for q in queries]
+    for body, out, (scores, gids, total) in zip(bodies, host_hits, outs):
+        ids = [sidx.segments[s].ids[loc] for s, loc in map(sidx.locate, gids)]
+        if not same_hits(out, ids, scores, total):
+            mismatches += 1
+            log(f"  MISMATCH mesh cards snapshot search {body}")
+    del sidx
+    grid_shape = None
+    if n >= 4:
+        m = n // 2
+        grid = np.array(devices[: 2 * m], dtype=object).reshape(2, m)
+        grid_shape = [2, m]
+        idx = psh.ShardedIndex.from_segments(segs[:m], svc.mappings,
+                                             Mesh(grid, ("batch", "shard")))
+        want = [idx.search(q, TOP_K) for q in queries]
+        with counted(f"mesh cards search_batch (2 x {m})", launches):
+            mismatches += _batch_rows(idx, queries, want, 2)
+        del idx, want
+    node.close()
+    gc.collect()
+    result = {
+        "layout": layout, "docs": n * MESH_CARDS_DOCS, "build_s": build_s,
+        "bodies": len(bodies) + len(others), "walk_pages": pages,
+        "grid": grid_shape, "mismatches": mismatches,
+        "not_served": not_served, "merges": timer.merges,
+        "device_ms_per_request_p50": percentile(timer.device_ms(), 50),
+        "view": counters,
+    }
+    bad = mismatches + not_served + counters["exec_failures"]
+    log(f"phase mesh cards: {'ok' if bad == 0 else 'FAILED'} "
+        f"{json.dumps(result)} [{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} mesh faults on distinct cards")
+    return result
+
+
+def run_cards() -> dict:
+    """`--cards`: the build, then phase mesh's distinct-card parts alone."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import kernels as kern
+
+    card = card_line()
+    if torch.cuda.device_count() < 2:
+        raise SmokeFailure(f"--cards needs two or more cards, "
+                           f"{torch.cuda.device_count()} visible")
+    t0 = time.monotonic()
+    kern.ensure_built()
+    log(f"phase build: ok {time.monotonic() - t0:.2f} s [{card}]")
+    launches: dict = {}
+    result = {"mesh_phrase": run_mesh_phrase(card, torch.device(DEVICE),
+                                             launches),
+              "mesh_cards": run_mesh_cards(card, launches)}
+    log(f"  launches over the distinct-card phases: {json.dumps(launches)}")
+    return {"card": card, "kernels": [], "result": result}
+
+
 def main() -> int:
     if not (REPO / "elasticsearch_tpu_torch" / "ops" / "kernels.py").exists():
         print("chip_smoke.py: the elasticsearch_tpu_torch package is not beside "
@@ -6125,7 +6827,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        report = run()
+        report = run_cards() if sys.argv[1:] == ["--cards"] else run()
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

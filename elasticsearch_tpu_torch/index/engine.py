@@ -4,7 +4,8 @@ Port of elasticsearch_tpu/index/engine.py, trimmed to this slice: `index`,
 `delete`, `refresh`, the device live mask, `_install_segment` (attach a
 prebuilt segment), `field_stats`, `compiler_for`, the refresh
 `generation` and the live-doc count `num_docs`. Engines and segment
-handles carry process-unique `uid`s (the kNN plane cache keys on them).
+handles carry process-unique `uid`s (the kNN plane cache keys on them),
+and a handle its `live_epoch` (the mesh view keys on (uid, live_epoch)).
 Dense_vector matrices and nested blocks ride the segments and their
 device planes (a nested block's inner planes are packed with the parent
 segment at refresh; a delete masks the parent, and the join drops its
@@ -53,6 +54,10 @@ class SegmentHandle:
     live_host: np.ndarray  # bool[N] host copy of the live mask
     live_dirty: bool = False
     uid: int = field(default_factory=lambda: next(_UIDS))
+    # Epoch of the device-visible live mask, bumped by every sync_live:
+    # (uid, live_epoch) names a handle's searchable content, which the
+    # mesh view keys its compacted pieces on (parallel/mesh_serving.py).
+    live_epoch: int = 0
     _id_index: dict[str, int] | None = None  # lazy _id -> local (ids query)
 
     @property
@@ -73,6 +78,7 @@ class SegmentHandle:
                 self.device.device
             )
             self.live_dirty = False
+            self.live_epoch += 1
 
 
 class Engine:

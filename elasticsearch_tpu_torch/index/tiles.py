@@ -22,9 +22,12 @@ raises if `parent_of` is not nondecreasing); and the packed multi-tenant
 plane (`PackedField`, `PackedPlane`, `pack_field_packed`,
 `_shifted_tile_plane`, `pack_segments_packed`, `packed_device_nbytes`:
 several small segments' postings concatenated on the device, with a
-compile view per member). Left out: `pack_segment_delta`, `repack_tn`,
-`tile_doc_bounds` and the stacking pad of the positional planes
-(`min_pos_tiles`: positional queries run on one segment's tree).
+compile view per member); and the shard mesh's helpers: the stacking pad
+of the positional planes (`pack_field(min_pos_tiles)` /
+`pack_segment(field_pos_min_tiles)`, so that phrase plans index every
+shard of a mesh alike) and `tile_doc_bounds` (the sharded compiler's
+host-side per-tile doc-id extrema). Left out: `pack_segment_delta` and
+`repack_tn` (ROADMAP queue A6).
 
 A field's postings live on the device as flat CSR arrays padded to a tile
 multiple plus one all-sentinel tile, viewed as [NT, 256]:
@@ -220,14 +223,15 @@ def pack_field(
     avgdl: float | None = None,
     k1: float = 1.2,
     b: float = 0.75,
+    min_pos_tiles: int = 0,
 ) -> DeviceField:
     """Pack one FieldIndex into tiled device tensors.
 
     `num_docs` may exceed the segment's own doc count (stacked shards pad
     to a common size); the scatter sentinel is always `num_docs`.
-    `min_tiles` pads the postings tile axis with sentinel tiles so that
-    shards stack to equal shapes (the positional planes are not stacked:
-    positional queries run on one segment's tree)."""
+    `min_tiles` pads the postings tile axis, and `min_pos_tiles` the
+    positional planes' tile axis, with sentinel tiles so that the shards
+    of a mesh share one set of shapes."""
     device = resolve_device(device)
     if avgdl is None:
         avgdl = field.avgdl
@@ -264,6 +268,10 @@ def pack_field(
         owners = np.repeat(field.doc_ids.astype(np.int32), counts)
         pd = _pad_to_tile(owners, np.int32(num_docs))
         pv = _pad_to_tile(field.positions.astype(np.int32), np.int32(-1))
+        if min_pos_tiles and len(pd) < min_pos_tiles * TILE:
+            extra = min_pos_tiles * TILE - len(pd)
+            pd = np.concatenate([pd, np.full(extra, num_docs, dtype=np.int32)])
+            pv = np.concatenate([pv, np.full(extra, -1, dtype=np.int32)])
         pos = {
             "pos_doc": _put(pd.reshape(-1, TILE), device),
             "pos_val": _put(pv.reshape(-1, TILE), device),
@@ -333,12 +341,14 @@ def pack_segment(
     field_avgdl: dict[str, float] | None = None,
     k1: float = 1.2,
     b: float = 0.75,
+    field_pos_min_tiles: dict[str, int] | None = None,
 ) -> DeviceSegment:
     """Upload a whole Segment to the device (the refresh step).
 
-    `pad_docs_to` / `field_min_tiles` pad the doc and tile axes so that
-    several shards' segments stack into one leading-axis tensor
-    (`ops/bm25_device.stack_segment_trees`); padding docs are dead:
+    `pad_docs_to` / `field_min_tiles` / `field_pos_min_tiles` pad the doc,
+    tile and position-tile axes so that several shards' segments share
+    one set of shapes (`ops/bm25_device.stack_segment_trees`, the shard
+    mesh of parallel/sharded.py); padding docs are dead:
     live False, doc values NaN, never present. `field_avgdl` supplies the
     statistics scope of the precomputed impacts (default: each field's
     own)."""
@@ -346,9 +356,11 @@ def pack_segment(
     n = max(segment.num_docs, pad_docs_to)
     min_tiles = field_min_tiles or {}
     avgdls = field_avgdl or {}
+    pos_min_tiles = field_pos_min_tiles or {}
     fields = {
         name: pack_field(
-            f, n, device, min_tiles.get(name, 0), avgdls.get(name), k1, b
+            f, n, device, min_tiles.get(name, 0), avgdls.get(name), k1, b,
+            pos_min_tiles.get(name, 0),
         )
         for name, f in segment.fields.items()
     }
@@ -384,6 +396,18 @@ def pack_segment(
         vectors=vectors,
         nested=nested,
     )
+
+
+def tile_doc_bounds(
+    doc_ids: np.ndarray, num_docs: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Per-tile (min, max) doc id over a host postings array, padded the
+    way pack_field pads (sentinel num_docs; bounds stay conservative):
+    the host-side planning twin of DeviceField.tile_doc_lo/hi for the
+    sharded compiler's _PlanField, which packs no DeviceField."""
+    padded = _pad_to_tile(doc_ids.astype(np.int32), np.int32(num_docs))
+    tiles = padded.reshape(-1, TILE)
+    return tiles.min(axis=1), tiles.max(axis=1)
 
 
 def device_nbytes(seg: DeviceSegment) -> int:

@@ -28,10 +28,21 @@ path. Plain searches of small one-shard indices with inverted-only query
 shapes ride one shared batcher group instead of their index's
 (exec/packed.py): concurrent searches on DIFFERENT small indices coalesce
 into one packed launch; `Node(exec_packed=False)` (the reference's
-ESTPU_EXEC_PACKED=0) keeps every index in its own group. Left out: replication and clusters, aliases and templates,
-ingest pipelines, scroll and async search, QoS lanes, the SPMD mesh view,
-the filter and request caches, tasks, metrics and tracing, snapshots,
-and every other API of the reference node (ROADMAP queue A).
+ESTPU_EXEC_PACKED=0) keeps every index in its own group. A multi-shard
+index gets the reference's mesh view (parallel/mesh_serving.py) when the
+node's mesh devices hold one entry per shard: `Node(mesh_devices=...)`
+is the port's counterpart of the device count the reference reads from
+XLA's flags (None: every visible CUDA device on a CUDA node, the one CPU
+device on a CPU node; entries may repeat, `[torch.device("cpu")] * 8`
+serves eight shards on the CPU, `[]` turns the view off). The
+coordinator then serves each eligible search through the mesh before its
+host loop, and such a search skips the micro-batcher, as in the
+reference.
+`IndexService.mesh_snapshot` stacks an index's live docs onto a mesh
+(parallel/sharded.ShardedIndex). Left out: replication and clusters,
+aliases and templates, ingest pipelines, scroll and async search, QoS
+lanes, the filter and request caches, tasks, metrics and tracing,
+snapshots, and every other API of the reference node (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -44,6 +55,8 @@ import uuid as uuid_mod
 from dataclasses import dataclass, field
 from typing import Any
 
+import torch
+
 from .analysis.analyzers import AnalysisRegistry
 from .device import DEFAULT_DEVICE, resolve_device
 from .exec.batcher import BatcherRejected, MicroBatcher
@@ -53,6 +66,7 @@ from .index.ann import AnnCache, clear_index_ann
 from .index.engine import Engine, VersionConflictError
 from .index.mapping import Mappings
 from .ops.bm25 import BM25Params
+from .parallel.mesh_serving import maybe_mesh_view
 from .parallel.routing import shard_for_id
 from .search.coordinator import SearchPhaseFailedError, ShardedSearchCoordinator
 from .search.service import SearchRequest, SearchService
@@ -135,6 +149,34 @@ class IndexService:
             self._auto_counter += 1
             return doc_id
 
+    def mesh_snapshot(self, mesh, axis: str = "shard"):
+        """Stack this index's live docs onto a device mesh
+        (parallel/sharded.ShardedIndex): one segment per shard on the mesh
+        axis, a point-in-time snapshot (later writes do not appear). Each
+        shard's segment is its engine's live docs merged without
+        re-analysis (index/merge.merged_live_segment), which equals the
+        reference's re-add of the same docs through SegmentBuilder."""
+        from .index.merge import merged_live_segment
+        from .parallel.sharded import ShardedIndex
+
+        if mesh.shape[axis] != len(self.engines):
+            raise ValueError(
+                f"mesh axis [{axis}] has {mesh.shape[axis]} devices; index "
+                f"[{self.name}] has {len(self.engines)} shards"
+            )
+        segments = []
+        for engine in self.engines:
+            # Pending buffers and soft deletes become visible first, so
+            # the snapshot equals what the coordinator serves.
+            engine.refresh()
+            handles = list(engine.segments)
+            segments.append(merged_live_segment(
+                [h.segment for h in handles], [h.live_host for h in handles]
+            ))
+        return ShardedIndex.from_segments(
+            segments, self.mappings, mesh, axis, self.engines[0].params
+        )
+
 
 class Node:
     """One node serving N-shard indices from one device.
@@ -143,7 +185,10 @@ class Node:
     and the cost-based backend planner; either is None when turned off.
     `exec_packed` (default on) builds the packed multi-tenant executor,
     which rides the batcher (None without one). `ann_cache`: True builds
-    the default AnnCache, False none, or pass one."""
+    the default AnnCache, False none, or pass one. `mesh_devices`: the
+    devices a multi-shard index may serve on as a mesh, one entry per
+    shard at least (None: every visible CUDA device for a CUDA node, the
+    CPU for a CPU node)."""
 
     def __init__(
         self,
@@ -154,8 +199,16 @@ class Node:
         exec_planner: bool = True,
         ann_cache: "bool | AnnCache" = True,
         exec_packed: bool = True,
+        mesh_devices=None,
     ):
         self.device = resolve_device(device)
+        if mesh_devices is None:
+            mesh_devices = (
+                [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+                if self.device.type == "cuda" else [self.device]
+            )
+        self.mesh_devices = [torch.device(d) for d in mesh_devices]
         self.node_name = node_name
         self.cluster_name = cluster_name
         self.indices: dict[str, IndexService] = {}
@@ -249,21 +302,24 @@ class Node:
                 Engine(mappings, params=params, device=self.device)
                 for _ in range(n_shards)
             ]
+            if n_shards == 1:
+                search = SearchService(
+                    engines[0], planner=self.exec_planner,
+                    ann_cache=self.ann_cache, index_name=name,
+                )
+            else:
+                search = ShardedSearchCoordinator(
+                    engines, name, planner=self.exec_planner,
+                    ann_cache=self.ann_cache,
+                )
+                search.mesh_view = maybe_mesh_view(
+                    engines, mappings, params, self.mesh_devices
+                )
             self.indices[name] = IndexService(
                 name=name,
                 mappings=mappings,
                 engines=engines,
-                search=(
-                    SearchService(
-                        engines[0], planner=self.exec_planner,
-                        ann_cache=self.ann_cache, index_name=name,
-                    )
-                    if n_shards == 1
-                    else ShardedSearchCoordinator(
-                        engines, name, planner=self.exec_planner,
-                        ann_cache=self.ann_cache,
-                    )
-                ),
+                search=search,
                 max_result_window=window,
             )
         return {"acknowledged": True, "shards_acknowledged": True, "index": name}
@@ -533,7 +589,9 @@ class Node:
         query phases that ask for at least one hit, while the node has a
         batcher: aggregations, a sort, a rescore or a search_after cursor
         take the solo path. A knn search rides it unfiltered on a one-shard index
-        (a per-lane filter mask or a shard scatter keeps its solo path)."""
+        (a per-lane filter mask or a shard scatter keeps its solo path). A
+        search the index's mesh view serves takes the solo path too, so
+        that the coordinator hands it to the mesh."""
         if self.exec_batcher is None:
             return False
         if (
@@ -550,4 +608,9 @@ class Node:
                 and isinstance(svc.search, SearchService)
                 and max(0, request.size) > 0
             )
-        return max(0, request.from_) + max(0, request.size) > 0
+        if max(0, request.from_) + max(0, request.size) <= 0:
+            return False
+        mv = getattr(svc.search, "mesh_view", None) if svc is not None else None
+        if mv is not None and not mv.disabled and mv.eligible(request):
+            return False
+        return True

@@ -10,10 +10,15 @@ query's scores, for top_hits), `top_metric_score`, `cardinality_terms`,
 counts and context doc count), `histogram`, `range`, `empty_buckets`,
 `filter`, `filters`, `global` and `missing`, with the trailing "mask"
 flag of `terms`, `sig_terms`, `histogram`, `range` and `empty_buckets`
-(the node's context mask back for a top_hits sub-aggregation). Left out:
-`_mesh_combine_node` / `mesh_combine` (the in-program psum across a
-shard mesh, with kernel-table row 23); a plan node of another kind
-raises.
+(the node's context mask back for a top_hits sub-aggregation); and the
+mesh half (row 22's, with row 23): `_mesh_combine_node` (:309) and
+`mesh_combine` (:351), which join the shards' results of one mesh
+request over parallel/mesh.py: integer count planes (histogram / range
+bucket counts, the filter family's doc_counts) psum on the lead device
+and come back replicated on a leading shard axis, as the reference's
+out-specs give them; every other plane (masks for the host's float64
+metric finish, keyword ordinal counts) comes back stacked [S, ...]. No
+float plane is summed. A plan node of another kind raises.
 
 The query and each filter's sub-query evaluate densely through
 ops/bm25_device's `_eval_node`, as the reference's do. Every per-bucket
@@ -40,6 +45,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from . import kernels
 from .bm25_device import _dense_rows, _rows1, compute_filter_mask, plan_to_torch, segment_tree
 
@@ -249,3 +255,69 @@ def execute_aggs(seg, query_spec, query_arrays, aggs_spec, aggs_arrays):
         for s, a in zip(aggs_spec, aggs_arrays)
     )
     return _doc_count(eligible), results
+
+
+def _stack_shards(results: list, lead: torch.device):
+    """The shards' result trees as one tree of [S, ...] planes on the
+    lead device (mesh.all_gather of every leaf)."""
+    first = results[0]
+    if isinstance(first, dict):
+        return {k: _stack_shards([r[k] for r in results], lead) for k in first}
+    if isinstance(first, (tuple, list)):
+        return tuple(
+            _stack_shards([r[i] for r in results], lead)
+            for i in range(len(first))
+        )
+    return mesh.all_gather(results, lead)
+
+
+def _psum_replicated(planes: list, lead: torch.device) -> torch.Tensor:
+    """The integer planes' sum, replicated on a leading shard axis."""
+    summed = mesh.psum(planes, lead)
+    return summed.unsqueeze(0).expand(len(planes), *summed.shape)
+
+
+def _mesh_combine_node(spec, results: list, lead: torch.device):
+    """Cross-shard combine of one agg node's per-shard results: integer
+    count planes psum (exact in any order, so equal to the host loop's
+    per-shard fold); per-shard planes pass through stacked."""
+    kind = spec[0]
+    if kind in ("histogram", "range", "empty_buckets"):
+        out = _stack_shards(results, lead)
+        out["counts"] = _psum_replicated([r["counts"] for r in results], lead)
+        return out
+    if kind in ("filter", "global", "missing"):
+        sub_specs = spec[-1]
+        return {
+            "doc_count": _psum_replicated(
+                [r["doc_count"] for r in results], lead),
+            "subs": tuple(
+                _mesh_combine_node(s, [r["subs"][i] for r in results], lead)
+                for i, s in enumerate(sub_specs)
+            ),
+        }
+    if kind == "filters":
+        sub_specs = spec[2]
+        return tuple(
+            {
+                "doc_count": _psum_replicated(
+                    [r[b]["doc_count"] for r in results], lead),
+                "subs": tuple(
+                    _mesh_combine_node(
+                        s, [r[b]["subs"][i] for r in results], lead)
+                    for i, s in enumerate(sub_specs)
+                ),
+            }
+            for b in range(len(results[0]))
+        )
+    # matched / terms / cardinality_terms / hits planes: per shard.
+    return _stack_shards(results, lead)
+
+
+def mesh_combine(aggs_spec, shard_results: list, lead: torch.device):
+    """The combine across a whole agg spec tuple: `shard_results` holds
+    each shard's tuple of node results, in shard order."""
+    return tuple(
+        _mesh_combine_node(s, [r[i] for r in shard_results], lead)
+        for i, s in enumerate(aggs_spec)
+    )

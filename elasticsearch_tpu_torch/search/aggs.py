@@ -23,12 +23,12 @@ and the top_hits membership predicates). Served: the metrics `min`,
 (terms, histogram and date_histogram sources, `after` paging), `filter`,
 `filters`, `global` and `missing`.
 
-Left out: the mesh reduce (`mesh_agg_ineligible_reason`,
-`merge_mesh_result`: one SPMD launch over a shard mesh, with
-kernel-table row 23) and the wire reduce of the replicated cluster
-(`wire_agg_ineligible_reason` through `render_wire_states`), and the
-Aggregator's mesh-only arguments (`term_pads`, `range_handles`) and
-task polling.
+The mesh reduce is here too: `mesh_agg_ineligible_reason`,
+`merge_mesh_result` and the Aggregator's mesh-only arguments
+(`term_pads`, `range_handles`), which parallel/mesh_serving.py's one
+request over a shard mesh uses. Left out: the wire reduce of the
+replicated cluster (`wire_agg_ineligible_reason` through
+`render_wire_states`) and task polling.
 
 Per segment, one device pass (ops/aggs_device.execute_aggs) evaluates the
 query once and every aggregation off its matched mask; the cross-segment
@@ -286,7 +286,8 @@ class Aggregator:
     """
 
     def __init__(self, engine, nodes: list[AggNode], handles=None,
-                 index_name: str = "index"):
+                 index_name: str = "index", term_pads=None,
+                 range_handles=None):
         self.engine = engine
         self.nodes = nodes
         self.index_name = index_name
@@ -295,6 +296,19 @@ class Aggregator:
         # desynchronize totals from hits).
         segments = engine.segments if handles is None else handles
         self.handles = [h for h in segments if h.segment.num_docs > 0]
+        # Uniform keyword ordinal-plane pads, {field: pow2 bucket}: the
+        # mesh compiles ONE agg plan for every shard, so the scatter width
+        # must cover the largest shard vocabulary; the per-handle pow2
+        # default keeps the solo-segment behavior.
+        self.term_pads = term_pads or {}
+        # Histogram planning scope: the handles whose column ranges size
+        # fixed-interval bucket windows. The mesh plans over the pinned
+        # ENGINE handles (tombstoned values included, as the host-loop
+        # coordinator does) while executing over merged shard segments,
+        # so plan-time TooManyBuckets behavior matches the host loop.
+        self.range_handles = range_handles if range_handles is not None else (
+            self.handles
+        )
         # Per-request plan state, keyed by id(node) — names are not unique
         # across nesting levels (a filter-nested histogram may shadow a
         # top-level one of the same name).
@@ -302,14 +316,15 @@ class Aggregator:
         self._range_cache: dict[str, tuple[float, float]] = {}
 
     def _field_range(self, fname: str) -> tuple[float, float]:
-        """Global [min, max] of a numeric column over the planned segments,
-        lazily computed only for fields histogram aggs plan over (host
-        columns are float64; quantized to f32 = stored-value semantics)."""
+        """Global [min, max] of a numeric column over the planning scope's
+        segments, lazily computed only for fields histogram aggs plan over
+        (host columns are float64; quantized to f32 = stored-value
+        semantics)."""
         cached = self._range_cache.get(fname)
         if cached is not None:
             return cached
         lo, hi = np.inf, -np.inf
-        for h in self.handles:
+        for h in self.range_handles:
             col = h.segment.doc_values.get(fname)
             if col is None or not len(col) or np.all(np.isnan(col)):
                 continue
@@ -322,7 +337,10 @@ class Aggregator:
 
     def _term_pad(self, handle, fname: str) -> int:
         """Ordinal scatter width for a keyword field: the handle's own
-        pow2 vocabulary bucket."""
+        pow2 vocabulary bucket, or the caller's uniform pad."""
+        override = self.term_pads.get(fname)
+        if override is not None:
+            return override
         return _pow2(handle.device.fields[fname].num_terms)
 
     # ----------------------------------------------------------- compile
@@ -1048,6 +1066,116 @@ def merge_segment_result(
                 )
         return
     raise AggParsingError(f"unknown aggregation type [{k}]")
+
+
+# ------------------------------------------------------ mesh (SPMD) merge
+
+
+def mesh_agg_ineligible_reason(nodes: list[AggNode]) -> str | None:
+    """Why this agg tree cannot ride the one mesh request (None =
+    eligible). Eligible kinds are those whose combine equals the host
+    loop's exactly: the metric and percentile families (per-shard masks
+    from the launch + the same f64 host fold in handle-span order),
+    integer-count planes (fixed-edge histogram / date_histogram / range,
+    psum'd), keyword / numeric terms, rare_terms and cardinality (integer
+    counts / distinct sets merged by key on the host), and the
+    filter / filters / global / missing nesting family over eligible
+    subs. Ineligible: array-bucket hosts with metric sub-aggs (their f32
+    device planes accumulate in per-segment order), top_hits, composite,
+    matrix_stats and significant_terms (its background statistics come
+    from tombstoned engine segments the mesh snapshot does not carry)."""
+    for node in nodes:
+        k = node.kind
+        if k in METRIC_KINDS | HOST_METRIC_KINDS or k == "cardinality":
+            continue
+        if k in ("terms", "rare_terms", "histogram", "date_histogram",
+                 "range"):
+            if node.subs:
+                return "agg_shape"
+            continue
+        if k in NESTING_KINDS:
+            reason = mesh_agg_ineligible_reason(node.subs)
+            if reason:
+                return reason
+            continue
+        return "agg_shape"
+    return None
+
+
+def merge_mesh_result(node: AggNode, state, stacked, handles) -> None:
+    """Fold one agg node's stacked mesh result ([shard, ...] numpy
+    planes; psum'd count leaves replicated over the shard axis) into a
+    merge state exactly as the host loop's per-segment fold does.
+
+    `handles` are the mesh shard handles (one merged live-doc segment per
+    shard) carrying `spans`, the [lo, hi) of each original engine segment
+    inside the merged doc space: metric folds walk the spans in
+    shard-then-handle order, the host path's f64 partial-sum grouping."""
+    k = node.kind
+    if k in METRIC_KINDS | {"extended_stats"} or k in (
+        "percentiles", "percentile_ranks", "median_absolute_deviation"
+    ):
+        fold = (
+            _fold_chunk_values
+            if k in ("percentiles", "percentile_ranks",
+                     "median_absolute_deviation")
+            else _fold_metric_values
+        )
+        fname = node.params["field"]
+        masks = np.asarray(stacked["mask"])
+        for s, handle in enumerate(handles):
+            col = handle.segment.doc_values.get(fname)
+            if col is None or not len(col):
+                continue
+            mask = masks[s][: handle.segment.num_docs]
+            for lo, hi in handle.spans:
+                vals = col[lo:hi][mask[lo:hi]]
+                fold(state, vals[~np.isnan(vals)])
+        return
+    if k in ("cardinality", "terms", "rare_terms"):
+        # Integer counts / distinct values keyed by shard-local
+        # vocabularies: the per-segment merge applies verbatim, one merged
+        # segment per shard.
+        for s, handle in enumerate(handles):
+            merge_segment_result(node, state, _shard_row(stacked, s), handle)
+        return
+    if k in ("histogram", "date_histogram", "range"):
+        # Counts were psum'd (replicated rows): read once.
+        state["counts"] = np.asarray(stacked["counts"])[0].astype(np.int64)
+        return
+    if k in ("filter", "global", "missing"):
+        state["doc_count"] += int(np.asarray(stacked["doc_count"])[0])
+        for sub_node, sub_state, sub_stacked in zip(
+            node.subs, state["subs"], stacked["subs"]
+        ):
+            merge_mesh_result(sub_node, sub_state, sub_stacked, handles)
+        return
+    if k == "filters":
+        if state["buckets"] is None:
+            state["buckets"] = [
+                {
+                    "doc_count": 0,
+                    "subs": [new_merge_state(s) for s in node.subs],
+                }
+                for _ in stacked
+            ]
+        for bstate, bstacked in zip(state["buckets"], stacked):
+            bstate["doc_count"] += int(np.asarray(bstacked["doc_count"])[0])
+            for sub_node, sub_state, sub_stacked in zip(
+                node.subs, bstate["subs"], bstacked["subs"]
+            ):
+                merge_mesh_result(sub_node, sub_state, sub_stacked, handles)
+        return
+    raise AggParsingError(f"aggregation type [{k}] is not mesh-eligible")
+
+
+def _shard_row(tree, s: int):
+    """Row s of every leaf of a stacked numpy tree."""
+    if isinstance(tree, dict):
+        return {key: _shard_row(val, s) for key, val in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_shard_row(v, s) for v in tree)
+    return np.asarray(tree)[s]
 
 
 def _capture_hits_planes(node, state, handle, result, root_planes) -> None:

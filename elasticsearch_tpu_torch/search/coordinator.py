@@ -14,8 +14,12 @@ the global k (the reference's kNN reduce); a batched knn group serves
 each rider through `search`. Aggregations run as one Aggregator over
 every shard's pinned handles with the global statistics, and the
 per-shard requests carry none (the reference's coordinator:228-247).
-Left out: scroll contexts, fetch sub-phases (highlight, fields), the
-SPMD mesh view, tasks and timeouts, the filter cache, tracing and
+`search` first consults the index's mesh view (`mesh_view`,
+parallel/mesh_serving.MeshView, installed by the node when the shards
+fit its mesh devices) and keeps its answer when it is not None; a
+declined request takes the host loop below (the reference's
+coordinator:198-215). Left out: scroll contexts, fetch sub-phases
+(highlight, fields), tasks and timeouts, the filter cache, tracing and
 injected faults.
 
 The single-process analog of the reference's coordinator node path —
@@ -78,6 +82,9 @@ class ShardedSearchCoordinator:
         ]
         self._stats_cache = None
         self._stats_gen: tuple = ()
+        # The mesh serving path (parallel/mesh_serving.MeshView), set by
+        # the node when the index's shards fit its mesh devices.
+        self.mesh_view = None
 
     def _shard_can_match(self, request, shard_idx: int, snapshots) -> bool:
         from .can_match import can_match, shard_bounds
@@ -119,6 +126,10 @@ class ShardedSearchCoordinator:
         }
 
     def search(self, request: SearchRequest) -> SearchResponse:
+        if self.mesh_view is not None:
+            resp = self.mesh_view.serve(self, request)
+            if resp is not None:
+                return resp
         start = time.monotonic()
         # One segment snapshot per shard, pinned for the whole request.
         snapshots = [list(e.segments) for e in self.engines]
