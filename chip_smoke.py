@@ -52,9 +52,10 @@ and read just after it.
                  per spec group at k = 10, each held to execute_batch_sparse
                  (ids, order, fp32 bits; totals a lower bound, equal when
                  "eq"); then those bodies with track_total_hits false, four
-                 times over HTTP, on a Node(exec_batcher=False): every answer
-                 equals phase 3's hits, and the exec planner decides both
-                 blockmax and blockmax_conj
+                 times over HTTP, on the node with its batcher set aside
+                 and a fresh exec planner: every answer equals phase 3's
+                 hits, and the planner decides both blockmax and
+                 blockmax_conj
  6c. rescore     (one-shard corpus, columns f1/f2 = the first two draws of
                  default_rng(99), f3 = f1 missing at every tenth doc)
                  BASELINE config 4: phase 3's 32 `match` bodies with a
@@ -125,7 +126,12 @@ and read just after it.
                  and 16 dense bool(should) held to the numpy oracle per
                  shard merged by (score desc, shard, rank), and
                  execute_shards_blockmax_conj to execute_shards_batch;
-                 K1s-K4s against their plain versions; CUDA-event times
+                 then the stacked filter cache: each conjunction's filter
+                 as an [S, N] plane (compute_filter_mask_stacked, K1s's
+                 matched-only mode) substituted into its plan, through
+                 execute_shards and execute_shards_blockmax_conj, held to
+                 the unmasked answers; K1s-K4s and K1s matched-only against
+                 their plain versions; CUDA-event times
 
  15. aggs        the reference bench's cfg7 deployment (bench.py:346-432):
                  8 shards x 125,000 Zipf docs (vocabulary 20,000, seed
@@ -224,6 +230,27 @@ and read just after it.
                  aggregations through the view against the host loop,
                  mesh_snapshot's search, and search_batch on a (2 replica
                  x n/2 shard) grid of distinct cards
+
+ 19. filter-cache (kernel-table row 8b; the node's FilterCache, on by
+                 default) on cfg3's node before it is freed and on cfg7's
+                 documents (8 shards and one): 8 distinct filters (term,
+                 terms, exists, range on cfg7, bools of them; in filter
+                 and in must_not, cold: no earlier phase used them) each
+                 under 4 two-term must matches, sent sequentially twice
+                 (first sightings, then admission), then x 4 shuffled
+                 from 16 clients, then a warm sequential pass, and through
+                 a MeshView on [card] * 8 (cfg3's: phase 18's view); every
+                 answer equal to a Node(filter_cache=False) over the same
+                 documents (cfg3: the same node with its cache detached),
+                 whole JSON but `took`; K1 launches per request cold and
+                 warm, device ms and p50 cached against uncached, the
+                 cache's stats; then on the one-shard index a budget of 3
+                 planes (evictions, residency within it, allocated device
+                 memory back after the clear) and POST /{index}/_cache/
+                 clear over REST followed by a miss that is still right.
+                 K1's matched-only mode for one segment (cfg2's head-term
+                 filter, the filter cache's plane build) is a kernel row
+                 of phase 6, K1s's (compute_filter_mask_stacked) of 13.
 
     python3 chip_smoke.py --cards    # phases 1, 18's phrase part and 18b
                                      # alone; needs two or more cards
@@ -364,6 +391,10 @@ def counted(phase: str, totals: dict):
     yield
     torch.cuda.synchronize()
     counts = dict(kern.LAUNCHES)
+    # K1's matched-only launches (a subset of terms_scatter*), under
+    # `<name>_matched_only`: the matched-only kernel rows' launch counts.
+    counts.update({name + "_matched_only": c for name, c in
+                   kern.MATCHED_ONLY_LAUNCHES.items()})
     for name, c in counts.items():
         totals[name] = totals.get(name, 0) + c
     log(f"  launches in {phase}: {counts}")
@@ -735,6 +766,7 @@ def run() -> dict:
     # -- 6. kernels at main-path shapes (one shard) -----------------------
     q_single = max(2, round(single_stats["occupancy_mean"]))
     rows = kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q_single)
+    kernel_row_matched_only(seg_tree, compiler, head[0], dev, rows)
     log(f"phase kernels: ok 0 mismatches over {len(rows)} kernels [{card}]")
 
     # -- 12a. results of the one-shard phases -----------------------------
@@ -779,7 +811,8 @@ def run() -> dict:
 
     # -- 6b. block-max on the one-shard corpus ----------------------------
     single["blockmax"] = run_blockmax(
-        card, dev, segment, seg_tree, compiler, bodies, responses, launches
+        card, dev, node, segment, seg_tree, compiler, bodies, responses,
+        launches
     )
 
     # -- 6c/6d. rescore (BASELINE config 4) and sorted, same corpus ------
@@ -867,18 +900,20 @@ def _same_topk(got, exact, row: int, k: int) -> bool:
     )
 
 
-def run_blockmax(card, dev, segment, seg_tree, compiler, bodies, responses,
-                 launches) -> dict:
+def run_blockmax(card, dev, node, segment, seg_tree, compiler, bodies,
+                 responses, launches) -> dict:
     """Block-max on the cfg2 corpus: execute_batch_blockmax on the match
     plans and execute_batch_blockmax_conj on the bool(must + filter)
     plans, per spec group at k = 10 as the JAX bench groups them, each
     held to execute_batch_sparse on the same plans; then the same bodies
-    with untracked totals, four times over HTTP, on a node without a
-    batcher, whose planner explores both backends of every plan class."""
+    with untracked totals, four times over HTTP, on the corpus's node with
+    its batcher set aside (a node without a batcher, as Node(exec_batcher=
+    False) builds it) and a fresh planner, which explores both backends of
+    every plan class."""
     import numpy as np
     import torch
 
-    from elasticsearch_tpu_torch.node import Node
+    from elasticsearch_tpu_torch.exec.planner import ExecPlanner
     from elasticsearch_tpu_torch.ops import bm25_device
     from elasticsearch_tpu_torch.query.dsl import parse_query
 
@@ -954,13 +989,13 @@ def run_blockmax(card, dev, segment, seg_tree, compiler, bodies, responses,
     if not n_terms or not n_conj:
         raise SmokeFailure("no plan eligible for one of the block-max paths")
 
-    # The planner's routing on the solo path: a node without a batcher.
-    t0 = time.monotonic()
-    node = Node(device=DEVICE, exec_batcher=False)
-    node.create_index("msmarco", {"mappings": {"properties": {"body": {"type": "text"}}}})
-    node.indices["msmarco"].engine._install_segment(segment)
-    torch.cuda.synchronize()
-    install_s = time.monotonic() - t0
+    # The planner's routing on the solo path: the node without its batcher
+    # (every search solo) and with a fresh planner, on the same corpus (a
+    # second copy of it would cost a pack of 8.8 M docs).
+    search = node.indices["msmarco"].search
+    saved = (node.exec_batcher, node.exec_planner, search.planner)
+    planner = ExecPlanner()
+    node.exec_batcher, node.exec_planner, search.planner = None, planner, planner
     server, base = serve(node)
     bad = 0
     try:
@@ -971,6 +1006,7 @@ def run_blockmax(card, dev, segment, seg_tree, compiler, bodies, responses,
     finally:
         server.shutdown()
         server.server_close()
+        node.exec_batcher, node.exec_planner, search.planner = saved
     for n, out in enumerate(outs):
         ref = responses[picked[n % len(picked)]]
         if ("total" in out["hits"]
@@ -981,11 +1017,10 @@ def run_blockmax(card, dev, segment, seg_tree, compiler, bodies, responses,
                     score_bits([h["_score"] for h in ref["hits"]["hits"]]))):
             bad += 1
             log(f"  MISMATCH solo untracked {bodies[picked[n % len(picked)]]}")
-    stats = node.exec_planner.stats()
-    node.close()
+    stats = planner.stats()
     decisions = stats["decisions"]
     routed = {
-        "requests": len(outs), "install_s": install_s,
+        "requests": len(outs),
         "p50_ms": percentile(latencies, 50), "p99_ms": percentile(latencies, 99),
         "qps": len(outs) / wall_s, "mismatches": bad,
         "plan_classes": len(stats["ewma"]), "planner": stats,
@@ -995,9 +1030,6 @@ def run_blockmax(card, dev, segment, seg_tree, compiler, bodies, responses,
         raise SmokeFailure(f"{bad} solo untracked answers differ")
     if decisions.get("blockmax", 0) <= 0 or decisions.get("blockmax_conj", 0) <= 0:
         raise SmokeFailure(f"the planner never chose a block-max path: {decisions}")
-    del node
-    gc.collect()
-    torch.cuda.empty_cache()
     return {**summary, "node": {k: v for k, v in routed.items() if k != "planner"},
             "decisions": decisions}
 
@@ -1429,9 +1461,19 @@ def run_sharded(card, dev, launches, rows) -> dict:
     log(f"  coordinator dense path: {json.dumps(dense)}")
     sharded_peak = int(torch.cuda.max_memory_allocated())
 
+    # -- 19. filter-cache on cfg3's node (its mesh part inside phase 18) --
+    fc_musts = [" ".join(str(t) for t in rng.choice(mid, 2, replace=False))
+                for _ in range(4)]
+    fc = run_filter_cache(card, dev, node, None, fc_musts,
+                          {"cfg3": _cfg3_fc_filters(by_df)}, launches,
+                          mesh=False)
+    fc_pending = fc.pop("pending")
+
     # -- 18. mesh: the same shards and bodies served as one mesh request --
     mesh = run_mesh_cfg3(card, dev, node, shards, bodies, responses,
-                         latencies, launches, rows)
+                         latencies, launches, rows,
+                         fc_check=fc_pending.get("cfg3"))
+    fc["cfg3"]["mesh"] = mesh.pop("filter_cache")
     node.close()
     del node, svc, handles, timer, seq_timer
     gc.collect()
@@ -1464,6 +1506,7 @@ def run_sharded(card, dev, launches, rows) -> dict:
         "max_memory_allocated_bytes": sharded_peak,
         "stacked": stacked,
         "mesh": mesh,
+        "filter_cache": fc,
     }
     log(f"phase results (sharded): {json.dumps(result)} [{card}]")
     return result
@@ -1635,6 +1678,12 @@ def run_stacked(card, dev, shards, bodies, match_terms, launches, rows) -> dict:
                     and (rel == "gte" or int(t[row]) == int(t_b[r]))):
                 bm_mismatches += 1
                 log(f"  MISMATCH stacked blockmax {queries[p]}")
+    # The stacked filter cache (kernel-table row 8b's second half).
+    fc = _stacked_filter_cache(stree, per_query, all_bodies, results, n_pad,
+                               dev, launches)
+    log(f"  stacked filter-cache: {json.dumps(fc)} [{card}]")
+    kernel_row_matched_only_stacked(stree, fields, mappings, all_bodies[0],
+                                    n_pad, dev, rows)
 
     # Device time by CUDA events: the batched calls over every bucket, and
     # one query at a time at its own equalized spec.
@@ -1664,6 +1713,7 @@ def run_stacked(card, dev, shards, bodies, match_terms, launches, rows) -> dict:
         "queries": n_q, "buckets": [[sp[0], len(pos)] for sp, pos, _a, _h in buckets],
         "pack_stack_s": pack_s, "compile_s": plan_s, "oracle_check_s": oracle_s,
         "mismatches": mismatches, "blockmax_conj_queries": n_conj,
+        "filter_cache": fc,
         "blockmax_relations": relations, "blockmax_mismatches": bm_mismatches,
         "pruned_tile_fraction_mean": float(np.mean(rec.fractions)) if rec.fractions else 0.0,
         "device_ms_per_query_batched": batch_ms,
@@ -1672,17 +1722,123 @@ def run_stacked(card, dev, shards, bodies, match_terms, launches, rows) -> dict:
         "shards_batch_ms_per_query_conj": exact_ms,
         "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
     }
-    log(f"phase stacked: {'ok' if mismatches + bm_mismatches == 0 else 'FAILED'} "
+    bad = mismatches + bm_mismatches + fc["mismatches"]
+    log(f"phase stacked: {'ok' if bad == 0 else 'FAILED'} "
         f"{json.dumps(summary)} [{card}]")
-    if mismatches or bm_mismatches:
-        raise SmokeFailure(f"{mismatches} stacked and {bm_mismatches} stacked "
-                           f"block-max mismatches")
+    if bad:
+        raise SmokeFailure(f"{mismatches} stacked, {bm_mismatches} stacked "
+                           f"block-max and {fc['mismatches']} stacked "
+                           f"filter-cache mismatches")
+    if not fc["masked_queries"]:
+        raise SmokeFailure("no stacked conjunction read a filter-cache plane")
     if not conj_buckets:
         raise SmokeFailure("no stacked conjunction was eligible for block-max")
     del stree, buckets, singles, fields, devs
     gc.collect()
     torch.cuda.empty_cache()
     return summary
+
+
+def _stacked_filter_cache(stree, per_query, bodies, results, n_pad, dev,
+                          launches) -> dict:
+    """Phase stacked's filter cache: each conjunction's filter as an [S, N]
+    plane (compute_filter_mask_stacked, K1s matched-only, built once per
+    distinct filter), substituted into its [S, ...] plan and run through
+    execute_shards (the plane gathered at each row's candidates, row r
+    reading shard r % S) and execute_shards_blockmax_conj (phase A's
+    filter check reads it too), each held bit for bit to the unmasked
+    batch's answer (`results`)."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.index.filter_cache import (
+        FilterCache,
+        apply_cached_masks,
+        record_filter_usage,
+    )
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    cache = FilterCache(min_freq=1)
+
+    def build(cs, ca, _norm):
+        plane = bm25_device.compute_filter_mask_stacked(
+            stree, cs, bm25_device.plan_to_torch(cs, ca, dev)).clone()
+        return plane, plane.numel()
+
+    def fill():
+        return {"boost": np.zeros(N_SHARDS, dtype=np.float32)}
+
+    bad = masked = blockmax = 0
+    with counted("stacked filter-cache", launches):
+        for p in range(N_CFG3):
+            q = parse_query(bodies[p]["query"])
+            mc, masks, _reused = apply_cached_masks(
+                cache, ("stacked", 0, 0), q, per_query[p], build,
+                const_fill=fill, entries=record_filter_usage(cache, q))
+            if not masks:
+                continue  # a filter-led conjunction keeps its lead filter
+            masked += 1
+            seg_m = {**stree, "masks": masks}
+            s, g, t = (x.cpu().numpy() for x in bm25_device.execute_shards(
+                seg_m, mc.spec, bm25_device.plan_to_torch(
+                    mc.spec, mc.arrays, dev), TOP_K, n_pad))
+            s_b, g_b, t_b, r = results[p]
+            n = min(TOP_K, int(t_b[r]))
+            ok = (int(t) == int(t_b[r])
+                  and np.array_equal(g[:n], g_b[r][:n])
+                  and np.array_equal(score_bits(s[:n]), score_bits(s_b[r][:n])))
+            if ok and bm25_device.supports_blockmax_conj(mc.spec):
+                blockmax += 1
+                s2, g2, t2, _rel = bm25_device.execute_shards_blockmax_conj(
+                    seg_m, mc.spec, [mc.arrays], TOP_K, n_pad)
+                ok = (np.array_equal(g2[0][:n], g_b[r][:n])
+                      and np.array_equal(score_bits(s2[0][:n]),
+                                         score_bits(s_b[r][:n]))
+                      and int(t2[0]) <= int(t_b[r]))
+            if not ok:
+                bad += 1
+                log(f"  MISMATCH stacked filter-cache {bodies[p]}")
+    return {"masked_queries": masked, "blockmax_masked": blockmax,
+            "mismatches": bad, "cache": cache.stats()}
+
+
+def kernel_row_matched_only_stacked(stree, fields, mappings, body, n_pad, dev,
+                                    rows):
+    """K1s's matched-only mode (compute_filter_mask_stacked, kernel-table
+    row 8b's second half) on cfg3's stacked tree: the first conjunction's
+    head-term filter compiled per shard and equalized, S = 8 rows, held
+    bit for bit to terms_scatter_batch_plain(matched_only=True)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.query.compile import Compiler, equalize_compiled
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    filt = body["query"]["bool"]["filter"][0]
+    q = parse_query({"bool": {"filter": [filt]}})
+    cs = equalize_compiled([Compiler(f, dv, mappings).compile(q)
+                            for f, dv in fields])
+    spec = cs[0].spec[3][0]
+    if spec[0] != "terms_const":
+        raise SmokeFailure(f"stacked filter compiled to {spec[0]}")
+    a = bm25_device.plan_to_torch(spec, bm25_device.stack_plans(
+        [c.arrays["children"][0] for c in cs]), dev)
+    args, flat, n_valid, n_real = _matched_only_args(
+        stree, spec, a, n_pad, stacked=True)
+    n_rows = a["tile_ids"].shape[0]
+    _row(rows, "terms_scatter_stacked_matched_only",
+         "elasticsearch_tpu/ops/bm25_device.py:1812", n_rows,
+         lambda: kern.terms_scatter_stacked(*args, matched_only=True),
+         lambda: kern.terms_scatter_batch_plain(*args, matched_only=True),
+         lambda: torch.zeros(n_rows * (n_pad + 1), dtype=torch.bool,
+                             device=dev).index_fill_(0, flat, True),
+         "torch.zeros(S * (N + 1), dtype=bool).index_fill_ over the gathered "
+         "postings",
+         n_valid * 4 + n_real * 12 + n_rows * (n_pad + 1),
+         source=SOURCES["terms_scatter"],
+         case=f"compute_filter_mask_stacked of {json.dumps(filt)} over S = {n_rows} "
+              f"stacked shards of {n_pad:,} docs, {n_valid:,} postings")
 
 
 def run_routed(node, fld0, card, launches) -> int:
@@ -2459,6 +2615,66 @@ def kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q):
     return rows
 
 
+def _matched_only_args(tree, spec, a, num_docs, stacked: bool):
+    """K1's matched-only arguments for a terms_const plan `a` (one row
+    [1, nt], or S stacked rows [S, nt]), and the gathered postings as flat
+    indices into the [rows, num_docs + 1] plane (the library call's
+    input)."""
+    import torch
+
+    doc_tiles, tn, _tfs, norm_bytes, _present = tree["fields"][spec[1]]
+    lane = torch.arange(256, device=doc_tiles.device, dtype=torch.int64)
+    tid, valid = _worklist(a, lane)
+    n_rows = tid.shape[0]
+    if stacked:
+        shard = torch.arange(n_rows, device=tid.device).view(-1, 1)
+        docs = doc_tiles[shard.expand_as(tid), tid]
+    else:
+        docs = doc_tiles[tid]
+    row = torch.arange(n_rows, device=tid.device).view(-1, 1, 1).expand(docs.shape)
+    flat = (row * (num_docs + 1) + docs.to(torch.int64))[valid]
+    args = (doc_tiles, tn, norm_bytes, a["tile_ids"], a["starts"], a["ends"],
+            None, num_docs, a["_groups"])
+    n_real = int(valid.any(dim=-1).sum())
+    return args, flat, int(valid.sum()), n_real
+
+
+def kernel_row_matched_only(seg_tree, compiler, term, dev, rows):
+    """K1's matched-only mode for one segment (kernel-table row 8b's
+    first half, compute_filter_mask: a filter-cache plane's build): cfg2's
+    head-term filter over the one-shard corpus, held bit for bit to
+    terms_scatter_batch_plain(matched_only=True)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    num_docs = seg_tree["live"].shape[0]
+    c = compiler.compile(parse_query(
+        {"bool": {"filter": [{"term": {"body": term}}]}}))
+    spec = c.spec[3][0]
+    if spec[0] != "terms_const":
+        raise SmokeFailure(f"head-term filter compiled to {spec[0]}")
+    a = bm25_device._rows1(bm25_device.plan_to_torch(
+        spec, c.arrays["children"][0], dev))
+    args, flat, n_valid, n_real = _matched_only_args(
+        seg_tree, spec, a, num_docs, stacked=False)
+    _row(rows, "terms_scatter_matched_only",
+         "elasticsearch_tpu/ops/bm25_device.py:1797", 1,
+         lambda: kern.terms_scatter_batch(*args, matched_only=True),
+         lambda: kern.terms_scatter_batch_plain(*args, matched_only=True),
+         lambda: torch.zeros(num_docs + 1, dtype=torch.bool,
+                             device=dev).index_fill_(0, flat, True),
+         "torch.zeros(N + 1, dtype=bool).index_fill_ over the gathered postings",
+         # the valid postings' doc ids and the worklist read, the plane
+         # written once
+         n_valid * 4 + n_real * 12 + (num_docs + 1),
+         source=SOURCES["terms_scatter"],
+         case=f"head-term filter [{term}], {n_valid:,} postings over "
+              f"{num_docs:,} docs")
+
+
 def kernel_rows_slice4(seg_tree, compiler, match_terms, dev):
     """K3k, K5 (fused and gather modes) and K6 at the rescore and sorted
     phases' shapes: K3k on f1 over N = 8,841,823 docs at k = 10, K5 at a
@@ -2505,11 +2721,13 @@ def kernel_rows_slice4(seg_tree, compiler, match_terms, dev):
          lambda: kern.window_rescore_batch_plain(*fused),
          lambda: torch.topk(comb, TOP_K), "torch.topk over the combined window",
          w * 13 + TOP_K * 8, source="elasticsearch_tpu_torch/csrc/window_rescore.cu")
+    ids64 = ids.to(torch.int64)
     _row(rows, "window_rescore_gather", "elasticsearch_tpu/ops/bm25_device.py:1835",
          1, lambda: kern.window_gather_batch(rscores, relig, ids),
          lambda: kern.window_gather_batch_plain(rscores, relig, ids),
-         None, None, w * 14,
-         source="elasticsearch_tpu_torch/csrc/window_rescore.cu")
+         lambda: torch.gather(rscores, 1, ids64),
+         "torch.gather (the scores only; the matched half is a second call)",
+         w * 14, source="elasticsearch_tpu_torch/csrc/window_rescore.cu")
 
     # K6: cfg4's script over match_all (the rescore plane), then the
     # every-node script over the match's scores with min_score.
@@ -3205,6 +3423,24 @@ def run_aggs(card, dev, launches, rows) -> dict:
                                       match_terms, launches, rows)
     result["mesh"] = run_mesh_aggs(card, dev, node, bodies, match_terms,
                                    launches)
+    # -- 19. filter-cache on cfg7's documents: 8 shards and one ----------
+    plain = Node(device=DEVICE, filter_cache=False)
+    for index, segs in (("cfg7", shards), ("cfg7one", [whole])):
+        plain.create_index(index, {"settings": {"index": {
+            "number_of_shards": len(segs)}}, "mappings": mappings})
+        for engine, seg in zip(plain.indices[index].engines, segs):
+            engine._install_segment(seg)
+    fc_musts = [" ".join(t) for t in pick_query_terms(
+        shards[0], np.random.default_rng(SEED + 13), 4, terms_per_query=2)]
+    fc = run_filter_cache(
+        card, dev, node, plain, fc_musts,
+        {"cfg7": CFG7_FC_FILTERS, "cfg7one": CFG7_FC_FILTERS}, launches)
+    fc.pop("pending")
+    fc["evict"] = run_filter_cache_evict(card, node, plain, "cfg7one",
+                                         fc_musts, CFG7_FC_FILTERS, launches)
+    result["filter_cache"] = fc
+    plain.close()
+    del plain
     node.close()
     return result
 
@@ -5617,10 +5853,15 @@ def kernel_rows_structured(compiler_of, triples, dev, q, rows):
         _same(kern.doc_join(*rep), kern.doc_join_plain(*rep),
               f"doc_join {mode} Q = {q}")
     ids, boost, n = captured["doc_mark"]
+    # -1 padding and out-of-range ids land in the discard slot n.
+    slots = torch.where((ids[0] >= 0) & (ids[0] < n), ids[0], n).to(torch.int64)
     _row(rows, "doc_mark", "elasticsearch_tpu/ops/bm25_device.py:200", 1,
          lambda: kern.doc_mark(ids, boost, n),
-         lambda: kern.doc_mark_plain(ids, boost, n), None,
-         "none: no one PyTorch call marks a doc set and its scores",
+         lambda: kern.doc_mark_plain(ids, boost, n),
+         lambda: torch.zeros(n + 1, dtype=torch.bool,
+                             device=ids.device).index_fill_(0, slots, True),
+         "torch.zeros(N + 1, dtype=bool).index_fill_ over the padded ids "
+         "(the matched plane only; the scores are a second call)",
          ids.numel() * 4 + n * 5, source=STRUCT_SOURCES["doc_join"],
          case=f"ids, {ids.shape[1]} slots, {n} docs")
     rep = (ids.repeat(q, 1), boost.repeat(q), n)
@@ -6171,6 +6412,350 @@ def kernel_rows_packed(recorders, dev, rows):
 
 
 # ---------------------------------------------------------------------------
+# Phase filter-cache (kernel-table row 8b, ROADMAP A2): repeated filter
+# clauses served from the node's FilterCache on the solo, batched,
+# concurrent and mesh paths, against a node without one
+# ---------------------------------------------------------------------------
+
+FC_CLIENTS = 16
+FC_CONC_COPIES = 4  # each body this many times in the concurrent pass
+
+
+def _cfg3_fc_filters(by_df) -> list[tuple[str, dict]]:
+    """Phase filter-cache's 8 filters on cfg3's documents (a text body
+    only: term, terms, exists and bools of them, in filter and must_not),
+    over terms ranked 400-411 by df (no earlier phase filters on them, so
+    the cache starts cold)."""
+    t = [str(x) for x in by_df[400:412]]
+    return [
+        ("filter", {"term": {"body": t[0]}}),
+        ("filter", {"terms": {"body": [t[1], t[2]]}}),
+        ("filter", {"exists": {"field": "body"}}),
+        ("filter", {"bool": {"filter": [{"term": {"body": t[3]}}],
+                             "must_not": [{"term": {"body": t[4]}}]}}),
+        ("must_not", {"term": {"body": t[5]}}),
+        ("must_not", {"terms": {"body": [t[6], t[7]]}}),
+        ("must_not", {"bool": {"should": [{"term": {"body": t[8]}},
+                                          {"term": {"body": t[9]}}]}}),
+        ("filter", {"bool": {"filter": [{"exists": {"field": "body"}}],
+                             "must_not": [{"terms": {"body": [t[10], t[11]]}}]}}),
+    ]
+
+
+# cfg7's 8 filters over its tag keyword and price long: term, terms, range,
+# exists and bools of them, in filter and must_not.
+CFG7_FC_FILTERS = [
+    ("filter", {"term": {"tag": "x"}}),
+    ("filter", {"terms": {"tag": ["y", "z"]}}),
+    ("filter", {"range": {"price": {"gte": 2000, "lt": 7000}}}),
+    ("filter", {"exists": {"field": "price"}}),
+    ("filter", {"bool": {"filter": [{"term": {"tag": "y"}}],
+                         "must_not": [{"range": {"price": {"lt": 1000}}}]}}),
+    ("must_not", {"term": {"tag": "z"}}),
+    ("must_not", {"range": {"price": {"gte": 9000}}}),
+    ("must_not", {"bool": {"filter": [{"terms": {"tag": ["x", "y"]}}],
+                           "must_not": [{"exists": {"field": "price"}}]}}),
+]
+
+
+def _fc_bodies(musts: list[str], filters: list[tuple[str, dict]]):
+    """Each (context, filter) under each 2-term must match: the body's
+    filter sits in `filter` or in `must_not`."""
+    return [
+        {"query": {"bool": {"must": [{"match": {"body": m}}], ctx: [f]}},
+         "size": TOP_K}
+        for ctx, f in filters for m in musts
+    ]
+
+
+def _k1_total(counts: dict) -> int:
+    """K1 launches (every terms_scatter mode) in a launch-count dict."""
+    return sum(c for name, c in counts.items()
+               if name.startswith("terms_scatter")
+               and not name.endswith("_matched_only"))
+
+
+@contextlib.contextmanager
+def cache_detached(node, index: str):
+    """The index served as a node without a filter cache serves it: its
+    coordinator (if any), every shard's service and its mesh view see no
+    cache while inside."""
+    search = node.indices[index].search
+    holders = [search] + list(getattr(search, "services", []))
+    saved = [h.filter_cache for h in holders]
+    for h in holders:
+        h.filter_cache = None
+    try:
+        yield
+    finally:
+        for h, c in zip(holders, saved):
+            h.filter_cache = c
+
+
+def _fc_index_pass(card, dev, node, index, bodies, yard, launches) -> dict:
+    """One index of phase filter-cache. `yard()` answers the bodies on the
+    yardstick (a node without a cache over the same documents). Then the
+    cached node over HTTP: a cold sequential pass (the cache holds none of
+    these filters), a second (admission), the bodies x 4 shuffled from 16
+    clients, and a warm sequential pass; every answer equal to the
+    yardstick's, whole JSON but `took`. K1 launches per request cold and
+    warm from the launch counters, device ms per request (CUDA events
+    around the batched executions) and p50 on the warm pass against the
+    yardstick's."""
+    import numpy as np
+
+    import torch
+
+    cache = node.filter_cache
+    want, yard_lat, yard_dev = yard()
+    stats0 = cache.stats()
+    out = {"bodies": len(bodies), "mismatches": 0}
+    server, base = serve(node)
+    try:
+        passes = {}
+        for name in ("cold", "admit"):
+            before = dict(launches)
+            with counted(f"filter-cache {index} {name}", launches):
+                lat, resp, _wall = sequential(base, index, bodies)
+            passes[name] = (lat, resp, _k1_total(launches) - _k1_total(before))
+        order = np.random.default_rng(SEED + 12).permutation(
+            np.tile(np.arange(len(bodies)), FC_CONC_COPIES))
+        with counted(f"filter-cache {index} concurrent", launches):
+            c_lat, c_resp, c_wall = concurrent(
+                base, index, [bodies[int(j)] for j in order], FC_CLIENTS)
+        before = dict(launches)
+        with counted(f"filter-cache {index} warm", launches), \
+                LaunchTimer() as timer:
+            w_lat, w_resp, _wall = sequential(base, index, bodies)
+        passes["warm"] = (w_lat, w_resp, _k1_total(launches) - _k1_total(before))
+    finally:
+        server.shutdown()
+        server.server_close()
+    for name, (_lat, resp, _k1) in passes.items():
+        for body, got, w in zip(bodies, resp, want):
+            if without_took(got) != w:
+                out["mismatches"] += 1
+                log(f"  MISMATCH filter-cache {index} {name} {body}")
+    for n, j in enumerate(order):
+        if without_took(c_resp[n]) != want[int(j)]:
+            out["mismatches"] += 1
+            log(f"  MISMATCH filter-cache {index} concurrent {bodies[int(j)]}")
+    stats = cache.stats()
+    cached_dev = [a.elapsed_time(b) for _q, a, b in timer.events]
+    out.update({
+        "k1_launches_per_request_cold": passes["cold"][2] / len(bodies),
+        "k1_launches_per_request_admit": passes["admit"][2] / len(bodies),
+        "k1_launches_per_request_warm": passes["warm"][2] / len(bodies),
+        "p50_ms_cached_warm": percentile(w_lat, 50),
+        "p50_ms_uncached": percentile(yard_lat, 50),
+        "p50_ms_cold": percentile(passes["cold"][0], 50),
+        "device_ms_per_request_cached_warm": sum(cached_dev) / len(bodies),
+        "device_ms_per_request_uncached": sum(yard_dev) / len(bodies),
+        "concurrent_qps": len(order) / c_wall,
+        "concurrent_p50_ms": percentile(c_lat, 50),
+        "hits": stats["hit_count"] - stats0["hit_count"],
+        "misses": stats["miss_count"] - stats0["miss_count"],
+        "admissions": stats["admissions"] - stats0["admissions"],
+    })
+    torch.cuda.synchronize()
+    return out, want
+
+
+def _fc_yard(base_of, index, bodies):
+    """A yardstick runner: the bodies sequentially over HTTP on the server
+    `base_of()` opens, with CUDA events around the batched executions.
+    Returns (answers without `took`, latencies, device ms per request)."""
+
+    def run():
+        server, base = base_of()
+        try:
+            with LaunchTimer() as timer:
+                lat, resp, _wall = sequential(base, index, bodies)
+        finally:
+            server.shutdown()
+            server.server_close()
+        dev_ms = [a.elapsed_time(b) for _q, a, b in timer.events]
+        return [without_took(r) for r in resp], lat, dev_ms
+
+    return run
+
+
+def _fc_mesh(card, dev, node, index, bodies, want, launches, view=None) -> dict:
+    """The bodies twice through a MeshView over [card] * 8 with the node's
+    cache (rows cached per shard, built on a body's second sighting), each
+    answer held to the yardstick's; every body served on the mesh. `view`:
+    the index's installed view (else one is installed here and removed
+    after)."""
+    svc = node.indices[index]
+    own = view is None
+    if own:
+        view = _install_view(svc, [dev] * len(svc.engines))
+    served0 = view.stats()["served"]
+    stats0 = node.filter_cache.stats()
+    server, base = serve(node)
+    bad = 0
+    try:
+        with counted(f"filter-cache {index} mesh", launches):
+            for _rep in range(2):
+                _lat, resp, _wall = sequential(base, index, bodies)
+                bad += sum(without_took(g) != w for g, w in zip(resp, want))
+    finally:
+        server.shutdown()
+        server.server_close()
+        if own:
+            svc.search.mesh_view = None
+    counters = view.stats()
+    stats = node.filter_cache.stats()
+    rows_resident = sum(1 for k in node.filter_cache.keys()
+                        if isinstance(k[1], tuple) and k[1][0] == "row")
+    served = counters["served"] - served0
+    if served != 2 * len(bodies) or counters["fallbacks"]:
+        raise SmokeFailure(f"filter-cache mesh view declined bodies: {counters}")
+    out = {"mismatches": int(bad), "served": served,
+           "row_hits": stats["hit_count"] - stats0["hit_count"],
+           "rows_resident": rows_resident}
+    log(f"  filter-cache {index} mesh: {json.dumps(out)} [{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} filter-cache mesh mismatches on {index}")
+    if out["row_hits"] <= 0:
+        raise SmokeFailure(f"filter-cache {index} mesh: no row hit")
+    return out
+
+
+def run_filter_cache(card, dev, node, plain, match_musts, filters_of,
+                     launches, mesh: bool = True) -> dict:
+    """Phase filter-cache on one node's indices. `filters_of` maps an
+    index to its 8 (context, filter) pairs; `plain` is a node without a
+    cache over the same documents and indices, or None: the node itself
+    with its cache detached (`cache_detached`, what Node(filter_cache=
+    False) builds), where a second copy of the index would not fit the
+    phase's time. `mesh`: also run each multi-shard index's bodies
+    through a MeshView here (else the caller does, on its own view, with
+    the returned `pending` bodies and answers)."""
+    import gc as _gc
+
+    import torch
+
+    t_phase = time.monotonic()
+    result: dict = {}
+    pending: dict = {}
+    bad = 0
+    for index, filters in filters_of.items():
+        bodies = _fc_bodies(match_musts, filters)
+        if plain is not None:
+            yard = _fc_yard(lambda: serve(plain), index, bodies)
+        else:
+            def yard(index=index, bodies=bodies):
+                with cache_detached(node, index):
+                    return _fc_yard(lambda: serve(node), index, bodies)()
+        r, want = _fc_index_pass(card, dev, node, index, bodies, yard,
+                                 launches)
+        if len(node.indices[index].engines) > 1:
+            if mesh:
+                r["mesh"] = _fc_mesh(card, dev, node, index, bodies, want,
+                                     launches)
+            else:
+                pending[index] = (bodies, want)
+        bad += r["mismatches"]
+        if r["hits"] <= 0:
+            raise SmokeFailure(f"filter-cache {index}: no cache hit")
+        if r["k1_launches_per_request_warm"] >= r["k1_launches_per_request_cold"]:
+            raise SmokeFailure(
+                f"filter-cache {index}: warm requests launch K1 "
+                f"{r['k1_launches_per_request_warm']} times, cold ones "
+                f"{r['k1_launches_per_request_cold']}")
+        result[index] = r
+        log(f"  filter-cache {index}: {json.dumps(r)} [{card}]")
+    result["stats"] = node.filter_cache.stats()
+    result["phase_s"] = time.monotonic() - t_phase
+    _gc.collect()
+    torch.cuda.synchronize()
+    log(f"phase filter-cache: {'ok' if bad == 0 else 'FAILED'} "
+        f"{json.dumps(result)} [{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} filter-cache mismatches")
+    result["pending"] = pending
+    return result
+
+
+def run_filter_cache_evict(card, node, plain, index, match_musts, filters,
+                           launches) -> dict:
+    """Phase filter-cache's forced eviction and `_cache/clear` on one
+    one-shard index: a budget of three planes under the 8 filters
+    (evictions, residency within the budget, every answer equal to the
+    yardstick's), allocated device memory back where it was once the
+    cache is cleared, then `POST /{index}/_cache/clear` over REST and a
+    miss that is still correct."""
+    import gc as _gc
+
+    import torch
+
+    cache = node.filter_cache
+    bodies = _fc_bodies(match_musts, filters)
+    want = _fc_yard(lambda: serve(plain), index, bodies)()[0]
+    plane_bytes = int(node.indices[index].engine.segments[0].device.live.numel())
+    saved_budget = cache.max_bytes
+    cache.clear()
+    _gc.collect()
+    torch.cuda.synchronize()
+    alloc_before = torch.cuda.memory_allocated()
+    cache.max_bytes = 3 * plane_bytes
+    stats0 = cache.stats()
+    bad = 0
+    peak_resident = 0
+    server, base = serve(node)
+    try:
+        with counted(f"filter-cache {index} evict", launches):
+            for body, w in zip(bodies, want):
+                got = http(base, "POST", f"/{index}/_search", body)
+                bad += without_took(got) != w
+                peak_resident = max(peak_resident, cache.stats()["bytes_resident"])
+        stats1 = cache.stats()
+        cache.max_bytes = saved_budget
+        cleared_direct = cache.clear()
+        _gc.collect()
+        torch.cuda.synchronize()
+        alloc_after = torch.cuda.memory_allocated()
+        # REST clear: admit this index's planes again, clear them over
+        # REST, then one miss that must still be right.
+        with counted(f"filter-cache {index} clear", launches):
+            for body in bodies[:4]:
+                http(base, "POST", f"/{index}/_search", body)
+            cleared = http(base, "POST", f"/{index}/_cache/clear")
+            misses0 = cache.stats()["miss_count"]
+            again = http(base, "POST", f"/{index}/_search", bodies[0])
+            bad += without_took(again) != want[0]
+            miss_after_clear = cache.stats()["miss_count"] - misses0
+    finally:
+        server.shutdown()
+        server.server_close()
+        cache.max_bytes = saved_budget
+    out = {
+        "budget_bytes": 3 * plane_bytes,
+        "plane_bytes": plane_bytes,
+        "evictions": stats1["evictions"] - stats0["evictions"],
+        "admissions": stats1["admissions"] - stats0["admissions"],
+        "peak_bytes_resident": peak_resident,
+        "planes_cleared_after": cleared_direct,
+        "allocated_before": alloc_before,
+        "allocated_after_clear": alloc_after,
+        "rest_clear": cleared,
+        "misses_after_rest_clear": miss_after_clear,
+        "mismatches": int(bad),
+    }
+    log(f"  filter-cache evict {index}: {json.dumps(out)} [{card}]")
+    if bad:
+        raise SmokeFailure(f"{bad} filter-cache mismatches under eviction")
+    if out["evictions"] <= 0 or peak_resident > 3 * plane_bytes:
+        raise SmokeFailure(f"filter-cache budget not held: {out}")
+    if alloc_after - alloc_before >= plane_bytes:
+        raise SmokeFailure(f"filter-cache planes still allocated: {out}")
+    if cleared["cleared"]["filter_cache"] <= 0 or miss_after_clear <= 0:
+        raise SmokeFailure(f"_cache/clear dropped nothing: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase mesh (kernel-table row 23 and row 22's mesh half): the shards of one
 # index served as one mesh request (parallel/sharded.py, mesh_serving.py)
 # ---------------------------------------------------------------------------
@@ -6206,7 +6791,7 @@ def _install_view(svc, devices):
     from elasticsearch_tpu_torch.parallel.mesh_serving import maybe_mesh_view
 
     view = maybe_mesh_view(svc.engines, svc.mappings, svc.engines[0].params,
-                           devices)
+                           devices, filter_cache=svc.search.filter_cache)
     if view is None:
         raise SmokeFailure("no mesh view for the index (fewer devices than shards?)")
     svc.search.mesh_view = view
@@ -6297,12 +6882,14 @@ def _batch_rows(index, queries, want, batch_axis_size: int) -> int:
 
 
 def run_mesh_cfg3(card, dev, node, shards, bodies, responses, host_lat,
-                  launches, rows) -> dict:
+                  launches, rows, fc_check=None) -> dict:
     """Phase mesh on cfg3's 8-shard node (run_sharded's): mesh_snapshot's
     ShardedIndex.search and search_batch on a (1 x 8) mesh; search_batch
     on a (2 replica x 4 shard) mesh over shard segments 0-3; then REST
     with a MeshView installed; every answer held to the host loop's
-    (phase 8's responses, or the same index's search)."""
+    (phase 8's responses, or the same index's search). `fc_check`:
+    phase filter-cache's (bodies, yardstick answers), sent through the
+    same view before it is removed."""
     import numpy as np
     import torch
 
@@ -6390,6 +6977,10 @@ def run_mesh_cfg3(card, dev, node, shards, bodies, responses, host_lat,
               f"{N_SHARDS}, kk = {flat.shape[1] // N_SHARDS}), k = {m}")
     dev_ms = timer.device_ms()
     peak = int(torch.cuda.max_memory_allocated())
+    fc_mesh = None
+    if fc_check is not None:
+        fc_mesh = _fc_mesh(card, dev, node, "cfg3", *fc_check, launches,
+                           view=view)
     svc.search.mesh_view = None
     del view
     gc.collect()
@@ -6417,6 +7008,7 @@ def run_mesh_cfg3(card, dev, node, shards, bodies, responses, host_lat,
         f"{json.dumps(result)} [{card}]")
     if mismatches:
         raise SmokeFailure(f"{mismatches} mesh mismatches on cfg3")
+    result["filter_cache"] = fc_mesh
     return result
 
 

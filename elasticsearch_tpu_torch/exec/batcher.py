@@ -16,7 +16,9 @@ Port copy of elasticsearch_tpu/exec/batcher.py, trimmed to
   es_rejected_execution_exception with a Retry-After hint;
 - failure isolation: a rider that fails inside a coalesced launch (other
   than with a request-shaped ValueError/TypeError) is retried ONCE on its
-  own through the searcher's plain `search`, on its caller's thread; a
+  own through the searcher's plain `search`, on its caller's thread, with
+  `record_filter_usage=False` (the searcher contract: `search(request,
+  record_filter_usage=True)` and `search_many(requests)`); a
   group whose coalesced launches fail QUARANTINE_FAILURES (3) times in a
   row is served per request for QUARANTINE_TTL_S;
 - a waiting caller whose scheduler thread died or wedged runs its own
@@ -222,8 +224,10 @@ class MicroBatcher:
         if item.retry_solo:
             # Failure isolation: one individual retry on the plain
             # per-request path, run HERE so a batch of failures never
-            # serializes on the scheduler thread.
-            return searcher.search(request)
+            # serializes on the scheduler thread. record_filter_usage=
+            # False: the coalesced attempt's search_many already counted
+            # this request's filter-cache sighting.
+            return searcher.search(request, record_filter_usage=False)
         if item.error is not None:
             raise item.error
         return item.result

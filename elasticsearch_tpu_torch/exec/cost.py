@@ -2,10 +2,10 @@
 
 Port copy of elasticsearch_tpu/exec/cost.py, trimmed to `PlanFeatures`,
 `coalesce_wins`, `seed_ms` for the `device`, `device_batched`,
-`blockmax`, `blockmax_conj` and `ann_ivf` backends (and the generic
-device formula an unknown backend falls to), and `CostModel`. Left out
-with the backends that are not ported yet: the `oracle`, `mesh_spmd`,
-`packed` and `cached_mask` seeds and their constants.
+`cached_mask`, `blockmax`, `blockmax_conj` and `ann_ivf` backends (and
+the generic device formula an unknown backend falls to), and `CostModel`.
+Left out with the backends that are not ported yet: the `oracle`,
+`mesh_spmd` and `packed` seeds and their constants.
 
 A plan class is the hashable identity of "queries that cost the same":
 the compiled spec plus the requested k. Costs are tracked per (plan
@@ -60,8 +60,13 @@ def coalesce_wins(extra_pad_tiles: int) -> bool:
 
 
 # Backends priced by the device launch + tiles formula below, with the
-# dense term when the plan has no worklist.
-_DEVICE_LIKE = ("device", "device_batched")
+# dense term when the plan has no worklist. `cached_mask` is the device
+# kernels over a filter-cache-substituted plan (index/filter_cache.py):
+# the same launch floor, but its work_tiles already exclude the cached
+# clauses' worklists (a cached_mask node reads one resident plane), so
+# its seed undercuts the full recompute by the filter work the plane
+# removed.
+_DEVICE_LIKE = ("device", "device_batched", "cached_mask")
 
 
 def seed_ms(backend: str, feats: PlanFeatures) -> float:

@@ -10,8 +10,11 @@ item that brings it: the planner's oracle backend (`_decide`,
 `_oracle_rows`: every bucket runs packed until A3 brings
 search/oracle.py), `retune` (remediation, A13), the HBM ledger (A6), the
 metrics registry (A12: `stats()` keeps plain counters), tasks and
-cancellation (A8), `record_filter_usage` (A2), the QoS `lane_key` (A8),
-demoted engines, injected faults and the device instruments.
+cancellation (A8), the QoS `lane_key` (A8), demoted engines, injected
+faults and the device instruments. `search_many` records each rider's one
+filter-cache sighting at entry (the packed kernel recomputes filters; a
+rider that falls back to its own service records nothing more), and
+`search` takes the batcher's `record_filter_usage`.
 
 Small one-shard indices share ONE searcher facade, so the micro-batcher's
 group key (`("_packed", query shape)`) coalesces concurrent searches on
@@ -179,19 +182,22 @@ class PackedExecutor:
 
     # ---------------------------------------------- searcher facade (batcher)
 
-    def search(self, wrapped: TenantSearch):
+    def search(self, wrapped: TenantSearch, record_filter_usage: bool = True):
         """Solo / quarantine / retry path: the tenant's own service."""
-        return wrapped.svc.search.search(wrapped.request)
+        return wrapped.svc.search.search(
+            wrapped.request, record_filter_usage=record_filter_usage
+        )
 
     def _solo(self, wrapped: TenantSearch, fallback: bool = True):
         """Per-tenant execution inside a coalesced batch: the response or
         the error the solo path gives. `fallback` counts riders the plane
-        REFUSED, not a batch of one (the idle path)."""
+        REFUSED, not a batch of one (the idle path). search_many has
+        counted the rider's filter-cache sighting already."""
         if fallback:
             with self._lock:
                 self._fallbacks += 1
         try:
-            return self.search(wrapped)
+            return self.search(wrapped, record_filter_usage=False)
         # The batcher contract: one result or exception per rider; a
         # rider's own error must not fail its batchmates.
         except Exception as e:  # noqa: BLE001
@@ -200,8 +206,17 @@ class PackedExecutor:
     def search_many(self, wrapped: list) -> list:
         """Serve a coalesced cross-tenant batch: one SearchResponse (or
         Exception) per rider, each equal to the rider's solo response."""
+        from ..index.filter_cache import record_filter_usage
+
         start = time.monotonic()
         n = len(wrapped)
+        # One filter-cache sighting per rider, counted here so the tally
+        # is the same whether a rider runs on the packed kernel or falls
+        # back to its own service.
+        for w in wrapped:
+            record_filter_usage(
+                getattr(w.svc.search, "filter_cache", None), w.request.query
+            )
         if n == 1:
             return [self._solo(wrapped[0], fallback=False)]
         plane_info = self._ensure_plane([w.svc for w in wrapped])

@@ -4,13 +4,15 @@ Port copy of elasticsearch_tpu/exec/planner.py, trimmed to
 `ast_signature` (the micro-batcher's group key), `spec_work_tiles` (the
 coalescing work proxy) and `ExecPlanner` (`classify`, `decide`,
 `record`, `note`, `decisions`, `stats`) over the backends the port has:
-`device`, `blockmax`, `blockmax_conj`, `device_batched` and `ann_ivf`
-(the knn section's IVF probe, decided against the exact `device` kernels
-only inside the knn section; script_score kNN never routes to it). The
-decision counters are a plain dict (the reference keeps them on its
-metrics registry, which is not ported). Left out: `oracle_eligible` and
-the `oracle`, `mesh_spmd`, `packed` and `cached_mask` backends, which
-wait for their modules.
+`device`, `blockmax`, `blockmax_conj`, `device_batched`, `cached_mask`
+(the device kernels over a plan whose filter clauses read filter-cache
+planes, index/filter_cache.py: the solo path prices and counts such a
+plan under it) and `ann_ivf` (the knn section's IVF probe, decided
+against the exact `device` kernels only inside the knn section;
+script_score kNN never routes to it). The decision counters are a plain
+dict (the reference keeps them on its metrics registry, which is not
+ported). Left out: `oracle_eligible` and the `oracle`, `mesh_spmd` and
+`packed` backends, which wait for their modules.
 
 The structured kinds (nested, function_score, terms_set, geo, rank_feature,
 dismax, boosting, doc_set) are dense-only specs: each spec is its own plan
@@ -94,7 +96,12 @@ class ExecPlanner:
 
     MIN_OBS = 2  # explorations per (class, backend) before exploiting
     BACKENDS = (
-        "device", "blockmax", "blockmax_conj", "device_batched", "ann_ivf",
+        "device", "blockmax", "blockmax_conj", "device_batched",
+        # The device kernels over a filter-cache-substituted plan: cached
+        # clauses cost one plane read instead of their worklists, so its
+        # features carry the reduced work_tiles.
+        "cached_mask",
+        "ann_ivf",
     )
 
     def __init__(self, cost_model: CostModel | None = None):

@@ -39,10 +39,18 @@ coordinator then serves each eligible search through the mesh before its
 host loop, and such a search skips the micro-batcher, as in the
 reference.
 `IndexService.mesh_snapshot` stacks an index's live docs onto a mesh
-(parallel/sharded.ShardedIndex). Left out: replication and clusters,
-aliases and templates, ingest pipelines, scroll and async search, QoS
-lanes, the filter and request caches, tasks, metrics and tracing,
-snapshots, and every other API of the reference node (ROADMAP queue A).
+(parallel/sharded.ShardedIndex). The node's filter cache
+(index/filter_cache.py) is on by default, as in the reference:
+`Node(filter_cache=False)` is the reference's ESTPU_FILTER_CACHE=0, and
+`Node(filter_cache=FilterCache(max_bytes=..., min_freq=...))` sets what
+the reference reads from ESTPU_FILTER_CACHE_BYTES / _MIN_FREQ. Every
+index's services, coordinator and mesh view share it; `clear_cache`
+(`POST [/{index}]/_cache/clear`) drops an index's planes, `delete_index`
+drops them with the index, and a refresh prunes the planes of dead
+segment handles. Left out: replication and clusters, aliases and
+templates, ingest pipelines, scroll and async search, QoS lanes, the
+request cache, tasks, metrics and tracing, snapshots, and every other
+API of the reference node (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from .exec.packed import PackedExecutor
 from .exec.planner import ExecPlanner, ast_signature
 from .index.ann import AnnCache, clear_index_ann
 from .index.engine import Engine, VersionConflictError
+from .index.filter_cache import FilterCache, clear_index_planes
 from .index.mapping import Mappings
 from .ops.bm25 import BM25Params
 from .parallel.mesh_serving import maybe_mesh_view
@@ -185,7 +194,8 @@ class Node:
     and the cost-based backend planner; either is None when turned off.
     `exec_packed` (default on) builds the packed multi-tenant executor,
     which rides the batcher (None without one). `ann_cache`: True builds
-    the default AnnCache, False none, or pass one. `mesh_devices`: the
+    the default AnnCache, False none, or pass one; `filter_cache` likewise
+    for the FilterCache of filter-clause planes. `mesh_devices`: the
     devices a multi-shard index may serve on as a mesh, one entry per
     shard at least (None: every visible CUDA device for a CUDA node, the
     CPU for a CPU node)."""
@@ -200,6 +210,7 @@ class Node:
         ann_cache: "bool | AnnCache" = True,
         exec_packed: bool = True,
         mesh_devices=None,
+        filter_cache: "bool | FilterCache" = True,
     ):
         self.device = resolve_device(device)
         if mesh_devices is None:
@@ -230,6 +241,12 @@ class Node:
             self.ann_cache = ann_cache
         else:
             self.ann_cache = AnnCache() if ann_cache else None
+        # Mask planes of repeated filter clauses (None: every filter is
+        # evaluated on every launch).
+        if isinstance(filter_cache, FilterCache):
+            self.filter_cache = filter_cache
+        else:
+            self.filter_cache = FilterCache() if filter_cache else None
 
     def close(self) -> None:
         """Stop the micro-batcher's scheduler thread."""
@@ -306,14 +323,16 @@ class Node:
                 search = SearchService(
                     engines[0], planner=self.exec_planner,
                     ann_cache=self.ann_cache, index_name=name,
+                    filter_cache=self.filter_cache,
                 )
             else:
                 search = ShardedSearchCoordinator(
                     engines, name, planner=self.exec_planner,
-                    ann_cache=self.ann_cache,
+                    ann_cache=self.ann_cache, filter_cache=self.filter_cache,
                 )
                 search.mesh_view = maybe_mesh_view(
-                    engines, mappings, params, self.mesh_devices
+                    engines, mappings, params, self.mesh_devices,
+                    filter_cache=self.filter_cache,
                 )
             self.indices[name] = IndexService(
                 name=name,
@@ -325,13 +344,64 @@ class Node:
         return {"acknowledged": True, "shards_acknowledged": True, "index": name}
 
     def delete_index(self, name: str) -> dict:
-        """Drop an index and its IVF planes."""
+        """Drop an index with its filter-cache and IVF planes (their
+        engine uids can never be looked up again)."""
         with self._lock:
             svc = self.indices.pop(name, None)
         if svc is None:
             raise index_not_found(name)
+        clear_index_planes(self.filter_cache, svc.engines)
         clear_index_ann(self.ann_cache, svc.engines)
         return {"acknowledged": True}
+
+    def expand_index_patterns(self, name: str) -> list[str]:
+        """`_all`, comma lists and wildcards -> concrete index names; a
+        concrete name that does not exist is a 404."""
+        import fnmatch
+
+        if name in ("_all", "*"):
+            return sorted(self.indices)
+        out: list[str] = []
+        for part in name.split(","):
+            part = part.strip()
+            if "*" in part or "?" in part:
+                out.extend(
+                    i for i in sorted(self.indices)
+                    if fnmatch.fnmatchcase(i, part)
+                )
+            elif part:
+                out.append(self.get_index(part).name)
+        return out
+
+    def clear_cache(self, index: str | None = None) -> dict:
+        """POST [/{index}]/_cache/clear: drop filter-cache planes and IVF
+        planes (of one index, a pattern, or node-wide), with per-cache
+        cleared counts as the reference reports them. `request_cache` is
+        0: the request cache is not ported."""
+        targets = (
+            sorted(self.indices) if index is None
+            else self.expand_index_patterns(index)
+        )
+        cleared_filter = 0
+        cleared_ann = 0
+        shards = 0
+        for name in targets:
+            svc = self.indices.get(name)
+            if svc is None:
+                continue
+            shards += svc.n_shards
+            cleared_filter += clear_index_planes(
+                self.filter_cache, svc.engines
+            )
+            cleared_ann += clear_index_ann(self.ann_cache, svc.engines)
+        return {
+            "_shards": {"total": shards, "successful": shards, "failed": 0},
+            "cleared": {
+                "filter_cache": cleared_filter,
+                "request_cache": 0,
+                "ann": cleared_ann,
+            },
+        }
 
     def put_mapping(self, index: str, body: dict[str, Any] | None) -> dict:
         """Add fields to an index's mappings (PUT /{index}/_mapping); an
@@ -405,13 +475,14 @@ class Node:
         return out
 
     def _refresh_engine(self, engine: Engine) -> None:
-        """Refresh one shard and prune the IVF planes of its dead
-        segments."""
+        """Refresh one shard and prune the filter-cache and IVF planes of
+        its dead segments."""
         engine.refresh()
+        live = frozenset(h.uid for h in engine.segments)
+        if self.filter_cache is not None:
+            self.filter_cache.prune_dead(engine.uid, live)
         if self.ann_cache is not None:
-            self.ann_cache.prune_dead(
-                engine.uid, frozenset(h.uid for h in engine.segments)
-            )
+            self.ann_cache.prune_dead(engine.uid, live)
 
     def delete_doc(self, index: str, doc_id: str, refresh: bool = False) -> dict:
         svc = self.get_index(index)

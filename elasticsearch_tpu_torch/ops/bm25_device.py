@@ -13,7 +13,11 @@ and the two-launch block-max execution `execute_batch_blockmax`,
 `scores_at`; the sorted and cursor programs `sort_key_plane`,
 `execute_sorted`, `execute_sorted_after`, `execute_score_asc` and
 `execute_score_after`; the fused rescore `execute_rescore`; and
-`compute_filter_mask`, a filter plan's matched plane (the knn filter) —
+`compute_filter_mask`, a filter plan's matched plane (the knn filter and
+the filter cache's planes), and `compute_filter_mask_stacked`, its form
+over stacked shards; the filter cache's `cached_mask` node, which reads a
+resident plane (`_eval_node`) or gathers it at the sparse candidates
+(`_const_membership`, so `supports_sparse` admits it) —
 over the plan node kinds terms, terms_gather, terms_const, const,
 exists, range, match_all, match_none, bool, script (whose vector
 functions read the dense_vector planes through K7's script mode) and
@@ -27,9 +31,9 @@ nested docs' space, then K13 doc_join's join mode into parent space) and
 `geo_distance`, `geo_box`, `rank_feature`, `boosting`, `terms_set` and
 `dismax`, whose children run as any node does and whose elementwise tail
 is one K14 tail_eval launch (ops/tail_kernel.py), again dense-only. Left
-out: `compute_filter_mask_stacked` (with the filter cache), the
-positional and structured kinds over stacked shards (they raise on a
-stacked tree), and strictly sequential execution (see ROADMAP queue B).
+out: the positional and structured kinds over stacked shards (they raise
+on a stacked tree), and strictly sequential execution (see ROADMAP queue
+B).
 Packed multi-tenant execution (row 13) is here: `supports_packed`,
 `packed_segment_tree` and `execute_batch_packed`, which carry each lane's
 tenant doc bounds into the dense path (K3b's window mode), the sparse
@@ -292,6 +296,15 @@ def _eval_node(spec, arrays, seg: dict[str, Any], num_docs: int, q: int):
         return torch.where(matched, _col(arrays["boost"]), 0.0), matched
     if kind == "range":
         return _eval_range(spec, arrays, seg, num_docs, q)
+    if kind == "cached_mask":
+        # A filter-cache plane (index/filter_cache.py): the subtree's
+        # matched set, evaluated once and kept on the device; the node
+        # reads seg["masks"][slot] ([N] on one segment, broadcast to the
+        # Q rows without a copy; [S, N] on a stacked tree, row r reading
+        # shard r % S). The plane is shared state: nothing downstream
+        # writes into it. Boost where matched, as every constant leaf.
+        matched = _per_row(seg, seg["masks"][spec[1]], q).expand(q, num_docs)
+        return torch.where(matched, _col(arrays["boost"]), 0.0), matched
     if kind == "match_all":
         matched = torch.ones((q, num_docs), dtype=torch.bool, device=device)
         return _col(arrays["boost"]).expand(q, num_docs), matched
@@ -769,6 +782,23 @@ def compute_filter_mask(seg, spec, arrays):
     return matched[0]
 
 
+def compute_filter_mask_stacked(seg_stacked, spec, arrays_stacked):
+    """A filter plan's matched planes bool[S, N] over S stacked shards
+    ([S, ...] plan, each shard's row compiled with that shard's own
+    statistics): the reference's vmap of compute_filter_mask, as the S
+    rows of one evaluation (K1's stacked matched-only mode for terms
+    clauses), live not applied."""
+    n_shards = _n_shards(seg_stacked)
+    if not n_shards:
+        raise ValueError("compute_filter_mask_stacked needs a stacked tree")
+    num_docs = seg_stacked["live"].shape[-1]
+    _, matched = _eval_node(
+        spec, _pair_rows(_rows1(arrays_stacked)), seg_stacked, num_docs,
+        n_shards,
+    )
+    return matched.expand(n_shards, num_docs)
+
+
 def execute_dense(seg, spec, arrays):
     """Dense (scores, matched) over all docs — for rescoring and sorts:
     (f32[N] scores, 0 where not eligible; bool[N] matched & live)."""
@@ -897,13 +927,15 @@ def supports_sparse(spec) -> bool:
         return spec[3] <= SPARSE_TPAD_MAX
     if spec[0] == "bool":
         must_s, should_s, filter_s, must_not_s = spec[1:5]
+        # Filter-cache planes verify at the candidates with one gather.
+        const_kinds = ("terms_const", "cached_mask")
         return (
             len(must_s) == 1
             and must_s[0][0] == "terms"
             and must_s[0][3] <= SPARSE_TPAD_MAX
             and not should_s
-            and all(c[0] == "terms_const" for c in filter_s)
-            and all(c[0] == "terms_const" for c in must_not_s)
+            and all(c[0] in const_kinds for c in filter_s)
+            and all(c[0] in const_kinds for c in must_not_s)
         )
     return False
 
@@ -963,9 +995,13 @@ def _sparse_terms_inner(seg, spec, arrays, k: int, bounds=None):
 
 
 def _const_membership(seg, child_spec, carr, safe_docs, num_docs):
-    """Constant-clause membership at each row's candidate docs [Q, P]: K4
-    binary search for a single contiguous span, else the K1 matched
-    bitmap gathered."""
+    """Constant-clause membership at each row's candidate docs [Q, P]: a
+    filter-cache plane gathered there (row r reads shard r % S's row of a
+    stacked [S, N] plane), K4 binary search for a single contiguous span,
+    else the K1 matched bitmap gathered."""
+    if child_spec[0] == "cached_mask":
+        return _take(seg, seg["masks"][child_spec[1]],
+                     safe_docs.to(torch.int64))
     if len(child_spec) == 4 and child_spec[3] == 1:
         flat = _flat_plane(seg, seg["fields"][child_spec[1]][0])
         _pos, found = _kernel(seg, "span_locate")(

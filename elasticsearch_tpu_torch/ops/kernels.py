@@ -94,7 +94,10 @@ K10 by mode (`bucket_fold`, `bucket_fold_range`), K11
 `doc_join_sum`, `doc_join_avg`, `doc_join_max`, `doc_join_min`,
 `doc_mark`), K14 by node kind (`tail_eval_<kind>`), K2's bounds mode
 (`sparse_fold_bounds`) and K3's window mode (`masked_topk_window`),
-whatever its row count. Launches from several threads (the REST
+whatever its row count. K1's matched-only launches (a constant filter's
+bitmap, the filter cache's planes) count in `terms_scatter*` as every K1
+launch does, and also in `MATCHED_ONLY_LAUNCHES` under the same names.
+Launches from several threads (the REST
 handlers and the micro-batcher) share the one library and the caller's
 current stream; the library loads once under `_lib_lock` and the counts
 move under `_count_lock`.
@@ -155,6 +158,10 @@ LAUNCHES: dict[str, int] = {
     **{name + suffix: 0 for name in KERNELS for suffix in MODES},
     **{name: 0 for name in ONE_NAME_KERNELS},
 }
+# K1's matched-only launches, a subset of LAUNCHES' terms_scatter counts.
+MATCHED_ONLY_LAUNCHES: dict[str, int] = {
+    "terms_scatter" + suffix: 0 for suffix in MODES
+}
 
 # Largest rescore window K5 sorts in one block's shared memory (128 KB).
 WINDOW_MAX = 16384
@@ -174,6 +181,8 @@ def reset_launches() -> None:
     with _count_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        for name in MATCHED_ONLY_LAUNCHES:
+            MATCHED_ONLY_LAUNCHES[name] = 0
 
 
 def count_launch(name: str) -> None:
@@ -182,14 +191,18 @@ def count_launch(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def _count(name: str, n_rows: int, n_shards: int = 0) -> None:
-    """One launch of `name`: stacked (n_shards > 0), else by row count."""
+def _count(name: str, n_rows: int, n_shards: int = 0,
+           matched_only: bool = False) -> None:
+    """One launch of `name`: stacked (n_shards > 0), else by row count;
+    K1's matched-only mode also counts in MATCHED_ONLY_LAUNCHES."""
     if n_shards:
         name += "_stacked"
     elif n_rows > 1:
         name += "_batch"
     with _count_lock:
         LAUNCHES[name] += 1
+        if matched_only:
+            MATCHED_ONLY_LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -668,7 +681,7 @@ def _terms_scatter_launch(
             _stream(dev),
         )
     _check_rc("terms_scatter", rc)
-    _count("terms_scatter", q, n_shards)
+    _count("terms_scatter", q, n_shards, matched_only=matched_only)
     return scores, matched
 
 

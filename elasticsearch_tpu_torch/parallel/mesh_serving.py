@@ -8,8 +8,10 @@ circuit breaker), `MeshIndex` (`serving_stats`, `pack_avgdls`,
 `_fallback`, `ineligible_reason`, `eligible`, `_sort_plan`,
 `_compile_aggs` and `serve`, with the reference's plain counters
 `served`, `packs`, `seg_reuses`, `rebuilds`, `fallbacks` and
-`exec_failures`) and `maybe_mesh_view`. Left out, each with its ROADMAP
-item: `MeshIndex._apply_filter_cache` and the view's filter cache (A2);
+`exec_failures`) and `maybe_mesh_view`; and the filter cache's mesh rows:
+`MeshIndex._apply_filter_cache` (row-granular), `MeshView(filter_cache=)`
+with its `purge_scope` on a snapshot change, and `serve`'s consult of the
+cache on the plain-score path. Left out, each with its ROADMAP item:
 `pack_segment_delta` (A6), so a shard whose content moved repacks whole
 with `pack_segment`, to the same pow-2 shapes, and answers are unchanged;
 the metrics registry, tracing, the planner's `mesh_spmd` decisions and
@@ -39,6 +41,12 @@ psum'd) instead of the coordinator's host loop over shards:
   route, not the scores.
 - The fetch phase (`_source`) stays on the host against the snapshot's
   merged segments.
+- Filter-cache rows survive refresh: a mesh plane is cached per shard
+  row, keyed by the shard's (handle uid, live epoch) signature, so a
+  refresh of one shard invalidates only that shard's row (one
+  single-shard `compute_filter_mask` rebuilds it) and the other rows
+  keep hitting. The per-request plane is the tuple of the cached rows
+  (each on its shard's device) and is never cached itself.
 
 One request serves sorted searches (one numeric key, asc / desc,
 missing first / last, an optional trailing `_doc`), `search_after`
@@ -63,6 +71,7 @@ from typing import Any
 
 import numpy as np
 
+from ..index.filter_cache import mesh_cache_scope
 from ..index.merge import compact_segment, concat_segments
 from ..index.segment import Segment
 from ..index.tiles import TILE, device_nbytes, pack_segment
@@ -71,9 +80,11 @@ from ..query.compile import FieldStats, aggregate_field_stats
 from .mesh import Mesh
 from .sharded import (
     ShardedIndex,
+    ShardPlanes,
     fill_union_schema,
     sharded_execute,
     sharded_execute_request,
+    trees_with_masks,
     union_schema,
 )
 
@@ -214,11 +225,65 @@ class MeshIndex(ShardedIndex):
 
     serving_stats: dict[str, FieldStats] | None = None
     pack_avgdls: list[dict[str, float]] | None = None
+    # Per-shard content signatures, (handle uid, live epoch) per handle:
+    # the filter-cache rows key on them.
+    shard_sigs: tuple = ()
 
     def field_stats(self) -> dict[str, FieldStats]:
         if self.serving_stats is not None:
             return self.serving_stats
         return super().field_stats()
+
+    def _apply_filter_cache(
+        self, query, compiled, record: bool = True, entries: list | None = None
+    ):
+        """Row-granular mesh filter cache: planes are cached per shard
+        row, keyed (scope, ("row", shard, signature, docs pad), 0, key),
+        so a refresh of one shard invalidates only its row. A missing row
+        is one `compute_filter_mask` over that shard's tree, on its
+        device, bit-equal to the stacked program's row. The per-request
+        ShardPlanes over the rows is never cached: it would keep the rows
+        alive past their own eviction."""
+        cache = self.filter_cache
+        if cache is None or not self.shard_sigs:
+            return super()._apply_filter_cache(query, compiled, record, entries)
+        from ..index.filter_cache import apply_cached_masks, record_filter_usage
+        from ..ops.bm25_device import compute_filter_mask
+
+        if entries is None:
+            entries = record_filter_usage(cache, query, record=record)
+        if not entries:
+            return compiled, {}
+        scope = self.cache_scope
+        npad = self.docs_per_shard
+
+        def build(child_spec, child_arrays, norm):
+            rows = []
+            hit_rows = 0
+            for s in range(self.n_shards):
+                rkey = (scope, ("row", s, self.shard_sigs[s], npad), 0, norm)
+                row = cache.get(rkey)
+                if row is None:
+                    row = compute_filter_mask(
+                        self.trees[s], child_spec,
+                        self._shard_plan(child_arrays, s),
+                    ).clone()
+                    cache.put(rkey, row, row.numel() * row.element_size())
+                else:
+                    hit_rows += 1
+                rows.append(row)
+            cache.note_reuse(hit_rows)
+            return ShardPlanes(rows), 0
+
+        compiled, masks, _reused = apply_cached_masks(
+            cache, (scope, 0, 0), query, compiled, build,
+            const_fill=lambda: {
+                "boost": np.zeros(self.n_shards, dtype=np.float32)
+            },
+            entries=entries,
+            store_planes=False,
+        )
+        return compiled, masks
 
     def _tn_avgdl(self, shard: int, field: str, fstats) -> float:
         # The compiled spec kind must stay shard-uniform: a tn scope is
@@ -250,12 +315,16 @@ class MeshView:
     """Generation-consistent mesh view of one index's shards."""
 
     def __init__(self, engines, mappings, params, mesh: Mesh,
-                 axis: str = "shard"):
+                 axis: str = "shard", filter_cache=None):
         self.engines = engines
         self.mappings = mappings
         self.params = params
         self.mesh = mesh
         self.axis = axis
+        # The node's FilterCache: the plain-score serve path reads cached
+        # per-shard rows for repeated filter clauses; rows of shards whose
+        # signature moved are purged on the snapshot change.
+        self.filter_cache = filter_cache
         self._lock = threading.Lock()
         self._snap: _Snapshot | None = None
         n = len(engines)
@@ -495,6 +564,13 @@ class MeshView:
                 self.packs += 1
             self.seg_reuses += n - len(to_pack)
             self._shard_sig = list(sigs)
+            scope = mesh_cache_scope(self.engines)
+            docs_pad = self._shapes["docs"]
+            if self.filter_cache is not None:
+                # Rows no snapshot can serve again free their memory now;
+                # rows of unchanged shards survive and keep hitting.
+                keep = {("row", s, sigs[s], docs_pad) for s in range(n)}
+                self.filter_cache.purge_scope(scope, keep)
             self.plane_bytes = sum(
                 device_nbytes(d) for d in self._devs if d is not None
             )
@@ -509,6 +585,10 @@ class MeshView:
                 params=self.params,
                 serving_stats=stats,
                 pack_avgdls=list(self._pack_avgdl),
+                filter_cache=self.filter_cache,
+                cache_scope=scope,
+                cache_generation=sum(gens),
+                shard_sigs=tuple(sigs),
             )
             self._snap = _Snapshot(
                 gens=gens,
@@ -628,12 +708,13 @@ class MeshView:
             raise ValueError("aggregation plans did not lower shard-uniform")
         return agg, per_shard[0][0], _stack([a for _, a in per_shard])
 
-    def serve(self, coordinator, request):
+    def serve(self, coordinator, request, fc_entries: list | None = None):
         """Answer a SearchRequest on the mesh (scoring, sorted or
         score-ordered top-k with the search_after mask, psum'd totals and
         the aggregation planes), or return None, with the decline counted
         by reason, so that the coordinator serves it through its host
-        loop."""
+        loop. `fc_entries` are the coordinator's collected filter-cache
+        entries (it recorded the request's sighting)."""
         from ..search.aggs import _to_host, merge_mesh_result, new_merge_state
         from ..search.service import SearchHit, SearchResponse, clamp_total
 
@@ -705,10 +786,21 @@ class MeshView:
         try:
             if plain:
                 # The plain score path keeps the candidate-centric sparse
-                # kernels (no dense planes, no agg planes).
+                # kernels (no dense planes, no agg planes), and repeated
+                # filter clauses read their cached rows (record=False: the
+                # coordinator counted the request; a fallback to the host
+                # loop must not count it twice). The sorted and
+                # aggregating program recomputes its filters, as the
+                # reference's does.
+                masks = {}
+                if idx.filter_cache is not None:
+                    compiled, masks = idx._apply_filter_cache(
+                        request.query, compiled, record=False,
+                        entries=fc_entries,
+                    )
                 scores, gids, total = sharded_execute(
-                    idx.mesh, idx.axis, idx.trees, compiled.arrays,
-                    compiled.spec, k, idx.docs_per_shard,
+                    idx.mesh, idx.axis, trees_with_masks(idx.trees, masks),
+                    compiled.arrays, compiled.spec, k, idx.docs_per_shard,
                 )
                 n_after = total
                 agg_out = ()
@@ -788,7 +880,8 @@ class MeshView:
         )
 
 
-def maybe_mesh_view(engines, mappings, params, devices) -> MeshView | None:
+def maybe_mesh_view(engines, mappings, params, devices,
+                    filter_cache=None) -> MeshView | None:
     """A MeshView when mesh serving can work here: more than one shard,
     and at least one device entry per shard (`devices`, the node's mesh
     devices; entries may repeat, and none turns the view off)."""
@@ -798,4 +891,5 @@ def maybe_mesh_view(engines, mappings, params, devices) -> MeshView | None:
         return None
     mesh = Mesh(np.array(list(devices[: len(engines)]), dtype=object),
                 ("shard",))
-    return MeshView(engines, mappings, params, mesh)
+    return MeshView(engines, mappings, params, mesh,
+                    filter_cache=filter_cache)

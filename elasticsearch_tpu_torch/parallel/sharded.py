@@ -7,9 +7,10 @@ Kept: `_empty_field`, `union_schema`, `fill_union_schema`, `ShardedIndex`
 `compile_batch_buckets`, `search`, `search_batch`, `locate`),
 `_PlanField`, `_max_nt` and the three shard_map bodies,
 `sharded_execute`, `sharded_execute_request` and `sharded_execute_batch`,
-over parallel/mesh.py's mesh. Left out: `_apply_filter_cache` and the
-`filter_cache` / `cache_scope` fields (the filter cache, ROADMAP queue
-A2) and `instruments` / `timed_launch` (device observability, A12).
+over parallel/mesh.py's mesh; and the filter cache's mesh half
+(`filter_cache`, `cache_scope`, `cache_generation`,
+`_apply_filter_cache`, and `search` with masks). Left out: `instruments`
+/ `timed_launch` (device observability, A12).
 
 The reference runs one SPMD program: every shard's planes stacked on a
 leading mesh axis, one `shard_map` body per device, `all_gather` of the
@@ -34,6 +35,13 @@ sums; float planes come back stacked.
 Global term statistics: `field_stats` aggregates statistics across
 shards at plan time (the DFS phase), so scores do not depend on routing.
 Doc addressing: global doc = shard * docs_per_shard + local (`locate`).
+
+Filter cache: the reference's [S, N] stacked plane of a cached clause is
+here the tuple of its S rows, row s on shard s's device (`ShardPlanes`),
+each row `compute_filter_mask` over shard s's tree and plan row, which is
+bit for bit `compute_filter_mask_stacked` over the stacked tree; the
+bodies read row s as their segment's `seg["masks"][slot]`
+(`trees_with_masks`).
 On a 2D (replica x shard) mesh the index is replicated over the replica
 axis: the replica rows that sit on one device share that shard's tree,
 and another device gets one copy, made on first use.
@@ -43,6 +51,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field as dc_field, replace as dc_replace
 from typing import Any
+
+import itertools
 
 import numpy as np
 import torch
@@ -69,6 +79,28 @@ from .mesh import Mesh
 from .routing import shard_for_id
 
 NEG_INF = float("-inf")
+
+_SHARDED_UIDS = itertools.count(1)
+
+
+class ShardPlanes(tuple):
+    """A filter-cache plane over S shards: S bool[N] rows, row s on shard
+    s's device (the reference's [S, N] stacked plane)."""
+
+    @property
+    def nbytes(self) -> int:
+        return sum(r.numel() * r.element_size() for r in self)
+
+
+def trees_with_masks(trees: list, masks: dict) -> list:
+    """Each shard's tree carrying its rows of the request's filter-cache
+    planes as `seg["masks"]`."""
+    if not masks:
+        return trees
+    return [
+        {**tree, "masks": {slot: rows[s] for slot, rows in masks.items()}}
+        for s, tree in enumerate(trees)
+    ]
 
 
 def _empty_field(name: str, num_docs: int, has_norms: bool) -> FieldIndex:
@@ -159,6 +191,17 @@ class ShardedIndex:
     _tile_bounds: dict | None = None
     # (shard, device) -> that shard's tree on another device of a 2D mesh.
     _replicas: dict = dc_field(default_factory=dict)
+    # index.filter_cache.FilterCache: when set, `search` substitutes
+    # cacheable filter-context clauses with per-shard planes (shards are
+    # immutable, so they never go stale; the cache's LRU and byte budget
+    # bound their residency).
+    filter_cache: Any = None
+    # Cache-key scope and generation: MeshView sets the engines' uid tuple
+    # and their generation sum; None is this instance's own uid, pinned
+    # at generation 0.
+    cache_scope: Any = None
+    cache_generation: int = 0
+    _cache_uid: int = dc_field(default_factory=lambda: next(_SHARDED_UIDS))
 
     def _field_tile_bounds(self, shard: int, name: str):
         if self._tile_bounds is None:
@@ -434,13 +477,65 @@ class ShardedIndex:
         """global doc id -> (shard, local doc id) for the fetch phase."""
         return divmod(int(global_doc), self.docs_per_shard)
 
+    def _shard_plan(self, arrays_stacked, s: int):
+        """Shard s's row of a stacked numpy plan, on shard s's device."""
+        return bm25_device.plan_to_torch(
+            None, _map(lambda x: np.asarray(x)[s], arrays_stacked),
+            self.trees[s]["live"].device,
+        )
+
+    def _apply_filter_cache(
+        self, query: Query, compiled: CompiledQuery, record: bool = True,
+        entries: list | None = None,
+    ):
+        """Substitute per-shard filter-cache planes for the plan's
+        cacheable top-level filter clauses. Each body reads its own
+        shard's row, bit-identical to evaluating the clause there.
+        `record=False` records no sighting (the coordinator counted the
+        request). Returns (compiled', masks)."""
+        from ..index.filter_cache import apply_cached_masks, record_filter_usage
+
+        cache = self.filter_cache
+        if entries is None:
+            entries = record_filter_usage(cache, query, record=record)
+        if not entries:
+            return compiled, {}
+
+        def build(child_spec, child_arrays, _norm):
+            plane = ShardPlanes(
+                bm25_device.compute_filter_mask(
+                    self.trees[s], child_spec,
+                    self._shard_plan(child_arrays, s),
+                ).clone()
+                for s in range(self.n_shards)
+            )
+            return plane, plane.nbytes
+
+        scope = (
+            self.cache_scope
+            if self.cache_scope is not None
+            else ("sharded", self._cache_uid)
+        )
+        compiled, masks, _reused = apply_cached_masks(
+            cache, (scope, int(self.cache_generation), 0), query, compiled,
+            build,
+            const_fill=lambda: {
+                "boost": np.zeros(self.n_shards, dtype=np.float32)
+            },
+            entries=entries,
+        )
+        return compiled, masks
+
     def search(self, query: Query, k: int = 10):
         """One-call sharded search: (scores f32[k'], global ids, total) as
         numpy."""
         compiled = self.compile(query)
+        masks = {}
+        if self.filter_cache is not None:
+            compiled, masks = self._apply_filter_cache(query, compiled)
         scores, ids, total = sharded_execute(
-            self.mesh, self.axis, self.trees, compiled.arrays, compiled.spec,
-            k, self.docs_per_shard,
+            self.mesh, self.axis, trees_with_masks(self.trees, masks),
+            compiled.arrays, compiled.spec, k, self.docs_per_shard,
         )
         scores, ids, total = _host(scores), _host(ids), int(total)
         n = min(k, total)

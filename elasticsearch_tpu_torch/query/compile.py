@@ -20,8 +20,9 @@ statistics that `aggregate_field_stats` gathers from nested inner
 fields too), `_function_score` (query/functions.lower_function per
 function, filters as ordinary nodes), `_rank_feature`, the geo nodes,
 `boosting`, `_terms_set`, `_ids` (a `doc_set` of local ids) and
-`dis_max`, with their unify/pad rules. Left out: prefix / wildcard /
-fuzzy / regexp queries, percolate and filter-cache keys.
+`dis_max`, with their unify/pad rules; and the filter cache's keys,
+`cacheable_filter_key` and `collect_cacheable_filters`. Left out:
+prefix / wildcard / fuzzy / regexp queries and percolate.
 
 Everything data-dependent happens here, on the host, at plan time:
 analysis of match text, term-dictionary lookups -> posting spans ->
@@ -377,6 +378,78 @@ def select_lead_clause(groups) -> int:
         if df < best_df:
             best, best_df = i, df
     return best
+
+
+# ---------------------------------------------------------------------------
+# Filter-cache normalization (index/filter_cache.py).
+#
+# A filter-context subtree is cacheable when its matched set is a pure
+# function of the segment's postings and doc values: constant-scoring and
+# statistics-free, so its evaluated bool[num_docs] plane can be reused
+# as it is across requests. `cacheable_filter_key` canonicalizes such a
+# subtree to a hashable key: equal keys imply bit-identical matched
+# planes (boosts are dropped, since filter context discards scores;
+# terms sort, since disjunction order cannot move the mask).
+# ---------------------------------------------------------------------------
+
+
+def cacheable_filter_key(q) -> tuple | None:
+    """Canonical cache key of a filter-context query subtree, or None
+    when the shape is not cacheable (statistics-dependent, positional,
+    script-driven, or otherwise not a pure postings / doc-values set)."""
+    if isinstance(q, TermQuery):
+        return ("term", q.field_name, str(q.value))
+    if isinstance(q, TermsQuery):
+        if not q.values:
+            return None
+        return ("terms", q.field_name, tuple(sorted(str(v) for v in q.values)))
+    if isinstance(q, RangeQuery):
+        return (
+            "range", q.field_name, str(q.gte), str(q.gt), str(q.lte),
+            str(q.lt),
+        )
+    if isinstance(q, ExistsQuery):
+        return ("exists", q.field_name)
+    if isinstance(q, ConstantScoreQuery):
+        # constant_score in filter context matches exactly its filter.
+        return cacheable_filter_key(q.filter)
+    if isinstance(q, BoolQuery):
+        # Pure-filter composite: every child must be cacheable itself;
+        # minimum_should_match takes part (it changes the matched set).
+        groups = []
+        for clause in (q.must, q.should, q.filter, q.must_not):
+            keys = []
+            for child in clause:
+                key = cacheable_filter_key(child)
+                if key is None:
+                    return None
+                keys.append(key)
+            groups.append(tuple(keys))
+        if not any(groups):
+            return None
+        # A cache key over the query tree, not the arity-7 bool spec.
+        return ("bool", *groups, q.minimum_should_match)
+    return None
+
+
+def collect_cacheable_filters(query) -> list[tuple[str, int, tuple]]:
+    """The cacheable filter-context clauses of a top-level bool query:
+    [(group, clause index, canonical key)] with group "filter" or
+    "must_not", the positions index/filter_cache.py may replace with
+    cached mask planes. A root that is not a bool yields nothing (must and
+    should clauses score, so they are never replaced)."""
+    if not isinstance(query, BoolQuery):
+        return []
+    out: list[tuple[str, int, tuple]] = []
+    for group, clauses in (
+        ("filter", query.filter),
+        ("must_not", query.must_not),
+    ):
+        for i, clause in enumerate(clauses):
+            key = cacheable_filter_key(clause)
+            if key is not None:
+                out.append((group, i, key))
+    return out
 
 
 class Compiler:

@@ -15,6 +15,9 @@ on the stdlib ThreadingHTTPServer:
     GET|POST /{index}/_search       search (with a `knn` section too)
     POST /{index}/_knn_search       kNN search: the body's `knn` object,
                                     a top-level filter folded into it
+    POST [/{index}]/_cache/clear    drop filter-cache and IVF planes (of
+                                    an index, a comma list or wildcard,
+                                    or node-wide)
 
 Responses and error payloads have the reference's shapes; a search shed
 by the node's micro-batcher answers 429 with a Retry-After header. The
@@ -117,6 +120,12 @@ class RestServer:
             r(method, "/{index}/_refresh", lambda p, q, b: n.refresh(p["index"]))
         r("POST", "/{index}/_knn_search", lambda p, q, b: n.search(
             p["index"], _knn_search_body(_json(b))
+        ))
+        # The clear-cache API (the reference's RestClearIndicesCacheAction):
+        # per-cache cleared counts; a missing concrete name is a 404.
+        r("POST", "/_cache/clear", lambda p, q, b: n.clear_cache())
+        r("POST", "/{index}/_cache/clear", lambda p, q, b: n.clear_cache(
+            p["index"]
         ))
         r("GET", "/{index}/_mapping", lambda p, q, b: n.get_mapping(p["index"]))
         for method in ("PUT", "POST"):

@@ -18,9 +18,14 @@ per-shard requests carry none (the reference's coordinator:228-247).
 parallel/mesh_serving.MeshView, installed by the node when the shards
 fit its mesh devices) and keeps its answer when it is not None; a
 declined request takes the host loop below (the reference's
-coordinator:198-215). Left out: scroll contexts, fetch sub-phases
-(highlight, fields), tasks and timeouts, the filter cache, tracing and
-injected faults.
+coordinator:198-215). The node's filter cache (index/filter_cache.py)
+counts one admission sighting per user request, recorded here before the
+mesh attempt; the mesh consult and every per-shard pass (`search`'s
+scatter and `search_many`'s batched passes) get
+`record_filter_usage=False` and the collected entries, so an n-shard
+request is one sighting, not n. Left out: scroll contexts, fetch
+sub-phases (highlight, fields), tasks and timeouts, tracing and injected
+faults.
 
 The single-process analog of the reference's coordinator node path —
 AbstractSearchAsyncAction fans per-shard query-phase requests out and
@@ -71,13 +76,16 @@ class ShardedSearchCoordinator:
 
     def __init__(
         self, engines: list["Engine"], index_name: str = "index", planner=None,
-        ann_cache=None,
+        ann_cache=None, filter_cache=None,
     ):
         self.engines = engines
         self.index_name = index_name
+        # The node-wide filter cache: every shard's service keys its
+        # planes into the one store.
+        self.filter_cache = filter_cache
         self.services = [
             SearchService(e, planner=planner, ann_cache=ann_cache,
-                          index_name=index_name)
+                          index_name=index_name, filter_cache=filter_cache)
             for e in engines
         ]
         self._stats_cache = None
@@ -125,9 +133,28 @@ class ShardedSearchCoordinator:
             "reason": {"type": type(e).__name__, "reason": str(e)},
         }
 
-    def search(self, request: SearchRequest) -> SearchResponse:
+    def search(
+        self, request: SearchRequest, record_filter_usage: bool = True,
+    ) -> SearchResponse:
+        """One user request: the mesh view's answer when it serves it,
+        else the host loop's scatter and merge. `record_filter_usage=
+        False` (the batcher's solo retry) records no filter-cache
+        sighting."""
+        from ..index.filter_cache import (
+            record_filter_usage as _record_filter_usage,
+            record_knn_filter_usage,
+        )
+
+        # One admission sighting per user request, recorded before the
+        # mesh attempt so that neither outcome counts twice.
+        fc_entries = _record_filter_usage(
+            self.filter_cache, request.query, record=record_filter_usage
+        )
+        record_knn_filter_usage(
+            self.filter_cache, request.knn, record=record_filter_usage
+        )
         if self.mesh_view is not None:
-            resp = self.mesh_view.serve(self, request)
+            resp = self.mesh_view.serve(self, request, fc_entries=fc_entries)
             if resp is not None:
                 return resp
         start = time.monotonic()
@@ -155,7 +182,7 @@ class ShardedSearchCoordinator:
         )
         if k > 0 or agg_total is None:
             merged, total, max_score, skipped, failures = self._scatter_merge(
-                shard_request, stats, snapshots
+                shard_request, stats, snapshots, fc_entries
             )
         else:
             merged, total, max_score, skipped, failures = [], 0, None, 0, []
@@ -202,8 +229,15 @@ class ShardedSearchCoordinator:
                 except Exception as e:  # noqa: BLE001 - per-rider result
                     out.append(e)
             return out
+        from ..index.filter_cache import record_filter_usage
+
         start = time.monotonic()
         n = len(requests)
+        # One filter-cache sighting per rider, not per shard; the entries
+        # thread through every shard's batched pass.
+        fc_entries = [
+            record_filter_usage(self.filter_cache, r.query) for r in requests
+        ]
         snapshots = [list(e.segments) for e in self.engines]
         stats = self.global_stats(snapshots)
         ks = [max(0, r.from_) + max(0, r.size) for r in requests]
@@ -232,6 +266,8 @@ class ShardedSearchCoordinator:
                     [ks[i] for i in rows],
                     stats,
                     snapshots[shard_idx],
+                    record_filter_usage=False,
+                    fc_entries=[fc_entries[i] for i in rows],
                 )
             except (ValueError, TypeError):
                 raise
@@ -302,7 +338,8 @@ class ShardedSearchCoordinator:
         return out
 
     def _scatter_merge(
-        self, request: SearchRequest, stats, snapshots: list[list]
+        self, request: SearchRequest, stats, snapshots: list[list],
+        fc_entries: list | None = None,
     ) -> tuple[list[tuple], int, float | None, int, list[dict]]:
         """Fan one request out to every shard and merge by
         (merge key, shard, per-shard rank). Returns (sorted merged tuples,
@@ -323,7 +360,8 @@ class ShardedSearchCoordinator:
                 continue
             try:
                 resp = svc.search(
-                    request, stats=stats, segments=snapshots[shard_idx]
+                    request, stats=stats, segments=snapshots[shard_idx],
+                    record_filter_usage=False, fc_entries=fc_entries,
                 )
             except (ValueError, TypeError):
                 raise  # request-shaped: never "a shard died"

@@ -24,8 +24,9 @@ two-launch block-max paths (`blockmax` for a terms spec,
 execution's time; it is not consulted for a request with rescore, as in
 the reference. The top-level `knn` section (`KnnSpec`, with
 `KNN_EXCLUSIVE`) is served by `_validate_knn`, `_knn_filter_mask`
-(without the filter cache), `_knn_plan` (the node's AnnCache and the
-planner's `ann_ivf` / `device` decision), `_query_segment_knn` (IVF probe
+(the filter's plane, from the filter cache once admitted), `_knn_plan`
+(the node's AnnCache and the planner's `ann_ivf` / `device` decision),
+`_query_segment_knn` (IVF probe
 + exact re-rank where the segment has partition planes, brute force
 otherwise; ops/ann_device) and, for the micro-batcher's knn groups,
 `_knn_search_many`, with the reference's messages and its global top-k
@@ -41,12 +42,19 @@ any other dense plan does; so do the structured queries (multi_match,
 dis_max, ids, boosting, rank_feature, geo_distance, geo_bounding_box,
 terms_set, function_score and nested: K13 / K14 after their children),
 a nested query's child compiling against the segment's nested block.
-Left out: CPU-oracle routing (and with it any
-planner decision on the batched path), the filter cache (a batch's mask
-token is always `()`, and the knn filter's admission is not recorded),
-tasks and timeouts, scroll, highlight, fields, profile and the other
-body keys of the reference; a request asking for one of those is
-refused with a 400.
+The node's filter cache (index/filter_cache.py, `filter_cache=`):
+`_collect_filter_entries` records one admission sighting per user
+request (a coordinator passes `record_filter_usage=False` and its own
+entries), and `_apply_filter_cache` substitutes each segment's cached
+planes, keyed (engine uid, 0, handle uid, filter key), into the plan
+before it runs, on the solo path (every branch: score-sorted, sorted,
+cursors, rescore; a masked plan is priced and counted as the planner's
+`cached_mask` backend) and on the batched path (batchmates whose planes
+are the same objects share one launch and one seg["masks"]: the group
+key's mask token). Left out: CPU-oracle routing (and with it any
+planner decision on the batched path), tasks and timeouts, scroll,
+highlight, fields, profile and the other body keys of the reference; a
+request asking for one of those is refused with a 400.
 """
 
 from __future__ import annotations
@@ -474,31 +482,89 @@ class SearchService:
     """Executes SearchRequests against one Engine (one shard). `planner`
     is the node's ExecPlanner (None: every segment runs on the device
     kernels); `ann_cache` the node's AnnCache of IVF planes (None: every
-    knn runs the exact brute-force kernels)."""
+    knn runs the exact brute-force kernels); `filter_cache` the node's
+    FilterCache (None: every filter is evaluated on every launch)."""
 
     def __init__(self, engine: Engine, planner=None, ann_cache=None,
-                 index_name: str = "index"):
+                 index_name: str = "index", filter_cache=None):
         self.engine = engine
         self.index_name = index_name  # top_hits' `_index`
         self.planner = planner
         self.ann_cache = ann_cache
+        self.filter_cache = filter_cache
+
+    # --------------------------------------------------------- filter cache
+
+    def _collect_filter_entries(self, query, record: bool) -> list:
+        """The request's cacheable-filter entries, with one admission
+        sighting recorded when `record` (once per user request, never per
+        segment, and never per shard when a coordinator drives this
+        service). Collected once and threaded through every per-segment
+        apply."""
+        from ..index.filter_cache import record_filter_usage
+
+        return record_filter_usage(self.filter_cache, query, record=record)
+
+    def _live_uids(self) -> frozenset:
+        return frozenset(h.uid for h in self.engine.segments)
+
+    def _apply_filter_cache(self, handle, query, compiled, seg_tree,
+                            entries=None):
+        """Substitute cached mask planes into one segment's compiled plan.
+        Returns (compiled', masks), masks empty when nothing applied.
+        Keyed per segment handle, not per engine generation: postings are
+        immutable and planes exclude the live mask, so a plane stays
+        servable across refreshes that only add other segments."""
+        if self.filter_cache is None:
+            return compiled, {}
+        from ..index.filter_cache import apply_cached_masks
+
+        def build(child_spec, child_arrays, _norm):
+            plane = _owned_plane(bm25_device.compute_filter_mask(
+                seg_tree, child_spec,
+                bm25_device.plan_to_torch(
+                    child_spec, child_arrays, handle.device.device),
+            ))
+            return plane, plane.numel() * plane.element_size()
+
+        compiled, masks, _reused = apply_cached_masks(
+            self.filter_cache, (self.engine.uid, 0, handle.uid), query,
+            compiled, build, entries=entries, live_uids=self._live_uids(),
+        )
+        return compiled, masks
 
     def search(
         self,
         request: SearchRequest,
         stats: dict[str, FieldStats] | None = None,
         segments: list | None = None,
+        record_filter_usage: bool = True,
+        fc_entries: list | None = None,
     ) -> SearchResponse:
         """One request, one device launch per segment (and one agg pass per
         segment). `stats` and `segments` are the coordinator's pushed-down
         statistics and pinned segment snapshot (default: this shard's
-        own)."""
+        own). `record_filter_usage=False` records no filter-cache
+        sighting: the coordinator records once per user request (an
+        n-shard scatter must not count n), and the batcher's solo retry
+        was counted by its coalesced attempt; `fc_entries` are the
+        caller's already-collected cacheable-filter entries."""
         start = time.monotonic()
         k = max(0, request.from_) + max(0, request.size)
         if stats is None:
             stats = self.engine.field_stats()
         self._validate_sort(request)
         self._validate_knn(request)
+        if fc_entries is None:
+            fc_entries = self._collect_filter_entries(
+                request.query, record_filter_usage
+            )
+        if request.knn is not None:
+            from ..index.filter_cache import record_knn_filter_usage
+
+            record_knn_filter_usage(
+                self.filter_cache, request.knn, record=record_filter_usage
+            )
         # One segment snapshot shared by the agg pass and the hits pass.
         if segments is None:
             segments = list(self.engine.segments)
@@ -522,7 +588,7 @@ class SearchService:
                 if handle.segment.num_docs == 0:
                     continue
                 total += self._query_segment(
-                    handle, request, k, stats, candidates
+                    handle, request, k, stats, candidates, fc_entries
                 )
         if agg_total is not None:
             # The agg pass counted matched & live docs: one source for
@@ -604,6 +670,7 @@ class SearchService:
         k: int,
         stats: dict[str, FieldStats],
         candidates: list,
+        fc_entries: list | None = None,
     ) -> int:
         """Score one segment, appending candidate tuples; returns the
         segment's total hits (a lower bound on the block-max paths, whose
@@ -612,6 +679,13 @@ class SearchService:
             return self._query_segment_knn(handle, request, stats, candidates)
         compiled = self.engine.compiler_for(handle, stats).compile(request.query)
         seg_tree = bm25_device.segment_tree(handle.device)
+        # Filter cache: cacheable filter-context clauses read their cached
+        # (or freshly admitted) planes, bit-identical by construction.
+        compiled, fc_masks = self._apply_filter_cache(
+            handle, request.query, compiled, seg_tree, entries=fc_entries
+        )
+        if fc_masks:
+            seg_tree = {**seg_tree, "masks": fc_masks}
 
         # Sort spec validity is enforced up front by _validate_sort.
         sort_field = None
@@ -658,7 +732,8 @@ class SearchService:
                 n = min(k, tot, len(ids))
             else:
                 scores, ids, tot = self._score_sorted(
-                    handle, request, compiled, seg_tree, k, stats
+                    handle, request, compiled, seg_tree, k, stats,
+                    masked=bool(fc_masks),
                 )
                 n = min(k, tot, len(ids))
             for rank in range(n):
@@ -751,7 +826,8 @@ class SearchService:
             )
         return int(tot)
 
-    def _score_sorted(self, handle, request, compiled, seg_tree, k, stats):
+    def _score_sorted(self, handle, request, compiled, seg_tree, k, stats,
+                      masked: bool = False):
         """The score-sorted pass of one segment on the backend the planner
         picks (not consulted for a request with rescore, whose window
         runs on the device kernels), then the rescore stages. Returns
@@ -759,7 +835,7 @@ class SearchService:
         backend, plan_class = "device", None
         if self.planner is not None and not request.rescore:
             backend, plan_class = self._decide_backend(
-                handle, request, compiled, k
+                handle, request, compiled, k, masked=masked
             )
         kern_t0 = time.monotonic()
         if backend == "blockmax":
@@ -888,17 +964,22 @@ class SearchService:
         return scores, ids
 
     def _decide_backend(
-        self, handle: SegmentHandle, request: SearchRequest, compiled, k: int
+        self, handle: SegmentHandle, request: SearchRequest, compiled, k: int,
+        masked: bool = False,
     ) -> tuple[str, tuple | None]:
         """(backend, plan_class) for one plain score-sorted segment pass.
 
         The candidates are the backends that cannot change the top-k:
         block-max only when exact totals are not tracked (its totals are
-        "gte"), and only for k >= 1 (its threshold is the k-th score)."""
+        "gte"), and only for k >= 1 (its threshold is the k-th score). A
+        plan with filter-cache planes runs the same device kernels but is
+        priced and counted as the `cached_mask` backend: its work_tiles
+        leave out the cached clauses' worklists."""
+        base = "cached_mask" if masked else "device"
         if self.planner is None:
-            return "device", None
+            return base, None
         spec = compiled.spec
-        candidates = ["device"]
+        candidates = [base]
         if request.track_total_hits is False and k > 0:
             if spec[0] == "terms":
                 candidates.append("blockmax")
@@ -906,7 +987,7 @@ class SearchService:
                 candidates.append("blockmax_conj")
         plan_class = self.planner.classify(spec, k)
         if len(candidates) == 1:
-            return "device", plan_class
+            return base, plan_class
         feats = PlanFeatures(
             n_docs=handle.segment.num_docs,
             work_tiles=(
@@ -947,13 +1028,38 @@ class SearchService:
     def _knn_filter_mask(self, handle, seg_tree, filter_query, stats):
         """The knn filter as a device mask plane bool[N], applied before
         the rank inside the kernels, so filtered-out docs never take a
-        candidate slot: one dense filter pass (compute_filter_mask)."""
+        candidate slot: the filter cache's plane when the filter is a
+        cacheable shape that has earned admission, else one dense filter
+        pass (compute_filter_mask)."""
         compiled = self.engine.compiler_for(handle, stats).compile(
             filter_query
         )
-        return bm25_device.compute_filter_mask(
-            seg_tree, compiled.spec, _plan(handle, compiled)
-        )
+
+        def build():
+            return bm25_device.compute_filter_mask(
+                seg_tree, compiled.spec, _plan(handle, compiled)
+            )
+
+        if self.filter_cache is None:
+            return build()
+        from ..query.compile import cacheable_filter_key
+
+        norm = cacheable_filter_key(filter_query)
+        if norm is None:
+            return build()
+        key = (self.engine.uid, 0, handle.uid, norm)
+        plane = self.filter_cache.get(key)
+        if plane is not None:
+            self.filter_cache.note_reuse(1)
+            return plane
+        plane = build()
+        if self.filter_cache.should_admit(norm):
+            plane = _owned_plane(plane)
+            self.filter_cache.put(
+                key, plane, plane.numel() * plane.element_size(),
+                live_uids=self._live_uids(),
+            )
+        return plane
 
     def _knn_plan(self, handle, knn: KnnSpec):
         """(partitions or None, nprobe, metric, plan_class, backend) for one
@@ -1132,7 +1238,8 @@ class SearchService:
         (segment, spec group) scores every request's lane at once instead
         of one launch per request. Returns one SearchResponse (or
         Exception) per request, result-identical to running each request
-        through search() alone."""
+        through search() alone. Each rider records its one filter-cache
+        sighting here."""
         if any(r.knn is not None for r in requests):
             # A coalesced knn group (the batcher's ("_knn", ...) key).
             return self._knn_search_many(requests)
@@ -1182,23 +1289,37 @@ class SearchService:
         ks: list[int],
         stats: dict[str, FieldStats],
         segments: list,
+        record_filter_usage: bool = True,
+        fc_entries: list | None = None,
     ):
         """One coalesced scoring pass over this shard for N plain requests.
 
-        Per segment, requests compile and group by spec (same-family term
-        groups are re-bucketed to a common nt so they share ONE padded
-        launch); each group executes as a single batched kernel call.
-        Returns (candidates per request, totals, errors)."""
+        Per segment, requests compile, take their filter-cache planes and
+        group by (spec, mask token) (same-family term groups are
+        re-bucketed to a common nt so they share ONE padded launch); each
+        group executes as a single batched kernel call. One admission
+        sighting per rider is recorded once for the whole batch, unless
+        the coordinator already did (`record_filter_usage=False`, with its
+        collected per-rider `fc_entries`). Returns (candidates per
+        request, totals, errors)."""
+        from ..index.filter_cache import mask_group_token
+
         n = len(requests)
         cands: list[list] = [[] for _ in range(n)]
         totals = [0] * n
         errors: list[Exception | None] = [None] * n
         alive = set(range(n))
+        if fc_entries is None:
+            fc_entries = [
+                self._collect_filter_entries(r.query, record_filter_usage)
+                for r in requests
+            ]
         for handle in segments:
             if handle.segment.num_docs == 0 or not alive:
                 continue
             seg_tree = bm25_device.segment_tree(handle.device)
             compiled: dict[int, CompiledQuery] = {}
+            req_masks: dict[int, dict] = {}
             for i in sorted(alive):
                 try:
                     compiled[i] = self.engine.compiler_for(
@@ -1207,22 +1328,31 @@ class SearchService:
                 except ValueError as e:
                     errors[i] = e
                     alive.discard(i)
-            # Group keys are (spec, mask token); the port has no filter
-            # cache, so every token is ().
+                    continue
+                # Batchmates sharing a filter share one plane: substitution
+                # happens before grouping, so lanes with the same (spec,
+                # planes) land in one launch with the planes passed once
+                # through seg["masks"], never stacked per lane.
+                compiled[i], req_masks[i] = self._apply_filter_cache(
+                    handle, requests[i].query, compiled[i], seg_tree,
+                    entries=fc_entries[i],
+                )
             groups: dict[tuple, list[int]] = {}
             for i, c in compiled.items():
                 if i in alive:
-                    groups.setdefault((c.spec, ()), []).append(i)
+                    token = mask_group_token(req_masks.get(i, {}))
+                    groups.setdefault((c.spec, token), []).append(i)
             groups = self._merge_term_groups(groups, compiled)
             for (spec, _token), rows in groups.items():
                 # One padded launch per group at its largest k (the
                 # reference may route a group to its CPU oracle; the port
                 # has one backend).
+                masks = req_masks.get(rows[0], {})
                 try:
                     self._device_batch(
                         handle, spec, rows, compiled, ks,
                         max(ks[i] for i in rows), cands, totals,
-                        seg_tree=seg_tree,
+                        seg_tree=seg_tree, masks=masks,
                     )
                 except (ValueError, TypeError) as e:
                     # Request-shaped (a k beyond the top-k window, say):
@@ -1237,6 +1367,7 @@ class SearchService:
                             self._device_batch(
                                 handle, spec, [i], compiled, ks, ks[i],
                                 cands, totals, seg_tree=seg_tree,
+                                masks=masks,
                             )
                         except Exception as e_row:  # noqa: BLE001
                             errors[i] = e_row
@@ -1256,7 +1387,9 @@ class SearchService:
         family into sub-buckets, and a smaller group joins a larger bucket
         only when the padding it would pay costs less than the launch it
         saves. Joined groups PAD their compiled arrays to the bucket spec
-        (bit-identical results, no recompile)."""
+        (bit-identical results, no recompile). Term families never carry
+        masks (substitution only rewrites bool filter clauses), so the
+        merge works on the empty-token keys."""
         from ..exec.batcher import plan_spec_buckets
         from ..query.compile import pad_arrays_to_spec, unify_specs
 
@@ -1290,14 +1423,18 @@ class SearchService:
 
     def _device_batch(
         self, handle, spec, rows, compiled, ks, k_max, cands, totals,
-        seg_tree=None,
+        seg_tree=None, masks=None,
     ) -> None:
         """One padded device launch for a same-spec row group: the plans
         stack on the host and upload once (`stack_plans`), the batched
         executor runs every row, and the results come back in one device
-        -> host copy per output."""
+        -> host copy per output. The group's filter-cache planes
+        (`masks`, the same objects for every rider by the group key) ride
+        the seg tree once."""
         if seg_tree is None:
             seg_tree = bm25_device.segment_tree(handle.device)
+        if masks:
+            seg_tree = {**seg_tree, "masks": masks}
         arrays_b = bm25_device.plan_to_torch(
             spec,
             bm25_device.stack_plans([compiled[i].arrays for i in rows]),
@@ -1345,3 +1482,10 @@ def _plan(handle: SegmentHandle, compiled: CompiledQuery):
 def _host(t) -> np.ndarray:
     """A device result as numpy (one device -> host copy)."""
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _owned_plane(plane: torch.Tensor) -> torch.Tensor:
+    """A plane the filter cache may keep: a contiguous tensor that owns
+    its memory (a view of a kernel output or of a segment plane would pin
+    that buffer, and evicting it would free nothing)."""
+    return plane.clone(memory_format=torch.contiguous_format)

@@ -49,7 +49,7 @@ class StubSearcher:
             for r in requests
         ]
 
-    def search(self, request):
+    def search(self, request, record_filter_usage=True):
         with self.lock:
             self.solo.append(request)
         return f"solo:{request}"

@@ -196,7 +196,9 @@ def jax_node():
 
 
 def _port_node(**switches):
-    node = Node(device="cpu", **switches)
+    # The filter cache off, as the reference fixture's ESTPU_FILTER_CACHE=0:
+    # a masked plan is its own plan class, priced as `cached_mask`.
+    node = Node(device="cpu", filter_cache=False, **switches)
     node.create_index("docs", MAPPINGS)
     _bulk(node, _docs())
     return node
@@ -287,7 +289,7 @@ def test_sharded_index_never_takes_blockmax():
     """The coordinator compiles every shard with index-wide statistics, so
     its specs are terms_gather and never qualify for block-max: every
     shard decision is the device."""
-    node = Node(device="cpu", exec_batcher=False)
+    node = Node(device="cpu", exec_batcher=False, filter_cache=False)
     try:
         node.create_index("docs", {**MAPPINGS, "settings": {
             "index": {"number_of_shards": 3}}})
