@@ -118,6 +118,21 @@ and read just after it.
                  mode, mark) and K14 (each node kind) at Q = 1 against
                  their plain versions and bounds (K13 beside
                  torch.segment_reduce), and at Q > 1 bit for bit
+ 6h. sequential  (kernel-table row 17; K15 chain_perturb) the strictly
+                 sequential chains, each where its corpus is alive:
+                 execute_sequential_sparse over phase 3's 32 matches (cfg2,
+                 after phase 6), execute_rescore_sequential over phase 6c's
+                 32 rescores (window 1,000), execute_shards_sequential over
+                 phase 8's 32 conjunctions on phase 13's stacked shards and
+                 execute_sequential over cfg5's 16 script_score bodies (in
+                 phase knn); each chain bit for bit against the same chain
+                 on the plain path, each row's hits against the per-query
+                 kernel (ids and totals exact, fp32 bits exact but where a
+                 boost is -0.0, -inf past the hits); wall / Q after a
+                 synchronize, CUDA-event device ms / Q, host enqueue ms / Q,
+                 the batched executor's device ms / Q on the same plans and
+                 the host syncs a step (set_sync_debug_mode("warn")); K15's
+                 row at Q = 32 beside torch.add
  13. stacked     config 3 as the JAX bench serves it on one device: the 8
                  shards packed to equal shapes (pad_docs_to, field_min_tiles)
                  and stacked, each query compiled per shard with that shard's
@@ -132,6 +147,22 @@ and read just after it.
                  execute_shards and execute_shards_blockmax_conj, held to
                  the unmasked answers; K1s-K4s and K1s matched-only against
                  their plain versions; CUDA-event times
+ 13b. stacked-tail (kernel-table rows 14-15 and 16b over stacked shards;
+                 K11s-K14s) cfg3's 8 shards gain their body positions
+                 (TokenStream(n, 100 + s)) and phase 6g's title and columns
+                 (default_rng(200 + s)); `qa` as 8 shards of 125,000 parents
+                 (`reduced` from phase 6g's 1,000,000: one answers-per-parent
+                 draw and one answers segment for every shard, each shard
+                 laying the draw over its parents in its own permutation, so
+                 the nested blocks have the equal shapes stacking needs);
+                 both packed with common shapes (field_pos_min_tiles among
+                 them) and stacked; 2-8 bodies of each of phase 6f's phrase
+                 and span shapes and phase 6g's structured kinds, compiled
+                 per shard, equalized, through execute_shards_batch: every
+                 launch bit for bit against the plain path, every body with
+                 a 6f / 6g oracle against it per shard merged by (score
+                 desc, shard, rank); then K11s / K12s (each mode), K13s
+                 (each join mode, mark) and K14s (each kind) rows at Q x 8
 
  15. aggs        the reference bench's cfg7 deployment (bench.py:346-432):
                  8 shards x 125,000 Zipf docs (vocabulary 20,000, seed
@@ -315,8 +346,12 @@ class SmokeFailure(Exception):
     pass
 
 
+T_START = time.monotonic()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script began."""
+    print(f"[{time.monotonic() - T_START:7.1f}] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -357,15 +392,16 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 @contextlib.contextmanager
 def plain_kernels():
     """Route bm25_device through the plain PyTorch versions of K1-K4, solo,
-    batched and stacked, K11, K12, K13 and K14, and aggs_device through
-    K10's (on whatever device the tensors are) — the reference runs of the
-    check phases."""
+    batched and stacked, K11, K12 (and their stacked modes), K13, K14 and
+    K15, and aggs_device through K10's (on whatever device the tensors
+    are) — the reference runs of the check phases."""
     from elasticsearch_tpu_torch.ops import kernels as kern
     from elasticsearch_tpu_torch.ops import tail_kernel
 
     names = ([n + s for n in KERNELS for s in kern.MODES] + list(AGG_KERNELS)
              + list(PHRASE_SOURCES) + ["doc_join", "doc_mark"]
-             + list(PACKED_SOURCES))
+             + list(PACKED_SOURCES) + [n + "_stacked" for n in PHRASE_SOURCES]
+             + ["chain_perturb"])
     saved = {n: getattr(kern, n) for n in names}
     real_tail = tail_kernel.tail_eval
     try:
@@ -769,6 +805,21 @@ def run() -> dict:
     kernel_row_matched_only(seg_tree, compiler, head[0], dev, rows)
     log(f"phase kernels: ok 0 mismatches over {len(rows)} kernels [{card}]")
 
+    # -- 6h. sequential (row 17): phase 3's 32 matches as one strict chain
+    chains = {}
+    m_spec, m_plan = _stacked_plan(compiler, bodies[:N_MATCH], dev)
+    if not bm25_device.supports_sparse(m_spec):
+        raise SmokeFailure(f"phase 3's matches are not sparse: {m_spec}")
+    chains["cfg2_match_sparse"], m_out = run_chain(
+        card, "cfg2 match (execute_sequential_sparse)",
+        lambda: bm25_device.execute_sequential_sparse(seg_tree, m_spec, m_plan,
+                                                      TOP_K),
+        lambda: bm25_device.execute_batch_sparse(seg_tree, m_spec, m_plan, TOP_K),
+        lambda r: bm25_device.execute_batch_sparse(
+            seg_tree, m_spec, bm25_device._row_of(m_plan, r), TOP_K),
+        N_MATCH, launches)
+    kernel_row_chain(rows, m_plan["weights"], m_out[2])
+
     # -- 12a. results of the one-shard phases -----------------------------
     exec_ms, plan_ms = [], []
     for body in bodies:
@@ -805,6 +856,7 @@ def run() -> dict:
         "per_shape_p50_ms": {k: percentile(latencies[s], 50) for k, s in groups.items()},
         "first_request_ms": first_ms,
         "concurrent": single_conc,
+        "sequential_chains": chains,
         "docs": N_DOCS,
     }
     log(f"phase results (one shard): {json.dumps(single)} [{card}]")
@@ -1126,6 +1178,26 @@ def run_rescore(card, dev, node, seg_tree, compiler, segment, match_terms,
             fused_bad += 1
             log(f"  MISMATCH execute_rescore {rest_ids[:3]}")
     fused_ms = cuda_ms(fused, reps=3) / len(plans)
+    # Phase `sequential`: the same 32 rescores as one strict chain.
+    q_n = len(match_terms)
+    b_spec, b_plan = _stacked_plan(compiler, [
+        {"query": {"match": {"body": " ".join(t)}}} for t in match_terms], dev)
+    rb_plan = bm25_device.plan_to_torch(
+        rc.spec, bm25_device.stack_plans([rc.arrays] * q_n), dev)
+    row_of = bm25_device._row_of
+    chain, _out = run_chain(
+        card, "cfg4 rescore (execute_rescore_sequential)",
+        lambda: bm25_device.execute_rescore_sequential(
+            seg_tree, b_spec, b_plan, rc.spec, rb_plan, TOP_K, CFG4_WINDOW,
+            1.0, 1.0),
+        lambda: bm25_device._rescore_inner(
+            seg_tree, b_spec, b_plan, rc.spec, rb_plan, TOP_K, CFG4_WINDOW,
+            1.0, 1.0, q_n),
+        lambda r: bm25_device._rescore_inner(
+            seg_tree, b_spec, row_of(b_plan, r), rc.spec, row_of(rb_plan, r),
+            TOP_K, CFG4_WINDOW, 1.0, 1.0, 1),
+        q_n, launches)
+    del _out, b_plan, rb_plan
     summary = {
         "requests": len(bodies), "window": CFG4_WINDOW,
         "search_p50_ms": percentile(latencies, 50),
@@ -1135,6 +1207,7 @@ def run_rescore(card, dev, node, seg_tree, compiler, segment, match_terms,
         "execute_rescore_mismatches": fused_bad,
         "execute_rescore_device_ms_per_query": fused_ms,
         "oracle_s": oracle_s,
+        "sequential_chain": chain,
     }
     log(f"phase rescore: {'ok' if mismatches + fused_bad == 0 else 'FAILED'} "
         f"{json.dumps(summary)} [{card}]")
@@ -1482,6 +1555,7 @@ def run_sharded(card, dev, launches, rows) -> dict:
     # -- 13. stacked shards on one device (row 9b, row 12's shard form) ---
     stacked = run_stacked(card, dev, shards, bodies, match_terms, launches, rows)
     stacked["coordinator_dense"] = dense
+    stacked["tail"] = run_stacked_tail(card, dev, shards, launches, rows)
     log(f"  cfg3 mesh / host loop / stacked: sequential p50 "
         f"{mesh['mesh_p50_ms']} / {mesh['host_loop_p50_ms']} ms, p99 "
         f"{mesh['mesh_p99_ms']} / {mesh['host_loop_p99_ms']} ms; device ms "
@@ -1708,8 +1782,26 @@ def run_stacked(card, dev, shards, bodies, match_terms, launches, rows) -> dict:
     exact_ms = (time.perf_counter() - t1) * 1e3 / max(1, n_conj)
 
     rows.extend(kernel_rows_stacked(stree, buckets, dev))
+    # Phase `sequential`: phase 8's 32 conjunctions as one strict chain
+    # over the stacked shards.
+    conj = list(range(N_CFG3))
+    c_spec = unify_specs([per_query[p].spec for p in conj])
+    c_plan = bm25_device.plan_to_torch(c_spec, bm25_device.stack_plans([
+        pad_arrays_to_spec(per_query[p].spec, c_spec, per_query[p].arrays)
+        for p in conj]), dev)
+    chain, _out = run_chain(
+        card, "cfg3 stacked bool(must + filter) (execute_shards_sequential)",
+        lambda: bm25_device.execute_shards_sequential(stree, c_spec, c_plan,
+                                                      TOP_K, n_pad),
+        lambda: bm25_device.execute_shards_batch(stree, c_spec, c_plan, TOP_K,
+                                                 n_pad),
+        lambda r: bm25_device.execute_shards_batch(
+            stree, c_spec, bm25_device._row_of(c_plan, r), TOP_K, n_pad),
+        len(conj), launches)
+    del _out, c_plan
     summary = {
         "shards": N_SHARDS, "docs_per_shard_padded": n_pad,
+        "sequential_chain": chain,
         "queries": n_q, "buckets": [[sp[0], len(pos)] for sp, pos, _a, _h in buckets],
         "pack_stack_s": pack_s, "compile_s": plan_s, "oracle_check_s": oracle_s,
         "mismatches": mismatches, "blockmax_conj_queries": n_conj,
@@ -2297,6 +2389,16 @@ def run_knn(card, dev, launches, rows) -> dict:
             parts.tree(), live, q, TOP_K, plan_nprobe, "cosine"), 3))
     q_batch = max(2, round(conc["batcher"]["occupancy_mean"]))
     rows.extend(kernel_rows_knn(vec_dev, qvs, parts, plan_nprobe, q_batch, dev))
+    # Phase `sequential`: cfg5's script_score bodies as one strict chain.
+    s_spec, s_plan = _stacked_plan(compiler, script_bodies[:N_KNN_QUERIES], dev)
+    chain, _out = run_chain(
+        card, "cfg5 script_score (execute_sequential)",
+        lambda: bm25_device.execute_sequential(seg_tree, s_spec, s_plan, TOP_K),
+        lambda: bm25_device.execute_batch(seg_tree, s_spec, s_plan, TOP_K),
+        lambda r: bm25_device.execute_batch(
+            seg_tree, s_spec, bm25_device._row_of(s_plan, r), TOP_K),
+        N_KNN_QUERIES, launches)
+    del _out, s_plan
     result = {
         "vectors": N_VECTORS, "dims": VEC_DIMS,
         "script_p50_ms": percentile(s_lat[:N_KNN_QUERIES], 50),
@@ -2310,6 +2412,7 @@ def run_knn(card, dev, launches, rows) -> dict:
         "filtered_knn_p50_ms": percentile(f_lat, 50),
         "k10000_ms": big_ms,
         "build": build, "checks": knn_checks, "concurrent": conc,
+        "sequential_chain": chain,
         "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
     }
     log(f"phase results (knn): {json.dumps(result)} [{card}]")
@@ -5022,27 +5125,29 @@ TERMS_SET_SCRIPT = "Math.min(params.num_terms, doc['req'].value)"
 FS_SCRIPT = "_score * params.a + doc['req'].value"
 
 
-def structured_fields(segment):
+def structured_fields(segment, n_docs: int | None = None, seed: int = SEED + 9):
     """The cfg2 corpus's new fields (phase `structured`): a Zipf `title` of
     2-12 tokens (with its positions) and the columns loc (geo_point), pop,
     pagerank and req, drawn from default_rng(SEED + 9) — Rally `geonames`'
-    location + population shape over the same 8,841,823 docs."""
+    location + population shape over the same 8,841,823 docs (phase
+    `stacked-tail` draws a cfg3 shard's from its own seed)."""
     import numpy as np
 
     from elasticsearch_tpu_torch.utils.corpus import build_zipf_segment
 
     t0 = time.monotonic()
-    _m, tseg = build_zipf_segment(N_DOCS, seed=SEED + 9, min_len=2,
+    n_docs = N_DOCS if n_docs is None else n_docs
+    _m, tseg = build_zipf_segment(n_docs, seed=seed, min_len=2,
                                   max_len=12, field="title")
     title = tseg.fields["title"]
-    TokenStream(N_DOCS, SEED + 9, min_len=2, max_len=12).add_positions(title)
+    TokenStream(n_docs, seed, min_len=2, max_len=12).add_positions(title)
     segment.fields["title"] = title
-    rng = np.random.default_rng(SEED + 9)
-    segment.doc_values["loc.lat"] = rng.uniform(-60, 70, N_DOCS).astype(np.float32)
-    segment.doc_values["loc.lon"] = rng.uniform(-180, 180, N_DOCS).astype(np.float32)
-    segment.doc_values["pop"] = rng.lognormal(8.0, 2.0, N_DOCS).astype(np.float32)
-    segment.doc_values["pagerank"] = rng.lognormal(0.0, 1.0, N_DOCS).astype(np.float32)
-    segment.doc_values["req"] = rng.integers(1, 4, N_DOCS).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    segment.doc_values["loc.lat"] = rng.uniform(-60, 70, n_docs).astype(np.float32)
+    segment.doc_values["loc.lon"] = rng.uniform(-180, 180, n_docs).astype(np.float32)
+    segment.doc_values["pop"] = rng.lognormal(8.0, 2.0, n_docs).astype(np.float32)
+    segment.doc_values["pagerank"] = rng.lognormal(0.0, 1.0, n_docs).astype(np.float32)
+    segment.doc_values["req"] = rng.integers(1, 4, n_docs).astype(np.float32)
     return time.monotonic() - t0
 
 
@@ -5808,18 +5913,19 @@ def kernel_rows_structured(compiler_of, triples, dev, q, rows):
     captured: dict = {}
     real_join, real_mark, real_tail = kern.doc_join, kern.doc_mark, tail_kernel.tail_eval
 
-    def cap_join(cm, cs, start, boost, mode):
+    def cap_join(cm, cs, start, boost, mode, n_shards=0):
         captured.setdefault(f"doc_join_{mode}", (cm, cs, start, boost, mode))
-        return real_join(cm, cs, start, boost, mode)
+        return real_join(cm, cs, start, boost, mode, n_shards=n_shards)
 
-    def cap_mark(ids, boost, n):
+    def cap_mark(ids, boost, n, n_shards=0):
         captured.setdefault("doc_mark", (ids, boost, n))
-        return real_mark(ids, boost, n)
+        return real_mark(ids, boost, n, n_shards=n_shards)
 
-    def cap_tail(key, qq, n, planes, masks, columns, params):
+    def cap_tail(key, qq, n, planes, masks, columns, params, n_shards=0):
         captured.setdefault(f"tail_eval_{key[0]}",
                             (key, qq, n, planes, masks, columns, params))
-        return real_tail(key, qq, n, planes, masks, columns, params)
+        return real_tail(key, qq, n, planes, masks, columns, params,
+                         n_shards=n_shards)
 
     kern.doc_join, kern.doc_mark, tail_kernel.tail_eval = cap_join, cap_mark, cap_tail
     try:
@@ -7378,6 +7484,622 @@ def run_mesh_cards(card, launches, devices=None) -> dict:
     if bad:
         raise SmokeFailure(f"{bad} mesh faults on distinct cards")
     return result
+
+
+# ---------------------------------------------------------------------------
+# Phase `sequential` (kernel-table row 17): the strictly sequential chains,
+# K15 chain_perturb
+# ---------------------------------------------------------------------------
+
+CHAIN_SOURCE = "elasticsearch_tpu_torch/csrc/chain_perturb.cu"
+NEG_ZERO_BITS = -2147483648  # -0.0f as int32
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def run_chain(card, name, chain, batched, per_query, n_q, launches,
+              neg_zero_rows=()) -> tuple[dict, tuple]:
+    """One chain of phase `sequential`: run it once with the launch counts
+    zeroed (K15 must launch), hold it bit for bit to the same chain on the
+    plain path, and each row's valid region to the per-query kernel
+    (`per_query(r)`, the batch of one): ids and totals exact, scores exact
+    but on `neg_zero_rows` (a -0.0 boost, which the chain makes +0.0),
+    -inf past the row's hits. Then wall / Q after a synchronize, CUDA-event
+    device ms / Q, host enqueue ms / Q, the batched executor's device ms /
+    Q on the same plans, and the host syncs a step counted under
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    import torch
+
+    from elasticsearch_tpu_torch.ops import kernels as kern
+
+    before = launches.get("chain_perturb", 0)
+    with counted(f"sequential {name}", launches):
+        out = chain()
+    k15 = launches.get("chain_perturb", 0) - before
+    if k15 < 1:
+        raise SmokeFailure(f"chain {name}: K15 chain_perturb never launched")
+    with plain_kernels():
+        plain = chain()
+    torch.cuda.synchronize()
+    mismatches = sum(not _bits_equal(g, w) for g, w in zip(out, plain))
+    if mismatches:
+        log(f"  MISMATCH chain {name} against its plain chain")
+    s, ids, tot = (x.cpu() for x in out)
+    kk = s.shape[1]
+    for r in range(n_q):
+        s1, i1, t1 = (x.cpu()[0] for x in per_query(r))
+        n = min(int(t1), kk)
+        want = kern.chain_perturb_plain(s1[:n], None) if r in neg_zero_rows else s1[:n]
+        if not (int(t1) == int(tot[r]) and torch.equal(i1[:n], ids[r, :n])
+                and _bits_equal(s[r, :n], want)
+                and bool(torch.all(s[r, n:] == float("-inf")))):
+            mismatches += 1
+            log(f"  MISMATCH chain {name} row {r} against the per-query kernel")
+    # Three timed runs, the median of each time: one run's events also
+    # take in any pause of the host thread (a collection) mid-chain.
+    enqueue, wall, device = [], [], []
+    for _ in range(3):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        chain()
+        ev1.record()
+        enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        device.append(ev0.elapsed_time(ev1))
+    enqueue_s, wall_s, device_ms = (sorted(x)[1] for x in (enqueue, wall, device))
+    batched_ms = cuda_ms(batched, reps=3)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            chain()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    summary = {
+        "queries": n_q, "k15_launches": k15, "mismatches": mismatches,
+        "wall_ms_per_query": wall_s * 1e3 / n_q,
+        "device_ms_per_query": device_ms / n_q,
+        "host_enqueue_ms_per_query": enqueue_s * 1e3 / n_q,
+        "batched_device_ms_per_query": batched_ms / n_q,
+        "host_syncs_per_step": syncs / n_q,
+    }
+    log(f"phase sequential {name}: {'ok' if not mismatches else 'FAILED'} "
+        f"{json.dumps(summary)} [{card}]")
+    if mismatches:
+        raise SmokeFailure(f"{mismatches} chain {name} mismatches")
+    return summary, out
+
+
+def kernel_row_chain(rows, leaves, totals):
+    """K15 over a chain's Q steps (Q = 32, cfg2's match plans): step r
+    perturbs row r's top-level leaf against step r - 1's total, held to
+    the plain version (exact) and timed beside one torch.add a step (the
+    same sum, leaf + 0.0 * total; it returns the card's canonical NaN for
+    a NaN leaf, where K15 keeps the operand's bits)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import kernels as kern
+
+    q = leaves.shape[0]
+    prev = [None] + [totals[r - 1:r] for r in range(1, q)]
+    zero = torch.zeros(1, dtype=torch.int32, device=leaves.device)
+    steps = [(leaves[r:r + 1], prev[r]) for r in range(q)]
+    _row(rows, "chain_perturb", "elasticsearch_tpu/ops/bm25_device.py:1085", q,
+         lambda: [kern.chain_perturb(leaf, t) for leaf, t in steps],
+         lambda: [kern.chain_perturb_plain(leaf, t) for leaf, t in steps],
+         lambda: [torch.add(leaf, zero if t is None else t, alpha=0.0)
+                  for leaf, t in steps],
+         "torch.add(leaf, total, alpha=0.0) a step (no NaN bits kept)",
+         # each step: the leaf read, the total read, the leaf written
+         q * (8 * leaves[0].numel() + 4), source=CHAIN_SOURCE,
+         case=f"{q} steps of a [1, {leaves[0].numel()}] leaf")
+
+
+# ---------------------------------------------------------------------------
+# Phase `stacked-tail` (kernel-table rows 14-15 and 16b over stacked
+# shards): K11s-K14s
+# ---------------------------------------------------------------------------
+
+# Bodies of a shape the phase sends (index into the shape's bodies in
+# _phrase_bodies / _structured_bodies order; 2 of every other shape).
+STACKED_TAIL_PICK = {
+    "span_near": [0, 1, 2, 3], "rank_feature": [0, 1, 2, 6],
+    "geo_bounding_box": [0, 2], "terms_set": [0, 4],
+    "function_score": [0, 1, 2, 3, 4, 5, 12, 13],
+    "nested": [0, 1, 2, 3, 4, 10],
+}
+QA_SHARD_PARENTS = N_QA // N_SHARDS  # 125,000
+# Worklist lanes one stacked launch gathers at most (its rows x their
+# tiles x 256): keeps the plain path's [rows, lanes] planes near 1 GB.
+STACKED_TAIL_LANES = 1 << 27
+
+
+def _pick_bodies(named):
+    """The phase's subset: STACKED_TAIL_PICK's bodies of a shape, else its
+    first two."""
+    seen: dict = {}
+    out = []
+    for item in named:
+        i = seen.get(item[0], 0)
+        seen[item[0]] = i + 1
+        if i in STACKED_TAIL_PICK.get(item[0], (0, 1)):
+            out.append(item)
+    return out
+
+
+def build_qa_shards():
+    """`qa` as 8 shards of 125,000 parents (phase `structured`'s 1,000,000
+    cut into cfg3's shard count): each shard its own Zipf titles (seed
+    SEED + 110 + s); ONE answers-per-parent draw (0-8 a parent,
+    default_rng(SEED + 10)) and one inner answers segment (seed SEED + 11)
+    for every shard, each shard laying the draw over its parents in its
+    own permutation. So the nested blocks have equal shapes, which the
+    reference's np.stack of the shards' trees requires, and each shard its
+    own parent_of."""
+    import numpy as np
+
+    from elasticsearch_tpu_torch.index.segment import NestedBlock
+    from elasticsearch_tpu_torch.utils.corpus import build_zipf_segment
+
+    rng = np.random.default_rng(SEED + 10)
+    counts = rng.integers(0, 9, QA_SHARD_PARENTS)
+    nn = int(counts.sum())
+    _m, inner = build_zipf_segment(nn, seed=SEED + 11, min_len=8, max_len=40,
+                                   field="answers.body")
+    inner.doc_values["answers.votes"] = rng.integers(-5, 200, nn).astype(np.float64)
+    out = []
+    for s in range(N_SHARDS):
+        _m, seg = build_zipf_segment(QA_SHARD_PARENTS, seed=SEED + 110 + s,
+                                     min_len=4, max_len=16, field="title")
+        seg = replace(seg, ids=[f"q{s}d{i}" for i in range(QA_SHARD_PARENTS)])
+        mine = np.random.default_rng(SEED + 120 + s).permutation(counts)
+        seg.nested = {"answers": NestedBlock(seg=inner, parent_of=np.repeat(
+            np.arange(QA_SHARD_PARENTS, dtype=np.int32), mine))}
+        out.append(seg)
+    return out
+
+
+def _pack_stacked(segs, dev):
+    """Pack shards to common shapes (ShardedIndex.from_segments' pads:
+    docs, postings tiles, position tiles) and stack them: (devices,
+    stacked tree, padded docs a shard)."""
+    from elasticsearch_tpu_torch.index.tiles import TILE, pack_segment
+    from elasticsearch_tpu_torch.ops import bm25_device
+
+    n_pad = max(seg.num_docs for seg in segs)
+    min_tiles: dict = {}
+    pos_tiles: dict = {}
+    for seg in segs:
+        for name, fld in seg.fields.items():
+            min_tiles[name] = max(min_tiles.get(name, 0),
+                                  len(fld.doc_ids) // TILE + 2)
+            if fld.positions is not None:
+                pos_tiles[name] = max(pos_tiles.get(name, 0),
+                                      len(fld.positions) // TILE + 2)
+    devs = [pack_segment(seg, device=dev, pad_docs_to=n_pad,
+                         field_min_tiles=min_tiles, field_pos_min_tiles=pos_tiles)
+            for seg in segs]
+    stree = bm25_device.stack_segment_trees(
+        [bm25_device.segment_tree(d) for d in devs])
+    return devs, stree, n_pad
+
+
+def _worklist_tiles(arrays) -> int:
+    """Worklist tiles a plan row gathers (its tile_ids leaves' widths)."""
+    if isinstance(arrays, dict):
+        own = arrays["tile_ids"].shape[-1] if "tile_ids" in arrays else 0
+        return own + sum(_worklist_tiles(v) for k, v in arrays.items()
+                         if k != "tile_ids")
+    if isinstance(arrays, (tuple, list)):
+        return sum(_worklist_tiles(v) for v in arrays)
+    return 0
+
+
+def _walk_label(mode, kw) -> str:
+    from elasticsearch_tpu_torch.ops import kernels as kern
+
+    if mode == kern.WALK_PHRASE:
+        return "phrase"
+    if mode == kern.WALK_NOT:
+        return "not"
+    if kw.get("end_limit", -1) >= 0:
+        return "first"
+    return "near" if kw.get("ordered", True) else "near-unordered"
+
+
+@contextlib.contextmanager
+def capture_stacked(captured: dict):
+    """Record the first stacked launch's inputs of each K11s mode, K12s
+    walk, K13s mode and K14s kind (the kernel rows replay them); every
+    call still runs the real wrapper."""
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.ops import tail_kernel
+
+    names = ("position_events_stacked", "position_walk_stacked", "doc_join",
+             "doc_mark")
+    real = {n: getattr(kern, n) for n in names}
+    real_tail = tail_kernel.tail_eval
+    last_events: list = []
+
+    def events(*a, **kw):
+        captured.setdefault(("events", a[9]), a)
+        last_events[:] = [a]
+        return real["position_events_stacked"](*a, **kw)
+
+    def walk(*a, **kw):
+        # The walk's inputs but K11's keys: the row recomputes them.
+        captured.setdefault(("walk", _walk_label(a[8], kw)),
+                            (last_events[0], a[2:], kw))
+        return real["position_walk_stacked"](*a, **kw)
+
+    def join(*a, **kw):
+        if kw.get("n_shards"):
+            captured.setdefault(("join", a[4]), (a, kw))
+        return real["doc_join"](*a, **kw)
+
+    def mark(*a, **kw):
+        if kw.get("n_shards"):
+            captured.setdefault(("mark",), (a, kw))
+        return real["doc_mark"](*a, **kw)
+
+    def tail(*a, **kw):
+        if kw.get("n_shards"):
+            captured.setdefault(("tail", a[0][0]), (a, kw))
+        return real_tail(*a, **kw)
+
+    for n, fn in zip(names, (events, walk, join, mark)):
+        setattr(kern, n, fn)
+    tail_kernel.tail_eval = tail
+    try:
+        yield captured
+    finally:
+        for n, fn in real.items():
+            setattr(kern, n, fn)
+        tail_kernel.tail_eval = real_tail
+
+
+def _merged_page(pages, n_pad: int):
+    """Per-shard oracle pages [(local ids, scores, total)] merged by (score
+    desc, shard, rank): (global ids, scores, total)."""
+    merged, total = [], 0
+    for s, (ids, scores, t) in enumerate(pages):
+        total += int(t)
+        for rank, (d, sc) in enumerate(zip(ids, scores)):
+            merged.append((-float(sc), s, rank, s * n_pad + int(d), sc))
+    merged.sort(key=lambda t: t[:3])
+    page = merged[:TOP_K]
+    return [t[3] for t in page], [t[4] for t in page], total
+
+
+def _stacked_tail_oracle(shape, index, body, segs, qa_segs, n_pad):
+    """The numpy oracle of a body over the stacked shards, per shard with
+    that shard's statistics (as the shards' plans are compiled), merged by
+    (score desc, shard, rank): (ids, scores, total, ulps), or None where
+    phases 6f / 6g have no oracle for the shape."""
+    import numpy as np
+
+    q = body["query"]
+    if shape in ("phrase", "phrase_head", "phrase_absent"):
+        words = q["match_phrase"]["body"].split()
+        pages = []
+        for seg in segs:
+            fld = seg.fields["body"]
+            ids, scores, t = phrase_oracle(
+                fld, seg.num_docs, words, _phrase_weight(fld, seg.num_docs))
+            pages.append(([int(d[1:]) for d in ids], scores, t))
+        return (*_merged_page(pages, n_pad), 0)
+    if shape == "ids":
+        pages = []
+        for s, seg in enumerate(segs):
+            m = np.zeros(seg.num_docs, dtype=bool)
+            prefix = f"s{s}d"
+            m[[int(v[len(prefix):]) for v in q["ids"]["values"]
+               if v.startswith(prefix)]] = True
+            pages.append(_oracle_page(np.where(m, np.float32(1), np.float32(0)),
+                                      m, int))
+        return (*_merged_page(pages, n_pad), 0)
+    pages, ulps = [], 0
+    for seg, qa_seg in zip(segs, qa_segs):
+        got = structured_oracle(shape, index, body,
+                                qa_seg if index == "qa" else seg, qa_seg)
+        if got is None:
+            return None
+        scores, matched, ulps = got
+        pages.append(_oracle_page(scores, matched, int))
+    return (*_merged_page(pages, n_pad), ulps)
+
+
+def run_stacked_tail(card, dev, shards, launches, rows) -> dict:
+    """Phase `stacked-tail`: the positional and structured plans over
+    stacked shards, the vmaps of the reference's execute_shards_batch.
+    cfg3's 8 shards (seed 100 + s) gain their body positions
+    (TokenStream(n, 100 + s), re-drawn from each shard's seed) and phase
+    6g's title and columns (drawn from default_rng(200 + s)); `qa` is 8
+    shards of 125,000 parents (build_qa_shards: one answers-per-parent
+    draw, so the nested blocks stack). Both are packed to common shapes
+    (field_pos_min_tiles among them) and stacked on the card. Traffic:
+    _pick_bodies of phase 6f's phrase and span shapes and of phase 6g's
+    structured kinds, each body compiled per shard with that shard's
+    statistics, equalized, bucketed by plan_spec_buckets and run through
+    execute_shards_batch (K11s-K14s); every answer bit for bit against the
+    same launches on the plain path, and, where 6f / 6g have one, against
+    the numpy oracle per shard merged by (score desc, shard, rank); then
+    the K11s-K14s rows."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.exec.batcher import plan_spec_buckets
+    from elasticsearch_tpu_torch.index.mapping import Mappings
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.query.compile import (
+        CompiledQuery,
+        Compiler,
+        equalize_compiled,
+        pad_arrays_to_spec,
+        unify_specs,
+    )
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    streams = []
+    for s, seg in enumerate(shards):
+        stream = TokenStream(seg.num_docs, 100 + s)
+        stream.add_positions(seg.fields["body"])
+        structured_fields(seg, seg.num_docs, 200 + s)
+        streams.append(stream)
+    qa_segs = build_qa_shards()
+    gen_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    devs, stree, n_pad = _pack_stacked(shards, dev)
+    qa_devs, qa_tree, qa_pad = _pack_stacked(qa_segs, dev)
+    torch.cuda.synchronize()
+    pack_s = time.monotonic() - t0
+    log(f"  stacked-tail: shards with positions, title and columns built in "
+        f"{gen_s:.1f} s ({sum(len(sg.fields['body'].positions) for sg in shards)} "
+        f"body positions); stacked {N_SHARDS} x {n_pad} docs and qa "
+        f"{N_SHARDS} x {qa_pad} parents ({qa_tree['nested']['answers']['tree']['live'].shape[-1]} "
+        f"answers a shard) in {pack_s:.1f} s [{card}]")
+
+    named = [(shape, "msmarco", body)
+             for shape, body in _pick_bodies(_phrase_bodies(
+                 streams[0], shards[0].fields["body"]))]
+    for shape, index, body in _pick_bodies(_structured_bodies(shards[0],
+                                                              qa_segs[0])):
+        if shape == "ids":  # the shards' own ids: s<shard>d<doc>
+            body = {**body, "query": {"ids": {"values": [
+                f"s{int(v[1:]) % N_SHARDS}d{int(v[1:]) // N_SHARDS}"
+                for v in body["query"]["ids"]["values"]]}}}
+        named.append((shape, index, body))
+    del streams
+    mappings = {
+        "msmarco": Mappings(properties={"body": {"type": "text"},
+                                        **STRUCTURED_MAPPINGS}),
+        "qa": Mappings(properties={"title": {"type": "text"}, "answers": {
+            "type": "nested", "properties": {
+                "body": {"type": "text"}, "votes": {"type": "long"}}}}),
+    }
+    compilers = {
+        "msmarco": [Compiler(d.fields, d.doc_values, mappings["msmarco"],
+                             id_index={i: j for j, i in enumerate(sg.ids)})
+                    for d, sg in zip(devs, shards)],
+        "qa": [Compiler(d.fields, d.doc_values, mappings["qa"], nested=d.nested)
+               for d in qa_devs],
+    }
+    trees = {"msmarco": (stree, n_pad), "qa": (qa_tree, qa_pad)}
+    t0 = time.monotonic()
+    per_body = []
+    for _shape, index, body in named:
+        q = parse_query(body["query"])
+        cs = equalize_compiled([c.compile(q) for c in compilers[index]])
+        per_body.append(CompiledQuery(
+            spec=cs[0].spec, arrays=bm25_device.stack_plans([c.arrays for c in cs])))
+    launch_list = []  # (index, spec, positions, device plan [Qb, S, ...])
+    for index in ("msmarco", "qa"):
+        by_spec: dict = {}
+        for pos, (c, (_s, ix, _b)) in enumerate(zip(per_body, named)):
+            if ix == index:
+                by_spec.setdefault(c.spec, []).append(pos)
+        for bucket in plan_spec_buckets(list(by_spec.items()), n_shards=N_SHARDS):
+            positions = [p for sp in bucket for p in by_spec[sp]]
+            target = unify_specs(list(bucket))
+            host = [pad_arrays_to_spec(per_body[p].spec, target, per_body[p].arrays)
+                    for p in positions]
+            lanes = max(1, _worklist_tiles(host[0])) * 256 * N_SHARDS
+            per = max(1, min(8, STACKED_TAIL_LANES // lanes))
+            for i in range(0, len(positions), per):
+                launch_list.append((index, target, positions[i:i + per],
+                                    bm25_device.plan_to_torch(
+                                        target, bm25_device.stack_plans(
+                                            host[i:i + per]), dev)))
+    torch.cuda.synchronize()
+    plan_s = time.monotonic() - t0
+
+    def run_all():
+        return [bm25_device.execute_shards_batch(
+            trees[index][0], spec, plan, TOP_K, trees[index][1])
+            for index, spec, _pos, plan in launch_list]
+
+    captured: dict = {}
+    with counted("stacked-tail", launches), capture_stacked(captured):
+        outs = [tuple(t.cpu() for t in o) for o in run_all()]
+    stacked_names = (["position_events_stacked", "position_walk_stacked",
+                      "doc_mark_stacked"]
+                     + [f"doc_join_{m}_stacked" for m in JOIN_MODES]
+                     + [f"tail_eval_{k}_stacked" for k in TAIL_KINDS])
+    missing = [n for n in stacked_names if launches.get(n, 0) < 1]
+    if missing:
+        raise SmokeFailure(f"stacked-tail traffic never launched {missing}")
+    t0 = time.monotonic()
+    with plain_kernels():
+        plain = [tuple(t.cpu() for t in o) for o in run_all()]
+    plain_s = time.monotonic() - t0
+    vs_plain = vs_oracle = oracle_checked = 0
+    for (index, _spec, positions, _p), got, want in zip(launch_list, outs, plain):
+        if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+            vs_plain += 1
+            log(f"  MISMATCH stacked-tail plain {[named[p][0] for p in positions]}")
+        s_b, g_b, t_b = (x.numpy() for x in got)
+        for row, p in enumerate(positions):
+            shape, _ix, body = named[p]
+            o = _stacked_tail_oracle(shape, index, body, shards, qa_segs,
+                                     trees[index][1])
+            if o is None:
+                continue
+            oracle_checked += 1
+            ids, scores, total, ulps = o
+            n = len(ids)
+            ok = int(t_b[row]) == total and bool(np.all(s_b[row][n:] == -np.inf))
+            if ulps == 0:
+                ok = ok and (list(g_b[row][:n]) == ids and np.array_equal(
+                    score_bits(s_b[row][:n]), score_bits(scores)))
+            else:
+                ok = ok and ranked_match(g_b[row], s_b[row], ids, scores, ulps)
+            if not ok:
+                vs_oracle += 1
+                log(f"  MISMATCH stacked-tail oracle {shape} {json.dumps(body)[:200]}")
+    n_bodies = len(named)
+    device_ms = cuda_ms(run_all, reps=1, warmup=0) / n_bodies
+    kernel_rows_stacked_tail(captured, rows)
+    summary = {
+        "shards": N_SHARDS, "docs_per_shard_padded": n_pad,
+        "qa_parents_per_shard": qa_pad, "bodies": n_bodies,
+        "shapes": sorted({s for s, _i, _b in named}),
+        "launches_batched": len(launch_list), "generate_s": gen_s,
+        "pack_stack_s": pack_s, "compile_s": plan_s, "plain_s": plain_s,
+        "mismatches_vs_plain": vs_plain, "oracle_checked": oracle_checked,
+        "mismatches_vs_oracle": vs_oracle,
+        "device_ms_per_body_batched": device_ms,
+        "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+    }
+    log(f"phase stacked-tail: {'ok' if vs_plain + vs_oracle == 0 else 'FAILED'} "
+        f"{json.dumps(summary)} [{card}]")
+    if vs_plain or vs_oracle:
+        raise SmokeFailure(f"{vs_plain} stacked-tail launches differ from the "
+                           f"plain path, {vs_oracle} bodies from the oracle")
+    del devs, qa_devs, stree, qa_tree, trees, launch_list, captured, outs, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def kernel_rows_stacked_tail(captured, rows):
+    """K11s (phrase and span modes) and K12s (each walk) on the phase's
+    first stacked launch of each, K13s (each join mode, mark) and K14s
+    (each node kind) likewise, at their Q x 8 rows, each against its plain
+    version (exact), its bound, and one library call where there is one."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.ops import tail_kernel
+
+    ref = "elasticsearch_tpu/ops/bm25_device.py"
+    for mode, label in ((kern.EVENTS_PHRASE, "phrase"), (kern.EVENTS_SPAN, "span")):
+        args = captured[("events", mode)]
+        rr = args[2].shape[0]
+        keys, count = kern.position_events_stacked(*args)
+        unsorted, _valid = kern.event_keys(*args)
+        _row(rows, "position_events_stacked",
+             f"{ref}:{470 if label == 'phrase' else 545} (vmapped, :1161)", rr,
+             lambda a=args: kern.position_events_stacked(*a),
+             lambda a=args: kern.position_events_plain(*a),
+             lambda u=unsorted: torch.sort(u, dim=1),
+             "torch.sort over the packed keys",
+             int(count.sum()) * 16 + args[2].numel() * 16 + rr * 4,
+             source=PHRASE_SOURCES["position_events"], reps=3,
+             case=f"{label} mode, {rr // N_SHARDS} x {N_SHARDS} rows, NT "
+                  f"{args[2].shape[1]}")
+        del keys, count, unsorted
+    for label in ("phrase", "near", "near-unordered", "first", "not"):
+        if ("walk", label) not in captured:
+            raise SmokeFailure(f"stacked-tail traffic never walked [{label}]")
+        ev, wargs, kw = captured[("walk", label)]
+        keys, count = kern.position_events_stacked(*ev)
+        args = (keys, count, *wargs)
+        rr, num_docs = keys.shape[0], wargs[3]
+        _row(rows, "position_walk_stacked",
+             f"{ref}:{ {'phrase': 503, 'not': 641}.get(label, 567) } (vmapped, :1161)",
+             rr, lambda a=args, k=kw: kern.position_walk_stacked(*a, **k),
+             lambda a=args, k=kw: kern.position_walk_plain(*a, **k),
+             None, "none: no one PyTorch call walks each doc's runs",
+             int(count.sum()) * 8 + rr * num_docs * 5,
+             source=PHRASE_SOURCES["position_walk"], reps=3,
+             case=f"{label}, {rr // N_SHARDS} x {N_SHARDS} rows")
+        del keys, count, args
+    for mode in JOIN_MODES:
+        (cm, cs, start, boost, _m), kw = captured[("join", mode)]
+        rr, nn = cs.shape
+        ns, n = start.shape[0], start.shape[1] - 1
+        lengths = (start[:, 1:] - start[:, :-1]).to(torch.int64).repeat(
+            rr // ns, 1).reshape(-1)
+        data = torch.where(cm, cs, 0.0).reshape(-1)
+        reduce = {"none": "max", "sum": "sum", "avg": "mean", "max": "max",
+                  "min": "min"}[mode]
+        a = (cm, cs, start, boost, mode)
+        _row(rows, f"doc_join_{mode}_stacked", f"{ref}:271 (vmapped, :1161)", rr,
+             lambda a=a, k=kw: kern.doc_join(*a, **k),
+             lambda a=a: kern.doc_join_plain(*a),
+             lambda d=data, ln=lengths, r=reduce: torch.segment_reduce(
+                 d, r, lengths=ln),
+             "torch.segment_reduce over every row's children (no fixed order)",
+             rr * nn * 5 + ns * (n + 1) * 4 + rr * n * 5,
+             source=STRUCT_SOURCES["doc_join"],
+             case=f"nested {mode}, {rr // ns} x {ns} rows, {nn} children, "
+                  f"{n} parents a shard")
+    (ids, boost, n), kw = captured[("mark",)]
+    rr = ids.shape[0]
+    valid = (ids >= 0) & (ids < n)
+    slots = (torch.arange(rr, device=ids.device).reshape(-1, 1) * (n + 1)
+             + torch.where(valid, ids, n)).reshape(-1).to(torch.int64)
+    _row(rows, "doc_mark_stacked", f"{ref}:200 (vmapped, :1161)", rr,
+         lambda: kern.doc_mark(ids, boost, n, **kw),
+         lambda: kern.doc_mark_plain(ids, boost, n),
+         lambda: torch.zeros(rr * (n + 1), dtype=torch.bool,
+                             device=ids.device).index_fill_(0, slots, True),
+         "index_fill_ over every row's padded ids (the matched planes only)",
+         ids.numel() * 4 + rr * n * 5, source=STRUCT_SOURCES["doc_join"],
+         case=f"ids, {rr // N_SHARDS} x {N_SHARDS} rows, {ids.shape[1]} slots, "
+              f"{n} docs a shard")
+    replaces = {
+        "function_score": 367, "geo_distance": 120, "geo_box": 128,
+        "rank_feature": 141, "dismax": 208, "boosting": 178, "terms_set": 232,
+    }
+    for kind in TAIL_KINDS:
+        (key, qq, n, planes, masks, columns, params), kw = captured[("tail", kind)]
+        _src, _consts, be = tail_kernel.generate_source(key, stacked=True)
+        calls = sum(line.count("libdevice.") for line in be.lines)
+        flops = (len(be.lines) + 19 * calls) * n * qq
+        nbytes = qq * n * (4 * len(be.plane_names) + len(be.mask_names) + 5) + sum(
+            columns[c].numel() * 4 for c in be.column_names)
+        args = (key, qq, n, planes, masks, columns, params)
+        _row(rows, f"tail_eval_{kind}_stacked",
+             f"{ref}:{replaces[kind]} (vmapped, :1161)", qq,
+             lambda a=args, k=kw: tail_kernel.tail_eval(*a, **k),
+             lambda a=args, k=kw: tail_kernel.tail_eval_plain(*a, **k), None,
+             "none: no one PyTorch call computes the node's tail",
+             nbytes, route="triton", source=STRUCT_SOURCES["tail_eval"],
+             case=f"{kind}: {qq // N_SHARDS} x {N_SHARDS} rows, "
+                  f"{len(be.lines)} statements, {calls} libdevice calls",
+             flops=flops)
+    torch.cuda.synchronize()
+    log("  stacked-tail kernels: K11s-K14s bit-equal to their plain versions "
+        "in every mode and kind")
 
 
 def run_cards() -> dict:

@@ -36,6 +36,14 @@
 // Mark mode: the outputs are zeroed on the stream, then one thread per
 // (row, id) sets matched and boost at each id >= 0 (equal ids write equal
 // values).
+//
+// Stacked mode (K13s; under the vmap of `execute_shards` /
+// `execute_shards_batch` :1155-1168): child_start is S shards' CSR planes,
+// [S, N + 1], and row r, the pair (query r / S, shard r % S), joins
+// through shard r % S's; the child planes [R, NN] are the rows' own (the
+// child evaluated over the stacked nested tree). The mark mode needs no
+// stacked form: a row's ids are its shard's local ids. S = 1 is the mode
+// above.
 #include "common.cuh"
 
 #define ESK_JOIN_NONE 0
@@ -104,6 +112,7 @@ __global__ void doc_join_kernel(
     int nn,
     int n,
     int mode,
+    int n_shards,
     uint8_t* __restrict__ matched_out,
     float* __restrict__ scores_out) {
     const int p = blockIdx.x * blockDim.x + threadIdx.x;
@@ -111,6 +120,9 @@ __global__ void doc_join_kernel(
         return;
     }
     const int64_t row = blockIdx.y;
+    if (n_shards > 1) {
+        child_start += (row % n_shards) * ((int64_t)n + 1);
+    }
     const uint8_t* cm = child_matched + row * nn;
     const float* cs = child_scores + row * nn;
     const int lo = child_start[p];
@@ -173,7 +185,8 @@ __global__ void doc_mark_kernel(
 
 // Join mode: child_matched u8[n_rows, nn], child_scores f32[n_rows, nn],
 // child_start i32[n + 1], boost f32[n_rows] -> matched u8[n_rows, n],
-// scores f32[n_rows, n] under `mode` (ESK_JOIN_*).
+// scores f32[n_rows, n] under `mode` (ESK_JOIN_*); stacked: n_shards > 1
+// and child_start i32[n_shards, n + 1].
 extern "C" int esk_doc_join(
     const void* child_matched,
     const void* child_scores,
@@ -183,6 +196,7 @@ extern "C" int esk_doc_join(
     int nn,
     int n,
     int mode,
+    int n_shards,
     void* matched_out,
     void* scores_out,
     void* stream) {
@@ -193,7 +207,7 @@ extern "C" int esk_doc_join(
                       (cudaStream_t)stream>>>(
         (const uint8_t*)child_matched, (const float*)child_scores,
         (const int32_t*)child_start, (const float*)boost, nn, n, mode,
-        (uint8_t*)matched_out, (float*)scores_out);
+        n_shards, (uint8_t*)matched_out, (float*)scores_out);
     ESK_RETURN_IF_ERROR();
     return 0;
 }

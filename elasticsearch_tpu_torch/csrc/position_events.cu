@@ -31,6 +31,13 @@
 // valid key, so a row reads as the reference's sorted lanes.
 // Rows never mix: a block never straddles two rows and row q's keys land
 // in row q's own [q * P, (q + 1) * P) range.
+//
+// Stacked mode (K11s; under the vmap of `execute_shards` /
+// `execute_shards_batch` :1155-1168): the positional planes are S shards'
+// equal-shape planes, [S, PT, 256], and row r is the pair (query r / S,
+// shard r % S), whose gather reads shard r % S's planes through the shard
+// stride; keys stay shard-local. Only the gather changes: the sort never
+// looks at the planes. S = 1 is the mode above.
 #include "common.cuh"
 
 #define PE_THREADS 256
@@ -49,10 +56,16 @@ __global__ void events_gather_kernel(
     const int32_t* __restrict__ ends,
     const int32_t* __restrict__ lane_arg,
     int nt, int pos_bits, int clause_bits, int mode,
+    int n_shards, int64_t shard_stride, int row0,
     uint64_t* __restrict__ keys,
     int32_t* __restrict__ count) {
     __shared__ int warp_base[ESK_TILE / 32];
     __shared__ int block_base;
+    if (n_shards > 1) {
+        const int64_t shard = (int64_t)((row0 + (int)blockIdx.y) % n_shards);
+        pos_doc += shard * shard_stride;
+        pos_val += shard * shard_stride;
+    }
     const int64_t e = (int64_t)blockIdx.y * nt + blockIdx.x;
     const int64_t idx = (int64_t)tile_ids[e] * ESK_TILE + threadIdx.x;
     bool valid = idx >= (int64_t)starts[e] && idx < (int64_t)ends[e];
@@ -278,6 +291,8 @@ __global__ void events_scatter_kernel(
 }
 
 // Rows [0, n_rows) of worklists [n_rows, nt]; P = nt * 256 keys a row.
+// Stacked: n_shards > 1 planes of shard_stride elements each, and the
+// launch's first row is row row0 of the whole batch (its shard row0 % S).
 // The copy after an odd number of passes moves whole rows; the fill then
 // writes each row's tail.
 // keys: the output, n_rows * P; scratch: n_rows * P; counts: n_rows *
@@ -298,6 +313,9 @@ extern "C" int esk_position_events(
     int key_bits,
     int mode,
     int chunk,
+    int n_shards,
+    long long shard_stride,
+    int row0,
     void* keys,
     void* scratch,
     void* counts,
@@ -314,7 +332,8 @@ extern "C" int esk_position_events(
         (const int32_t*)pos_doc, (const int32_t*)pos_val,
         (const int32_t*)tile_ids, (const int32_t*)starts,
         (const int32_t*)ends, (const int32_t*)lane_arg, nt, pos_bits,
-        clause_bits, mode, (uint64_t*)keys, (int32_t*)count);
+        clause_bits, mode, n_shards, (int64_t)shard_stride, row0,
+        (uint64_t*)keys, (int32_t*)count);
     ESK_RETURN_IF_ERROR();
     const int nblocks = (int)((p + chunk - 1) / chunk);
     int32_t* totals = (int32_t*)counts + (int64_t)n_rows * 256 * nblocks;

@@ -34,6 +34,12 @@
 //           before it in key order is >= pf - pre, or the nearest exclude
 //           at or after it is <= pf + post; an exclude at the include's
 //           (doc, pos) sorts after it and is caught by the second test.
+//
+// Stacked mode (K12s; under the vmap of `execute_shards` /
+// `execute_shards_batch` :1155-1168): norm_bytes is S shards' [N + 1]
+// planes, [S, N + 1], and row r, the pair (query r / S, shard r % S),
+// reads shard r % S's norms; its keys (K11s's, shard-local docs) and its
+// output planes are its own. S = 1 is the mode above.
 #include "common.cuh"
 
 #define PW_PHRASE 0
@@ -182,10 +188,14 @@ __global__ void position_walk_kernel(
     const float* __restrict__ cache,
     int64_t p, int num_docs, int pos_bits, int clause_bits, int mode, int n,
     float slop, int ordered, int end_limit, float pre, float post,
+    int n_shards, int64_t norm_stride, int row0,
     float* __restrict__ dp,
     float* __restrict__ scores,
     uint8_t* __restrict__ matched) {
     const int row = blockIdx.y;
+    if (n_shards > 1) {
+        norm_bytes += (int64_t)((row0 + row) % n_shards) * norm_stride;
+    }
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     const int64_t cnt = count[row];
     if (i >= cnt) {
@@ -231,7 +241,9 @@ __global__ void position_walk_kernel(
 // keys: [n_rows, p] sorted events (K11), count [n_rows]; norm_bytes
 // [num_docs + 1]; weight [n_rows]; cache [n_rows, 256]; dp: [n_rows, p]
 // fp32 scratch for chains of more than two clauses, else null; scores
-// f32 / matched u8 [n_rows, num_docs], zeroed by the caller.
+// f32 / matched u8 [n_rows, num_docs], zeroed by the caller. Stacked:
+// n_shards > 1 norm planes of norm_stride bytes each; the launch's first
+// row is row row0 of the whole batch.
 extern "C" int esk_position_walk(
     const void* keys,
     const void* count,
@@ -250,6 +262,9 @@ extern "C" int esk_position_walk(
     int end_limit,
     float pre,
     float post,
+    int n_shards,
+    long long norm_stride,
+    int row0,
     void* dp,
     void* scores,
     void* matched,
@@ -264,7 +279,8 @@ extern "C" int esk_position_walk(
         (const uint64_t*)keys, (const int32_t*)count,
         (const uint8_t*)norm_bytes, (const float*)weight,
         (const float*)cache, (int64_t)p, num_docs, pos_bits, clause_bits,
-        mode, n, slop, ordered, end_limit, pre, post, (float*)dp,
+        mode, n, slop, ordered, end_limit, pre, post, n_shards,
+        (int64_t)norm_stride, row0, (float*)dp,
         (float*)scores, (uint8_t*)matched);
     ESK_RETURN_IF_ERROR();
     return 0;

@@ -30,10 +30,14 @@ nested docs' space, then K13 doc_join's join mode into parent space) and
 `doc_set` (K13's mark mode, ids queries), and `function_score`,
 `geo_distance`, `geo_box`, `rank_feature`, `boosting`, `terms_set` and
 `dismax`, whose children run as any node does and whose elementwise tail
-is one K14 tail_eval launch (ops/tail_kernel.py), again dense-only. Left
-out: the positional and structured kinds over stacked shards (they raise
-on a stacked tree), and strictly sequential execution (see ROADMAP queue
-B).
+is one K14 tail_eval launch (ops/tail_kernel.py), again dense-only; over
+stacked shards the positional and structured kinds run through K11-K14's
+stacked modes (`stack_segment_trees` keeps the positional planes and the
+nested blocks). The strictly sequential chains of row 17,
+`execute_sequential_sparse`, `execute_sequential`,
+`execute_shards_sequential` and `execute_rescore_sequential`, run Q
+plans one after another on one stream, each plan chained to the
+previous step's total by K15 chain_perturb (`_chain_perturb`).
 Packed multi-tenant execution (row 13) is here: `supports_packed`,
 `packed_segment_tree` and `execute_batch_packed`, which carry each lane's
 tenant doc bounds into the dense path (K3b's window mode), the sparse
@@ -52,7 +56,8 @@ bottom-k, field sorts and cursors), K5 window_rescore (the rescore
 window's gather, combine and top-k), K6 script_eval (the Triton kernel
 generated from a script, ops/script_kernel.py) and, for phrase and span
 plans, K11 position_events (the sorted position events) and K12
-position_walk (per-doc walks -> frequency -> BM25). Everything around them is
+position_walk (per-doc walks -> frequency -> BM25), K13 doc_join, K14
+tail_eval and K15 chain_perturb. Everything around them is
 torch elementwise ops in the reference's exact fp32 operation order, so
 the results — top-k ids, order, fp32 score bits and totals — equal the
 JAX package's, row for row.
@@ -60,8 +65,9 @@ JAX package's, row for row.
 Stacked shards: a segment tree whose planes carry a leading shard axis
 [S, ...] (`stack_segment_trees`) runs a plan's [Q * S] rows, row r the
 pair (query r // S, shard r % S), through the kernels' stacked mode
-(K1s-K4s), which reads shard r % S's planes; the torch ops between them
-take row r's shard the same way (`_take`, `_per_row`).
+(K1s-K4s, and K11s-K14s for the positional and structured nodes), which
+reads shard r % S's planes; the torch ops between them take row r's
+shard the same way (`_take`, `_per_row`).
 
 Plans are the reference compiler's (spec, arrays) with the arrays as
 tensors (`plan_to_torch`); a terms node additionally carries its
@@ -200,22 +206,82 @@ def segment_tree(device_segment) -> dict[str, Any]:
 def stack_segment_trees(trees: list) -> dict[str, Any]:
     """S shards' segment trees as one tree of [S, ...] tensors on their
     device: the port's `jax.tree.map(np.stack, *trees)`. The shards must
-    have equal shapes (pack_segment with a common `pad_docs_to` and
-    `field_min_tiles`, as bench.py:952-959 packs them). The positional
-    planes and the nested blocks are left out: the stacked modes of K11 /
-    K12 and K13 are not ported, and their nodes refuse a stacked tree."""
-    trees = [{k: v for k, v in t.items() if k not in ("positions", "nested")}
-             for t in trees]
+    have equal shapes (pack_segment with a common `pad_docs_to`,
+    `field_min_tiles` and, for positional fields, `field_pos_min_tiles`,
+    as bench.py:952-959 and ShardedIndex.from_segments pack them); nested
+    blocks stack only where every shard's block has the same shapes, as
+    the reference's np.stack requires. Anything else raises a ValueError
+    naming the first leaf that differs. A field's `pos_bits` (a host int,
+    the width of K11's position field) becomes the shards' largest, whose
+    event keys must still fit 64 bits at the padded doc count."""
+    return _stack_tree("", trees)
 
-    def walk(*nodes):
-        first = nodes[0]
-        if isinstance(first, dict):
-            return {key: walk(*(n[key] for n in nodes)) for key in first}
-        if isinstance(first, (tuple, list)):
-            return tuple(walk(*col) for col in zip(*nodes))
-        return torch.stack(nodes)
 
-    return walk(*trees)
+def _stack_tree(where: str, trees: list) -> dict[str, Any]:
+    keys = _same_keys(where or "tree", trees)
+    num_docs = int(trees[0]["live"].shape[-1])
+    out = {}
+    for key in keys:
+        vals = [t[key] for t in trees]
+        at = where + key
+        if key == "positions":
+            out[key] = {
+                name: _stack_positions(f"{at}.{name}",
+                                       [v[name] for v in vals], num_docs)
+                for name in _same_keys(at, vals)
+            }
+        elif key == "nested":
+            out[key] = {
+                path: {
+                    "tree": _stack_tree(f"{at}.{path}.tree.",
+                                        [v[path]["tree"] for v in vals]),
+                    **{part: _stack_leaves(f"{at}.{path}.{part}",
+                                           [v[path][part] for v in vals])
+                       for part in ("parent_of", "child_start")},
+                }
+                for path in _same_keys(at, vals)
+            }
+        else:
+            out[key] = _stack_leaves(at, vals)
+    return out
+
+
+def _same_keys(where: str, dicts: list) -> list:
+    keys = list(dicts[0])
+    if any(sorted(d) != sorted(keys) for d in dicts[1:]):
+        raise ValueError(
+            f"cannot stack shards: [{where}] differs across shards "
+            f"({[sorted(d) for d in dicts]})"
+        )
+    return keys
+
+
+def _stack_positions(where: str, leaves: list, num_docs: int) -> tuple:
+    """(pos_doc, pos_val) stacked to [S, PT, 256], pos_bits the largest."""
+    pos_bits = max(int(leaf[2]) for leaf in leaves)
+    kernels.event_key_bits(num_docs, pos_bits, 0)
+    return (_stack_leaves(where + "[0]", [leaf[0] for leaf in leaves]),
+            _stack_leaves(where + "[1]", [leaf[1] for leaf in leaves]),
+            pos_bits)
+
+
+def _stack_leaves(where: str, nodes: list):
+    first = nodes[0]
+    if isinstance(first, dict):
+        return {key: _stack_leaves(f"{where}.{key}", [n[key] for n in nodes])
+                for key in _same_keys(where, nodes)}
+    if isinstance(first, (tuple, list)):
+        return tuple(_stack_leaves(f"{where}[{i}]", list(col))
+                     for i, col in enumerate(zip(*nodes)))
+    shapes = [tuple(n.shape) for n in nodes]
+    if len(set(shapes)) > 1:
+        raise ValueError(
+            f"cannot stack shards: [{where}] has shapes {shapes} across "
+            f"shards (pack them to equal shapes: pad_docs_to, "
+            f"field_min_tiles, field_pos_min_tiles; nested blocks must be "
+            f"alike)"
+        )
+    return torch.stack(nodes)
 
 
 def _n_shards(seg) -> int:
@@ -324,17 +390,14 @@ def _eval_node(spec, arrays, seg: dict[str, Any], num_docs: int, q: int):
     if kind == "span_not":
         return _eval_span_not(spec, arrays, seg, num_docs, q)
     if kind in _STRUCTURED:
-        if _n_shards(seg):
-            raise ValueError(
-                f"[{kind}] queries over stacked shards are not ported"
-            )
         return _STRUCTURED[kind](spec, arrays, seg, num_docs, q)
     raise ValueError(f"unknown plan node kind [{kind}]")
 
 
 # ---------------------------------------------------------------------------
 # The structured tail (row 16b): K13 for nested and doc_set, K14 for the
-# elementwise tails; dense-only, one segment's Q rows
+# elementwise tails; dense-only, one segment's Q rows or, over stacked
+# shards, the Q x S (query, shard) rows through their stacked modes
 # ---------------------------------------------------------------------------
 
 
@@ -347,14 +410,17 @@ def _row_param(x: torch.Tensor, q: int) -> torch.Tensor:
     return x.reshape(q).to(torch.float32).contiguous()
 
 
-def _tail(key, q, n, planes=None, masks=None, columns=None, params=None):
-    """One K14 launch over the node's inputs."""
+def _tail(seg, key, q, n, planes=None, masks=None, columns=None,
+          params=None):
+    """One K14 launch over the node's inputs (its stacked mode over a
+    stacked tree: the columns [S, N])."""
     return tail_kernel.tail_eval(
         key, q, n,
         {k: _rows_of(v, q, n) for k, v in (planes or {}).items()},
         {k: _rows_of(v, q, n) for k, v in (masks or {}).items()},
         dict(columns or {}),
         {k: _row_param(v, q) for k, v in (params or {}).items()},
+        n_shards=_n_shards(seg),
     )
 
 
@@ -366,7 +432,7 @@ def _eval_geo_distance(spec, arrays, seg, num_docs, q):
     field = spec[1]
     dv = seg["doc_values"]
     return _tail(
-        ("geo_distance",), q, num_docs,
+        seg, ("geo_distance",), q, num_docs,
         columns={"lat": dv[field + ".lat"], "lon": dv[field + ".lon"]},
         params=_pick(arrays, "lat", "lon", "radius_m", "boost"),
     )
@@ -376,7 +442,7 @@ def _eval_geo_box(spec, arrays, seg, num_docs, q):
     field = spec[1]
     dv = seg["doc_values"]
     return _tail(
-        ("geo_box",), q, num_docs,
+        seg, ("geo_box",), q, num_docs,
         columns={"lat": dv[field + ".lat"], "lon": dv[field + ".lon"]},
         params=_pick(arrays, "top", "left", "bottom", "right", "boost"),
     )
@@ -385,7 +451,7 @@ def _eval_geo_box(spec, arrays, seg, num_docs, q):
 def _eval_rank_feature(spec, arrays, seg, num_docs, q):
     _, field, fn = spec
     return _tail(
-        ("rank_feature", fn), q, num_docs,
+        seg, ("rank_feature", fn), q, num_docs,
         columns={"col": seg["doc_values"][field]},
         params=_pick(arrays, "pivot", "scaling", "exponent", "boost"),
     )
@@ -396,7 +462,7 @@ def _eval_boosting(spec, arrays, seg, num_docs, q):
     ps, pm = _eval_node(pos_spec, arrays["positive"], seg, num_docs, q)
     _, nm = _eval_node(neg_spec, arrays["negative"], seg, num_docs, q)
     return _tail(
-        ("boosting",), q, num_docs,
+        seg, ("boosting",), q, num_docs,
         planes={"positive": ps}, masks={"positive": pm, "negative": nm},
         params=_pick(arrays, "negative_boost", "boost"),
     )
@@ -408,7 +474,7 @@ def _eval_dismax(spec, arrays, seg, num_docs, q):
     for i, (cspec, carr) in enumerate(zip(child_specs, arrays["children"])):
         planes[f"s{i}"], masks[f"m{i}"] = _eval_node(cspec, carr, seg,
                                                      num_docs, q)
-    return _tail(("dismax", len(child_specs)), q, num_docs, planes, masks,
+    return _tail(seg, ("dismax", len(child_specs)), q, num_docs, planes, masks,
                  params=_pick(arrays, "tie", "boost"))
 
 
@@ -430,7 +496,7 @@ def _eval_terms_set(spec, arrays, seg, num_docs, q):
             {"p." + name: p for name, p in arrays["params"].items()}
         )
         key = ("terms_set", len(count_specs), "script", msm_ref)
-    return _tail(key, q, num_docs, {"scored": s}, masks, columns, params)
+    return _tail(seg, key, q, num_docs, {"scored": s}, masks, columns, params)
 
 
 def _eval_function_score(spec, arrays, seg, num_docs, q):
@@ -457,22 +523,23 @@ def _eval_function_score(spec, arrays, seg, num_docs, q):
                 params[f"f{i}.{name}"] = val
     key = ("function_score", fspecs, tuple(f is not None for f in filter_specs),
            score_mode, boost_mode, has_min)
-    return _tail(key, q, num_docs, {"child": cs}, masks, seg["doc_values"],
-                 params)
+    return _tail(seg, key, q, num_docs, {"child": cs}, masks,
+                 seg["doc_values"], params)
 
 
 def _eval_nested(spec, arrays, seg, num_docs, q):
     """nested: the child in the path's nested-doc space, then K13's join
-    of its matches and score reduction into parent space."""
+    of its matches and score reduction into parent space (over stacked
+    shards, the stacked nested tree and K13's stacked join)."""
     _, path, child_spec, score_mode = spec
     blk = seg["nested"][path]
     ntree = blk["tree"]
-    nn = ntree["live"].shape[0]
+    nn = ntree["live"].shape[-1]
     cs, cm = _eval_node(child_spec, arrays["child"], ntree, nn, q)
-    cm = cm & ntree["live"]
+    cm = cm & _per_row(ntree, ntree["live"], q)
     matched, scores = kernels.doc_join(
         _rows_of(cm, q, nn), _rows_of(cs, q, nn), blk["child_start"],
-        _row_param(arrays["boost"], q), score_mode,
+        _row_param(arrays["boost"], q), score_mode, n_shards=_n_shards(seg),
     )
     return scores, matched
 
@@ -481,7 +548,7 @@ def _eval_doc_set(spec, arrays, seg, num_docs, q):
     """ids: K13's mark mode over the row's local ids (-1 padding)."""
     matched, scores = kernels.doc_mark(
         arrays["docs"].reshape(q, -1).to(torch.int32).contiguous(),
-        _row_param(arrays["boost"], q), num_docs,
+        _row_param(arrays["boost"], q), num_docs, n_shards=_n_shards(seg),
     )
     return scores, matched
 
@@ -502,20 +569,18 @@ _STRUCTURED = {
 def _position_walk(spec, arrays, seg, num_docs, q, lane_key, mode,
                    clause_bits, **walk):
     """K11 over the node's position worklist, then K12 into its [Q, N]
-    score and matched planes (one launch each for the Q rows)."""
-    if _n_shards(seg):
-        raise ValueError(
-            "phrase and span queries over stacked shards are not ported"
-        )
+    score and matched planes (one launch each for the Q rows; their
+    stacked modes over a stacked tree)."""
+    stacked = "_stacked" if _n_shards(seg) else ""
     field_name = spec[1]
     pos_doc, pos_val, pos_bits = seg["positions"][field_name]
-    keys, count = kernels.position_events(
+    keys, count = getattr(kernels, "position_events" + stacked)(
         pos_doc, pos_val, arrays["tile_ids"], arrays["starts"],
         arrays["ends"], arrays[lane_key], num_docs, pos_bits, clause_bits,
         kernels.EVENTS_PHRASE if mode == kernels.WALK_PHRASE
         else kernels.EVENTS_SPAN,
     )
-    return kernels.position_walk(
+    return getattr(kernels, "position_walk" + stacked)(
         keys, count, seg["fields"][field_name][3], arrays["weight"].reshape(q),
         arrays["cache"].reshape(q, -1), num_docs, pos_bits, clause_bits,
         mode, **walk,
@@ -1251,14 +1316,12 @@ def _pair_rows(arrays) -> Any:
     """A [Q, S, ...] plan as the [Q * S, ...] rows of its (query, shard)
     pairs, `_groups` included."""
     if isinstance(arrays, dict):
-        return {
-            key: (val.reshape(-1, *val.shape[2:]) if key == "_groups"
-                  else _pair_rows(val))
-            for key, val in arrays.items()
-        }
+        return {key: _pair_rows(val) for key, val in arrays.items()}
     if isinstance(arrays, (tuple, list)):
         return tuple(_pair_rows(v) for v in arrays)
-    return arrays.reshape(-1, *arrays.shape[2:])
+    # Not reshape(-1, ...): an empty worklist's leaves (and `_groups`)
+    # have no elements to infer the row count from.
+    return arrays.reshape(arrays.shape[0] * arrays.shape[1], *arrays.shape[2:])
 
 
 def _shards_inner(seg_stacked, spec, arrays, k: int, docs_per_shard: int,
@@ -1303,6 +1366,99 @@ def execute_shards(seg_stacked, spec, arrays_stacked, k: int,
     return _unbatch(execute_shards_batch(
         seg_stacked, spec, _rows1(arrays_stacked), k, docs_per_shard, q=1
     ))
+
+
+# ---------------------------------------------------------------------------
+# Strictly sequential chains (row 17): Q plans run one after another on
+# one stream, each step's plan depending on the previous step's result,
+# so no two queries overlap or batch — the reference's `lax.scan`s whose
+# wall time / Q is the unbatched per-query latency (the bench's
+# single-query p50). Step q takes row q of every leaf as a view (and row
+# q of the host `_groups`), K15 perturbs the plan's top-level leaf by the
+# previous step's total times 0.0, read on the device, and the step runs
+# the batch-of-one executor. No host read between steps. The
+# perturbation is +0.0, so a step equals the per-query kernel bit for bit
+# except where the leaf is -0.0 (a -0.0 boost becomes +0.0, as in the
+# reference's chain).
+# ---------------------------------------------------------------------------
+
+
+def _chain_perturb(arrays, prev_total):
+    """The first of ("boost", "weights") at the plan's top level through
+    K15 against the previous step's total (None for the first step): a
+    new tensor, the staged plan untouched. A plan with neither (match_none
+    compiles to no arrays) passes through unperturbed, as in the
+    reference (:1085-1098)."""
+    for key in ("boost", "weights"):
+        if key in arrays:
+            arrays = dict(arrays)
+            arrays[key] = kernels.chain_perturb(arrays[key], prev_total)
+            break
+    return arrays
+
+
+def _row_of(arrays, r: int) -> Any:
+    """Row r of a [Q, ...] plan as a batch of one: every leaf's [r:r + 1]
+    view, `_groups` included."""
+    if isinstance(arrays, dict):
+        return {key: _row_of(val, r) for key, val in arrays.items()}
+    if isinstance(arrays, (tuple, list)):
+        return tuple(_row_of(v, r) for v in arrays)
+    return arrays[r : r + 1]
+
+
+def _chain(n_steps: int, step):
+    """Run step(r, prev_total) for r = 0 .. n_steps - 1, each fed the
+    previous step's total tensor; stack the outputs as the scan does:
+    (scores f32[Q, k'], ids i32[Q, k'], totals i32[Q])."""
+    outs = []
+    for r in range(n_steps):
+        outs.append(step(r, outs[-1][2] if outs else None))
+    return tuple(torch.cat(col) for col in zip(*outs))
+
+
+def execute_sequential_sparse(seg, spec, arrays_batched, k: int):
+    """Run Q same-spec supports_sparse plans ([Q, ...] arrays) STRICTLY
+    one after another (the reference's :1058): each step is
+    execute_batch_sparse over one row, its plan chained to the previous
+    step's total through K15. Returns (scores f32[Q, k'], ids i32[Q, k'],
+    totals i32[Q])."""
+    return _chain(_rows(arrays_batched, None), lambda r, prev: _sparse_inner(
+        seg, spec, _chain_perturb(_row_of(arrays_batched, r), prev), k))
+
+
+def execute_sequential(seg, spec, arrays_batched, k: int, length=None):
+    """Strictly sequential execution of any compiled spec (the
+    reference's :1105): each step runs `_inner_for(spec)` (sparse or
+    dense) over one row. `length` is the step count of a plan with no
+    arrays at all (match_none), as the scan's `length`."""
+    return _chain(_rows(arrays_batched, length), lambda r, prev: _inner_for(
+        spec)(seg, spec, _chain_perturb(_row_of(arrays_batched, r), prev),
+              k, 1))
+
+
+def execute_shards_sequential(seg_stacked, spec, arrays_batched, k: int,
+                              docs_per_shard: int):
+    """Strictly sequential execution over S stacked shards ([Q, S, ...]
+    plans; the reference's :1171): each step is execute_shards_batch over
+    one query (`_shards_inner` at q = 1), chained on its merged total.
+    Returns (scores f32[Q, k'], global ids i32[Q, k'], totals i32[Q])."""
+    return _chain(_rows(arrays_batched, None), lambda r, prev: _shards_inner(
+        seg_stacked, spec, _chain_perturb(_row_of(arrays_batched, r), prev),
+        k, docs_per_shard, 1))
+
+
+def execute_rescore_sequential(seg, spec, arrays_batched, rspec,
+                               rarrays_batched, k: int, window: int,
+                               query_weight, rescore_weight):
+    """Strictly sequential fused rescore (the reference's :1225): each
+    step is `_rescore_inner` over one row of the query plans and of the
+    rescore plans; only the query plan is chained. Returns (scores
+    f32[Q, min(k, W)], ids i32[Q, min(k, W)], totals i32[Q])."""
+    return _chain(_rows(arrays_batched, None), lambda r, prev: _rescore_inner(
+        seg, spec, _chain_perturb(_row_of(arrays_batched, r), prev), rspec,
+        _row_of(rarrays_batched, r), k, window, query_weight, rescore_weight,
+        1))
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,10 @@ PyTorch versions.
                       ascending order (sum / avg / max / min / none of
                       _eval_nested's scatters); its mark mode sets the
                       doc_set of ids queries
+    K15 chain_perturb csrc/chain_perturb.cu  one step of the strictly
+                      sequential chains: a plan's top-level leaf plus the
+                      previous step's total (read on the device) times
+                      0.0 (bm25_device._chain_perturb)
 
 K6 script_eval, the Triton kernel generated from a script, lives in
 ops/script_kernel.py, and K14 tail_eval, the Triton kernel generated per
@@ -70,7 +74,12 @@ are the same kernels in their stacked-shard mode (the vmaps of
 execute_shards / execute_shards_batch): the planes are S shards' planes
 stacked to equal shapes ([S, ...]) and row r is the pair (query r // S,
 shard r % S), which reads shard r % S's planes; one launch serves all
-Q x S pairs.
+Q x S pairs. K11-K14 take the same rows in their stacked modes
+(`position_events_stacked`, `position_walk_stacked`, `doc_join(...,
+n_shards=S)`, `doc_mark(..., n_shards=S)` and K14's `n_shards=`): K11
+reads shard r % S's positional planes [S, PT, 256], K12 its norm_bytes
+[S, N + 1], K13's join its child_start [S, N + 1] (the mark mode takes
+the rows' shard-local ids as they are) and K14 its columns [S, N].
 
 The sources compile with nvcc for sm_90a into one shared library with a
 plain C interface, loaded with ctypes. The build runs on the first launch
@@ -92,8 +101,9 @@ count); K3k, K5 and K6 count every launch under one name each
 K10 by mode (`bucket_fold`, `bucket_fold_range`), K11
 (`position_events`), K12 (`position_walk`), K13 by mode (`doc_join_none`,
 `doc_join_sum`, `doc_join_avg`, `doc_join_max`, `doc_join_min`,
-`doc_mark`), K14 by node kind (`tail_eval_<kind>`), K2's bounds mode
-(`sparse_fold_bounds`) and K3's window mode (`masked_topk_window`),
+`doc_mark`), K14 by node kind (`tail_eval_<kind>`), K11-K14's stacked
+modes under the same names plus `_stacked`, K15 (`chain_perturb`), K2's
+bounds mode (`sparse_fold_bounds`) and K3's window mode (`masked_topk_window`),
 whatever its row count. K1's matched-only launches (a constant filter's
 bitmap, the filter cache's planes) count in `terms_scatter*` as every K1
 launch does, and also in `MATCHED_ONLY_LAUNCHES` under the same names.
@@ -151,12 +161,17 @@ ONE_NAME_KERNELS = (
     "tail_eval_function_score", "tail_eval_geo_distance",
     "tail_eval_geo_box", "tail_eval_rank_feature", "tail_eval_dismax",
     "tail_eval_boosting", "tail_eval_terms_set",
-    "sparse_fold_bounds", "masked_topk_window",
+    "sparse_fold_bounds", "masked_topk_window", "chain_perturb",
+)
+# K11-K14's stacked modes, counted as `<name>_stacked`.
+STACKED_ONE_NAME_KERNELS = tuple(
+    name + "_stacked" for name in ONE_NAME_KERNELS
+    if name.startswith(("position_", "doc_", "tail_eval_"))
 )
 
 LAUNCHES: dict[str, int] = {
     **{name + suffix: 0 for name in KERNELS for suffix in MODES},
-    **{name: 0 for name in ONE_NAME_KERNELS},
+    **{name: 0 for name in ONE_NAME_KERNELS + STACKED_ONE_NAME_KERNELS},
 }
 # K1's matched-only launches, a subset of LAUNCHES' terms_scatter counts.
 MATCHED_ONLY_LAUNCHES: dict[str, int] = {
@@ -185,8 +200,11 @@ def reset_launches() -> None:
             MATCHED_ONLY_LAUNCHES[name] = 0
 
 
-def count_launch(name: str) -> None:
-    """One launch of a kernel counted under one name (ONE_NAME_KERNELS)."""
+def count_launch(name: str, n_shards: int = 0) -> None:
+    """One launch of a kernel counted under one name (ONE_NAME_KERNELS),
+    plus `_stacked` for a stacked-shard launch (n_shards > 0)."""
+    if n_shards:
+        name += "_stacked"
     with _count_lock:
         LAUNCHES[name] += 1
 
@@ -304,13 +322,15 @@ def _bind(lib) -> None:
     lib.esk_ivf_assign.argtypes = [P, I, P, I, I, P, I, L, P, P]
     lib.esk_bucket_fold.argtypes = [P, P, P, P, L, I, L] + [P] * 9
     lib.esk_range_fold.argtypes = [P, P, P, P, P, L, I, L] + [P] * 11
-    lib.esk_position_events.argtypes = [P] * 6 + [I] * 8 + [P] * 5
+    lib.esk_position_events.argtypes = [P] * 6 + [I] * 8 + [I, L, I] + [P] * 5
     lib.esk_position_walk.argtypes = (
-        [P] * 5 + [I] * 7 + [F, I, I, F, F] + [P] * 4
+        [P] * 5 + [I] * 7 + [F, I, I, F, F] + [I, L, I] + [P] * 4
     )
-    lib.esk_doc_join.argtypes = [P] * 4 + [I] * 4 + [P] * 3
+    lib.esk_doc_join.argtypes = [P] * 4 + [I] * 5 + [P] * 3
     lib.esk_doc_mark.argtypes = [P, P, I, I, I, P, P, P]
+    lib.esk_chain_perturb.argtypes = [P, P, L, P, P]
     for fn in (
+        lib.esk_chain_perturb,
         lib.esk_doc_join,
         lib.esk_doc_mark,
         lib.esk_terms_scatter,
@@ -2051,6 +2071,9 @@ def event_keys(pos_doc, pos_val, tile_ids, starts, ends, lane_arg,
     idx = tid[..., None] * TILE + lane
     valid = (idx >= starts.to(torch.int64)[..., None]) & (
         idx < ends.to(torch.int64)[..., None])
+    if pos_doc.dim() == 3:  # stacked planes: row r reads shard r % S's
+        shard = torch.arange(tid.shape[0], device=tid.device) % pos_doc.shape[0]
+        tid = (shard.view(-1, 1), tid)
     docs = pos_doc[tid].to(torch.int64)
     poss = pos_val[tid].to(torch.int64)
     extra = lane_arg.to(torch.int64)[..., None]
@@ -2095,10 +2118,34 @@ def position_events(pos_doc, pos_val, tile_ids, starts, ends, lane_arg,
     valid events come first in (doc, apos) or (doc, pos, clause) order;
     count int32[Q]). Equal keys are indistinguishable, so the order is
     unique."""
+    return _position_events(pos_doc, pos_val, tile_ids, starts, ends,
+                            lane_arg, num_docs, pos_bits, clause_bits, mode, 0)
+
+
+def position_events_stacked(pos_doc, pos_val, tile_ids, starts, ends,
+                            lane_arg, num_docs: int, pos_bits: int,
+                            clause_bits: int, mode: int):
+    """K11s: position_events over R = Q x S rows of S stacked shards.
+
+    pos_doc / pos_val are int32[S, PT, 256] (the shards' planes, packed
+    with a common `field_pos_min_tiles`) and num_docs the padded
+    per-shard doc count; row r of the [R, NT] worklists is (query r // S,
+    shard r % S) and reads shard r % S's planes. Keys and ids stay
+    shard-local. Returns (keys int64[R, NT * 256], count int32[R])."""
+    return _position_events(pos_doc, pos_val, tile_ids, starts, ends,
+                            lane_arg, num_docs, pos_bits, clause_bits, mode,
+                            int(pos_doc.shape[0]))
+
+
+def _position_events(pos_doc, pos_val, tile_ids, starts, ends, lane_arg,
+                     num_docs, pos_bits, clause_bits, mode, n_shards):
+    """Check K11's inputs (planes stacked iff n_shards > 0), then run the
+    plain version for CPU tensors or launch the kernel."""
     dev = pos_doc.device
+    st = 1 if n_shards else 0
     for t, name in ((pos_doc, "pos_doc"), (pos_val, "pos_val")):
-        _check(t, name, torch.int32, 2, dev)
-    if pos_val.shape != pos_doc.shape or pos_doc.shape[1] != TILE:
+        _check(t, name, torch.int32, 2 + st, dev)
+    if pos_val.shape != pos_doc.shape or pos_doc.shape[-1] != TILE:
         raise ValueError("pos_doc / pos_val must be [PT, 256] planes")
     _check(tile_ids, "tile_ids", torch.int32, 2, dev)
     q, nt = tile_ids.shape
@@ -2106,6 +2153,8 @@ def position_events(pos_doc, pos_val, tile_ids, starts, ends, lane_arg,
                     (lane_arg, "lane_arg")):
         _check(t, name, torch.int32, 2, dev)
         _check_rows(name, t, q, nt)
+    if n_shards:
+        _check_shards(n_shards, q, {"pos_doc": pos_doc})
     if mode not in (EVENTS_PHRASE, EVENTS_SPAN):
         raise ValueError(f"unknown position_events mode {mode}")
     if mode == EVENTS_PHRASE:
@@ -2135,12 +2184,16 @@ def position_events(pos_doc, pos_val, tile_ids, starts, ends, lane_arg,
                 _ptr(starts, r0 * nt), _ptr(ends, r0 * nt),
                 _ptr(lane_arg, r0 * nt), int(rows), int(nt), int(num_docs),
                 int(pos_bits), int(clause_bits), int(bits), int(mode),
-                int(chunk), _ptr(keys, r0 * p), _ptr(scratch), _ptr(counts),
+                int(chunk), max(1, n_shards), _shard_stride(pos_doc),
+                int(r0), _ptr(keys, r0 * p), _ptr(scratch), _ptr(counts),
                 _ptr(count, r0), _stream(dev),
             )
             _check_rc("position_events", rc)
-            count_launch("position_events")
+            count_launch("position_events", n_shards)
     return keys, count
+
+
+position_events_stacked_plain = position_events_plain
 
 
 def events_chunk(p: int) -> int:
@@ -2263,11 +2316,16 @@ def position_walk_plain(keys, count, norm_bytes, weight, cache,
     freq.scatter_add_(1, idx, ok.to(torch.float32))
     freq = freq[:, :num_docs]
     matched = freq > 0
-    ninv = torch.gather(cache, 1, norm_bytes[:num_docs].to(torch.int64)
-                        .expand(q, num_docs))
+    nb = norm_bytes[..., :num_docs].to(torch.int64)
+    if nb.dim() == 2:  # stacked [S, N + 1]: row r reads shard r % S's
+        nb = nb.repeat(q // nb.shape[0], 1)
+    ninv = torch.gather(cache, 1, nb.expand(q, num_docs))
     w = weight.reshape(q, 1)
     scores = w - w / (1.0 + freq * ninv)
     return torch.where(matched, scores, 0.0), matched
+
+
+position_walk_stacked_plain = position_walk_plain
 
 
 def position_walk(keys, count, norm_bytes, weight, cache, num_docs: int,
@@ -2284,17 +2342,43 @@ def position_walk(keys, count, norm_bytes, weight, cache, num_docs: int,
     exclude 1, `pre` / `post`). Returns (scores f32[Q, num_docs],
     w - w / (1 + freq * cache[norm]) where freq > 0, else 0; matched
     bool[Q, num_docs])."""
+    return _position_walk(keys, count, norm_bytes, weight, cache, num_docs,
+                          pos_bits, clause_bits, mode, n, slop, ordered,
+                          end_limit, pre, post, 0)
+
+
+def position_walk_stacked(keys, count, norm_bytes, weight, cache,
+                          num_docs: int, pos_bits: int, clause_bits: int,
+                          mode: int, n: int, slop: int = 0,
+                          ordered: bool = True, end_limit: int = -1,
+                          pre: int = 0, post: int = 0):
+    """K12s: position_walk over R = Q x S rows of S stacked shards:
+    norm_bytes is uint8[S, num_docs + 1] and row r (query r // S, shard
+    r % S) reads shard r % S's; keys, count, weight and cache are the
+    rows' own ([R, ...], position_events_stacked's output)."""
+    return _position_walk(keys, count, norm_bytes, weight, cache, num_docs,
+                          pos_bits, clause_bits, mode, n, slop, ordered,
+                          end_limit, pre, post, int(norm_bytes.shape[0]))
+
+
+def _position_walk(keys, count, norm_bytes, weight, cache, num_docs,
+                   pos_bits, clause_bits, mode, n, slop, ordered, end_limit,
+                   pre, post, n_shards):
+    """Check K12's inputs (norm_bytes stacked iff n_shards > 0), then run
+    the plain version for CPU tensors or launch the kernel."""
     dev = keys.device
     _check(keys, "keys", torch.int64, 2, dev)
     q, p = keys.shape
     _check(count, "count", torch.int32, 1, dev)
-    _check(norm_bytes, "norm_bytes", torch.uint8, 1, dev)
+    _check(norm_bytes, "norm_bytes", torch.uint8, 2 if n_shards else 1, dev)
     _check(weight, "weight", torch.float32, 1, dev)
     _check(cache, "cache", torch.float32, 2, dev)
     if count.shape[0] != q or weight.shape[0] != q or tuple(cache.shape) != (q, 256):
         raise ValueError("count / weight / cache must have the keys' rows")
-    if norm_bytes.shape[0] < num_docs:
+    if norm_bytes.shape[-1] < num_docs:
         raise ValueError("norm_bytes must cover num_docs")
+    if n_shards:
+        _check_shards(n_shards, q, {"norm_bytes": norm_bytes})
     if mode not in (WALK_PHRASE, WALK_NEAR, WALK_NOT) or n < 1:
         raise ValueError(f"bad position_walk mode {mode} / n {n}")
     if mode == WALK_PHRASE:
@@ -2323,11 +2407,12 @@ def position_walk(keys, count, norm_bytes, weight, cache, num_docs: int,
                 int(num_docs), int(pos_bits), int(clause_bits), int(mode),
                 int(n), float(np.float32(slop)), int(bool(ordered)),
                 end_limit, float(np.float32(pre)), float(np.float32(post)),
+                max(1, n_shards), int(norm_bytes.shape[-1]), int(r0),
                 _ptr(dp, r0 * p), _ptr(scores, r0 * num_docs),
                 _ptr(matched, r0 * num_docs), _stream(dev),
             )
             _check_rc("position_walk", rc)
-            count_launch("position_walk")
+            count_launch("position_walk", n_shards)
     return scores, matched
 
 
@@ -2367,17 +2452,23 @@ def _scatter_max(acc, v) -> torch.Tensor:
                        torch.where(na, acc, torch.where(nv, v, plain)))
 
 
-def doc_join_plain(child_matched, child_scores, child_start, boost, mode: str):
+def doc_join_plain(child_matched, child_scores, child_start, boost, mode: str,
+                   n_shards: int = 0):
     """K13's join mode in PyTorch, folding by child rank: step r folds the
     r-th child of every parent, so each parent's children fold in
     ascending order (an exact left fold, without index_add_), under the
-    kernel's rules (csrc/doc_join.cu). Returns (matched bool[Q, N],
-    scores f32[Q, N])."""
+    kernel's rules (csrc/doc_join.cu). A stacked child_start [S, N + 1]
+    (n_shards = S) serves row r from shard r % S's. Returns (matched
+    bool[Q, N], scores f32[Q, N])."""
     q = child_scores.shape[0]
     dev = child_scores.device
-    n = child_start.shape[0] - 1
-    lo = child_start[:-1].to(torch.int64)
-    n_children = child_start[1:].to(torch.int64) - lo
+    if child_start.dim() == 2:  # stacked [S, N + 1]: row r reads shard r % S's
+        starts = child_start.repeat(q // child_start.shape[0], 1)
+    else:
+        starts = child_start.expand(q, -1)
+    n = starts.shape[1] - 1
+    lo = starts[:, :-1].to(torch.int64)
+    n_children = starts[:, 1:].to(torch.int64) - lo
     extremum = mode in ("max", "min")
     acc = torch.full((q, n), -float("inf") if extremum else 0.0,
                      dtype=torch.float32, device=dev)
@@ -2388,8 +2479,8 @@ def doc_join_plain(child_matched, child_scores, child_start, boost, mode: str):
     for r in range(top):
         has = n_children > r
         idx = torch.clamp(lo + r, max=max(nn - 1, 0))
-        m = child_matched[:, idx].to(torch.bool) & has
-        v = child_scores[:, idx]
+        m = torch.gather(child_matched, 1, idx).to(torch.bool) & has
+        v = torch.gather(child_scores, 1, idx)
         if extremum:
             if mode == "min":  # -1 * v: a NaN keeps its sign
                 v = torch.where(torch.isnan(v), v, flip_sign(v))
@@ -2411,18 +2502,21 @@ def doc_join_plain(child_matched, child_scores, child_start, boost, mode: str):
     return any_m, torch.where(any_m, scores, 0.0)
 
 
-def doc_join(child_matched, child_scores, child_start, boost, mode: str):
+def doc_join(child_matched, child_scores, child_start, boost, mode: str,
+             n_shards: int = 0):
     """K13 join mode: nested docs' results joined to their parents.
 
     child_matched bool[Q, NN] (the child's matched & the inner live
     plane), child_scores f32[Q, NN], child_start int32[N + 1] (the CSR of
     tiles.child_starts), boost f32[Q], mode one of JOIN_MODES. Returns
     (matched bool[Q, N], scores f32[Q, N]) as `_eval_nested` composes
-    them."""
+    them. Stacked mode (n_shards = S > 0): child_start is int32[S, N + 1]
+    and row r, the pair (query r // S, shard r % S), joins through shard
+    r % S's; the child planes are the rows' own."""
     dev = child_scores.device
     _check(child_matched, "child_matched", torch.bool, 2, dev)
     _check(child_scores, "child_scores", torch.float32, 2, dev)
-    _check(child_start, "child_start", torch.int32, 1, dev)
+    _check(child_start, "child_start", torch.int32, 2 if n_shards else 1, dev)
     _check(boost, "boost", torch.float32, 1, dev)
     q, nn = child_scores.shape
     if tuple(child_matched.shape) != (q, nn) or boost.shape[0] != q:
@@ -2431,7 +2525,9 @@ def doc_join(child_matched, child_scores, child_start, boost, mode: str):
         raise ValueError(f"unknown nested score_mode [{mode}]")
     if not 1 <= q <= MAX_GRID_ROWS:
         raise ValueError(f"row count {q} out of range [1, {MAX_GRID_ROWS}]")
-    n = child_start.shape[0] - 1
+    if n_shards:
+        _check_shards(n_shards, q, {"child_start": child_start})
+    n = child_start.shape[-1] - 1
     if n < 0:
         raise ValueError("child_start must hold N + 1 offsets")
     if not _launchable(dev):
@@ -2444,16 +2540,17 @@ def doc_join(child_matched, child_scores, child_start, boost, mode: str):
         rc = lib.esk_doc_join(
             _ptr(child_matched), _ptr(child_scores), _ptr(child_start),
             _ptr(boost), int(q), int(nn), int(n), JOIN_MODES.index(mode),
-            _ptr(matched), _ptr(scores), _stream(dev),
+            max(1, n_shards), _ptr(matched), _ptr(scores), _stream(dev),
         )
     _check_rc("doc_join", rc)
-    count_launch("doc_join_" + mode)
+    count_launch("doc_join_" + mode, n_shards)
     return matched, scores
 
 
-def doc_mark_plain(ids, boost, n: int):
+def doc_mark_plain(ids, boost, n: int, n_shards: int = 0):
     """K13's mark mode in PyTorch: (matched bool[Q, n], scores f32[Q, n]),
-    boost where an id of the row points."""
+    boost where an id of the row points (the rows' ids are their shards'
+    own over stacked shards, so `n_shards` changes nothing)."""
     q = ids.shape[0]
     dev = ids.device
     valid = (ids >= 0) & (ids < n)
@@ -2463,9 +2560,12 @@ def doc_mark_plain(ids, boost, n: int):
     return matched, torch.where(matched, boost.reshape(q, 1), 0.0)
 
 
-def doc_mark(ids, boost, n: int):
+def doc_mark(ids, boost, n: int, n_shards: int = 0):
     """K13 mark mode (ids queries): ids int32[Q, ND] with -1 padding,
-    boost f32[Q] -> (matched bool[Q, n], scores f32[Q, n])."""
+    boost f32[Q] -> (matched bool[Q, n], scores f32[Q, n]). Over S
+    stacked shards (n_shards = S > 0) the rows are the (query, shard)
+    pairs and their ids already shard-local, so the launch is the same;
+    it counts as `doc_mark_stacked`."""
     dev = ids.device
     _check(ids, "ids", torch.int32, 2, dev)
     _check(boost, "boost", torch.float32, 1, dev)
@@ -2485,5 +2585,54 @@ def doc_mark(ids, boost, n: int):
             _ptr(scores), _stream(dev),
         )
     _check_rc("doc_mark", rc)
-    count_launch("doc_mark")
+    count_launch("doc_mark", n_shards)
     return matched, scores
+
+
+# ---------------------------------------------------------------------------
+# K15 chain_perturb
+# ---------------------------------------------------------------------------
+
+_QUIET_BIT = 0x00400000
+
+
+def chain_perturb_plain(leaf, prev_total):
+    """K15's plain version: leaf + (float(prev_total) or 0.0) * 0.0 in
+    fp32, a NaN leaf returned as its quieted self (XLA:CPU's add)."""
+    carry = (torch.zeros((), dtype=torch.float32, device=leaf.device)
+             if prev_total is None
+             else prev_total.reshape(()).to(torch.float32))
+    out = leaf + carry * 0.0
+    quiet = (leaf.view(torch.int32) | _QUIET_BIT).view(torch.float32)
+    return torch.where(torch.isnan(leaf), quiet, out)
+
+
+def chain_perturb(leaf, prev_total):
+    """K15: one chain step's perturbed leaf.
+
+    leaf f32[...] (a plan row's boost or weights, contiguous), prev_total
+    int32[1] (the previous step's total, on the leaf's device) or None
+    for the first step. Returns a new f32 tensor of the leaf's shape:
+    leaf + prev_total * 0.0, which is the leaf bit for bit but -0.0 ->
+    +0.0, with a NaN leaf quieted (sign and payload kept). The total is
+    read on the device: no host read between steps."""
+    dev = leaf.device
+    _check(leaf, "leaf", torch.float32, leaf.dim(), dev)
+    if prev_total is not None:
+        _check(prev_total, "prev_total", torch.int32, prev_total.dim(), dev)
+        if prev_total.numel() != 1:
+            raise ValueError("prev_total must hold one total")
+    if not _launchable(dev):
+        return chain_perturb_plain(leaf, prev_total)
+    lib = ensure_built()
+    out = torch.empty_like(leaf)
+    if leaf.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = lib.esk_chain_perturb(
+            _ptr(leaf), _ptr(prev_total), int(leaf.numel()), _ptr(out),
+            _stream(dev),
+        )
+    _check_rc("chain_perturb", rc)
+    count_launch("chain_perturb")
+    return out

@@ -37,9 +37,17 @@ reaches a score; exp flushes a subnormal result to +0.0, as XLA's CPU exp
 does. The source is written under `_build/triton/`, keyed by
 a hash of the node's static key, and imported from there.
 
+Stacked mode (K14s; under the vmap of `execute_shards` /
+`execute_shards_batch`, elasticsearch_tpu/ops/bm25_device.py
+:1155-1168): the columns are S shards' [S, N] planes and row r, the pair
+(query r // S, shard r % S), reads shard r % S's through a row stride in
+the kernel (a generated kernel of its own, keyed with the node); the
+planes, masks and params are the rows' own.
+
 `LAUNCHES["tail_eval_<kind>"]` (ops/kernels) counts every launch,
-whatever its row count. For CPU tensors `tail_eval` runs the plain
-version; for CUDA tensors it launches the kernel or raises.
+whatever its row count, and `tail_eval_<kind>_stacked` every stacked one.
+For CPU tensors `tail_eval` runs the plain version; for CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -65,7 +73,7 @@ from ..script.painless_lite import (
 from . import kernels, script_kernel
 
 BLOCK = 1024
-GENERATOR_VERSION = "k14-1"
+GENERATOR_VERSION = "k14-2"
 TRITON_DIR = kernels.BUILD_ROOT / "triton"
 F32, BOOL, U32 = "f32", "bool", "u32"
 _U32_MASK = 0xFFFFFFFF
@@ -82,11 +90,14 @@ _generated: dict[tuple, tuple] = {}
 
 class TorchTail(TorchBackend):
     """Torch ops over the node's inputs: planes and masks [Q, N], columns
-    [N], params [Q] (seen as [Q, 1]); uint32 values ride int64 tensors."""
+    [N] (or [S, N] over S stacked shards, repeated to the rows), params
+    [Q] (seen as [Q, 1]); uint32 values ride int64 tensors."""
 
-    def __init__(self, planes, masks, columns, params, n, device):
+    def __init__(self, planes, masks, columns, params, n, device, q=1,
+                 n_shards=0):
         super().__init__(None, columns, {}, device)
         self.planes, self.masks, self.tparams, self.n = planes, masks, params, n
+        self.q, self.n_shards = q, n_shards
 
     def plane(self, name):
         return self.planes[name]
@@ -95,7 +106,8 @@ class TorchTail(TorchBackend):
         return self.masks[name]
 
     def column(self, name):
-        return self.columns[name]
+        col = self.columns[name]
+        return col.repeat(self.q // self.n_shards, 1) if self.n_shards else col
 
     def param(self, name):
         return self.tparams[name].reshape(-1, 1)
@@ -171,7 +183,7 @@ class TritonTail(script_kernel.TritonBackend):
     def column(self, name):
         j = self._slot(self.column_names, name)
         return self._load(f"col:{name}",
-                          f"tl.load(c{j}_ptr + offs, mask=mask, other=0.0)")
+                          f"tl.load(c{j}_ptr + cbase + offs, mask=mask, other=0.0)")
 
     def param(self, name):
         j = self._slot(self.names, name)
@@ -637,15 +649,19 @@ _BODIES = {
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(key, q: int, n: int, planes, masks, columns, params):
+def _check_inputs(key, q: int, n: int, planes, masks, columns, params,
+                  n_shards: int = 0):
     if not isinstance(key, tuple) or not key or key[0] not in _BODIES:
         raise ValueError(f"unknown tail node key {key!r}")
     if not 1 <= q <= kernels.MAX_GRID_ROWS:
         raise ValueError(f"row count {q} out of range [1, {kernels.MAX_GRID_ROWS}]")
+    if n_shards and q % n_shards:
+        raise ValueError(f"{q} rows are not whole (query, shard) pairs")
     dev = None
+    col_shape = (n_shards, n) if n_shards else (n,)
     for group, dtype, shape in ((planes, torch.float32, (q, n)),
                                 (masks, torch.bool, (q, n)),
-                                (columns, torch.float32, (n,)),
+                                (columns, torch.float32, col_shape),
                                 (params, torch.float32, (q,))):
         for name, t in group.items():
             dev = dev or t.device
@@ -655,12 +671,14 @@ def _check_inputs(key, q: int, n: int, planes, masks, columns, params):
     return dev
 
 
-def tail_eval_plain(key, q: int, n: int, planes, masks, columns, params):
+def tail_eval_plain(key, q: int, n: int, planes, masks, columns, params,
+                    n_shards: int = 0):
     """K14's plain version: the node's body over torch ops. Returns
     (scores f32[Q, N], matched bool[Q, N])."""
-    dev = _check_inputs(key, q, n, planes, masks, columns, params)
+    dev = _check_inputs(key, q, n, planes, masks, columns, params, n_shards)
     dev = dev or torch.device("cpu")
-    xp = TailXP(TorchTail(planes, masks, columns, params, n, dev), n)
+    xp = TailXP(TorchTail(planes, masks, columns, params, n, dev, q,
+                          n_shards), n)
     scores, matched = _BODIES[key[0]](xp, key)
     return (
         torch.broadcast_to(scores.v, (q, n)).contiguous(),
@@ -679,13 +697,14 @@ from triton.language.extra import libdevice
 @triton.jit
 def tail_eval_kernel(
     out_ptr, out_matched_ptr,{args}
-    params_ptr, consts_ptr, n, n_params,
+    params_ptr, consts_ptr, n, n_params, n_shards,
     BLOCK: tl.constexpr,
 ):
     row = tl.program_id(1)
     offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
     mask = offs < n
     base = row.to(tl.int64) * n
+    cbase = {cbase}
     prow = row * n_params
 {body}
     sc = tl.where(mask, {scores}, {scores})
@@ -695,9 +714,11 @@ def tail_eval_kernel(
 '''
 
 
-def generate_source(key) -> tuple[str, list[float], TritonTail]:
+def generate_source(key, stacked: bool = False
+                    ) -> tuple[str, list[float], TritonTail]:
     """(kernel module source, fp32 constants in kernel order, the backend
-    with the inputs' order) for a node key."""
+    with the inputs' order) for a node key; `stacked`: row r reads the
+    columns' row r % n_shards ([S, N] columns)."""
     be = TritonTail()
     xp = TailXP(be, 0)
     scores, matched = _BODIES[key[0]](xp, key)
@@ -707,14 +728,16 @@ def generate_source(key) -> tuple[str, list[float], TritonTail]:
         + [f"\n    c{j}_ptr," for j in range(len(be.column_names))]
     )
     body = "\n".join(f"    {line}" for line in be.lines)
+    cbase = "(row % n_shards).to(tl.int64) * n" if stacked else "0"
     src = _TEMPLATE.format(key=repr(key).replace("\n", " "), args=args,
-                           body=body, scores=scores.v, matched=matched.v)
+                           cbase=cbase, body=body, scores=scores.v,
+                           matched=matched.v)
     return src, be.consts, be
 
 
-def _kernel_for(key, device: torch.device):
+def _kernel_for(key, device: torch.device, stacked: bool = False):
     digest = hashlib.sha256(
-        (GENERATOR_VERSION + "\0" + repr(key)).encode()
+        (GENERATOR_VERSION + "\0" + repr((key, stacked))).encode()
     ).hexdigest()[:16]
     with _lock:
         hit = _generated.get((digest, device))
@@ -723,7 +746,7 @@ def _kernel_for(key, device: torch.device):
         os.environ.setdefault(
             "TRITON_CACHE_DIR", str(kernels.BUILD_ROOT / "triton_cache")
         )
-        src, consts, be = generate_source(key)
+        src, consts, be = generate_source(key, stacked)
         TRITON_DIR.mkdir(parents=True, exist_ok=True)
         path = TRITON_DIR / f"tail_{digest}.py"
         if not path.exists() or path.read_text() != src:
@@ -751,18 +774,20 @@ def _take(group: dict, names: list[str], what: str):
 
 
 def tail_eval(key, q: int, n: int, planes: dict, masks: dict, columns: dict,
-              params: dict):
+              params: dict, n_shards: int = 0):
     """K14: one structured node's tail over Q rows.
 
-    key: the node's static key (`node_key` below: its kind first);
-    planes name -> f32[Q, N], masks name -> bool[Q, N], columns name ->
-    f32[N] (NaN = missing), params name -> f32[Q] (a random_score seed as
-    its uint32 bits seen as f32). The body reads the names it needs.
-    Returns (scores f32[Q, N], matched bool[Q, N])."""
-    dev = _check_inputs(key, q, n, planes, masks, columns, params)
+    key: the node's static key (its kind first); planes name -> f32[Q, N],
+    masks name -> bool[Q, N], columns name -> f32[N] (NaN = missing), or
+    f32[S, N] over S = n_shards > 0 stacked shards (row r, the pair
+    (query r // S, shard r % S), reads row r % S), params name -> f32[Q]
+    (a random_score seed as its uint32 bits seen as f32). The body reads
+    the names it needs. Returns (scores f32[Q, N], matched bool[Q, N])."""
+    dev = _check_inputs(key, q, n, planes, masks, columns, params, n_shards)
     if dev is None or not kernels._launchable(dev):
-        return tail_eval_plain(key, q, n, planes, masks, columns, params)
-    kernel, const_t, (pn, mn, cn, prn) = _kernel_for(key, dev)
+        return tail_eval_plain(key, q, n, planes, masks, columns, params,
+                               n_shards)
+    kernel, const_t, (pn, mn, cn, prn) = _kernel_for(key, dev, bool(n_shards))
     p_t = _take(planes, pn, "planes")
     m_t = [m.view(torch.uint8) for m in _take(masks, mn, "masks")]
     c_t = _take(columns, cn, "columns")
@@ -775,10 +800,10 @@ def tail_eval(key, q: int, n: int, planes: dict, masks: dict, columns: dict,
     with torch.cuda.device(dev):
         kernel[grid](
             out, out_matched.view(torch.uint8), *p_t, *m_t, *c_t,
-            params_t, const_t, n, params_t.shape[1],
+            params_t, const_t, n, params_t.shape[1], max(1, n_shards),
             BLOCK=BLOCK, num_warps=4, enable_fp_fusion=False,
         )
-    kernels.count_launch("tail_eval_" + key[0])
+    kernels.count_launch("tail_eval_" + key[0], n_shards)
     return out, out_matched
 
 

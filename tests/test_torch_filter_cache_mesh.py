@@ -114,15 +114,23 @@ def stacked():
         name: max(len(seg.fields[name].doc_ids) // TILE + 2 for seg in psegs)
         for name in ("title", "tag")
     }
+    # The port's stack_segment_trees stacks the positional planes too, so
+    # they take a common shape (ShardedIndex.from_segments' pad).
+    pos_tiles = {
+        name: max(len(seg.fields[name].positions) // TILE + 2 for seg in psegs)
+        for name in ("title", "tag")
+        if psegs[0].fields[name].positions is not None
+    }
     pdevs = [pack_segment(s, device="cpu", pad_docs_to=n_pad,
-                          field_min_tiles=min_tiles) for s in psegs]
+                          field_min_tiles=min_tiles,
+                          field_pos_min_tiles=pos_tiles) for s in psegs]
     jdevs = [jpack_segment(s, pad_docs_to=n_pad, field_min_tiles=min_tiles)
              for s in jsegs]
     return {
         "pm": pm, "jm": jm, "pdevs": pdevs, "jdevs": jdevs, "n_pad": n_pad,
         "ptree": tbd.stack_segment_trees([tbd.segment_tree(d) for d in pdevs]),
-        # The positional planes are not padded to a common shape (and
-        # the port's stack_segment_trees leaves them out).
+        # The JAX package's positional planes are not padded to a common
+        # shape, and these plans do not read them.
         "jtree": jax.tree.map(
             lambda *xs: np.stack(xs),
             *[{k: v for k, v in jbd.segment_tree(d).items()

@@ -496,11 +496,28 @@ def test_unified_batch_of_phrase_buckets_matches_the_reference(rand):
 
 
 def test_stacked_shards_refuse_positional_plans(rand):
-    tree = pbd.stack_segment_trees([rand.ptree, rand.ptree])
-    _a, b = rand.compile_both({"match_phrase": {"body": "quick brown"}})
-    plan = pbd.plan_to_torch(b.spec, pbd.stack_plans([b.arrays, b.arrays]), "cpu")
-    with pytest.raises(ValueError, match="stacked shards"):
-        pbd.execute_shards(tree, b.spec, plan, K, rand.ptree["live"].shape[0])
+    """Shards whose positional planes were packed without a common
+    `field_pos_min_tiles` refuse to stack, naming the plane (the
+    reference's np.stack refuses them too); packed with one, they stack
+    and run (test_torch_stacked_tail.py)."""
+    from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+    from elasticsearch_tpu_torch.index.tiles import pack_segment
+
+    builder = SegmentBuilder(rand.pm)
+    for i, d in enumerate(_random_docs(3, 40)):
+        builder.add(d, f"d{i}")
+    seg = builder.build()
+    natural = pack_segment(seg, device="cpu")
+    pt = natural.fields["body"].pos_doc.shape[0]
+    longer = pack_segment(seg, device="cpu",
+                          field_pos_min_tiles={"body": pt + 2})
+    with pytest.raises(ValueError, match=r"positions\.body"):
+        pbd.stack_segment_trees([pbd.segment_tree(natural),
+                                 pbd.segment_tree(longer)])
+    common = pack_segment(seg, device="cpu", field_pos_min_tiles={"body": pt})
+    tree = pbd.stack_segment_trees([pbd.segment_tree(natural),
+                                    pbd.segment_tree(common)])
+    assert tree["positions"]["body"][0].shape == (2, pt, 256)
 
 
 def test_kernel_wrappers_take_cpu_tensors_to_their_plain_versions(rand):

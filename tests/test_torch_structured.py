@@ -380,13 +380,33 @@ def test_launch_counts_stay_zero_on_the_cpu(corpus):
 
 
 def test_structured_nodes_refuse_stacked_shards(corpus):
-    _a, b = corpus.compile_both(CASES[0][1])
-    stree = pbd.stack_segment_trees([corpus.ptree, corpus.ptree])
-    assert "nested" not in stree
-    plan = pbd.plan_to_torch(b.spec, pbd.stack_plans([b.arrays, b.arrays]),
-                             "cpu")
-    with pytest.raises(ValueError, match="stacked shards"):
-        pbd.execute_shards(stree, b.spec, plan, K, corpus.pdev.num_docs)
+    """Shards whose nested blocks differ in shape refuse to stack, with a
+    ValueError naming the nested path (the reference's np.stack refuses
+    them too); with alike blocks they stack and run
+    (test_torch_stacked_tail.py)."""
+    from elasticsearch_tpu_torch.index.tiles import pack_segment
+
+    segs = []
+    for seed in (11, 12):
+        builder = SegmentBuilder(corpus.pm)
+        for i, d in enumerate(make_docs(seed, 40)):
+            builder.add(d, f"d{i}")
+        segs.append(builder.build())
+    assert segs[0].nested["answers"].seg.num_docs != (
+        segs[1].nested["answers"].seg.num_docs)
+    min_tiles = {name: max(len(s.fields[name].doc_ids) for s in segs) // 256 + 2
+                 for name in segs[0].fields}
+    pos_tiles = {name: max(len(s.fields[name].positions) for s in segs)
+                 // 256 + 2 for name in segs[0].fields
+                 if segs[0].fields[name].positions is not None}
+    trees = [pbd.segment_tree(pack_segment(
+        s, device="cpu", pad_docs_to=40, field_min_tiles=min_tiles,
+        field_pos_min_tiles=pos_tiles)) for s in segs]
+    with pytest.raises(ValueError, match=r"nested\.answers"):
+        pbd.stack_segment_trees(trees)
+    # the same blocks on both shards stack
+    stree = pbd.stack_segment_trees([trees[0], trees[0]])
+    assert stree["nested"]["answers"]["child_start"].shape == (2, 41)
 
 
 def test_structured_plans_classify_on_the_device_backend(corpus):
