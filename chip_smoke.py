@@ -85,10 +85,11 @@ and read just after it.
                  match_phrase_prefix, 8 span_near, 4 span_first, 4 span_not,
                  4 span_or, 4 intervals, 8 bool(must match_phrase + filter),
                  sequentially (one warm-up per shape): every answer against
-                 the plain path (K11 / K12 / K3 plain), every match_phrase
-                 against a numpy oracle (slot keys intersected, counted per
-                 doc, the fp32 BM25 tail); then each body four times,
-                 shuffled, from 16 clients, each answer equal to its
+                 the plain path (K11 / K12 / K3 plain), the first 6
+                 match_phrase bodies of each shape against a numpy oracle
+                 (slot keys intersected, counted per doc, the fp32 BM25
+                 tail); then each body twice, shuffled, from 16 clients,
+                 each answer equal to its
                  sequential one; then K11 (phrase and span modes) and K12
                  (phrase, near, near-unordered, first, not) at Q = 1 and at
                  the concurrent phase's mean batch against their plain
@@ -110,8 +111,8 @@ and read just after it.
                  score_mode, four boost modes, a min_score, a script
                  function) and nested on qa (all five score modes, some in
                  a bool with a parent filter); every answer against the
-                 plain path (K13 / K14 plain included), at least 40 (every
-                 kind) against a numpy oracle written here (ids and totals
+                 plain path (K13 / K14 plain included), up to 4 a shape
+                 (every kind) against a numpy oracle written here (ids and totals
                  exact, scores exact or within 4 ulps where a logarithm,
                  exp or pow is in them); 64 of them x 4 from 16 clients,
                  each equal to its sequential answer; then K13 (each join
@@ -300,6 +301,7 @@ import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -628,14 +630,20 @@ def run() -> dict:
     log(f"phase build: ok {build_s:.2f} s (cached={kern.BUILD_INFO.get('cached')}) [{card}]")
 
     # -- 2. corpus ----------------------------------------------------------
+    # The corpus, the body field's token stream (its positions, phase
+    # `phrase`, re-drawn from the generator's seed) and phase
+    # `structured`'s title and columns are independent draws: three
+    # threads (numpy releases the GIL in the long calls).
     t0 = time.monotonic()
-    _mappings, segment = build_zipf_segment(N_DOCS, seed=SEED)
-    # The body field's token positions (phase `phrase`), re-drawn from the
-    # generator's seed.
-    t_pos = time.monotonic()
-    stream = TokenStream(N_DOCS, SEED)
-    stream.add_positions(segment.fields["body"])
-    positions_s = time.monotonic() - t_pos
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        f_stream = pool.submit(TokenStream, N_DOCS, SEED)
+        f_title = pool.submit(structured_parts, N_DOCS, SEED + 9)
+        _mappings, segment = build_zipf_segment(N_DOCS, seed=SEED)
+        t_pos = time.monotonic()
+        stream = f_stream.result()
+        stream.add_positions(segment.fields["body"])
+        positions_s = time.monotonic() - t_pos
+        title_parts = f_title.result()
     # BASELINE config 4's feature columns, as bench.py:3326-3335 draws them,
     # and f3: f1 missing at every tenth doc (the sorted phase's missing
     # values).
@@ -647,7 +655,7 @@ def run() -> dict:
     segment.doc_values.update(f1=f1, f2=f2, f3=f3)
     # Phase `structured`'s fields: title (with positions), loc, pop,
     # pagerank and req.
-    title_s = structured_fields(segment)
+    title_s = attach_structured(segment, title_parts)
     gen_s = time.monotonic() - t0
     node = Node(device=DEVICE)
     node.create_index("msmarco", {"mappings": {"properties": {
@@ -1405,11 +1413,15 @@ def run_sharded(card, dev, launches, rows) -> dict:
     shard_docs = [N_DOCS // N_SHARDS + (1 if s < N_DOCS % N_SHARDS else 0)
                   for s in range(N_SHARDS)]
     t0 = time.monotonic()
-    shards = []
-    for s, n in enumerate(shard_docs):
-        _m, seg = build_zipf_segment(n, vocab_size=30_000, seed=100 + s)
+
+    def shard(s):
+        _m, seg = build_zipf_segment(shard_docs[s], vocab_size=30_000,
+                                     seed=100 + s)
         # Unique _ids across shards (the generator numbers docs from 0).
-        shards.append(replace(seg, ids=[f"s{s}d{i}" for i in range(n)]))
+        return replace(seg, ids=[f"s{s}d{i}" for i in range(shard_docs[s])])
+
+    with ThreadPoolExecutor(max_workers=4) as pool:  # independent draws
+        shards = list(pool.map(shard, range(N_SHARDS)))
     gen_s = time.monotonic() - t0
     node = Node(device=DEVICE)
     node.create_index("cfg3", {
@@ -2203,6 +2215,25 @@ def run_knn(card, dev, launches, rows) -> dict:
     scripts += [("dotProduct(params.qv, 'vec')", qvs[0]),
                 ("1 / (1 + l2norm(params.qv, 'vec'))", qvs[1])]
     script_bodies = [script_body(src, q) for src, q in scripts]
+    # Fault C4's shape: vector functions inside function_score scripts
+    # (K7's script planes read by K14 as node inputs).
+    c4_bodies = [
+        {"query": {"function_score": {
+            "query": {"range": {"pop": {"lt": 0.7}}},
+            "functions": [
+                {"script_score": {"script": {
+                    "source": "cosineSimilarity(params.qv, 'vec') + 1.0",
+                    "params": {"qv": qvs[3].tolist()}}}},
+                {"filter": {"range": {"pop": {"lt": 0.2}}}, "weight": 2}],
+            "score_mode": "sum"}}, "size": TOP_K, "_source": False},
+        {"query": {"function_score": {
+            "query": {"match_all": {}},
+            "functions": [{"script_score": {"script": {
+                "source": "dotProduct(params.qv, 'vec') * params.w"
+                          " - l2norm(params.qv, 'vec')",
+                "params": {"qv": qvs[4].tolist(), "w": 0.5}}}}],
+            "boost_mode": "replace"}}, "size": TOP_K, "_source": False},
+    ]
     knn_bodies = [knn_body(q) for q in qvs]
     filtered = [knn_body(q, filter={"range": {"pop": {"lt": 0.5}}})
                 for q in qvs[:N_KNN_FILTERED]]
@@ -2220,6 +2251,7 @@ def run_knn(card, dev, launches, rows) -> dict:
             first_knn = http(base, "POST", "/glove/_search", knn_bodies[0])
             first_knn_ms = (time.monotonic() - t0) * 1e3
             s_lat, s_resp, s_wall = sequential(base, "glove", script_bodies)
+            _c4_lat, c4_resp, _c4_wall = sequential(base, "glove", c4_bodies)
             k_lat, k_resp, k_wall = sequential(base, "glove", knn_bodies)
             f_lat, f_resp, _f_wall = sequential(base, "glove", filtered)
             knn_search = http(base, "POST", "/glove/_knn_search", {
@@ -2245,6 +2277,7 @@ def run_knn(card, dev, launches, rows) -> dict:
         "pmax": parts.pmax, "plane_bytes": parts.nbytes,
     }
     log(f"phase knn: ok {len(script_bodies)} script_score, "
+        f"{len(c4_bodies)} function_score with vector scripts, "
         f"{len(knn_bodies) + 1} knn, {len(filtered)} filtered knn, one "
         f"_knn_search and one k = 10,000 knn over HTTP; build "
         f"{json.dumps(build)} [{card}]")
@@ -2280,6 +2313,16 @@ def run_knn(card, dev, launches, rows) -> dict:
                                 order, sims[order], ulps=64):
                 mismatches += 1
                 log(f"  MISMATCH script (numpy oracle) {source}")
+
+        for body, out in zip(c4_bodies, c4_resp):
+            c = compiler.compile(parse_query(body["query"]))
+            s, i, t = bm25_device.execute(
+                seg_tree, c.spec, bm25_device.plan_to_torch(c.spec, c.arrays, dev),
+                TOP_K)
+            if not _same_knn(out, s.cpu().numpy(), i.cpu().numpy(), int(t)):
+                mismatches += 1
+                log("  MISMATCH function_score vector script (plain path) "
+                    f"{body['query']['function_score']['functions'][0]}")
 
         def plain_ivf(body):
             knn = KnnSpec.from_json(body["knn"])
@@ -2420,10 +2463,44 @@ def run_knn(card, dev, launches, rows) -> dict:
     return result
 
 
+def _k9_edge_cases(seed: int) -> dict:
+    """K9's edge cases (numpy, from `seed`): (centroids, rows) at d = 16,
+    at d = 33 (one past a slab), at d = 384 (past 128: the wide kernel's
+    staged groups), and at d = 100 with signed zeros,
+    subnormals, exact ties (duplicated centroids, rows equal to them),
+    a NaN and an inf row."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def normal(n, d):
+        return rng.normal(size=(n, d)).astype(np.float32)
+
+    cases = {"d = 16": (normal(1000, 16), normal(8192, 16)),
+             "d = 33": (normal(1000, 33), normal(8192, 33)),
+             "d = 384, the wide kernel": (normal(1000, 384), normal(2048, 384))}
+    cents, rows = normal(1000, 100), normal(8192, 100)
+    cents[500:600] = cents[0:100]
+    cents[10] = -0.0
+    cents[11] = 0.0
+    cents[12, ::2] = -0.0
+    cents[20:40] = np.float32(1e-40) * normal(20, 100)
+    rows[:100] = cents[:100]
+    rows[100:200] = 0.0
+    rows[150:200] = -0.0
+    rows[200:300] = np.float32(3e-39) * normal(100, 100)
+    rows[300:310] = np.float32(1e-41)
+    rows[310, 5] = np.nan
+    rows[311] = np.inf
+    cases["signed zeros, subnormals, ties"] = (cents, rows)
+    return cases
+
+
 def kernel_rows_knn(vec_dev, qvs, parts, nprobe, q_batch, dev):
     """K7 (dense at Q = 1 and at the concurrent phase's mean batch, gather
     at the default nprobe, script at cfg5), K9 at [8,192, 100] x [C, 100]
-    and K3i at the IVF merge's shape, each against its plain version."""
+    and its edge cases (_k9_edge_cases), and K3i at the IVF merge's shape,
+    each against its plain version."""
     import numpy as np
     import torch
 
@@ -2473,6 +2550,22 @@ def kernel_rows_knn(vec_dev, qvs, parts, nprobe, q_batch, dev):
          "torch.matmul + argmin", (8192 + c) * d * 4 + 8192 * 4,
          source="elasticsearch_tpu_torch/csrc/ivf_assign.cu",
          case=f"[8192, {d}] x [{c}, {d}]", flops=2 * 8192 * c * d, reps=5)
+    # K9's edge cases, each bit-equal to the plain version.
+    for case, (cents_np, rows_np) in _k9_edge_cases(SEED + 16).items():
+        ec = torch.from_numpy(cents_np).to(dev).contiguous()
+        er = torch.from_numpy(rows_np).to(dev).contiguous()
+        em, ed = er.shape
+        en = ec.shape[0]
+        _row(rows, "ivf_assign", "elasticsearch_tpu/ops/ann_device.py:280", em,
+             lambda ec=ec, er=er: kern.ivf_assign(ec, er),
+             lambda ec=ec, er=er: kern.ivf_assign_plain(ec, er),
+             lambda ec=ec, er=er: torch.argmin(
+                 (er * er).sum(1, keepdim=True) - 2 * (er @ ec.T)
+                 + (ec * ec).sum(1), dim=1),
+             "torch.matmul + argmin", (em + en) * ed * 4 + em * 4,
+             source="elasticsearch_tpu_torch/csrc/ivf_assign.cu",
+             case=f"{case}: [{em}, {ed}] x [{en}, {ed}]",
+             flops=2 * em * en * ed, reps=5)
     # K3i at the merge's shape: kp partitions x k survivors of one query.
     g = kern.vector_score_gather_batch(parts.part_vectors, q1, probes, "cosine")
     part_s, part_pos, _pt = kern.masked_topk_batch(
@@ -2778,6 +2871,67 @@ def kernel_row_matched_only(seg_tree, compiler, term, dev, rows):
               f"{num_docs:,} docs")
 
 
+def _k3k_cases(seg_tree, compiler, match_terms, scores, elig, dev):
+    """K3k's added cases over the corpus: (case, replaced line, the
+    keyed_topk_batch arguments, the library call over the same masked
+    key). An ascending timestamp-like column (f32, 1 s apart) sorted desc
+    and asc; f1 with all but every 997th value missing; the match's
+    scores bottom-k past a cursor at their median; 16 match rows over
+    f1; and k = 10,000, past KEYED_SELECT_MAX_K (the chunk sorts)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.ops import kernels as kern
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    num_docs = seg_tree["live"].shape[0]
+    f1 = seg_tree["doc_values"]["f1"]
+    ninf = float("-inf")
+
+    def topk_of(key, el, desc, mf, k):
+        sk = kern.sort_key(key, desc, mf)
+        masked = torch.where(el, -sk, ninf).contiguous()
+        return lambda: torch.topk(masked, k, dim=-1)
+
+    ts = (torch.arange(num_docs, dtype=torch.float32, device=dev) * 1000.0
+          + 1.7e12)
+    missing = torch.full_like(f1, float("nan"))
+    missing[::997] = f1[::997]
+    sc = scores.contiguous()
+    live = torch.where(elig, sc, torch.zeros_like(sc))
+    med = float(torch.median(sc[elig]))
+    after = (torch.tensor([med], dtype=torch.float32, device=dev),
+             torch.tensor([num_docs // 2], dtype=torch.int32, device=dev))
+    iota = torch.arange(num_docs, device=dev)
+    past = elig & ((live > med) | ((live == med) & (iota > num_docs // 2)))
+    asc_masked = torch.where(past, -live, ninf).contiguous()
+    planes = []
+    for terms in match_terms[:16]:
+        c = compiler.compile(parse_query({"match": {"body": " ".join(terms)}}))
+        plan = bm25_device._rows1(bm25_device.plan_to_torch(c.spec, c.arrays, dev))
+        planes.append(bm25_device._dense_rows(seg_tree, c.spec, plan, 1)[1][0])
+    elig16 = torch.stack(planes).contiguous()
+    fld, srt = kern.KEYED_FIELD, "elasticsearch_tpu/ops/bm25_device.py:1774"
+    return [
+        ("ascending ts-like column, desc", srt,
+         (ts, elig, TOP_K, fld, True, False), topk_of(ts, elig, True, False, TOP_K)),
+        ("ascending ts-like column, asc", srt,
+         (ts, elig, TOP_K, fld, False, False), topk_of(ts, elig, False, False, TOP_K)),
+        ("f1 mostly missing, desc", srt,
+         (missing, elig, TOP_K, fld, True, False),
+         topk_of(missing, elig, True, False, TOP_K)),
+        ("_score asc past a cursor", "elasticsearch_tpu/ops/bm25_device.py:1313",
+         (live, elig, TOP_K, kern.KEYED_SCORE_ASC, False, False, *after),
+         lambda: torch.topk(asc_masked, TOP_K, dim=-1)),
+        ("Q = 16 over the shared f1", srt,
+         (f1, elig16, TOP_K, fld, True, False),
+         topk_of(f1, elig16, True, False, TOP_K)),
+        ("f1 desc, k = 10,000 (the chunk sorts)", srt,
+         (f1, elig, 10_000, fld, True, False),
+         topk_of(f1, elig, True, False, 10_000)),
+    ]
+
+
 def kernel_rows_slice4(seg_tree, compiler, match_terms, dev):
     """K3k, K5 (fused and gather modes) and K6 at the rescore and sorted
     phases' shapes: K3k on f1 over N = 8,841,823 docs at k = 10, K5 at a
@@ -2806,7 +2960,20 @@ def kernel_rows_slice4(seg_tree, compiler, match_terms, dev):
          lambda: kern.keyed_topk_batch(*args),
          lambda: kern.keyed_topk_batch_plain(*args),
          lambda: torch.topk(masked, TOP_K), "torch.topk over the masked key",
-         num_docs * 5 + TOP_K * 8 + 8, source=SOURCES["masked_topk"])
+         num_docs * 5 + TOP_K * 8 + 8, source=SOURCES["masked_topk"],
+         case=f"f1 desc, N = {num_docs}, k = {TOP_K}")
+    for case, replaces, kargs, lib in _k3k_cases(
+            seg_tree, compiler, match_terms, scores, elig, dev):
+        q_rows, n_cols = kargs[1].shape
+        kp = min(kargs[2], n_cols)
+        key_bytes = kargs[0].numel() * 4
+        _row(rows, "keyed_topk", replaces, q_rows,
+             lambda kargs=kargs: kern.keyed_topk_batch(*kargs),
+             lambda kargs=kargs: kern.keyed_topk_batch_plain(*kargs),
+             lib, "torch.topk over the masked key",
+             key_bytes + q_rows * n_cols + q_rows * (kp * 8 + 8),
+             source=SOURCES["masked_topk"], case=case,
+             reps=5 if kp > kern.KEYED_SELECT_MAX_K or q_rows > 1 else 20)
 
     # K5 at a window of 1,024: the match's top window and the cfg4 plane.
     w = 1024
@@ -4639,6 +4806,8 @@ PHRASE_SOURCES = {
     "position_walk": "elasticsearch_tpu_torch/csrc/position_walk.cu",
 }
 PHRASE_HEAD = [f"t{i}" for i in range(10)]  # the widest position gathers
+PHRASE_ORACLE_PER_SHAPE = 6  # match_phrase bodies a shape held to numpy
+PHRASE_COPIES = 2  # copies of each body in the concurrent run
 
 
 class TokenStream:
@@ -4836,8 +5005,8 @@ def run_phrase(card, dev, node, seg_tree, compiler, segment, stream,
                launches, rows) -> dict:
     """Phase `phrase`: positional queries over the one-shard corpus with
     positions, over HTTP: sequential (each shape warmed once), held to the
-    plain path and (match_phrase) a numpy oracle, then each body four
-    times from 16 clients; then K11 / K12 rows."""
+    plain path and (match_phrase) a numpy oracle, then each body twice
+    from 16 clients; then K11 / K12 rows."""
     import numpy as np
     import torch
 
@@ -4894,12 +5063,17 @@ def run_phrase(card, dev, node, seg_tree, compiler, segment, stream,
             if not same_hits(out, [segment.ids[int(d)] for d in i[:n]], s[:n], t):
                 vs_plain += 1
                 log(f"  MISMATCH phrase plain {name} {spec[:4]}")
-    # The numpy oracle for every match_phrase body.
+    # The numpy oracle for the first PHRASE_ORACLE_PER_SHAPE match_phrase
+    # bodies of each shape.
     vs_oracle, n_oracle = 0, 0
     weight = _phrase_weight(fld, segment.num_docs)
     t0 = time.monotonic()
+    per_shape = {}
     for name, body, out in zip(names, bodies, responses):
         if name not in ("phrase", "phrase_head", "phrase_absent"):
+            continue
+        per_shape[name] = per_shape.get(name, 0) + 1
+        if per_shape[name] > PHRASE_ORACLE_PER_SHAPE:
             continue
         words = body["query"]["match_phrase"]["body"].split()
         ids, scores, total = phrase_oracle(fld, segment.num_docs, words, weight)
@@ -4909,11 +5083,11 @@ def run_phrase(card, dev, node, seg_tree, compiler, segment, stream,
             log(f"  MISMATCH phrase oracle {words}")
     oracle_s = time.monotonic() - t0
 
-    # Concurrent: each body four times, shuffled, from 16 clients.
+    # Concurrent: each body PHRASE_COPIES times, shuffled, from 16 clients.
     node.exec_batcher.close()
     node.exec_batcher = type(node.exec_batcher)()
     order = np.random.default_rng(SEED + 9).permutation(
-        np.tile(np.arange(len(bodies)), 4))
+        np.tile(np.arange(len(bodies)), PHRASE_COPIES))
     conc_bodies = [bodies[int(j)] for j in order]
     server, base = serve(node)
     k11_before = launches.get("position_events", 0)
@@ -5120,35 +5294,51 @@ TAIL_KINDS = ("function_score", "geo_distance", "geo_box", "rank_feature",
               "dismax", "boosting", "terms_set")
 N_QA = 1_000_000  # Rally `nested` track's shape: questions with answers
 STRUCT_CONC = 64  # bodies of the concurrent run (x 4, from 16 clients)
-ORACLE_PER_SHAPE = 6  # bodies of a shape held to the numpy oracle
+ORACLE_PER_SHAPE = 4  # bodies of a shape held to the numpy oracle
 TERMS_SET_SCRIPT = "Math.min(params.num_terms, doc['req'].value)"
 FS_SCRIPT = "_score * params.a + doc['req'].value"
 
 
-def structured_fields(segment, n_docs: int | None = None, seed: int = SEED + 9):
-    """The cfg2 corpus's new fields (phase `structured`): a Zipf `title` of
-    2-12 tokens (with its positions) and the columns loc (geo_point), pop,
-    pagerank and req, drawn from default_rng(SEED + 9) — Rally `geonames`'
-    location + population shape over the same 8,841,823 docs (phase
-    `stacked-tail` draws a cfg3 shard's from its own seed)."""
+def structured_parts(n_docs: int, seed: int):
+    """The cfg2 corpus's new fields (phase `structured`), drawn apart from
+    the corpus: a Zipf `title` of 2-12 tokens (with its positions) and the
+    columns loc (geo_point), pop, pagerank and req, from default_rng(seed)
+    — Rally `geonames`' location + population shape. Returns (title
+    field, columns, seconds)."""
     import numpy as np
 
     from elasticsearch_tpu_torch.utils.corpus import build_zipf_segment
 
     t0 = time.monotonic()
-    n_docs = N_DOCS if n_docs is None else n_docs
     _m, tseg = build_zipf_segment(n_docs, seed=seed, min_len=2,
                                   max_len=12, field="title")
     title = tseg.fields["title"]
     TokenStream(n_docs, seed, min_len=2, max_len=12).add_positions(title)
-    segment.fields["title"] = title
     rng = np.random.default_rng(seed)
-    segment.doc_values["loc.lat"] = rng.uniform(-60, 70, n_docs).astype(np.float32)
-    segment.doc_values["loc.lon"] = rng.uniform(-180, 180, n_docs).astype(np.float32)
-    segment.doc_values["pop"] = rng.lognormal(8.0, 2.0, n_docs).astype(np.float32)
-    segment.doc_values["pagerank"] = rng.lognormal(0.0, 1.0, n_docs).astype(np.float32)
-    segment.doc_values["req"] = rng.integers(1, 4, n_docs).astype(np.float32)
-    return time.monotonic() - t0
+    cols = {
+        "loc.lat": rng.uniform(-60, 70, n_docs).astype(np.float32),
+        "loc.lon": rng.uniform(-180, 180, n_docs).astype(np.float32),
+        "pop": rng.lognormal(8.0, 2.0, n_docs).astype(np.float32),
+        "pagerank": rng.lognormal(0.0, 1.0, n_docs).astype(np.float32),
+        "req": rng.integers(1, 4, n_docs).astype(np.float32),
+    }
+    return title, cols, time.monotonic() - t0
+
+
+def attach_structured(segment, parts) -> float:
+    """Give `segment` the title and columns of structured_parts; returns
+    the seconds they took to draw."""
+    title, cols, seconds = parts
+    segment.fields["title"] = title
+    segment.doc_values.update(cols)
+    return seconds
+
+
+def structured_fields(segment, n_docs: int | None = None, seed: int = SEED + 9):
+    """structured_parts attached to `segment` (over N_DOCS by default;
+    phase `stacked-tail` draws a cfg3 shard's from its own seed)."""
+    n_docs = N_DOCS if n_docs is None else n_docs
+    return attach_structured(segment, structured_parts(n_docs, seed))
 
 
 STRUCTURED_MAPPINGS = {
@@ -7858,12 +8048,15 @@ def run_stacked_tail(card, dev, shards, launches, rows) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    streams = []
-    for s, seg in enumerate(shards):
+    def shard_fields(s):
+        seg = shards[s]
         stream = TokenStream(seg.num_docs, 100 + s)
         stream.add_positions(seg.fields["body"])
         structured_fields(seg, seg.num_docs, 200 + s)
-        streams.append(stream)
+        return stream
+
+    with ThreadPoolExecutor(max_workers=4) as pool:  # a shard a task
+        streams = list(pool.map(shard_fields, range(len(shards))))
     qa_segs = build_qa_shards()
     gen_s = time.monotonic() - t0
     t0 = time.monotonic()

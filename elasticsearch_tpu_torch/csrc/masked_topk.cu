@@ -15,9 +15,9 @@
 // eligible byte (1 B) once; for the k <= 10,000 of a search the output is
 // negligible (K3k on one doc-values column at BASELINE config 4's
 // 8,841,823 docs: 44,209,115 B, 0.0132 ms at 3.35 TB/s). The shared-memory
-// bitonic sorts below do O(log^2 chunk) compare-exchanges per key, so this
-// first kernel is compute-heavy next to that bound; it is kept because it
-// is simple and exactly right.
+// bitonic sorts below do O(log^2 chunk) compare-exchanges per key, so the
+// row, window, stacked and id modes are compute-heavy next to that bound;
+// K3k's threshold select (below) reads each entry once instead.
 //
 // Design: lax.top_k's order is IEEE totalOrder descending (+NaN first,
 // +0.0 above -0.0), lower index first on ties. Each key becomes one 64-bit
@@ -31,20 +31,40 @@
 // input, so the output keeps the input's exact bits. `total` is an integer
 // reduction over each row's eligible mask.
 //
-// K3k (keyed mode): pass 1 builds each doc's key in the kernel as the
-// reference composes it, then forms the composite of the value lax.top_k
-// sees; the merge passes are K3's. For a field sort the key is the
-// doc-values column negated for desc, NaN (missing) pinned to -/+f32max
-// for missing first/last; for a score order it is the score. A cursor
-// (after_key, after_doc) keeps `key > after_key | (key == after_key & doc
-// > after_doc)` (`<` for the descending score cursor); docs not kept are
-// set to +inf (-inf for the descending score order), and the composite is
-// of -masked (bottom-k and field sorts; a NaN keeps its sign, as the
-// reference's jitted negation leaves it) or masked (descending score). The
-// count kernel returns total = sum(eligible) and n_after = sum(keep); the
+// K3k (keyed mode): each doc's key is built in the kernel as the
+// reference composes it, then the composite of the value lax.top_k sees.
+// For a field sort the key is the doc-values column negated for desc, NaN
+// (missing) pinned to -/+f32max for missing first/last; for a score order
+// it is the score. A cursor (after_key, after_doc) keeps `key > after_key
+// | (key == after_key & doc > after_doc)` (`<` for the descending score
+// cursor); docs not kept are set to +inf (-inf for the descending score
+// order), and the composite is of -masked (bottom-k and field sorts; a NaN
+// keeps its sign, as the reference's jitted negation leaves it) or masked
+// (descending score). total = sum(eligible), n_after = sum(keep); the
 // decode returns the column's raw value (field sorts) or the masked score
 // (score orders; a NaN of the bottom-k with its sign flipped) at each
-// winner.
+// winner. esk_keyed_topk switches on k between two designs, both exact:
+//
+// - k <= KS_MAX_K (256): the threshold select, one launch (after one
+//   memset). Each row splits into stripes, about two blocks a
+//   multiprocessor over all rows. A block reads each key and eligible byte
+//   of its stripe once (float4 / 4-byte words where the planes align),
+//   counts total and n_after in the same pass, and keeps a shared buffer
+//   of the composites at or above a threshold T: T starts as the k-th
+//   largest of 2,048 entries sampled in 64 runs of 32 (the last run the
+//   stripe's final entries, so a monotone column, where every key in
+//   stripe order beats a running k-th, is bounded from the start), and
+//   after a round that leaves more than 4,096 candidates the buffer is cut
+//   to its top k by a radix select and T becomes its k-th. Long runs of
+//   equal keys, NaN of either sign, fewer eligible docs than k and a cursor
+//   that keeps almost nothing are all plain composites to it. The row's
+//   last block to finish (an arrival counter) merges the blocks' top-k
+//   lists: only survivors at or above the largest block k-th can win, so
+//   those few are cut to k, sorted and decoded. Bound: bytes, 5 B an entry
+//   read once; the work per entry is a few dozen instructions.
+// - k > KS_MAX_K: the chunk sorts, K3's passes with the keyed pass 1
+//   (keyed_block_kernel, keyed_count_kernel, keyed_decode_kernel), whose
+//   per-block sort cost is what the select avoids for small k.
 //
 // Id mode (K3i; the merge of the IVF survivors in elasticsearch_tpu/ops/
 // ann_device.py `_ivf_inner` :236-242, `lax.sort((-s, doc, s),
@@ -100,29 +120,59 @@ struct KeyedArgs {
     const int32_t* after_doc;  // [Q]
 };
 
-// The value lax.top_k sees for doc i of row q (`*keep`: it passes the
-// eligibility and the cursor), and the masked value it came from.
-__device__ __forceinline__ float keyed_value(const KeyedArgs& a, int64_t q,
-                                             int64_t i, bool* keep,
-                                             float* masked) {
-    const float raw = a.key[q * a.key_stride + i];
+// The value lax.top_k sees for doc i, from its loaded key `raw` and
+// eligible byte `elig` (`*keep`: it passes the eligibility and, where
+// `cursor`, the cursor (ak, ad)), and the masked value it came from; MODE
+// is a KEYED_* mode.
+template <int MODE>
+__device__ __forceinline__ float keyed_value_m(const KeyedArgs& a,
+                                               bool cursor, float ak,
+                                               int64_t ad, int64_t i,
+                                               float raw, uint8_t elig,
+                                               bool* keep, float* masked) {
     float key = raw;
-    if (a.mode == KEYED_FIELD) {
+    if (MODE == KEYED_FIELD) {
         const float k0 = a.desc ? -raw : raw;
         key = isnan(k0) ? (a.missing_first ? -FLT_MAX : FLT_MAX) : k0;
     }
-    bool kp = a.eligible[q * a.m + i] != 0;
-    if (a.after_key != nullptr) {
-        const float ak = a.after_key[q];
-        const bool past = a.mode == KEYED_SCORE_DESC ? key < ak : key > ak;
-        kp = kp && (past || (key == ak && i > (int64_t)a.after_doc[q]));
+    bool kp = elig != 0;
+    if (cursor) {
+        const bool past = MODE == KEYED_SCORE_DESC ? key < ak : key > ak;
+        kp = kp && (past || (key == ak && i > ad));
     }
-    const bool neg = a.mode != KEYED_SCORE_DESC;
+    constexpr bool neg = MODE != KEYED_SCORE_DESC;
     const float mk = kp ? key : (neg ? ESK_INF : -ESK_INF);
     *keep = kp;
     *masked = mk;
     // The negation keeps a NaN's sign, as the reference serves it.
     return (neg && !isnan(mk)) ? -mk : mk;
+}
+
+// keyed_value_m of row q with the mode and cursor read from `a`.
+__device__ __forceinline__ float keyed_value_of(const KeyedArgs& a,
+                                                int64_t q, int64_t i,
+                                                float raw, uint8_t elig,
+                                                bool* keep, float* masked) {
+    const bool cursor = a.after_key != nullptr;
+    const float ak = cursor ? a.after_key[q] : 0.f;
+    const int64_t ad = cursor ? (int64_t)a.after_doc[q] : 0;
+    if (a.mode == KEYED_SCORE_DESC) {
+        return keyed_value_m<KEYED_SCORE_DESC>(a, cursor, ak, ad, i, raw, elig,
+                                               keep, masked);
+    }
+    if (a.mode == KEYED_SCORE_ASC) {
+        return keyed_value_m<KEYED_SCORE_ASC>(a, cursor, ak, ad, i, raw, elig,
+                                              keep, masked);
+    }
+    return keyed_value_m<KEYED_FIELD>(a, cursor, ak, ad, i, raw, elig, keep,
+                                      masked);
+}
+
+__device__ __forceinline__ float keyed_value(const KeyedArgs& a, int64_t q,
+                                             int64_t i, bool* keep,
+                                             float* masked) {
+    return keyed_value_of(a, q, i, a.key[q * a.key_stride + i],
+                          a.eligible[q * a.m + i], keep, masked);
 }
 
 // Sort a block's `ch` composites and write its top min(kk, len).
@@ -399,6 +449,615 @@ static int merge_passes(int n_rows, int m, int kk, int ch, size_t smem,
     return 0;
 }
 
+// ---------------------------------------------------------------------------
+// K3k's threshold select (k <= KS_MAX_K): one pass over the keys, then one
+// merge a row, in one launch. See the header; a later mode (K3's row or
+// window mode) can reuse it by giving ks_select_kernel another source of
+// composites than keyed_value_m.
+// ---------------------------------------------------------------------------
+
+#define KS_MAX_K 256                         // largest k of this design
+#define KS_THREADS 512
+#define KS_ROUND (KS_THREADS * 8)            // entries a round: 8 a thread
+#define KS_CAP (2 * KS_ROUND + 8)            // candidate buffer (u64)
+#define KS_SAMPLE 2048                       // sampled entries a block
+
+struct KsState {
+    uint64_t tmp[KS_MAX_K];  // the kept candidates while compacting
+    int hist[256];
+    int count;               // candidates in the buffer
+    int kept;
+    int digit;
+    int rank;
+    int bucket;
+    uint64_t result;
+};
+
+__device__ __forceinline__ uint64_t ks_shfl_xor(uint64_t v, int j) {
+    const unsigned lo = __shfl_xor_sync(0xffffffffu, (unsigned)v, j);
+    const unsigned hi = __shfl_xor_sync(0xffffffffu, (unsigned)(v >> 32), j);
+    return ((uint64_t)hi << 32) | lo;
+}
+
+// The kk-th largest (1 <= kk <= n) of the n composites a[0, n) in shared
+// memory (n <= KS_CAP, distinct at and above the answer). 8-bit radix
+// passes from the top byte: each counts the entries that match the digits
+// found so far, and warp 0 finds the digit whose bucket holds rank kk.
+// Once that bucket has at most 32 entries, they are gathered and warp 0
+// sorts them with a shuffle bitonic sort. Every thread returns the same
+// value.
+__device__ uint64_t ks_kth_largest(const uint64_t* a, int n, int kk,
+                                   KsState& st) {
+    uint64_t prefix = 0;
+    uint64_t mask = 0;
+    int rank = kk;
+    int bucket = n;
+    for (int shift = 56; shift >= 0 && bucket > 32; shift -= 8) {
+        for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+            st.hist[i] = 0;
+        }
+        __syncthreads();
+        for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+            // Lanes with the same digit add once (runs of equal keys
+            // share their high bytes).
+            const int i = i0 + threadIdx.x;
+            int digit = 256;
+            if (i < n) {
+                const uint64_t v = a[i];
+                if ((v & mask) == prefix) {
+                    digit = (int)((v >> shift) & 255);
+                }
+            }
+            const unsigned peers = __match_any_sync(0xffffffffu, digit);
+            if (digit < 256 && (threadIdx.x & 31) == __ffs(peers) - 1) {
+                atomicAdd(&st.hist[digit], __popc(peers));
+            }
+        }
+        __syncthreads();
+        if (threadIdx.x < 32) {
+            // Lane l holds digits 255 - 8l down to 248 - 8l.
+            const int lane = threadIdx.x;
+            int c[8];
+            int sum = 0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                c[j] = st.hist[255 - lane * 8 - j];
+                sum += c[j];
+            }
+            int incl = sum;
+            for (int off = 1; off < 32; off <<= 1) {
+                const int t = __shfl_up_sync(0xffffffffu, incl, off);
+                if (lane >= off) {
+                    incl += t;
+                }
+            }
+            const int excl = incl - sum;
+            if (excl < rank && rank <= incl) {
+                int acc = excl;
+                for (int j = 0; j < 8; ++j) {
+                    if (acc + c[j] >= rank) {
+                        st.digit = 255 - lane * 8 - j;
+                        st.rank = rank - acc;
+                        st.bucket = c[j];
+                        break;
+                    }
+                    acc += c[j];
+                }
+            }
+        }
+        __syncthreads();
+        prefix |= (uint64_t)st.digit << shift;
+        mask |= (uint64_t)255 << shift;
+        rank = st.rank;
+        bucket = st.bucket;
+    }
+    if (bucket > 32) {  // all eight bytes fixed: prefix is the entry
+        return prefix;
+    }
+    if (threadIdx.x == 0) {
+        st.kept = 0;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const uint64_t v = a[i];
+        if ((v & mask) == prefix) {
+            st.tmp[atomicAdd(&st.kept, 1)] = v;
+        }
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+        const int lane = threadIdx.x;
+        uint64_t v = lane < st.kept ? st.tmp[lane] : 0ull;
+        for (int k = 2; k <= 32; k <<= 1) {
+            for (int j = k >> 1; j > 0; j >>= 1) {
+                const uint64_t o = ks_shfl_xor(v, j);
+                const bool desc = (lane & k) == 0;
+                const bool lower = (lane & j) == 0;
+                v = (lower == desc) ? (v > o ? v : o) : (v < o ? v : o);
+            }
+        }
+        if (lane == rank - 1) {
+            st.result = v;
+        }
+    }
+    __syncthreads();
+    return st.result;
+}
+
+// Keep the entries of a[0, n) at or above `kth` (kk of them, composites
+// being distinct) at a[0, kk); returns kk.
+__device__ int ks_keep_top(uint64_t* a, int n, uint64_t kth, KsState& st) {
+    if (threadIdx.x == 0) {
+        st.kept = 0;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const uint64_t v = a[i];
+        if (v >= kth) {
+            st.tmp[atomicAdd(&st.kept, 1)] = v;
+        }
+    }
+    __syncthreads();
+    const int kept = st.kept;
+    for (int i = threadIdx.x; i < kept; i += blockDim.x) {
+        a[i] = st.tmp[i];
+    }
+    __syncthreads();
+    return kept;
+}
+
+// Row q's merge, by its last block: the top kp of its nb blocks'
+// survivors (kp each, unordered; nb * kp <= KS_CAP). The true kp-th
+// largest is at least every block's own kp-th (its smallest survivor), so
+// only survivors at or above the largest of those can win: they are
+// gathered into buf, cut to the top kp (radix select) and sorted
+// (bitonic), then decoded as keyed_decode_kernel does.
+__device__ void ks_merge_row(const KeyedArgs& a, int64_t q, int kp, int nb,
+                             const uint64_t* __restrict__ surv,
+                             float* __restrict__ values,
+                             int32_t* __restrict__ top_idx, uint64_t* buf,
+                             KsState& st) {
+    const int n = nb * kp;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const uint64_t* src = surv + q * (int64_t)n;
+    uint64_t fl = 0;  // the largest block floor this thread saw
+    for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+        uint64_t mn = ~0ull;
+        for (int i = 0; i < kp; ++i) {
+            const uint64_t v = __ldcg(src + (int64_t)b * kp + i);
+            mn = v < mn ? v : mn;
+        }
+        fl = mn > fl ? mn : fl;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+        const uint64_t o = ks_shfl_xor(fl, off);
+        fl = o > fl ? o : fl;
+    }
+    if (lane == 0) {
+        st.tmp[warp] = fl;
+    }
+    if (threadIdx.x == 0) {
+        st.count = 0;
+    }
+    __syncthreads();
+    uint64_t fl_max = 0;
+    for (int w = 0; w < KS_THREADS / 32; ++w) {
+        fl_max = st.tmp[w] > fl_max ? st.tmp[w] : fl_max;
+    }
+    for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+        const int i = i0 + threadIdx.x;
+        const uint64_t v = i < n ? __ldcg(src + i) : 0ull;
+        const bool in = i < n && v >= fl_max;
+        const unsigned bal = __ballot_sync(0xffffffffu, in);
+        if (bal != 0u) {
+            int base = 0;
+            if (lane == 0) {
+                base = atomicAdd(&st.count, __popc(bal));
+            }
+            base = __shfl_sync(0xffffffffu, base, 0);
+            if (in) {
+                buf[base + __popc(bal & ((1u << lane) - 1u))] = v;
+            }
+        }
+    }
+    __syncthreads();
+    // At least kp of the gathered survivors are real (the floor's block
+    // holds kp), so the kp-th largest is real and distinct.
+    const int n2 = st.count;
+    const int kept =
+        n2 > kp ? ks_keep_top(buf, n2, ks_kth_largest(buf, n2, kp, st), st)
+                : n2;
+    int ch = 1;
+    while (ch < kept) {
+        ch <<= 1;
+    }
+    for (int i = kept + threadIdx.x; i < ch; i += blockDim.x) {
+        buf[i] = 0ull;
+    }
+    esk_bitonic_desc(buf, ch);
+    for (int r = threadIdx.x; r < kp; r += blockDim.x) {
+        const uint32_t idx = esk_composite_index(buf[r]);
+        bool keep;
+        float masked;
+        keyed_value(a, q, idx, &keep, &masked);
+        const int64_t t = q * kp + r;
+        top_idx[t] = (int32_t)idx;
+        if (a.mode == KEYED_FIELD) {
+            values[t] = a.key[q * a.key_stride + idx];
+        } else if (a.mode == KEYED_SCORE_ASC && isnan(masked)) {
+            values[t] = __uint_as_float(__float_as_uint(masked) ^ 0x80000000u);
+        } else {
+            values[t] = masked;
+        }
+    }
+}
+
+// Row q's entries [b * stripe, (b + 1) * stripe): survivors (the block's
+// top kp composites, unordered, 0-padded) to surv[(q * nb + b) * kp ...],
+// its eligible and kept counts added to total[q] / n_after[q], and a ticket
+// from arrive[q]: the row's last block merges (ks_merge_row) into
+// values / top_idx [q, kp]. MODE is the call's mode (the per-entry work is
+// compiled for each).
+//
+// A threshold T filters the pass: only composites >= T enter the shared
+// candidate buffer. T starts as the kp-th largest of KS_SAMPLE entries
+// taken in 64 runs of 32 spread evenly over the stripe, the last run its
+// final 32 entries (a subset's kp-th largest is at most the stripe's, so
+// no winner is filtered; on a monotone column the last run bounds the
+// winners, where every key in stripe order would beat a running kp-th).
+// Rounds of KS_ROUND entries are block-synchronous, the next round's
+// loads in flight while the current one is filtered (two register sets,
+// alternating); an entry is tested against T in registers, and a warp
+// appends to the buffer (a ballot, one atomic) only when one of its lanes
+// holds a candidate; after a round that
+// leaves more than KS_ROUND candidates, the buffer is cut to its top kp
+// and T becomes its kp-th. Each key and eligible byte is read once, as
+// float4 and 4-byte words where the row's two planes align (else 4-byte
+// and 1-byte loads, coalesced).
+template <int MODE>
+__global__ void __launch_bounds__(KS_THREADS, 2)
+ks_select_kernel(KeyedArgs a, int kp, int nb, int64_t stripe,
+                 uint64_t* __restrict__ surv, float* __restrict__ values,
+                 int32_t* __restrict__ top_idx, int32_t* __restrict__ total,
+                 int32_t* __restrict__ n_after, int32_t* __restrict__ arrive) {
+    extern __shared__ uint64_t buf[];
+    __shared__ KsState st;
+    const int64_t q = blockIdx.y;
+    const int64_t lo = (int64_t)blockIdx.x * stripe;
+    const int64_t hi = min(a.m, lo + stripe);
+    const int64_t len = hi > lo ? hi - lo : 0;
+    const float* krow = a.key + q * a.key_stride;
+    const uint8_t* erow = a.eligible + q * a.m;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const bool cursor = a.after_key != nullptr;
+    const float ak = cursor ? a.after_key[q] : 0.f;
+    const int64_t ad = cursor ? (int64_t)a.after_doc[q] : 0;
+    auto composite = [&](int64_t e, float raw, uint8_t el, bool* keep) {
+        float masked;
+        return esk_composite(
+            keyed_value_m<MODE>(a, cursor, ak, ad, e, raw, el, keep, &masked),
+            (uint32_t)e);
+    };
+    uint64_t t_min = 0;
+    if (len >= 2 * KS_SAMPLE && kp <= KS_SAMPLE) {
+        constexpr int RUNS = KS_SAMPLE / 32;
+        const int64_t gap = (len - 32) / (RUNS - 1);
+        constexpr int PER_WARP = RUNS / (KS_THREADS / 32);
+        float raw[PER_WARP];
+        uint8_t el[PER_WARP];
+#pragma unroll
+        for (int i = 0; i < PER_WARP; ++i) {  // every load in flight at once
+            const int64_t e = lo + (warp + i * (KS_THREADS / 32)) * gap + lane;
+            raw[i] = krow[e];
+            el[i] = erow[e];
+        }
+#pragma unroll
+        for (int i = 0; i < PER_WARP; ++i) {
+            const int run = warp + i * (KS_THREADS / 32);
+            bool keep;
+            buf[run * 32 + lane] =
+                composite(lo + run * gap + lane, raw[i], el[i], &keep);
+        }
+        __syncthreads();
+        t_min = ks_kth_largest(buf, KS_SAMPLE, kp, st);
+    }
+    if (threadIdx.x == 0) {
+        st.count = 0;
+    }
+    __syncthreads();
+    uint32_t t_hi = (uint32_t)(t_min >> 32);
+    uint32_t t_lo = (uint32_t)t_min;
+    int n_elig = 0;
+    int n_keep = 0;
+    // Eight entries a thread (ok: a bit an entry): count them, test each
+    // against T, and append the warp's candidates to the buffer only when
+    // one of its lanes has any (a ballot an entry, then).
+    auto process = [&](const float (&raw)[8], const uint8_t (&el)[8],
+                       const int64_t (&idx)[8], unsigned ok) {
+        uint32_t ord[8];
+        unsigned cm = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            bool keep;
+            float masked;
+            ord[j] = esk_f32_order(keyed_value_m<MODE>(
+                a, cursor, ak, ad, idx[j], raw[j], el[j], &keep, &masked));
+            const bool in = (ok >> j) & 1u;
+            n_keep += in && keep;
+            const uint32_t inv = ~(uint32_t)idx[j];
+            const bool cand =
+                in && (ord[j] > t_hi || (ord[j] == t_hi && inv >= t_lo));
+            cm |= (unsigned)cand << j;
+        }
+        if (__any_sync(0xffffffffu, cm != 0u)) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const bool cand = (cm >> j) & 1u;
+                const unsigned bal = __ballot_sync(0xffffffffu, cand);
+                if (bal != 0u) {
+                    int base = 0;
+                    if (lane == 0) {
+                        base = atomicAdd(&st.count, __popc(bal));
+                    }
+                    base = __shfl_sync(0xffffffffu, base, 0);
+                    if (cand) {
+                        buf[base + __popc(bal & ((1u << lane) - 1u))] =
+                            ((uint64_t)ord[j] << 32) | ~(uint32_t)idx[j];
+                    }
+                }
+            }
+        }
+    };
+    // After each round: cut the buffer to its top kp when it holds more
+    // than a round's worth.
+    auto settle = [&]() {
+        __syncthreads();
+        const int n = st.count;
+        __syncthreads();  // every thread read n before the next appends
+        if (n > KS_ROUND) {
+            t_min = ks_kth_largest(buf, n, kp, st);
+            ks_keep_top(buf, n, t_min, st);
+            t_hi = (uint32_t)(t_min >> 32);
+            t_lo = (uint32_t)t_min;
+            if (threadIdx.x == 0) {
+                st.count = kp;
+            }
+            __syncthreads();
+        }
+    };
+    // Both planes align to 4 entries after a head of < 4, if they can.
+    // The rounds alternate between two register sets, so round r + 1's
+    // loads are in flight while round r is filtered.
+    const uintptr_t ka = (uintptr_t)(krow + lo);
+    const uintptr_t ea = (uintptr_t)(erow + lo);
+    if (ka % 4 == 0 && ((ka / 4) - ea) % 4 == 0) {
+        constexpr int GR = KS_ROUND / 4;  // 4-entry groups a round
+        const int64_t head = min(len, (int64_t)((4 - ea % 4) % 4));
+        const int64_t body = (len - head) / 4;
+        const int64_t tail0 = lo + head + body * 4;
+        const int64_t rounds = body > 0 ? (body + GR - 1) / GR : 1;
+        auto load = [&](int64_t r, float4 (&k4)[2], uint32_t (&e4)[2]) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                const int64_t g = r * GR + threadIdx.x + j * KS_THREADS;
+                if (g < body) {
+                    const int64_t e = lo + head + g * 4;
+                    k4[j] = *reinterpret_cast<const float4*>(krow + e);
+                    e4[j] = *reinterpret_cast<const uint32_t*>(erow + e);
+                }
+            }
+        };
+        auto round = [&](int64_t r, const float4 (&k4)[2],
+                         const uint32_t (&e4)[2]) {
+            if (r == 0 && warp < 2) {
+                // The head and the tail (< 4 entries each) in round 0.
+                const int t = threadIdx.x;
+                const bool in_head = t < head;
+                const bool in_tail = t >= 32 && t < 32 + (hi - tail0);
+                const int64_t e = in_head ? lo + t : tail0 + (t - 32);
+                const bool in = in_head || in_tail;
+                float raw[8] = {in ? krow[e] : 0.f};
+                uint8_t el[8] = {in ? erow[e] : (uint8_t)0};
+                int64_t idx[8] = {e};
+                n_elig += in && el[0] != 0;
+                process(raw, el, idx, in ? 1u : 0u);
+            }
+            float raw[8];
+            uint8_t el[8];
+            int64_t idx[8];
+            unsigned ok = 0;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                const int64_t g = r * GR + threadIdx.x + j * KS_THREADS;
+                const int64_t e = lo + head + g * 4;
+                const float kf[4] = {k4[j].x, k4[j].y, k4[j].z, k4[j].w};
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                    raw[j * 4 + v] = kf[v];
+                    el[j * 4 + v] = (uint8_t)(e4[j] >> (8 * v));
+                    idx[j * 4 + v] = e + v;
+                }
+                if (g < body) {
+                    ok |= 15u << (j * 4);
+                    // Bytes of 0 / 1 (bool): one popc counts four.
+                    uint32_t w = e4[j];
+                    w |= w >> 4;
+                    w |= w >> 2;
+                    w |= w >> 1;
+                    n_elig += __popc(w & 0x01010101u);
+                }
+            }
+            process(raw, el, idx, ok);
+            settle();
+        };
+        float4 ka4[2], kb4[2];
+        uint32_t ea4[2], eb4[2];
+        load(0, ka4, ea4);
+        for (int64_t r = 0; r < rounds; r += 2) {
+            if (r + 1 < rounds) {
+                load(r + 1, kb4, eb4);
+            }
+            round(r, ka4, ea4);
+            if (r + 1 < rounds) {
+                if (r + 2 < rounds) {
+                    load(r + 2, ka4, ea4);
+                }
+                round(r + 1, kb4, eb4);
+            }
+        }
+    } else {
+        const int64_t rounds = (len + KS_ROUND - 1) / KS_ROUND;
+        auto load = [&](int64_t r, float (&k1)[8], uint8_t (&e1)[8]) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int64_t e = lo + r * KS_ROUND + threadIdx.x + j * KS_THREADS;
+                if (e < hi) {
+                    k1[j] = krow[e];
+                    e1[j] = erow[e];
+                }
+            }
+        };
+        auto round = [&](int64_t r, const float (&k1)[8],
+                         const uint8_t (&e1)[8]) {
+            int64_t idx[8];
+            unsigned ok = 0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                idx[j] = lo + r * KS_ROUND + threadIdx.x + j * KS_THREADS;
+                if (idx[j] < hi) {
+                    ok |= 1u << j;
+                    n_elig += e1[j] != 0;
+                }
+            }
+            process(k1, e1, idx, ok);
+            settle();
+        };
+        float ka1[8], kb1[8];
+        uint8_t ea1[8], eb1[8];
+        load(0, ka1, ea1);
+        for (int64_t r = 0; r < rounds; r += 2) {
+            if (r + 1 < rounds) {
+                load(r + 1, kb1, eb1);
+            }
+            round(r, ka1, ea1);
+            if (r + 1 < rounds) {
+                if (r + 2 < rounds) {
+                    load(r + 2, ka1, ea1);
+                }
+                round(r + 1, kb1, eb1);
+            }
+        }
+    }
+    // The block's top kp, and its counts into the row's.
+    __syncthreads();
+    int n = st.count;
+    if (n > kp) {
+        ks_keep_top(buf, n, ks_kth_largest(buf, n, kp, st), st);
+        n = kp;
+    }
+    uint64_t* dst = surv + (q * nb + blockIdx.x) * (int64_t)kp;
+    for (int i = threadIdx.x; i < kp; i += blockDim.x) {
+        dst[i] = i < n ? buf[i] : 0ull;  // 0: below every real composite
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+        n_elig += __shfl_down_sync(0xffffffffu, n_elig, off);
+        n_keep += __shfl_down_sync(0xffffffffu, n_keep, off);
+    }
+    if (lane == 0 && (n_elig | n_keep) != 0) {
+        atomicAdd(total + q, n_elig);
+        atomicAdd(n_after + q, n_keep);
+    }
+    // The row's last block to finish merges its survivors.
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        st.kept = atomicAdd(arrive + q, 1);
+    }
+    __syncthreads();
+    if (st.kept != nb - 1) {
+        return;
+    }
+    __threadfence();
+    ks_merge_row(a, q, kp, nb, surv, values, top_idx, buf, st);
+}
+
+static int ks_sm_count() {
+    static int sms = 0;
+    if (sms <= 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (sms <= 0) {
+            sms = 132;
+        }
+    }
+    return sms;
+}
+
+template <int MODE>
+static int ks_select(const KeyedArgs& a, int n_rows, int kk, int nb,
+                     int64_t stripe, uint64_t* surv, float* values,
+                     int32_t* top_idx, int32_t* total, int32_t* n_after,
+                     int32_t* arrive, cudaStream_t s) {
+    const size_t smem = (size_t)KS_CAP * sizeof(uint64_t);
+    // The shared-memory opt-in once a device (it costs a driver call).
+    static unsigned long long opted = 0;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev >= 64 || !((opted >> dev) & 1ull)) {
+        ESK_SMEM_OPT_IN(ks_select_kernel<MODE>, smem);
+        if (dev < 64) {
+            opted |= 1ull << dev;
+        }
+    }
+    ks_select_kernel<MODE><<<dim3(nb, n_rows), KS_THREADS, smem, s>>>(
+        a, kk, nb, stripe, surv, values, top_idx, total, n_after, arrive);
+    ESK_RETURN_IF_ERROR();
+    return 0;
+}
+
+// The select path of esk_keyed_topk: nb blocks a row (about two a
+// multiprocessor over all rows, at most KS_CAP / kk so the last block's
+// merge fits its buffer, at most one a KS_ROUND entries, and at most the
+// chunk path's block count so both paths share its scratch), stripes a
+// multiple of 4 entries, one launch. total, n_after and arrive ([n_rows]
+// each) are zeroed first: the blocks add their counts and tickets there.
+static int ks_launch(const KeyedArgs& a, int n_rows, int m, int kk, int ch,
+                     uint64_t* surv, float* values, int32_t* top_idx,
+                     int32_t* total, int32_t* n_after, int32_t* arrive,
+                     cudaStream_t s) {
+    int nb = esk_blocks(m, KS_ROUND);
+    nb = esk_imin(nb, KS_CAP / kk);
+    nb = esk_imin(nb, 2 * ks_sm_count() / n_rows);
+    nb = esk_imin(nb, esk_blocks(m, ch));
+    nb = nb < 1 ? 1 : nb;
+    const int64_t stripe = ((int64_t)esk_blocks(m, nb) + 3) / 4 * 4;
+    nb = esk_blocks(m, (int)stripe);
+    const size_t plane = sizeof(int32_t) * (size_t)n_rows;
+    if (n_after == total + n_rows && arrive == n_after + n_rows) {
+        cudaMemsetAsync(total, 0, 3 * plane, s);
+    } else {
+        cudaMemsetAsync(total, 0, plane, s);
+        cudaMemsetAsync(n_after, 0, plane, s);
+        cudaMemsetAsync(arrive, 0, plane, s);
+    }
+    ESK_RETURN_IF_ERROR();
+    if (a.mode == KEYED_SCORE_DESC) {
+        return ks_select<KEYED_SCORE_DESC>(a, n_rows, kk, nb, stripe, surv,
+                                           values, top_idx, total, n_after,
+                                           arrive, s);
+    }
+    if (a.mode == KEYED_SCORE_ASC) {
+        return ks_select<KEYED_SCORE_ASC>(a, n_rows, kk, nb, stripe, surv,
+                                          values, top_idx, total, n_after,
+                                          arrive, s);
+    }
+    return ks_select<KEYED_FIELD>(a, n_rows, kk, nb, stripe, surv, values,
+                                  top_idx, total, n_after, arrive, s);
+}
+
 // key f32[n_rows, m] (ineligible entries already -inf), ids i32[n_rows, m]
 // (the id mode's tie-break ids) or null (the position), eligible
 // u8[n_rows, m]. ch: power-of-two chunk (1024..16384) with ch > k.
@@ -553,6 +1212,7 @@ extern "C" int esk_keyed_topk(
     void* top_idx,
     void* total,
     void* n_after,
+    void* arrive,
     void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (n_rows <= 0) {
@@ -568,6 +1228,13 @@ extern "C" int esk_keyed_topk(
     a.missing_first = missing_first;
     a.after_key = (const float*)after_key;
     a.after_doc = (const int32_t*)after_doc;
+    const int kk = esk_imin(k, m);
+    if (kk > 0 && kk <= KS_MAX_K) {
+        // k <= KS_MAX_K: the threshold select; larger k: the chunk sorts.
+        return ks_launch(a, n_rows, m, kk, ch, (uint64_t*)buf_a,
+                         (float*)values, (int32_t*)top_idx, (int32_t*)total,
+                         (int32_t*)n_after, (int32_t*)arrive, s);
+    }
     cudaMemsetAsync(total, 0, sizeof(int32_t) * (size_t)n_rows, s);
     ESK_RETURN_IF_ERROR();
     cudaMemsetAsync(n_after, 0, sizeof(int32_t) * (size_t)n_rows, s);
@@ -577,7 +1244,6 @@ extern "C" int esk_keyed_topk(
                              0, s>>>(a, (int32_t*)total, (int32_t*)n_after);
         ESK_RETURN_IF_ERROR();
     }
-    const int kk = esk_imin(k, m);
     if (kk <= 0) {
         return 0;
     }

@@ -487,16 +487,18 @@ def _eval_terms_set(spec, arrays, seg, num_docs, q):
     for i, (cspec, carr) in enumerate(zip(count_specs, arrays["counts"])):
         _, masks[f"m{i}"] = _eval_node(cspec, carr, seg, num_docs, q)
     params = {"boost": arrays["boost"]}
+    planes = {"scored": s}
     if msm_kind == "field":
         columns = {"required": seg["doc_values"][msm_ref]}
         key = ("terms_set", len(count_specs), "field", None)
     else:
         columns = seg["doc_values"]
-        params.update(
-            {"p." + name: p for name, p in arrays["params"].items()}
-        )
+        vec_planes, script_params = _tail_script_inputs(
+            msm_ref[0], arrays["params"], seg, q, "")
+        params.update(script_params)
+        planes.update(vec_planes)
         key = ("terms_set", len(count_specs), "script", msm_ref)
-    return _tail(seg, key, q, num_docs, {"scored": s}, masks, columns, params)
+    return _tail(seg, key, q, num_docs, planes, masks, columns, params)
 
 
 def _eval_function_score(spec, arrays, seg, num_docs, q):
@@ -506,6 +508,7 @@ def _eval_function_score(spec, arrays, seg, num_docs, q):
      has_min) = spec
     cs, cm = _eval_node(child_spec, arrays["child"], seg, num_docs, q)
     masks = {"child": cm}
+    planes = {"child": cs}
     params = {"max_boost": arrays["max_boost"], "boost": arrays["boost"]}
     if has_min:
         params["min_score"] = arrays["min_score"]
@@ -516,15 +519,42 @@ def _eval_function_score(spec, arrays, seg, num_docs, q):
             _, masks[f"f{i}"] = _eval_node(fil_spec, fil_arr, seg, num_docs, q)
         for name, val in farr.items():
             if name == "params":
-                params.update({f"f{i}.p.{k}": v for k, v in val.items()})
+                vec_planes, script_params = _tail_script_inputs(
+                    fspec[1], val, seg, q, f"f{i}.")
+                params.update(script_params)
+                planes.update(vec_planes)
             elif name == "seed":
                 params[f"f{i}.seed"] = tail_kernel.seed_bits(val.reshape(q))
             else:
                 params[f"f{i}.{name}"] = val
     key = ("function_score", fspecs, tuple(f is not None for f in filter_specs),
            score_mode, boost_mode, has_min)
-    return _tail(seg, key, q, num_docs, {"child": cs}, masks,
-                 seg["doc_values"], params)
+    return _tail(seg, key, q, num_docs, planes, masks, seg["doc_values"],
+                 params)
+
+
+def _tail_script_inputs(source, params, seg, q, prefix):
+    """The K14 inputs of a function_score or terms_set script: (planes,
+    params). Each param the script reads as a number is the param
+    `<prefix>p.<name>`; each vector call (param, field) reads K7's
+    script-mode planes (`vector_planes`, as script_score stages them) as
+    the planes `<prefix>v.<param>.<field>.dot` / `.norm` / `.dist` and |q|
+    as the param `<prefix>v.<param>.<field>.qnorm`. A list where a number
+    is read is a ValueError (a 400), as in K6."""
+    script = compile_script(source)
+    rows = {name: p.reshape(q, -1) for name, p in params.items()}
+    planes, out = {}, {}
+    staged = vector_planes(script, seg.get("vectors", {}), rows)
+    for (name, field), (dot, norm, dist, qnorm) in staged.items():
+        tag = tail_kernel.vector_tag(prefix, name, field)
+        planes.update({tag + "dot": dot, tag + "norm": norm,
+                       tag + "dist": dist})
+        out[tag + "qnorm"] = qnorm
+    for name in tail_kernel.script_value_params(source, rows):
+        if rows[name].shape[1] != 1:
+            raise ValueError(f"script param [{name}] must be a number")
+        out[f"{prefix}p.{name}"] = rows[name]
+    return planes, out
 
 
 def _eval_nested(spec, arrays, seg, num_docs, q):

@@ -314,12 +314,12 @@ def _bind(lib) -> None:
     lib.esk_masked_topk.argtypes = [P, P, P, I, I, I, I] + [P] * 6
     lib.esk_masked_topk_window.argtypes = [P] * 4 + [I] * 6 + [P] * 6
     lib.esk_span_locate.argtypes = [P, L, P, P, I, I, P, I, I, I, P, P, I, P]
-    lib.esk_keyed_topk.argtypes = [P, L, P] + [I] * 7 + [P] * 9
+    lib.esk_keyed_topk.argtypes = [P, L, P] + [I] * 7 + [P] * 10
     lib.esk_window_gather.argtypes = [P, P, L, P, I, I, P, P, P]
     F = ctypes.c_float
     lib.esk_window_rescore.argtypes = [P, P, I, I, P, P, L, F, F, I, I, P, P, P]
     lib.esk_vector_score.argtypes = [P, L, I, P, I, P, I, I, I, I, I, L] + [P] * 5
-    lib.esk_ivf_assign.argtypes = [P, I, P, I, I, P, I, L, P, P]
+    lib.esk_ivf_assign.argtypes = [P, I, P, I, I, P, P, P]
     lib.esk_bucket_fold.argtypes = [P, P, P, P, L, I, L] + [P] * 9
     lib.esk_range_fold.argtypes = [P, P, P, P, P, L, I, L] + [P] * 11
     lib.esk_position_events.argtypes = [P] * 6 + [I] * 8 + [I, L, I] + [P] * 5
@@ -364,10 +364,11 @@ def ensure_built():
 
 
 def _ptr(t: torch.Tensor | None, offset: int = 0):
-    """Device address of t's first element (plus `offset` elements)."""
+    """Device address of t's first element (plus `offset` elements), as
+    the int a c_void_p argument takes."""
     if t is None:
         return None
-    return ctypes.c_void_p(t.data_ptr() + offset * t.element_size())
+    return t.data_ptr() + offset * t.element_size()
 
 
 def _stream(device: torch.device):
@@ -1362,9 +1363,6 @@ def vector_script_batch(vectors, queries):
 # K9 ivf_assign
 # ---------------------------------------------------------------------------
 
-# Shared memory K9 stages per block: its 8 rows plus a tile of centroids.
-IVF_ASSIGN_SMEM = 96 * 1024
-
 
 def ivf_assign_plain(centroids, rows, chunk: int = 64):
     """K9's plain version: argmin_c (|x|^2 - 2 x.c) + |c|^2 with each sum
@@ -1386,7 +1384,9 @@ def ivf_assign_plain(centroids, rows, chunk: int = 64):
 
 def ivf_assign(centroids, rows):
     """K9: the nearest centroid (squared L2) of each row: centroids
-    f32[C, d], rows f32[M, d] -> i32[M], the first index on ties."""
+    f32[C, d], rows f32[M, d] -> i32[M], the first index on ties (the
+    first NaN distance, as torch.argmin). On the card, the register-tiled
+    kernel of csrc/ivf_assign.cu, bit-equal to `ivf_assign_plain`."""
     dev = rows.device
     _check(centroids, "centroids", torch.float32, 2, dev)
     _check(rows, "rows", torch.float32, 2, dev)
@@ -1395,12 +1395,6 @@ def ivf_assign(centroids, rows):
         raise ValueError("rows and centroids must share d >= 1, with C >= 1")
     if not _launchable(dev):
         return ivf_assign_plain(centroids, rows)
-    width = -(-d // 32) * 32 * 4
-    tile = IVF_ASSIGN_SMEM // width - 8
-    if tile < 1:
-        raise ValueError(f"d = {d} is too wide for K9's shared tiles")
-    tile = min(tile, c)
-    smem = (8 + tile) * width
     lib = ensure_built()
     m = rows.shape[0]
     cc = torch.empty((c,), dtype=torch.float32, device=dev)
@@ -1408,7 +1402,7 @@ def ivf_assign(centroids, rows):
     with torch.cuda.device(dev):
         rc = lib.esk_ivf_assign(
             _ptr(rows), int(m), _ptr(centroids), int(c), int(d), _ptr(cc),
-            int(tile), int(smem), _ptr(out), _stream(dev),
+            _ptr(out), _stream(dev),
         )
     _check_rc("ivf_assign", rc)
     count_launch("ivf_assign")
@@ -1420,6 +1414,10 @@ def ivf_assign(centroids, rows):
 # ---------------------------------------------------------------------------
 
 KEYED_SCORE_DESC, KEYED_SCORE_ASC, KEYED_FIELD = 0, 1, 2
+
+# Largest k of K3k's threshold select (csrc/masked_topk.cu KS_MAX_K); a
+# larger k takes the chunk-sort kernels.
+KEYED_SELECT_MAX_K = 256
 
 F32_MAX = float(np.finfo(np.float32).max)
 
@@ -1505,7 +1503,14 @@ def keyed_topk_batch(key, eligible, k: int, mode: int, desc=False,
     after_key f32[Q] (in the transformed key space) and after_doc i32[Q],
     or None. Returns (values f32[Q, min(k, M)] — the column's raw values
     for a field sort, the masked scores for a score order —, ids
-    i32[Q, min(k, M)], total i32[Q], n_after i32[Q])."""
+    i32[Q, min(k, M)], total i32[Q], n_after i32[Q]).
+
+    On the card, esk_keyed_topk switches on k between two hand-written
+    designs of csrc/masked_topk.cu, both bit-equal to the plain version:
+    min(k, M) <= KEYED_SELECT_MAX_K (256) takes the threshold select (one
+    pass over the keys, the row's last block merging the survivors); a
+    larger k takes the chunk sorts (a bitonic sort of every chunk, then the
+    merge passes)."""
     dev = eligible.device
     _check(eligible, "eligible", torch.bool, 2, dev)
     q, m = eligible.shape
@@ -1538,20 +1543,24 @@ def keyed_topk_batch(key, eligible, k: int, mode: int, desc=False,
             f"k={k} exceeds the top-k kernel's window ({TOPK_MAX_CHUNK - 1})"
         )
     lib = ensure_built()
-    nb = max(1, -(-m // ch))
-    buf_a = torch.empty(max(1, q * nb * kp), dtype=torch.int64, device=dev)
-    buf_b = torch.empty(max(1, q * nb * kp), dtype=torch.int64, device=dev)
-    values = torch.empty((q, kp), dtype=torch.float32, device=dev)
-    ids = torch.empty((q, kp), dtype=torch.int32, device=dev)
-    total = torch.empty((q,), dtype=torch.int32, device=dev)
-    n_after = torch.empty((q,), dtype=torch.int32, device=dev)
+    # Two allocations a call: the scratch (both designs' fits in the chunk
+    # sorts' two buffers of n entries) and the outputs with the select's
+    # arrival counters ([Q] after n_after).
+    n = max(1, q * max(1, -(-m // ch)) * kp)
+    scratch = torch.empty(2 * n, dtype=torch.int64, device=dev)
+    out = torch.empty(q * (2 * kp + 3), dtype=torch.int32, device=dev)
+    values = out[: q * kp].view(torch.float32).view(q, kp)
+    ids = out[q * kp : 2 * q * kp].view(q, kp)
+    total = out[2 * q * kp : 2 * q * kp + q]
+    n_after = out[2 * q * kp + q : 2 * q * kp + 2 * q]
+    base = scratch.data_ptr()
     with torch.cuda.device(dev):
         rc = lib.esk_keyed_topk(
             _ptr(key), int(m if key.dim() == 2 else 0), _ptr(eligible),
             int(q), int(m), int(kp), int(ch), int(mode), int(bool(desc)),
             int(bool(missing_first)), _ptr(after_key), _ptr(after_doc),
-            _ptr(buf_a), _ptr(buf_b), _ptr(values), _ptr(ids), _ptr(total),
-            _ptr(n_after), _stream(dev),
+            base, base + 8 * n, _ptr(values), _ptr(ids), _ptr(total),
+            _ptr(n_after), _ptr(out, 2 * q * kp + 2 * q), _stream(dev),
         )
     _check_rc("keyed_topk", rc)
     count_launch("keyed_topk")

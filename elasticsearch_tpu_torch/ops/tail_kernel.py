@@ -23,9 +23,10 @@ backends: `TorchTail` runs torch ops (the plain version: the CPU tests and
 the card's checks), `TritonTail` emits one Triton statement per operation
 (the kernel). function_score's math is query/functions.py itself, whole,
 with xp = the facade; a script function, and terms_set's script, lower
-through K6's painless-lite walk on the same backend. The generated kernel
-is one elementwise pass: a block of 1,024 docs per program, a row per grid
-column. As for K6, every operation is the one torch's CUDA kernel
+through K6's painless-lite walk on the same backend, their vector calls
+reading K7's script-mode planes as node inputs (`vector_tag`). The
+generated kernel is one elementwise pass: a block of 1,024 docs per
+program, a row per grid column. As for K6, every operation is the one torch's CUDA kernel
 computes, so the two versions are bit-equal on the card: no mul+add
 contraction (enable_fp_fusion=False), IEEE division and square root
 (div_rn, sqrt_rn), libdevice's sinf / cosf / atan2f / expf / logf /
@@ -68,7 +69,7 @@ from ..script.painless_lite import (
     _Lowering,
     lower,
     propagate,
-    referenced_vectors,
+    referenced,
 )
 from . import kernels, script_kernel
 
@@ -214,12 +215,29 @@ class TritonTail(script_kernel.TritonBackend):
         return self.emit(f"{a}.to(tl.float32)")
 
 
-class _ScriptScope:
-    """A backend seen by a script: `_score`, and `params.<name>`, bound to
-    the node's values; everything else is the node's backend."""
+def vector_tag(prefix: str, name: str, field: str) -> str:
+    """The prefix of the node inputs that carry a script's vector call
+    (params.<name>, '<field>'): the planes `<tag>dot`, `<tag>norm` and
+    `<tag>dist` (K7's script mode, f32[Q, N]) and the param `<tag>qnorm`."""
+    return f"{prefix}v.{name}.{field}."
 
-    def __init__(self, be, score, params):
+
+def script_value_params(source: str, given) -> list[str]:
+    """The params of `given` that the script reads as numbers (the query
+    vectors of its vector calls are read through their planes)."""
+    _fields, names = referenced(compile_script(source))
+    return [name for name in given if name in names]
+
+
+class _ScriptScope:
+    """A backend seen by a script: `_score`, `params.<name>` and the
+    vector calls' planes, bound to the node's values (the inputs named
+    with `prefix`, see `vector_tag`); everything else is the node's
+    backend."""
+
+    def __init__(self, be, score, params, prefix=""):
         self._be, self._score, self._params = be, score, params
+        self._prefix = prefix
 
     def __getattr__(self, name):
         return getattr(self._be, name)
@@ -231,6 +249,12 @@ class _ScriptScope:
         if name not in self._params:
             raise ValueError(f"script params has no entry [{name}]")
         return self._params[name]
+
+    def vector(self, part, name, field):
+        tag = vector_tag(self._prefix, name, field)
+        if part == "qnorm":
+            return self._be.param(tag + "qnorm")
+        return self._be.plane(tag + part)
 
 
 # ---------------------------------------------------------------------------
@@ -481,18 +505,14 @@ class TailXP:
     def minimum(self, a, b):
         return self._extremum("min", a, b)
 
-    def script(self, source: str, score, params: dict):
+    def script(self, source: str, score, params: dict, prefix: str = ""):
         """A painless-lite script over this backend (K6's walk): `_score`
-        is `score`, `params.<name>` the node's per-row params."""
-        script = compile_script(source)
-        if referenced_vectors(script):
-            raise ValueError(
-                "vector functions in function_score and terms_set scripts "
-                "are not supported by this port"
-            )
+        is `score`, `params.<name>` the node's per-row params, a vector
+        call the node's K7 planes under `prefix` (`vector_tag`)."""
         scope = _ScriptScope(self.be, self.lift(score, F32).v,
-                             {k: self.lift(v, F32).v for k, v in params.items()})
-        return Sym(self, lower(script, scope), F32)
+                             {k: self.lift(v, F32).v for k, v in params.items()},
+                             prefix)
+        return Sym(self, lower(compile_script(source), scope), F32)
 
 
 class _LazyParams(dict):
@@ -599,8 +619,10 @@ def _terms_set(xp, key):
         required = xp.column("required")
     else:
         source, names = msm_ref
-        required = xp.script(source, xp.float32(0.0),
-                             {name: xp.param("p." + name) for name in names})
+        required = xp.script(
+            source, xp.float32(0.0),
+            {name: xp.param("p." + name)
+             for name in script_value_params(source, names)})
     required = xp.maximum(required, xp.float32(1.0))  # NaN propagates
     matched = count >= required  # a NaN requirement compares False
     return xp.where(matched, s * xp.param("boost"), 0.0), matched
@@ -615,12 +637,13 @@ def _function_score(xp, key):
         farrays = _LazyParams(xp, f"f{i}.")
         if fspec[0] == "script":
             farrays["params"] = {
-                name: xp.param(f"f{i}.p.{name}") for name in fspec[2]
+                name: xp.param(f"f{i}.p.{name}")
+                for name in script_value_params(fspec[1], fspec[2])
             }
         values.append(eval_function(
             xp, fspec, farrays, num_docs=xp.n,
             column=lambda name: xp.column(name),
-            child_scores=child, doc_values=None, vectors=None,
+            child_scores=child, doc_values=None, vectors=f"f{i}.",
         ))
         applies.append(matched & xp.mask(f"f{i}") if has_filter[i] else matched)
         weights.append(farrays["weight"])

@@ -7,7 +7,9 @@ ops/tail_kernel.py (`TailXP`) over one of its two backends: torch ops
 (K14's plain version) or the Triton generator (K14), so one body of math
 serves both and the two are bit-equal by construction. And a script
 function lowers through that facade (`xp.script`, K6's painless-lite walk)
-instead of `CompiledScript.evaluate(xp, ...)`.
+instead of `CompiledScript.evaluate(xp, ...)`; its `vectors` is the prefix
+under which the node's inputs carry the script's K7 vector planes
+(`tail_kernel.vector_tag`), not the segment's vectors.
 
 The reference computes score functions in
 `common/lucene/search/function/` (FieldValueFactorFunction, ScriptScore
@@ -178,7 +180,7 @@ def eval_function(
             dtype=xp.float32,
         )
     if kind == "script":
-        result = xp.script(target, child_scores, farrays["params"])
+        result = xp.script(target, child_scores, farrays["params"], vectors)
         return xp.broadcast_to(
             xp.asarray(result, dtype=xp.float32), (num_docs,)
         )
