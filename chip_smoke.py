@@ -25,10 +25,13 @@ and read just after it.
                  shuffled), from 16 client threads: the micro-batcher
                  coalesces them; every answer equals its sequential answer
   6. kernels     K1-K4 at Q = 1 and K2b/K4b (the batched sparse fold and
-                 span search) at the concurrent phase's mean batch, each
-                 against its plain version on the card (exact), timed
-                 beside its byte bound, the plain version and one library
-                 call
+                 span search) at the concurrent phase's mean batch, K4's
+                 fold mode at a filter-led conjunction's shape (Q = 1 and
+                 the mean batch), each against its plain version on the
+                 card (exact), timed beside its byte bound, the plain
+                 version and one library call; the K4 rows also by the
+                 profiler's device time (`device_ms`) and by events
+                 around calls queued behind a sleep kernel (`queued_ms`)
   7. sharded     BASELINE config 3's deployment: 8 shards of the Zipf
                  generator (seed 100 + shard, 1,105,228 / 1,105,227 docs,
                  8,841,823 in all), one segment each, in an 8-shard index
@@ -146,7 +149,11 @@ and read just after it.
                  as an [S, N] plane (compute_filter_mask_stacked, K1s's
                  matched-only mode) substituted into its plan, through
                  execute_shards and execute_shards_blockmax_conj, held to
-                 the unmasked answers; K1s-K4s and K1s matched-only against
+                 the unmasked answers; then `stacked lead`: 8 filter-led
+                 conjunctions of cfg3's shape (a filter rarer than the
+                 must's two terms in every shard) through
+                 execute_shards_batch (K4s's fold mode) against the oracle;
+                 K1s-K4s, K4s's fold mode and K1s matched-only against
                  their plain versions; CUDA-event times
  13b. stacked-tail (kernel-table rows 14-15 and 16b over stacked shards;
                  K11s-K14s) cfg3's 8 shards gain their body positions
@@ -242,8 +249,12 @@ and read just after it.
                  segments 0-3 (each held to the same index's search), then
                  the 64 bodies over HTTP with a MeshView installed, every
                  answer held to phase 8's host-loop answer (the whole JSON
-                 but `took`); the merge's K3 row ([1, S * kk] gathered
-                 keys) beside torch.topk; on cfg7's node (phase 15's),
+                 but `took`), one K3 merge-mode launch a request; the
+                 merge's row ([1, S * kk] gathered keys and ids) beside
+                 torch.topk; one body of size 600 (S * kk = 4,800 keys,
+                 past MERGE_MAX_M) whose merge takes the long route, K3's
+                 row mode, held to the host loop, and that route's row
+                 beside its plain version; on cfg7's node (phase 15's),
                  the eligible aggregation bodies, four sorted searches
                  walked with search_after and four size-0 counts through
                  the view against the host loop, and one request of each
@@ -307,6 +318,7 @@ from pathlib import Path
 
 N_DOCS = 8_841_823  # MS MARCO passage ranking collection size
 N_SHARDS = 8
+LONG_MERGE_SIZE = 600  # a mesh body whose S * kk = 4,800 keys pass MERGE_MAX_M
 SEED = 13
 TOP_K = 10
 N_MATCH = 32
@@ -315,6 +327,7 @@ N_MUST_FILTER = 16
 N_CFG3 = 32  # sharded bool(must 2-term match + filter term) requests
 N_CFG3_MATCH = 32  # sharded match requests of 4 terms
 N_STACKED_SHOULD = 16  # dense bool(should) on the stacked shards (K1s)
+N_STACKED_LEAD = 8  # filter-led stacked conjunctions (K4s's fold mode)
 N_CLIENTS = 16
 N_CONCURRENT = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
@@ -324,6 +337,8 @@ REPO = Path(__file__).resolve().parent
 KERNELS = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate")
 AGG_KERNELS = ("bucket_fold", "range_fold")  # K10's two modes
 SOURCES = {name: f"elasticsearch_tpu_torch/csrc/{name}.cu" for name in KERNELS}
+SOURCES["span_fold"] = SOURCES["span_locate"]  # K4's fold mode
+SOURCES["masked_topk_merge"] = SOURCES["masked_topk"]  # K3's merge mode
 # BASELINE config 4 (bench.py:1273-1353): window, script and weights.
 CFG4_WINDOW = 1000
 CFG4_SCRIPT = ("params.w0 * _score + params.w1 * doc['f1'].value"
@@ -393,14 +408,17 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route bm25_device through the plain PyTorch versions of K1-K4, solo,
-    batched and stacked, K11, K12 (and their stacked modes), K13, K14 and
-    K15, and aggs_device through K10's (on whatever device the tensors
-    are) — the reference runs of the check phases."""
+    """Route bm25_device through the plain PyTorch versions of K1-K4 (K4's
+    fold mode and K3's merge mode too), solo, batched and stacked, K11,
+    K12 (and their stacked modes), K13, K14 and K15, and aggs_device
+    through K10's (on whatever device the tensors are) — the reference
+    runs of the check phases."""
     from elasticsearch_tpu_torch.ops import kernels as kern
     from elasticsearch_tpu_torch.ops import tail_kernel
 
-    names = ([n + s for n in KERNELS for s in kern.MODES] + list(AGG_KERNELS)
+    names = ([n + s for n in KERNELS for s in kern.MODES]
+             + ["span_fold_batch", "span_fold_stacked", "masked_topk_merge"]
+             + list(AGG_KERNELS)
              + list(PHRASE_SOURCES) + ["doc_join", "doc_mark"]
              + list(PACKED_SOURCES) + [n + "_stacked" for n in PHRASE_SOURCES]
              + ["chain_perturb"])
@@ -1652,18 +1670,10 @@ def run_stacked(card, dev, shards, bodies, match_terms, launches, rows) -> dict:
     import numpy as np
     import torch
 
-    from elasticsearch_tpu_torch.exec.batcher import plan_spec_buckets
     from elasticsearch_tpu_torch.index.mapping import Mappings
     from elasticsearch_tpu_torch.index.tiles import TILE, pack_segment
     from elasticsearch_tpu_torch.ops import bm25_device
-    from elasticsearch_tpu_torch.query.compile import (
-        CompiledQuery,
-        Compiler,
-        equalize_compiled,
-        pad_arrays_to_spec,
-        unify_specs,
-    )
-    from elasticsearch_tpu_torch.query.dsl import parse_query
+    from elasticsearch_tpu_torch.query.compile import pad_arrays_to_spec, unify_specs
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -1700,24 +1710,7 @@ def run_stacked(card, dev, shards, bodies, match_terms, launches, rows) -> dict:
     all_bodies = list(bodies) + should_bodies
     mappings = Mappings(properties={"body": {"type": "text"}})
     t0 = time.monotonic()
-    per_query = []
-    for body in all_bodies:
-        q = parse_query(body["query"])
-        cs = equalize_compiled([Compiler(f, dv, mappings).compile(q)
-                                for f, dv in fields])
-        per_query.append(CompiledQuery(
-            spec=cs[0].spec, arrays=bm25_device.stack_plans([c.arrays for c in cs])))
-    by_spec: dict[tuple, list[int]] = {}
-    for pos, c in enumerate(per_query):
-        by_spec.setdefault(c.spec, []).append(pos)
-    buckets = []  # (spec, positions, device plan [Qb, S, ...], host rows)
-    for bucket_specs in plan_spec_buckets(list(by_spec.items()), n_shards=N_SHARDS):
-        positions = [p for sp in bucket_specs for p in by_spec[sp]]
-        target = unify_specs(list(bucket_specs))
-        host_rows = [pad_arrays_to_spec(per_query[p].spec, target, per_query[p].arrays)
-                     for p in positions]
-        buckets.append((target, positions, bm25_device.plan_to_torch(
-            target, bm25_device.stack_plans(host_rows), dev), host_rows))
+    per_query, buckets = _stacked_buckets(all_bodies, fields, mappings, dev)
     torch.cuda.synchronize()
     plan_s = time.monotonic() - t0
 
@@ -1793,7 +1786,9 @@ def run_stacked(card, dev, shards, bodies, match_terms, launches, rows) -> dict:
         [t.cpu() for t in out]
     exact_ms = (time.perf_counter() - t1) * 1e3 / max(1, n_conj)
 
-    rows.extend(kernel_rows_stacked(stree, buckets, dev))
+    lead, lead_buckets = run_stacked_lead(card, shards, stree, fields,
+                                          mappings, n_pad, dev, launches)
+    rows.extend(kernel_rows_stacked(stree, buckets + lead_buckets, dev))
     # Phase `sequential`: phase 8's 32 conjunctions as one strict chain
     # over the stacked shards.
     conj = list(range(N_CFG3))
@@ -1817,7 +1812,7 @@ def run_stacked(card, dev, shards, bodies, match_terms, launches, rows) -> dict:
         "queries": n_q, "buckets": [[sp[0], len(pos)] for sp, pos, _a, _h in buckets],
         "pack_stack_s": pack_s, "compile_s": plan_s, "oracle_check_s": oracle_s,
         "mismatches": mismatches, "blockmax_conj_queries": n_conj,
-        "filter_cache": fc,
+        "filter_cache": fc, "lead": lead,
         "blockmax_relations": relations, "blockmax_mismatches": bm_mismatches,
         "pruned_tile_fraction_mean": float(np.mean(rec.fractions)) if rec.fractions else 0.0,
         "device_ms_per_query_batched": batch_ms,
@@ -1841,6 +1836,100 @@ def run_stacked(card, dev, shards, bodies, match_terms, launches, rows) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return summary
+
+
+def _stacked_buckets(bodies, fields, mappings, dev):
+    """Each body compiled per shard with that shard's own statistics and
+    equalized, then bucketed with plan_spec_buckets(n_shards=8) as the JAX
+    bench buckets them: (the per-query plans, the buckets (spec, positions,
+    device plan [Qb, S, ...], host rows))."""
+    from elasticsearch_tpu_torch.exec.batcher import plan_spec_buckets
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.query.compile import (
+        CompiledQuery,
+        Compiler,
+        equalize_compiled,
+        pad_arrays_to_spec,
+        unify_specs,
+    )
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    per_query = []
+    for body in bodies:
+        q = parse_query(body["query"])
+        cs = equalize_compiled([Compiler(f, dv, mappings).compile(q)
+                                for f, dv in fields])
+        per_query.append(CompiledQuery(
+            spec=cs[0].spec, arrays=bm25_device.stack_plans([c.arrays for c in cs])))
+    by_spec: dict[tuple, list[int]] = {}
+    for pos, c in enumerate(per_query):
+        by_spec.setdefault(c.spec, []).append(pos)
+    buckets = []
+    for bucket_specs in plan_spec_buckets(list(by_spec.items()), n_shards=N_SHARDS):
+        positions = [p for sp in bucket_specs for p in by_spec[sp]]
+        target = unify_specs(list(bucket_specs))
+        host_rows = [pad_arrays_to_spec(per_query[p].spec, target, per_query[p].arrays)
+                     for p in positions]
+        buckets.append((target, positions, bm25_device.plan_to_torch(
+            target, bm25_device.stack_plans(host_rows), dev), host_rows))
+    return per_query, buckets
+
+
+def run_stacked_lead(card, shards, stree, fields, mappings, n_pad, dev,
+                     launches):
+    """Filter-led conjunctions on the stacked shards: cfg3's shape (a
+    two-term must and a term filter) with a filter rarer than the must's
+    terms in every shard, so the lead path runs (K4s's fold mode), through
+    execute_shards_batch and held to the numpy oracle per shard. Returns
+    (summary, the lead buckets)."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.ops import bm25_device
+
+    fld0 = shards[0].fields["body"]
+    by_df = sorted(fld0.terms, key=lambda t: -fld0.df[fld0.terms[t]])
+    everywhere = set.intersection(*(set(seg.fields["body"].terms)
+                                    for seg in shards))
+    mid = by_df[len(by_df) // 100 : len(by_df) // 4]
+    rare = [t for t in by_df[len(by_df) // 4 : len(by_df) // 2] if t in everywhere]
+    rng = np.random.default_rng(SEED + 6)
+    queries, bodies = [], []
+    for _ in range(N_STACKED_LEAD):
+        m1, m2 = (str(t) for t in rng.choice(mid, 2, replace=False))
+        f = str(rng.choice(rare))
+        queries.append(("conj", [m1, m2], f))
+        bodies.append({"query": {"bool": {
+            "must": [{"match": {"body": f"{m1} {m2}"}}],
+            "filter": [{"term": {"body": f}}]}}})
+    _per_query, buckets = _stacked_buckets(bodies, fields, mappings, dev)
+    lead_buckets = [b for b in buckets if b[0][0] == "bool" and b[0][6] >= 0]
+    n_lead = sum(len(b[1]) for b in lead_buckets)
+    with counted("stacked lead", launches):
+        outs = [tuple(t.cpu().numpy() for t in bm25_device.execute_shards_batch(
+            stree, spec, plan, TOP_K, n_pad)) for spec, _p, plan, _h in buckets]
+    mismatches = 0
+    for (_spec, positions, _a, _h), (s_b, g_b, t_b) in zip(buckets, outs):
+        for row, p in enumerate(positions):
+            ids, scores, total = stacked_oracle(shards, queries[p], TOP_K, n_pad)
+            n = len(ids)
+            if not (list(g_b[row][:n]) == ids
+                    and np.array_equal(score_bits(s_b[row][:n]), score_bits(scores))
+                    and bool(np.all(s_b[row][n:] == -np.inf))
+                    and int(t_b[row]) == total):
+                mismatches += 1
+                log(f"  MISMATCH stacked lead {queries[p]}")
+    summary = {"queries": len(bodies), "led_by_the_filter": n_lead,
+               "buckets": [[b[0][6], len(b[1])] for b in buckets],
+               "mismatches": mismatches}
+    log(f"phase stacked lead: {'ok' if mismatches == 0 else 'FAILED'} "
+        f"{json.dumps(summary)} [{card}]")
+    if mismatches:
+        raise SmokeFailure(f"{mismatches} stacked filter-led mismatches")
+    if not n_lead:
+        raise SmokeFailure("no stacked conjunction took the lead path")
+    torch.cuda.synchronize()
+    return summary, lead_buckets
 
 
 def _stacked_filter_cache(stree, per_query, bodies, results, n_pad, dev,
@@ -2609,15 +2698,58 @@ def _same(got, want, name):
             raise SmokeFailure(f"{name}: differs from the plain version")
 
 
+def profiled_ms(fn, reps: int = 20):
+    """Mean summed device time of fn()'s kernels and copies per call, by
+    torch.profiler's CUDA activity (no host time); "not measured" where
+    the profiler records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+             for evt in prof.key_averages())
+    return us / 1e3 / reps if us else "not measured"
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean device time of fn() by CUDA events around `reps` calls queued
+    behind a ~50 ms sleep kernel: the card starts them only after the
+    host has enqueued them all, so the host's enqueue time drops out (the
+    card's own gaps between back-to-back launches stay). No profiler."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes,
          reps=20, route="cuda", source=None, case=None, flops=0,
-         launches=None):
+         launches=None, device=False):
     """Hold a kernel to its plain version (exact) and time both, its bound
     (the larger of its bytes over the memory rate and its fp32 `flops`
     over the card's fp32 rate outside the tensor cores) and one library
     call (None where no one PyTorch call computes the same function).
     `launches`: the row's own main-path count where one wrapper serves
-    several rows (else the wrapper's total over the main-path phases)."""
+    several rows (else the wrapper's total over the main-path phases).
+    `device`: also `device_ms`, the profiler's device time of a call, and
+    `queued_ms`, the events' time of calls queued behind a sleep kernel,
+    beside `ms` (CUDA events over back-to-back calls, which time the
+    host where it enqueues slower than the card runs)."""
     import torch
 
     got, want = fn(), plain()
@@ -2634,6 +2766,8 @@ def _row(rows, name, replaces, q, fn, plain, library, library_call, nbytes,
         "mismatches": 0,
         "max_abs_err": 0.0,
         "ms": cuda_ms(fn, reps),
+        **({"device_ms": profiled_ms(fn, reps), "queued_ms": queued_ms(fn, reps)}
+           if device else {}),
         "plain_ms": cuda_ms(plain, 1),
         "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3,
         "bound_by": (
@@ -2771,7 +2905,18 @@ def kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q):
          lambda: kern.span_locate_batch_plain(*args),
          lambda: torch.searchsorted(span, cands[0]), "torch.searchsorted",
          # candidates and the span read once; pos and found written
-         cands.numel() * 9 + (e0 - s0) * 4)
+         cands.numel() * 9 + (e0 - s0) * 4, device=True)
+
+    # K4's fold mode: the same conjunction's must terms searched and scored
+    # in one launch, as _sparse_lead_inner calls it.
+    fargs = _fold_args(la["children"][1 + spec[6]], m, doc_tiles, tn, 1,
+                       num_docs, lane)
+    _row(rows, "span_fold", "elasticsearch_tpu/ops/bm25_device.py:911", 1,
+         lambda: kern.span_fold_batch(*fargs),
+         lambda: kern.span_fold_batch_plain(*fargs),
+         None, "none", _fold_nbytes(*fargs), device=True,
+         case=f"cfg2's first filter-led conjunction: T = "
+              f"{fargs[2].shape[1]}, P = {fargs[5].shape[1]}")
 
     # K2b: Q cfg2 match queries, equalized and stacked as a batch is.
     spec, a = _stacked_plan(compiler, bodies[:q], dev)
@@ -2807,8 +2952,73 @@ def kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q):
          lambda: kern.span_locate_batch_plain(*args),
          lambda: [torch.searchsorted(spans[r], cands[r]) for r in range(q)],
          "torch.searchsorted per row",
-         cands.numel() * 9 + sum(s.numel() for s in spans) * 4)
+         cands.numel() * 9 + sum(s.numel() for s in spans) * 4, device=True)
+    fargs = _fold_args(la["children"][1 + spec[6]], m, doc_tiles, tn, q,
+                       num_docs, lane)
+    _row(rows, "span_fold_batch", "elasticsearch_tpu/ops/bm25_device.py:1050", q,
+         lambda: kern.span_fold_batch(*fargs),
+         lambda: kern.span_fold_batch_plain(*fargs),
+         None, "none", _fold_nbytes(*fargs), device=True)
     return rows
+
+
+def _fold_args(lead, m, doc_tiles, tn, r_count, num_docs, lane):
+    """K4's fold-mode arguments as _sparse_lead_inner builds them from a
+    lead filter's worklist `lead` and the must's plan `m` over R rows (a
+    stacked tree's planes [S, NT, 256] serve row r from shard r % S)."""
+    import torch
+
+    tid, valid = _worklist(lead, lane)
+    if doc_tiles.dim() == 3:
+        shard = (torch.arange(r_count, device=tid.device) % doc_tiles.shape[0])
+        docs = doc_tiles[shard[:, None], tid]
+        flat, flat_tn = (x.reshape(x.shape[0], -1) for x in (doc_tiles, tn))
+    else:
+        docs = doc_tiles[tid]
+        flat, flat_tn = doc_tiles.reshape(-1), tn.reshape(-1)
+    cand = torch.where(valid, docs, num_docs).reshape(r_count, -1)
+    return (flat, flat_tn, m["term_starts"], m["term_ends"], m["term_weights"],
+            torch.clamp(cand, max=num_docs - 1), cand != num_docs)
+
+
+def _fold_nbytes(flat, flat_tn, starts, ends, weights, cands, in_range) -> int:
+    """Bytes the fold mode must move for these inputs: the candidates and
+    in_range read (5 B each), each row's spans and weights (12 B a term),
+    each distinct plane slot the reference's searches read up to their
+    fixed point (4 B) and the tn of each distinct found slot (4 B), and
+    score and matched written (5 B a candidate)."""
+    import torch
+
+    from elasticsearch_tpu_torch.ops import kernels as kern
+
+    q, p = cands.shape
+    length = flat.shape[-1]
+    limit = length - 1
+    base = torch.zeros((q, 1), dtype=torch.int64, device=cands.device)
+    if flat.dim() == 2:
+        base = (torch.arange(q, device=cands.device) % flat.shape[0])[:, None] * length
+    flat1 = flat.reshape(-1)
+    read, found_at = [], []
+    for j in range(starts.shape[1]):
+        lo = starts[:, j : j + 1].expand(q, p).clone()
+        hi = ends[:, j : j + 1].expand(q, p).clone()
+        end = hi.clone()
+        active = torch.ones((q, p), dtype=torch.bool, device=cands.device)
+        for _ in range(kern.search_steps(length)):
+            at = base + torch.clamp((lo + hi) >> 1, 0, limit).to(torch.int64)
+            read.append(at[active])
+            go = flat1[at] < cands
+            nlo = torch.where(go, ((lo + hi) >> 1) + 1, lo)
+            nhi = torch.where(go, hi, (lo + hi) >> 1)
+            active = active & ((nlo != lo) | (nhi != hi))
+            lo, hi = nlo, nhi
+        at = base + torch.clamp(lo, 0, limit).to(torch.int64)
+        read.append(at.reshape(-1))
+        found_at.append(at[(lo < end) & (flat1[at] == cands) & in_range])
+    probes = torch.unique(torch.cat(read)).numel()
+    tn_reads = torch.unique(torch.cat(found_at)).numel()
+    return int(q * p * 5 + starts.numel() * 12 + probes * 4 + tn_reads * 4
+               + q * p * 5)
 
 
 def _matched_only_args(tree, spec, a, num_docs, stacked: bool):
@@ -3087,7 +3297,8 @@ def kernel_rows_sharded(svc, handles, bodies, dev, q):
 def kernel_rows_stacked(stree, buckets, dev):
     """K1s-K4s, the stacked-shard modes, at the stacked phase's shapes:
     R = Q x S rows of its largest bucket of each shape (K2s/K3s: the
-    matches, K4s: the conjunctions' filter membership, K1s: the dense
+    matches, K4s: the conjunctions' filter membership and, in its fold
+    mode, the filter-led conjunctions' must terms, K1s: the dense
     bool(should)'s first clause)."""
     import torch
 
@@ -3154,7 +3365,19 @@ def kernel_rows_stacked(stree, buckets, dev):
          lambda: kern.span_locate_stacked_plain(*args),
          lambda: [torch.searchsorted(spans[r], cands[r]) for r in range(r_count)],
          "torch.searchsorted per row",
-         cands.numel() * 9 + sum(x.numel() for x in spans) * 4)
+         cands.numel() * 9 + sum(x.numel() for x in spans) * 4, device=True)
+
+    # K4s's fold mode: the largest filter-led bucket's must terms at its
+    # lead filter's candidates.
+    spec, r_count, a = largest(lambda sp: sp[0] == "bool" and sp[3] and sp[6] >= 0)
+    fargs = _fold_args(a["children"][1 + spec[6]], a["children"][0], doc_tiles,
+                       tn, r_count, num_docs, lane)
+    _row(rows, "span_fold_stacked", "elasticsearch_tpu/ops/bm25_device.py:1161",
+         r_count, lambda: kern.span_fold_stacked(*fargs),
+         lambda: kern.span_fold_stacked_plain(*fargs),
+         None, "none", _fold_nbytes(*fargs), device=True,
+         case=f"stacked filter-led cfg3 conjunctions: T = "
+              f"{fargs[2].shape[1]}, P = {fargs[5].shape[1]}")
 
     # K1s: the dense bool(should)'s first clause.
     spec, r_count, a = largest(lambda sp: not bm25_device.supports_sparse(sp))
@@ -7097,8 +7320,8 @@ def _install_view(svc, devices):
 class MeshTimer:
     """CUDA events around every mesh request's bodies and merge
     (mesh_serving's sharded_execute / sharded_execute_request) while
-    installed; the first merge's gathered key plane (K3's row) and the
-    number of merges (one K3 launch each)."""
+    installed; the first merge's gathered key plane and ids (K3's merge
+    mode's row) and the number of merges (one K3 launch each)."""
 
     def __init__(self):
         from elasticsearch_tpu_torch.parallel import mesh_serving, sharded
@@ -7124,11 +7347,12 @@ class MeshTimer:
                 return out
             return run
 
-        def capture(flat_key, k):
+        def capture(flat_key, k, ids=None):
             self.merges += 1
             if self.merge_input is None:
-                self.merge_input = (flat_key.clone(), k)
-            return self.real[2](flat_key, k)
+                self.merge_input = (flat_key.contiguous().clone(), k,
+                                    None if ids is None else ids.contiguous().clone())
+            return self.real[2](flat_key, k, ids)
 
         self.ms.sharded_execute = timed(self.real[0])
         self.ms.sharded_execute_request = timed(self.real[1])
@@ -7248,6 +7472,15 @@ def run_mesh_cfg3(card, dev, node, shards, bodies, responses, host_lat,
         with counted("mesh REST cfg3", launches), MeshTimer() as timer:
             lat, mresp, _wall = sequential(base, "cfg3", bodies)
         n_launch = _launch_total(before, launches)
+        counters = view.stats()
+        # One body past the merge mode's rows: S * kk = 8 * 600 keys take
+        # the merge's long route (K3's row mode), held to the host loop.
+        long_body = dict(bodies[0], size=LONG_MERGE_SIZE)
+        before_long = dict(launches)
+        with counted("mesh REST cfg3, long merge", launches), \
+                MeshTimer() as long_timer:
+            got_long, want_long, used_long = _mesh_and_host(
+                base, svc, view, "cfg3", long_body)
     finally:
         server.shutdown()
         server.server_close()
@@ -7255,22 +7488,56 @@ def run_mesh_cfg3(card, dev, node, shards, bodies, responses, host_lat,
         if without_took(got) != without_took(want):
             mismatches += 1
             log(f"  MISMATCH mesh REST {body}")
-    counters = view.stats()
+    if got_long != want_long:
+        mismatches += 1
+        log(f"  MISMATCH mesh REST {long_body}")
+    long_merge_mode = launches.get("masked_topk_merge", 0) - before_long.get(
+        "masked_topk_merge", 0)
+    if not used_long or long_timer.merges != 1 or long_merge_mode or \
+            long_timer.merge_input[0].shape[1] <= kern.MERGE_MAX_M:
+        raise SmokeFailure(
+            f"the size-{LONG_MERGE_SIZE} mesh request did not take the long "
+            f"merge route: served {used_long}, {long_timer.merges} merges, "
+            f"{long_merge_mode} merge-mode launches")
     if counters["served"] != len(bodies) + 2 or counters["fallbacks"] or \
             counters["exec_failures"]:
         raise SmokeFailure(f"mesh view fell back on eligible bodies: {counters}")
-    if timer.merges != len(bodies):
-        raise SmokeFailure(f"{timer.merges} K3 merges for {len(bodies)} mesh "
+    merge_launches = launches.get("masked_topk_merge", 0) - before.get(
+        "masked_topk_merge", 0)
+    if timer.merges != len(bodies) or merge_launches != len(bodies):
+        raise SmokeFailure(f"{timer.merges} merges and {merge_launches} K3 "
+                           f"merge-mode launches for {len(bodies)} mesh "
                            "requests")
-    flat, m = timer.merge_input
-    ones = torch.ones_like(flat, dtype=torch.bool)
-    _row(rows, "masked_topk", "elasticsearch_tpu/parallel/sharded.py:717", 1,
-         lambda: kern.masked_topk_batch(flat, ones, m),
-         lambda: kern.masked_topk_batch_plain(flat, ones, m),
-         lambda: torch.topk(flat, m), "torch.topk",
-         flat.numel() * 5 + m * 8 + 4, launches=timer.merges,
+    flat, m, ids = timer.merge_input
+    kp = min(m, flat.shape[1])
+    _row(rows, "masked_topk_merge", "elasticsearch_tpu/parallel/sharded.py:717", 1,
+         lambda: kern.masked_topk_merge(flat, m, ids),
+         lambda: kern.masked_topk_merge_plain(flat, m, ids),
+         lambda: torch.topk(flat, kp), "torch.topk",
+         # the keys read; the ranked keys, int64 indices and ids written
+         # (the ids read only at the winners)
+         flat.numel() * 4 + kp * (4 + 8 + 4 + 4), device=True,
          case=f"mesh merge: [1, {flat.shape[1]}] gathered keys (S = "
-              f"{N_SHARDS}, kk = {flat.shape[1] // N_SHARDS}), k = {m}")
+              f"{N_SHARDS}, kk = {flat.shape[1] // N_SHARDS}), k = {m}, "
+              f"ids taken")
+    flat_l, m_l, ids_l = long_timer.merge_input
+    kp_l = min(m_l, flat_l.shape[1])
+
+    def long_plain():
+        top, idx, _total = kern.masked_topk_batch_plain(
+            flat_l, torch.ones_like(flat_l, dtype=torch.bool), m_l)
+        idx = idx.to(torch.int64)
+        return top, idx, torch.gather(ids_l, 1, idx)
+
+    _row(rows, "masked_topk", "elasticsearch_tpu/parallel/sharded.py:717", 1,
+         lambda: psh._merge_topk(flat_l, m_l, ids_l), long_plain,
+         lambda: torch.topk(flat_l, kp_l), "torch.topk",
+         flat_l.numel() * 4 + kp_l * (4 + 8 + 4 + 4), device=True,
+         launches=long_timer.merges,
+         case=f"mesh merge, long route: [1, {flat_l.shape[1]}] gathered "
+              f"keys (S = {N_SHARDS}, kk = {flat_l.shape[1] // N_SHARDS}) > "
+              f"MERGE_MAX_M, k = {m_l}, K3's row mode, a cast and a gather "
+              f"of the ids")
     dev_ms = timer.device_ms()
     peak = int(torch.cuda.max_memory_allocated())
     fc_mesh = None

@@ -97,6 +97,24 @@
 // costs what its own window holds. The count reduces each row's window
 // only. Slots past min(k, w) of a row are padding (-inf, 0). Bound:
 // bytes, each row's window read once (5 B an entry).
+//
+// Merge mode (K3m; the `lax.top_k` merge of the all-gathered per-shard
+// tops, elasticsearch_tpu/parallel/sharded.py :717, in the port's
+// parallel/sharded.py `_merge_topk`): rows of at most MERGE_MAX_M (4,096)
+// keys, S shards' kk tops each (80 at cfg3's S = 8, k = 10). No
+// eligibility plane, no total, no scratch: one block of 32 W threads a
+// row holds its P = 32 W E composites in registers (E a thread; P the
+// power of two at or above M, at least 128, padding composites 0, below
+// every real one) and runs the bitonic network on them: the stages of
+// stride below E inside a thread, below 32 E by warp shuffles, and only
+// the wider ones (W > 1, M above 256) through shared memory. At M = 80 a
+// row is one warp with 4 keys a lane and 28 stages, against K3's row mode,
+// which sorts a 1,024-entry shared chunk in 55 __syncthreads stages to
+// rank 80 keys. Rank g ends in thread g / E, register g % E; the first
+// min(k, M) ranks write the key read back from the input (exact bits),
+// its index as int64 and, with an ids plane, the id at that index, so
+// the caller's cast and gather go. Bound: bytes, the keys read once and
+// the outputs written once; at M = 80 a launch is its wrapper's host time.
 #include <float.h>
 
 #include "common.cuh"
@@ -1265,4 +1283,151 @@ extern "C" int esk_keyed_topk(
         a, out, out_stride, kk, n_rows, (float*)values, (int32_t*)top_idx);
     ESK_RETURN_IF_ERROR();
     return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Merge mode (K3m)
+// ---------------------------------------------------------------------------
+
+#define MERGE_MAX_M 4096
+
+__host__ __device__ constexpr int merge_log2(int x) {
+    return x <= 1 ? 0 : 1 + merge_log2(x >> 1);
+}
+
+// One row a block: 32 * W threads, E composites a thread, P = 32 * W * E.
+template <int E, int W>
+__global__ void __launch_bounds__(32 * W) topk_merge_kernel(
+    const float* __restrict__ key,
+    const int32_t* __restrict__ ids,
+    int m,
+    int kp,
+    float* __restrict__ top_key,
+    int64_t* __restrict__ top_idx,
+    int32_t* __restrict__ top_ids) {
+    constexpr int T = 32 * W;
+    constexpr int P = T * E;
+    constexpr int LOG_P = merge_log2(P);
+    __shared__ uint64_t sm[W > 1 ? P : 1];
+    const int64_t q = blockIdx.x;
+    const float* row = key + q * m;
+    const int t = threadIdx.x;
+    uint64_t v[E];
+    // Coalesced loads: register e of thread t starts with entry e * T + t
+    // (the composite carries the index, so the start order is free).
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const int i = e * T + t;
+        v[e] = i < m ? esk_composite(row[i], (uint32_t)i) : 0ull;
+    }
+    // The bitonic network over element g = t * E + e, descending: a pair
+    // (g, g ^ j) of a block of `size` keeps the larger at the lower index
+    // where (g & size) == 0 and the smaller there otherwise.
+#pragma unroll
+    for (int ls = 1; ls <= LOG_P; ++ls) {
+        const int size = 1 << ls;
+#pragma unroll
+        for (int lj = ls - 1; lj >= 0; --lj) {
+            const int j = 1 << lj;
+            if (j < E) {
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                    if ((e & j) == 0) {
+                        const int g = t * E + e;
+                        const bool desc = (g & size) == 0;
+                        const uint64_t a = v[e];
+                        const uint64_t b = v[e | j];
+                        if (desc ? (a < b) : (a > b)) {
+                            v[e] = b;
+                            v[e | j] = a;
+                        }
+                    }
+                }
+            } else if (j < 32 * E) {
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                    const int g = t * E + e;
+                    const uint64_t o = __shfl_xor_sync(0xffffffffu, v[e], j / E);
+                    const bool keep_max = ((g & j) == 0) == ((g & size) == 0);
+                    v[e] = keep_max ? (v[e] > o ? v[e] : o) : (v[e] < o ? v[e] : o);
+                }
+            } else {
+                __syncthreads();
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                    sm[t * E + e] = v[e];
+                }
+                __syncthreads();
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                    const int g = t * E + e;
+                    const uint64_t o = sm[g ^ j];
+                    const bool keep_max = ((g & j) == 0) == ((g & size) == 0);
+                    v[e] = keep_max ? (v[e] > o ? v[e] : o) : (v[e] < o ? v[e] : o);
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const int g = t * E + e;
+        if (g < kp) {
+            const uint32_t idx = esk_composite_index(v[e]);
+            const int64_t at = q * kp + g;
+            top_key[at] = row[idx];
+            top_idx[at] = (int64_t)idx;
+            if (ids != nullptr) {
+                top_ids[at] = ids[q * m + idx];
+            }
+        }
+    }
+}
+
+template <int E, int W>
+static int launch_topk_merge(const void* key, const void* ids, int n_rows,
+                             int m, int kp, void* top_key, void* top_idx,
+                             void* top_ids, cudaStream_t s) {
+    topk_merge_kernel<E, W><<<n_rows, 32 * W, 0, s>>>(
+        (const float*)key, (const int32_t*)ids, m, kp, (float*)top_key,
+        (int64_t*)top_idx, (int32_t*)top_ids);
+    ESK_RETURN_IF_ERROR();
+    return 0;
+}
+
+// key f32[n_rows, m] with 0 < m <= MERGE_MAX_M; ids i32[n_rows, m] or
+// null. Outputs top_key f32, top_idx i64 and (with ids) top_ids i32, each
+// [n_rows, kp], kp = min(k, m) > 0 ranks a row in lax.top_k's order.
+extern "C" int esk_topk_merge(
+    const void* key,
+    const void* ids,
+    int n_rows,
+    int m,
+    int kp,
+    void* top_key,
+    void* top_idx,
+    void* top_ids,
+    void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n_rows <= 0 || kp <= 0) {
+        return 0;
+    }
+    if (m <= 0 || m > MERGE_MAX_M || kp > m) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (m <= 128) {
+        return launch_topk_merge<4, 1>(key, ids, n_rows, m, kp, top_key, top_idx, top_ids, s);
+    }
+    if (m <= 256) {
+        return launch_topk_merge<8, 1>(key, ids, n_rows, m, kp, top_key, top_idx, top_ids, s);
+    }
+    if (m <= 512) {
+        return launch_topk_merge<8, 2>(key, ids, n_rows, m, kp, top_key, top_idx, top_ids, s);
+    }
+    if (m <= 1024) {
+        return launch_topk_merge<8, 4>(key, ids, n_rows, m, kp, top_key, top_idx, top_ids, s);
+    }
+    if (m <= 2048) {
+        return launch_topk_merge<8, 8>(key, ids, n_rows, m, kp, top_key, top_idx, top_ids, s);
+    }
+    return launch_topk_merge<8, 16>(key, ids, n_rows, m, kp, top_key, top_idx, top_ids, s);
 }

@@ -51,7 +51,8 @@ The primitives that carry the path are hand-written kernels
 (ops/kernels.py), each with a row axis: K1 terms_scatter (worklist gather
 + BM25 impact + ordered scatter), K2 sparse_fold (stable radix sort + run
 fold), K3 masked_topk (top-k by score desc, index asc, plus totals), K4
-span_locate (binary-search membership), K3k keyed_topk (K3's keyed mode:
+span_locate (binary-search membership; its fold mode scores a filter-led
+conjunction's must terms in one launch), K3k keyed_topk (K3's keyed mode:
 bottom-k, field sorts and cursors), K5 window_rescore (the rescore
 window's gather, combine and top-k), K6 script_eval (the Triton kernel
 generated from a script, ops/script_kernel.py) and, for phrase and span
@@ -317,8 +318,9 @@ def _flat_plane(seg, tiles) -> torch.Tensor:
 
 
 def _kernel(seg, name: str):
-    """K1, K2 or K4's wrapper for this tree: the stacked mode for stacked
-    shards, the row mode for one segment."""
+    """K1, K2 or K4's wrapper (or K4's fold mode, `span_fold`) for this
+    tree: the stacked mode for stacked shards, the row mode for one
+    segment."""
     return getattr(kernels, name + ("_stacked" if _n_shards(seg) else "_batch"))
 
 
@@ -1134,9 +1136,10 @@ def _sparse_bool_inner(seg, spec, arrays, k: int, bounds=None):
 
 def _sparse_lead_inner(seg, spec, arrays, k: int, bounds=None):
     """Lead-driven conjunction: the most selective single-span filter's
-    postings (already doc-ascending) are the candidates; each must term
-    verifies and scores them with one K4 binary search plus an impact
-    gather, folding contributions in term order."""
+    postings (already doc-ascending) are the candidates; the must terms
+    verify and score them in one launch of K4's fold mode (per term a
+    binary search plus an impact gather, contributions folded in term
+    order)."""
     must_s, filter_s, must_not_s = spec[1], spec[3], spec[4]
     lead = _bool_lead(spec)
     children = arrays["children"]
@@ -1153,7 +1156,6 @@ def _sparse_lead_inner(seg, spec, arrays, k: int, bounds=None):
         pos < larr["ends"].to(torch.int64)[..., None]
     )
     cand = torch.where(valid, _take(seg, lead_tiles, tid), num_docs).reshape(q, -1)
-    p = cand.shape[1]
     safe = torch.clamp(cand, max=num_docs - 1)
     in_range = cand != num_docs
     must_spec = must_s[0]
@@ -1161,17 +1163,12 @@ def _sparse_lead_inner(seg, spec, arrays, k: int, bounds=None):
     field_planes = seg["fields"][must_spec[1]]
     flat_docs = _flat_plane(seg, field_planes[0])
     flat_tn = _flat_plane(seg, field_planes[1])
-    score = torch.zeros((q, p), dtype=torch.float32, device=live.device)
-    matched_any = torch.zeros((q, p), dtype=torch.bool, device=live.device)
-    for j in range(must_spec[3]):
-        at, found = _kernel(seg, "span_locate")(
-            flat_docs, marr["term_starts"], marr["term_ends"], j, safe
-        )
-        found = found & in_range
-        w = marr["term_weights"][:, j : j + 1]
-        contrib = w - w / (1.0 + _take(seg, flat_tn, at.to(torch.int64)))
-        score = score + torch.where(found, contrib, 0.0)
-        matched_any = matched_any | found
+    # K4's fold mode: every must term's search, tn gather and fold in one
+    # launch (on the CPU, the per-term loop op for op).
+    score, matched_any = _kernel(seg, "span_fold")(
+        flat_docs, flat_tn, marr["term_starts"], marr["term_ends"],
+        marr["term_weights"], safe, in_range,
+    )
     eligible = matched_any & in_range & _take(seg, live, safe.to(torch.int64))
     if bounds is not None:
         eligible = eligible & (cand >= _col(bounds[0])) & (

@@ -16,7 +16,11 @@ PyTorch versions.
                       [lo, hi) of the plane and returns window-local ids
                       (the packed plane's dense lanes)
     K4 span_locate    csrc/span_locate.cu    binary search in a sorted
-                      posting span (_span_locate / _span_member)
+                      posting span (_span_locate / _span_member), each
+                      thread stopping at the search's fixed point; its
+                      fold mode (`span_fold_*`) searches and scores a
+                      filter-led conjunction's must terms in one launch
+                      (the must-term loop of _sparse_lead_inner)
     K3k keyed_topk    csrc/masked_topk.cu    K3's keyed mode: bottom-k,
                       field sorts and cursors (execute_score_asc /
                       execute_score_after / execute_sorted(_after))
@@ -34,6 +38,10 @@ PyTorch versions.
     K3i masked_topk_ids csrc/masked_topk.cu  K3's id mode: top-k by (score
                       desc, id asc) with the ids from an int32 array (the
                       IVF survivors' merge)
+    K3m masked_topk_merge csrc/masked_topk.cu  K3's merge mode: the top-k
+                      of rows of at most MERGE_MAX_M gathered per-shard
+                      keys, ranked in registers, with int64 indices and
+                      the ids taken (the mesh merge, sharded._merge_topk)
     K10 bucket_fold   csrc/bucket_fold.cu    per-bucket count, sum, min and
                       max over rows cut into fixed chunks (aggs_device.
                       _bucket_metric_planes, the count scatters and
@@ -107,6 +115,12 @@ bounds mode (`sparse_fold_bounds`) and K3's window mode (`masked_topk_window`),
 whatever its row count. K1's matched-only launches (a constant filter's
 bitmap, the filter cache's planes) count in `terms_scatter*` as every K1
 launch does, and also in `MATCHED_ONLY_LAUNCHES` under the same names.
+K4's fold mode counts as `span_fold`, `span_fold_batch` and
+`span_fold_stacked` (by rows and mode, as K1-K4), K3's merge mode as
+`masked_topk_merge`, whatever its row count. Every wrapper passes its
+stream as the raw handle (`_stream`); K4's wrappers and both modes launch
+through `_launch` (one pass of checks, the device switched only where it
+differs).
 Launches from several threads (the REST
 handlers and the micro-batcher) share the one library and the caller's
 current stream; the library loads once under `_lib_lock` and the counts
@@ -146,7 +160,8 @@ NVCC_FLAGS = (
 # Largest shared-memory chunk K3 sorts per block (16384 u64 = 128 KB).
 TOPK_MAX_CHUNK = 16384
 
-KERNELS = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate")
+KERNELS = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate",
+           "span_fold")
 
 MODES = ("", "_batch", "_stacked")
 
@@ -162,6 +177,7 @@ ONE_NAME_KERNELS = (
     "tail_eval_geo_box", "tail_eval_rank_feature", "tail_eval_dismax",
     "tail_eval_boosting", "tail_eval_terms_set",
     "sparse_fold_bounds", "masked_topk_window", "chain_perturb",
+    "masked_topk_merge",
 )
 # K11-K14's stacked modes, counted as `<name>_stacked`.
 STACKED_ONE_NAME_KERNELS = tuple(
@@ -177,6 +193,10 @@ LAUNCHES: dict[str, int] = {
 MATCHED_ONLY_LAUNCHES: dict[str, int] = {
     "terms_scatter" + suffix: 0 for suffix in MODES
 }
+
+# Longest row K3's merge mode ranks in one block (csrc/masked_topk.cu
+# MERGE_MAX_M); longer merges go to K3's row mode.
+MERGE_MAX_M = 4096
 
 # Largest rescore window K5 sorts in one block's shared memory (128 KB).
 WINDOW_MAX = 16384
@@ -314,6 +334,8 @@ def _bind(lib) -> None:
     lib.esk_masked_topk.argtypes = [P, P, P, I, I, I, I] + [P] * 6
     lib.esk_masked_topk_window.argtypes = [P] * 4 + [I] * 6 + [P] * 6
     lib.esk_span_locate.argtypes = [P, L, P, P, I, I, P, I, I, I, P, P, I, P]
+    lib.esk_span_fold.argtypes = [P, P, L, P, P, P, I, P, P, I, I, I, P, P, I, P]
+    lib.esk_topk_merge.argtypes = [P, P, I, I, I, P, P, P, P]
     lib.esk_keyed_topk.argtypes = [P, L, P] + [I] * 7 + [P] * 10
     lib.esk_window_gather.argtypes = [P, P, L, P, I, I, P, P, P]
     F = ctypes.c_float
@@ -338,6 +360,8 @@ def _bind(lib) -> None:
         lib.esk_masked_topk,
         lib.esk_masked_topk_window,
         lib.esk_span_locate,
+        lib.esk_span_fold,
+        lib.esk_topk_merge,
         lib.esk_keyed_topk,
         lib.esk_window_gather,
         lib.esk_window_rescore,
@@ -372,7 +396,9 @@ def _ptr(t: torch.Tensor | None, offset: int = 0):
 
 
 def _stream(device: torch.device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """`device`'s current stream as its raw handle (Triton's launcher
+    takes it the same way; no torch.cuda.Stream object is built)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))
 
 
 def _check_rc(name: str, rc: int) -> None:
@@ -391,6 +417,30 @@ def _check(t, name: str, dtype, ndim: int, device: torch.device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_all(device: torch.device, specs) -> None:
+    """`_check` over (tensor, name, dtype, ndim) specs in one pass: a
+    tensor that passes costs a few attribute reads, and the first that
+    does not goes through `_check` for its message."""
+    for t, name, dtype, ndim in specs:
+        if not (isinstance(t, torch.Tensor) and t.dtype == dtype
+                and t.dim() == ndim and t.device == device
+                and t.is_contiguous()):
+            _check(t, name, dtype, ndim, device)
+
+
+def _launch(name: str, device: torch.device, fn, *args) -> None:
+    """Call the C entry point fn(*args, stream) on `device`'s current
+    stream (`_stream`), switching the current device only where it
+    differs from the tensors' (a node over several cards). Raises on a
+    non-zero return code."""
+    if device.index == torch._C._cuda_getDevice():
+        rc = fn(*args, _stream(device))
+    else:
+        with torch.cuda.device(device.index):
+            rc = fn(*args, _stream(device))
+    _check_rc(name, rc)
 
 
 def _launchable(device: torch.device) -> bool:
@@ -1181,6 +1231,60 @@ def masked_topk_ids_batch(key, ids, eligible, k: int):
     return _masked_topk_launch(key, eligible, k, 0, ids=ids)
 
 
+def masked_topk_merge_plain(key, k: int, ids=None):
+    """K3's merge mode as masked_topk_batch_plain defines a row, without
+    the total: each row's top min(k, M) in lax.top_k's order, their
+    indices as int64 and, with `ids`, the ids at those indices."""
+    kp = min(k, key.shape[1])
+    orders = [stable_order(0xFFFFFFFF - _f32_order(key[r]), 32)[:kp]
+              for r in range(key.shape[0])]
+    idx = torch.stack(orders)
+    top = torch.stack([key[r][o] for r, o in enumerate(orders)])
+    taken = None if ids is None else torch.stack(
+        [ids[r][o] for r, o in enumerate(orders)])
+    return top, idx, taken
+
+
+def masked_topk_merge(key, k: int, ids=None):
+    """K3's merge mode (K3m): the top min(k, M) of each row of key
+    f32[Q, M] (0 < M <= MERGE_MAX_M: the gathered per-shard tops) by
+    (key desc, index asc), lax.top_k's order over IEEE totalOrder, with
+    no eligibility plane and no total. Returns (top f32[Q, kp], idx
+    int64[Q, kp], taken): `taken` is ids i32[Q, M] at those indices, or
+    None without `ids`. Counted as `masked_topk_merge`."""
+    dev = key.device
+    _check_all(dev, ((key, "key", torch.float32, 2),
+                     *(() if ids is None else ((ids, "ids", torch.int32, 2),))))
+    q, m = key.shape
+    if ids is not None and ids.shape != key.shape:
+        raise ValueError("ids differ in shape from key")
+    if k < 0:
+        raise ValueError("k must be >= 0")
+    if not 1 <= m <= MERGE_MAX_M:
+        raise ValueError(
+            f"merge rows hold 1..{MERGE_MAX_M} keys, got {m}: longer rows "
+            f"take K3's row mode")
+    if not 1 <= q <= 65535:
+        raise ValueError(f"row count {q} out of range [1, 65535]")
+    if not _launchable(dev):
+        return masked_topk_merge_plain(key, k, ids)
+    kp = min(k, m)
+    top = torch.empty((q, kp), dtype=torch.float32, device=dev)
+    idx = torch.empty((q, kp), dtype=torch.int64, device=dev)
+    taken = (None if ids is None
+             else torch.empty((q, kp), dtype=torch.int32, device=dev))
+    if kp == 0:
+        return top, idx, taken
+    _launch(
+        "masked_topk_merge", dev, ensure_built().esk_topk_merge,
+        key.data_ptr(), None if ids is None else ids.data_ptr(), q, m, kp,
+        top.data_ptr(), idx.data_ptr(),
+        None if taken is None else taken.data_ptr(),
+    )
+    count_launch("masked_topk_merge")
+    return top, idx, taken
+
+
 # ---------------------------------------------------------------------------
 # K7 vector_score
 # ---------------------------------------------------------------------------
@@ -1763,10 +1867,12 @@ def span_locate_stacked(flat, starts, ends, j: int, cands):
 
 def _span_locate(flat, starts, ends, j, cands, n_shards):
     dev = flat.device
-    _check(flat, "flat", torch.int32, 2 if n_shards else 1, dev)
-    _check(starts, "starts", torch.int32, 2, dev)
-    _check(ends, "ends", torch.int32, 2, dev)
-    _check(cands, "cands", torch.int32, 2, dev)
+    _check_all(dev, (
+        (flat, "flat", torch.int32, 2 if n_shards else 1),
+        (starts, "starts", torch.int32, 2),
+        (ends, "ends", torch.int32, 2),
+        (cands, "cands", torch.int32, 2),
+    ))
     q, p = cands.shape
     n_spans = starts.shape[1]
     _check_rows("starts", starts, q, n_spans)
@@ -1781,18 +1887,15 @@ def _span_locate(flat, starts, ends, j, cands, n_shards):
         _check_shards(n_shards, q, {"flat": flat})
     if not _launchable(dev):
         return span_locate_batch_plain(flat, starts, ends, j, cands)
-    lib = ensure_built()
     flat_len = flat.shape[-1]
     pos = torch.empty((q, p), dtype=torch.int32, device=dev)
     found = torch.empty((q, p), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.esk_span_locate(
-            _ptr(flat), int(flat_len), _ptr(starts), _ptr(ends),
-            int(n_spans), int(j), _ptr(cands), int(q), int(p),
-            search_steps(flat_len), _ptr(pos), _ptr(found),
-            max(1, n_shards), _stream(dev),
-        )
-    _check_rc("span_locate", rc)
+    _launch(
+        "span_locate", dev, ensure_built().esk_span_locate,
+        flat.data_ptr(), flat_len, starts.data_ptr(), ends.data_ptr(),
+        n_spans, j, cands.data_ptr(), q, p, search_steps(flat_len),
+        pos.data_ptr(), found.data_ptr(), max(1, n_shards),
+    )
     _count("span_locate", q, n_shards)
     return pos, found
 
@@ -1803,6 +1906,104 @@ def span_locate(flat, starts, ends, j: int, cands):
     [starts[j], ends[j]) of a flat postings plane."""
     out = span_locate_batch(flat, starts[None], ends[None], j, cands[None])
     return tuple(t[0] for t in out)
+
+
+def _take_rows(plane, idx: torch.Tensor) -> torch.Tensor:
+    """plane[idx] for rows of indices idx [R, P]: a flat plane [L], or,
+    stacked [S, L], shard r % S's for row r (bm25_device._take)."""
+    if plane.dim() == 1:
+        return plane[idx]
+    shard = torch.arange(idx.shape[0], device=idx.device) % plane.shape[0]
+    return plane[shard.view(-1, 1), idx]
+
+
+def span_fold_batch_plain(flat_docs, flat_tn, starts, ends, weights, cands,
+                          in_range):
+    """K4's fold mode as bm25_device._sparse_lead_inner folded its must
+    terms, op for op: per term j in order, the row's K4 search, found &
+    in_range, contrib = w - w / (1 + tn[pos]), score + where(found,
+    contrib, 0) from +0.0, and matched | found. Stacked planes ([S, L])
+    serve row r from shard r % S."""
+    q, p = cands.shape
+    score = torch.zeros((q, p), dtype=torch.float32, device=cands.device)
+    matched = torch.zeros((q, p), dtype=torch.bool, device=cands.device)
+    for j in range(starts.shape[1]):
+        at, found = span_locate_batch_plain(flat_docs, starts, ends, j, cands)
+        found = found & in_range
+        w = weights[:, j : j + 1]
+        contrib = w - w / (1.0 + _take_rows(flat_tn, at.to(torch.int64)))
+        score = score + torch.where(found, contrib, 0.0)
+        matched = matched | found
+    return score, matched
+
+
+span_fold_stacked_plain = span_fold_batch_plain
+
+
+def span_fold_batch(flat_docs, flat_tn, starts, ends, weights, cands,
+                    in_range):
+    """K4's fold mode: a filter-led conjunction's must terms searched and
+    scored at each row's candidates in one launch. flat_docs i32[L] and
+    flat_tn f32[L] are the must field's flat planes; starts / ends i32 and
+    weights f32 [Q, T] the terms' spans and weights; cands i32[Q, P] the
+    candidates clamped in range (the reference's `safe`), in_range
+    bool[Q, P] their cand != num_docs. Returns (score f32[Q, P], matched
+    bool[Q, P]), the must-term loop of `_sparse_lead_inner` bit for
+    bit."""
+    return _span_fold(flat_docs, flat_tn, starts, ends, weights, cands,
+                      in_range, 0)
+
+
+def span_fold_stacked(flat_docs, flat_tn, starts, ends, weights, cands,
+                      in_range):
+    """K4s's fold mode: span_fold_batch over R = Q x S rows of S stacked
+    shards, the planes [S, L] and row r reading shard r % S's."""
+    return _span_fold(flat_docs, flat_tn, starts, ends, weights, cands,
+                      in_range, flat_docs.shape[0])
+
+
+def _span_fold(flat_docs, flat_tn, starts, ends, weights, cands, in_range,
+               n_shards):
+    dev = flat_docs.device
+    nd = 2 if n_shards else 1
+    _check_all(dev, (
+        (flat_docs, "flat_docs", torch.int32, nd),
+        (flat_tn, "flat_tn", torch.float32, nd),
+        (starts, "starts", torch.int32, 2),
+        (ends, "ends", torch.int32, 2),
+        (weights, "weights", torch.float32, 2),
+        (cands, "cands", torch.int32, 2),
+        (in_range, "in_range", torch.bool, 2),
+    ))
+    q, p = cands.shape
+    n_terms = starts.shape[1]
+    _check_rows("ends", ends, q, n_terms)
+    _check_rows("weights", weights, q, n_terms)
+    _check_rows("starts", starts, q, n_terms)
+    _check_rows("in_range", in_range, q, p)
+    if flat_tn.shape != flat_docs.shape:
+        raise ValueError("flat_tn differs in shape from flat_docs")
+    if flat_docs.shape[-1] == 0:
+        raise ValueError("flat plane is empty")
+    if not 1 <= q <= 65535:
+        raise ValueError(f"row count {q} out of range [1, 65535]")
+    if n_shards:
+        _check_shards(n_shards, q, {"flat_docs": flat_docs})
+    if not _launchable(dev):
+        return span_fold_batch_plain(flat_docs, flat_tn, starts, ends,
+                                     weights, cands, in_range)
+    flat_len = flat_docs.shape[-1]
+    score = torch.empty((q, p), dtype=torch.float32, device=dev)
+    matched = torch.empty((q, p), dtype=torch.bool, device=dev)
+    _launch(
+        "span_fold", dev, ensure_built().esk_span_fold,
+        flat_docs.data_ptr(), flat_tn.data_ptr(), flat_len,
+        starts.data_ptr(), ends.data_ptr(), weights.data_ptr(), n_terms,
+        cands.data_ptr(), in_range.data_ptr(), q, p, search_steps(flat_len),
+        score.data_ptr(), matched.data_ptr(), max(1, n_shards),
+    )
+    _count("span_fold", q, n_shards)
+    return score, matched
 
 
 # ---------------------------------------------------------------------------

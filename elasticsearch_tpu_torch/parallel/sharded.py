@@ -25,9 +25,11 @@ structured plans) for a plain search, the dense evaluation then K3 / K3k
 for sorted, cursored and aggregating requests, and `_eval_agg` over K10.
 The bodies launch in shard order (mesh.run_bodies) and read nothing back
 to the host before the gather. The merge of the gathered [S * kk] planes
-runs on K3 (`masked_topk.cu`) over the flat plane with an all-true mask:
-the key is each shard's top scores, or, for a field sort, the negated
-ascending merge key, as the reference's `top_k(-all_key)` orders it;
+runs on K3's merge mode (`masked_topk.cu`; rows longer than
+`kernels.MERGE_MAX_M` on K3's row mode with an all-true mask), which also
+takes the merged ids: the key is each shard's top scores, or, for a
+field sort, the negated ascending merge key, as the reference's
+`top_k(-all_key)` orders it;
 equal keys keep the lower flat index, (shard, per-shard rank), first.
 Totals, `n_after` and aggregation count planes are mesh.psum's integer
 sums; float planes come back stacked.
@@ -706,15 +708,23 @@ def shard_plans(arrays_shard_major, devices: list[torch.device]) -> list:
     return plans
 
 
-def _merge_topk(flat_key: torch.Tensor, k: int):
-    """K3 over the gathered [Q, S * kk] plane with an all-true mask: the
-    top min(k, S * kk) of each row by (key desc, flat index asc), as
-    lax.top_k merges the all-gathered planes. Returns (keys, flat idx)."""
+def _merge_topk(flat_key: torch.Tensor, k: int, ids=None):
+    """The top min(k, S * kk) of each row of the gathered [Q, S * kk]
+    plane by (key desc, flat index asc), as lax.top_k merges the
+    all-gathered planes: K3's merge mode for rows of up to
+    kernels.MERGE_MAX_M keys, K3's row mode (an all-true mask) for longer
+    ones (S * kk reaches 80,000 at k = 10,000). Returns (keys, flat idx
+    int64, the ids i32[Q, S * kk] at those indices or None)."""
     m = min(k, flat_key.shape[1])
+    key = flat_key.contiguous()
+    if 0 < key.shape[1] <= kernels.MERGE_MAX_M:
+        return kernels.masked_topk_merge(
+            key, m, None if ids is None else ids.contiguous())
     top, idx, _count = kernels.masked_topk_batch(
-        flat_key.contiguous(), torch.ones_like(flat_key, dtype=torch.bool), m
+        key, torch.ones_like(key, dtype=torch.bool), m
     )
-    return top, idx.to(torch.int64)
+    idx = idx.to(torch.int64)
+    return top, idx, None if ids is None else torch.gather(ids, 1, idx)
 
 
 def sharded_execute(
@@ -746,8 +756,7 @@ def sharded_execute(
     flat_i = all_i.transpose(0, 1).reshape(1, -1)
     # Merge to min(k, S * kk), not kk: when k exceeds docs_per_shard the
     # union across shards can still fill k hits.
-    top_s, idx = _merge_topk(flat_s, k)
-    top_i = torch.gather(flat_i, 1, idx)
+    top_s, _idx, top_i = _merge_topk(flat_s, k, flat_i)
     total = mesh_ops.psum([o[2] for o in outs], lead)
     return top_s[0], top_i[0], total[0]
 
@@ -802,8 +811,8 @@ def sharded_execute_batch(
     all_i = torch.cat(rows_i, dim=1)
     flat_s = all_s.transpose(0, 1).reshape(q_all, -1)  # [Q, S * kk]
     flat_i = all_i.transpose(0, 1).reshape(q_all, -1)
-    top_s, idx = _merge_topk(flat_s, k)
-    return top_s, torch.gather(flat_i, 1, idx), torch.cat(rows_c)
+    top_s, _idx, top_i = _merge_topk(flat_s, k, flat_i)
+    return top_s, top_i, torch.cat(rows_c)
 
 
 def _leaves(node):
@@ -926,10 +935,10 @@ def sharded_execute_request(
         all_gid = mesh_ops.all_gather([o[1][2] for o in outs], lead).reshape(1, -1)
         # Stable top-k over -key: equal keys favor the lower flat index,
         # (shard, per-shard rank), the host merge's tiebreak.
-        _neg, idxm = _merge_topk(-all_key, k)
+        _neg, idxm, gid = _merge_topk(-all_key, k, all_gid)
         out_key = torch.gather(all_key, 1, idxm)[0]
         out_val = torch.gather(all_val, 1, idxm)[0]
-        out_gid = torch.gather(all_gid, 1, idxm)[0]
+        out_gid = gid[0]
         n_after_total = mesh_ops.psum([o[1][3] for o in outs], lead)[0]
     else:  # agg-only / count-only request: no hits merge at all
         out_key = torch.zeros(0, dtype=torch.float32, device=lead)

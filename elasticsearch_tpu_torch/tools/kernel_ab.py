@@ -13,7 +13,12 @@ K1-K4 on identical inputs, in the turns baseline, current, current,
 baseline (in this checkout the solo wrapper is the batched wrapper over
 one row, the call the serving path makes for one request), and each
 batched wrapper on Q rows the same way; then, for this checkout only,
-each batched wrapper on Q rows against Q solo calls on the same rows. Each turn gives two times a call:
+each batched wrapper on Q rows against Q solo calls on the same rows; then
+the two call sites redesigned with K4's fold mode and K3's merge mode
+(`lead_path_ab`: a filter-led body through execute_auto and the mesh
+merge, baseline against current, with the kernels each launches for one
+request by the profiler, on the cfg2 corpus and on one cfg3 shard).
+Each turn gives two times a call:
 `ms`, the CUDA-event mean over back-to-back calls (at these sizes it
 includes the host's launch cost), and `device_ms`, the summed duration of
 the kernels and copies the call ran on the card (torch.profiler), which
@@ -95,12 +100,39 @@ def device_ms(fn, reps: int) -> dict:
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
         if us:
-            per[evt.key[:60]] = us / 1e3 / reps
+            per[evt.key[:60]] = per.get(evt.key[:60], 0.0) + us / 1e3 / reps
     return {"device_ms": sum(per.values()), "device_ms_by_kernel": per} if per else {}
 
 
 def timed(fn, reps: int) -> dict:
     return {"ms": cuda_ms(fn, reps), **device_ms(fn, reps)}
+
+
+def launched(fn) -> dict:
+    """The device activities of one fn() call by torch.profiler: kernels
+    launched (by name), and copies and memsets apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        return {}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, other = {}, 0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if not us:
+            continue
+        if evt.key.startswith(("Memcpy", "Memset")):
+            other += evt.count
+        else:
+            kernels[evt.key[:60]] = kernels.get(evt.key[:60], 0) + evt.count
+    return {"kernels": sum(kernels.values()), "copies_and_memsets": other,
+            "by_kernel": kernels}
 
 
 def main() -> int:
@@ -264,8 +296,87 @@ def main() -> int:
                           ("solo_loop", loop), ("batched", batched)):
             turns.append((label, timed(fn, args.reps)))
         emit({"kernel": name, "rows": q, "turns": turns})
+    lead_path_ab(args, base, cur, dev, comp, tree, leads, emit)
     print(card, flush=True)
     return 0
+
+
+def lead_path_ab(args, base, cur, dev, comp, tree, leads, emit) -> None:
+    """The two redesigned call sites, baseline against current in the
+    turns baseline, current, current, baseline: one filter-led body
+    through execute_auto (the must terms' K4 loop against K4's fold mode)
+    and the mesh merge of [1, S * kk] = [1, 80] gathered keys with their
+    ids (K3's row mode, a cast and a gather against K3's merge mode);
+    then the kernels each launches for one such request on the cfg2
+    corpus and on one cfg3 shard (the profiler's count, before and
+    after)."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.ops import bm25_device
+    from elasticsearch_tpu_torch.parallel import sharded
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+    from elasticsearch_tpu_torch.utils.corpus import build_zipf_segment
+
+    root = base.__name__.rsplit(".", 2)[0]
+    base_bm25 = importlib.import_module(f"{root}.ops.bm25_device")
+    base_sharded = importlib.import_module(f"{root}.parallel.sharded")
+
+    def one_request(tree_, comp_, body):
+        c = comp_.compile(parse_query(body))
+        plan = bm25_device.plan_to_torch(c.spec, c.arrays, dev)
+        return {"baseline": lambda: base_bm25.execute_auto(tree_, c.spec, plan, 10),
+                "current": lambda: bm25_device.execute_auto(tree_, c.spec, plan, 10)}
+
+    def ab(fns):
+        return [(label, timed(fns[label], args.reps))
+                for label in ("baseline", "current", "current", "baseline")]
+
+    def same(fns):
+        a, b = fns["baseline"](), fns["current"]()
+        return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                               y.view(torch.int32) if y.dtype == torch.float32 else y)
+                   for x, y in zip(a, b))
+
+    cfg2 = one_request(tree, comp, leads[0])
+    emit({"call": "execute_auto, cfg2 filter-led body (3 must terms)",
+          "equal": same(cfg2), "turns": ab(cfg2),
+          "launched": {k: launched(f) for k, f in cfg2.items()}})
+
+    rng = np.random.default_rng(31)
+    flat = torch.from_numpy(rng.standard_normal((1, 80)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, 1 << 30, (1, 80)).astype(np.int32)).to(dev)
+
+    def base_merge():
+        top, idx = base_sharded._merge_topk(flat, 10)
+        return top, idx, torch.gather(ids, 1, idx)
+
+    merge = {"baseline": base_merge,
+             "current": lambda: sharded._merge_topk(flat, 10, ids)}
+    emit({"call": "mesh merge [1, 80] -> 10 with ids", "equal": same(merge),
+          "turns": ab(merge),
+          "launched": {k: launched(f) for k, f in merge.items()}})
+
+    # cfg3's shard 0: the cfg2 corpus's docs over its 8 shards (seed 100).
+    mappings, seg = build_zipf_segment(-(-args.docs // 8), vocab_size=30_000,
+                                       seed=100)
+    eng = Engine(mappings, device=dev)
+    handle = eng._install_segment(seg)
+    tree3 = bm25_device.segment_tree(handle.device)
+    comp3 = eng.compiler_for(handle)
+    fld = seg.fields["body"]
+    by_df = sorted(fld.terms, key=lambda t: -fld.df[fld.terms[t]])
+    mid = by_df[len(by_df) // 100 : len(by_df) // 4]
+    rare = by_df[len(by_df) // 4 : len(by_df) // 2]
+    m1, m2 = (str(t) for t in rng.choice(mid, 2, replace=False))
+    body = {"bool": {"must": [{"match": {"body": f"{m1} {m2}"}}],
+                     "filter": [{"term": {"body": str(rng.choice(rare))}}]}}
+    c = comp3.compile(parse_query(body))
+    cfg3 = one_request(tree3, comp3, body)
+    emit({"call": "execute_auto, cfg3 filter-led body (one shard, 2 must terms)",
+          "lead": int(c.spec[6]), "equal": same(cfg3), "turns": ab(cfg3),
+          "launched": {k: launched(f) for k, f in cfg3.items()}})
 
 
 if __name__ == "__main__":
