@@ -14,22 +14,33 @@
 // Bound on an H100: bytes. The function must read each key (4 B) and
 // eligible byte (1 B) once; for the k <= 10,000 of a search the output is
 // negligible (K3k on one doc-values column at BASELINE config 4's
-// 8,841,823 docs: 44,209,115 B, 0.0132 ms at 3.35 TB/s). The shared-memory
-// bitonic sorts below do O(log^2 chunk) compare-exchanges per key, so the
-// row, window, stacked and id modes are compute-heavy next to that bound;
-// K3k's threshold select (below) reads each entry once instead.
+// 8,841,823 docs: 44,209,115 B, 0.0132 ms at 3.35 TB/s; K3b on 6 rows of
+// cfg3's shard 0, 1,105,228 docs: 33,157,344 B, 0.0099 ms). The
+// shared-memory bitonic sorts below do O(log^2 chunk) compare-exchanges
+// per key, so the modes that keep them (k > 256, the id, window and merge
+// modes) are compute-heavy next to that bound; the threshold select
+// (below), which the row, stacked and keyed modes take for k <= 256, reads
+// each entry once instead.
 //
 // Design: lax.top_k's order is IEEE totalOrder descending (+NaN first,
 // +0.0 above -0.0), lower index first on ties. Each key becomes one 64-bit
 // composite, the total-order bits of the score above the inverted index
 // within its row (common.cuh), so a plain descending sort of composites IS
-// that order and needs no tie logic. Pass 1: each block (chunk, row) sorts
-// one chunk of a row's composites in shared memory and keeps its top
-// min(k, chunk). Further passes merge each row's survivors the same way
-// until one block a row remains; rows never meet. torch.topk documents no
-// tie order and is not used. The winning scores are gathered back from the
-// input, so the output keeps the input's exact bits. `total` is an integer
-// reduction over each row's eligible mask.
+// that order and needs no tie logic. For min(k, m) <= KS_MAX_K (256) and
+// no ids, the row mode (K3, K3b and K3s alike) is the threshold select of
+// K3k below with the raw key as its composite source (KEYED_RAW): no
+// masking (the row-mode contract puts -inf at ineligible entries, and the
+// plain version orders by the key alone, so the kernel must not mask even
+// where a caller breaks that contract), total counted over the eligible
+// bytes in the same pass, the winners' scores read back from the key:
+// one memset and one launch a call. Otherwise the chunk sorts: pass 1,
+// each block (chunk, row) sorts one chunk of a row's composites in shared
+// memory and keeps its top min(k, chunk); further passes merge each row's
+// survivors the same way until one block a row remains; rows never meet;
+// a decode reads the winners back. torch.topk documents no tie order and
+// is not used. The winning scores are gathered back from the input, so
+// the output keeps the input's exact bits. `total` is an integer reduction
+// over each row's eligible mask.
 //
 // K3k (keyed mode): each doc's key is built in the kernel as the
 // reference composes it, then the composite of the value lax.top_k sees.
@@ -82,8 +93,8 @@
 // the vmap of `execute_shards_batch` :1161): row r is the pair (query
 // r / S, shard r % S). Its keys are that pair's own candidates, so no
 // shard plane is read and the row mode above serves it unchanged, over
-// Q x S rows in one launch. The flat merge over [Q, S * k'] is the row
-// mode over Q rows.
+// Q x S rows in one launch (the select for k <= 256). The flat merge over
+// [Q, S * k'] is the row mode over Q rows.
 //
 // Window mode (K3b window; the masked `lax.top_k` of `_execute_inner`
 // (:729-742) with `bounds=` under `execute_batch_packed` :1724, the
@@ -125,6 +136,7 @@
 #define KEYED_SCORE_DESC 0
 #define KEYED_SCORE_ASC 1
 #define KEYED_FIELD 2
+#define KEYED_RAW 3  // K3's row mode in the select: the key as it is
 
 struct KeyedArgs {
     const float* key;         // [Q, M] at row stride key_stride (0: one plane)
@@ -148,6 +160,11 @@ __device__ __forceinline__ float keyed_value_m(const KeyedArgs& a,
                                                int64_t ad, int64_t i,
                                                float raw, uint8_t elig,
                                                bool* keep, float* masked) {
+    if (MODE == KEYED_RAW) {
+        *keep = true;
+        *masked = raw;
+        return raw;
+    }
     float key = raw;
     if (MODE == KEYED_FIELD) {
         const float k0 = a.desc ? -raw : raw;
@@ -468,10 +485,10 @@ static int merge_passes(int n_rows, int m, int kk, int ch, size_t smem,
 }
 
 // ---------------------------------------------------------------------------
-// K3k's threshold select (k <= KS_MAX_K): one pass over the keys, then one
-// merge a row, in one launch. See the header; a later mode (K3's row or
-// window mode) can reuse it by giving ks_select_kernel another source of
-// composites than keyed_value_m.
+// The threshold select (k <= KS_MAX_K): one pass over the keys, then one
+// merge a row, in one launch. See the header. K3k's modes and K3's row
+// mode (KEYED_RAW) give ks_select_kernel their composites through
+// keyed_value_m; the window mode could take it the same way.
 // ---------------------------------------------------------------------------
 
 #define KS_MAX_K 256                         // largest k of this design
@@ -696,14 +713,16 @@ __device__ void ks_merge_row(const KeyedArgs& a, int64_t q, int kp, int nb,
     esk_bitonic_desc(buf, ch);
     for (int r = threadIdx.x; r < kp; r += blockDim.x) {
         const uint32_t idx = esk_composite_index(buf[r]);
+        const int64_t t = q * kp + r;
+        top_idx[t] = (int32_t)idx;
+        if (a.mode == KEYED_FIELD || a.mode == KEYED_RAW) {
+            values[t] = a.key[q * a.key_stride + idx];  // the exact bits
+            continue;
+        }
         bool keep;
         float masked;
         keyed_value(a, q, idx, &keep, &masked);
-        const int64_t t = q * kp + r;
-        top_idx[t] = (int32_t)idx;
-        if (a.mode == KEYED_FIELD) {
-            values[t] = a.key[q * a.key_stride + idx];
-        } else if (a.mode == KEYED_SCORE_ASC && isnan(masked)) {
+        if (a.mode == KEYED_SCORE_ASC && isnan(masked)) {
             values[t] = __uint_as_float(__float_as_uint(masked) ^ 0x80000000u);
         } else {
             values[t] = masked;
@@ -713,7 +732,8 @@ __device__ void ks_merge_row(const KeyedArgs& a, int64_t q, int kp, int nb,
 
 // Row q's entries [b * stripe, (b + 1) * stripe): survivors (the block's
 // top kp composites, unordered, 0-padded) to surv[(q * nb + b) * kp ...],
-// its eligible and kept counts added to total[q] / n_after[q], and a ticket
+// its eligible and kept counts added to total[q] / n_after[q] (KEYED_RAW:
+// total only, n_after is null), and a ticket
 // from arrive[q]: the row's last block merges (ks_merge_row) into
 // values / top_idx [q, kp]. MODE is the call's mode (the per-entry work is
 // compiled for each).
@@ -979,12 +999,17 @@ ks_select_kernel(KeyedArgs a, int kp, int nb, int64_t stripe,
     for (int i = threadIdx.x; i < kp; i += blockDim.x) {
         dst[i] = i < n ? buf[i] : 0ull;  // 0: below every real composite
     }
+    if (MODE == KEYED_RAW) {
+        n_keep = 0;  // no cursor: nothing to count past the eligibility
+    }
     for (int off = 16; off > 0; off >>= 1) {
         n_elig += __shfl_down_sync(0xffffffffu, n_elig, off);
         n_keep += __shfl_down_sync(0xffffffffu, n_keep, off);
     }
-    if (lane == 0 && (n_elig | n_keep) != 0) {
+    if (lane == 0 && n_elig != 0) {
         atomicAdd(total + q, n_elig);
+    }
+    if (MODE != KEYED_RAW && lane == 0 && n_keep != 0) {
         atomicAdd(n_after + q, n_keep);
     }
     // The row's last block to finish merges its survivors.
@@ -1036,12 +1061,15 @@ static int ks_select(const KeyedArgs& a, int n_rows, int kk, int nb,
     return 0;
 }
 
-// The select path of esk_keyed_topk: nb blocks a row (about two a
-// multiprocessor over all rows, at most KS_CAP / kk so the last block's
-// merge fits its buffer, at most one a KS_ROUND entries, and at most the
-// chunk path's block count so both paths share its scratch), stripes a
-// multiple of 4 entries, one launch. total, n_after and arrive ([n_rows]
-// each) are zeroed first: the blocks add their counts and tickets there.
+// The select path of esk_keyed_topk and of esk_masked_topk's row mode: nb
+// blocks a row (about two a multiprocessor over all rows, but at least
+// one: 1 to 65,535 rows, each its own grid row; at most KS_CAP / kk so the
+// last block's merge fits its buffer, at most one a KS_ROUND entries, and
+// at most the chunk path's block count so both paths share its scratch),
+// stripes a multiple of 4 entries, one launch. total, n_after (null in
+// KEYED_RAW) and arrive ([n_rows] each) are zeroed first, in one memset
+// where they are consecutive planes: the blocks add their counts and
+// tickets there.
 static int ks_launch(const KeyedArgs& a, int n_rows, int m, int kk, int ch,
                      uint64_t* surv, float* values, int32_t* top_idx,
                      int32_t* total, int32_t* n_after, int32_t* arrive,
@@ -1054,14 +1082,22 @@ static int ks_launch(const KeyedArgs& a, int n_rows, int m, int kk, int ch,
     const int64_t stripe = ((int64_t)esk_blocks(m, nb) + 3) / 4 * 4;
     nb = esk_blocks(m, (int)stripe);
     const size_t plane = sizeof(int32_t) * (size_t)n_rows;
-    if (n_after == total + n_rows && arrive == n_after + n_rows) {
+    if (n_after == nullptr && arrive == total + n_rows) {
+        cudaMemsetAsync(total, 0, 2 * plane, s);
+    } else if (n_after == total + n_rows && arrive == n_after + n_rows) {
         cudaMemsetAsync(total, 0, 3 * plane, s);
     } else {
         cudaMemsetAsync(total, 0, plane, s);
-        cudaMemsetAsync(n_after, 0, plane, s);
+        if (n_after != nullptr) {
+            cudaMemsetAsync(n_after, 0, plane, s);
+        }
         cudaMemsetAsync(arrive, 0, plane, s);
     }
     ESK_RETURN_IF_ERROR();
+    if (a.mode == KEYED_RAW) {
+        return ks_select<KEYED_RAW>(a, n_rows, kk, nb, stripe, surv, values,
+                                    top_idx, total, nullptr, arrive, s);
+    }
     if (a.mode == KEYED_SCORE_DESC) {
         return ks_select<KEYED_SCORE_DESC>(a, n_rows, kk, nb, stripe, surv,
                                            values, top_idx, total, n_after,
@@ -1079,8 +1115,13 @@ static int ks_launch(const KeyedArgs& a, int n_rows, int m, int kk, int ch,
 // key f32[n_rows, m] (ineligible entries already -inf), ids i32[n_rows, m]
 // (the id mode's tie-break ids) or null (the position), eligible
 // u8[n_rows, m]. ch: power-of-two chunk (1024..16384) with ch > k.
-// buf_a/buf_b: u64 scratch of n_rows * ceil(m / ch) * k entries each.
-// Outputs top_scores/top_idx [n_rows, min(k, m)] and total i32[n_rows].
+// buf_a/buf_b: u64 scratch of n_rows * ceil(m / ch) * k entries each
+// (buf_b unused by the select). Outputs top_scores/top_idx [n_rows,
+// min(k, m)] and total i32[n_rows]; arrive i32[n_rows], the select's
+// arrival tickets, is scratch (one memset zeroes total and arrive where
+// arrive = total + n_rows). With no ids and 1 <= min(k, m) <= KS_MAX_K the
+// threshold select runs (one memset, one launch); otherwise the chunk
+// sorts.
 extern "C" int esk_masked_topk(
     const void* key,
     const void* ids,
@@ -1094,10 +1135,27 @@ extern "C" int esk_masked_topk(
     void* top_scores,
     void* top_idx,
     void* total,
+    void* arrive,
     void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (n_rows <= 0) {
         return 0;
+    }
+    const int kk = esk_imin(k, m);
+    if (ids == nullptr && kk > 0 && kk <= KS_MAX_K) {
+        KeyedArgs a;
+        a.key = (const float*)key;
+        a.eligible = (const uint8_t*)eligible;
+        a.key_stride = m;
+        a.m = m;
+        a.mode = KEYED_RAW;
+        a.desc = 0;
+        a.missing_first = 0;
+        a.after_key = nullptr;
+        a.after_doc = nullptr;
+        return ks_launch(a, n_rows, m, kk, ch, (uint64_t*)buf_a,
+                         (float*)top_scores, (int32_t*)top_idx,
+                         (int32_t*)total, nullptr, (int32_t*)arrive, s);
     }
     cudaMemsetAsync(total, 0, sizeof(int32_t) * (size_t)n_rows, s);
     ESK_RETURN_IF_ERROR();
@@ -1107,7 +1165,6 @@ extern "C" int esk_masked_topk(
                                     (int32_t*)total, nullptr, nullptr);
         ESK_RETURN_IF_ERROR();
     }
-    const int kk = esk_imin(k, m);
     if (kk <= 0) {
         return 0;
     }

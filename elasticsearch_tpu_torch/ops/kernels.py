@@ -11,7 +11,9 @@ PyTorch versions.
                       eligible only inside its row's [lo, hi) doc range
                       (the packed plane's tenant mask, execute_batch_packed)
     K3 masked_topk    csrc/masked_topk.cu    top-k by (score desc, index
-                      asc) + eligible count (the masked lax.top_k); its
+                      asc) + eligible count (the masked lax.top_k): its
+                      row mode (K3, K3b, K3s) the threshold select for
+                      k <= ROW_SELECT_MAX_K, the chunk sorts above; its
                       window mode (K3b window) reads only each row's
                       [lo, hi) of the plane and returns window-local ids
                       (the packed plane's dense lanes)
@@ -118,8 +120,9 @@ launch does, and also in `MATCHED_ONLY_LAUNCHES` under the same names.
 K4's fold mode counts as `span_fold`, `span_fold_batch` and
 `span_fold_stacked` (by rows and mode, as K1-K4), K3's merge mode as
 `masked_topk_merge`, whatever its row count. Every wrapper passes its
-stream as the raw handle (`_stream`); K4's wrappers and both modes launch
-through `_launch` (one pass of checks, the device switched only where it
+stream as the raw handle (`_stream`); K4's wrappers and its fold mode,
+K3's row, id and merge modes and K1's matched-only mode launch through
+`_launch` (one pass of checks, the device switched only where it
 differs).
 Launches from several threads (the REST
 handlers and the micro-batcher) share the one library and the caller's
@@ -197,6 +200,11 @@ MATCHED_ONLY_LAUNCHES: dict[str, int] = {
 # Longest row K3's merge mode ranks in one block (csrc/masked_topk.cu
 # MERGE_MAX_M); longer merges go to K3's row mode.
 MERGE_MAX_M = 4096
+
+# Largest k of the threshold select (csrc/masked_topk.cu KS_MAX_K) that
+# K3's row mode (K3, K3b, K3s without ids) takes; a larger k, and K3's id
+# mode, take the chunk sorts.
+ROW_SELECT_MAX_K = 256
 
 # Largest rescore window K5 sorts in one block's shared memory (128 KB).
 WINDOW_MAX = 16384
@@ -326,12 +334,13 @@ def build_library() -> Path:
 def _bind(lib) -> None:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.esk_terms_scatter.argtypes = (
-        [P] * 11 + [I, I, I, L, P, P, I, I, L, L, P]
+        [P] * 11 + [I, I, I, L, P, P, I, L, L, P]
     )
+    lib.esk_terms_matched.argtypes = [P, P, P, P, I, I, L, P, I, L, P]
     lib.esk_sparse_fold.argtypes = (
         [P] * 6 + [I] * 5 + [P] * 9 + [I, I, L, P, P, P]
     )
-    lib.esk_masked_topk.argtypes = [P, P, P, I, I, I, I] + [P] * 6
+    lib.esk_masked_topk.argtypes = [P, P, P, I, I, I, I] + [P] * 7
     lib.esk_masked_topk_window.argtypes = [P] * 4 + [I] * 6 + [P] * 6
     lib.esk_span_locate.argtypes = [P, L, P, P, I, I, P, I, I, I, P, P, I, P]
     lib.esk_span_fold.argtypes = [P, P, L, P, P, P, I, P, P, I, I, I, P, P, I, P]
@@ -356,6 +365,7 @@ def _bind(lib) -> None:
         lib.esk_doc_join,
         lib.esk_doc_mark,
         lib.esk_terms_scatter,
+        lib.esk_terms_matched,
         lib.esk_sparse_fold,
         lib.esk_masked_topk,
         lib.esk_masked_topk_window,
@@ -638,7 +648,9 @@ def terms_scatter_batch(
     `groups` is the host-side batch_groups(...) int32[Q, G, 2] of the
     worklists. Returns (scores f32[Q, num_docs + 1] or None in
     matched-only mode, matched bool[Q, num_docs + 1]); slot num_docs of
-    each row is the discard slot."""
+    each row is the discard slot. Matched-only mode reads no weights,
+    groups, cache or norm plane: on the card it is one host call into the
+    library (esk_terms_matched: the plane's memset, then one launch)."""
     return _terms_scatter(
         doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
         num_docs, groups, cache, matched_only, 0,
@@ -670,6 +682,11 @@ def _terms_scatter(
 ):
     """Check K1's inputs (planes stacked iff n_shards > 0), then run the
     plain version for CPU tensors or launch the kernel."""
+    if matched_only:
+        return _terms_matched(
+            doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+            num_docs, groups, cache, n_shards,
+        )
     dev = doc_tiles.device
     st = 1 if n_shards else 0
     _check(doc_tiles, "doc_tiles", torch.int32, 2 + st, dev)
@@ -690,9 +707,8 @@ def _terms_scatter(
                                     "norm_bytes": norm_bytes})
     if not 1 <= q <= 65535:
         raise ValueError(f"row count {q} out of range [1, 65535]")
-    if not matched_only:
-        _check(weights, "weights", torch.float32, 2, dev)
-        _check_rows("weights", weights, q, nt)
+    _check(weights, "weights", torch.float32, 2, dev)
+    _check_rows("weights", weights, q, nt)
     if cache is not None:
         _check(cache, "cache", torch.float32, 2, dev)
         _check_rows("cache", cache, q, 256)
@@ -702,17 +718,58 @@ def _terms_scatter(
     if not _launchable(dev):
         return terms_scatter_batch_plain(
             doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
-            num_docs, groups, cache=cache, matched_only=matched_only,
+            num_docs, groups, cache=cache,
         )
     return _terms_scatter_launch(
         doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
-        num_docs, groups, cache, matched_only, n_shards,
+        num_docs, groups, cache, n_shards,
     )
+
+
+def _terms_matched(
+    doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+    num_docs, groups, cache, n_shards,
+):
+    """K1's matched-only mode: check what its kernel reads (the postings
+    and the worklists; it takes no weights, groups, cache or norm plane),
+    then run the plain version for CPU tensors or make one host call into
+    the library, esk_terms_matched (the plane's memset and one launch).
+    Returns (None, matched bool[Q, num_docs + 1])."""
+    dev = doc_tiles.device
+    _check_all(dev, ((doc_tiles, "doc_tiles", torch.int32, 3 if n_shards else 2),
+                     (tile_ids, "tile_ids", torch.int32, 2),
+                     (starts, "starts", torch.int32, 2),
+                     (ends, "ends", torch.int32, 2)))
+    q, nt = tile_ids.shape
+    if starts.shape != tile_ids.shape or ends.shape != tile_ids.shape:
+        raise ValueError(f"starts and ends must be [{q}, {nt}] like tile_ids")
+    if doc_tiles.shape[-1] != TILE:
+        raise ValueError("doc_tiles must be [NT, 256] tiles")
+    if n_shards:
+        _check_shards(n_shards, q, {"doc_tiles": doc_tiles})
+    if not 1 <= q <= 65535:
+        raise ValueError(f"row count {q} out of range [1, 65535]")
+    if not _launchable(dev):
+        return terms_scatter_batch_plain(
+            doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
+            num_docs, groups, cache=cache, matched_only=True,
+        )
+    if doc_tiles.data_ptr() % 16:
+        raise ValueError("doc_tiles must be 16-byte aligned (16-byte loads)")
+    matched = torch.empty((q, num_docs + 1), dtype=torch.bool, device=dev)
+    _launch(
+        "terms_scatter", dev, ensure_built().esk_terms_matched,
+        doc_tiles.data_ptr(), tile_ids.data_ptr(), starts.data_ptr(),
+        ends.data_ptr(), q, nt, num_docs + 1, matched.data_ptr(),
+        max(1, n_shards), _shard_stride(doc_tiles),
+    )
+    _count("terms_scatter", q, n_shards, matched_only=True)
+    return None, matched
 
 
 def _terms_scatter_launch(
     doc_tiles, vals, norm_bytes, tile_ids, starts, ends, weights,
-    num_docs, groups, cache, matched_only, n_shards,
+    num_docs, groups, cache, n_shards,
 ):
     """Launch K1 on checked inputs: worklists [Q, nt], groups
     int32[Q, G, 2]; outputs [Q, num_docs + 1]."""
@@ -722,7 +779,7 @@ def _terms_scatter_launch(
     n_groups = groups.shape[1]
     out_shape = (q, num_docs + 1)
     group_len = bounds = None
-    if q > 1 and not matched_only:
+    if q > 1:
         group_len = np.ascontiguousarray(
             (groups[:, :, 1] - groups[:, :, 0]).max(axis=0, initial=0),
             dtype=np.int32,
@@ -732,27 +789,23 @@ def _terms_scatter_launch(
         # arguments instead.
         bounds = torch.from_numpy(groups).pin_memory().to(dev, non_blocking=True)
     matched = torch.zeros(out_shape, dtype=torch.bool, device=dev)
-    scores = (
-        None if matched_only
-        else torch.zeros(out_shape, dtype=torch.float32, device=dev)
-    )
+    scores = torch.zeros(out_shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.esk_terms_scatter(
             _ptr(doc_tiles), _ptr(vals), _ptr(norm_bytes), _ptr(cache),
-            _ptr(tile_ids), _ptr(starts), _ptr(ends),
-            None if matched_only else _ptr(weights),
+            _ptr(tile_ids), _ptr(starts), _ptr(ends), _ptr(weights),
             ctypes.c_void_p(groups.ctypes.data),  # host int32[Q, G, 2]
             _ptr(bounds),
             # host int32[G], or None: one row's own group lengths
             None if group_len is None else ctypes.c_void_p(group_len.ctypes.data),
             int(n_groups), int(q), int(nt), int(num_docs + 1),
-            _ptr(scores), _ptr(matched), int(bool(matched_only)),
+            _ptr(scores), _ptr(matched),
             max(1, n_shards), _shard_stride(doc_tiles),
             int(norm_bytes.shape[-1]),
             _stream(dev),
         )
     _check_rc("terms_scatter", rc)
-    _count("terms_scatter", q, n_shards, matched_only=matched_only)
+    _count("terms_scatter", q, n_shards)
     return scores, matched
 
 
@@ -1033,10 +1086,18 @@ def masked_topk_batch(key, eligible, k: int):
     """Top-k of each row of `key` by (score desc, index asc) —
     jax.lax.top_k's order — and total = each row's count of `eligible`.
 
-    key f32[Q, M] must already hold -inf at ineligible entries. Returns
+    key f32[Q, M] must already hold -inf at ineligible entries (the kernel
+    ranks the key as it is, as the plain version does). Returns
     (top_scores f32[Q, min(k, M)], top_idx i32[Q, min(k, M)],
     total i32[Q]). Callers pad to k exactly as the reference does when
-    M < k."""
+    M < k.
+
+    On the card, esk_masked_topk switches on k between two hand-written
+    designs of csrc/masked_topk.cu, both bit-equal to the plain version:
+    1 <= min(k, M) <= ROW_SELECT_MAX_K (256) takes the threshold select
+    (one memset and one launch: each key and eligible byte read once, the
+    row's last block merging the survivors); a larger k takes the chunk
+    sorts."""
     _check_topk(key, eligible, k)
     if not _launchable(key.device):
         return masked_topk_batch_plain(key, eligible, k)
@@ -1062,8 +1123,8 @@ def masked_topk_stacked_plain(key, eligible, k: int, n_shards: int):
 
 def _check_topk(key, eligible, k: int) -> None:
     dev = key.device
-    _check(key, "key", torch.float32, 2, dev)
-    _check(eligible, "eligible", torch.bool, 2, dev)
+    _check_all(dev, ((key, "key", torch.float32, 2),
+                     (eligible, "eligible", torch.bool, 2)))
     q, m = key.shape
     if eligible.shape != key.shape:
         raise ValueError("eligible differs in shape from key")
@@ -1077,7 +1138,13 @@ def _check_topk(key, eligible, k: int) -> None:
 
 def _masked_topk_launch(key, eligible, k, n_shards, ids=None):
     """Launch K3 on checked [Q, M] inputs (K3i with tie-break `ids`);
-    outputs [Q, min(k, M)] and [Q]."""
+    outputs [Q, min(k, M)] and [Q].
+
+    One allocation a call, an int64 tensor whose int32 words hold the
+    outputs (scores, ids, total), the select's arrival tickets right after
+    total (one memset zeroes both) and then the scratch: one buffer of
+    Q * ceil(M / chunk) * kp composites for the select, two for the chunk
+    sorts. The outputs are views of it."""
     dev = key.device
     q, m = key.shape
     kp = min(k, m)
@@ -1086,21 +1153,23 @@ def _masked_topk_launch(key, eligible, k, n_shards, ids=None):
         raise ValueError(
             f"k={k} exceeds the top-k kernel's window ({TOPK_MAX_CHUNK - 1})"
         )
-    lib = ensure_built()
-    nb = max(1, -(-m // ch))
-    buf_a = torch.empty(max(1, q * nb * kp), dtype=torch.int64, device=dev)
-    buf_b = torch.empty(max(1, q * nb * kp), dtype=torch.int64, device=dev)
-    top_scores = torch.empty((q, kp), dtype=torch.float32, device=dev)
-    top_idx = torch.empty((q, kp), dtype=torch.int32, device=dev)
-    total = torch.empty((q,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.esk_masked_topk(
-            _ptr(key), _ptr(ids), _ptr(eligible), int(q), int(m), int(kp),
-            int(ch),
-            _ptr(buf_a), _ptr(buf_b), _ptr(top_scores), _ptr(top_idx),
-            _ptr(total), _stream(dev),
-        )
-    _check_rc("masked_topk", rc)
+    n = max(1, q * max(1, -(-m // ch)) * kp)
+    n_bufs = 1 if ids is None and 1 <= kp <= ROW_SELECT_MAX_K else 2
+    head = -(-(2 * q * kp + 2 * q) // 2)  # int64 words of outputs + tickets
+    buf = torch.empty(head + n_bufs * n, dtype=torch.int64, device=dev)
+    words = buf.view(torch.int32)
+    top_scores = words[: q * kp].view(torch.float32).view(q, kp)
+    top_idx = words[q * kp : 2 * q * kp].view(q, kp)
+    total = words[2 * q * kp : 2 * q * kp + q]
+    base = buf.data_ptr()
+    scratch = base + 8 * head
+    _launch(
+        "masked_topk", dev, ensure_built().esk_masked_topk,
+        key.data_ptr(), None if ids is None else ids.data_ptr(),
+        eligible.data_ptr(), q, m, kp, ch, scratch,
+        scratch + 8 * n if n_bufs == 2 else None,
+        base, base + 4 * q * kp, base + 8 * q * kp, base + 8 * q * kp + 4 * q,
+    )
     if ids is not None:
         count_launch("masked_topk_ids")
     else:
@@ -1521,7 +1590,7 @@ KEYED_SCORE_DESC, KEYED_SCORE_ASC, KEYED_FIELD = 0, 1, 2
 
 # Largest k of K3k's threshold select (csrc/masked_topk.cu KS_MAX_K); a
 # larger k takes the chunk-sort kernels.
-KEYED_SELECT_MAX_K = 256
+KEYED_SELECT_MAX_K = ROW_SELECT_MAX_K
 
 F32_MAX = float(np.finfo(np.float32).max)
 

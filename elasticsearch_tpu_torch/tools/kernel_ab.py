@@ -9,15 +9,18 @@ Loads the baseline package from <dir>/elasticsearch_tpu_torch under
 another module name, beside this checkout's, so both kernel libraries are
 built and loaded in one process on one card. On the one-shard Zipf corpus
 (the repo's generator, seed 13) it times each solo wrapper (Q = 1) of
-K1-K4 on identical inputs, in the turns baseline, current, current,
-baseline (in this checkout the solo wrapper is the batched wrapper over
-one row, the call the serving path makes for one request), and each
-batched wrapper on Q rows the same way; then, for this checkout only,
-each batched wrapper on Q rows against Q solo calls on the same rows; then
-the two call sites redesigned with K4's fold mode and K3's merge mode
-(`lead_path_ab`: a filter-led body through execute_auto and the mesh
+K1-K4 and K1's matched-only mode (a head-term filter's plane, the filter
+cache's build) on identical inputs, in the turns baseline, current,
+current, baseline (in this checkout the solo wrapper is the batched
+wrapper over one row, the call the serving path makes for one request),
+and each batched wrapper on Q rows the same way; then, for this checkout
+only, each batched wrapper on Q rows against Q solo calls on the same
+rows; then the call sites redesigned with K4's fold mode and K3's merge
+mode (`lead_path_ab`: a filter-led body through execute_auto and the mesh
 merge, baseline against current, with the kernels each launches for one
-request by the profiler, on the cfg2 corpus and on one cfg3 shard).
+request by the profiler, on the cfg2 corpus and on one cfg3 shard), and
+K3's row mode on that shard's dense keys (6 match bodies, [6, N]: K3b as
+cfg3's batched phase runs it).
 Each turn gives two times a call:
 `ms`, the CUDA-event mean over back-to-back calls (at these sizes it
 includes the host's launch cost), and `device_ms`, the summed duration of
@@ -188,6 +191,9 @@ def main() -> int:
             [pad_arrays_to_spec(c.spec, spec, c.arrays) for c in cs])
         return spec, bm25_device.plan_to_torch(spec, arrays, dev)
 
+    fld = seg.fields["body"]
+    heads = sorted(fld.terms, key=lambda t: -fld.df[fld.terms[t]])[:q]
+    filters = [{"bool": {"filter": [{"term": {"body": t}}]}} for t in heads]
     should = [{"bool": {"should": [
         {"match": {"body": f"{t[0]} {t[1]}"}}, {"match": {"body": t[2]}},
         {"term": {"body": t[3]}}]}} for t in mid[:16]]
@@ -222,8 +228,14 @@ def main() -> int:
     cands = torch.clamp(torch.where(valid, doc_tiles[tid], n).reshape(-1), max=n - 1)
     mm = la["children"][0]
     k4 = (doc_tiles.reshape(-1), mm["term_starts"], mm["term_ends"], 0, cands)
+    _s, fa = plan(filters[0])
+    f = bm25_device._rows1(fa["children"][0])
+    k1mo = (doc_tiles, tn, norm, f["tile_ids"], f["starts"], f["ends"], None,
+            n, f["_groups"])
     solo = {
         "terms_scatter": lambda K: K.terms_scatter(*k1),
+        "terms_scatter_matched_only": lambda K: K.terms_scatter_batch(
+            *k1mo, matched_only=True),
         "sparse_fold": lambda K: K.sparse_fold(*k2),
         "masked_topk": lambda K: K.masked_topk(key, elig, 10),
         "span_locate": lambda K: K.span_locate(*k4),
@@ -238,6 +250,8 @@ def main() -> int:
     # -- batched wrapper (one launch, Q rows) vs Q solo launches ------------
     _s, sb = stacked(should[:q])
     b1 = sb["children"][0]
+    _s, fb = stacked(filters[:q])
+    f1 = fb["children"][0]
     solo1 = [plan(b)[1]["children"][0] for b in should[:q]]
     spec, mb = stacked(matches[:q])
     solo2 = [plan(b) for b in matches[:q]]
@@ -257,6 +271,9 @@ def main() -> int:
         "terms_scatter": lambda K: K.terms_scatter_batch(
             doc_tiles, tn, norm, b1["tile_ids"], b1["starts"], b1["ends"],
             b1["weights"], n, b1["_groups"]),
+        "terms_scatter_matched_only": lambda K: K.terms_scatter_batch(
+            doc_tiles, tn, norm, f1["tile_ids"], f1["starts"], f1["ends"],
+            None, n, f1["_groups"], matched_only=True),
         "sparse_fold": lambda K: K.sparse_fold_batch(
             doc_tiles, tn, mb["tile_ids"], mb["starts"], mb["ends"],
             mb["weights"], live, n, spec[3]),
@@ -348,11 +365,7 @@ def lead_path_ab(args, base, cur, dev, comp, tree, leads, emit) -> None:
     flat = torch.from_numpy(rng.standard_normal((1, 80)).astype(np.float32)).to(dev)
     ids = torch.from_numpy(rng.integers(0, 1 << 30, (1, 80)).astype(np.int32)).to(dev)
 
-    def base_merge():
-        top, idx = base_sharded._merge_topk(flat, 10)
-        return top, idx, torch.gather(ids, 1, idx)
-
-    merge = {"baseline": base_merge,
+    merge = {"baseline": lambda: base_sharded._merge_topk(flat, 10, ids),
              "current": lambda: sharded._merge_topk(flat, 10, ids)}
     emit({"call": "mesh merge [1, 80] -> 10 with ids", "equal": same(merge),
           "turns": ab(merge),
@@ -377,6 +390,28 @@ def lead_path_ab(args, base, cur, dev, comp, tree, leads, emit) -> None:
     emit({"call": "execute_auto, cfg3 filter-led body (one shard, 2 must terms)",
           "lead": int(c.spec[6]), "equal": same(cfg3), "turns": ab(cfg3),
           "launched": {k: launched(f) for k, f in cfg3.items()}})
+
+    # K3b on the shard's dense keys: 6 match bodies' K1 planes, masked.
+    n3 = tree3["live"].shape[0]
+    dt3, tn3, _tf3, norm3, _p3 = tree3["fields"]["body"]
+    rows = []
+    for t in rng.choice(mid, (6, 4), replace=False):
+        plan3 = comp3.compile(parse_query(
+            {"bool": {"should": [{"match": {"body": " ".join(map(str, t))}}]}}))
+        a3 = bm25_device._rows1(bm25_device.plan_to_torch(
+            plan3.spec, plan3.arrays, dev)["children"][0])
+        scores, matched = cur.terms_scatter_batch(
+            dt3, tn3, norm3, a3["tile_ids"], a3["starts"], a3["ends"],
+            a3["weights"], n3, a3["_groups"])
+        el = matched[0, :n3] & tree3["live"]
+        rows.append((torch.where(el, scores[0, :n3], float("-inf")), el))
+    key6 = torch.stack([r[0] for r in rows]).contiguous()
+    elig6 = torch.stack([r[1] for r in rows]).contiguous()
+    k3b = {"baseline": lambda: base.masked_topk_batch(key6, elig6, 10),
+           "current": lambda: cur.masked_topk_batch(key6, elig6, 10)}
+    emit({"call": f"K3b masked_topk_batch [6, {n3}] k = 10 (cfg3 shard 0's "
+                  f"dense match keys)", "equal": same(k3b), "turns": ab(k3b),
+          "launched": {k: launched(f) for k, f in k3b.items()}})
 
 
 if __name__ == "__main__":
