@@ -37,8 +37,10 @@ and read just after it.
                  profiler's device time (`device_ms`) and by events
                  around calls queued behind a sleep kernel (`queued_ms`),
                  as are K3's (and K3 again with fewer eligible entries
-                 than k and -NaN keys) and K1's matched-only mode on the
-                 head-term filter
+                 than k and -NaN keys, and at the rescore window's k =
+                 1,000) and K1's matched-only mode on the head-term
+                 filter; every phase logs K3's calls by design (the
+                 select, the short-row sort, the large-k select)
   7. sharded     BASELINE config 3's deployment: 8 shards of the Zipf
                  generator (seed 100 + shard, 1,105,228 / 1,105,227 docs,
                  8,841,823 in all), one segment each, in an 8-shard index
@@ -56,7 +58,7 @@ and read just after it.
                  numeric field over the 8 shards against the oracle
  11. batched kernels  K1b/K3b at the sharded concurrent phase's mean batch,
                  K3b also at k = 256 and k = 257 (both sides of the row
-                 mode's switch: the threshold select, the chunk sorts)
+                 mode's switch: the threshold select, the large-k select)
  12. results     latencies, QPS, device times, peak device memory
  6b. blockmax    (on the one-shard corpus, before it is freed) the match
                  plans through execute_batch_blockmax and the must-led
@@ -244,8 +246,8 @@ and read just after it.
                  unpacked node, no foreign doc in any page; 100 docs
                  `_bulk`-indexed into one tenant: the plane rebuilds and
                  its answers track the new segment; then K2b's bounds mode
-                 and K3b's window mode on the phase's widest launch of each
-                 against their plain versions
+                 and K3b's window mode (also at k = 257) on the phase's
+                 widest launch of each against their plain versions
  18. mesh        (kernel-table row 23 and row 22's mesh half) the shards of
                  one index as one mesh request (parallel/sharded.py,
                  parallel/mesh_serving.py) over [card] * 8 on one card (8
@@ -479,6 +481,13 @@ def counted(phase: str, totals: dict):
     for name, c in counts.items():
         totals[name] = totals.get(name, 0) + c
     log(f"  launches in {phase}: {counts}")
+    # K3's calls by design (kernels.topk_route), summed beside the
+    # launches: `<name>:select`, `<name>:short` (the short-row sort) and
+    # `<name>:large` (the large-k select).
+    routes = {name: c for name, c in kern.TOPK_ROUTES.items() if c}
+    for name, c in routes.items():
+        totals[name] = totals.get(name, 0) + c
+    log(f"  K3 routes in {phase}: {routes}")
 
 
 def http(base: str, method: str, path: str, body=None, raw: str | None = None):
@@ -985,6 +994,8 @@ def run() -> dict:
     if missing:
         raise SmokeFailure(f"kernels never launched on the main path: {missing}")
     log(f"  launches over all main-path phases: {json.dumps(launches)}")
+    log(f"  K3 routes over all main-path phases: "
+        f"{json.dumps({n: c for n, c in launches.items() if ':' in n})}")
     for r in rows:
         if "launches_of" not in r:
             r["launches"] = launches[r["name"]]
@@ -2647,8 +2658,9 @@ def _k9_edge_cases(seed: int) -> dict:
 def kernel_rows_knn(vec_dev, qvs, parts, nprobe, q_batch, dev):
     """K7 (dense at Q = 1 and at the concurrent phase's mean batch, gather
     at the default nprobe, script at cfg5), K9 at [8,192, 100] x [C, 100]
-    and its edge cases (_k9_edge_cases), and K3i at the IVF merge's shape,
-    each against its plain version."""
+    and its edge cases (_k9_edge_cases), K3i at the IVF merge's shape, and
+    the k = 10,000 request's K3b per-partition ranks (k = pmax) and K3i
+    merge (k = 10,000), each against its plain version."""
     import numpy as np
     import torch
 
@@ -2734,6 +2746,37 @@ def kernel_rows_knn(vec_dev, qvs, parts, nprobe, q_batch, dev):
          lambda: kern.masked_topk_ids_batch_plain(flat_s, flat_d, ones, TOP_K),
          two_sorts, "two stable torch.sorts", m * 9 + TOP_K * 8 + 4,
          source=SOURCES["masked_topk"], case=f"merge of {m} survivors, k = {TOP_K}")
+    # Phase knn's k = 10,000 request: each probed partition ranked whole
+    # (K3b at k = pmax: the short-row sort), then K3i over the kp x pmax
+    # survivors at k = 10,000 (the large-k select), as _ivf_rows runs them.
+    cand_d = parts.part_docs[probes[0].long()]
+    valid = cand_d < n
+    pkey = torch.where(valid, g.reshape(kp, pmax), float("-inf")).contiguous()
+    _row(rows, "masked_topk_batch", "elasticsearch_tpu/ops/ann_device.py:232",
+         kp, lambda: kern.masked_topk_batch(pkey, valid, pmax),
+         lambda: kern.masked_topk_batch_plain(pkey, valid, pmax),
+         lambda: torch.topk(pkey, pmax, dim=1), "torch.topk over [Q, M]",
+         kp * pmax * 5 + kp * (pmax * 8 + 4), device=True,
+         case=f"the per-partition ranks, [{kp}, {pmax}] at k = {pmax} "
+              f"({kern.topk_route(pmax, pmax)})")
+    ps, ppos, _pt = kern.masked_topk_batch(pkey, valid, pmax)
+    big_s = ps.reshape(1, -1).contiguous()
+    big_d = torch.gather(cand_d, 1, ppos.long()).reshape(1, -1).contiguous()
+    big_ones = torch.ones_like(big_s, dtype=torch.bool)
+    mb = big_s.shape[1]
+    kb = min(10_000, mb)
+
+    def two_sorts_big():
+        o1 = torch.sort(big_d, dim=1, stable=True).indices
+        return torch.sort(-big_s.gather(1, o1), dim=1, stable=True)
+
+    _row(rows, "masked_topk_ids", "elasticsearch_tpu/ops/ann_device.py:236", 1,
+         lambda: kern.masked_topk_ids_batch(big_s, big_d, big_ones, kb),
+         lambda: kern.masked_topk_ids_batch_plain(big_s, big_d, big_ones, kb),
+         two_sorts_big, "two stable torch.sorts", mb * 9 + kb * 8 + 4,
+         source=SOURCES["masked_topk"], device=True,
+         case=f"merge of {mb:,} survivors, k = {kb:,} "
+              f"({kern.topk_route(kb, mb)})")
     torch.cuda.synchronize()
     return rows
 
@@ -2954,6 +2997,17 @@ def kernel_rows_single(seg_tree, compiler, bodies, launches, dev, q):
          p * 5 + TOP_K * 8 + 4, device=True,
          case=f"{int(few.sum())} eligible entries of {p}, k = {TOP_K}, "
               f"-NaN keys at every 7th entry past the third")
+    # The rescore's first phase at cfg4's window (k = 1,000, past the
+    # select) on the same candidates: the short-row sort or the large-k
+    # select by their count (kernels.topk_route).
+    kw = min(CFG4_WINDOW, p)
+    _row(rows, "masked_topk", "elasticsearch_tpu/ops/bm25_device.py:1031", 1,
+         lambda: kern.masked_topk_batch(key, elig, CFG4_WINDOW),
+         lambda: kern.masked_topk_batch_plain(key, elig, CFG4_WINDOW),
+         lambda: torch.topk(key[0], kw), "torch.topk",
+         p * 5 + kw * 8 + 4, device=True,
+         case=f"the rescore window: k = {CFG4_WINDOW} over {p:,} candidates "
+              f"({kern.topk_route(kw, p)})")
 
     # K4: a filter-led conjunction's candidates in its first must span.
     lead_bodies = []
@@ -3161,7 +3215,8 @@ def _k3k_cases(seg_tree, compiler, match_terms, scores, elig, dev):
     key). An ascending timestamp-like column (f32, 1 s apart) sorted desc
     and asc; f1 with all but every 997th value missing; the match's
     scores bottom-k past a cursor at their median; 16 match rows over
-    f1; and k = 10,000, past KEYED_SELECT_MAX_K (the chunk sorts)."""
+    f1; and k = 10,000, past KEYED_SELECT_MAX_K (the large-k select), on
+    f1, on the mostly-missing column and on the ascending one."""
     import torch
 
     from elasticsearch_tpu_torch.ops import bm25_device
@@ -3210,9 +3265,15 @@ def _k3k_cases(seg_tree, compiler, match_terms, scores, elig, dev):
         ("Q = 16 over the shared f1", srt,
          (f1, elig16, TOP_K, fld, True, False),
          topk_of(f1, elig16, True, False, TOP_K)),
-        ("f1 desc, k = 10,000 (the chunk sorts)", srt,
+        ("f1 desc, k = 10,000 (the large-k select)", srt,
          (f1, elig, 10_000, fld, True, False),
          topk_of(f1, elig, True, False, 10_000)),
+        ("f1 mostly missing, desc, k = 10,000 (the large-k select)", srt,
+         (missing, elig, 10_000, fld, True, False),
+         topk_of(missing, elig, True, False, 10_000)),
+        ("ascending ts-like column, desc, k = 10,000 (the large-k select)",
+         srt, (ts, elig, 10_000, fld, True, False),
+         topk_of(ts, elig, True, False, 10_000)),
     ]
 
 
@@ -3246,6 +3307,16 @@ def kernel_rows_slice4(seg_tree, compiler, match_terms, dev):
          lambda: torch.topk(masked, TOP_K), "torch.topk over the masked key",
          num_docs * 5 + TOP_K * 8 + 8, source=SOURCES["masked_topk"],
          case=f"f1 desc, N = {num_docs}, k = {TOP_K}")
+    # K3 at cfg4's window over the same match's dense [1, N] plane: the
+    # large-k select on the one-shard corpus's longest row.
+    dkey = torch.where(elig, scores, float("-inf")).contiguous()
+    _row(rows, "masked_topk", "elasticsearch_tpu/ops/bm25_device.py:741", 1,
+         lambda: kern.masked_topk_batch(dkey, elig, CFG4_WINDOW),
+         lambda: kern.masked_topk_batch_plain(dkey, elig, CFG4_WINDOW),
+         lambda: torch.topk(dkey[0], CFG4_WINDOW), "torch.topk",
+         num_docs * 5 + CFG4_WINDOW * 8 + 4, device=True,
+         case=f"dense [1, {num_docs:,}], k = {CFG4_WINDOW} (the rescore "
+              f"window; {kern.topk_route(CFG4_WINDOW, num_docs)})")
     for case, replaces, kargs, lib in _k3k_cases(
             seg_tree, compiler, match_terms, scores, elig, dev):
         q_rows, n_cols = kargs[1].shape
@@ -3257,7 +3328,8 @@ def kernel_rows_slice4(seg_tree, compiler, match_terms, dev):
              lib, "torch.topk over the masked key",
              key_bytes + q_rows * n_cols + q_rows * (kp * 8 + 8),
              source=SOURCES["masked_topk"], case=case,
-             reps=5 if kp > kern.KEYED_SELECT_MAX_K or q_rows > 1 else 20)
+             reps=5 if kp > kern.KEYED_SELECT_MAX_K or q_rows > 1 else 20,
+             device=kp > kern.KEYED_SELECT_MAX_K)
 
     # K5 at a window of 1,024: the match's top window and the cfg4 plane.
     w = 1024
@@ -3366,14 +3438,14 @@ def kernel_rows_sharded(svc, handles, bodies, dev, q):
          lambda: torch.topk(key, TOP_K, dim=1), "torch.topk over [Q, M]",
          key.numel() * 5 + q * (TOP_K * 8 + 4), device=True)
     # Both sides of the row mode's switch (kern.ROW_SELECT_MAX_K): the
-    # select at k = 256, the chunk sorts at k = 257, on the same keys.
+    # select at k = 256, the large-k select at k = 257, on the same keys.
     for kk in (kern.ROW_SELECT_MAX_K, kern.ROW_SELECT_MAX_K + 1):
         _row(rows, "masked_topk_batch", "elasticsearch_tpu/ops/bm25_device.py:1261",
              q, lambda kk=kk: kern.masked_topk_batch(key, elig, kk),
              lambda kk=kk: kern.masked_topk_batch_plain(key, elig, kk),
              lambda kk=kk: torch.topk(key, kk, dim=1), "torch.topk over [Q, M]",
              key.numel() * 5 + q * (kk * 8 + 4), device=True,
-             case=f"k = {kk} ({'the select' if kk <= kern.ROW_SELECT_MAX_K else 'the chunk sorts'})")
+             case=f"k = {kk} ({kern.topk_route(kk, key.shape[1])})")
     return rows
 
 
@@ -7050,9 +7122,23 @@ def kernel_rows_packed(recorders, dev, rows):
          # each row's window of keys and eligibility read once; the bounds
          # read; scores, ids and totals written
          width * 5 + q * 8 + q * min(k, key.shape[1]) * 8 + q * 4,
-         source=PACKED_SOURCES["masked_topk_window"],
+         source=PACKED_SOURCES["masked_topk_window"], device=True,
          case=f"the widest packed dense launch, {q} lanes, windows of "
               f"{width:,} docs in all over a {key.shape[1]:,}-doc plane")
+    # The same windows past the select's k.
+    kk = kern.ROW_SELECT_MAX_K + 1
+    wargs = (key, eligible, wlo, whi, kk)
+    wmax = max(b_ - a_ for a_, b_ in spans)
+    _row(rows, "masked_topk_window", "elasticsearch_tpu/ops/bm25_device.py:741", q,
+         lambda: kern.masked_topk_window(*wargs),
+         lambda: kern.masked_topk_window_plain(*wargs),
+         lambda: [torch.topk(key[r, a_:b_], min(kk, b_ - a_))
+                  for r, (a_, b_) in enumerate(spans)],
+         "torch.topk per row window",
+         width * 5 + q * 8 + q * min(kk, key.shape[1]) * 8 + q * 4,
+         source=PACKED_SOURCES["masked_topk_window"], device=True,
+         case=f"the same windows at k = {kk} "
+              f"({kern.topk_route(min(kk, key.shape[1], wmax), wmax)})")
 
 
 # ---------------------------------------------------------------------------

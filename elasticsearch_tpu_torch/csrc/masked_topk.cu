@@ -1,5 +1,6 @@
 // K3 masked_topk: top-k by (score desc, index asc) plus the eligible count,
-// for Q rows at once; and its keyed mode K3k keyed_topk.
+// for Q rows at once; its keyed mode K3k keyed_topk, its id mode K3i, its
+// window mode (K3b window) and its merge mode K3m.
 //
 // Replaces: the masked `jax.lax.top_k` + `jnp.sum(eligible)` of
 // elasticsearch_tpu/ops/bm25_device.py `_execute_inner` (:741),
@@ -15,99 +16,133 @@
 // eligible byte (1 B) once; for the k <= 10,000 of a search the output is
 // negligible (K3k on one doc-values column at BASELINE config 4's
 // 8,841,823 docs: 44,209,115 B, 0.0132 ms at 3.35 TB/s; K3b on 6 rows of
-// cfg3's shard 0, 1,105,228 docs: 33,157,344 B, 0.0099 ms). The
-// shared-memory bitonic sorts below do O(log^2 chunk) compare-exchanges
-// per key, so the modes that keep them (k > 256, the id, window and merge
-// modes) are compute-heavy next to that bound; the threshold select
-// (below), which the row, stacked and keyed modes take for k <= 256, reads
-// each entry once instead.
+// cfg3's shard 0, 1,105,228 docs: 33,157,344 B, 0.0099 ms).
 //
-// Design: lax.top_k's order is IEEE totalOrder descending (+NaN first,
-// +0.0 above -0.0), lower index first on ties. Each key becomes one 64-bit
-// composite, the total-order bits of the score above the inverted index
-// within its row (common.cuh), so a plain descending sort of composites IS
-// that order and needs no tie logic. For min(k, m) <= KS_MAX_K (256) and
-// no ids, the row mode (K3, K3b and K3s alike) is the threshold select of
-// K3k below with the raw key as its composite source (KEYED_RAW): no
-// masking (the row-mode contract puts -inf at ineligible entries, and the
-// plain version orders by the key alone, so the kernel must not mask even
-// where a caller breaks that contract), total counted over the eligible
-// bytes in the same pass, the winners' scores read back from the key:
-// one memset and one launch a call. Otherwise the chunk sorts: pass 1,
-// each block (chunk, row) sorts one chunk of a row's composites in shared
-// memory and keeps its top min(k, chunk); further passes merge each row's
-// survivors the same way until one block a row remains; rows never meet;
-// a decode reads the winners back. torch.topk documents no tie order and
-// is not used. The winning scores are gathered back from the input, so
-// the output keeps the input's exact bits. `total` is an integer reduction
-// over each row's eligible mask.
+// Order: lax.top_k's order is IEEE totalOrder descending (+NaN first, +0.0
+// above -0.0), lower index first on ties. Each entry becomes one 64-bit
+// composite, the total-order bits of the value it is ranked by above the
+// inverted index within its row (common.cuh), so a plain descending order
+// of composites IS that order and needs no tie logic. The composite
+// sources (keyed_value_m / composite_m): KEYED_RAW, the row, stacked and
+// window modes' key as it is (no masking: the row-mode contract puts -inf
+// at ineligible entries, and the plain version orders by the key alone, so
+// the kernel must not mask even where a caller breaks that contract);
+// KEYED_SCORE_DESC / _ASC / KEYED_FIELD, K3k's keys (below); KEYED_IDS,
+// K3i's. Every design below sorts or selects these composites and nothing
+// else, so all three give the same bits: the winners' values are read back
+// from the input (row and window modes, field sorts) or rebuilt as the
+// reference composes them, `total` (and K3k's `n_after`) are counted in the
+// pass that reads the eligible bytes. torch.topk documents no tie order and
+// is not used. Each call takes one of three designs, on kk = min(k, M)
+// (the window mode: on min(k, widest window) and the widest window):
 //
-// K3k (keyed mode): each doc's key is built in the kernel as the
-// reference composes it, then the composite of the value lax.top_k sees.
-// For a field sort the key is the doc-values column negated for desc, NaN
-// (missing) pinned to -/+f32max for missing first/last; for a score order
-// it is the score. A cursor (after_key, after_doc) keeps `key > after_key
-// | (key == after_key & doc > after_doc)` (`<` for the descending score
-// cursor); docs not kept are set to +inf (-inf for the descending score
-// order), and the composite is of -masked (bottom-k and field sorts; a NaN
-// keeps its sign, as the reference's jitted negation leaves it) or masked
-// (descending score). total = sum(eligible), n_after = sum(keep); the
-// decode returns the column's raw value (field sorts) or the masked score
-// (score orders; a NaN of the bottom-k with its sign flipped) at each
-// winner. esk_keyed_topk switches on k between two designs, both exact:
+// - The threshold select, 1 <= kk <= KS_MAX_K (256), every mode: one memset
+//   and one launch (ks_select_kernel, below). Each row splits into
+//   stripes, about two blocks a multiprocessor over all rows. A block reads
+//   each key and eligible byte of its stripe once (float4 / 4-byte words
+//   where the planes align), counts total and n_after in the same pass,
+//   and keeps a shared buffer of the composites at or above a threshold T:
+//   T starts as the k-th largest of 2,048 entries sampled in 64 runs of 32
+//   (the last run the stripe's final entries, so a monotone column, where
+//   every key in stripe order beats a running k-th, is bounded from the
+//   start), and after a round that leaves more than 4,096 candidates the
+//   buffer is cut to its top k by a radix select and T becomes its k-th.
+//   The row's last block to finish (an arrival counter) merges the blocks'
+//   top-k lists: only survivors at or above the largest block k-th can
+//   win, so those few are cut to k, sorted and decoded. Bound: bytes, 5 B
+//   an entry read once; the work per entry is a few dozen instructions.
+// - The short-row sort, kk = 0 or kk > KS_MAX_K on rows of at most
+//   LK_SHORT_MAX (16,384) entries: a memset and one launch (two for rows
+//   longer than one run). Each block loads one run of LK_RUN (2,048) of its
+//   row's composites into registers (four a thread), counting the eligible
+//   bytes in the same load, and sorts it (a bitonic network of in-thread,
+//   warp-shuffle and shared-memory stages); a row of one run writes and
+//   decodes its top kk from there (the kNN per-partition ranks: rows of
+//   1,504 at k = M). Longer rows (the mesh merge's long route, [1, 4,800])
+//   merge their runs by rank (lk_rank_kernel): an entry's rank is its place
+//   in its run plus the entries above it in every other run (binary
+//   searches over the runs in shared memory; equal composites counted in
+//   the runs before its own, so ranks never collide), and the entries
+//   ranked below kk are decoded into their slots. No block sorts more than
+//   a run, and every block of the row places its own entries at once.
+// - The large-k select, kk > KS_MAX_K (or kk = 0) on longer rows: an
+//   MSB-first radix select on the composite, a memset and LK_NDIG + 3
+//   (nine) launches whatever M and k (the chunk sorts it replaces ran a
+//   pass a factor ch / k of survivors, a dozen at k = 10,000). Pass 0
+//   (lk_hist_kernel) reads every entry once, counts total and n_after and
+//   builds each row's histogram of the composite's top LK_DIGIT (12) bits
+//   (a block's in shared memory, a warp's equal digits added once, -inf's
+//   bin, the padding, counted in a register; then added to the row's);
+//   two blocks a multiprocessor over all rows; the row's last block finds the
+//   bucket that holds rank k. Pass p = 1..5 (lk_pass_kernel) narrows the
+//   bucket by digit p: the first pass whose bucket fits the row's S
+//   (LK_BCAP_DIV: a quarter of the row, at least 16,384) reads the input a
+//   second time and writes every composite above the bucket (fewer than
+//   k: winners) to the front of F and the bucket's own to S, through each
+//   warp's shared stage (one global atomic a flush, no block barrier);
+//   later passes read S instead of the input. Once the bucket is stored
+//   and the winners and bucket together fit F (LK_FINAL_CAP, 16,384), or
+//   all six digits are fixed, the row is done and later passes return at
+//   once. Long runs of equal keys (a mostly-missing column pinned to
+//   +/-f32max, all-equal keys, -inf padding, the id mode's padding slots)
+//   take further digits: the index or id bits below the key split the ties
+//   in lax.top_k's order, so the digits always end, and equal composites
+//   (the id mode's repeated ids) are interchangeable in the output. The
+//   collect (lk_collect_kernel, every block of the row) writes S's
+//   composites above the bucket after F's front and the bucket's own
+//   after them, as many as F holds (more only when every digit is fixed
+//   and they are equal; a row that never stored its bucket takes them
+//   from its input); F's candidates are then ranked as the short-row sort
+//   ranks a row (runs, merged by rank). On rows whose first bucket fits S
+//   (keys spread over more than one twelve-bit bucket at rank k) each key
+//   and eligible byte is read twice (the eligible bytes once where the
+//   composite does not depend on them: the raw and id modes). Scratch:
+//   LK_FINAL_CAP + S composites a row, and the row's state and histogram.
 //
-// - k <= KS_MAX_K (256): the threshold select, one launch (after one
-//   memset). Each row splits into stripes, about two blocks a
-//   multiprocessor over all rows. A block reads each key and eligible byte
-//   of its stripe once (float4 / 4-byte words where the planes align),
-//   counts total and n_after in the same pass, and keeps a shared buffer
-//   of the composites at or above a threshold T: T starts as the k-th
-//   largest of 2,048 entries sampled in 64 runs of 32 (the last run the
-//   stripe's final entries, so a monotone column, where every key in
-//   stripe order beats a running k-th, is bounded from the start), and
-//   after a round that leaves more than 4,096 candidates the buffer is cut
-//   to its top k by a radix select and T becomes its k-th. Long runs of
-//   equal keys, NaN of either sign, fewer eligible docs than k and a cursor
-//   that keeps almost nothing are all plain composites to it. The row's
-//   last block to finish (an arrival counter) merges the blocks' top-k
-//   lists: only survivors at or above the largest block k-th can win, so
-//   those few are cut to k, sorted and decoded. Bound: bytes, 5 B an entry
-//   read once; the work per entry is a few dozen instructions.
-// - k > KS_MAX_K: the chunk sorts, K3's passes with the keyed pass 1
-//   (keyed_block_kernel, keyed_count_kernel, keyed_decode_kernel), whose
-//   per-block sort cost is what the select avoids for small k.
+// K3k (keyed mode): each doc's key is built in the kernel as the reference
+// composes it, then the composite of the value lax.top_k sees. For a field
+// sort the key is the doc-values column negated for desc, NaN (missing)
+// pinned to -/+f32max for missing first/last; for a score order it is the
+// score. A cursor (after_key, after_doc) keeps `key > after_key | (key ==
+// after_key & doc > after_doc)` (`<` for the descending score cursor); docs
+// not kept are set to +inf (-inf for the descending score order), and the
+// composite is of -masked (bottom-k and field sorts; a NaN keeps its sign,
+// as the reference's jitted negation leaves it) or masked (descending
+// score). total = sum(eligible), n_after = sum(keep); the decode returns the
+// column's raw value (field sorts) or the masked score (score orders; a
+// NaN of the bottom-k with its sign flipped) at each winner.
 //
 // Id mode (K3i; the merge of the IVF survivors in elasticsearch_tpu/ops/
 // ann_device.py `_ivf_inner` :236-242, `lax.sort((-s, doc, s),
-// num_keys=2)`): the composite takes its low 32 bits from an int32 id
-// array (the doc ids) instead of the position, so one descending sort is
-// (score desc, id asc). lax.sort's float keys are canonical: -0.0 equals
-// +0.0 (the id decides) and every NaN sorts last; the id mode's high bits
-// follow it (+0.0 for either zero, 0 for a NaN). The decode reads the
+// num_keys=2)`; KEYED_IDS): the composite takes its low 32 bits from an
+// int32 id array (the doc ids) instead of the position, so one descending
+// order is (score desc, id asc). lax.sort's float keys are canonical: -0.0
+// equals +0.0 (the id decides) and every NaN sorts last; the id mode's high
+// bits follow it (+0.0 for either zero, 0 for a NaN). The decode reads the
 // score back from the high bits (+0.0 for a zero, the canonical NaN
-// 0x7fc00000 for a NaN; the kNN similarities produce neither -0.0 nor a
-// NaN that counts as a hit) and the id from the low bits. Its library
-// call is two stable torch.sorts.
+// 0x7fc00000 for a NaN; the kNN similarities produce neither -0.0 nor a NaN
+// that counts as a hit) and the id from the low bits. Its library call is
+// two stable torch.sorts.
 //
 // Stacked mode (K3s; the per-shard top-k of `_shards_inner` :1137 under
 // the vmap of `execute_shards_batch` :1161): row r is the pair (query
 // r / S, shard r % S). Its keys are that pair's own candidates, so no
 // shard plane is read and the row mode above serves it unchanged, over
-// Q x S rows in one launch (the select for k <= 256). The flat merge over
-// [Q, S * k'] is the row mode over Q rows.
+// Q x S rows in one call. The flat merge over [Q, S * k'] is the row mode
+// over Q rows.
 //
 // Window mode (K3b window; the masked `lax.top_k` of `_execute_inner`
 // (:729-742) with `bounds=` under `execute_batch_packed` :1724, the
 // packed plane's dense lanes): row q reads only its tenant's window
-// [lo[q], hi[q]) of the [Q, M] key and eligibility planes. The window is
-// one contiguous slice, so its top-k in (score desc, index asc) is the
-// reference's order over the masked plane; the composites carry the
-// window-local index, which is the tenant-local id (id - lo). The blocks
-// of every pass run over the widest window: a block past its row's
-// window (or past its row's survivors in a merge pass) exits, so a row
-// costs what its own window holds. The count reduces each row's window
-// only. Slots past min(k, w) of a row are padding (-inf, 0). Bound:
-// bytes, each row's window read once (5 B an entry).
+// [lo[q], hi[q]) of the [Q, M] key and eligibility planes (KeyedArgs'
+// win_lo / win_hi: every design above offsets its row by lo and takes its
+// length as hi - lo). The window is one contiguous slice, so its top-k in
+// (score desc, index asc) is the reference's order over the masked plane;
+// the composites carry the window-local index, which is the tenant-local
+// id (id - lo). The launch's blocks cover the widest window; a block past
+// its row's window reads nothing. A row ranks min(k, w) of its w entries;
+// its slots past that are padding (-inf, 0). Bound: bytes, each row's
+// window read once (5 B an entry).
 //
 // Merge mode (K3m; the `lax.top_k` merge of the all-gathered per-shard
 // tops, elasticsearch_tpu/parallel/sharded.py :717, in the port's
@@ -119,30 +154,32 @@
 // every real one) and runs the bitonic network on them: the stages of
 // stride below E inside a thread, below 32 E by warp shuffles, and only
 // the wider ones (W > 1, M above 256) through shared memory. At M = 80 a
-// row is one warp with 4 keys a lane and 28 stages, against K3's row mode,
-// which sorts a 1,024-entry shared chunk in 55 __syncthreads stages to
-// rank 80 keys. Rank g ends in thread g / E, register g % E; the first
-// min(k, M) ranks write the key read back from the input (exact bits),
-// its index as int64 and, with an ids plane, the id at that index, so
-// the caller's cast and gather go. Bound: bytes, the keys read once and
-// the outputs written once; at M = 80 a launch is its wrapper's host time.
+// row is one warp with 4 keys a lane and 28 stages. Rank g ends in thread
+// g / E, register g % E; the first min(k, M) ranks write the key read back
+// from the input (exact bits), its index as int64 and, with an ids plane,
+// the id at that index, so the caller's cast and gather go. Bound: bytes,
+// the keys read once and the outputs written once; at M = 80 a launch is
+// its wrapper's host time.
 #include <float.h>
 
 #include "common.cuh"
 
-#define TK_THREADS 1024
-#define CNT_THREADS 256
-
 #define KEYED_SCORE_DESC 0
 #define KEYED_SCORE_ASC 1
 #define KEYED_FIELD 2
-#define KEYED_RAW 3  // K3's row mode in the select: the key as it is
+#define KEYED_RAW 3  // K3's row, stacked and window modes: the key as it is
+#define KEYED_IDS 4  // K3i: lax.sort's canonical score above the inverted id
+
+#define FULL_MASK 0xffffffffu
 
 struct KeyedArgs {
-    const float* key;         // [Q, M] at row stride key_stride (0: one plane)
-    const uint8_t* eligible;  // [Q, M]
+    const float* key;         // row q at key + q * key_stride (0: one plane)
+    const uint8_t* eligible;  // [Q, m]
+    const int32_t* ids;       // [Q, m] (KEYED_IDS), or null
+    const int32_t* win_lo;    // [Q] window starts (window mode), or null
+    const int32_t* win_hi;    // [Q] window ends
     int64_t key_stride;
-    int64_t m;
+    int64_t m;                // the planes' row length (and stride)
     int mode;
     int desc;
     int missing_first;
@@ -150,10 +187,39 @@ struct KeyedArgs {
     const int32_t* after_doc;  // [Q]
 };
 
+// Row q as the kernels read it: its entries [0, len) start at these
+// pointers (a window's lo already added), with its cursor.
+struct RowView {
+    const float* key;
+    const uint8_t* elig;
+    const int32_t* ids;
+    int64_t len;
+    bool cursor;
+    float ak;
+    int64_t ad;
+};
+
+__device__ __forceinline__ RowView row_view(const KeyedArgs& a, int64_t q) {
+    RowView r;
+    int64_t off = 0;
+    r.len = a.m;
+    if (a.win_lo != nullptr) {
+        off = a.win_lo[q];
+        r.len = a.win_hi[q] - off;
+    }
+    r.key = a.key + q * a.key_stride + off;
+    r.elig = a.eligible + q * a.m + off;
+    r.ids = a.ids == nullptr ? nullptr : a.ids + q * a.m + off;
+    r.cursor = a.after_key != nullptr;
+    r.ak = r.cursor ? a.after_key[q] : 0.f;
+    r.ad = r.cursor ? (int64_t)a.after_doc[q] : 0;
+    return r;
+}
+
 // The value lax.top_k sees for doc i, from its loaded key `raw` and
 // eligible byte `elig` (`*keep`: it passes the eligibility and, where
 // `cursor`, the cursor (ak, ad)), and the masked value it came from; MODE
-// is a KEYED_* mode.
+// is a KEYED_* mode other than KEYED_IDS.
 template <int MODE>
 __device__ __forceinline__ float keyed_value_m(const KeyedArgs& a,
                                                bool cursor, float ak,
@@ -183,312 +249,118 @@ __device__ __forceinline__ float keyed_value_m(const KeyedArgs& a,
     return (neg && !isnan(mk)) ? -mk : mk;
 }
 
-// keyed_value_m of row q with the mode and cursor read from `a`.
-__device__ __forceinline__ float keyed_value_of(const KeyedArgs& a,
-                                                int64_t q, int64_t i,
-                                                float raw, uint8_t elig,
-                                                bool* keep, float* masked) {
-    const bool cursor = a.after_key != nullptr;
-    const float ak = cursor ? a.after_key[q] : 0.f;
-    const int64_t ad = cursor ? (int64_t)a.after_doc[q] : 0;
-    if (a.mode == KEYED_SCORE_DESC) {
-        return keyed_value_m<KEYED_SCORE_DESC>(a, cursor, ak, ad, i, raw, elig,
-                                               keep, masked);
-    }
-    if (a.mode == KEYED_SCORE_ASC) {
-        return keyed_value_m<KEYED_SCORE_ASC>(a, cursor, ak, ad, i, raw, elig,
-                                              keep, masked);
-    }
-    return keyed_value_m<KEYED_FIELD>(a, cursor, ak, ad, i, raw, elig, keep,
-                                      masked);
-}
-
-__device__ __forceinline__ float keyed_value(const KeyedArgs& a, int64_t q,
-                                             int64_t i, bool* keep,
-                                             float* masked) {
-    return keyed_value_of(a, q, i, a.key[q * a.key_stride + i],
-                          a.eligible[q * a.m + i], keep, masked);
-}
-
-// Sort a block's `ch` composites and write its top min(kk, len).
-__device__ __forceinline__ void sort_and_emit(uint64_t* sm, int ch, int kk,
-                                              int len, uint64_t* dst) {
-    esk_bitonic_desc(sm, ch);
-    const int m = min(kk, len);
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-        dst[i] = sm[i];
-    }
-}
-
-// Survivors a pass keeps of a row's n entries: kk per full chunk, and
-// min(kk, rest) of the last.
-__device__ __host__ __forceinline__ int topk_survivors(int n, int kk, int ch) {
-    if (n <= 0) {
-        return 0;
-    }
-    const int nb = (n + ch - 1) / ch;
-    return (nb - 1) * kk + (kk < n - (nb - 1) * ch ? kk : n - (nb - 1) * ch);
-}
-
-// Row q's input is key_f/key_c + q * in_stride, n entries long; its
-// survivors go to out + q * out_stride, kk per block. Window mode
-// (win_lo != null): row q's n is its window's hi - lo carried through
-// `pass` merge passes, and pass 0 reads from the window's start.
-__global__ void topk_block_kernel(
-    const float* __restrict__ key_f,
-    const int32_t* __restrict__ ids,
-    const uint64_t* __restrict__ key_c,
-    int n, int64_t in_stride, int kk, int ch, int64_t out_stride,
-    uint64_t* __restrict__ out,
-    const int32_t* __restrict__ win_lo,
-    const int32_t* __restrict__ win_hi,
-    int pass) {
-    extern __shared__ uint64_t sm[];
-    int64_t row_in = (int64_t)blockIdx.y * in_stride;
-    if (win_lo != nullptr) {
-        n = win_hi[blockIdx.y] - win_lo[blockIdx.y];
-        for (int p = 0; p < pass; ++p) {
-            n = topk_survivors(n, kk, ch);
-        }
-        if (pass == 0) {
-            row_in += win_lo[blockIdx.y];
-        }
-    }
-    const int lo = blockIdx.x * ch;
-    if (lo >= n) {
-        return;  // past this row's window: the whole block leaves
-    }
-    const int len = min(ch, n - lo);
-    for (int i = threadIdx.x; i < ch; i += blockDim.x) {
-        uint64_t v = 0;  // below every real composite (even -NaN's)
-        if (i < len) {
-            const int g = lo + i;
-            if (key_f == nullptr) {
-                v = key_c[row_in + g];
-            } else {
-                const float kf = key_f[row_in + g];
-                if (ids != nullptr) {
-                    // lax.sort's canonical keys: zeros equal, NaN last.
-                    const uint32_t o =
-                        isnan(kf) ? 0u : esk_f32_order(kf == 0.f ? 0.f : kf);
-                    v = ((uint64_t)o << 32) | (uint64_t)(~(uint32_t)ids[row_in + g]);
-                } else {
-                    v = esk_composite(kf, (uint32_t)g);
-                }
-            }
-        }
-        sm[i] = v;
-    }
-    sort_and_emit(sm, ch, kk, len,
-                  out + (int64_t)blockIdx.y * out_stride +
-                      (int64_t)blockIdx.x * kk);
-}
-
-// K3k pass 1: the keyed composites of one chunk of a row.
-__global__ void keyed_block_kernel(KeyedArgs a, int kk, int ch,
-                                   int64_t out_stride,
-                                   uint64_t* __restrict__ out) {
-    extern __shared__ uint64_t sm[];
-    const int64_t q = blockIdx.y;
-    const int lo = blockIdx.x * ch;
-    const int len = (int)min((int64_t)ch, a.m - lo);
-    for (int i = threadIdx.x; i < ch; i += blockDim.x) {
-        uint64_t v = 0;
-        if (i < len) {
-            bool keep;
-            float masked;
-            const int g = lo + i;
-            v = esk_composite(keyed_value(a, q, g, &keep, &masked), (uint32_t)g);
-        }
-        sm[i] = v;
-    }
-    sort_and_emit(sm, ch, kk, len,
-                  out + q * out_stride + (int64_t)blockIdx.x * kk);
-}
-
-__global__ void topk_decode_kernel(
-    const uint64_t* __restrict__ comp, int64_t comp_stride, int kk,
-    int n_rows, const float* __restrict__ key_f, int64_t m,
-    float* __restrict__ top_scores, int32_t* __restrict__ top_idx) {
-    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (int64_t)n_rows * kk) {
+// Entry e's composite, as its high (order) and low (inverted index or id)
+// words, from its loaded key, eligible byte and id (KEYED_IDS only).
+template <int MODE>
+__device__ __forceinline__ void composite_hl(const KeyedArgs& a,
+                                             const RowView& r, int64_t e,
+                                             float raw, uint8_t el,
+                                             int32_t id, bool* keep,
+                                             uint32_t* hi, uint32_t* lo) {
+    if (MODE == KEYED_IDS) {
+        // lax.sort's canonical keys: zeros equal, NaN last.
+        *keep = true;
+        *hi = isnan(raw) ? 0u : esk_f32_order(raw == 0.f ? 0.f : raw);
+        *lo = ~(uint32_t)id;
         return;
     }
-    const int64_t q = t / kk;
-    const int r = (int)(t % kk);
-    const uint32_t idx = esk_composite_index(comp[q * comp_stride + r]);
-    top_idx[t] = (int32_t)idx;
-    top_scores[t] = key_f[q * m + idx];
+    float masked;
+    *hi = esk_f32_order(keyed_value_m<MODE>(a, r.cursor, r.ak, r.ad, e, raw,
+                                            el, keep, &masked));
+    *lo = ~(uint32_t)e;
 }
 
-// The window mode's decode: row q's first min(kk, w) slots from its
-// composites (window-local ids, scores read back from the window), the
-// rest of its out_k slots padding (-inf, 0).
-__global__ void topk_decode_window_kernel(
-    const uint64_t* __restrict__ comp, int64_t comp_stride, int kk,
-    int out_k, int n_rows, const float* __restrict__ key_f, int64_t m,
-    const int32_t* __restrict__ win_lo, const int32_t* __restrict__ win_hi,
-    float* __restrict__ top_scores, int32_t* __restrict__ top_idx) {
-    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (int64_t)n_rows * out_k) {
-        return;
-    }
-    const int64_t q = t / out_k;
-    const int r = (int)(t % out_k);
-    const int lo = win_lo[q];
-    if (r < min(kk, win_hi[q] - lo)) {
-        const uint32_t idx = esk_composite_index(comp[q * comp_stride + r]);
-        top_idx[t] = (int32_t)idx;
-        top_scores[t] = key_f[q * m + lo + idx];
-    } else {
-        top_idx[t] = 0;
-        top_scores[t] = -ESK_INF;
-    }
+template <int MODE>
+__device__ __forceinline__ uint64_t composite_m(const KeyedArgs& a,
+                                                const RowView& r, int64_t e,
+                                                float raw, uint8_t el,
+                                                int32_t id, bool* keep) {
+    uint32_t hi, lo;
+    composite_hl<MODE>(a, r, e, raw, el, id, keep, &hi, &lo);
+    return ((uint64_t)hi << 32) | lo;
 }
 
-// The id mode's decode: score and id both from the composite.
-__global__ void topk_decode_ids_kernel(
-    const uint64_t* __restrict__ comp, int64_t comp_stride, int kk,
-    int n_rows, float* __restrict__ top_scores,
-    int32_t* __restrict__ top_idx) {
-    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (int64_t)n_rows * kk) {
+// The output of winner composite c: its value and its index (window-local
+// in the window mode) or id.
+template <int MODE>
+__device__ __forceinline__ void decode_m(const KeyedArgs& a,
+                                         const RowView& r, uint64_t c,
+                                         float* value, int32_t* idx) {
+    const uint32_t e = esk_composite_index(c);
+    *idx = (int32_t)e;
+    if (MODE == KEYED_IDS) {
+        const uint32_t o = (uint32_t)(c >> 32);
+        *value = __uint_as_float(
+            o == 0u ? 0x7fc00000u
+                    : ((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o));
         return;
     }
-    const int64_t q = t / kk;
-    const int r = (int)(t % kk);
-    const uint64_t c = comp[q * comp_stride + r];
-    const uint32_t o = (uint32_t)(c >> 32);
-    const uint32_t b =
-        o == 0u ? 0x7fc00000u : ((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-    top_idx[t] = (int32_t)esk_composite_index(c);
-    top_scores[t] = __uint_as_float(b);
-}
-
-__global__ void keyed_decode_kernel(
-    KeyedArgs a, const uint64_t* __restrict__ comp, int64_t comp_stride,
-    int kk, int n_rows, float* __restrict__ values,
-    int32_t* __restrict__ top_idx) {
-    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (int64_t)n_rows * kk) {
+    if (MODE == KEYED_FIELD || MODE == KEYED_RAW) {
+        *value = r.key[e];  // the exact bits
         return;
     }
-    const int64_t q = t / kk;
-    const int r = (int)(t % kk);
-    const uint32_t idx = esk_composite_index(comp[q * comp_stride + r]);
     bool keep;
     float masked;
-    keyed_value(a, q, idx, &keep, &masked);
-    top_idx[t] = (int32_t)idx;
-    if (a.mode == KEYED_FIELD) {
-        values[t] = a.key[q * a.key_stride + idx];
-    } else if (a.mode == KEYED_SCORE_ASC && isnan(masked)) {
-        // -top_k(-masked): the output negation flips a NaN's sign.
-        values[t] = __uint_as_float(__float_as_uint(masked) ^ 0x80000000u);
-    } else {
-        values[t] = masked;
-    }
+    keyed_value_m<MODE>(a, r.cursor, r.ak, r.ad, e, r.key[e], r.elig[e],
+                        &keep, &masked);
+    // -top_k(-masked): the bottom-k's output negation flips a NaN's sign.
+    *value = (MODE == KEYED_SCORE_ASC && isnan(masked))
+                 ? __uint_as_float(__float_as_uint(masked) ^ 0x80000000u)
+                 : masked;
 }
 
-__device__ __forceinline__ int block_sum(int c, int* warp_sums) {
-    for (int off = 16; off > 0; off >>= 1) {
-        c += __shfl_down_sync(0xffffffffu, c, off);
-    }
-    if ((threadIdx.x & 31) == 0) {
-        warp_sums[threadIdx.x >> 5] = c;
-    }
-    __syncthreads();
-    int s = 0;
-    if (threadIdx.x == 0) {
-        for (int w = 0; w < CNT_THREADS / 32; ++w) {
-            s += warp_sums[w];
+__device__ __forceinline__ void pad_slot(float* value, int32_t* idx) {
+    *value = -ESK_INF;
+    *idx = 0;
+}
+
+static int sm_count() {
+    static int sms = 0;
+    if (sms <= 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (sms <= 0) {
+            sms = 132;
         }
     }
-    return s;
+    return sms;
 }
 
-// Window mode (win_lo != null): row q counts only its [lo, hi).
-__global__ void count_true_kernel(
-    const uint8_t* __restrict__ mask, int64_t n, int32_t* __restrict__ total,
-    const int32_t* __restrict__ win_lo, const int32_t* __restrict__ win_hi) {
-    __shared__ int warp_sums[CNT_THREADS / 32];
-    const uint8_t* row = mask + (int64_t)blockIdx.y * n;
-    if (win_lo != nullptr) {
-        row += win_lo[blockIdx.y];
-        n = win_hi[blockIdx.y] - win_lo[blockIdx.y];
-    }
-    int c = 0;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += (int64_t)gridDim.x * blockDim.x) {
-        c += row[i] != 0;
-    }
-    const int s = block_sum(c, warp_sums);
-    if (threadIdx.x == 0) {
-        atomicAdd(total + blockIdx.y, s);
-    }
-}
-
-// K3k's counts: total = sum(eligible), n_after = sum(keep).
-__global__ void keyed_count_kernel(KeyedArgs a, int32_t* __restrict__ total,
-                                   int32_t* __restrict__ n_after) {
-    __shared__ int warp_sums[CNT_THREADS / 32];
-    const int64_t q = blockIdx.y;
-    int c = 0;
-    int kc = 0;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < a.m;
-         i += (int64_t)gridDim.x * blockDim.x) {
-        bool keep;
-        float masked;
-        keyed_value(a, q, i, &keep, &masked);
-        c += a.eligible[q * a.m + i] != 0;
-        kc += keep;
-    }
-    const int s = block_sum(c, warp_sums);
-    __syncthreads();
-    const int ks = block_sum(kc, warp_sums);
-    if (threadIdx.x == 0) {
-        atomicAdd(total + q, s);
-        atomicAdd(n_after + q, ks);
-    }
-}
-
-static int count_grid(int64_t m, int n_rows) {
-    return esk_imin(esk_blocks(m, CNT_THREADS),
-                    esk_imin(132 * 8, 1 + 132 * 64 / n_rows));
-}
-
-// The merge passes: from a first pass's survivors in `out` (row stride
-// out_stride, n entries a row), merge each row down to one block. Returns
-// the buffer holding the final kk composites a row. Window mode: m is the
-// widest window, which bounds every row's survivors pass by pass.
-static int merge_passes(int n_rows, int m, int kk, int ch, size_t smem,
-                        uint64_t** out, uint64_t** spare, cudaStream_t s,
-                        const int32_t* win_lo = nullptr,
-                        const int32_t* win_hi = nullptr) {
-    const int64_t out_stride = (int64_t)esk_blocks(m, ch) * kk;
-    int nb = esk_blocks(m, ch);
-    int n = topk_survivors(m, kk, ch);
-    int pass = 1;
-    while (nb > 1) {
-        nb = esk_blocks(n, ch);
-        topk_block_kernel<<<dim3(nb, n_rows), TK_THREADS, smem, s>>>(
-            nullptr, nullptr, *out, n, out_stride, kk, ch, out_stride,
-            *spare, win_lo, win_hi, pass);
-        ESK_RETURN_IF_ERROR();
-        n = topk_survivors(n, kk, ch);
-        ++pass;
-        uint64_t* t = *out;
-        *out = *spare;
-        *spare = t;
+// The shared-memory opt-in of a kernel, once a device (it costs a driver
+// call); `opted` is that kernel's own bitmask of devices.
+template <typename Kernel>
+static int smem_opt_in(Kernel kernel, size_t bytes, unsigned long long* opted) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev >= 64 || !((*opted >> dev) & 1ull)) {
+        ESK_SMEM_OPT_IN(kernel, bytes);
+        if (dev < 64) {
+            *opted |= 1ull << dev;
+        }
     }
     return 0;
 }
 
+// A block's arrival ticket on `arrive`: true in the last of nb blocks to
+// finish (after a fence, so it sees every block's global writes).
+__device__ __forceinline__ bool last_block(int* arrive, int nb, int* ticket) {
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        *ticket = atomicAdd(arrive, 1);
+    }
+    __syncthreads();
+    if (*ticket != nb - 1) {
+        return false;
+    }
+    __threadfence();
+    return true;
+}
+
 // ---------------------------------------------------------------------------
-// The threshold select (k <= KS_MAX_K): one pass over the keys, then one
-// merge a row, in one launch. See the header. K3k's modes and K3's row
-// mode (KEYED_RAW) give ks_select_kernel their composites through
-// keyed_value_m; the window mode could take it the same way.
+// The threshold select (1 <= kk <= KS_MAX_K): one pass over the keys, then
+// one merge a row, in one launch. See the header.
 // ---------------------------------------------------------------------------
 
 #define KS_MAX_K 256                         // largest k of this design
@@ -509,13 +381,13 @@ struct KsState {
 };
 
 __device__ __forceinline__ uint64_t ks_shfl_xor(uint64_t v, int j) {
-    const unsigned lo = __shfl_xor_sync(0xffffffffu, (unsigned)v, j);
-    const unsigned hi = __shfl_xor_sync(0xffffffffu, (unsigned)(v >> 32), j);
+    const unsigned lo = __shfl_xor_sync(FULL_MASK, (unsigned)v, j);
+    const unsigned hi = __shfl_xor_sync(FULL_MASK, (unsigned)(v >> 32), j);
     return ((uint64_t)hi << 32) | lo;
 }
 
 // The kk-th largest (1 <= kk <= n) of the n composites a[0, n) in shared
-// memory (n <= KS_CAP, distinct at and above the answer). 8-bit radix
+// memory (n <= KS_CAP; equal composites count once each). 8-bit radix
 // passes from the top byte: each counts the entries that match the digits
 // found so far, and warp 0 finds the digit whose bucket holds rank kk.
 // Once that bucket has at most 32 entries, they are gathered and warp 0
@@ -543,7 +415,7 @@ __device__ uint64_t ks_kth_largest(const uint64_t* a, int n, int kk,
                     digit = (int)((v >> shift) & 255);
                 }
             }
-            const unsigned peers = __match_any_sync(0xffffffffu, digit);
+            const unsigned peers = __match_any_sync(FULL_MASK, digit);
             if (digit < 256 && (threadIdx.x & 31) == __ffs(peers) - 1) {
                 atomicAdd(&st.hist[digit], __popc(peers));
             }
@@ -561,7 +433,7 @@ __device__ uint64_t ks_kth_largest(const uint64_t* a, int n, int kk,
             }
             int incl = sum;
             for (int off = 1; off < 32; off <<= 1) {
-                const int t = __shfl_up_sync(0xffffffffu, incl, off);
+                const int t = __shfl_up_sync(FULL_MASK, incl, off);
                 if (lane >= off) {
                     incl += t;
                 }
@@ -619,35 +491,54 @@ __device__ uint64_t ks_kth_largest(const uint64_t* a, int n, int kk,
     return st.result;
 }
 
-// Keep the entries of a[0, n) at or above `kth` (kk of them, composites
-// being distinct) at a[0, kk); returns kk.
-__device__ int ks_keep_top(uint64_t* a, int n, uint64_t kth, KsState& st) {
+// Keep the top kk of a[0, n) at a[0, kk), kth being their kk-th largest.
+// Distinct composites: the entries at or above kth, one pass. TIES (the id
+// mode, whose composites repeat): every entry above kth, then entries
+// equal to it up to kk (equal composites are interchangeable). Returns kk.
+template <bool TIES>
+__device__ int ks_keep_top(uint64_t* a, int n, uint64_t kth, int kk,
+                           KsState& st) {
     if (threadIdx.x == 0) {
         st.kept = 0;
     }
     __syncthreads();
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
         const uint64_t v = a[i];
-        if (v >= kth) {
+        if (TIES ? v > kth : v >= kth) {
             st.tmp[atomicAdd(&st.kept, 1)] = v;
         }
     }
+    if (TIES) {
+        __syncthreads();
+        for (int i = threadIdx.x; i < n; i += blockDim.x) {
+            if (a[i] == kth) {
+                const int slot = atomicAdd(&st.kept, 1);
+                if (slot < kk) {
+                    st.tmp[slot] = kth;
+                }
+            }
+        }
+    }
     __syncthreads();
-    const int kept = st.kept;
-    for (int i = threadIdx.x; i < kept; i += blockDim.x) {
+    for (int i = threadIdx.x; i < kk; i += blockDim.x) {
         a[i] = st.tmp[i];
     }
     __syncthreads();
-    return kept;
+    return kk;
 }
 
-// Row q's merge, by its last block: the top kp of its nb blocks'
-// survivors (kp each, unordered; nb * kp <= KS_CAP). The true kp-th
-// largest is at least every block's own kp-th (its smallest survivor), so
-// only survivors at or above the largest of those can win: they are
-// gathered into buf, cut to the top kp (radix select) and sorted
-// (bitonic), then decoded as keyed_decode_kernel does.
-__device__ void ks_merge_row(const KeyedArgs& a, int64_t q, int kp, int nb,
+// Row q's merge, by its last block: the top kq of its nb blocks'
+// survivors (kq each at a stride of kp, unordered, 0-padded; nb * kp <=
+// KS_CAP). The true kq-th largest is at least every block's own kq-th (its
+// smallest survivor), so only survivors at or above the largest of those
+// can win: they are gathered into buf, cut to the top kq (radix select)
+// and sorted (bitonic), then decoded into the row's out_k slots (slots
+// past kq: padding). Block 0 holds at least kq entries (a stripe is at
+// least min(row, 2,048) entries), so that largest floor is a real
+// composite and the 0 padding never passes it.
+template <int MODE>
+__device__ void ks_merge_row(const KeyedArgs& a, const RowView& r, int64_t q,
+                             int kq, int kp, int out_k, int nb,
                              const uint64_t* __restrict__ surv,
                              float* __restrict__ values,
                              int32_t* __restrict__ top_idx, uint64_t* buf,
@@ -657,9 +548,9 @@ __device__ void ks_merge_row(const KeyedArgs& a, int64_t q, int kp, int nb,
     const int warp = threadIdx.x >> 5;
     const uint64_t* src = surv + q * (int64_t)n;
     uint64_t fl = 0;  // the largest block floor this thread saw
-    for (int b = threadIdx.x; b < nb; b += blockDim.x) {
+    for (int b = threadIdx.x; b < nb && kq > 0; b += blockDim.x) {
         uint64_t mn = ~0ull;
-        for (int i = 0; i < kp; ++i) {
+        for (int i = 0; i < kq; ++i) {
             const uint64_t v = __ldcg(src + (int64_t)b * kp + i);
             mn = v < mn ? v : mn;
         }
@@ -680,28 +571,27 @@ __device__ void ks_merge_row(const KeyedArgs& a, int64_t q, int kp, int nb,
     for (int w = 0; w < KS_THREADS / 32; ++w) {
         fl_max = st.tmp[w] > fl_max ? st.tmp[w] : fl_max;
     }
-    for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+    for (int i0 = 0; i0 < n && kq > 0; i0 += blockDim.x) {
         const int i = i0 + threadIdx.x;
         const uint64_t v = i < n ? __ldcg(src + i) : 0ull;
         const bool in = i < n && v >= fl_max;
-        const unsigned bal = __ballot_sync(0xffffffffu, in);
+        const unsigned bal = __ballot_sync(FULL_MASK, in);
         if (bal != 0u) {
             int base = 0;
             if (lane == 0) {
                 base = atomicAdd(&st.count, __popc(bal));
             }
-            base = __shfl_sync(0xffffffffu, base, 0);
+            base = __shfl_sync(FULL_MASK, base, 0);
             if (in) {
                 buf[base + __popc(bal & ((1u << lane) - 1u))] = v;
             }
         }
     }
     __syncthreads();
-    // At least kp of the gathered survivors are real (the floor's block
-    // holds kp), so the kp-th largest is real and distinct.
     const int n2 = st.count;
     const int kept =
-        n2 > kp ? ks_keep_top(buf, n2, ks_kth_largest(buf, n2, kp, st), st)
+        n2 > kq ? ks_keep_top<MODE == KEYED_IDS>(
+                      buf, n2, ks_kth_largest(buf, n2, kq, st), kq, st)
                 : n2;
     int ch = 1;
     while (ch < kept) {
@@ -711,95 +601,84 @@ __device__ void ks_merge_row(const KeyedArgs& a, int64_t q, int kp, int nb,
         buf[i] = 0ull;
     }
     esk_bitonic_desc(buf, ch);
-    for (int r = threadIdx.x; r < kp; r += blockDim.x) {
-        const uint32_t idx = esk_composite_index(buf[r]);
-        const int64_t t = q * kp + r;
-        top_idx[t] = (int32_t)idx;
-        if (a.mode == KEYED_FIELD || a.mode == KEYED_RAW) {
-            values[t] = a.key[q * a.key_stride + idx];  // the exact bits
-            continue;
-        }
-        bool keep;
-        float masked;
-        keyed_value(a, q, idx, &keep, &masked);
-        if (a.mode == KEYED_SCORE_ASC && isnan(masked)) {
-            values[t] = __uint_as_float(__float_as_uint(masked) ^ 0x80000000u);
+    for (int s = threadIdx.x; s < out_k; s += blockDim.x) {
+        const int64_t t = q * out_k + s;
+        if (s < kq) {
+            decode_m<MODE>(a, r, buf[s], values + t, top_idx + t);
         } else {
-            values[t] = masked;
+            pad_slot(values + t, top_idx + t);
         }
     }
 }
 
-// Row q's entries [b * stripe, (b + 1) * stripe): survivors (the block's
-// top kp composites, unordered, 0-padded) to surv[(q * nb + b) * kp ...],
-// its eligible and kept counts added to total[q] / n_after[q] (KEYED_RAW:
-// total only, n_after is null), and a ticket
-// from arrive[q]: the row's last block merges (ks_merge_row) into
-// values / top_idx [q, kp]. MODE is the call's mode (the per-entry work is
-// compiled for each).
+// Row q's entries [b * stripe, (b + 1) * stripe) of its span (row_view):
+// survivors (the block's top kq composites, unordered, 0-padded at a
+// stride of kp) to surv[(q * nb + b) * kp ...], its eligible and kept
+// counts added to total[q] / n_after[q] (K3k's modes; the others count
+// total only), and a ticket from arrive[q]: the row's last block merges
+// (ks_merge_row) into values / top_idx [q, out_k]. kq = min(kp, the row's
+// length). MODE is the call's mode (the per-entry work is compiled for
+// each).
 //
 // A threshold T filters the pass: only composites >= T enter the shared
-// candidate buffer. T starts as the kp-th largest of KS_SAMPLE entries
+// candidate buffer. T starts as the kq-th largest of KS_SAMPLE entries
 // taken in 64 runs of 32 spread evenly over the stripe, the last run its
-// final 32 entries (a subset's kp-th largest is at most the stripe's, so
+// final 32 entries (a subset's kq-th largest is at most the stripe's, so
 // no winner is filtered; on a monotone column the last run bounds the
-// winners, where every key in stripe order would beat a running kp-th).
+// winners, where every key in stripe order would beat a running kq-th).
 // Rounds of KS_ROUND entries are block-synchronous, the next round's
 // loads in flight while the current one is filtered (two register sets,
 // alternating); an entry is tested against T in registers, and a warp
 // appends to the buffer (a ballot, one atomic) only when one of its lanes
-// holds a candidate; after a round that
-// leaves more than KS_ROUND candidates, the buffer is cut to its top kp
-// and T becomes its kp-th. Each key and eligible byte is read once, as
-// float4 and 4-byte words where the row's two planes align (else 4-byte
-// and 1-byte loads, coalesced).
+// holds a candidate; after a round that leaves more than KS_ROUND
+// candidates, the buffer is cut to its top kq and T becomes its kq-th.
+// Each key and eligible byte (and id) is read once, as float4 and 4-byte
+// words (int4 ids) where the row's planes align, else 4-byte and 1-byte
+// loads, coalesced.
 template <int MODE>
 __global__ void __launch_bounds__(KS_THREADS, 2)
-ks_select_kernel(KeyedArgs a, int kp, int nb, int64_t stripe,
+ks_select_kernel(KeyedArgs a, int kp, int out_k, int nb, int64_t stripe,
                  uint64_t* __restrict__ surv, float* __restrict__ values,
                  int32_t* __restrict__ top_idx, int32_t* __restrict__ total,
                  int32_t* __restrict__ n_after, int32_t* __restrict__ arrive) {
     extern __shared__ uint64_t buf[];
     __shared__ KsState st;
+    constexpr bool IDS = MODE == KEYED_IDS;
     const int64_t q = blockIdx.y;
+    const RowView r = row_view(a, q);
+    const int kq = (int)min((int64_t)kp, r.len);
     const int64_t lo = (int64_t)blockIdx.x * stripe;
-    const int64_t hi = min(a.m, lo + stripe);
+    const int64_t hi = min(r.len, lo + stripe);
     const int64_t len = hi > lo ? hi - lo : 0;
-    const float* krow = a.key + q * a.key_stride;
-    const uint8_t* erow = a.eligible + q * a.m;
+    const float* krow = r.key;
+    const uint8_t* erow = r.elig;
+    const int32_t* irow = r.ids;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
-    const bool cursor = a.after_key != nullptr;
-    const float ak = cursor ? a.after_key[q] : 0.f;
-    const int64_t ad = cursor ? (int64_t)a.after_doc[q] : 0;
-    auto composite = [&](int64_t e, float raw, uint8_t el, bool* keep) {
-        float masked;
-        return esk_composite(
-            keyed_value_m<MODE>(a, cursor, ak, ad, e, raw, el, keep, &masked),
-            (uint32_t)e);
-    };
     uint64_t t_min = 0;
-    if (len >= 2 * KS_SAMPLE && kp <= KS_SAMPLE) {
+    if (len >= 2 * KS_SAMPLE && kq <= KS_SAMPLE) {
         constexpr int RUNS = KS_SAMPLE / 32;
         const int64_t gap = (len - 32) / (RUNS - 1);
         constexpr int PER_WARP = RUNS / (KS_THREADS / 32);
         float raw[PER_WARP];
         uint8_t el[PER_WARP];
+        int32_t id[PER_WARP];
 #pragma unroll
         for (int i = 0; i < PER_WARP; ++i) {  // every load in flight at once
             const int64_t e = lo + (warp + i * (KS_THREADS / 32)) * gap + lane;
             raw[i] = krow[e];
             el[i] = erow[e];
+            id[i] = IDS ? irow[e] : 0;
         }
 #pragma unroll
         for (int i = 0; i < PER_WARP; ++i) {
             const int run = warp + i * (KS_THREADS / 32);
             bool keep;
-            buf[run * 32 + lane] =
-                composite(lo + run * gap + lane, raw[i], el[i], &keep);
+            buf[run * 32 + lane] = composite_m<MODE>(
+                a, r, lo + run * gap + lane, raw[i], el[i], id[i], &keep);
         }
         __syncthreads();
-        t_min = ks_kth_largest(buf, KS_SAMPLE, kp, st);
+        t_min = ks_kth_largest(buf, KS_SAMPLE, kq, st);
     }
     if (threadIdx.x == 0) {
         st.count = 0;
@@ -813,83 +692,90 @@ ks_select_kernel(KeyedArgs a, int kp, int nb, int64_t stripe,
     // against T, and append the warp's candidates to the buffer only when
     // one of its lanes has any (a ballot an entry, then).
     auto process = [&](const float (&raw)[8], const uint8_t (&el)[8],
-                       const int64_t (&idx)[8], unsigned ok) {
+                       const int32_t (&id)[8], const int64_t (&idx)[8],
+                       unsigned ok) {
         uint32_t ord[8];
         unsigned cm = 0;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
             bool keep;
-            float masked;
-            ord[j] = esk_f32_order(keyed_value_m<MODE>(
-                a, cursor, ak, ad, idx[j], raw[j], el[j], &keep, &masked));
+            uint32_t inv;
+            composite_hl<MODE>(a, r, idx[j], raw[j], el[j], id[j], &keep,
+                               &ord[j], &inv);
             const bool in = (ok >> j) & 1u;
             n_keep += in && keep;
-            const uint32_t inv = ~(uint32_t)idx[j];
             const bool cand =
                 in && (ord[j] > t_hi || (ord[j] == t_hi && inv >= t_lo));
             cm |= (unsigned)cand << j;
         }
-        if (__any_sync(0xffffffffu, cm != 0u)) {
+        if (__any_sync(FULL_MASK, cm != 0u)) {
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
                 const bool cand = (cm >> j) & 1u;
-                const unsigned bal = __ballot_sync(0xffffffffu, cand);
+                const unsigned bal = __ballot_sync(FULL_MASK, cand);
                 if (bal != 0u) {
                     int base = 0;
                     if (lane == 0) {
                         base = atomicAdd(&st.count, __popc(bal));
                     }
-                    base = __shfl_sync(0xffffffffu, base, 0);
+                    base = __shfl_sync(FULL_MASK, base, 0);
                     if (cand) {
+                        const uint32_t inv =
+                            IDS ? ~(uint32_t)id[j] : ~(uint32_t)idx[j];
                         buf[base + __popc(bal & ((1u << lane) - 1u))] =
-                            ((uint64_t)ord[j] << 32) | ~(uint32_t)idx[j];
+                            ((uint64_t)ord[j] << 32) | inv;
                     }
                 }
             }
         }
     };
-    // After each round: cut the buffer to its top kp when it holds more
+    // After each round: cut the buffer to its top kq when it holds more
     // than a round's worth.
     auto settle = [&]() {
         __syncthreads();
         const int n = st.count;
         __syncthreads();  // every thread read n before the next appends
         if (n > KS_ROUND) {
-            t_min = ks_kth_largest(buf, n, kp, st);
-            ks_keep_top(buf, n, t_min, st);
+            t_min = ks_kth_largest(buf, n, kq, st);
+            ks_keep_top<IDS>(buf, n, t_min, kq, st);
             t_hi = (uint32_t)(t_min >> 32);
             t_lo = (uint32_t)t_min;
             if (threadIdx.x == 0) {
-                st.count = kp;
+                st.count = kq;
             }
             __syncthreads();
         }
     };
-    // Both planes align to 4 entries after a head of < 4, if they can.
+    // The planes align to 4 entries after a head of < 4, if they can.
     // The rounds alternate between two register sets, so round r + 1's
     // loads are in flight while round r is filtered.
     const uintptr_t ka = (uintptr_t)(krow + lo);
     const uintptr_t ea = (uintptr_t)(erow + lo);
-    if (ka % 4 == 0 && ((ka / 4) - ea) % 4 == 0) {
+    const uintptr_t ia = IDS ? (uintptr_t)(irow + lo) : ka;
+    if (ka % 4 == 0 && ((ka / 4) - ea) % 4 == 0 && ia % 16 == ka % 16) {
         constexpr int GR = KS_ROUND / 4;  // 4-entry groups a round
         const int64_t head = min(len, (int64_t)((4 - ea % 4) % 4));
         const int64_t body = (len - head) / 4;
         const int64_t tail0 = lo + head + body * 4;
         const int64_t rounds = body > 0 ? (body + GR - 1) / GR : 1;
-        auto load = [&](int64_t r, float4 (&k4)[2], uint32_t (&e4)[2]) {
+        auto load = [&](int64_t rr, float4 (&k4)[2], uint32_t (&e4)[2],
+                        int4 (&i4)[2]) {
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-                const int64_t g = r * GR + threadIdx.x + j * KS_THREADS;
+                const int64_t g = rr * GR + threadIdx.x + j * KS_THREADS;
                 if (g < body) {
                     const int64_t e = lo + head + g * 4;
                     k4[j] = *reinterpret_cast<const float4*>(krow + e);
                     e4[j] = *reinterpret_cast<const uint32_t*>(erow + e);
+                    if (IDS) {
+                        i4[j] = *reinterpret_cast<const int4*>(irow + e);
+                    }
                 }
             }
         };
-        auto round = [&](int64_t r, const float4 (&k4)[2],
-                         const uint32_t (&e4)[2]) {
-            if (r == 0 && warp < 2) {
+        auto round = [&](int64_t rr, const float4 (&k4)[2],
+                         const uint32_t (&e4)[2], const int4 (&i4)[2]) {
+            if (rr == 0 && warp < 2) {
                 // The head and the tail (< 4 entries each) in round 0.
                 const int t = threadIdx.x;
                 const bool in_head = t < head;
@@ -898,23 +784,27 @@ ks_select_kernel(KeyedArgs a, int kp, int nb, int64_t stripe,
                 const bool in = in_head || in_tail;
                 float raw[8] = {in ? krow[e] : 0.f};
                 uint8_t el[8] = {in ? erow[e] : (uint8_t)0};
+                int32_t id[8] = {(IDS && in) ? irow[e] : 0};
                 int64_t idx[8] = {e};
                 n_elig += in && el[0] != 0;
-                process(raw, el, idx, in ? 1u : 0u);
+                process(raw, el, id, idx, in ? 1u : 0u);
             }
             float raw[8];
             uint8_t el[8];
+            int32_t id[8];
             int64_t idx[8];
             unsigned ok = 0;
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-                const int64_t g = r * GR + threadIdx.x + j * KS_THREADS;
+                const int64_t g = rr * GR + threadIdx.x + j * KS_THREADS;
                 const int64_t e = lo + head + g * 4;
                 const float kf[4] = {k4[j].x, k4[j].y, k4[j].z, k4[j].w};
+                const int32_t iv[4] = {i4[j].x, i4[j].y, i4[j].z, i4[j].w};
 #pragma unroll
                 for (int v = 0; v < 4; ++v) {
                     raw[j * 4 + v] = kf[v];
                     el[j * 4 + v] = (uint8_t)(e4[j] >> (8 * v));
+                    id[j * 4 + v] = iv[v];
                     idx[j * 4 + v] = e + v;
                 }
                 if (g < body) {
@@ -927,283 +817,1181 @@ ks_select_kernel(KeyedArgs a, int kp, int nb, int64_t stripe,
                     n_elig += __popc(w & 0x01010101u);
                 }
             }
-            process(raw, el, idx, ok);
+            process(raw, el, id, idx, ok);
             settle();
         };
         float4 ka4[2], kb4[2];
         uint32_t ea4[2], eb4[2];
-        load(0, ka4, ea4);
-        for (int64_t r = 0; r < rounds; r += 2) {
-            if (r + 1 < rounds) {
-                load(r + 1, kb4, eb4);
+        int4 ia4[2] = {}, ib4[2] = {};
+        load(0, ka4, ea4, ia4);
+        for (int64_t rr = 0; rr < rounds; rr += 2) {
+            if (rr + 1 < rounds) {
+                load(rr + 1, kb4, eb4, ib4);
             }
-            round(r, ka4, ea4);
-            if (r + 1 < rounds) {
-                if (r + 2 < rounds) {
-                    load(r + 2, ka4, ea4);
+            round(rr, ka4, ea4, ia4);
+            if (rr + 1 < rounds) {
+                if (rr + 2 < rounds) {
+                    load(rr + 2, ka4, ea4, ia4);
                 }
-                round(r + 1, kb4, eb4);
+                round(rr + 1, kb4, eb4, ib4);
             }
         }
     } else {
         const int64_t rounds = (len + KS_ROUND - 1) / KS_ROUND;
-        auto load = [&](int64_t r, float (&k1)[8], uint8_t (&e1)[8]) {
+        auto load = [&](int64_t rr, float (&k1)[8], uint8_t (&e1)[8],
+                        int32_t (&i1)[8]) {
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
-                const int64_t e = lo + r * KS_ROUND + threadIdx.x + j * KS_THREADS;
+                const int64_t e = lo + rr * KS_ROUND + threadIdx.x + j * KS_THREADS;
                 if (e < hi) {
                     k1[j] = krow[e];
                     e1[j] = erow[e];
+                    i1[j] = IDS ? irow[e] : 0;
                 }
             }
         };
-        auto round = [&](int64_t r, const float (&k1)[8],
-                         const uint8_t (&e1)[8]) {
+        auto round = [&](int64_t rr, const float (&k1)[8],
+                         const uint8_t (&e1)[8], const int32_t (&i1)[8]) {
             int64_t idx[8];
             unsigned ok = 0;
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
-                idx[j] = lo + r * KS_ROUND + threadIdx.x + j * KS_THREADS;
+                idx[j] = lo + rr * KS_ROUND + threadIdx.x + j * KS_THREADS;
                 if (idx[j] < hi) {
                     ok |= 1u << j;
                     n_elig += e1[j] != 0;
                 }
             }
-            process(k1, e1, idx, ok);
+            process(k1, e1, i1, idx, ok);
             settle();
         };
         float ka1[8], kb1[8];
         uint8_t ea1[8], eb1[8];
-        load(0, ka1, ea1);
-        for (int64_t r = 0; r < rounds; r += 2) {
-            if (r + 1 < rounds) {
-                load(r + 1, kb1, eb1);
+        int32_t ia1[8], ib1[8];
+        load(0, ka1, ea1, ia1);
+        for (int64_t rr = 0; rr < rounds; rr += 2) {
+            if (rr + 1 < rounds) {
+                load(rr + 1, kb1, eb1, ib1);
             }
-            round(r, ka1, ea1);
-            if (r + 1 < rounds) {
-                if (r + 2 < rounds) {
-                    load(r + 2, ka1, ea1);
+            round(rr, ka1, ea1, ia1);
+            if (rr + 1 < rounds) {
+                if (rr + 2 < rounds) {
+                    load(rr + 2, ka1, ea1, ia1);
                 }
-                round(r + 1, kb1, eb1);
+                round(rr + 1, kb1, eb1, ib1);
             }
         }
     }
-    // The block's top kp, and its counts into the row's.
+    // The block's top kq, and its counts into the row's.
     __syncthreads();
     int n = st.count;
-    if (n > kp) {
-        ks_keep_top(buf, n, ks_kth_largest(buf, n, kp, st), st);
-        n = kp;
+    if (n > kq) {
+        ks_keep_top<IDS>(buf, n, ks_kth_largest(buf, n, kq, st), kq, st);
+        n = kq;
     }
     uint64_t* dst = surv + (q * nb + blockIdx.x) * (int64_t)kp;
     for (int i = threadIdx.x; i < kp; i += blockDim.x) {
         dst[i] = i < n ? buf[i] : 0ull;  // 0: below every real composite
     }
-    if (MODE == KEYED_RAW) {
+    if (MODE >= KEYED_RAW) {
         n_keep = 0;  // no cursor: nothing to count past the eligibility
     }
     for (int off = 16; off > 0; off >>= 1) {
-        n_elig += __shfl_down_sync(0xffffffffu, n_elig, off);
-        n_keep += __shfl_down_sync(0xffffffffu, n_keep, off);
+        n_elig += __shfl_down_sync(FULL_MASK, n_elig, off);
+        n_keep += __shfl_down_sync(FULL_MASK, n_keep, off);
     }
     if (lane == 0 && n_elig != 0) {
         atomicAdd(total + q, n_elig);
     }
-    if (MODE != KEYED_RAW && lane == 0 && n_keep != 0) {
+    if (MODE < KEYED_RAW && lane == 0 && n_keep != 0) {
         atomicAdd(n_after + q, n_keep);
     }
     // The row's last block to finish merges its survivors.
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        st.kept = atomicAdd(arrive + q, 1);
-    }
-    __syncthreads();
-    if (st.kept != nb - 1) {
+    if (!last_block(arrive + q, nb, &st.kept)) {
         return;
     }
-    __threadfence();
-    ks_merge_row(a, q, kp, nb, surv, values, top_idx, buf, st);
+    ks_merge_row<MODE>(a, r, q, kq, kp, out_k, nb, surv, values, top_idx,
+                       buf, st);
 }
 
-static int ks_sm_count() {
-    static int sms = 0;
-    if (sms <= 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (sms <= 0) {
-            sms = 132;
-        }
-    }
-    return sms;
-}
-
+// nb blocks a row: about two a multiprocessor over all rows, but at least
+// one (1 to 65,535 rows, each its own grid row); at most one a KS_ROUND
+// entries and at most the scratch's row capacity over kp (surv_row: the
+// wrapper's min(ceil(width / KS_ROUND), KS_CAP / kp) * kp, so the last
+// block's merge fits its buffer); stripes a multiple of 4 entries.
 template <int MODE>
-static int ks_select(const KeyedArgs& a, int n_rows, int kk, int nb,
-                     int64_t stripe, uint64_t* surv, float* values,
-                     int32_t* top_idx, int32_t* total, int32_t* n_after,
-                     int32_t* arrive, cudaStream_t s) {
+static int ks_launch(const KeyedArgs& a, int n_rows, int width, int kp,
+                     int out_k, int64_t surv_row, uint64_t* surv,
+                     float* values, int32_t* top_idx, int32_t* total,
+                     int32_t* n_after, int32_t* arrive, cudaStream_t s) {
+    int nb = esk_blocks(width, KS_ROUND);
+    nb = esk_imin(nb, (int)(surv_row / kp));
+    nb = esk_imin(nb, 2 * sm_count() / n_rows);
+    nb = nb < 1 ? 1 : nb;
+    const int64_t stripe = ((int64_t)esk_blocks(width, nb) + 3) / 4 * 4;
+    nb = esk_blocks(width, (int)stripe);
+    nb = nb < 1 ? 1 : nb;
     const size_t smem = (size_t)KS_CAP * sizeof(uint64_t);
-    // The shared-memory opt-in once a device (it costs a driver call).
     static unsigned long long opted = 0;
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev >= 64 || !((opted >> dev) & 1ull)) {
-        ESK_SMEM_OPT_IN(ks_select_kernel<MODE>, smem);
-        if (dev < 64) {
-            opted |= 1ull << dev;
-        }
+    const int rc = smem_opt_in(ks_select_kernel<MODE>, smem, &opted);
+    if (rc != 0) {
+        return rc;
     }
     ks_select_kernel<MODE><<<dim3(nb, n_rows), KS_THREADS, smem, s>>>(
-        a, kk, nb, stripe, surv, values, top_idx, total, n_after, arrive);
+        a, kp, out_k, nb, stripe, surv, values, top_idx, total, n_after,
+        arrive);
     ESK_RETURN_IF_ERROR();
     return 0;
 }
 
-// The select path of esk_keyed_topk and of esk_masked_topk's row mode: nb
-// blocks a row (about two a multiprocessor over all rows, but at least
-// one: 1 to 65,535 rows, each its own grid row; at most KS_CAP / kk so the
-// last block's merge fits its buffer, at most one a KS_ROUND entries, and
-// at most the chunk path's block count so both paths share its scratch),
-// stripes a multiple of 4 entries, one launch. total, n_after (null in
-// KEYED_RAW) and arrive ([n_rows] each) are zeroed first, in one memset
-// where they are consecutive planes: the blocks add their counts and
-// tickets there.
-static int ks_launch(const KeyedArgs& a, int n_rows, int m, int kk, int ch,
-                     uint64_t* surv, float* values, int32_t* top_idx,
-                     int32_t* total, int32_t* n_after, int32_t* arrive,
-                     cudaStream_t s) {
-    int nb = esk_blocks(m, KS_ROUND);
-    nb = esk_imin(nb, KS_CAP / kk);
-    nb = esk_imin(nb, 2 * ks_sm_count() / n_rows);
-    nb = esk_imin(nb, esk_blocks(m, ch));
-    nb = nb < 1 ? 1 : nb;
-    const int64_t stripe = ((int64_t)esk_blocks(m, nb) + 3) / 4 * 4;
-    nb = esk_blocks(m, (int)stripe);
-    const size_t plane = sizeof(int32_t) * (size_t)n_rows;
-    if (n_after == nullptr && arrive == total + n_rows) {
-        cudaMemsetAsync(total, 0, 2 * plane, s);
-    } else if (n_after == total + n_rows && arrive == n_after + n_rows) {
-        cudaMemsetAsync(total, 0, 3 * plane, s);
-    } else {
-        cudaMemsetAsync(total, 0, plane, s);
-        if (n_after != nullptr) {
-            cudaMemsetAsync(n_after, 0, plane, s);
-        }
-        cudaMemsetAsync(arrive, 0, plane, s);
-    }
-    ESK_RETURN_IF_ERROR();
-    if (a.mode == KEYED_RAW) {
-        return ks_select<KEYED_RAW>(a, n_rows, kk, nb, stripe, surv, values,
-                                    top_idx, total, nullptr, arrive, s);
-    }
-    if (a.mode == KEYED_SCORE_DESC) {
-        return ks_select<KEYED_SCORE_DESC>(a, n_rows, kk, nb, stripe, surv,
-                                           values, top_idx, total, n_after,
-                                           arrive, s);
-    }
-    if (a.mode == KEYED_SCORE_ASC) {
-        return ks_select<KEYED_SCORE_ASC>(a, n_rows, kk, nb, stripe, surv,
-                                          values, top_idx, total, n_after,
-                                          arrive, s);
-    }
-    return ks_select<KEYED_FIELD>(a, n_rows, kk, nb, stripe, surv, values,
-                                  top_idx, total, n_after, arrive, s);
+// ---------------------------------------------------------------------------
+// Sorted runs and their merge by rank: the last step of the short-row sort
+// and of the large-k select. A row's candidates (at most LK_FINAL_CAP) are
+// cut into runs of LK_RUN, each sorted by its own block (bitonic_regs, in
+// lk_runsort_kernel); an entry's rank is then its place in its run plus,
+// in every other run, the entries above it (binary searches over the runs
+// in shared memory: lk_rank_kernel), so every block of the row places its
+// own entries in the output at once. A row of one run writes its outputs
+// from the sort.
+// ---------------------------------------------------------------------------
+
+#define LK_SHORT_MAX 16384   // longest row sorted whole (the short-row sort)
+#define LK_RUN_THREADS 512   // a run's block
+#define LK_RUN_E 4           // composites a thread holds in registers
+#define LK_RUN (LK_RUN_THREADS * LK_RUN_E)  // entries a sorted run: 2,048
+#define LK_RANK_THREADS 1024
+#define LK_RANK_PER LK_RANK_THREADS  // entries a rank block places
+#define LK_FINAL_CAP 16384   // candidates the large-k select ranks at the end
+#define LK_ROW_INTS 16       // a large-k row's state (LkRow) in ints
+
+// Row q's candidates, as the run and rank kernels read them: from the
+// input (the short-row sort: the row's composites, n = its length) or from
+// F (the large-k select: n = LkRow::final_n, row stride LK_FINAL_CAP).
+struct RunSource {
+    const uint64_t* fbuf;  // null: the input
+    const int* final_n;    // [Q] at a stride of LK_ROW_INTS ints, or null
+    int64_t stride;        // F's row stride (composites)
+};
+
+template <int MODE>
+__device__ __forceinline__ uint64_t input_composite(const KeyedArgs& a,
+                                                    const RowView& r,
+                                                    int64_t e, bool* keep,
+                                                    uint8_t* el) {
+    *el = r.elig[e];
+    return composite_m<MODE>(a, r, e, r.key[e], *el,
+                             MODE == KEYED_IDS ? r.ids[e] : 0, keep);
 }
 
-// key f32[n_rows, m] (ineligible entries already -inf), ids i32[n_rows, m]
-// (the id mode's tie-break ids) or null (the position), eligible
-// u8[n_rows, m]. ch: power-of-two chunk (1024..16384) with ch > k.
-// buf_a/buf_b: u64 scratch of n_rows * ceil(m / ch) * k entries each
-// (buf_b unused by the select). Outputs top_scores/top_idx [n_rows,
-// min(k, m)] and total i32[n_rows]; arrive i32[n_rows], the select's
-// arrival tickets, is scratch (one memset zeroes total and arrive where
-// arrive = total + n_rows). With no ids and 1 <= min(k, m) <= KS_MAX_K the
-// threshold select runs (one memset, one launch); otherwise the chunk
-// sorts.
+__host__ __device__ constexpr int lk_log2(int x) {
+    return x <= 1 ? 0 : 1 + lk_log2(x >> 1);
+}
+
+// The descending bitonic network over a block's P = T * E composites,
+// element g = t * E + e in register v[e] of thread t (K3m's network): the
+// stages of stride below E inside a thread, below 32 E by warp shuffles,
+// and the wider ones through shared memory sm[P].
+template <int E, int T>
+__device__ __forceinline__ void bitonic_regs(uint64_t (&v)[E], uint64_t* sm) {
+    constexpr int LOG_P = lk_log2(T * E);
+    const int t = threadIdx.x;
+#pragma unroll
+    for (int ls = 1; ls <= LOG_P; ++ls) {
+        const int size = 1 << ls;
+#pragma unroll
+        for (int lj = ls - 1; lj >= 0; --lj) {
+            const int j = 1 << lj;
+            if (j < E) {
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                    if ((e & j) == 0) {
+                        const bool desc = ((t * E + e) & size) == 0;
+                        const uint64_t a = v[e];
+                        const uint64_t b = v[e | j];
+                        if (desc ? (a < b) : (a > b)) {
+                            v[e] = b;
+                            v[e | j] = a;
+                        }
+                    }
+                }
+            } else if (j < 32 * E) {
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                    const int g = t * E + e;
+                    const uint64_t o = __shfl_xor_sync(FULL_MASK, v[e], j / E);
+                    const bool keep_max = ((g & j) == 0) == ((g & size) == 0);
+                    v[e] = keep_max ? (v[e] > o ? v[e] : o) : (v[e] < o ? v[e] : o);
+                }
+            } else {
+                __syncthreads();
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                    sm[t * E + e] = v[e];
+                }
+                __syncthreads();
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                    const int g = t * E + e;
+                    const uint64_t o = sm[g ^ j];
+                    const bool keep_max = ((g & j) == 0) == ((g & size) == 0);
+                    v[e] = keep_max ? (v[e] > o ? v[e] : o) : (v[e] < o ? v[e] : o);
+                }
+            }
+        }
+    }
+}
+
+// Decode row q's ranked composite c into output slot s.
+template <int MODE>
+__device__ __forceinline__ void put_rank(const KeyedArgs& a,
+                                         const RowView& r, int64_t q,
+                                         int out_k, int s, uint64_t c,
+                                         float* values, int32_t* top_idx) {
+    const int64_t t = q * out_k + s;
+    decode_m<MODE>(a, r, c, values + t, top_idx + t);
+}
+
+// Run blockIdx.x of row blockIdx.y: its entries [x * LK_RUN, ...) of the
+// row's candidates sorted (bitonic_regs, 0-padded to LK_RUN) and written
+// back to runs (row stride run_stride); from the input, the run's eligible
+// (and kept) entries are counted into total / n_after. A row of one run (n
+// <= LK_RUN) decodes its top kq into its out_k slots (past kq: padding).
+template <int MODE>
+__global__ void __launch_bounds__(LK_RUN_THREADS)
+lk_runsort_kernel(KeyedArgs a, int kp, int out_k, RunSource src,
+                  uint64_t* __restrict__ runs, int64_t run_stride,
+                  float* __restrict__ values, int32_t* __restrict__ top_idx,
+                  int32_t* __restrict__ total, int32_t* __restrict__ n_after) {
+    __shared__ uint64_t sm[LK_RUN];
+    const int64_t q = blockIdx.y;
+    const RowView r = row_view(a, q);
+    const int kq = (int)min((int64_t)kp, r.len);
+    const int64_t n = src.fbuf == nullptr
+                          ? r.len
+                          : (int64_t)src.final_n[q * LK_ROW_INTS];
+    const int64_t lo = (int64_t)blockIdx.x * LK_RUN;
+    const bool alone = n <= LK_RUN;
+    if (lo >= n && !(alone && blockIdx.x == 0)) {
+        return;
+    }
+    const int len = (int)max((int64_t)0, min((int64_t)LK_RUN, n - lo));
+    const int t = threadIdx.x;
+    uint64_t v[LK_RUN_E];
+    int ne = 0;
+    int nk = 0;
+    // Coalesced loads: register e of thread t starts with entry e * T + t
+    // (the composite carries its index, so the start order is free).
+#pragma unroll
+    for (int e = 0; e < LK_RUN_E; ++e) {
+        const int i = e * LK_RUN_THREADS + t;
+        v[e] = 0;  // below every real composite
+        if (i < len) {
+            if (src.fbuf == nullptr) {
+                bool keep;
+                uint8_t el;
+                v[e] = input_composite<MODE>(a, r, lo + i, &keep, &el);
+                ne += el != 0;
+                nk += keep;
+            } else {
+                v[e] = src.fbuf[q * src.stride + lo + i];
+            }
+        }
+    }
+    if (src.fbuf == nullptr) {
+        for (int off = 16; off > 0; off >>= 1) {
+            ne += __shfl_down_sync(FULL_MASK, ne, off);
+            nk += __shfl_down_sync(FULL_MASK, nk, off);
+        }
+        if ((t & 31) == 0) {
+            if (ne != 0) {
+                atomicAdd(total + q, ne);
+            }
+            if (MODE < KEYED_RAW && nk != 0) {
+                atomicAdd(n_after + q, nk);
+            }
+        }
+    }
+    bitonic_regs<LK_RUN_E, LK_RUN_THREADS>(v, sm);
+#pragma unroll
+    for (int e = 0; e < LK_RUN_E; ++e) {
+        const int g = t * LK_RUN_E + e;
+        if (alone) {
+            if (g < kq) {
+                put_rank<MODE>(a, r, q, out_k, g, v[e], values, top_idx);
+            } else if (g < out_k) {
+                const int64_t at = q * out_k + g;
+                pad_slot(values + at, top_idx + at);
+            }
+        } else if (g < len) {
+            runs[q * run_stride + lo + g] = v[e];
+        }
+    }
+    if (alone) {  // out_k can pass the run (a window row of no entries)
+        for (int s = LK_RUN + t; s < out_k; s += blockDim.x) {
+            const int64_t at = q * out_k + s;
+            pad_slot(values + at, top_idx + at);
+        }
+    }
+}
+
+// Entries of run sm[0, len) (descending) above c (strictly, or `ge`: at or
+// above): the first position holding a smaller (or equal) composite.
+__device__ __forceinline__ int run_count_above(const uint64_t* sm, int len,
+                                               uint64_t c, bool ge) {
+    int lo = 0;
+    int hi = len;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        const uint64_t v = sm[mid];
+        if (v > c || (ge && v == c)) {
+            lo = mid + 1;
+        } else {
+            hi = mid;
+        }
+    }
+    return lo;
+}
+
+// Row blockIdx.y's entries [x * LK_RANK_PER, ...) of its sorted runs (rows
+// of more than one run): each entry's rank is its place in its run plus
+// the entries above it in the other runs (at or above it in the runs
+// before its own, so equal composites take distinct ranks); ranks below kq
+// are decoded into the output. Block 0 pads the slots past kq.
+template <int MODE>
+__global__ void __launch_bounds__(LK_RANK_THREADS)
+lk_rank_kernel(KeyedArgs a, int kp, int out_k, RunSource src,
+               const uint64_t* __restrict__ runs, int64_t run_stride,
+               float* __restrict__ values, int32_t* __restrict__ top_idx) {
+    extern __shared__ uint64_t sm[];
+    const int64_t q = blockIdx.y;
+    const RowView r = row_view(a, q);
+    const int kq = (int)min((int64_t)kp, r.len);
+    const int n = src.fbuf == nullptr ? (int)r.len
+                                      : src.final_n[q * LK_ROW_INTS];
+    if (n <= LK_RUN) {
+        return;  // one run: its sort wrote the outputs
+    }
+    const int lo = blockIdx.x * LK_RANK_PER;
+    if (blockIdx.x == 0) {
+        for (int s = kq + threadIdx.x; s < out_k; s += blockDim.x) {
+            const int64_t t = q * out_k + s;
+            pad_slot(values + t, top_idx + t);
+        }
+    }
+    if (lo >= n) {
+        return;
+    }
+    const uint64_t* row = runs + q * run_stride;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        sm[i] = row[i];
+    }
+    __syncthreads();
+    const int nruns = (n + LK_RUN - 1) / LK_RUN;
+    const int hi = min(n, lo + LK_RANK_PER);
+    for (int e = lo + threadIdx.x; e < hi; e += blockDim.x) {
+        const int own = e / LK_RUN;
+        const int pos = e - own * LK_RUN;
+        if (pos >= kq) {
+            continue;  // its rank is at least its place in its run
+        }
+        const uint64_t c = sm[e];
+        int rank = pos;
+        for (int j = 0; j < nruns && rank < kq; ++j) {
+            if (j != own) {
+                const int len = min(LK_RUN, n - j * LK_RUN);
+                rank += run_count_above(sm + j * LK_RUN, len, c, j < own);
+            }
+        }
+        if (rank < kq) {
+            put_rank<MODE>(a, r, q, out_k, rank, c, values, top_idx);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The large-k select (kk = 0 or kk > KS_MAX_K, rows longer than
+// LK_SHORT_MAX): an MSB-first radix select on the composite. See the
+// header.
+// ---------------------------------------------------------------------------
+
+#define LK_THREADS 512
+#define LK_PER 8                         // entries a thread a round
+#define LK_ROUND (LK_THREADS * LK_PER)   // 4,096
+#define LK_DIGIT 12                      // bits of a digit
+#define LK_BINS (1 << LK_DIGIT)          // a row's histogram
+#define LK_NDIG 6                        // five 12-bit digits, then 4 bits
+#define LK_BCAP_DIV 4                    // S: a quarter of the row at most
+#define LK_STAGE 512                     // a warp's staged appends
+#define LK_NEG_INF_DIGIT 0x007           // -inf's top digit: the padding
+
+// Digit p's shift and width: 52, 40, 28, 16, 4 (12 bits), then 0 (4 bits).
+__host__ __device__ constexpr int lk_shift(int p) {
+    return p < LK_NDIG - 1 ? 64 - LK_DIGIT * (p + 1) : 0;
+}
+__host__ __device__ constexpr int lk_bits(int p) {
+    return p < LK_NDIG - 1 ? LK_DIGIT : 64 - LK_DIGIT * (LK_NDIG - 1);
+}
+
+// A row's state, zeroed by the call's memset. The bucket is the
+// composites that match `prefix` on `mask` (the digits fixed so far):
+// `above` composites lie above it (every one a winner) and `bucket` in it.
+struct LkRow {
+    int final_n;  // candidates in F once collected (read first: RunSource)
+    int above;
+    int bucket;
+    int digits;   // digits fixed
+    int has_s;    // S holds a stored bucket (a superset of the current)
+    int s_len;    // entries in S
+    int nw;       // winners in F's front: `above` when S was stored
+    int done;     // the bucket is narrow enough (or every digit fixed)
+    int arrive;   // the pass's arrival tickets
+    int s_count;  // the storing pass's appends to S and F (the collect's)
+    int w_count;
+    int pad;
+    unsigned long long prefix;
+    unsigned long long mask;
+};
+static_assert(sizeof(LkRow) == LK_ROW_INTS * 4, "LkRow is LK_ROW_INTS ints");
+
+// Add each lane's digit d (-1: none) to the shared histogram: the lanes
+// of a warp with equal digits add once (runs of equal keys, the padding).
+__device__ __forceinline__ void lk_hist_add(int* hist, int d) {
+    if (__ballot_sync(FULL_MASK, d >= 0) == 0u) {
+        return;
+    }
+    const unsigned peers = __match_any_sync(FULL_MASK, d);
+    if (d >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) {
+        atomicAdd(&hist[d], __popc(peers));
+    }
+}
+
+struct LkFind {
+    int digit;
+    int above;  // entries in the bins above it
+    int size;   // entries in it
+};
+
+// The bin of a row's global histogram h (nbins bins, from the top) that
+// holds rank `need` (1 <= need <= the histogram's count); LK_THREADS
+// threads, 8 bins a thread. The result lands in `out` for every thread.
+__device__ void lk_find(const int* h, int nbins, int need, LkFind& out,
+                        int* warp_tot) {
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int warp = t >> 5;
+    int c[8];
+    int sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const int b = nbins - 1 - (t * 8 + j);
+        c[j] = b >= 0 ? __ldcg(h + b) : 0;
+        sum += c[j];
+    }
+    int incl = sum;
+    for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(FULL_MASK, incl, off);
+        if (lane >= off) {
+            incl += v;
+        }
+    }
+    if (lane == 31) {
+        warp_tot[warp] = incl;
+    }
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) {
+        incl += warp_tot[w];
+    }
+    const int excl = incl - sum;
+    if (excl < need && need <= incl) {
+        int acc = excl;
+        for (int j = 0; j < 8; ++j) {
+            if (acc + c[j] >= need) {
+                out.digit = nbins - 1 - (t * 8 + j);
+                out.above = acc;
+                out.size = c[j];
+                break;
+            }
+            acc += c[j];
+        }
+    }
+    __syncthreads();
+}
+
+// Row r's entries [lo, hi) in block-synchronous rounds, LK_PER a thread:
+// f(raw, el, id, idx, ok) a round (ok: a bit an entry in range). Where the
+// planes align (after a head of < 4 entries, the key at 16 bytes, the
+// eligible bytes at 4 and the ids as the key), a thread's entries are two
+// runs of four, loaded as float4 / 4-byte words / int4, and the head and
+// the tail (< 4 entries each) make one round of their own; else coalesced
+// 4-byte and 1-byte loads. EL: the eligible bytes are needed.
+template <int MODE, bool EL, typename F>
+__device__ __forceinline__ void lk_stream(const RowView& r, int64_t lo,
+                                          int64_t hi, F&& f) {
+    constexpr bool IDS = MODE == KEYED_IDS;
+    float raw[LK_PER];
+    uint8_t el[LK_PER];
+    int32_t id[LK_PER];
+    int64_t idx[LK_PER];
+    auto clear = [&]() {
+#pragma unroll
+        for (int j = 0; j < LK_PER; ++j) {
+            raw[j] = 0.f;
+            el[j] = 0;
+            id[j] = 0;
+            idx[j] = 0;
+        }
+    };
+    if (hi <= lo) {
+        return;
+    }
+    const int t = threadIdx.x;
+    const uintptr_t ka = (uintptr_t)(r.key + lo);
+    const uintptr_t ea = (uintptr_t)(r.elig + lo);
+    const uintptr_t ia = IDS ? (uintptr_t)(r.ids + lo) : ka;
+    if (((ka / 4) - ea) % 4 == 0 && ia % 16 == ka % 16) {
+        const int64_t head = min(hi - lo, (int64_t)((4 - ea % 4) % 4));
+        const int64_t groups = (hi - lo - head) / 4;
+        const int64_t v0 = lo + head;
+        const int64_t v1 = v0 + groups * 4;
+        clear();
+        unsigned ok = 0;
+        const int64_t e = t < head ? lo + t
+                          : (t >= 32 && t < 32 + (hi - v1)) ? v1 + (t - 32)
+                                                            : -1;
+        if (e >= 0) {
+            ok = 1u;
+            raw[0] = r.key[e];
+            el[0] = EL ? r.elig[e] : (uint8_t)0;
+            id[0] = IDS ? r.ids[e] : 0;
+            idx[0] = e;
+        }
+        f(raw, el, id, idx, ok);
+        for (int64_t g0 = 0; g0 < groups; g0 += 2 * LK_THREADS) {
+            clear();
+            ok = 0;
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+                const int64_t g = g0 + t + jj * LK_THREADS;
+                if (g < groups) {
+                    const int64_t e4 = v0 + g * 4;
+                    const float4 k4 = *reinterpret_cast<const float4*>(r.key + e4);
+                    const uint32_t b4 =
+                        EL ? *reinterpret_cast<const uint32_t*>(r.elig + e4) : 0u;
+                    int4 i4 = {0, 0, 0, 0};
+                    if (IDS) {
+                        i4 = *reinterpret_cast<const int4*>(r.ids + e4);
+                    }
+                    const float kf[4] = {k4.x, k4.y, k4.z, k4.w};
+                    const int32_t iv[4] = {i4.x, i4.y, i4.z, i4.w};
+#pragma unroll
+                    for (int v = 0; v < 4; ++v) {
+                        raw[jj * 4 + v] = kf[v];
+                        el[jj * 4 + v] = (uint8_t)(b4 >> (8 * v));
+                        id[jj * 4 + v] = iv[v];
+                        idx[jj * 4 + v] = e4 + v;
+                    }
+                    ok |= 15u << (jj * 4);
+                }
+            }
+            f(raw, el, id, idx, ok);
+        }
+        return;
+    }
+    for (int64_t base = lo; base < hi; base += LK_ROUND) {
+        clear();
+        unsigned ok = 0;
+#pragma unroll
+        for (int j = 0; j < LK_PER; ++j) {
+            const int64_t e = base + t + j * LK_THREADS;
+            if (e < hi) {
+                ok |= 1u << j;
+                raw[j] = r.key[e];
+                if (EL) {
+                    el[j] = r.elig[e];
+                }
+                if (IDS) {
+                    id[j] = r.ids[e];
+                }
+                idx[j] = e;
+            }
+        }
+        f(raw, el, id, idx, ok);
+    }
+}
+
+// Pass 0: row q's entries [b * stripe, (b + 1) * stripe) of its span:
+// total (and n_after) counted, the top digit of every composite in the
+// row's histogram (-inf's, the padding, counted in a register); the row's
+// last block finds the first bucket.
+template <int MODE>
+__global__ void __launch_bounds__(LK_THREADS, 2)
+lk_hist_kernel(KeyedArgs a, int kp, int nb, int64_t stripe,
+               LkRow* __restrict__ rows, int* __restrict__ ghist,
+               int32_t* __restrict__ total, int32_t* __restrict__ n_after) {
+    __shared__ int hist[LK_BINS];
+    __shared__ int warp_tot[LK_THREADS / 32];
+    __shared__ int ticket;
+    __shared__ LkFind found;
+    const int64_t q = blockIdx.y;
+    const RowView r = row_view(a, q);
+    for (int i = threadIdx.x; i < LK_BINS; i += blockDim.x) {
+        hist[i] = 0;
+    }
+    __syncthreads();
+    const int64_t lo = (int64_t)blockIdx.x * stripe;
+    const int64_t hi = min(r.len, lo + stripe);
+    int ne = 0;
+    int nk = 0;
+    int n_pad = 0;
+    lk_stream<MODE, true>(r, lo, hi, [&](const float (&raw)[LK_PER],
+                                         const uint8_t (&el)[LK_PER],
+                                         const int32_t (&id)[LK_PER],
+                                         const int64_t (&idx)[LK_PER],
+                                         unsigned ok) {
+#pragma unroll
+        for (int j = 0; j < LK_PER; ++j) {
+            const bool in = (ok >> j) & 1u;
+            bool keep;
+            const uint64_t c =
+                composite_m<MODE>(a, r, idx[j], raw[j], el[j], id[j], &keep);
+            ne += in && el[j] != 0;
+            nk += in && keep;
+            const int d = (int)(c >> lk_shift(0));
+            const bool pad = in && d == LK_NEG_INF_DIGIT;
+            n_pad += pad;
+            lk_hist_add(hist, (in && !pad) ? d : -1);
+        }
+    });
+    for (int off = 16; off > 0; off >>= 1) {
+        ne += __shfl_down_sync(FULL_MASK, ne, off);
+        nk += __shfl_down_sync(FULL_MASK, nk, off);
+        n_pad += __shfl_down_sync(FULL_MASK, n_pad, off);
+    }
+    if ((threadIdx.x & 31) == 0) {
+        if (n_pad != 0) {
+            atomicAdd(&hist[LK_NEG_INF_DIGIT], n_pad);
+        }
+        if (ne != 0) {
+            atomicAdd(total + q, ne);
+        }
+        if (MODE < KEYED_RAW && nk != 0) {
+            atomicAdd(n_after + q, nk);
+        }
+    }
+    __syncthreads();
+    int* gh = ghist + q * LK_BINS;
+    for (int i = threadIdx.x; i < LK_BINS; i += blockDim.x) {
+        if (hist[i] != 0) {
+            atomicAdd(gh + i, hist[i]);
+        }
+    }
+    LkRow* row = rows + q;
+    if (!last_block(&row->arrive, nb, &ticket)) {
+        return;
+    }
+    const int kq = (int)min((int64_t)kp, r.len);
+    if (kq > 0) {
+        lk_find(gh, LK_BINS, kq, found, warp_tot);
+        for (int i = threadIdx.x; i < LK_BINS; i += blockDim.x) {
+            gh[i] = 0;
+        }
+    }
+    if (threadIdx.x == 0) {
+        if (kq > 0) {
+            row->prefix = (unsigned long long)found.digit << lk_shift(0);
+            row->mask = (unsigned long long)(LK_BINS - 1) << lk_shift(0);
+            row->above = found.above;
+            row->bucket = found.size;
+            row->digits = 1;
+        } else {
+            row->done = 1;  // nothing to rank: the runs write padding
+        }
+        row->arrive = 0;
+    }
+}
+
+// Pass p (1 <= p < LK_NDIG) of the rows not yet done: the bucket narrowed
+// by digit p. A row whose bucket is stored reads S (its slice [b * chunk,
+// ...) of the s_len entries); else it reads its input stripe again, and
+// when the bucket fits S it stores the bucket's entries in S and those
+// above it in F's front. The appends go through each warp's shared stage
+// (one global atomic a flush, no block barrier). The row's last block
+// finds digit p's bucket and decides whether the row is done.
+template <int MODE>
+__global__ void __launch_bounds__(LK_THREADS, 2)
+lk_pass_kernel(KeyedArgs a, int kp, int nb, int64_t stripe, int pass,
+               LkRow* __restrict__ rows, int* __restrict__ ghist,
+               uint64_t* __restrict__ fbuf, uint64_t* __restrict__ sbuf,
+               int64_t bcap) {
+    extern __shared__ uint64_t stage[];  // LK_STAGE a warp
+    __shared__ int hist[LK_BINS];
+    __shared__ int warp_tot[LK_THREADS / 32];
+    __shared__ int ticket;
+    __shared__ LkFind found;
+    __shared__ LkRow rs;
+    const int64_t q = blockIdx.y;
+    LkRow* row = rows + q;
+    if (threadIdx.x == 0) {
+        rs = *row;
+    }
+    __syncthreads();
+    if (rs.done) {
+        return;
+    }
+    const RowView r = row_view(a, q);
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int shift = lk_shift(pass);
+    const unsigned long long dmask = (1ull << lk_bits(pass)) - 1ull;
+    const unsigned long long mask = rs.mask;
+    const unsigned long long prefix = rs.prefix;
+    for (int i = threadIdx.x; i < LK_BINS; i += blockDim.x) {
+        hist[i] = 0;
+    }
+    __syncthreads();
+    const bool store = !rs.has_s && rs.bucket <= bcap;
+    if (rs.has_s) {
+        const int64_t n = rs.s_len;
+        const int64_t chunk = (n + nb - 1) / nb;
+        const int64_t lo = (int64_t)blockIdx.x * chunk;
+        const int64_t hi = min(n, lo + chunk);
+        const uint64_t* src = sbuf + q * bcap;
+        for (int64_t base = lo; base < hi; base += LK_ROUND) {
+            uint64_t v[LK_PER];
+#pragma unroll
+            for (int j = 0; j < LK_PER; ++j) {
+                const int64_t e = base + threadIdx.x + j * LK_THREADS;
+                v[j] = e < hi ? src[e] : 0ull;
+            }
+#pragma unroll
+            for (int j = 0; j < LK_PER; ++j) {
+                const int64_t e = base + threadIdx.x + j * LK_THREADS;
+                const bool in = e < hi && (v[j] & mask) == prefix;
+                lk_hist_add(hist, in ? (int)((v[j] >> shift) & dmask) : -1);
+            }
+        }
+    } else {
+        const int64_t lo = (int64_t)blockIdx.x * stripe;
+        const int64_t hi = min(r.len, lo + stripe);
+        uint64_t* my = stage + warp * LK_STAGE;
+        uint64_t* fdst = fbuf + q * (int64_t)LK_FINAL_CAP;
+        uint64_t* sdst = sbuf + q * bcap;
+        int staged = 0;  // warp-uniform
+        // The warp's staged composites to F (above the bucket) and S (in
+        // it), at one global atomic each.
+        auto flush = [&]() {
+            __syncwarp();
+            int n_w = 0;
+            int n_s = 0;
+            for (int i = lane; i < staged; i += 32) {
+                const bool w = (my[i] & mask) > prefix;
+                n_w += w;
+                n_s += !w;
+            }
+            int iw = n_w;
+            int is = n_s;
+            for (int off = 1; off < 32; off <<= 1) {
+                const int tw = __shfl_up_sync(FULL_MASK, iw, off);
+                const int ts = __shfl_up_sync(FULL_MASK, is, off);
+                if (lane >= off) {
+                    iw += tw;
+                    is += ts;
+                }
+            }
+            int bw = 0;
+            int bs = 0;
+            if (lane == 31) {
+                bw = iw ? atomicAdd(&row->w_count, iw) : 0;
+                bs = is ? atomicAdd(&row->s_count, is) : 0;
+            }
+            int64_t pw = __shfl_sync(FULL_MASK, bw, 31) + iw - n_w;
+            int64_t ps = __shfl_sync(FULL_MASK, bs, 31) + is - n_s;
+            for (int i = lane; i < staged; i += 32) {
+                const uint64_t c = my[i];
+                if ((c & mask) > prefix) {
+                    if (pw < LK_FINAL_CAP) {
+                        fdst[pw] = c;
+                    }
+                    ++pw;
+                } else {
+                    if (ps < bcap) {
+                        sdst[ps] = c;
+                    }
+                    ++ps;
+                }
+            }
+            __syncwarp();
+            staged = 0;
+        };
+        // The raw and id modes' composites do not read the eligibility.
+        lk_stream<MODE, (MODE < KEYED_RAW)>(
+            r, lo, hi, [&](const float (&raw)[LK_PER],
+                           const uint8_t (&el)[LK_PER],
+                           const int32_t (&id)[LK_PER],
+                           const int64_t (&idx)[LK_PER], unsigned ok) {
+#pragma unroll
+                for (int j = 0; j < LK_PER; ++j) {
+                    bool keep;
+                    const uint64_t v = composite_m<MODE>(a, r, idx[j], raw[j],
+                                                         el[j], id[j], &keep);
+                    const bool in = (ok >> j) & 1u;
+                    const unsigned long long m = v & mask;
+                    const bool b = in && m == prefix;
+                    lk_hist_add(hist, b ? (int)((v >> shift) & dmask) : -1);
+                    if (store) {
+                        const bool put = b || (in && m > prefix);
+                        const unsigned bal = __ballot_sync(FULL_MASK, put);
+                        if (put) {
+                            my[staged + __popc(bal & ((1u << lane) - 1u))] = v;
+                        }
+                        staged += __popc(bal);
+                    }
+                }
+                if (store && staged > LK_STAGE - 32 * LK_PER) {
+                    flush();
+                }
+            });
+        if (store && staged > 0) {
+            flush();
+        }
+    }
+    __syncthreads();
+    int* gh = ghist + q * LK_BINS;
+    for (int i = threadIdx.x; i < LK_BINS; i += blockDim.x) {
+        if (hist[i] != 0) {
+            atomicAdd(gh + i, hist[i]);
+        }
+    }
+    if (!last_block(&row->arrive, nb, &ticket)) {
+        return;
+    }
+    const int kq = (int)min((int64_t)kp, r.len);
+    lk_find(gh, 1 << lk_bits(pass), kq - rs.above, found, warp_tot);
+    for (int i = threadIdx.x; i < LK_BINS; i += blockDim.x) {
+        gh[i] = 0;
+    }
+    if (threadIdx.x == 0) {
+        LkRow nr = rs;
+        if (store) {
+            nr.has_s = 1;
+            nr.s_len = (int)min((int64_t)__ldcg(&row->s_count), bcap);
+            nr.nw = __ldcg(&row->w_count);
+        }
+        nr.prefix |= (unsigned long long)found.digit << shift;
+        nr.mask |= dmask << shift;
+        nr.above += found.above;
+        nr.bucket = found.size;
+        nr.digits += 1;
+        nr.done = (nr.has_s && nr.above + nr.bucket <= LK_FINAL_CAP) ||
+                  nr.digits == LK_NDIG;
+        nr.arrive = 0;
+        nr.s_count = 0;
+        nr.w_count = 0;
+        *row = nr;
+    }
+}
+
+// Exclusive block scan of two counts over LK_THREADS threads; returns the
+// totals in tot[0..1] for every thread.
+__device__ __forceinline__ void lk_scan2(int a, int b, int* ea, int* eb,
+                                        int* sm, int* tot) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    constexpr int NW = LK_THREADS / 32;
+    int ia = a;
+    int ib = b;
+    for (int off = 1; off < 32; off <<= 1) {
+        const int ta = __shfl_up_sync(FULL_MASK, ia, off);
+        const int tb = __shfl_up_sync(FULL_MASK, ib, off);
+        if (lane >= off) {
+            ia += ta;
+            ib += tb;
+        }
+    }
+    if (lane == 31) {
+        sm[warp] = ia;
+        sm[NW + warp] = ib;
+    }
+    __syncthreads();
+    int ba = 0;
+    int bb = 0;
+    tot[0] = 0;
+    tot[1] = 0;
+    for (int w = 0; w < NW; ++w) {
+        if (w < warp) {
+            ba += sm[w];
+            bb += sm[NW + w];
+        }
+        tot[0] += sm[w];
+        tot[1] += sm[NW + w];
+    }
+    *ea = ba + ia - a;
+    *eb = bb + ib - b;
+    __syncthreads();
+}
+
+// The collect: every row is done (after the passes). Each block takes its
+// slice of S (or, for a row that never stored its bucket, of its input)
+// and writes the composites above the bucket after F's front winners (at
+// nw) and the bucket's own from `above` on, as many as F holds (more only
+// when every digit is fixed: equal composites); two passes over the
+// slice, the first counting, one global atomic a block for each. The row's
+// candidates are then F[0, final_n), final_n = above + min(bucket,
+// LK_FINAL_CAP - above).
+template <int MODE>
+__global__ void __launch_bounds__(LK_THREADS, 2)
+lk_collect_kernel(KeyedArgs a, int kp, int nb, int64_t stripe,
+                  LkRow* __restrict__ rows, uint64_t* __restrict__ fbuf,
+                  const uint64_t* __restrict__ sbuf, int64_t bcap) {
+    __shared__ int scan[2 * (LK_THREADS / 32)];
+    __shared__ int bases[2];
+    const int64_t q = blockIdx.y;
+    const RowView r = row_view(a, q);
+    const int kq = (int)min((int64_t)kp, r.len);
+    if (kq == 0) {
+        return;
+    }
+    LkRow* row = rows + q;
+    const LkRow rs = *row;
+    const unsigned long long mask = rs.mask;
+    const unsigned long long prefix = rs.prefix;
+    int64_t lo;
+    int64_t hi;
+    if (rs.has_s) {
+        const int64_t chunk = (rs.s_len + nb - 1) / nb;
+        lo = (int64_t)blockIdx.x * chunk;
+        hi = min((int64_t)rs.s_len, lo + chunk);
+    } else {
+        lo = (int64_t)blockIdx.x * stripe;
+        hi = min(r.len, lo + stripe);
+    }
+    const uint64_t* s = sbuf + q * bcap;
+    auto entry = [&](int64_t e) {
+        if (rs.has_s) {
+            return s[e];
+        }
+        bool keep;
+        uint8_t el;
+        return input_composite<MODE>(a, r, e, &keep, &el);
+    };
+    // Thread t takes entries lo + t + i * blockDim.x, in the same order in
+    // both passes, so its writes fill the range its counts reserved.
+    int n_w = 0;
+    int n_b = 0;
+    for (int64_t e = lo + threadIdx.x; e < hi; e += blockDim.x) {
+        const unsigned long long m = entry(e) & mask;
+        n_w += m > prefix;
+        n_b += m == prefix;
+    }
+    int ew;
+    int eb;
+    int tot[2];
+    lk_scan2(n_w, n_b, &ew, &eb, scan, tot);
+    if (threadIdx.x == 0) {
+        bases[0] = tot[0] ? atomicAdd(&row->w_count, tot[0]) : 0;
+        bases[1] = tot[1] ? atomicAdd(&row->s_count, tot[1]) : 0;
+    }
+    __syncthreads();
+    uint64_t* f = fbuf + q * (int64_t)LK_FINAL_CAP;
+    int64_t pw = (rs.has_s ? rs.nw : 0) + (int64_t)bases[0] + ew;
+    int64_t pb = (int64_t)rs.above + bases[1] + eb;
+    for (int64_t e = lo + threadIdx.x; e < hi; e += blockDim.x) {
+        const uint64_t c = entry(e);
+        const unsigned long long m = c & mask;
+        if (m > prefix) {
+            f[pw++] = c;  // fewer than kq in all
+        } else if (m == prefix) {
+            if (pb < LK_FINAL_CAP) {
+                f[pb] = c;
+            }
+            ++pb;
+        }
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+        row->final_n = rs.above + min(rs.bucket, LK_FINAL_CAP - rs.above);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The dispatch, shared by every mode but the merge mode.
+// ---------------------------------------------------------------------------
+
+// The call's outputs and scratch (the wrappers' one allocation):
+// counts i32[4 Q + (large-k: Q * (LK_ROW_INTS + LK_BINS))]: total, n_after,
+// the select's tickets and a spare plane (so that the LkRows align to 8
+// bytes), then the large-k rows' LkRow and histograms, zeroed by one
+// memset; scratch u64: the select's survivors (scratch_row a row), the
+// short-row sort's runs (scratch_row a row: the row in runs of LK_RUN,
+// none for rows of one run), or the large-k select's F (LK_FINAL_CAP a
+// row) then S (scratch_row a row). values f32 / top_idx i32 [Q, out_k].
+struct TopkCall {
+    int n_rows;
+    int width;  // the longest row (the widest window)
+    int kp;     // ranks a row at most: min(k, width)
+    int out_k;  // output slots a row
+    int32_t* counts;
+    uint64_t* scratch;
+    int64_t scratch_row;
+    float* values;
+    int32_t* top_idx;
+};
+
+template <int MODE>
+static int lk_runs(const KeyedArgs& a, const TopkCall& c, RunSource src,
+                   uint64_t* runs, int64_t run_stride, int max_n,
+                   cudaStream_t s) {
+    const int q = c.n_rows;
+    const int nruns = esk_blocks(max_n, LK_RUN);
+    lk_runsort_kernel<MODE><<<dim3(nruns < 1 ? 1 : nruns, q),
+                              LK_RUN_THREADS, 0, s>>>(
+        a, c.kp, c.out_k, src, runs, run_stride, c.values, c.top_idx,
+        c.counts, c.counts + q);
+    ESK_RETURN_IF_ERROR();
+    if (max_n <= LK_RUN) {
+        return 0;
+    }
+    static unsigned long long opted = 0;
+    const int rc = smem_opt_in(lk_rank_kernel<MODE>,
+                               (size_t)LK_FINAL_CAP * sizeof(uint64_t), &opted);
+    if (rc != 0) {
+        return rc;
+    }
+    lk_rank_kernel<MODE><<<dim3(esk_blocks(max_n, LK_RANK_PER), q),
+                           LK_RANK_THREADS, (size_t)max_n * sizeof(uint64_t),
+                           s>>>(a, c.kp, c.out_k, src, runs, run_stride,
+                                c.values, c.top_idx);
+    ESK_RETURN_IF_ERROR();
+    return 0;
+}
+
+template <int MODE>
+static int topk_run(const KeyedArgs& a, const TopkCall& c, cudaStream_t s) {
+    const int q = c.n_rows;
+    int32_t* total = c.counts;
+    int32_t* n_after = c.counts + q;
+    if (c.kp >= 1 && c.kp <= KS_MAX_K) {
+        cudaMemsetAsync(c.counts, 0, sizeof(int32_t) * 3 * (size_t)q, s);
+        ESK_RETURN_IF_ERROR();
+        return ks_launch<MODE>(a, q, c.width, c.kp, c.out_k, c.scratch_row,
+                               c.scratch, c.values, c.top_idx, total, n_after,
+                               c.counts + 2 * q, s);
+    }
+    if (c.width <= LK_SHORT_MAX) {
+        cudaMemsetAsync(c.counts, 0, sizeof(int32_t) * 2 * (size_t)q, s);
+        ESK_RETURN_IF_ERROR();
+        const RunSource src = {nullptr, nullptr, 0};
+        return lk_runs<MODE>(a, c, src, c.scratch, c.scratch_row, c.width, s);
+    }
+    LkRow* rows = reinterpret_cast<LkRow*>(c.counts + 4 * q);
+    int* ghist = c.counts + 4 * q + (int64_t)q * LK_ROW_INTS;
+    cudaMemsetAsync(c.counts, 0,
+                    sizeof(int32_t) * (size_t)q * (4 + LK_ROW_INTS + LK_BINS),
+                    s);
+    ESK_RETURN_IF_ERROR();
+    // Stripes of a multiple of 4 entries, so that every block's planes
+    // align as the row's do.
+    int nb = esk_imin(esk_blocks(c.width, LK_ROUND), 2 * sm_count() / q);
+    nb = nb < 1 ? 1 : nb;
+    const int64_t stripe = ((int64_t)esk_blocks(c.width, nb) + 3) / 4 * 4;
+    nb = esk_blocks(c.width, (int)stripe);
+    uint64_t* fbuf = c.scratch;
+    uint64_t* sbuf = c.scratch + (int64_t)q * LK_FINAL_CAP;
+    lk_hist_kernel<MODE><<<dim3(nb, q), LK_THREADS, 0, s>>>(
+        a, c.kp, nb, stripe, rows, ghist, total, n_after);
+    ESK_RETURN_IF_ERROR();
+    const size_t stage = (size_t)(LK_THREADS / 32) * LK_STAGE * sizeof(uint64_t);
+    static unsigned long long opted = 0;
+    const int rc = smem_opt_in(lk_pass_kernel<MODE>, stage, &opted);
+    if (rc != 0) {
+        return rc;
+    }
+    for (int p = 1; p < LK_NDIG; ++p) {
+        lk_pass_kernel<MODE><<<dim3(nb, q), LK_THREADS, stage, s>>>(
+            a, c.kp, nb, stripe, p, rows, ghist, fbuf, sbuf, c.scratch_row);
+        ESK_RETURN_IF_ERROR();
+    }
+    lk_collect_kernel<MODE><<<dim3(nb, q), LK_THREADS, 0, s>>>(
+        a, c.kp, nb, stripe, rows, fbuf, sbuf, c.scratch_row);
+    ESK_RETURN_IF_ERROR();
+    const RunSource src = {fbuf, &rows[0].final_n, LK_FINAL_CAP};
+    return lk_runs<MODE>(a, c, src, fbuf, LK_FINAL_CAP, LK_FINAL_CAP, s);
+}
+
+static int topk_dispatch(const KeyedArgs& a, const TopkCall& c,
+                         cudaStream_t s) {
+    if (c.n_rows <= 0) {
+        return 0;
+    }
+    switch (a.mode) {
+        case KEYED_SCORE_DESC:
+            return topk_run<KEYED_SCORE_DESC>(a, c, s);
+        case KEYED_SCORE_ASC:
+            return topk_run<KEYED_SCORE_ASC>(a, c, s);
+        case KEYED_FIELD:
+            return topk_run<KEYED_FIELD>(a, c, s);
+        case KEYED_RAW:
+            return topk_run<KEYED_RAW>(a, c, s);
+        case KEYED_IDS:
+            return topk_run<KEYED_IDS>(a, c, s);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+static KeyedArgs plain_args(const void* key, const void* eligible, int m) {
+    KeyedArgs a;
+    a.key = (const float*)key;
+    a.eligible = (const uint8_t*)eligible;
+    a.ids = nullptr;
+    a.win_lo = nullptr;
+    a.win_hi = nullptr;
+    a.key_stride = m;
+    a.m = m;
+    a.mode = KEYED_RAW;
+    a.desc = 0;
+    a.missing_first = 0;
+    a.after_key = nullptr;
+    a.after_doc = nullptr;
+    return a;
+}
+
+// K3 row and stacked modes (ids null) and K3i (ids i32[n_rows, m]). key
+// f32[n_rows, m] (ineligible entries already -inf), eligible u8[n_rows, m];
+// kp = min(k, m) ranks a row. counts / scratch / scratch_row as TopkCall.
+// Outputs top_scores / top_idx [n_rows, kp] and total = counts[0, n_rows).
+// 1 <= kp <= KS_MAX_K: the threshold select; else the short-row sort for
+// m <= LK_SHORT_MAX, the large-k select above.
 extern "C" int esk_masked_topk(
     const void* key,
     const void* ids,
     const void* eligible,
     int n_rows,
     int m,
-    int k,
-    int ch,
-    void* buf_a,
-    void* buf_b,
+    int kp,
+    void* counts,
+    void* scratch,
+    long long scratch_row,
     void* top_scores,
     void* top_idx,
-    void* total,
-    void* arrive,
     void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (n_rows <= 0) {
-        return 0;
-    }
-    const int kk = esk_imin(k, m);
-    if (ids == nullptr && kk > 0 && kk <= KS_MAX_K) {
-        KeyedArgs a;
-        a.key = (const float*)key;
-        a.eligible = (const uint8_t*)eligible;
-        a.key_stride = m;
-        a.m = m;
-        a.mode = KEYED_RAW;
-        a.desc = 0;
-        a.missing_first = 0;
-        a.after_key = nullptr;
-        a.after_doc = nullptr;
-        return ks_launch(a, n_rows, m, kk, ch, (uint64_t*)buf_a,
-                         (float*)top_scores, (int32_t*)top_idx,
-                         (int32_t*)total, nullptr, (int32_t*)arrive, s);
-    }
-    cudaMemsetAsync(total, 0, sizeof(int32_t) * (size_t)n_rows, s);
-    ESK_RETURN_IF_ERROR();
-    if (m > 0) {
-        count_true_kernel<<<dim3(count_grid(m, n_rows), n_rows), CNT_THREADS,
-                            0, s>>>((const uint8_t*)eligible, (int64_t)m,
-                                    (int32_t*)total, nullptr, nullptr);
-        ESK_RETURN_IF_ERROR();
-    }
-    if (kk <= 0) {
-        return 0;
-    }
-    const size_t smem = (size_t)ch * sizeof(uint64_t);
-    ESK_SMEM_OPT_IN(topk_block_kernel, smem);
-    uint64_t* out = (uint64_t*)buf_a;
-    uint64_t* spare = (uint64_t*)buf_b;
-    // Every pass writes a row's survivors at the first pass's row stride.
-    const int64_t out_stride = (int64_t)esk_blocks(m, ch) * kk;
-    topk_block_kernel<<<dim3(esk_blocks(m, ch), n_rows), TK_THREADS, smem,
-                        s>>>((const float*)key, (const int32_t*)ids, nullptr,
-                             m, m, kk, ch, out_stride, out, nullptr, nullptr,
-                             0);
-    ESK_RETURN_IF_ERROR();
-    const int rc = merge_passes(n_rows, m, kk, ch, smem, &out, &spare, s);
-    if (rc != 0) {
-        return rc;
-    }
-    const int64_t n_out = (int64_t)n_rows * kk;
+    KeyedArgs a = plain_args(key, eligible, m);
     if (ids != nullptr) {
-        topk_decode_ids_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(
-            out, out_stride, kk, n_rows, (float*)top_scores,
-            (int32_t*)top_idx);
-    } else {
-        topk_decode_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(
-            out, out_stride, kk, n_rows, (const float*)key, (int64_t)m,
-            (float*)top_scores, (int32_t*)top_idx);
+        a.ids = (const int32_t*)ids;
+        a.mode = KEYED_IDS;
     }
-    ESK_RETURN_IF_ERROR();
-    return 0;
+    const TopkCall c = {n_rows, m, kp, kp, (int32_t*)counts,
+                        (uint64_t*)scratch, scratch_row, (float*)top_scores,
+                        (int32_t*)top_idx};
+    return topk_dispatch(a, c, (cudaStream_t)stream);
 }
 
 // K3b window mode. key f32[n_rows, m] (ineligible entries already -inf),
-// eligible u8[n_rows, m], lo/hi i32[n_rows] with 0 <= lo <= hi <= m;
-// wmax = max(hi - lo); kk = min(k, wmax) survivors a row; out_k = min(k,
-// m) output slots a row. ch: power-of-two chunk (1024..16384), ch > kk.
-// buf_a/buf_b: u64 scratch of n_rows * ceil(wmax / ch) * kk entries each.
-// Outputs top_scores/top_idx [n_rows, out_k] (window-local ids) and total
-// i32[n_rows].
+// eligible u8[n_rows, m], lo/hi i32[n_rows] with 0 <= lo <= hi <= m; wmax =
+// max(hi - lo); kw = min(k, m, wmax) ranks a row at most (min(kw, hi - lo)
+// in row q); out_k = min(k, m) output slots a row. Outputs top_scores /
+// top_idx [n_rows, out_k] (window-local ids; slots past a row's ranks
+// padding) and total = counts[0, n_rows). The design is chosen on kw and
+// wmax as esk_masked_topk chooses it on kp and m.
 extern "C" int esk_masked_topk_window(
     const void* key,
     const void* eligible,
@@ -1212,134 +2000,61 @@ extern "C" int esk_masked_topk_window(
     int n_rows,
     int m,
     int wmax,
-    int kk,
+    int kw,
     int out_k,
-    int ch,
-    void* buf_a,
-    void* buf_b,
+    void* counts,
+    void* scratch,
+    long long scratch_row,
     void* top_scores,
     void* top_idx,
-    void* total,
     void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (n_rows <= 0) {
-        return 0;
-    }
-    const int32_t* wlo = (const int32_t*)lo;
-    const int32_t* whi = (const int32_t*)hi;
-    cudaMemsetAsync(total, 0, sizeof(int32_t) * (size_t)n_rows, s);
-    ESK_RETURN_IF_ERROR();
-    if (wmax > 0) {
-        count_true_kernel<<<dim3(count_grid(wmax, n_rows), n_rows),
-                            CNT_THREADS, 0, s>>>(
-            (const uint8_t*)eligible, (int64_t)m, (int32_t*)total, wlo, whi);
-        ESK_RETURN_IF_ERROR();
-    }
-    if (out_k <= 0) {
-        return 0;
-    }
-    uint64_t* out = (uint64_t*)buf_a;
-    uint64_t* spare = (uint64_t*)buf_b;
-    const int64_t out_stride = (int64_t)esk_blocks(wmax, ch) * kk;
-    if (kk > 0) {
-        const size_t smem = (size_t)ch * sizeof(uint64_t);
-        ESK_SMEM_OPT_IN(topk_block_kernel, smem);
-        topk_block_kernel<<<dim3(esk_blocks(wmax, ch), n_rows), TK_THREADS,
-                            smem, s>>>((const float*)key, nullptr, nullptr,
-                                       wmax, m, kk, ch, out_stride, out, wlo,
-                                       whi, 0);
-        ESK_RETURN_IF_ERROR();
-        const int rc = merge_passes(n_rows, wmax, kk, ch, smem, &out, &spare,
-                                    s, wlo, whi);
-        if (rc != 0) {
-            return rc;
-        }
-    }
-    const int64_t n_out = (int64_t)n_rows * out_k;
-    topk_decode_window_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(
-        out, out_stride, kk, out_k, n_rows, (const float*)key, (int64_t)m,
-        wlo, whi, (float*)top_scores, (int32_t*)top_idx);
-    ESK_RETURN_IF_ERROR();
-    return 0;
+    KeyedArgs a = plain_args(key, eligible, m);
+    a.win_lo = (const int32_t*)lo;
+    a.win_hi = (const int32_t*)hi;
+    const TopkCall c = {n_rows, wmax, kw, out_k, (int32_t*)counts,
+                        (uint64_t*)scratch, scratch_row, (float*)top_scores,
+                        (int32_t*)top_idx};
+    return topk_dispatch(a, c, (cudaStream_t)stream);
 }
 
 // K3k. key f32[n_rows, m] at row stride key_stride (0: one plane shared
-// by every row), eligible u8[n_rows, m]; mode KEYED_*; after_key f32[n_rows]
-// and after_doc i32[n_rows], or null for no cursor. Scratch and chunk as
-// esk_masked_topk. Outputs values/top_idx [n_rows, min(k, m)], total and
-// n_after i32[n_rows].
+// by every row), eligible u8[n_rows, m]; mode KEYED_SCORE_DESC / _ASC /
+// KEYED_FIELD; after_key f32[n_rows] and after_doc i32[n_rows], or null for
+// no cursor; kp = min(k, m). Outputs values / top_idx [n_rows, kp], total =
+// counts[0, n_rows) and n_after = counts[n_rows, 2 n_rows). The design is
+// chosen as in esk_masked_topk.
 extern "C" int esk_keyed_topk(
     const void* key,
     long long key_stride,
     const void* eligible,
     int n_rows,
     int m,
-    int k,
-    int ch,
+    int kp,
     int mode,
     int desc,
     int missing_first,
     const void* after_key,
     const void* after_doc,
-    void* buf_a,
-    void* buf_b,
+    void* counts,
+    void* scratch,
+    long long scratch_row,
     void* values,
     void* top_idx,
-    void* total,
-    void* n_after,
-    void* arrive,
     void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (n_rows <= 0) {
-        return 0;
+    if (mode < KEYED_SCORE_DESC || mode > KEYED_FIELD) {
+        return (int)cudaErrorInvalidValue;
     }
-    KeyedArgs a;
-    a.key = (const float*)key;
-    a.eligible = (const uint8_t*)eligible;
+    KeyedArgs a = plain_args(key, eligible, m);
     a.key_stride = key_stride;
-    a.m = m;
     a.mode = mode;
     a.desc = desc;
     a.missing_first = missing_first;
     a.after_key = (const float*)after_key;
     a.after_doc = (const int32_t*)after_doc;
-    const int kk = esk_imin(k, m);
-    if (kk > 0 && kk <= KS_MAX_K) {
-        // k <= KS_MAX_K: the threshold select; larger k: the chunk sorts.
-        return ks_launch(a, n_rows, m, kk, ch, (uint64_t*)buf_a,
-                         (float*)values, (int32_t*)top_idx, (int32_t*)total,
-                         (int32_t*)n_after, (int32_t*)arrive, s);
-    }
-    cudaMemsetAsync(total, 0, sizeof(int32_t) * (size_t)n_rows, s);
-    ESK_RETURN_IF_ERROR();
-    cudaMemsetAsync(n_after, 0, sizeof(int32_t) * (size_t)n_rows, s);
-    ESK_RETURN_IF_ERROR();
-    if (m > 0) {
-        keyed_count_kernel<<<dim3(count_grid(m, n_rows), n_rows), CNT_THREADS,
-                             0, s>>>(a, (int32_t*)total, (int32_t*)n_after);
-        ESK_RETURN_IF_ERROR();
-    }
-    if (kk <= 0) {
-        return 0;
-    }
-    const size_t smem = (size_t)ch * sizeof(uint64_t);
-    ESK_SMEM_OPT_IN(topk_block_kernel, smem);
-    ESK_SMEM_OPT_IN(keyed_block_kernel, smem);
-    uint64_t* out = (uint64_t*)buf_a;
-    uint64_t* spare = (uint64_t*)buf_b;
-    const int64_t out_stride = (int64_t)esk_blocks(m, ch) * kk;
-    keyed_block_kernel<<<dim3(esk_blocks(m, ch), n_rows), TK_THREADS, smem,
-                         s>>>(a, kk, ch, out_stride, out);
-    ESK_RETURN_IF_ERROR();
-    const int rc = merge_passes(n_rows, m, kk, ch, smem, &out, &spare, s);
-    if (rc != 0) {
-        return rc;
-    }
-    const int64_t n_out = (int64_t)n_rows * kk;
-    keyed_decode_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, s>>>(
-        a, out, out_stride, kk, n_rows, (float*)values, (int32_t*)top_idx);
-    ESK_RETURN_IF_ERROR();
-    return 0;
+    const TopkCall c = {n_rows, m, kp, kp, (int32_t*)counts,
+                        (uint64_t*)scratch, scratch_row, (float*)values,
+                        (int32_t*)top_idx};
+    return topk_dispatch(a, c, (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -11,9 +11,13 @@ PyTorch versions.
                       eligible only inside its row's [lo, hi) doc range
                       (the packed plane's tenant mask, execute_batch_packed)
     K3 masked_topk    csrc/masked_topk.cu    top-k by (score desc, index
-                      asc) + eligible count (the masked lax.top_k): its
-                      row mode (K3, K3b, K3s) the threshold select for
-                      k <= ROW_SELECT_MAX_K, the chunk sorts above; its
+                      asc) + eligible count (the masked lax.top_k): every
+                      mode but the merge mode takes one of three designs
+                      (`topk_route`): the threshold select for k <=
+                      ROW_SELECT_MAX_K, else the short-row sort (sorted
+                      runs merged by rank) on rows of at most
+                      SHORT_ROW_MAX entries and the large-k select (a
+                      radix select on the composite) on longer ones; its
                       window mode (K3b window) reads only each row's
                       [lo, hi) of the plane and returns window-local ids
                       (the packed plane's dense lanes)
@@ -25,7 +29,8 @@ PyTorch versions.
                       (the must-term loop of _sparse_lead_inner)
     K3k keyed_topk    csrc/masked_topk.cu    K3's keyed mode: bottom-k,
                       field sorts and cursors (execute_score_asc /
-                      execute_score_after / execute_sorted(_after))
+                      execute_score_after / execute_sorted(_after)), its
+                      key built in the kernel, on K3's three designs
     K5 window_rescore csrc/window_rescore.cu the rescore window's gather,
                       combine and top-k (_rescore_inner; scores_at's
                       gather in its gather mode)
@@ -121,9 +126,10 @@ K4's fold mode counts as `span_fold`, `span_fold_batch` and
 `span_fold_stacked` (by rows and mode, as K1-K4), K3's merge mode as
 `masked_topk_merge`, whatever its row count. Every wrapper passes its
 stream as the raw handle (`_stream`); K4's wrappers and its fold mode,
-K3's row, id and merge modes and K1's matched-only mode launch through
-`_launch` (one pass of checks, the device switched only where it
-differs).
+every K3 mode and K1's matched-only mode launch through `_launch` (one
+pass of checks, the device switched only where it differs); K3's calls
+also count by design in `TOPK_ROUTES` (`<name>:select`, `:short`,
+`:large`).
 Launches from several threads (the REST
 handlers and the micro-batcher) share the one library and the caller's
 current stream; the library loads once under `_lib_lock` and the counts
@@ -160,8 +166,22 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# Largest shared-memory chunk K3 sorts per block (16384 u64 = 128 KB).
-TOPK_MAX_CHUNK = 16384
+# Longest row K3's short-row sort ranks whole (csrc/masked_topk.cu
+# LK_SHORT_MAX); the large-k select ranks at most as many candidates
+# (LK_FINAL_CAP), so a longer row ranks at most SHORT_ROW_MAX - 1.
+SHORT_ROW_MAX = 16384
+# The large-k select's constants (csrc/masked_topk.cu LK_*): a row's
+# histogram bins and state ints, its S a quarter of the row at most, the
+# candidates it ranks at the end; and the sorted runs (LK_RUN entries
+# each) that the short-row sort and that last step merge by rank.
+LK_BINS = 4096
+LK_ROW_INTS = 16
+LK_BCAP_DIV = 4
+LK_FINAL_CAP = 16384
+LK_RUN = 2048
+# The threshold select's round and candidate buffer (KS_ROUND, KS_CAP).
+KS_ROUND = 4096
+KS_CAP = 2 * KS_ROUND + 8
 
 KERNELS = ("terms_scatter", "sparse_fold", "masked_topk", "span_locate",
            "span_fold")
@@ -196,14 +216,23 @@ LAUNCHES: dict[str, int] = {
 MATCHED_ONLY_LAUNCHES: dict[str, int] = {
     "terms_scatter" + suffix: 0 for suffix in MODES
 }
+# K3's calls on the card by launch name and design (`topk_route`):
+# "<name>:select", "<name>:short" and "<name>:large".
+TOPK_ROUTE_NAMES = ("masked_topk", "masked_topk_batch", "masked_topk_stacked",
+                    "masked_topk_ids", "masked_topk_window", "keyed_topk")
+TOPK_ROUTES: dict[str, int] = {
+    name + ":" + route: 0 for name in TOPK_ROUTE_NAMES
+    for route in ("select", "short", "large")
+}
 
 # Longest row K3's merge mode ranks in one block (csrc/masked_topk.cu
 # MERGE_MAX_M); longer merges go to K3's row mode.
 MERGE_MAX_M = 4096
 
-# Largest k of the threshold select (csrc/masked_topk.cu KS_MAX_K) that
-# K3's row mode (K3, K3b, K3s without ids) takes; a larger k, and K3's id
-# mode, take the chunk sorts.
+# Largest k of the threshold select (csrc/masked_topk.cu KS_MAX_K), which
+# every K3 mode but the merge mode takes for 1 <= min(k, M) <= 256; a
+# larger k takes the short-row sort (rows of at most SHORT_ROW_MAX) or the
+# large-k select (`topk_route`).
 ROW_SELECT_MAX_K = 256
 
 # Largest rescore window K5 sorts in one block's shared memory (128 KB).
@@ -226,6 +255,8 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
         for name in MATCHED_ONLY_LAUNCHES:
             MATCHED_ONLY_LAUNCHES[name] = 0
+        for name in TOPK_ROUTES:
+            TOPK_ROUTES[name] = 0
 
 
 def count_launch(name: str, n_shards: int = 0) -> None:
@@ -340,12 +371,12 @@ def _bind(lib) -> None:
     lib.esk_sparse_fold.argtypes = (
         [P] * 6 + [I] * 5 + [P] * 9 + [I, I, L, P, P, P]
     )
-    lib.esk_masked_topk.argtypes = [P, P, P, I, I, I, I] + [P] * 7
-    lib.esk_masked_topk_window.argtypes = [P] * 4 + [I] * 6 + [P] * 6
+    lib.esk_masked_topk.argtypes = [P, P, P, I, I, I, P, P, L, P, P, P]
+    lib.esk_masked_topk_window.argtypes = [P] * 4 + [I] * 5 + [P, P, L, P, P, P]
     lib.esk_span_locate.argtypes = [P, L, P, P, I, I, P, I, I, I, P, P, I, P]
     lib.esk_span_fold.argtypes = [P, P, L, P, P, P, I, P, P, I, I, I, P, P, I, P]
     lib.esk_topk_merge.argtypes = [P, P, I, I, I, P, P, P, P]
-    lib.esk_keyed_topk.argtypes = [P, L, P] + [I] * 7 + [P] * 10
+    lib.esk_keyed_topk.argtypes = [P, L, P] + [I] * 6 + [P] * 4 + [L, P, P, P]
     lib.esk_window_gather.argtypes = [P, P, L, P, I, I, P, P, P]
     F = ctypes.c_float
     lib.esk_window_rescore.argtypes = [P, P, I, I, P, P, L, F, F, I, I, P, P, P]
@@ -1062,9 +1093,71 @@ def sparse_fold(
 # ---------------------------------------------------------------------------
 
 
-def topk_chunk(k: int) -> int:
-    """Per-block chunk of K3: a power of two above 2k, in [1024, 16384]."""
-    return min(TOPK_MAX_CHUNK, max(1024, 1 << max(0, 2 * k - 1).bit_length()))
+def _check_topk_limit(k: int, kp: int, width: int) -> None:
+    """A row longer than SHORT_ROW_MAX ranks at most SHORT_ROW_MAX - 1."""
+    if kp >= SHORT_ROW_MAX and width > SHORT_ROW_MAX:
+        raise ValueError(
+            f"k={k} exceeds the top-k kernel's window ({SHORT_ROW_MAX - 1})"
+        )
+
+
+def topk_route(kp: int, width: int) -> str:
+    """The design a K3 call takes on the card (csrc/masked_topk.cu
+    `topk_run`) for kp = min(k, width) ranks over rows of `width` entries
+    (the window mode: min(k, M, the widest window) over the widest
+    window): "select" (the threshold select) for 1 <= kp <=
+    ROW_SELECT_MAX_K, else "short" (the short-row sort) for width <=
+    SHORT_ROW_MAX, else "large" (the large-k select)."""
+    if 1 <= kp <= ROW_SELECT_MAX_K:
+        return "select"
+    return "short" if width <= SHORT_ROW_MAX else "large"
+
+
+def large_k_bcap(width: int) -> int:
+    """The large-k select's S a row (composites): a quarter of the row
+    (LK_BCAP_DIV), at least LK_FINAL_CAP, at most the row."""
+    return min(width, max(LK_FINAL_CAP, width // LK_BCAP_DIV))
+
+
+def _topk_buffers(dev, q: int, width: int, kp: int, out_k: int):
+    """A K3 call's one allocation, as csrc/masked_topk.cu's TopkCall lays
+    it out: an int64 tensor whose int32 words hold the outputs (values
+    f32 [q, out_k], ids i32 [q, out_k]), then the counts (total, n_after,
+    the select's tickets, a spare plane; the large-k select's row states
+    and histograms after them), then the scratch (u64: the select's
+    survivors, the short-row sort's sorted runs for rows longer than one
+    run, or the large-k select's F (LK_FINAL_CAP a row) then S). Returns
+    (values, ids, counts, addresses (values, ids, counts, scratch),
+    scratch_row, route)."""
+    route = topk_route(kp, width)
+    n_counts = 4 * q
+    scratch_row = 0
+    n_scratch = 0
+    if route == "select":
+        scratch_row = max(1, min(-(-width // KS_ROUND), KS_CAP // kp)) * kp
+        n_scratch = q * scratch_row
+    elif route == "short":
+        scratch_row = -(-width // LK_RUN) * LK_RUN if width > LK_RUN else 0
+        n_scratch = q * scratch_row
+    else:
+        n_counts += q * (LK_ROW_INTS + LK_BINS)
+        scratch_row = large_k_bcap(width)
+        n_scratch = q * (LK_FINAL_CAP + scratch_row)
+    head = q * out_k + n_counts // 2  # int64 words of outputs and counts
+    buf = torch.empty(head + n_scratch, dtype=torch.int64, device=dev)
+    words = buf.view(torch.int32)
+    n_out = q * out_k
+    values = words[:n_out].view(torch.float32).view(q, out_k)
+    ids = words[n_out : 2 * n_out].view(q, out_k)
+    counts = words[2 * n_out : 2 * n_out + n_counts]
+    base = buf.data_ptr()
+    addrs = (base, base + 4 * n_out, base + 8 * n_out, base + 8 * head)
+    return values, ids, counts, addrs, scratch_row, route
+
+
+def _count_route(name: str, route: str) -> None:
+    with _count_lock:
+        TOPK_ROUTES[name + ":" + route] += 1
 
 
 def masked_topk_plain(key, eligible, k: int):
@@ -1092,12 +1185,16 @@ def masked_topk_batch(key, eligible, k: int):
     total i32[Q]). Callers pad to k exactly as the reference does when
     M < k.
 
-    On the card, esk_masked_topk switches on k between two hand-written
-    designs of csrc/masked_topk.cu, both bit-equal to the plain version:
-    1 <= min(k, M) <= ROW_SELECT_MAX_K (256) takes the threshold select
-    (one memset and one launch: each key and eligible byte read once, the
-    row's last block merging the survivors); a larger k takes the chunk
-    sorts."""
+    On the card, esk_masked_topk takes one of three hand-written designs
+    of csrc/masked_topk.cu (`topk_route`), all bit-equal to the plain
+    version: 1 <= min(k, M) <= ROW_SELECT_MAX_K (256) takes the threshold
+    select (one memset and one launch: each key and eligible byte read
+    once, the row's last block merging the survivors); a larger k takes
+    the short-row sort on rows of at most SHORT_ROW_MAX (16,384) entries
+    (a memset and one launch sorting runs of LK_RUN entries in shared
+    memory, then, for rows of more than one run, one launch merging them
+    by rank) and the large-k select on longer rows (a radix select on the
+    composite: a memset and nine launches whatever M and k)."""
     _check_topk(key, eligible, k)
     if not _launchable(key.device):
         return masked_topk_batch_plain(key, eligible, k)
@@ -1137,44 +1234,30 @@ def _check_topk(key, eligible, k: int) -> None:
 
 
 def _masked_topk_launch(key, eligible, k, n_shards, ids=None):
-    """Launch K3 on checked [Q, M] inputs (K3i with tie-break `ids`);
-    outputs [Q, min(k, M)] and [Q].
-
-    One allocation a call, an int64 tensor whose int32 words hold the
-    outputs (scores, ids, total), the select's arrival tickets right after
-    total (one memset zeroes both) and then the scratch: one buffer of
-    Q * ceil(M / chunk) * kp composites for the select, two for the chunk
-    sorts. The outputs are views of it."""
+    """Launch K3 on checked [Q, M] inputs (K3i with tie-break `ids`) in
+    one host call and one allocation (`_topk_buffers`); outputs
+    [Q, min(k, M)] and [Q]."""
     dev = key.device
     q, m = key.shape
     kp = min(k, m)
-    ch = topk_chunk(kp)
-    if kp >= ch and m > ch:
-        raise ValueError(
-            f"k={k} exceeds the top-k kernel's window ({TOPK_MAX_CHUNK - 1})"
-        )
-    n = max(1, q * max(1, -(-m // ch)) * kp)
-    n_bufs = 1 if ids is None and 1 <= kp <= ROW_SELECT_MAX_K else 2
-    head = -(-(2 * q * kp + 2 * q) // 2)  # int64 words of outputs + tickets
-    buf = torch.empty(head + n_bufs * n, dtype=torch.int64, device=dev)
-    words = buf.view(torch.int32)
-    top_scores = words[: q * kp].view(torch.float32).view(q, kp)
-    top_idx = words[q * kp : 2 * q * kp].view(q, kp)
-    total = words[2 * q * kp : 2 * q * kp + q]
-    base = buf.data_ptr()
-    scratch = base + 8 * head
+    _check_topk_limit(k, kp, m)
+    top_scores, top_idx, counts, addr, row, route = _topk_buffers(
+        dev, q, m, kp, kp)
     _launch(
         "masked_topk", dev, ensure_built().esk_masked_topk,
         key.data_ptr(), None if ids is None else ids.data_ptr(),
-        eligible.data_ptr(), q, m, kp, ch, scratch,
-        scratch + 8 * n if n_bufs == 2 else None,
-        base, base + 4 * q * kp, base + 8 * q * kp, base + 8 * q * kp + 4 * q,
+        eligible.data_ptr(), q, m, kp, addr[2], addr[3], row, addr[0],
+        addr[1],
     )
     if ids is not None:
-        count_launch("masked_topk_ids")
+        name = "masked_topk_ids"
+        count_launch(name)
     else:
+        name = ("masked_topk_stacked" if n_shards else
+                "masked_topk_batch" if q > 1 else "masked_topk")
         _count("masked_topk", q, n_shards)
-    return top_scores, top_idx, total
+    _count_route(name, route)
+    return top_scores, top_idx, counts[:q]
 
 
 def masked_topk(key, eligible, k: int):
@@ -1213,7 +1296,9 @@ def masked_topk_window(key, eligible, lo, hi, k: int):
     hi int32[Q] with 0 <= lo <= hi <= M. Returns (top_scores f32[Q, kk],
     top_ids i32[Q, kk], total i32[Q]) with kk = min(k, M): the packed
     plane's output shape; slots past min(k, w) of a row are padding
-    (-inf, 0). Counted as `masked_topk_window`."""
+    (-inf, 0). Counted as `masked_topk_window`. On the card the design is
+    chosen as masked_topk_batch's (`topk_route`) on min(k, M, the widest
+    window) over the widest window, each row offset by its lo."""
     _check_topk(key, eligible, k)
     q, m = key.shape
     for name, t in (("lo", lo), ("hi", hi)):
@@ -1233,32 +1318,23 @@ def masked_topk_window(key, eligible, lo, hi, k: int):
 
 
 def _masked_topk_window_launch(key, eligible, lo, hi, k, wmax):
+    """Launch K3b's window mode in one host call and one allocation: the
+    design is chosen on kw = min(k, M, wmax) over the widest window."""
     dev = key.device
     q, m = key.shape
     out_k = min(k, m)
-    kw = min(out_k, wmax)  # the survivors a row's window can hold
-    ch = topk_chunk(kw)
-    if kw >= ch and wmax > ch:
-        raise ValueError(
-            f"k={k} exceeds the top-k kernel's window ({TOPK_MAX_CHUNK - 1})"
-        )
-    lib = ensure_built()
-    nb = max(1, -(-wmax // ch))
-    buf_a = torch.empty(max(1, q * nb * kw), dtype=torch.int64, device=dev)
-    buf_b = torch.empty(max(1, q * nb * kw), dtype=torch.int64, device=dev)
-    top_scores = torch.empty((q, out_k), dtype=torch.float32, device=dev)
-    top_idx = torch.empty((q, out_k), dtype=torch.int32, device=dev)
-    total = torch.empty((q,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.esk_masked_topk_window(
-            _ptr(key), _ptr(eligible), _ptr(lo), _ptr(hi), int(q), int(m),
-            int(wmax), int(kw), int(out_k), int(ch), _ptr(buf_a),
-            _ptr(buf_b), _ptr(top_scores), _ptr(top_idx), _ptr(total),
-            _stream(dev),
-        )
-    _check_rc("masked_topk_window", rc)
+    kw = min(out_k, wmax)  # the ranks a row's window can hold
+    _check_topk_limit(k, kw, wmax)
+    top_scores, top_idx, counts, addr, row, route = _topk_buffers(
+        dev, q, wmax, kw, out_k)
+    _launch(
+        "masked_topk_window", dev, ensure_built().esk_masked_topk_window,
+        key.data_ptr(), eligible.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        q, m, wmax, kw, out_k, addr[2], addr[3], row, addr[0], addr[1],
+    )
     count_launch("masked_topk_window")
-    return top_scores, top_idx, total
+    _count_route("masked_topk_window", route)
+    return top_scores, top_idx, counts[:q]
 
 
 def masked_topk_ids_plain(key, ids, eligible, k: int):
@@ -1290,7 +1366,8 @@ def masked_topk_ids_batch(key, ids, eligible, k: int):
     desc, id asc) with the ids from `ids` i32[Q, M] (non-negative) —
     `lax.sort((-s, id, s), num_keys=2)`'s order, zeros equal and NaN
     last — and total = each row's count of `eligible`. Returns (scores f32[Q, kk], ids i32[Q, kk],
-    total i32[Q])."""
+    total i32[Q]). On the card the design is chosen as masked_topk_batch's
+    (`topk_route`), with the id as the composite's low word."""
     _check_topk(key, eligible, k)
     _check(ids, "ids", torch.int32, 2, key.device)
     if ids.shape != key.shape:
@@ -1589,7 +1666,7 @@ def ivf_assign(centroids, rows):
 KEYED_SCORE_DESC, KEYED_SCORE_ASC, KEYED_FIELD = 0, 1, 2
 
 # Largest k of K3k's threshold select (csrc/masked_topk.cu KS_MAX_K); a
-# larger k takes the chunk-sort kernels.
+# larger k takes the short-row sort or the large-k select.
 KEYED_SELECT_MAX_K = ROW_SELECT_MAX_K
 
 F32_MAX = float(np.finfo(np.float32).max)
@@ -1678,12 +1755,14 @@ def keyed_topk_batch(key, eligible, k: int, mode: int, desc=False,
     for a field sort, the masked scores for a score order —, ids
     i32[Q, min(k, M)], total i32[Q], n_after i32[Q]).
 
-    On the card, esk_keyed_topk switches on k between two hand-written
-    designs of csrc/masked_topk.cu, both bit-equal to the plain version:
-    min(k, M) <= KEYED_SELECT_MAX_K (256) takes the threshold select (one
-    pass over the keys, the row's last block merging the survivors); a
-    larger k takes the chunk sorts (a bitonic sort of every chunk, then the
-    merge passes)."""
+    On the card, esk_keyed_topk takes K3's three hand-written designs of
+    csrc/masked_topk.cu as masked_topk_batch does (`topk_route`), all
+    bit-equal to the plain version: 1 <= min(k, M) <= KEYED_SELECT_MAX_K
+    (256) takes the threshold select (one pass over the keys, the row's
+    last block merging the survivors); a larger k the short-row sort on
+    rows of at most SHORT_ROW_MAX entries and the large-k select (a radix
+    select on the keyed composite) on longer ones. One host call, one
+    allocation."""
     dev = eligible.device
     _check(eligible, "eligible", torch.bool, 2, dev)
     q, m = eligible.shape
@@ -1710,34 +1789,19 @@ def keyed_topk_batch(key, eligible, k: int, mode: int, desc=False,
         return keyed_topk_batch_plain(key, eligible, k, mode, desc,
                                       missing_first, after_key, after_doc)
     kp = min(k, m)
-    ch = topk_chunk(kp)
-    if kp >= ch and m > ch:
-        raise ValueError(
-            f"k={k} exceeds the top-k kernel's window ({TOPK_MAX_CHUNK - 1})"
-        )
-    lib = ensure_built()
-    # Two allocations a call: the scratch (both designs' fits in the chunk
-    # sorts' two buffers of n entries) and the outputs with the select's
-    # arrival counters ([Q] after n_after).
-    n = max(1, q * max(1, -(-m // ch)) * kp)
-    scratch = torch.empty(2 * n, dtype=torch.int64, device=dev)
-    out = torch.empty(q * (2 * kp + 3), dtype=torch.int32, device=dev)
-    values = out[: q * kp].view(torch.float32).view(q, kp)
-    ids = out[q * kp : 2 * q * kp].view(q, kp)
-    total = out[2 * q * kp : 2 * q * kp + q]
-    n_after = out[2 * q * kp + q : 2 * q * kp + 2 * q]
-    base = scratch.data_ptr()
-    with torch.cuda.device(dev):
-        rc = lib.esk_keyed_topk(
-            _ptr(key), int(m if key.dim() == 2 else 0), _ptr(eligible),
-            int(q), int(m), int(kp), int(ch), int(mode), int(bool(desc)),
-            int(bool(missing_first)), _ptr(after_key), _ptr(after_doc),
-            base, base + 8 * n, _ptr(values), _ptr(ids), _ptr(total),
-            _ptr(n_after), _ptr(out, 2 * q * kp + 2 * q), _stream(dev),
-        )
-    _check_rc("keyed_topk", rc)
+    _check_topk_limit(k, kp, m)
+    values, ids, counts, addr, row, route = _topk_buffers(dev, q, m, kp, kp)
+    _launch(
+        "keyed_topk", dev, ensure_built().esk_keyed_topk,
+        key.data_ptr(), m if key.dim() == 2 else 0, eligible.data_ptr(),
+        q, m, kp, int(mode), int(bool(desc)), int(bool(missing_first)),
+        None if after_key is None else after_key.data_ptr(),
+        None if after_doc is None else after_doc.data_ptr(),
+        addr[2], addr[3], row, addr[0], addr[1],
+    )
     count_launch("keyed_topk")
-    return values, ids, total, n_after
+    _count_route("keyed_topk", route)
+    return values, ids, counts[:q], counts[q : 2 * q]
 
 
 def keyed_topk(key, eligible, k: int, mode: int, desc=False,

@@ -20,7 +20,16 @@ mode (`lead_path_ab`: a filter-led body through execute_auto and the mesh
 merge, baseline against current, with the kernels each launches for one
 request by the profiler, on the cfg2 corpus and on one cfg3 shard), and
 K3's row mode on that shard's dense keys (6 match bodies, [6, N]: K3b as
-cfg3's batched phase runs it).
+cfg3's batched phase runs it, at k = 10 and past the select at k = 257),
+and K3k at k = 10,000 on the cfg2 corpus (a uniform f1 column, desc, over
+a match's eligible docs); the profiler's kernels a call of the two past
+the select do not grow with k. Last (`large_k_paths_ab`), the main-path
+calls that run K3 past the select, baseline against current: cfg4's
+execute_rescore (window 1,000: the first phase's top-k at k = 1,000) and
+a kNN request at k = 10,000 over BASELINE config 5's shape (--knn-docs
+random-normal 100-d vectors, seed 5, cosine, IVF planes built once, nprobe
+an eighth of the partitions: the per-partition ranks at k = pmax and the
+id-mode merge at k = 10,000).
 Each turn gives two times a call:
 `ms`, the CUDA-event mean over back-to-back calls (at these sizes it
 includes the host's launch cost), and `device_ms`, the summed duration of
@@ -144,6 +153,7 @@ def main() -> int:
     parser.add_argument("--docs", type=int, default=8_841_823)
     parser.add_argument("--q", type=int, default=4)
     parser.add_argument("--reps", type=int, default=50)
+    parser.add_argument("--knn-docs", type=int, default=1_000_000)
     parser.add_argument("--device", default="cuda",
                         help="cpu runs the plain versions (a dry run)")
     args = parser.parse_args()
@@ -313,12 +323,13 @@ def main() -> int:
                           ("solo_loop", loop), ("batched", batched)):
             turns.append((label, timed(fn, args.reps)))
         emit({"kernel": name, "rows": q, "turns": turns})
-    lead_path_ab(args, base, cur, dev, comp, tree, leads, emit)
+    lead_path_ab(args, base, cur, dev, comp, tree, leads, matches[0], emit)
+    large_k_paths_ab(args, base, cur, dev, comp, tree, matches, emit)
     print(card, flush=True)
     return 0
 
 
-def lead_path_ab(args, base, cur, dev, comp, tree, leads, emit) -> None:
+def lead_path_ab(args, base, cur, dev, comp, tree, leads, match, emit) -> None:
     """The two redesigned call sites, baseline against current in the
     turns baseline, current, current, baseline: one filter-led body
     through execute_auto (the must terms' K4 loop against K4's fold mode)
@@ -326,7 +337,7 @@ def lead_path_ab(args, base, cur, dev, comp, tree, leads, emit) -> None:
     ids (K3's row mode, a cast and a gather against K3's merge mode);
     then the kernels each launches for one such request on the cfg2
     corpus and on one cfg3 shard (the profiler's count, before and
-    after)."""
+    after); then K3b and K3k past the select."""
     import numpy as np
     import torch
 
@@ -407,11 +418,91 @@ def lead_path_ab(args, base, cur, dev, comp, tree, leads, emit) -> None:
         rows.append((torch.where(el, scores[0, :n3], float("-inf")), el))
     key6 = torch.stack([r[0] for r in rows]).contiguous()
     elig6 = torch.stack([r[1] for r in rows]).contiguous()
-    k3b = {"baseline": lambda: base.masked_topk_batch(key6, elig6, 10),
-           "current": lambda: cur.masked_topk_batch(key6, elig6, 10)}
-    emit({"call": f"K3b masked_topk_batch [6, {n3}] k = 10 (cfg3 shard 0's "
-                  f"dense match keys)", "equal": same(k3b), "turns": ab(k3b),
-          "launched": {k: launched(f) for k, f in k3b.items()}})
+    for kk in (10, 257):
+        k3b = {"baseline": lambda kk=kk: base.masked_topk_batch(key6, elig6, kk),
+               "current": lambda kk=kk: cur.masked_topk_batch(key6, elig6, kk)}
+        emit({"call": f"K3b masked_topk_batch [6, {n3}] k = {kk} (cfg3 shard "
+                      f"0's dense match keys)", "equal": same(k3b),
+              "turns": ab(k3b),
+              "launched": {k: launched(f) for k, f in k3b.items()}})
+
+    # K3k at k = 10,000: f1 desc over a match's eligible docs on the cfg2
+    # corpus (the sorted phase's key at the node's largest page).
+    n = tree["live"].shape[0]
+    dt, tn, _tf, norm, _p = tree["fields"]["body"]
+    c = comp.compile(parse_query({"bool": {"should": [match]}}))
+    a1 = bm25_device._rows1(bm25_device.plan_to_torch(
+        c.spec, c.arrays, dev)["children"][0])
+    _scores, matched = cur.terms_scatter_batch(
+        dt, tn, norm, a1["tile_ids"], a1["starts"], a1["ends"], a1["weights"],
+        n, a1["_groups"])
+    el1 = (matched[:, :n] & tree["live"]).contiguous()
+    f1 = torch.from_numpy(
+        np.random.default_rng(99).random(n, dtype=np.float32)).to(dev)
+    k3k = {"baseline": lambda: base.keyed_topk_batch(
+               f1, el1, 10_000, base.KEYED_FIELD, True),
+           "current": lambda: cur.keyed_topk_batch(
+               f1, el1, 10_000, cur.KEYED_FIELD, True)}
+    emit({"call": f"K3k keyed_topk_batch f1 desc, N = {n}, k = 10,000 "
+                  f"({int(el1.sum())} eligible)", "equal": same(k3k),
+          "turns": ab(k3k),
+          "launched": {k: launched(f) for k, f in k3k.items()}})
+
+
+def large_k_paths_ab(args, base, cur, dev, comp, tree, matches, emit) -> None:
+    """cfg4's execute_rescore at a window of 1,000 (a match's first phase,
+    rescored by another match) and a kNN request at k = 10,000, baseline
+    against current in the turns baseline, current, current, baseline,
+    with the kernels each launches."""
+    import numpy as np
+    import torch
+
+    from elasticsearch_tpu_torch.index.ann import build_partitions, default_nprobe
+    from elasticsearch_tpu_torch.ops import ann_device, bm25_device
+    from elasticsearch_tpu_torch.query.dsl import parse_query
+
+    root = base.__name__.rsplit(".", 2)[0]
+    base_bm25 = importlib.import_module(f"{root}.ops.bm25_device")
+    base_ann = importlib.import_module(f"{root}.ops.ann_device")
+
+    def ab(fns):
+        return [(label, timed(fns[label], max(5, args.reps // 5)))
+                for label in ("baseline", "current", "current", "baseline")]
+
+    def same(fns):
+        a, b = fns["baseline"](), fns["current"]()
+        return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                               y.view(torch.int32) if y.dtype == torch.float32 else y)
+                   for x, y in zip(a, b))
+
+    c = comp.compile(parse_query(matches[0]))
+    rc = comp.compile(parse_query(matches[1]))
+    plan = bm25_device.plan_to_torch(c.spec, c.arrays, dev)
+    rplan = bm25_device.plan_to_torch(rc.spec, rc.arrays, dev)
+    rescore = {
+        "baseline": lambda: base_bm25.execute_rescore(
+            tree, c.spec, plan, rc.spec, rplan, 10, 1000, 1.0, 1.0),
+        "current": lambda: bm25_device.execute_rescore(
+            tree, c.spec, plan, rc.spec, rplan, 10, 1000, 1.0, 1.0)}
+    emit({"call": "execute_rescore, window 1,000 (cfg4's first phase at k = "
+                  "1,000)", "equal": same(rescore), "turns": ab(rescore),
+          "launched": {k: launched(f) for k, f in rescore.items()}})
+
+    n, d = args.knn_docs, 100
+    vecs = np.random.default_rng(5).standard_normal((n, d)).astype(np.float32)
+    dvecs = torch.from_numpy(vecs).to(dev)
+    parts = build_partitions("vec", vecs, dvecs, n, "cosine")
+    nprobe = default_nprobe(parts.n_partitions)
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    q = np.random.default_rng(6).standard_normal(d).astype(np.float32)
+    knn = {"baseline": lambda: base_ann.ann_ivf_search(
+               parts.tree(), live, q, 10_000, nprobe, "cosine"),
+           "current": lambda: ann_device.ann_ivf_search(
+               parts.tree(), live, q, 10_000, nprobe, "cosine")}
+    emit({"call": f"kNN ann_ivf_search k = 10,000 over {n} x {d} "
+                  f"(nprobe {nprobe} of {parts.n_partitions}, pmax "
+                  f"{parts.pmax})", "equal": same(knn), "turns": ab(knn),
+          "launched": {k: launched(f) for k, f in knn.items()}})
 
 
 if __name__ == "__main__":

@@ -15,7 +15,8 @@ each model to the plain version the card's checks use:
   4-entry groups, the tail), cuts and top k; the row's last block merging
   the blocks' survivors above the largest block floor; the decode reading
   the key back; total counted over the eligible bytes of every stripe.
-  Above ROW_SELECT_MAX_K, the chunk sorts. Cases: ties, +/-0.0, NaN of
+  Above ROW_SELECT_MAX_K, the short-row sort or the large-k select
+  (modelled in test_torch_k3_large_select.py). Cases: ties, +/-0.0, NaN of
   both signs, -inf padding with finite keys at ineligible entries, fewer
   eligible entries than k, k = 0, k = M, k = 256 and k = 257, M not a
   multiple of 4, stacked Q x S rows and more rows than 2 x 132 (one block
@@ -47,7 +48,7 @@ import torch
 
 from elasticsearch_tpu.ops import bm25_device as jbd
 from elasticsearch_tpu_torch.ops import kernels as K
-from test_torch_kernel_schedules import KS_CAP, KS_ROUND, KS_SAMPLE, _chunk_sorts, _order, _select_block
+from test_torch_kernel_schedules import KS_CAP, KS_ROUND, KS_SAMPLE, _above_select, _order, _select_block
 
 torch.set_num_threads(1)
 
@@ -75,12 +76,12 @@ def row_select_schedule(key, eligible, k, params=None):
          **(params or {})}
     q, m = key.shape
     kp = min(k, m)
-    ch = K.topk_chunk(kp)
     stats = {"cuts": 0, "blocks": 0}
     select = 1 <= kp <= K.ROW_SELECT_MAX_K
     if select:
-        nb = -(-m // p["round"])
-        nb = max(min(nb, p["cap"] // kp, 2 * p["sms"] // q, -(-m // ch)), 1)
+        rounds = -(-m // p["round"])
+        surv_row = max(1, min(rounds, p["cap"] // kp)) * kp  # the wrapper's
+        nb = max(min(rounds, surv_row // kp, 2 * p["sms"] // q), 1)
         stripe = -(-(-(-m // nb)) // 4) * 4
         nb = -(-m // stripe)
         stats["blocks"] = nb
@@ -91,7 +92,7 @@ def row_select_schedule(key, eligible, k, params=None):
         comp = (_order(raw) << np.uint64(32)) | (~idx & np.uint64(0xFFFFFFFF))
         total = 0
         if not select:
-            top = _chunk_sorts(comp, kp, ch) if kp else comp[:0]
+            top = _above_select(comp, kp) if kp else comp[:0]
             total = int(eligible[r].sum())
         else:
             surv = []
@@ -157,7 +158,7 @@ ROW_CASES = {
     "ascending": (3, M, 10),
     "k = 0": (3, M, 0),
     "k = 256": (3, M, 256),
-    "k = 257, the chunk sorts": (3, M, 257),
+    "k = 257, the chunk sorts": (3, M, 257),  # (its old name): large-k select
     "k = M": (2, 1_003, 1_003),
     "stacked, Q x S = 2 x 3": (6, M, 10),
     "more rows than 2 x 132": (300, 513, 10),
@@ -271,13 +272,13 @@ def test_row_select_small_constants_cut_the_buffer():
 
 
 def test_row_select_switch_is_named_alike_in_the_wrapper_and_the_source():
-    """The row mode's switch between the select and the chunk sorts sits
-    at ROW_SELECT_MAX_K in the wrapper and KS_MAX_K in the source, and
-    esk_masked_topk takes the select only without ids."""
+    """The row mode's switch between the select and the designs past it
+    sits at ROW_SELECT_MAX_K in the wrapper and KS_MAX_K in the source,
+    and every mode's dispatch (`topk_run`) takes the select on it."""
     src = (K.CSRC_DIR / "masked_topk.cu").read_text()
     assert int(re.search(r"#define KS_MAX_K (\d+)", src).group(1)) == \
         K.ROW_SELECT_MAX_K == K.KEYED_SELECT_MAX_K == 256
-    assert "ids == nullptr && kk > 0 && kk <= KS_MAX_K" in src
+    assert "c.kp >= 1 && c.kp <= KS_MAX_K" in src
     assert "ROW_SELECT_MAX_K" in K.masked_topk_batch.__doc__
 
 
@@ -320,17 +321,19 @@ def test_row_mode_wrapper_makes_one_host_call(recorded, k, select):
     assert launches == ["masked_topk"]
     ((name, args),) = lib.calls
     assert name == "esk_masked_topk"
-    ptr = dict(zip(["key", "ids", "eligible", "q", "m", "k", "ch", "buf_a",
-                    "buf_b", "scores", "idx", "total", "arrive"], args))
+    ptr = dict(zip(["key", "ids", "eligible", "q", "m", "k", "counts",
+                    "scratch", "scratch_row", "scores", "idx"], args))
     assert ptr["ids"] is None and (ptr["q"], ptr["m"], ptr["k"]) == (3, 2_000, k)
-    # The select needs one scratch buffer, the chunk sorts two.
-    assert (ptr["buf_b"] is None) == select
-    # Outputs, then the tickets right after total (one memset), then the
-    # scratch, all in one tensor.
+    # The select's scratch holds each row's block survivors; the short-row
+    # sort (k = 257 or 0 on these 2,000-entry rows) needs none.
+    assert (ptr["scratch_row"] > 0) == select
+    assert K.TOPK_ROUTES["masked_topk_batch:" + ("select" if select else "short")] == 1
+    # Outputs, then total and the tickets (one memset), then the scratch,
+    # all in one tensor.
     if k:  # an empty view's data_ptr is 0
         assert ptr["scores"] == top.data_ptr() and ptr["idx"] == idx.data_ptr()
-    assert ptr["total"] == total.data_ptr() == ptr["arrive"] - 4 * 3
-    assert ptr["buf_a"] >= ptr["arrive"] + 4 * 3
+    assert ptr["counts"] == total.data_ptr()
+    assert ptr["scratch"] == ptr["counts"] + 4 * 4 * 3
     assert top.shape == idx.shape == (3, k) and total.shape == (3,)
     assert K.LAUNCHES["masked_topk_batch"] == 1
 

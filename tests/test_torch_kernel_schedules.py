@@ -18,8 +18,8 @@ plain version the card's checks use (`kernels.ivf_assign_plain`,
 - K3k: the block count and stripes of `ks_launch`, each block's sampled
   threshold (64 runs of 32), its rounds with the cut to the top k past a
   round's worth of candidates, the last block's merge over the blocks'
-  floors, the decode, and the switch on k to the chunk sorts above
-  KEYED_SELECT_MAX_K. Cases: random, ascending and descending columns,
+  floors, the decode, and the switch on k above KEYED_SELECT_MAX_K to the
+  large-k select (modelled in test_torch_k3_large_select.py). Cases: random, ascending and descending columns,
   all-equal and mostly-missing columns, +/-NaN, k above the eligible
   count, cursors, Q > 1 over a shared and per-row keys, at the kernel's
   constants and at small ones that force many blocks and cuts.
@@ -261,14 +261,14 @@ def _select_block(comp, lo, hi, kp, p, stats):
     return out
 
 
-def _chunk_sorts(comp, kp, ch):
-    """The large-k path: each chunk's top min(kp, len), merged by chunks."""
-    surv = [np.sort(comp[i : i + ch])[::-1][:kp] for i in range(0, comp.shape[0], ch)]
-    flat = np.concatenate(surv)
-    while len(surv) > 1:
-        surv = [np.sort(flat[i : i + ch])[::-1][:kp] for i in range(0, flat.shape[0], ch)]
-        flat = np.concatenate(surv)
-    return flat[:kp]
+def _above_select(comp, kp):
+    """Past the select's k (kp > 256), at the kernel's constants: the
+    short-row sort or the large-k select's schedule, as
+    test_torch_k3_large_select.py models them."""
+    from test_torch_k3_large_select import KERNEL, top_rows
+
+    tops, _stats = top_rows([comp], kp, comp.shape[0], KERNEL)
+    return tops[0]
 
 
 def k3k_schedule(key, eligible, k, mode, desc=False, missing_first=False,
@@ -279,13 +279,12 @@ def k3k_schedule(key, eligible, k, mode, desc=False, missing_first=False,
          **(params or {})}
     q, m = eligible.shape
     kp = min(k, m)
-    ch = kern.topk_chunk(kp)
     stats = {"cuts": 0, "blocks": 0}
     values, ids, totals, afters = [], [], [], []
     if kp <= kern.KEYED_SELECT_MAX_K:
-        nb = -(-m // p["round"])
-        nb = min(nb, p["cap"] // kp, 2 * p["sms"] // q, -(-m // ch))
-        nb = max(nb, 1)
+        rounds = -(-m // p["round"])
+        surv_row = max(1, min(rounds, p["cap"] // kp)) * kp  # the wrapper's
+        nb = max(min(rounds, surv_row // kp, 2 * p["sms"] // q), 1)
         stripe = -(-(-(-m // nb)) // 4) * 4
         nb = -(-m // stripe)
         stats["blocks"] = nb
@@ -296,7 +295,7 @@ def k3k_schedule(key, eligible, k, mode, desc=False, missing_first=False,
         comp, keep, mk = _keyed(raw, eligible[r], mode, desc, missing_first,
                                 ak, ad)
         if kp > kern.KEYED_SELECT_MAX_K:
-            top = _chunk_sorts(comp, kp, ch)
+            top = _above_select(comp, kp)
         else:
             surv = [_select_block(comp, b * stripe, min(m, (b + 1) * stripe),
                                   kp, p, stats) for b in range(nb)]
@@ -382,7 +381,7 @@ def _k3k_inputs(name, rng, m):
             np.array([10, 20, 30, 40], np.int32))
     if name == "k = 256, at the bound":
         return asc, elig, 256, kern.KEYED_FIELD, True, False, cur
-    if name == "k = 257, the chunk sorts":
+    if name == "k = 257, the chunk sorts":  # (the case's old name): the large-k select
         return rand, elig, 257, kern.KEYED_FIELD, True, False, cur
     raise KeyError(name)
 
@@ -450,7 +449,7 @@ def test_k3k_small_constants_cut_the_buffer():
 
 
 def test_k3k_switch_is_named_in_the_wrapper():
-    """The switch between the two hand-written designs sits at
+    """The switch between the select and the designs past it sits at
     KEYED_SELECT_MAX_K, and the wrapper's docstring names it."""
     assert kern.KEYED_SELECT_MAX_K == 256
     assert "KEYED_SELECT_MAX_K" in kern.keyed_topk_batch.__doc__

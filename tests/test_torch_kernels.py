@@ -257,6 +257,7 @@ def test_wrappers_refuse_what_kernels_do_not_take():
 def test_key_bits_and_topk_chunk():
     assert K.key_bits(8_841_823) == 24  # three 8-bit radix passes
     assert K.key_bits(254) == 8 and K.key_bits(255) == 9
-    assert K.topk_chunk(10) == 1024
-    assert K.topk_chunk(10_000) == 16384
-    assert all(K.topk_chunk(k) > k for k in (1, 511, 512, 4096, 8191, 10_000))
+    # K3's design by k and row length (topk_chunk's successor).
+    assert K.topk_route(10, 8_841_823) == "select"
+    assert K.topk_route(10_000, 8_841_823) == "large"
+    assert K.topk_route(1_504, 1_504) == "short"
